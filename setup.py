@@ -10,7 +10,10 @@ setup(
     long_description=open("README.md", encoding="utf-8").read(),
     long_description_content_type="text/markdown",
     license="MIT",
-    packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*"]),
+    packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*",
+                                    "distkeras_tpu_torch", "distkeras_tpu_torch.*"]),
+    # the port's CUDA kernels are compiled from source at first use
+    package_data={"distkeras_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
