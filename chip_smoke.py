@@ -7,16 +7,22 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit.  Phases, each printing JSON lines:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles every kernel from ``distkeras_tpu_torch/csrc``;
+2. build: compiles every kernel from ``distkeras_tpu_torch/csrc``, one
+   ``nvcc`` per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   with its time, the plain version's, one library call's and the bound;
+   with its time, the plain version's, one library call's and the bound:
+   the forward (B1) and the backward's dQ (B2) and dK/dV (B3) kernels;
 4. ``ModelPredictor`` over a ``TransformerClassifier`` at GPT-2-small widths
    (768 wide, 12 heads, 12 layers, 1024 positions, 50257 tokens), weights
    drawn from ``--seed``: 64 rows of 1024 tokens in batches of 16;
 5. a causal ``TransformerLM`` forward through ``TrainedModel`` at the same
-   widths on ``[4, 1024]`` tokens.
+   widths on ``[4, 1024]`` tokens;
+6. training: ``DOWNPOUR`` over the same ``TransformerLM`` (depth not cut),
+   2 workers, batch 4, window 2, Adam, 2 epochs over 32 rows of 1024 tokens
+   of the ``(token + 1) mod vocab`` task, then one training step at
+   ``[1, 1024]`` held against the same step on the CPU.
 
-Phases 4 and 5 set the kernels' launch counts to 0 just before and read them
+Phases 4 to 6 set the kernels' launch counts to 0 just before and read them
 just after, check that every kernel of the path ran as often as the model
 needs, and hold the output against the same model on the CPU.  The last
 lines are a ``{"kernels": [...]}`` summary, the nvidia-smi line and
@@ -43,6 +49,17 @@ BF16_LSE_ATOL = 1e-3
 # ModelPredictor probabilities and LM logits on the card against the CPU.
 PREDICT_ATOL = 1e-4
 LM_LOGITS_ATOL = 1e-3
+# Backward kernels against the plain backward.  f32: summation order only,
+# over up to 1024 keys with gradients up to ~10 in size.  bf16: both compute
+# in f32 from the same bf16 values; the gradients are rounded to bf16
+# (8 mantissa bits) at the end.
+BWD_F32 = dict(atol=1e-3, rtol=1e-3)
+BWD_BF16 = dict(atol=3e-2, rtol=2e-2)
+# One training step at [1, 1024] on the card against the CPU: loss within
+# 1e-4 relative; each parameter's gradient within 1e-3 in relative norm
+# (f32 throughout, TF32 off; the orders of summation differ).
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
 
 # Published H100 SXM peaks (dense): f32 outside the tensor cores, bf16
 # tensor cores, HBM3 bandwidth.
@@ -63,6 +80,22 @@ KERNEL_CASES = [
     ("dim128", (1, 257, 4, 128), torch.float32, False, False),
 ]
 MAIN_PATH_CASE = "classifier"  # the shape ModelPredictor hands the kernel
+
+# Backward cases, as above.  "train" is the shape a DOWNPOUR worker with
+# batch 4 hands the backward kernels at GPT-2-small widths.
+BWD_CASES = [
+    ("ragged", (2, 100, 2, 32), torch.float32, False, False),
+    ("ragged_causal", (2, 100, 2, 32), torch.float32, True, False),
+    ("ragged_bf16", (2, 100, 2, 32), torch.bfloat16, True, False),
+    ("dim128", (1, 257, 4, 128), torch.float32, False, False),
+    ("dim128_causal", (1, 257, 4, 128), torch.float32, True, False),
+    ("train", (4, 1024, 12, 64), torch.float32, True, True),
+    ("train_noncausal", (4, 1024, 12, 64), torch.float32, False, True),
+    ("train_bf16", (4, 1024, 12, 64), torch.bfloat16, True, True),
+]
+BWD_MAIN_PATH_CASE = "train"
+# training phase: DOWNPOUR over GPT-2-small widths
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS = 32, 1024, 4, 2, 2, 2
 
 
 def emit(**fields):
@@ -94,6 +127,37 @@ def attention_bound_ms(shape, dtype, causal: bool):
     flops = 4.0 * b * h * pairs * d
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * l * h * d * itemsize + b * h * l * 4
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def attention_bwd_bound_ms(shape, dtype, causal: bool):
+    """Least time for the card to do one attention backward at ``shape``:
+    the larger of 10·d FLOPs per attended (query, key) pair (five products
+    of 2·d: S, dP, dV, dK, dQ) over the dtype's peak rate, and the bytes
+    (Q, K, V, O, dO read, dQ, dK, dV written, LSE and Δ in f32) over the
+    memory rate.  The two kernels recompute S and dP in both passes (14·d
+    a pair), so they can reach at most 10/14 of this bound."""
+    b, l, h, d = shape
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = 10.0 * b * h * pairs * d
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 8 * b * l * h * d * itemsize + 2 * b * h * l * 4
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_bound_ms(shape, dtype, causal: bool, flops_per_pair_per_d: int, tensors_moved: int):
+    """The bound of one backward kernel alone: its own FLOPs per attended
+    pair (dQ: S, dP, dQ = 6·d; dK/dV: S, dP, dV, dK = 8·d) and the
+    [b, L, h, d] tensors it must read and write once, plus LSE and Δ."""
+    b, l, h, d = shape
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = float(flops_per_pair_per_d) * b * h * pairs * d
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = tensors_moved * b * l * h * d * itemsize + 2 * b * h * l * 4
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -149,6 +213,72 @@ def kernel_phase(seed: int):
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {row}")
         results[name] = row
         del q, k, v, o, lse, o_ref, lse_ref
+    return results
+
+
+def bwd_kernel_phase(seed: int):
+    import torch.nn.functional as F
+
+    from distkeras_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    results = {}
+    for name, shape, dtype, causal, fused in BWD_CASES:
+        q, k, v = make_qkv(shape, dtype, fused, gen)
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        delta = attention_delta(o, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        errs = [(got.float() - want.float()).abs().max().item()
+                for got, want in zip((dq, dk, dv), ref)]
+        tol = BWD_BF16 if dtype == torch.bfloat16 else BWD_F32
+        ok = all(torch.allclose(got.float(), want.float(), **tol)
+                 for got, want in zip((dq, dk, dv), ref))
+        big = shape[1] >= 1024
+        iters = 10 if big else 50
+        dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, causal), iters)
+        dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal), iters)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal),
+                           5 if big else 50)
+        # the library's backward: forward + backward of SDPA less its forward
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        library_ms = cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(sdpa_fwd, iters)
+        bound_ms, bound_by = attention_bwd_bound_ms(shape, dtype, causal)
+        dq_bound = kernel_bound_ms(shape, dtype, causal, 6, 5)    # Q, K, V, dO in; dQ out
+        dkv_bound = kernel_bound_ms(shape, dtype, causal, 8, 6)   # Q, K, V, dO in; dK, dV out
+        row = dict(case=name, shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                   causal=causal, max_abs_err_dq=errs[0], max_abs_err_dk=errs[1],
+                   max_abs_err_dv=errs[2], tolerance=tol, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                   kernels_ms=dq_ms + dkv_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_note="10*d FLOPs a pair; the kernels do 14*d, so at most 10/14 of it",
+                   dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                   dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1])
+        emit(phase="kernel", kernel="flash_attention_bwd", **row)
+        if not ok:
+            raise AssertionError(f"flash-attention backward kernels disagree with the plain "
+                                 f"version: {row}")
+        results[name] = row
+        del q, k, v, do, o, lse, delta, dq, dk, dv, ref, qt, kt, vt, dot
     return results
 
 
@@ -227,6 +357,104 @@ def lm_phase(seed: int):
     return launches
 
 
+def lm_task(rows: int, seq: int, vocab: int, seed: int):
+    """The ``(token + 1) mod vocab`` next-token task, a random start a row."""
+    start = np.random.default_rng(seed).integers(0, vocab, (rows, 1))
+    x = (start + np.arange(seq)) % vocab
+    return x.astype(np.int32), ((x + 1) % vocab).astype(np.int32)
+
+
+def train_phase(seed: int):
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TorchModel, TransformerLM
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        get_loss,
+    )
+
+    model = TransformerLM(**GPT2_SMALL, generator=torch.Generator().manual_seed(seed + 2))
+    x, y = lm_task(TRAIN_ROWS, TRAIN_SEQ, GPT2_SMALL["vocab_size"], seed + 2)
+    trainer = tdk.DOWNPOUR(
+        model, loss="token_crossentropy", metrics=("token_accuracy",),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=TRAIN_EPOCHS,
+        seed=seed, device="cuda",
+    )
+    # warm-up outside the counted run: cuBLAS handles, allocator, kernels
+    adapter = TorchModel(model)
+    loss_fn = get_loss("token_crossentropy")
+    warm = {k: p.detach().cuda().requires_grad_(True) for k, p in model.named_parameters()}
+    out, _ = adapter.apply(warm, {}, torch.from_numpy(x[:TRAIN_BATCH]).cuda(), training=True)
+    torch.autograd.grad(loss_fn(out, y[:TRAIN_BATCH]), list(warm.values()))
+    del warm, out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention.launches = 0
+    flash_attention_bwd_dq.launches = 0
+    flash_attention_bwd_dkv.launches = 0
+    trained = trainer.train(tdk.from_numpy(x, y))
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
+                "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches}
+    steps_per_worker = TRAIN_EPOCHS * (TRAIN_ROWS // (TRAIN_WORKERS * TRAIN_BATCH))
+    local_steps = TRAIN_WORKERS * steps_per_worker
+    expected = GPT2_SMALL["num_layers"] * local_steps
+    history = trainer.get_history()
+    seconds = history["training_time"]
+    tokens = TRAIN_EPOCHS * TRAIN_ROWS * TRAIN_SEQ
+    emit(phase="train", trainer="DOWNPOUR", model="TransformerLM", **GPT2_SMALL,
+         workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+         epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, seq=TRAIN_SEQ, local_steps=local_steps,
+         launches=launches, expected_launches=expected, loss=history["loss"],
+         token_accuracy=history["token_accuracy"], num_updates=trainer.num_updates,
+         seconds=seconds, seconds_per_step=seconds / local_steps,
+         tokens_per_s=tokens / seconds,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         params=sum(p.numel() for p in trained.params.values()))
+    for name, count in launches.items():
+        if count != expected:
+            raise AssertionError(f"{name} launched {count} times in training, expected {expected}")
+    losses = np.asarray(history["loss"])
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses.tolist()}")
+
+    # one step at [1, 1024] on the card against the CPU, through the same loss
+    params = {k: v.detach().cpu() for k, v in trained.params.items()}
+    tokens_1, labels_1 = torch.from_numpy(x[:1]), torch.from_numpy(y[:1])
+
+    def step(device):
+        leaves = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        out, _ = adapter.apply(leaves, {}, tokens_1.to(device), training=True)
+        loss = loss_fn(out.float(), labels_1.to(device))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), {k: g.cpu() for k, g in zip(leaves, grads)}
+
+    flash_attention_bwd_dq.launches = 0
+    loss_card, grads_card = step("cuda")
+    step_launches = flash_attention_bwd_dq.launches
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = step("cpu")
+    cpu_seconds = time.perf_counter() - t0
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_errs = {k: ((grads_card[k] - g).norm() / g.norm().clamp(min=1e-30)).item()
+                 for k, g in grads_cpu.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    emit(phase="train_step_vs_cpu", tokens=[1, TRAIN_SEQ], loss_card=loss_card,
+         loss_cpu=loss_cpu, loss_rel_err=loss_err, loss_rtol=STEP_LOSS_RTOL,
+         max_grad_rel_norm_err=grad_errs[worst], worst_param=worst,
+         grad_rtol=STEP_GRAD_RTOL, bwd_dq_launches=step_launches, cpu_seconds=cpu_seconds)
+    if step_launches != GPT2_SMALL["num_layers"]:
+        raise AssertionError(f"the card's step launched dQ {step_launches} times")
+    if loss_err > STEP_LOSS_RTOL or grad_errs[worst] > STEP_GRAD_RTOL:
+        raise AssertionError(f"card and CPU training steps differ: loss {loss_err}, "
+                             f"{worst} gradient {grad_errs[worst]}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -251,14 +479,22 @@ def main(argv=None) -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.flash_attention_fwd_library()
-    emit(phase="build", kernel="flash_attention_fwd", seconds=time.perf_counter() - t0)
+    _build.build_all()
+    emit(phase="build", kernels=["flash_attention_fwd", "flash_attention_bwd"],
+         seconds=time.perf_counter() - t0)
 
     cases = kernel_phase(args.seed)
+    bwd_cases = bwd_kernel_phase(args.seed)
     predictor_launches = predictor_phase(args.seed)
     lm_launches = lm_phase(args.seed)
+    train_launches = train_phase(args.seed)
 
     main_case = cases[MAIN_PATH_CASE]
+    bwd = bwd_cases[BWD_MAIN_PATH_CASE]
+    bwd_entry = dict(route="cuda", source="distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
+                     plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"],
+                     shape=bwd["shape"], causal=True,
+                     plain_and_library_cover="dQ, dK and dV together")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -273,6 +509,25 @@ def main(argv=None) -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": main_case["shape"],
+        "launches_training": train_launches["flash_attention_fwd"],
+    }, {
+        "name": "flash_attention_bwd_dq",
+        "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:247",
+        "launches": train_launches["flash_attention_bwd_dq"],
+        "max_abs_err": bwd["max_abs_err_dq"],
+        "ms": bwd["dq_ms"],
+        "bound_ms": bwd["dq_bound_ms"],
+        "bound_by": bwd["dq_bound_by"],
+        **bwd_entry,
+    }, {
+        "name": "flash_attention_bwd_dkv",
+        "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:264",
+        "launches": train_launches["flash_attention_bwd_dkv"],
+        "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
+        "ms": bwd["dkv_ms"],
+        "bound_ms": bwd["dkv_bound_ms"],
+        "bound_by": bwd["dkv_bound_by"],
+        **bwd_entry,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,10 +21,22 @@ from distkeras_tpu_torch.frame import (
     read_csv,
 )
 from distkeras_tpu_torch.predictors import ModelPredictor
+from distkeras_tpu_torch.trainers import (
+    DOWNPOUR,
+    AsynchronousDistributedTrainer,
+    DistributedTrainer,
+    SingleTrainer,
+    Trainer,
+)
 
 __all__ = [
+    "AsynchronousDistributedTrainer",
+    "DOWNPOUR",
     "DataFrame",
+    "DistributedTrainer",
     "ModelPredictor",
+    "SingleTrainer",
+    "Trainer",
     "Row",
     "__version__",
     "from_numpy",

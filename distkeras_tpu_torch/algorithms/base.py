@@ -1,0 +1,109 @@
+"""Update-rule interface: the pure-function form of the reference's
+parameter-server protocols.
+
+The port of :mod:`distkeras_tpu.algorithms.base`.  A rule's ``commit`` runs
+at a window boundary: the worker-side delta, then the server-side "apply to
+center" as a ``psum`` over workers followed by the center update.  In the
+port, workers are stacked along a leading dim of every per-worker tensor
+(``[num_workers, ...]``) and ``psum`` sums over that dim, so one ``commit``
+call commits every worker on the card at once; the sum across cards comes
+with the multi-GPU slice.  Every rule is a pure function of name -> tensor
+dicts, testable against the closed-form math with ``psum`` = identity on a
+single unstacked worker.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from distkeras_tpu_torch.utils.pytree import tree_map, tree_where
+
+__all__ = ["CommitCtx", "CommitResult", "UpdateRule", "make_ctx", "stacked_ctx"]
+
+
+class CommitCtx(NamedTuple):
+    """Execution context handed to ``commit`` at a window boundary.
+
+    ``psum``  — sum over workers (identity when testing a single worker).
+    ``mask``  — bool: does each worker commit at this boundary?  A scalar
+                for a single worker, ``[num_workers]`` for stacked workers.
+    ``steps_in_window`` — local optimizer steps since the last commit.
+    """
+
+    psum: Callable[[Any], Any]
+    mask: torch.Tensor
+    steps_in_window: torch.Tensor
+    num_workers: int
+
+
+class CommitResult(NamedTuple):
+    local_params: Any
+    center_params: Any
+    local_state: Any
+    center_state: Any
+
+
+def make_ctx(mask=True, steps_in_window=1, num_workers=1) -> CommitCtx:
+    """Single-worker context: ``psum`` is the identity."""
+    return CommitCtx(
+        psum=lambda t: t,
+        mask=torch.as_tensor(mask),
+        steps_in_window=torch.as_tensor(steps_in_window, dtype=torch.float32),
+        num_workers=num_workers,
+    )
+
+
+def stacked_ctx(num_workers: int, steps_in_window, device) -> CommitCtx:
+    """Context for ``num_workers`` workers stacked on one device, all
+    committing: ``psum`` sums each leaf over its leading worker dim."""
+    return CommitCtx(
+        psum=lambda t: tree_map(lambda x: x.sum(dim=0), t),
+        mask=torch.ones(num_workers, dtype=torch.bool, device=device),
+        steps_in_window=torch.as_tensor(steps_in_window, dtype=torch.float32),
+        num_workers=num_workers,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """Base class: one async-SGD variant = one subclass.
+
+    ``communication_window`` mirrors the reference trainers' kwarg of the
+    same name: number of local steps between commits.
+    """
+
+    communication_window: int = 5
+
+    #: do committing workers re-pull (adopt) the center after commit?
+    pulls: bool = True
+
+    def init_local_state(self, params) -> Any:
+        """Per-worker rule state (anchors, clocks); params = initial center."""
+        return ()
+
+    def init_center_state(self) -> Any:
+        """Center-side state (update counters)."""
+        return {"num_updates": torch.zeros((), dtype=torch.int32)}
+
+    def commit(
+        self, ctx: CommitCtx, local_params, center_params, local_state, center_state
+    ) -> CommitResult:
+        raise NotImplementedError
+
+    # -- shared helpers ----------------------------------------------------
+    @staticmethod
+    def _masked(ctx: CommitCtx, tree):
+        m = ctx.mask.to(torch.float32)
+        return tree_map(lambda x: x * m.reshape(m.shape + (1,) * (x.dim() - m.dim())), tree)
+
+    @staticmethod
+    def _count_commits(ctx: CommitCtx):
+        return ctx.psum(ctx.mask.to(torch.int32))
+
+    @staticmethod
+    def _pull(ctx: CommitCtx, new_center, local_params):
+        """Committing workers adopt the fresh center (the reference's ``pull``)."""
+        return tree_where(ctx.mask, new_center, local_params)

@@ -33,28 +33,9 @@
 // lengths.  Tensor-core (wgmma) tiles, TMA and warp specialisation are left
 // for a later revision.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_attention_common.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;
-constexpr int kThreadCols = 8;                          // threads sharing a row
-constexpr int kThreadRows = kThreads / kThreadCols;     // 16
-constexpr int kRowsPerThread = kBlockQ / kThreadRows;   // 4
-constexpr int kColsPerThread = kBlockK / kThreadCols;   // 8
-constexpr float kNegBig = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-struct Strides {  // element strides of a [batch, seq, heads, dim] tensor
-  long long b, l, h;
-};
 
 template <int D>
 struct Smem {
@@ -66,31 +47,6 @@ struct Smem {
       (kBlockQ * kQStride + kBlockK * kKStride + kBlockK * kVStride + kBlockQ * kPStride) *
       static_cast<int>(sizeof(float));
 };
-
-// Copy rows [row0, row0 + 64) of one (batch, head) slice into shared memory
-// as f32; rows at or past `rows_valid` are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int dst_stride, const T* src,
-                                          long long row_stride, int row0, int rows_valid) {
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int r = e / D;
-    const int c = e % D;
-    const int row = row0 + r;
-    dst[r * dst_stride + c] = row < rows_valid ? to_f32(src[row * row_stride + c]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float row_group_max(float x) {
-#pragma unroll
-  for (int off = 1; off < kThreadCols; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_group_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < kThreadCols; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -267,8 +223,4 @@ extern "C" int dk_flash_attention_fwd(const void* q, const void* k, const void* 
     return launch_dim<__nv_bfloat16>(head_dim, q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st,
                                      v_st, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" const char* dk_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

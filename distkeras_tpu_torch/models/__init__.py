@@ -2,6 +2,7 @@
 transformer models."""
 
 from distkeras_tpu_torch.models.adapter import (
+    FunctionalModel,
     ModelAdapter,
     TorchModel,
     TrainedModel,
@@ -15,6 +16,7 @@ from distkeras_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "FunctionalModel",
     "ModelAdapter",
     "TorchModel",
     "TrainedModel",

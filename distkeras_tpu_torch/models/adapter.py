@@ -6,13 +6,15 @@ function ``(params, state, inputs) -> outputs``, where ``params`` and
 trainers and predictors can hold, move and swap weights without touching
 the module itself.  :class:`TorchModel` wraps an ``nn.Module`` through
 ``torch.func.functional_call``, the counterpart of the JAX package's
-``FlaxModel``.  Keras and Hugging Face adapters come with later slices.
+``FlaxModel``; :class:`FunctionalModel` wraps a plain ``(init_fn,
+apply_fn)`` pair.  Dropout randomness is an explicit ``torch.Generator``
+(JAX's ``rng``).  Keras and Hugging Face adapters come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +22,14 @@ from torch import nn
 
 from distkeras_tpu_torch.parallel.mesh import resolve_device
 
-__all__ = ["ModelAdapter", "TorchModel", "TrainedModel", "as_adapter", "to_device"]
+__all__ = [
+    "FunctionalModel",
+    "ModelAdapter",
+    "TorchModel",
+    "TrainedModel",
+    "as_adapter",
+    "to_device",
+]
 
 
 class ModelAdapter:
@@ -33,11 +42,25 @@ class ModelAdapter:
     #: whether ``apply`` outputs are logits (True for the in-tree models)
     outputs_logits: bool = True
 
+    #: model emits per-token outputs trained against per-token labels
+    #: (language models)
+    per_token_labels: bool = False
+
     def init(self, generator: torch.Generator, sample_input: np.ndarray) -> Tuple[Dict, Dict]:
         raise NotImplementedError
 
-    def apply(self, params, state, inputs, training: bool = False) -> Tuple[Any, Dict]:
+    def apply(self, params, state, inputs, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> Tuple[Any, Dict]:
+        """``(outputs, new_state)``.  ``generator`` carries the dropout
+        randomness of a training step (JAX's ``rng``)."""
         raise NotImplementedError
+
+    def aux_loss(self, state):
+        """Auxiliary training loss carried in the post-``apply`` state; the
+        engine adds it to the objective each step.  0 for models without
+        one."""
+        del state
+        return 0.0
 
 
 @dataclasses.dataclass
@@ -47,6 +70,11 @@ class TorchModel(ModelAdapter):
 
     module: nn.Module
     outputs_logits: bool = True
+
+    @property
+    def per_token_labels(self) -> bool:
+        """Inherited from the wrapped module (TransformerLM sets it)."""
+        return bool(getattr(self.module, "per_token_labels", False))
 
     def init(self, generator, sample_input):
         """Draw fresh parameters from ``generator`` with the module's
@@ -58,11 +86,34 @@ class TorchModel(ModelAdapter):
         params = {name: p.detach() for name, p in self.module.named_parameters()}
         return params, dict(self.module.named_buffers())
 
-    def apply(self, params, state, inputs, training=False):
-        out = torch.func.functional_call(
-            self.module, {**params, **state}, (inputs,), {"training": training}
-        )
+    def apply(self, params, state, inputs, training=False, generator=None):
+        """Run the module on ``params`` and ``state``.  A training call works
+        on a copy of the buffers, which the module may update in place
+        (running statistics), and returns that copy as the new state."""
+        if training and state:
+            state = {name: t.clone() for name, t in state.items()}
+        kwargs = {"training": training}
+        if generator is not None:
+            kwargs["generator"] = generator
+        out = torch.func.functional_call(self.module, {**params, **state}, (inputs,), kwargs)
         return out, state
+
+
+@dataclasses.dataclass
+class FunctionalModel(ModelAdapter):
+    """Adapter over a plain ``(init_fn, apply_fn)`` pair:
+    ``init_fn(generator, sample) -> params`` and
+    ``apply_fn(params, inputs) -> outputs``."""
+
+    init_fn: Callable
+    apply_fn: Callable
+    outputs_logits: bool = True
+
+    def init(self, generator, sample_input):
+        return self.init_fn(generator, torch.as_tensor(sample_input)), {}
+
+    def apply(self, params, state, inputs, training=False, generator=None):
+        return self.apply_fn(params, inputs), state
 
 
 def to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
@@ -74,14 +125,16 @@ def to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tenso
 class TrainedModel:
     """Parameters plus the adapter that runs them, on one device: what the
     trainers return, and what :class:`~distkeras_tpu_torch.predictors.ModelPredictor`
-    takes.  ``device`` defaults to ``"cuda"`` and raises without a card;
-    pass ``device="cpu"`` to run on the CPU."""
+    takes.  ``history`` is the training history of the trainer that made
+    it.  ``device`` defaults to ``"cuda"`` and raises without a card; pass
+    ``device="cpu"`` to run on the CPU."""
 
-    def __init__(self, adapter: ModelAdapter, params, state=None, device="cuda"):
+    def __init__(self, adapter: ModelAdapter, params, state=None, device="cuda", history=None):
         self.adapter = adapter
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.state = to_device(state or {}, self.device)
+        self.history = history or {}
 
     def __call__(self, inputs) -> torch.Tensor:
         """Raw model outputs (logits) for one batch, on :attr:`device`."""

@@ -3,7 +3,10 @@
 The port of :mod:`distkeras_tpu.models.transformer` for the single-device,
 non-decode forward: pre-LayerNorm encoder blocks whose attention goes
 through :func:`distkeras_tpu_torch.parallel.ring.attention`, so a CUDA input
-runs the flash-attention kernel.  KV-cache decode, sequence parallelism
+runs the flash-attention kernel, forward and backward.  Dropout draws its
+masks from the ``torch.Generator`` a training call passes in (flax's
+``dropout`` rng), never from torch's global generator.  KV-cache decode,
+sequence parallelism
 (``seq_axis``) and sequence packing (``packed=True``) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
@@ -40,6 +43,24 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
     draw = torch.empty(weight.shape, dtype=weight.dtype)
     nn.init.trunc_normal_(draw, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
     weight.copy_(draw)
+
+
+def _dropout(x: torch.Tensor, rate: float, training: bool, generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training keep each element with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.  The mask is
+    drawn with ``torch.rand`` from ``generator`` (``F.dropout`` takes none)."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            "dropout in training draws from a torch.Generator: pass "
+            "apply(..., training=True, generator=g)"
+        )
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def _normal_(weight: torch.Tensor, std: float, generator) -> None:
@@ -88,11 +109,12 @@ class TransformerEncoderBlock(nn.Module):
         self.fc1 = nn.Linear(dim, dim * mlp_ratio)
         self.fc2 = nn.Linear(dim * mlp_ratio, dim)
 
-    def forward(self, x, training: bool = False, decode: bool = False, segment_ids=None):
+    def forward(self, x, training: bool = False, decode: bool = False, segment_ids=None,
+                generator: Optional[torch.Generator] = None):
         h = self.attn(self.ln1(x), training, decode, segment_ids=segment_ids)
-        x = x + F.dropout(h, self.dropout, training)
+        x = x + _dropout(h, self.dropout, training, generator)
         h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
-        return x + F.dropout(h, self.dropout, training)
+        return x + _dropout(h, self.dropout, training, generator)
 
 
 class _TokenEncoder(nn.Module):
@@ -133,7 +155,7 @@ class _TokenEncoder(nn.Module):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
 
-    def encode(self, tokens, training: bool = False):
+    def encode(self, tokens, training: bool = False, generator=None):
         if tokens.dim() != 2:
             raise ValueError(f"tokens must be [batch, seq], got shape {tuple(tokens.shape)}")
         tokens = tokens.long()
@@ -145,13 +167,16 @@ class _TokenEncoder(nn.Module):
         pos = torch.arange(seq, device=tokens.device)
         x = self.tok_embed(tokens) + self.pos_embed(pos)[None]
         for block in self.blocks:
-            x = block(x, training)
+            x = block(x, training, generator=generator)
         return self.final_ln(x)
 
 
 class TransformerLM(_TokenEncoder):
     """Causal language model over ``[batch, seq]`` int tokens, emitting
     per-token next-token logits ``[batch, seq, vocab]``."""
+
+    #: trained against per-token labels ``[batch, seq]``
+    per_token_labels = True
 
     def __init__(self, vocab_size: int, dim: int = 128, heads: int = 4,
                  num_layers: int = 2, max_len: int = 2048,
@@ -164,10 +189,10 @@ class TransformerLM(_TokenEncoder):
         self.lm_head = nn.Linear(dim, vocab_size)
         self.reset_parameters(generator)
 
-    def forward(self, tokens, training: bool = False, decode: bool = False):
+    def forward(self, tokens, training: bool = False, decode: bool = False, generator=None):
         if decode:
             raise NotImplementedError(_DECODE)
-        return self.lm_head(self.encode(tokens, training))
+        return self.lm_head(self.encode(tokens, training, generator))
 
     def decode_spec(self, params):
         """Slice ``params`` (parameter name -> tensor) into the layout the
@@ -210,6 +235,6 @@ class TransformerClassifier(_TokenEncoder):
         self.head = nn.Linear(dim, num_classes)
         self.reset_parameters(generator)
 
-    def forward(self, tokens, training: bool = False):
-        token_logits = self.head(self.encode(tokens, training))  # [b, seq, C]
+    def forward(self, tokens, training: bool = False, generator=None):
+        token_logits = self.head(self.encode(tokens, training, generator))  # [b, seq, C]
         return token_logits.sum(dim=1) / tokens.shape[1]

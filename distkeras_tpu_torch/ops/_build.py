@@ -3,7 +3,8 @@
 Each kernel source in ``distkeras_tpu_torch/csrc`` has a plain C interface.
 At first use it is compiled with ``nvcc`` into a shared library under
 ``distkeras_tpu_torch/_build/`` (a directory git ignores), named by a hash
-of the source and the compiler flags, and loaded with ``ctypes``.  Nothing
+of the source, the headers beside it and the compiler flags, and loaded
+with ``ctypes``.  Nothing
 is built or loaded when a module is imported: the CPU-only test runs import
 every module and have no ``nvcc``.
 """
@@ -18,7 +19,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "flash_attention_fwd_library", "nvcc_path"]
+__all__ = [
+    "NVCC_FLAGS",
+    "build",
+    "build_all",
+    "flash_attention_bwd_library",
+    "flash_attention_fwd_library",
+    "nvcc_path",
+]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -45,15 +53,24 @@ def nvcc_path() -> str:
     return found
 
 
+def source_digest(source: Path) -> str:
+    """Hash of what a build of ``source`` reads: the compiler flags, the
+    source and every header (``*.cuh``) in its directory, so that editing a
+    shared header never loads a library built from the old one."""
+    digest = hashlib.sha256()
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    for path in (source, *sorted(source.parent.glob("*.cuh"))):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str, source: Path) -> Path:
     """Compile ``source`` into ``_build/<name>-<hash>.so`` unless that file
     already exists; returns its path.  The library is written under a
     temporary name and renamed, so concurrent builds never load a partial
     file."""
-    digest = hashlib.sha256()
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    digest.update(source.read_bytes())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{name}-{source_digest(source)}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,3 +104,40 @@ def flash_attention_fwd_library() -> ctypes.CDLL:
     lib.dk_cuda_error_string.argtypes = [i32]
     lib.dk_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def flash_attention_bwd_library() -> ctypes.CDLL:
+    """The flash-attention backward kernels (dQ and dK/dV), built and bound
+    (once per process)."""
+    lib = ctypes.CDLL(str(build("flash_attention_bwd", CSRC / "flash_attention_bwd.cu")))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    strides = [i64] * 12                  # q, k, v, dO strides: batch, seq, head
+    tail = [i32, i32, ctypes.c_float, ptr]  # causal, dtype code, scale, stream
+    shape = [i32] * 5                     # batch, heads, lq, lk, head_dim
+    lib.dk_flash_attention_bwd_dq.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,     # q, k, v, dO, lse, delta
+        ptr,                              # dq
+        *shape, *strides, *tail,
+    ]
+    lib.dk_flash_attention_bwd_dkv.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,     # q, k, v, dO, lse, delta
+        ptr, ptr,                         # dk, dv
+        *shape, *strides, *tail,
+    ]
+    lib.dk_flash_attention_bwd_dq.restype = i32
+    lib.dk_flash_attention_bwd_dkv.restype = i32
+    lib.dk_cuda_error_string.argtypes = [i32]
+    lib.dk_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_all() -> None:
+    """Build every kernel library at once, one ``nvcc`` per source running
+    side by side (each build is a separate process)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    loaders = (flash_attention_fwd_library, flash_attention_bwd_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for future in [pool.submit(load) for load in loaders]:
+            future.result()

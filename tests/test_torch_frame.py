@@ -3,9 +3,12 @@ package's ``distkeras_tpu.frame`` on the same numpy data."""
 
 import numpy as np
 import pytest
+import torch
 
 from distkeras_tpu import frame as jax_frame
 from distkeras_tpu_torch import frame as port_frame
+
+torch.set_num_threads(1)  # the suite runs under xdist: keep each worker small
 
 
 def _build(mod):

@@ -9,6 +9,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+torch.set_num_threads(1)  # the suite runs under xdist: keep each worker small
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distkeras_tpu")
@@ -28,7 +31,12 @@ def test_package_import_loads_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import distkeras_tpu_torch, distkeras_tpu_torch.models, "
-        "distkeras_tpu_torch.ops, distkeras_tpu_torch.parallel, distkeras_tpu_torch.telemetry\n"
+        "distkeras_tpu_torch.ops, distkeras_tpu_torch.parallel, distkeras_tpu_torch.telemetry, "
+        "distkeras_tpu_torch.trainers, distkeras_tpu_torch.workers, "
+        "distkeras_tpu_torch.parameter_servers, distkeras_tpu_torch.data, "
+        "distkeras_tpu_torch.parallel.engine, distkeras_tpu_torch.algorithms, "
+        "distkeras_tpu_torch.utils, distkeras_tpu_torch.ops.losses, "
+        "distkeras_tpu_torch.ops.metrics, distkeras_tpu_torch.ops.optimizers\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -42,6 +50,8 @@ def test_package_import_loads_no_jax():
 def test_sources_found():
     assert "chip_smoke.py" in SOURCES
     assert "distkeras_tpu_torch/ops/flash_attention.py" in SOURCES
+    assert "distkeras_tpu_torch/trainers.py" in SOURCES
+    assert "distkeras_tpu_torch/parallel/engine.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)

@@ -24,6 +24,8 @@ from distkeras_tpu_torch.models import (
     params_from_flax,
 )
 
+torch.set_num_threads(1)  # the suite runs under xdist: keep each worker small
+
 CFG = dict(vocab_size=64, num_classes=3, dim=32, heads=2, num_layers=2, max_len=32)
 ROWS, SEQ, BATCH = 37, 24, 16
 

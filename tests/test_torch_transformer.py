@@ -23,6 +23,8 @@ from distkeras_tpu_torch.models import transformer as port_transformer
 from distkeras_tpu_torch.ops import flash_attention
 from distkeras_tpu_torch.parallel.ring import attention
 
+torch.set_num_threads(1)  # the suite runs under xdist: keep each worker small
+
 CFG = dict(vocab_size=64, dim=32, heads=2, num_layers=2, max_len=32)
 SEQ = 24
 
