@@ -8,10 +8,15 @@ toolkit.  Phases, each printing JSON lines:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles every kernel from ``distkeras_tpu_torch/csrc``, one
-   ``nvcc`` per source, all at once;
+   ``nvcc`` per source, all at once; then each kernel's registers and
+   spills (ptxas) and its tensor-core instructions (HMMA in cuobjdump's
+   SASS; the backward kernels must have them);
 3. kernels: each kernel against its plain PyTorch version on the card,
    with its time, the plain version's, one library call's and the bound:
-   the forward (B1) and the backward's dQ (B2) and dK/dV (B3) kernels;
+   the forward (B1) and the backward's dQ (B2) and dK/dV (B3) kernels,
+   whose f32 rows give two bounds (the CUDA cores' f32 rate and the
+   tensor cores' 3xTF32 rate); the backward kernels run twice on the
+   training shape and must agree bit for bit;
 4. ``ModelPredictor`` over a ``TransformerClassifier`` at GPT-2-small widths
    (768 wide, 12 heads, 12 layers, 1024 positions, 50257 tokens), weights
    drawn from ``--seed``: 64 rows of 1024 tokens in batches of 16;
@@ -65,6 +70,9 @@ STEP_GRAD_RTOL = 1e-3
 # tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
+# f32 products on the tensor cores at f32 accuracy: three TF32 products
+# (3xTF32) at the 495 TFLOP/s TF32 peak, as the backward kernels run them.
+PEAK_TC_F32 = 495e12 / 3
 
 GPT2_SMALL = dict(vocab_size=50257, dim=768, heads=12, num_layers=12, max_len=1024)
 
@@ -92,6 +100,7 @@ BWD_CASES = [
     ("train", (4, 1024, 12, 64), torch.float32, True, True),
     ("train_noncausal", (4, 1024, 12, 64), torch.float32, False, True),
     ("train_bf16", (4, 1024, 12, 64), torch.bfloat16, True, True),
+    ("dim128_bf16", (1, 257, 4, 128), torch.bfloat16, True, True),
 ]
 BWD_MAIN_PATH_CASE = "train"
 # training phase: DOWNPOUR over GPT-2-small widths
@@ -117,50 +126,90 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype, causal: bool):
+def attention_bound_ms(shape, dtype, causal: bool, peak: float = None):
     """Least time for the card to do one attention forward at ``shape``:
-    the larger of the FLOPs over the dtype's peak rate (4·d per attended
-    (query, key) pair, only the attended pairs when causal) and the bytes
-    over the memory rate (Q, K, V read once, O and the f32 LSE written once)."""
+    the larger of the FLOPs over ``peak`` (default: the dtype's peak rate;
+    4·d per attended (query, key) pair, only the attended pairs when
+    causal) and the bytes over the memory rate (Q, K, V read once, O and
+    the f32 LSE written once)."""
     b, l, h, d = shape
     pairs = l * (l + 1) // 2 if causal else l * l
     flops = 4.0 * b * h * pairs * d
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * l * h * d * itemsize + b * h * l * 4
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def attention_bwd_bound_ms(shape, dtype, causal: bool):
-    """Least time for the card to do one attention backward at ``shape``:
-    the larger of 10·d FLOPs per attended (query, key) pair (five products
-    of 2·d: S, dP, dV, dK, dQ) over the dtype's peak rate, and the bytes
-    (Q, K, V, O, dO read, dQ, dK, dV written, LSE and Δ in f32) over the
-    memory rate.  The two kernels recompute S and dP in both passes (14·d
-    a pair), so they can reach at most 10/14 of this bound."""
-    b, l, h, d = shape
-    pairs = l * (l + 1) // 2 if causal else l * l
-    flops = 10.0 * b * h * pairs * d
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = 8 * b * l * h * d * itemsize + 2 * b * h * l * 4
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
-
-
-def kernel_bound_ms(shape, dtype, causal: bool, flops_per_pair_per_d: int, tensors_moved: int):
-    """The bound of one backward kernel alone: its own FLOPs per attended
-    pair (dQ: S, dP, dQ = 6·d; dK/dV: S, dP, dV, dK = 8·d) and the
-    [b, L, h, d] tensors it must read and write once, plus LSE and Δ."""
+def kernel_bound_ms(shape, dtype, causal: bool, flops_per_pair_per_d: int, tensors_moved: int,
+                    peak: float = None):
+    """Least time for the card to do backward work at ``shape``: the larger
+    of the FLOPs (``flops_per_pair_per_d``·d per attended (query, key)
+    pair) over ``peak`` (default: the dtype's peak rate) and the bytes (the
+    ``tensors_moved`` [b, L, h, d] tensors read or written once, plus LSE
+    and Δ in f32) over the memory rate.  The whole backward is 10·d a pair
+    (five products of 2·d: S, dP, dV, dK, dQ) over 8 tensors (Q, K, V, O,
+    dO read, dQ, dK, dV written); the dQ kernel alone 6·d over 5 (Q, K,
+    V, dO in, dQ out), the dK/dV kernel 8·d over 6.  The two kernels
+    recompute S and dP in both (14·d a pair), so together they can reach
+    at most 10/14 of the whole backward's bound."""
     b, l, h, d = shape
     pairs = l * (l + 1) // 2 if causal else l * l
     flops = float(flops_per_pair_per_d) * b * h * pairs * d
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = tensors_moved * b * l * h * d * itemsize + 2 * b * h * l * 4
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_resources():
+    """Registers, stack and spills of every compiled kernel (ptxas's report,
+    kept beside each library) and its count of tensor-core instructions
+    (HMMA lines in cuobjdump's SASS), one dict per instantiation."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    from distkeras_tpu_torch.ops import _build
+
+    name_re = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+    frame_re = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    cuobjdump = str(cuobjdump) if cuobjdump.is_file() else shutil.which("cuobjdump")
+    if cuobjdump is None:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    rows = {}
+
+    def row_of(match):
+        kernel, dtype, head_dim = match.group(1), match.group(2), int(match.group(3))
+        dtype = "float32" if dtype == "f" else "bfloat16"
+        return rows.setdefault((kernel, dtype, head_dim),
+                               dict(kernel=kernel, dtype=dtype, head_dim=head_dim, hmma=0))
+
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        library = _build.build(name, _build.CSRC / f"{name}.cu")
+        row = None
+        for line in _build.ptxas_log(library).read_text().splitlines():
+            if match := name_re.search(line):
+                row = row_of(match)
+            elif row is not None and (match := frame_re.search(line)):
+                row.update(stack_bytes=int(match.group(1)), spill_store_bytes=int(match.group(2)),
+                           spill_load_bytes=int(match.group(3)))
+            elif row is not None and (match := re.search(r"Used (\d+) registers", line)):
+                row["registers"] = int(match.group(1))
+        sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        row = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                match = name_re.search(line)
+                row = row_of(match) if match else None
+            elif row is not None and "HMMA" in line:
+                row["hmma"] += 1
+    return sorted(rows.values(), key=lambda r: (r["kernel"], r["dtype"], r["head_dim"]))
 
 
 def make_qkv(shape, dtype, fused: bool, gen: torch.Generator):
@@ -208,6 +257,8 @@ def kernel_phase(seed: int):
                    causal=causal, max_abs_err_o=err_o, max_abs_err_lse=err_lse,
                    tolerance=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if dtype == torch.float32:  # were it on the tensor cores in 3xTF32
+            row["bound_tc_ms"] = attention_bound_ms(shape, dtype, causal, PEAK_TC_F32)[0]
         emit(phase="kernel", kernel="flash_attention_fwd", **row)
         if not ok:
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {row}")
@@ -262,21 +313,28 @@ def bwd_kernel_phase(seed: int):
             torch.autograd.grad(out, (qt, kt, vt), dot)
 
         library_ms = cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(sdpa_fwd, iters)
-        bound_ms, bound_by = attention_bwd_bound_ms(shape, dtype, causal)
-        dq_bound = kernel_bound_ms(shape, dtype, causal, 6, 5)    # Q, K, V, dO in; dQ out
-        dkv_bound = kernel_bound_ms(shape, dtype, causal, 8, 6)   # Q, K, V, dO in; dK, dV out
+        bounds = {"": (10, 8), "dq_": (6, 5), "dkv_": (8, 6)}  # (FLOPs/pair/d, tensors)
         row = dict(case=name, shape=list(shape), dtype=str(dtype).replace("torch.", ""),
                    causal=causal, max_abs_err_dq=errs[0], max_abs_err_dk=errs[1],
                    max_abs_err_dv=errs[2], tolerance=tol, dq_ms=dq_ms, dkv_ms=dkv_ms,
                    kernels_ms=dq_ms + dkv_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   bound_note="10*d FLOPs a pair; the kernels do 14*d, so at most 10/14 of it",
-                   dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
-                   dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1])
+                   bound_note="10*d FLOPs a pair; the kernels do 14*d, so at most 10/14 of it; "
+                              "f32 bound_tc_* at the 3xTF32 rate (495/3 TFLOP/s)")
+        for prefix, (flops, tensors) in bounds.items():
+            row[f"{prefix}bound_ms"], row[f"{prefix}bound_by"] = kernel_bound_ms(
+                shape, dtype, causal, flops, tensors)
+            if dtype == torch.float32:
+                row[f"{prefix}bound_tc_ms"] = kernel_bound_ms(
+                    shape, dtype, causal, flops, tensors, PEAK_TC_F32)[0]
+        if name == BWD_MAIN_PATH_CASE:  # no atomics: a second run agrees bit for bit
+            again = (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+                     *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+            row["deterministic"] = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+            ok = ok and row["deterministic"]
         emit(phase="kernel", kernel="flash_attention_bwd", **row)
         if not ok:
             raise AssertionError(f"flash-attention backward kernels disagree with the plain "
-                                 f"version: {row}")
+                                 f"version or with themselves: {row}")
         results[name] = row
         del q, k, v, do, o, lse, delta, dq, dk, dv, ref, qt, kt, vt, dot
     return results
@@ -482,6 +540,12 @@ def main(argv=None) -> int:
     _build.build_all()
     emit(phase="build", kernels=["flash_attention_fwd", "flash_attention_bwd"],
          seconds=time.perf_counter() - t0)
+    resources = kernel_resources()
+    for row in resources:
+        emit(phase="resources", **row)
+    no_tensor_cores = [r for r in resources if r["kernel"].startswith("flash_bwd") and not r["hmma"]]
+    if no_tensor_cores:
+        raise AssertionError(f"backward kernels without tensor-core instructions: {no_tensor_cores}")
 
     cases = kernel_phase(args.seed)
     bwd_cases = bwd_kernel_phase(args.seed)
@@ -490,10 +554,11 @@ def main(argv=None) -> int:
     train_launches = train_phase(args.seed)
 
     main_case = cases[MAIN_PATH_CASE]
+    lm_case = cases["lm"]
     bwd = bwd_cases[BWD_MAIN_PATH_CASE]
     bwd_entry = dict(route="cuda", source="distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
                      plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"],
-                     shape=bwd["shape"], causal=True,
+                     shape=bwd["shape"], causal=True, deterministic=bwd["deterministic"],
                      plain_and_library_cover="dQ, dK and dV together")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
@@ -507,9 +572,16 @@ def main(argv=None) -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
+        "bound_tc_ms": main_case["bound_tc_ms"],
         "library_ms": main_case["library_ms"],
         "shape": main_case["shape"],
         "launches_training": train_launches["flash_attention_fwd"],
+        "training_shape": lm_case["shape"],
+        "training_ms": lm_case["kernel_ms"],
+        "training_plain_ms": lm_case["plain_ms"],
+        "training_library_ms": lm_case["library_ms"],
+        "training_bound_ms": lm_case["bound_ms"],
+        "training_bound_tc_ms": lm_case["bound_tc_ms"],
     }, {
         "name": "flash_attention_bwd_dq",
         "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:247",
@@ -518,6 +590,7 @@ def main(argv=None) -> int:
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
         "bound_by": bwd["dq_bound_by"],
+        "bound_tc_ms": bwd["dq_bound_tc_ms"],
         **bwd_entry,
     }, {
         "name": "flash_attention_bwd_dkv",
@@ -527,6 +600,7 @@ def main(argv=None) -> int:
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],
         "bound_by": bwd["dkv_bound_by"],
+        "bound_tc_ms": bwd["dkv_bound_tc_ms"],
         **bwd_entry,
     }]}), flush=True)
     print(smi, flush=True)

@@ -1,12 +1,12 @@
-// FlashAttention backward for NVIDIA Hopper (sm_90a): the dQ kernel and the
-// dK/dV kernel.
+// FlashAttention backward for NVIDIA Hopper (sm_90a) on the tensor cores:
+// the dQ kernel and the dK/dV kernel.
 //
 // Replaces the Pallas TPU kernels of distkeras_tpu/ops/pallas/flash_attention.py:
 //   flash_bwd_dq_kernel  <- _dq_kernel  (pallas_call in _bwd_call, :247)
 //   flash_bwd_dkv_kernel <- _dkv_kernel (pallas_call in _bwd_call, :264)
-// and computes the same functions.  Both recompute, for each 64 x 64 tile of
+// and computes the same functions.  Both recompute, tile by tile of
 // (query, key) pairs, what _p_ds computes:
-//   S  = Q K^T * scale (f32),
+//   S  = Q K^T * scale,
 //   P  = exp(S - LSE) where the pair is attended, 0 elsewhere (padding rows
 //        and columns, and above the diagonal when causal; row >= col kept,
 //        aligned at the top-left corner; a row with no key has LSE = 0),
@@ -14,318 +14,483 @@
 //   dS = P * (dP - Delta), Delta = rowsum(dO * O) computed by the caller;
 // then dQ = scale * dS K (accumulated over K tiles) in the first kernel and
 // dV = P^T dO, dK = scale * dS^T Q (accumulated over Q tiles) in the second.
-// Everything is f32 whatever the input dtype (f32 or bf16); the outputs are
-// written in the inputs' dtype.
+// Inputs are f32 or bf16; every sum is f32; the outputs are written in the
+// inputs' dtype.
 //
-// What bounds them on this card.  At the training path's shape (b*h = 4*12,
-// L = 1024, d = 64, causal, f32) the two kernels together do 14*d FLOPs per
-// attended pair (S and dP in both, dQ in one, dK and dV in the other):
-// about 22.6 GFLOP, against 1.41 GB of traffic (Q, K, V, O, dO read, dQ,
-// dK, dV written; LSE and Delta).  At 67 TFLOP/s (f32 outside the tensor
-// cores) and 3.35 TB/s that is 0.34 ms of arithmetic against 0.004 ms of
-// traffic: bound by operations.  The recompute of S and dP in both kernels
-// is the price of having no atomics and no [L, L] matrix in device memory.
+// What bounds them on this card.  The two kernels do 14*d FLOPs per attended
+// pair (S and dP in both, dQ in one, dK and dV in the other): at the
+// training path's shape (b*h = 4*12, L = 1024, d = 64, causal) 9.7 GFLOP in
+// the dQ kernel and 12.9 in the dK/dV kernel, against 1.4 GB of traffic.
+// They are bound by operations.  On the CUDA cores f32 peaks at 67 TFLOP/s
+// (0.14 and 0.19 ms); the tensor cores do TF32 at 495 TFLOP/s, and f32
+// accuracy takes three TF32 products (below), so 165 TFLOP/s effective
+// (0.059 and 0.078 ms).  With mma.sync (not wgmma) the operand splits and
+// fragment loads from shared memory cost more issue slots than the
+// products themselves.
 //
-// What the design does about it.  The TPU kernels carry their accumulator
-// in scratch memory across a sequential grid axis; here one thread block
-// owns one output tile and walks the other axis in a loop:
-//   dQ:   one block per (batch*head, 64-row Q tile); Q and dO stay in
-//         shared memory, K and V tiles stream through it; dS goes through
-//         a shared tile into dQ += dS K, kept in registers.
-//   dK/dV: one block per (batch*head, 64-row K tile); K and V stay, Q and dO
-//         tiles stream; P^T and dS^T go through shared tiles into
-//         dV += P^T dO and dK += dS^T Q, both kept in registers.
-// No block writes another block's output, so there are no atomics and the
-// result is the same from run to run.  Tiles wholly above the diagonal are
-// skipped when causal (K tiles past the Q tile in the first kernel, Q tiles
-// before the K tile in the second).  Every multiply-add is an f32 FMA on
-// registers fed from shared memory whose rows are padded by one float
-// against bank conflicts.  Q, K, V and dO are read in their
-// [batch, seq, heads, dim] layout through strides (no transpose, no padded
-// copy); the ragged edge is masked against the true lengths.  Tensor-core
-// tiles (wgmma), TMA and warp specialisation are left for a later revision.
+// What the design does about it.
+//   Tensor cores.  Every product runs on mma.sync with f32 accumulators.
+//     f32 inputs: 3xTF32, the arithmetic of PyTorch's f32 memory-efficient
+//     attention: each operand x = big + small with big = x truncated to
+//     TF32 and small = x - big, and a b = a_small b_big + a_big b_small +
+//     a_big b_big, which keeps about f32 accuracy (one TF32 pass does not:
+//     its 2^-10 relative error breaks the 1e-4 gates).  bf16 inputs: S and
+//     dP on m16n8k16 bf16 (products of bf16 values are exact in f32, as on
+//     the TPU); the second products take an f32 left operand (P or dS, never
+//     rounded to bf16: the TPU kernel multiplies them in f32) and a bf16
+//     right operand, which is exact in TF32, so two TF32 passes suffice.
+//   Issue slots.  Three mma.sync a product and a split an operand leave the
+//     kernels bound by instructions issued, not by the tensor cores, so the
+//     split is the cheapest there is (a mask and a subtraction,
+//     tensor_core.cuh), the softmax uses exp2, and only the tiles that cross
+//     the diagonal or the ragged edge are masked.
+//   Registers, not shared memory, between the two products.  The
+//     accumulator layout of m16n8k8 holds columns 2t and 2t+1 of each
+//     8-column block where the A fragment wants columns t and t+4; the
+//     second product permutes its k index the same way (MMA column t <->
+//     column 2t, t+4 <-> 2t+1) and reads B's rows in that order, so P and
+//     dS go from the first product's accumulators straight into the second
+//     product's A fragments.
+//   Tiles.  One block of 4 warps owns 64 output rows (16 a warp) and loops
+//     over the other axis, as the TPU kernels' sequential grid axis does:
+//       dQ:    one block per (batch*head, 64-row Q tile); Q and dO stay in
+//              shared memory, K and V tiles stream through it;
+//       dK/dV: one block per (batch*head, 64-row K tile); K and V stay,
+//              Q, dO, LSE and Delta tiles stream.
+//     No block writes another block's output: no atomics, and the result is
+//     the same from run to run.  Tiles wholly above the diagonal are skipped
+//     when causal, and the heaviest blocks are issued first.  A streamed tile
+//     has 64 rows (32 at d = 128, which keeps the dK/dV kernel's 2 x 64
+//     accumulators and its S and dP tiles in registers).
+//   Copies.  Tiles stay in the input dtype in shared memory and arrive by
+//     cp.async, 16 bytes a copy, in a two-stage ring: tile j + 1 is in
+//     flight while tile j is multiplied; rows past the ragged edge are
+//     zero-filled by the copy's source size.  Rows are padded by 16 bytes,
+//     which makes the f32 fragment loads and the bf16 ldmatrix loads free of
+//     bank conflicts.  Q, K, V and dO are read in their [batch, seq, heads,
+//     dim] layout through strides (the fused QKV views in place); the
+//     wrapper copies a tensor whose rows are not 16-byte aligned first.
+// wgmma, TMA and a fused one-kernel backward are left for later revisions.
+
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-template <int D>
-struct BwdSmem {
-  static constexpr int kStride = D + 1;        // Q, K, V, dO rows
-  static constexpr int kPStride = kBlockK + 1;  // P / dS tiles
-  // dQ kernel: Q, dO, K, V tiles and one dS tile.
-  static constexpr int kDqBytes =
-      (4 * 64 * kStride + 64 * kPStride) * static_cast<int>(sizeof(float));
-  // dK/dV kernel: K, V, Q, dO tiles, the P^T and dS^T tiles, LSE and Delta.
-  static constexpr int kDkvBytes =
-      (4 * 64 * kStride + 2 * 64 * kPStride + 2 * kBlockQ) * static_cast<int>(sizeof(float));
-};
+constexpr int kBwdThreads = 128;  // 4 warps
+// Blocks an SM the registers must allow.  Shared memory holds two f32
+// d = 64 blocks (104 KB each); left unsaid, ptxas caps the registers for
+// three and the dQ kernel runs slower.
+constexpr int kBwdMinBlocks = 2;
+constexpr int kOwnedRows = 64;    // output rows a block owns, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct BwdTiles {
+  // rows of a streamed tile (K/V in the dQ kernel, Q/dO in the dK/dV kernel)
+  static constexpr int kStream = D == 128 ? 32 : 64;
+  // shared row stride in elements: the row plus 16 bytes
+  static constexpr int kStride = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kOwned = kOwnedRows * kStride;  // elements of an owned tile
+  static constexpr int kStreamed = kStream * kStride;  // elements of a streamed tile
+  // two owned tiles, then two stages of two streamed tiles
+  static constexpr int kDqBytes = (2 * kOwned + 4 * kStreamed) * static_cast<int>(sizeof(T));
+  // the dK/dV kernel also streams LSE and Delta: two stages of two rows
+  static constexpr int kDkvBytes = kDqBytes + 4 * kStream * static_cast<int>(sizeof(float));
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Start copying rows [row0, row0 + ROWS) of one (batch, head) slice into a
+// shared tile; rows at or past `rows_valid` are zero-filled.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
+                                                int row0, int rows_valid) {
+  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte copies a row
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));
+  constexpr int ST = BwdTiles<T, D>::kStride;
+  static_assert((ROWS * kChunks) % kBwdThreads == 0, "every thread copies alike");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kBwdThreads; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kBwdThreads;
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * kElems;
+    const int row = row0 + r;
+    const bool valid = row < rows_valid;
+    cp_async16(dst + r * ST + c, src + (valid ? row * row_stride + c : 0), valid ? 16 : 0);
+  }
+}
+
+// Start copying entries [row0, row0 + ROWS) of an f32 row vector; entries
+// at or past `rows_valid` are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void load_vec_async(float* dst, const float* src, int row0,
+                                               int rows_valid) {
+  if (threadIdx.x < ROWS) {
+    const int row = row0 + static_cast<int>(threadIdx.x);
+    const bool valid = row < rows_valid;
+    cp_async4(dst + threadIdx.x, src + (valid ? row : 0), valid ? 4 : 0);
+  }
+}
+
+// s += A B^T over the head dim: A is the warp's 16 rows of an owned tile
+// (`a` points at its first row), B the BN rows of a streamed tile; block n
+// of s holds columns 8n..8n+7, in the accumulator layout.  f32: 3xTF32.
+template <int D, int BN>
+__device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const float* a,
+                                              const float* b, int lane) {
+  constexpr int ST = BwdTiles<float, D>::kStride;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    unsigned ab[4], as[4];
+    split_tf32(a[g * ST + kk + t], ab[0], as[0]);
+    split_tf32(a[(g + 8) * ST + kk + t], ab[1], as[1]);
+    split_tf32(a[g * ST + kk + t + 4], ab[2], as[2]);
+    split_tf32(a[(g + 8) * ST + kk + t + 4], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      unsigned bb[2], bs[2];
+      split_tf32(b[(8 * n + g) * ST + kk + t], bb[0], bs[0]);
+      split_tf32(b[(8 * n + g) * ST + kk + t + 4], bb[1], bs[1]);
+      mma_tf32(s[n], as, bb);
+      mma_tf32(s[n], ab, bs);
+      mma_tf32(s[n], ab, bb);
+    }
+  }
+}
+
+// As above for bf16 tiles: m16n8k16 bf16 products, fragments by ldmatrix.
+template <int D, int BN>
+__device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b, int lane) {
+  constexpr int ST = BwdTiles<__nv_bfloat16, D>::kStride;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    unsigned af[4];
+    ldmatrix_x4(af, a + (lane & 15) * ST + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < BN / 8; n += 2) {
+      unsigned bf[4];  // column blocks n and n + 1, k halves low and high
+      ldmatrix_x4(bf, b + (8 * n + (lane & 7) + (lane >> 4) * 8) * ST + kk + ((lane >> 3) & 1) * 8);
+      mma_bf16(s[n], af, bf[0], bf[1]);
+      mma_bf16(s[n + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The A fragments (big and small halves) of an 8-column block of a tile in
+// the accumulator layout, with the permuted k index: MMA column t is column
+// 2t and MMA column t + 4 is column 2t + 1.
+__device__ __forceinline__ void acc_to_a(const float (&c)[4], unsigned (&big)[4],
+                                         unsigned (&small)[4]) {
+  split_tf32(c[0], big[0], small[0]);  // (g, 2t)
+  split_tf32(c[2], big[1], small[1]);  // (g + 8, 2t)
+  split_tf32(c[1], big[2], small[2]);  // (g, 2t + 1)
+  split_tf32(c[3], big[3], small[3]);  // (g + 8, 2t + 1)
+}
+
+// acc += P B: P is the warp's 16 x BN tile in the accumulator layout (an
+// f32 left operand), B the BN x D streamed tile, whose rows are read in the
+// permuted k order of acc_to_a.  f32 B: 3xTF32.
+template <int D, int BN>
+__device__ __forceinline__ void tile_times_rows(float (&acc)[D / 8][4],
+                                                const float (&p)[BN / 8][4], const float* b,
+                                                int lane) {
+  constexpr int ST = BwdTiles<float, D>::kStride;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    unsigned ab[4], as[4];
+    acc_to_a(p[j], ab, as);
+    const float* r = b + (8 * j + 2 * t) * ST + g;  // rows 2t and 2t + 1 of block j
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      unsigned bb[2], bs[2];
+      split_tf32(r[8 * n], bb[0], bs[0]);
+      split_tf32(r[ST + 8 * n], bb[1], bs[1]);
+      mma_tf32(acc[n], as, bb);
+      mma_tf32(acc[n], ab, bs);
+      mma_tf32(acc[n], ab, bb);
+    }
+  }
+}
+
+// As above with a bf16 B, exact in TF32: two passes (P_small B + P_big B).
+template <int D, int BN>
+__device__ __forceinline__ void tile_times_rows(float (&acc)[D / 8][4],
+                                                const float (&p)[BN / 8][4],
+                                                const __nv_bfloat16* b, int lane) {
+  constexpr int ST = BwdTiles<__nv_bfloat16, D>::kStride;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    unsigned ab[4], as[4];
+    acc_to_a(p[j], ab, as);
+    const __nv_bfloat16* r = b + (8 * j + 2 * t) * ST + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const unsigned bb[2] = {__float_as_uint(__bfloat162float(r[8 * n])),
+                              __float_as_uint(__bfloat162float(r[ST + 8 * n]))};
+      mma_tf32(acc[n], as, bb);
+      mma_tf32(acc[n], ab, bb);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int heads, int lq, int lk,
                     Strides q_st, Strides k_st, Strides v_st, Strides do_st, int causal,
                     float scale) {
-  using S = BwdSmem<D>;
-  constexpr int R = kRowsPerThread;
-  constexpr int C = kColsPerThread;
-  constexpr int DN = D / kThreadCols;
-  constexpr int ST = S::kStride;
-  constexpr int PS = S::kPStride;
-  extern __shared__ float smem[];
-  float* q_tile = smem;
-  float* do_tile = q_tile + kBlockQ * ST;
-  float* k_tile = do_tile + kBlockQ * ST;
-  float* v_tile = k_tile + kBlockK * ST;
-  float* ds_tile = v_tile + kBlockK * ST;
+  using Tiles = BwdTiles<T, D>;
+  constexpr int BN = Tiles::kStream;
+  constexpr int ST = Tiles::kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_tile = reinterpret_cast<T*>(smem);
+  T* do_tile = q_tile + Tiles::kOwned;
+  T* ring = do_tile + Tiles::kOwned;  // stage s: K at ring + 2 s kStreamed, V after it
 
-  const int n_qblocks = (lq + kBlockQ - 1) / kBlockQ;
+  const int n_qblocks = (lq + kOwnedRows - 1) / kOwnedRows;
   const int bh = blockIdx.x / n_qblocks;
   // heaviest query tile first when causal, as in the forward kernel
   const int qblock = n_qblocks - 1 - static_cast<int>(blockIdx.x % n_qblocks);
   const int b = bh / heads;
   const int h = bh % heads;
-  const int q0 = qblock * kBlockQ;
-  const int tc = threadIdx.x % kThreadCols;
-  const int r0 = (threadIdx.x / kThreadCols) * R;
+  const int q0 = qblock * kOwnedRows;
+  const int lane = threadIdx.x % 32;
+  const int wrow = (threadIdx.x / 32) * 16;  // the warp's first row in the tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
   const T* qp = q + b * q_st.b + h * q_st.h;
   const T* kp = k + b * k_st.b + h * k_st.h;
   const T* vp = v + b * v_st.b + h * v_st.h;
   const T* dop = dout + b * do_st.b + h * do_st.h;
-  load_tile<T, D>(q_tile, ST, qp, q_st.l, q0, lq);
-  load_tile<T, D>(do_tile, ST, dop, do_st.l, q0, lq);
 
-  float row_lse[R], row_delta[R], acc[R][DN];
+  int n_kblocks = (lk + BN - 1) / BN;
+  if (causal) n_kblocks = min(n_kblocks, (q0 + kOwnedRows - 1) / BN + 1);
+
+  load_tile_async<T, D, kOwnedRows>(q_tile, qp, q_st.l, q0, lq);
+  load_tile_async<T, D, kOwnedRows>(do_tile, dop, do_st.l, q0, lq);
+  load_tile_async<T, D, BN>(ring, kp, k_st.l, 0, lk);
+  load_tile_async<T, D, BN>(ring + Tiles::kStreamed, vp, v_st.l, 0, lk);
+  cp_async_commit();
+
+  // exp(S scale - LSE) is taken as exp2(S scale log2e - LSE log2e)
+  const float scale_log2 = scale * kLog2e;
+  float row_lse[2], row_delta[2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
     const long long at = static_cast<long long>(bh) * lq + row;
-    row_lse[i] = row < lq ? lse[at] : 0.f;
+    row_lse[i] = row < lq ? lse[at] * kLog2e : 0.f;
     row_delta[i] = row < lq ? delta[at] : 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DN; ++dd) acc[i][dd] = 0.f;
   }
-
-  int n_kblocks = (lk + kBlockK - 1) / kBlockK;
-  if (causal) n_kblocks = min(n_kblocks, (q0 + kBlockQ - 1) / kBlockK + 1);
+  float acc[D / 8][4];
+  zero(acc);
 
   for (int j = 0; j < n_kblocks; ++j) {
-    const int k0 = j * kBlockK;
-    __syncthreads();  // the previous tile's K, V and dS are no longer read
-    load_tile<T, D>(k_tile, ST, kp, k_st.l, k0, lk);
-    load_tile<T, D>(v_tile, ST, vp, v_st.l, k0, lk);
+    const int k0 = j * BN;
+    if (j + 1 < n_kblocks) {  // the next K and V tiles fly while this one is used
+      T* next = ring + ((j + 1) & 1) * 2 * Tiles::kStreamed;
+      load_tile_async<T, D, BN>(next, kp, k_st.l, k0 + BN, lk);
+      load_tile_async<T, D, BN>(next + Tiles::kStreamed, vp, v_st.l, k0 + BN, lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const T* k_tile = ring + (j & 1) * 2 * Tiles::kStreamed;
+    const T* v_tile = k_tile + Tiles::kStreamed;
 
-    // S = Q K^T and dP = dO V^T for this thread's 4 rows x 8 columns.
-    float s[R][C], dp[R][C];
+    float s[BN / 8][4], dp[BN / 8][4];
+    zero(s);
+    zero(dp);
+    rows_dot_rows<D, BN>(s, q_tile + wrow * ST, k_tile, lane);
+    rows_dot_rows<D, BN>(dp, do_tile + wrow * ST, v_tile, lane);
+
+    // dS = P (dP - Delta), in place of dP; only a tile that crosses the
+    // diagonal or the ragged edge is masked
+    auto ds_of = [&](auto masked) {
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+      for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], ov[R], kv[C], vv[C];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = q_tile[(r0 + i) * ST + d];
-        ov[i] = do_tile[(r0 + i) * ST + d];
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        kv[c] = k_tile[(tc + c * kThreadCols) * ST + d];
-        vv[c] = v_tile[(tc + c * kThreadCols) * ST + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-          dp[i][c] = fmaf(ov[i], vv[c], dp[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[n][e] * scale_log2 - row_lse[e >> 1]);
+          if constexpr (decltype(masked)::value) {
+            const int row = q0 + wrow + g + 8 * (e >> 1);
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            if (!(row < lq && col < lk && (!causal || row >= col))) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - row_delta[e >> 1]);
         }
-    }
-
-    // dS = P * (dP - Delta) into shared memory.
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + r0 + i;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int col = k0 + tc + c * kThreadCols;
-        const bool live = row < lq && col < lk && (!causal || row >= col);
-        const float p = live ? expf(s[i][c] * scale - row_lse[i]) : 0.f;
-        ds_tile[(r0 + i) * PS + tc + c * kThreadCols] = p * (dp[i][c] - row_delta[i]);
       }
+    };
+    if (q0 + kOwnedRows > lq || k0 + BN > lk || (causal && k0 + BN - 1 > q0)) {
+      ds_of(std::true_type());
+    } else {
+      ds_of(std::false_type());
     }
-    __syncthreads();
-
-    // acc += dS K for this thread's 4 rows x d/8 columns (columns tc + 8dd).
-#pragma unroll 8
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float dsv[R], kv[DN];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = ds_tile[(r0 + i) * PS + kk];
-#pragma unroll
-      for (int dd = 0; dd < DN; ++dd) kv[dd] = k_tile[kk * ST + tc + dd * kThreadCols];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int dd = 0; dd < DN; ++dd) acc[i][dd] = fmaf(dsv[i], kv[dd], acc[i][dd]);
-    }
+    tile_times_rows<D, BN>(acc, dp, k_tile, lane);
+    __syncthreads();  // the next iteration's copy refills this stage
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
     if (row >= lq) continue;
-    T* out = dq + (static_cast<long long>(b) * lq + row) * heads * D + static_cast<long long>(h) * D;
+    T* out = dq + (static_cast<long long>(b) * lq + row) * heads * D +
+             static_cast<long long>(h) * D + 2 * t;
 #pragma unroll
-    for (int dd = 0; dd < DN; ++dd) store(out + tc + dd * kThreadCols, scale * acc[i][dd]);
+    for (int n = 0; n < D / 8; ++n)
+      store2(out + 8 * n, scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int heads, int lq, int lk, Strides q_st, Strides k_st, Strides v_st,
                      Strides do_st, int causal, float scale) {
-  using S = BwdSmem<D>;
-  constexpr int R = kRowsPerThread;
-  constexpr int C = kColsPerThread;
-  constexpr int DN = D / kThreadCols;
-  constexpr int ST = S::kStride;
-  constexpr int PS = S::kPStride;
-  extern __shared__ float smem[];
-  float* k_tile = smem;
-  float* v_tile = k_tile + kBlockK * ST;
-  float* q_tile = v_tile + kBlockK * ST;
-  float* do_tile = q_tile + kBlockQ * ST;
-  float* p_tile = do_tile + kBlockQ * ST;   // P^T: [key row][query column]
-  float* ds_tile = p_tile + kBlockK * PS;   // dS^T
-  float* lse_tile = ds_tile + kBlockK * PS;
-  float* delta_tile = lse_tile + kBlockQ;
+  using Tiles = BwdTiles<T, D>;
+  constexpr int BN = Tiles::kStream;
+  constexpr int ST = Tiles::kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_tile = reinterpret_cast<T*>(smem);
+  T* v_tile = k_tile + Tiles::kOwned;
+  T* ring = v_tile + Tiles::kOwned;  // stage s: Q at ring + 2 s kStreamed, dO after it
+  // stage s: LSE at vecs + 2 s BN, Delta after it
+  float* vecs = reinterpret_cast<float*>(ring + 4 * Tiles::kStreamed);
 
-  const int n_kblocks = (lk + kBlockK - 1) / kBlockK;
+  const int n_kblocks = (lk + kOwnedRows - 1) / kOwnedRows;
   const int bh = blockIdx.x / n_kblocks;
   // K tile 0 sees the most Q tiles when causal: natural order issues it first
   const int kblock = static_cast<int>(blockIdx.x % n_kblocks);
   const int b = bh / heads;
   const int h = bh % heads;
-  const int k0 = kblock * kBlockK;
-  const int tc = threadIdx.x % kThreadCols;
-  const int r0 = (threadIdx.x / kThreadCols) * R;  // first key row of this thread
+  const int k0 = kblock * kOwnedRows;
+  const int lane = threadIdx.x % 32;
+  const int wrow = (threadIdx.x / 32) * 16;  // the warp's first key row in the tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
   const T* qp = q + b * q_st.b + h * q_st.h;
   const T* kp = k + b * k_st.b + h * k_st.h;
   const T* vp = v + b * v_st.b + h * v_st.h;
   const T* dop = dout + b * do_st.b + h * do_st.h;
-  load_tile<T, D>(k_tile, ST, kp, k_st.l, k0, lk);
-  load_tile<T, D>(v_tile, ST, vp, v_st.l, k0, lk);
+  const float* lse_bh = lse + static_cast<long long>(bh) * lq;
+  const float* delta_bh = delta + static_cast<long long>(bh) * lq;
 
-  float dk_acc[R][DN], dv_acc[R][DN];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int dd = 0; dd < DN; ++dd) dk_acc[i][dd] = dv_acc[i][dd] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  const int n_qblocks = (lq + BN - 1) / BN;
+  // causal: Q tile i sees this K tile only if its last row i*BN + BN - 1 >= k0
+  const int first_qblock = causal ? k0 / BN : 0;
 
-  const int n_qblocks = (lq + kBlockQ - 1) / kBlockQ;
-  // causal: Q tile i sees this K tile only if its last row i*64 + 63 >= k0
-  const int first_qblock = causal ? k0 / kBlockQ : 0;
+  auto load_stage = [&](int stage, int iq) {
+    T* dst = ring + stage * 2 * Tiles::kStreamed;
+    float* vec = vecs + stage * 2 * BN;
+    load_tile_async<T, D, BN>(dst, qp, q_st.l, iq * BN, lq);
+    load_tile_async<T, D, BN>(dst + Tiles::kStreamed, dop, do_st.l, iq * BN, lq);
+    load_vec_async<BN>(vec, lse_bh, iq * BN, lq);
+    load_vec_async<BN>(vec + BN, delta_bh, iq * BN, lq);
+  };
+
+  load_tile_async<T, D, kOwnedRows>(k_tile, kp, k_st.l, k0, lk);
+  load_tile_async<T, D, kOwnedRows>(v_tile, vp, v_st.l, k0, lk);
+  if (first_qblock < n_qblocks) load_stage(0, first_qblock);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
 
   for (int iq = first_qblock; iq < n_qblocks; ++iq) {
-    const int q0 = iq * kBlockQ;
-    __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are no longer read
-    load_tile<T, D>(q_tile, ST, qp, q_st.l, q0, lq);
-    load_tile<T, D>(do_tile, ST, dop, do_st.l, q0, lq);
-    if (threadIdx.x < kBlockQ) {
-      const int row = q0 + static_cast<int>(threadIdx.x);
-      const long long at = static_cast<long long>(bh) * lq + row;
-      lse_tile[threadIdx.x] = row < lq ? lse[at] : 0.f;
-      delta_tile[threadIdx.x] = row < lq ? delta[at] : 0.f;
+    const int stage = (iq - first_qblock) & 1;
+    const int q0 = iq * BN;
+    if (iq + 1 < n_qblocks) {  // the next Q, dO, LSE and Delta tiles fly meanwhile
+      load_stage(stage ^ 1, iq + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* q_tile = ring + stage * 2 * Tiles::kStreamed;
+    const T* do_tile = q_tile + Tiles::kStreamed;
+    const float* lse_tile = vecs + stage * 2 * BN;
+    const float* delta_tile = lse_tile + BN;
 
-    // S^T = K Q^T and dP^T = V dO^T for this thread's 4 key rows x 8 query
-    // columns (query rows tc + 8c of the tile).
-    float s[R][C], dp[R][C];
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 key rows x BN query columns
+    float s[BN / 8][4], dp[BN / 8][4];
+    zero(s);
+    zero(dp);
+    rows_dot_rows<D, BN>(s, k_tile + wrow * ST, q_tile, lane);
+    rows_dot_rows<D, BN>(dp, v_tile + wrow * ST, do_tile, lane);
+
+    // P^T in place of S^T, dS^T in place of dP^T; only a tile that crosses
+    // the diagonal or the ragged edge is masked
+    auto p_ds_of = [&](auto masked) {
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+      for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[R], vv[R], qv[C], ov[C];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kv[i] = k_tile[(r0 + i) * ST + d];
-        vv[i] = v_tile[(r0 + i) * ST + d];
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        qv[c] = q_tile[(tc + c * kThreadCols) * ST + d];
-        ov[c] = do_tile[(tc + c * kThreadCols) * ST + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
-          dp[i][c] = fmaf(vv[i], ov[c], dp[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * n + 2 * t + (e & 1);
+          float p = exp2f(s[n][e] * scale_log2 - lse_tile[qc] * kLog2e);
+          if constexpr (decltype(masked)::value) {
+            const int key = k0 + wrow + g + 8 * (e >> 1);
+            const int query = q0 + qc;
+            if (!(key < lk && query < lq && (!causal || query >= key))) p = 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - delta_tile[qc]);
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int col = k0 + r0 + i;  // key position
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int qc = tc + c * kThreadCols;
-        const int row = q0 + qc;  // query position
-        const bool live = row < lq && col < lk && (!causal || row >= col);
-        const float p = live ? expf(s[i][c] * scale - lse_tile[qc]) : 0.f;
-        p_tile[(r0 + i) * PS + qc] = p;
-        ds_tile[(r0 + i) * PS + qc] = p * (dp[i][c] - delta_tile[qc]);
       }
+    };
+    if (k0 + kOwnedRows > lk || q0 + BN > lq || (causal && q0 < k0 + kOwnedRows - 1)) {
+      p_ds_of(std::true_type());
+    } else {
+      p_ds_of(std::false_type());
     }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q for this thread's 4 key rows x d/8 columns.
-#pragma unroll 4
-    for (int qq = 0; qq < kBlockQ; ++qq) {
-      float pv[R], dsv[R], ov[DN], qv[DN];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pv[i] = p_tile[(r0 + i) * PS + qq];
-        dsv[i] = ds_tile[(r0 + i) * PS + qq];
-      }
-#pragma unroll
-      for (int dd = 0; dd < DN; ++dd) {
-        ov[dd] = do_tile[qq * ST + tc + dd * kThreadCols];
-        qv[dd] = q_tile[qq * ST + tc + dd * kThreadCols];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int dd = 0; dd < DN; ++dd) {
-          dv_acc[i][dd] = fmaf(pv[i], ov[dd], dv_acc[i][dd]);
-          dk_acc[i][dd] = fmaf(dsv[i], qv[dd], dk_acc[i][dd]);
-        }
-    }
+    tile_times_rows<D, BN>(dv_acc, s, do_tile, lane);
+    tile_times_rows<D, BN>(dk_acc, dp, q_tile, lane);
+    __syncthreads();  // the next iteration's copy refills this stage
   }
+  cp_async_wait<0>();  // no copy outlives the block (a causal block past every query)
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + wrow + g + 8 * i;
     if (row >= lk) continue;
-    const long long at = (static_cast<long long>(b) * lk + row) * heads * D + static_cast<long long>(h) * D;
+    const long long at = (static_cast<long long>(b) * lk + row) * heads * D +
+                         static_cast<long long>(h) * D + 2 * t;
 #pragma unroll
-    for (int dd = 0; dd < DN; ++dd) {
-      store(dk + at + tc + dd * kThreadCols, scale * dk_acc[i][dd]);
-      store(dv + at + tc + dd * kThreadCols, dv_acc[i][dd]);
+    for (int n = 0; n < D / 8; ++n) {
+      store2(dk + at + 8 * n, scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
+      store2(dv + at + 8 * n, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
@@ -348,12 +513,13 @@ int check_grid(long long blocks) {
 template <typename T, int D>
 int launch_dq(const Args& a, void* dq) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
-  constexpr int bytes = BwdSmem<D>::kDqBytes;
+  constexpr int bytes = BwdTiles<T, D>::kDqBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(a.batch) * a.heads * ((a.lq + kBlockQ - 1) / kBlockQ);
+  const long long blocks =
+      static_cast<long long>(a.batch) * a.heads * ((a.lq + kOwnedRows - 1) / kOwnedRows);
   if (int bad = check_grid(blocks)) return bad;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, a.stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.heads, a.lq, a.lk,
       a.q_st, a.k_st, a.v_st, a.do_st, a.causal, a.scale);
@@ -363,12 +529,13 @@ int launch_dq(const Args& a, void* dq) {
 template <typename T, int D>
 int launch_dkv(const Args& a, void* dk, void* dv) {
   auto kernel = flash_bwd_dkv_kernel<T, D>;
-  constexpr int bytes = BwdSmem<D>::kDkvBytes;
+  constexpr int bytes = BwdTiles<T, D>::kDkvBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(a.batch) * a.heads * ((a.lk + kBlockK - 1) / kBlockK);
+  const long long blocks =
+      static_cast<long long>(a.batch) * a.heads * ((a.lk + kOwnedRows - 1) / kOwnedRows);
   if (int bad = check_grid(blocks)) return bad;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, a.stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
       a.heads, a.lq, a.lk, a.q_st, a.k_st, a.v_st, a.do_st, a.causal, a.scale);
@@ -416,7 +583,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 
 // Plain C entries, bound with ctypes.  q, k, v and dO are [batch, seq,
 // heads, head_dim] tensors of one dtype with unit stride in the last
-// dimension, read through the given element strides; `lse` and `delta` are
+// dimension, read through the given element strides; each row (the data
+// pointer and every stride) is 16-byte aligned.  `lse` and `delta` are
 // contiguous [batch, heads, lq] f32 tensors; dq, dk and dv are contiguous
 // [batch, seq, heads, head_dim] tensors of the input dtype, written whole.
 // dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of its

@@ -10,9 +10,11 @@ sequence parallelism
 (``seq_axis``) and sequence packing (``packed=True``) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
-Deliberate difference from the JAX package: a token id outside
-``[0, vocab)`` or a sequence longer than ``max_len`` raises ``ValueError``;
-JAX's gather clamps or fills there instead.
+Out-of-range ids gather as the JAX package's flax ``nn.Embed`` does
+(``jnp.take`` in its ``"fill"`` mode), on the device and without a host
+sync: a token in ``[-vocab, 0)`` wraps to row ``vocab + token``, a token
+outside ``[-vocab, vocab)`` and a position at or past ``max_len`` read a
+row of NaN.
 """
 
 from __future__ import annotations
@@ -61,6 +63,16 @@ def _dropout(x: torch.Tensor, rate: float, training: bool, generator) -> torch.T
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
+
+
+def _take_fill(embed: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``embed(ids)`` with ``jnp.take(table, ids, axis=0)``'s ``"fill"``
+    semantics: ids in ``[-n, 0)`` wrap to ``n + id``, ids outside
+    ``[-n, n)`` give a NaN row.  Computed on the device, with no host sync."""
+    n = embed.num_embeddings
+    rows = embed(ids.remainder(n))
+    valid = (ids >= -n) & (ids < n)
+    return torch.where(valid[..., None], rows, float("nan"))
 
 
 def _normal_(weight: torch.Tensor, std: float, generator) -> None:
@@ -159,13 +171,8 @@ class _TokenEncoder(nn.Module):
         if tokens.dim() != 2:
             raise ValueError(f"tokens must be [batch, seq], got shape {tuple(tokens.shape)}")
         tokens = tokens.long()
-        seq = tokens.shape[1]
-        if seq > self.max_len:
-            raise ValueError(f"sequence length {seq} exceeds max_len {self.max_len}")
-        if ((tokens < 0) | (tokens >= self.vocab_size)).any():
-            raise ValueError(f"token ids must lie in [0, {self.vocab_size})")
-        pos = torch.arange(seq, device=tokens.device)
-        x = self.tok_embed(tokens) + self.pos_embed(pos)[None]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _take_fill(self.tok_embed, tokens) + _take_fill(self.pos_embed, pos)[None]
         for block in self.blocks:
             x = block(x, training, generator=generator)
         return self.final_ln(x)

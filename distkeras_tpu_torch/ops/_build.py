@@ -4,7 +4,8 @@ Each kernel source in ``distkeras_tpu_torch/csrc`` has a plain C interface.
 At first use it is compiled with ``nvcc`` into a shared library under
 ``distkeras_tpu_torch/_build/`` (a directory git ignores), named by a hash
 of the source, the headers beside it and the compiler flags, and loaded
-with ``ctypes``.  Nothing
+with ``ctypes``.  ptxas's report of each kernel's registers and spills is
+kept beside the library (``<library>.ptxas.txt``).  Nothing
 is built or loaded when a module is imported: the CPU-only test runs import
 every module and have no ``nvcc``.
 """
@@ -26,6 +27,7 @@ __all__ = [
     "flash_attention_bwd_library",
     "flash_attention_fwd_library",
     "nvcc_path",
+    "ptxas_log",
 ]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
@@ -34,7 +36,7 @@ BUILD_DIR = _PACKAGE / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -83,8 +85,14 @@ def build(name: str, source: Path) -> Path:
             f"nvcc failed with exit code {proc.returncode} building {source.name}:\n"
             f"{proc.stdout}{proc.stderr}"
         )
+    ptxas_log(out).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_log(library: Path) -> Path:
+    """Where :func:`build` keeps the compiler's ``-Xptxas=-v`` report."""
+    return library.with_suffix(".ptxas.txt")
 
 
 @functools.cache

@@ -88,21 +88,61 @@ def test_classifier_on_card_launches_once_per_layer_and_matches_cpu():
     torch.testing.assert_close(on_card.cpu(), on_cpu, atol=1e-4, rtol=1e-4)
 
 
+# (q shape [b, lq, h, d], lk or None for lq, dtype, causal, layout): "fused"
+# takes q, k, v as strided views of one QKV projection; "offset" starts every
+# input 4 bytes past a 16-byte boundary, which the wrapper must copy first
 BWD_CASES = [
-    ((2, 100, 2, 32), torch.float32, False, False),
-    ((2, 100, 2, 32), torch.float32, True, False),
-    ((1, 257, 4, 128), torch.float32, True, False),
-    ((2, 130, 3, 16), torch.float32, False, False),
-    ((2, 192, 2, 64), torch.bfloat16, True, False),
-    ((2, 200, 3, 64), torch.float32, True, True),
+    ((2, 100, 2, 32), None, torch.float32, False, "plain"),
+    ((2, 100, 2, 32), None, torch.float32, True, "plain"),
+    ((1, 257, 4, 128), None, torch.float32, True, "plain"),
+    ((2, 130, 3, 16), None, torch.float32, False, "plain"),
+    ((2, 192, 2, 64), None, torch.bfloat16, True, "plain"),
+    ((2, 200, 3, 64), None, torch.float32, True, "fused"),
+    ((2, 130, 3, 16), None, torch.bfloat16, True, "plain"),
+    ((2, 100, 2, 32), None, torch.bfloat16, False, "plain"),
+    ((1, 257, 4, 128), None, torch.bfloat16, True, "plain"),
+    ((2, 1, 2, 64), None, torch.float32, True, "plain"),
+    ((2, 63, 2, 64), 65, torch.float32, True, "plain"),
+    ((2, 65, 2, 64), 63, torch.bfloat16, True, "plain"),
+    ((1, 1000, 2, 64), 63, torch.float32, False, "plain"),
+    ((1, 63, 2, 128), 1000, torch.float32, True, "plain"),
+    ((1, 1, 2, 32), 1000, torch.bfloat16, False, "plain"),
+    ((1, 1000, 2, 16), 1, torch.float32, True, "plain"),
+    ((1, 1000, 3, 64), None, torch.float32, True, "plain"),
+    ((1, 200, 2, 128), None, torch.float32, True, "fused"),
+    ((1, 200, 2, 128), None, torch.bfloat16, False, "fused"),
+    ((2, 100, 2, 64), None, torch.float32, True, "offset"),
+    ((2, 100, 2, 32), None, torch.bfloat16, False, "offset"),
 ]
 
 
-@pytest.mark.parametrize("shape,dtype,causal,fused", BWD_CASES)
-def test_backward_kernels_match_plain_version_on_card(shape, dtype, causal, fused):
-    q, k, v = _qkv(shape, dtype, fused)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+def _bwd_inputs(shape, lk, dtype, layout):
+    """q, k, v and dO for a backward case, on the card."""
+    b, lq, h, d = shape
+    lk = lq if lk is None else lk
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(length, offset=0):
+        n = b * length * h * d
+        flat = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+        return flat[offset:].view(b, length, h, d)
+
+    if layout == "fused":
+        assert lk == lq
+        q, k, v = torch.randn((b, lq, 3, h, d), generator=gen,
+                              device="cuda").to(dtype).unbind(2)
+    else:
+        offset = 4 // torch.empty((), dtype=dtype).element_size() if layout == "offset" else 0
+        q, k, v = draw(lq, offset), draw(lk, offset), draw(lk, offset)
+    do = draw(lq, 2 * offset if layout == "offset" else 0)
+    if layout == "offset":
+        assert all(t.data_ptr() % 16 for t in (q, k, v, do))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("shape,lk,dtype,causal,layout", BWD_CASES)
+def test_backward_kernels_match_plain_version_on_card(shape, lk, dtype, causal, layout):
+    q, k, v, do = _bwd_inputs(shape, lk, dtype, layout)
     o, lse = flash_attention_plain(q, k, v, causal)
     delta = attention_delta(o, do)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -110,11 +150,21 @@ def test_backward_kernels_match_plain_version_on_card(shape, dtype, causal, fuse
     torch.cuda.synchronize()
     assert flash_attention_bwd_dq.launches == flash_attention_bwd_dkv.launches == 1
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    # f32: summation order only; bf16: gradients rounded to bf16 at the end
+    # f32: 3xTF32 and summation order; bf16: gradients rounded to bf16 at the end
     atol, rtol = (3e-2, 2e-2) if dtype == torch.bfloat16 else (2e-4, 1e-4)
-    for got, want in zip((dq, dk, dv), ref):
-        assert got.shape == want.shape and got.dtype == dtype
+    for got, want, like in zip((dq, dk, dv), ref, (q, k, v)):
+        assert got.shape == like.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_backward_kernels_are_deterministic_on_card():
+    q, k, v, do = _bwd_inputs((2, 300, 2, 64), None, torch.float32, "fused")
+    o, lse = flash_attention_plain(q, k, v, True)
+    delta = attention_delta(o, do)
+    runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)) for _ in range(2)]
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def test_autograd_launches_each_kernel_once_and_matches_plain():

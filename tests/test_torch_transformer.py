@@ -160,18 +160,36 @@ def test_unported_options_raise(what):
             TransformerLM(**CFG, packed=True)
 
 
-@pytest.mark.parametrize("bad", ["negative", "past_vocab", "past_max_len"])
-def test_out_of_range_inputs_raise(bad):
-    # deliberate difference: JAX's gather clamps or fills here instead
+@pytest.mark.parametrize("bad", ["negative", "below_minus_vocab", "past_vocab", "past_max_len"])
+def test_out_of_range_inputs_match_jax(bad, jax_reference):
+    # flax's nn.Embed gathers with jnp.take's "fill" mode: ids in [-vocab, 0)
+    # wrap, ids outside [-vocab, vocab) and positions past max_len give NaN rows
+    vocab = CFG["vocab_size"]
     tokens = _tokens()
     if bad == "negative":
-        tokens[0, 0] = -1
+        tokens[0, 0], tokens[2, 5] = -1, -vocab
+    elif bad == "below_minus_vocab":
+        tokens[1, 4] = -vocab - 1
     elif bad == "past_vocab":
-        tokens[1, 3] = CFG["vocab_size"]
+        tokens[1, 3] = vocab
     else:
-        tokens = np.zeros((1, CFG["max_len"] + 1), np.int32)
-    with pytest.raises(ValueError):
-        TransformerClassifier(**CFG)(torch.from_numpy(tokens))
+        tokens = np.random.default_rng(3).integers(0, vocab, (2, CFG["max_len"] + 1),
+                                                   dtype=np.int32)
+    for kind in ("lm", "classifier"):
+        jax_model, port_model = _pair(kind)
+        flax_params, _ = jax_reference(kind)
+        params_from_flax(port_model, flax_params)
+        ref = np.asarray(jax_model.apply({"params": flax_params}, tokens))
+        with torch.no_grad():
+            out = port_model(torch.from_numpy(tokens)).numpy()
+        assert out.shape == ref.shape
+        np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+        if bad == "negative":
+            assert np.isfinite(out).all()
+        else:
+            assert np.isnan(out).any()
+        finite = np.isfinite(ref)
+        np.testing.assert_allclose(out[finite], ref[finite], atol=1e-5, rtol=1e-5)
 
 
 def test_reset_parameters_follows_flax_initialisers():
