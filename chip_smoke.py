@@ -10,13 +10,16 @@ toolkit.  Phases, each printing JSON lines:
 2. build: compiles every kernel from ``distkeras_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once; then each kernel's registers and
    spills (ptxas) and its tensor-core instructions (HMMA in cuobjdump's
-   SASS; the backward kernels must have them);
+   SASS): every instantiation of the forward (B1), dQ (B2) and dK/dV (B3)
+   kernels must have them;
 3. kernels: each kernel against its plain PyTorch version on the card,
    with its time, the plain version's, one library call's and the bound:
-   the forward (B1) and the backward's dQ (B2) and dK/dV (B3) kernels,
+   the forward (B1, also at lq != lk and on misaligned inputs that the
+   wrapper copies) and the backward's dQ (B2) and dK/dV (B3) kernels,
    whose f32 rows give two bounds (the CUDA cores' f32 rate and the
-   tensor cores' 3xTF32 rate); the backward kernels run twice on the
-   training shape and must agree bit for bit;
+   tensor cores' 3xTF32 rate); the forward on the LM shape and the
+   backward kernels on the training shape run twice and must agree bit
+   for bit;
 4. ``ModelPredictor`` over a ``TransformerClassifier`` at GPT-2-small widths
    (768 wide, 12 heads, 12 layers, 1024 positions, 50257 tokens), weights
    drawn from ``--seed``: 64 rows of 1024 tokens in batches of 16;
@@ -76,18 +79,24 @@ PEAK_TC_F32 = 495e12 / 3
 
 GPT2_SMALL = dict(vocab_size=50257, dim=768, heads=12, num_layers=12, max_len=1024)
 
-# (name, [batch, seq, heads, dim], dtype, causal, fused): fused cases take
-# q, k, v as the strided views of one QKV projection, as _SelfAttention does.
+# (name, q's [batch, seq, heads, dim], k's and v's seq (None: q's), dtype,
+# causal, layout): "fused" takes q, k, v as the strided views of one QKV
+# projection, as _SelfAttention does; "offset" starts each input 4 bytes past
+# a 16-byte boundary, so the wrapper must copy it first.
 KERNEL_CASES = [
-    ("ragged", (2, 100, 2, 32), torch.float32, False, False),
-    ("ragged_causal", (2, 100, 2, 32), torch.float32, True, False),
-    ("classifier", (16, 1024, 12, 64), torch.float32, False, True),
-    ("classifier_causal", (16, 1024, 12, 64), torch.float32, True, True),
-    ("lm", (4, 1024, 12, 64), torch.float32, True, True),
-    ("lm_bf16", (4, 1024, 12, 64), torch.bfloat16, True, False),
-    ("dim128", (1, 257, 4, 128), torch.float32, False, False),
+    ("ragged", (2, 100, 2, 32), None, torch.float32, False, "plain"),
+    ("ragged_causal", (2, 100, 2, 32), None, torch.float32, True, "plain"),
+    ("classifier", (16, 1024, 12, 64), None, torch.float32, False, "fused"),
+    ("classifier_causal", (16, 1024, 12, 64), None, torch.float32, True, "fused"),
+    ("lm", (4, 1024, 12, 64), None, torch.float32, True, "fused"),
+    ("lm_bf16", (4, 1024, 12, 64), None, torch.bfloat16, True, "plain"),
+    ("dim128", (1, 257, 4, 128), None, torch.float32, False, "plain"),
+    ("dim128_bf16", (1, 257, 4, 128), None, torch.bfloat16, True, "plain"),
+    ("lq_gt_lk_causal", (2, 200, 2, 64), 77, torch.float32, True, "plain"),
+    ("offset", (2, 100, 2, 64), None, torch.float32, True, "offset"),
 ]
 MAIN_PATH_CASE = "classifier"  # the shape ModelPredictor hands the kernel
+DETERMINISM_CASE = "lm"  # the forward runs twice here and must agree bit for bit
 
 # Backward cases, as above.  "train" is the shape a DOWNPOUR worker with
 # batch 4 hands the backward kernels at GPT-2-small widths.
@@ -126,17 +135,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype, causal: bool, peak: float = None):
-    """Least time for the card to do one attention forward at ``shape``:
-    the larger of the FLOPs over ``peak`` (default: the dtype's peak rate;
-    4·d per attended (query, key) pair, only the attended pairs when
-    causal) and the bytes over the memory rate (Q, K, V read once, O and
-    the f32 LSE written once)."""
+def attention_bound_ms(shape, dtype, causal: bool, peak: float = None, lk: int = None):
+    """Least time for the card to do one attention forward with q of
+    ``shape`` and ``lk`` keys (default: q's length): the larger of the
+    FLOPs over ``peak`` (default: the dtype's peak rate; 4·d per attended
+    (query, key) pair, only the attended pairs when causal, the diagonal
+    aligned at the top-left corner) and the bytes over the memory rate (Q,
+    K, V read once, O and the f32 LSE written once)."""
     b, l, h, d = shape
-    pairs = l * (l + 1) // 2 if causal else l * l
+    lk = l if lk is None else lk
+    pairs = sum(min(r + 1, lk) for r in range(l)) if causal else l * lk
     flops = 4.0 * b * h * pairs * d
     itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = 4 * b * l * h * d * itemsize + b * h * l * 4
+    nbytes = 2 * b * (l + lk) * h * d * itemsize + b * h * l * 4
     ops_ms = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -212,12 +223,26 @@ def kernel_resources():
     return sorted(rows.values(), key=lambda r: (r["kernel"], r["dtype"], r["head_dim"]))
 
 
-def make_qkv(shape, dtype, fused: bool, gen: torch.Generator):
+def make_qkv(shape, dtype, layout: str, gen: torch.Generator, lk: int = None):
+    """q ``[b, l, h, d]``, k and v ``[b, lk, h, d]`` on the card, in one of the
+    layouts of ``KERNEL_CASES``."""
     b, l, h, d = shape
-    if fused:
+    lk = l if lk is None else lk
+    if layout == "fused":
+        assert lk == l
         qkv = torch.randn((b, l, 3, h, d), generator=gen, device="cuda").to(dtype)
         return qkv.unbind(2)
-    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    offset = 4 // torch.empty((), dtype=dtype).element_size() if layout == "offset" else 0
+
+    def draw(length):
+        n = b * length * h * d
+        flat = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+        return flat[offset:].view(b, length, h, d)
+
+    q, k, v = draw(l), draw(lk), draw(lk)
+    if layout == "offset" and not all(t.data_ptr() % 16 for t in (q, k, v)):
+        raise AssertionError("offset inputs must not be 16-byte aligned")
+    return q, k, v
 
 
 def kernel_phase(seed: int):
@@ -230,8 +255,8 @@ def kernel_phase(seed: int):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
-    for name, shape, dtype, causal, fused in KERNEL_CASES:
-        q, k, v = make_qkv(shape, dtype, fused, gen)
+    for name, shape, lk, dtype, causal, layout in KERNEL_CASES:
+        q, k, v = make_qkv(shape, dtype, layout, gen, lk)
         o, lse = flash_attention_fwd(q, k, v, causal)
         o_ref, lse_ref = flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
@@ -247,21 +272,29 @@ def kernel_phase(seed: int):
         big = shape[1] >= 1024
         kernel_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal), 10 if big else 50)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal), 5 if big else 50)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # SDPA faults (misaligned address) on the offset views: it gets aligned copies
+        aligned = (lambda x: x.clone()) if layout == "offset" else (lambda x: x)
+        qt, kt, vt = (aligned(x).transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
             10 if big else 50,
         )
-        bound_ms, bound_by = attention_bound_ms(shape, dtype, causal)
-        row = dict(case=name, shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+        bound_ms, bound_by = attention_bound_ms(shape, dtype, causal, lk=lk)
+        row = dict(case=name, shape=list(shape), lk=k.shape[1], layout=layout,
+                   dtype=str(dtype).replace("torch.", ""),
                    causal=causal, max_abs_err_o=err_o, max_abs_err_lse=err_lse,
                    tolerance=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if dtype == torch.float32:  # were it on the tensor cores in 3xTF32
-            row["bound_tc_ms"] = attention_bound_ms(shape, dtype, causal, PEAK_TC_F32)[0]
+        if dtype == torch.float32:  # on the tensor cores in 3xTF32
+            row["bound_tc_ms"] = attention_bound_ms(shape, dtype, causal, PEAK_TC_F32, lk)[0]
+        if name == DETERMINISM_CASE:  # no atomics: a second run agrees bit for bit
+            o2, lse2 = flash_attention_fwd(q, k, v, causal)
+            row["deterministic"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+            ok = ok and row["deterministic"]
         emit(phase="kernel", kernel="flash_attention_fwd", **row)
         if not ok:
-            raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {row}")
+            raise AssertionError(f"flash_attention_fwd disagrees with its plain version "
+                                 f"or with itself: {row}")
         results[name] = row
         del q, k, v, o, lse, o_ref, lse_ref
     return results
@@ -281,7 +314,7 @@ def bwd_kernel_phase(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     results = {}
     for name, shape, dtype, causal, fused in BWD_CASES:
-        q, k, v = make_qkv(shape, dtype, fused, gen)
+        q, k, v = make_qkv(shape, dtype, "fused" if fused else "plain", gen)
         do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         o, lse = flash_attention_fwd(q, k, v, causal)
         delta = attention_delta(o, do)
@@ -543,9 +576,13 @@ def main(argv=None) -> int:
     resources = kernel_resources()
     for row in resources:
         emit(phase="resources", **row)
-    no_tensor_cores = [r for r in resources if r["kernel"].startswith("flash_bwd") and not r["hmma"]]
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        found = [r for r in resources if r["kernel"] == kernel]
+        if len(found) != 2 * 4:  # float32 and bfloat16, head dims 16 to 128
+            raise AssertionError(f"{kernel}: {len(found)} instantiations in the SASS, expected 8")
+    no_tensor_cores = [r for r in resources if not r["hmma"]]
     if no_tensor_cores:
-        raise AssertionError(f"backward kernels without tensor-core instructions: {no_tensor_cores}")
+        raise AssertionError(f"kernels without tensor-core instructions: {no_tensor_cores}")
 
     cases = kernel_phase(args.seed)
     bwd_cases = bwd_kernel_phase(args.seed)
@@ -555,7 +592,9 @@ def main(argv=None) -> int:
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
+    lm_bf16 = cases["lm_bf16"]
     bwd = bwd_cases[BWD_MAIN_PATH_CASE]
+    bwd_bf16 = bwd_cases["train_bf16"]
     bwd_entry = dict(route="cuda", source="distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
                      plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"],
                      shape=bwd["shape"], causal=True, deterministic=bwd["deterministic"],
@@ -582,6 +621,11 @@ def main(argv=None) -> int:
         "training_library_ms": lm_case["library_ms"],
         "training_bound_ms": lm_case["bound_ms"],
         "training_bound_tc_ms": lm_case["bound_tc_ms"],
+        "deterministic": lm_case["deterministic"],
+        "training_bf16_ms": lm_bf16["kernel_ms"],
+        "training_bf16_library_ms": lm_bf16["library_ms"],
+        "training_bf16_bound_ms": lm_bf16["bound_ms"],
+        "training_bf16_bound_by": lm_bf16["bound_by"],
     }, {
         "name": "flash_attention_bwd_dq",
         "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:247",
@@ -591,6 +635,8 @@ def main(argv=None) -> int:
         "bound_ms": bwd["dq_bound_ms"],
         "bound_by": bwd["dq_bound_by"],
         "bound_tc_ms": bwd["dq_bound_tc_ms"],
+        "bf16_ms": bwd_bf16["dq_ms"],
+        "bf16_bound_ms": bwd_bf16["dq_bound_ms"],
         **bwd_entry,
     }, {
         "name": "flash_attention_bwd_dkv",
@@ -601,6 +647,8 @@ def main(argv=None) -> int:
         "bound_ms": bwd["dkv_bound_ms"],
         "bound_by": bwd["dkv_bound_by"],
         "bound_tc_ms": bwd["dkv_bound_tc_ms"],
+        "bf16_ms": bwd_bf16["dkv_ms"],
+        "bf16_bound_ms": bwd_bf16["dkv_bound_ms"],
         **bwd_entry,
     }]}), flush=True)
     print(smi, flush=True)

@@ -29,28 +29,18 @@
 // products themselves.
 //
 // What the design does about it.
-//   Tensor cores.  Every product runs on mma.sync with f32 accumulators.
-//     f32 inputs: 3xTF32, the arithmetic of PyTorch's f32 memory-efficient
-//     attention: each operand x = big + small with big = x truncated to
-//     TF32 and small = x - big, and a b = a_small b_big + a_big b_small +
-//     a_big b_big, which keeps about f32 accuracy (one TF32 pass does not:
-//     its 2^-10 relative error breaks the 1e-4 gates).  bf16 inputs: S and
-//     dP on m16n8k16 bf16 (products of bf16 values are exact in f32, as on
-//     the TPU); the second products take an f32 left operand (P or dS, never
-//     rounded to bf16: the TPU kernel multiplies them in f32) and a bf16
-//     right operand, which is exact in TF32, so two TF32 passes suffice.
+//   Tensor cores.  Every product runs on mma.sync with f32 accumulators,
+//     as flash_attention_common.cuh sets out: f32 inputs in 3xTF32; bf16
+//     inputs with S and dP as bf16 products and the second products (P or
+//     dS, kept in f32, times a bf16 tile) as two TF32 passes.
 //   Issue slots.  Three mma.sync a product and a split an operand leave the
 //     kernels bound by instructions issued, not by the tensor cores, so the
 //     split is the cheapest there is (a mask and a subtraction,
 //     tensor_core.cuh), the softmax uses exp2, and only the tiles that cross
 //     the diagonal or the ragged edge are masked.
-//   Registers, not shared memory, between the two products.  The
-//     accumulator layout of m16n8k8 holds columns 2t and 2t+1 of each
-//     8-column block where the A fragment wants columns t and t+4; the
-//     second product permutes its k index the same way (MMA column t <->
-//     column 2t, t+4 <-> 2t+1) and reads B's rows in that order, so P and
-//     dS go from the first product's accumulators straight into the second
-//     product's A fragments.
+//   Registers, not shared memory, between the two products: P and dS go
+//     from the first product's accumulators straight into the second
+//     product's A fragments (the permuted k index of the common header).
 //   Tiles.  One block of 4 warps owns 64 output rows (16 a warp) and loops
 //     over the other axis, as the TPU kernels' sequential grid axis does:
 //       dQ:    one block per (batch*head, 64-row Q tile); Q and dO stay in
@@ -75,58 +65,18 @@
 #include <type_traits>
 
 #include "flash_attention_common.cuh"
-#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kBwdThreads = 128;  // 4 warps
-// Blocks an SM the registers must allow.  Shared memory holds two f32
-// d = 64 blocks (104 KB each); left unsaid, ptxas caps the registers for
-// three and the dQ kernel runs slower.
-constexpr int kBwdMinBlocks = 2;
-constexpr int kOwnedRows = 64;    // output rows a block owns, 16 a warp
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <typename T, int D>
-struct BwdTiles {
-  // rows of a streamed tile (K/V in the dQ kernel, Q/dO in the dK/dV kernel)
-  static constexpr int kStream = D == 128 ? 32 : 64;
-  // shared row stride in elements: the row plus 16 bytes
-  static constexpr int kStride = D + 16 / static_cast<int>(sizeof(T));
-  static constexpr int kOwned = kOwnedRows * kStride;  // elements of an owned tile
-  static constexpr int kStreamed = kStream * kStride;  // elements of a streamed tile
+struct BwdTiles : Tiles<T, D> {
+  using Base = Tiles<T, D>;
   // two owned tiles, then two stages of two streamed tiles
-  static constexpr int kDqBytes = (2 * kOwned + 4 * kStreamed) * static_cast<int>(sizeof(T));
+  static constexpr int kDqBytes =
+      (2 * Base::kOwned + 4 * Base::kStreamed) * static_cast<int>(sizeof(T));
   // the dK/dV kernel also streams LSE and Delta: two stages of two rows
-  static constexpr int kDkvBytes = kDqBytes + 4 * kStream * static_cast<int>(sizeof(float));
+  static constexpr int kDkvBytes = kDqBytes + 4 * Base::kStream * static_cast<int>(sizeof(float));
 };
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Start copying rows [row0, row0 + ROWS) of one (batch, head) slice into a
-// shared tile; rows at or past `rows_valid` are zero-filled.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
-                                                int row0, int rows_valid) {
-  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte copies a row
-  constexpr int kElems = 16 / static_cast<int>(sizeof(T));
-  constexpr int ST = BwdTiles<T, D>::kStride;
-  static_assert((ROWS * kChunks) % kBwdThreads == 0, "every thread copies alike");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kBwdThreads; ++i) {
-    const int e = static_cast<int>(threadIdx.x) + i * kBwdThreads;
-    const int r = e / kChunks;
-    const int c = (e % kChunks) * kElems;
-    const int row = row0 + r;
-    const bool valid = row < rows_valid;
-    cp_async16(dst + r * ST + c, src + (valid ? row * row_stride + c : 0), valid ? 16 : 0);
-  }
-}
 
 // Start copying entries [row0, row0 + ROWS) of an f32 row vector; entries
 // at or past `rows_valid` are zero-filled.
@@ -140,136 +90,20 @@ __device__ __forceinline__ void load_vec_async(float* dst, const float* src, int
   }
 }
 
-// s += A B^T over the head dim: A is the warp's 16 rows of an owned tile
-// (`a` points at its first row), B the BN rows of a streamed tile; block n
-// of s holds columns 8n..8n+7, in the accumulator layout.  f32: 3xTF32.
-template <int D, int BN>
-__device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const float* a,
-                                              const float* b, int lane) {
-  constexpr int ST = BwdTiles<float, D>::kStride;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 8) {
-    unsigned ab[4], as[4];
-    split_tf32(a[g * ST + kk + t], ab[0], as[0]);
-    split_tf32(a[(g + 8) * ST + kk + t], ab[1], as[1]);
-    split_tf32(a[g * ST + kk + t + 4], ab[2], as[2]);
-    split_tf32(a[(g + 8) * ST + kk + t + 4], ab[3], as[3]);
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      unsigned bb[2], bs[2];
-      split_tf32(b[(8 * n + g) * ST + kk + t], bb[0], bs[0]);
-      split_tf32(b[(8 * n + g) * ST + kk + t + 4], bb[1], bs[1]);
-      mma_tf32(s[n], as, bb);
-      mma_tf32(s[n], ab, bs);
-      mma_tf32(s[n], ab, bb);
-    }
-  }
-}
-
-// As above for bf16 tiles: m16n8k16 bf16 products, fragments by ldmatrix.
-template <int D, int BN>
-__device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const __nv_bfloat16* a,
-                                              const __nv_bfloat16* b, int lane) {
-  constexpr int ST = BwdTiles<__nv_bfloat16, D>::kStride;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    unsigned af[4];
-    ldmatrix_x4(af, a + (lane & 15) * ST + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < BN / 8; n += 2) {
-      unsigned bf[4];  // column blocks n and n + 1, k halves low and high
-      ldmatrix_x4(bf, b + (8 * n + (lane & 7) + (lane >> 4) * 8) * ST + kk + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[n], af, bf[0], bf[1]);
-      mma_bf16(s[n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// The A fragments (big and small halves) of an 8-column block of a tile in
-// the accumulator layout, with the permuted k index: MMA column t is column
-// 2t and MMA column t + 4 is column 2t + 1.
-__device__ __forceinline__ void acc_to_a(const float (&c)[4], unsigned (&big)[4],
-                                         unsigned (&small)[4]) {
-  split_tf32(c[0], big[0], small[0]);  // (g, 2t)
-  split_tf32(c[2], big[1], small[1]);  // (g + 8, 2t)
-  split_tf32(c[1], big[2], small[2]);  // (g, 2t + 1)
-  split_tf32(c[3], big[3], small[3]);  // (g + 8, 2t + 1)
-}
-
-// acc += P B: P is the warp's 16 x BN tile in the accumulator layout (an
-// f32 left operand), B the BN x D streamed tile, whose rows are read in the
-// permuted k order of acc_to_a.  f32 B: 3xTF32.
-template <int D, int BN>
-__device__ __forceinline__ void tile_times_rows(float (&acc)[D / 8][4],
-                                                const float (&p)[BN / 8][4], const float* b,
-                                                int lane) {
-  constexpr int ST = BwdTiles<float, D>::kStride;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    unsigned ab[4], as[4];
-    acc_to_a(p[j], ab, as);
-    const float* r = b + (8 * j + 2 * t) * ST + g;  // rows 2t and 2t + 1 of block j
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      unsigned bb[2], bs[2];
-      split_tf32(r[8 * n], bb[0], bs[0]);
-      split_tf32(r[ST + 8 * n], bb[1], bs[1]);
-      mma_tf32(acc[n], as, bb);
-      mma_tf32(acc[n], ab, bs);
-      mma_tf32(acc[n], ab, bb);
-    }
-  }
-}
-
-// As above with a bf16 B, exact in TF32: two passes (P_small B + P_big B).
-template <int D, int BN>
-__device__ __forceinline__ void tile_times_rows(float (&acc)[D / 8][4],
-                                                const float (&p)[BN / 8][4],
-                                                const __nv_bfloat16* b, int lane) {
-  constexpr int ST = BwdTiles<__nv_bfloat16, D>::kStride;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    unsigned ab[4], as[4];
-    acc_to_a(p[j], ab, as);
-    const __nv_bfloat16* r = b + (8 * j + 2 * t) * ST + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const unsigned bb[2] = {__float_as_uint(__bfloat162float(r[8 * n])),
-                              __float_as_uint(__bfloat162float(r[ST + 8 * n]))};
-      mma_tf32(acc[n], as, bb);
-      mma_tf32(acc[n], ab, bb);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
-}
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int heads, int lq, int lk,
                     Strides q_st, Strides k_st, Strides v_st, Strides do_st, int causal,
                     float scale) {
-  using Tiles = BwdTiles<T, D>;
-  constexpr int BN = Tiles::kStream;
-  constexpr int ST = Tiles::kStride;
+  using Tile = Tiles<T, D>;
+  constexpr int BN = Tile::kStream;
+  constexpr int ST = Tile::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_tile = reinterpret_cast<T*>(smem);
-  T* do_tile = q_tile + Tiles::kOwned;
-  T* ring = do_tile + Tiles::kOwned;  // stage s: K at ring + 2 s kStreamed, V after it
+  T* do_tile = q_tile + Tile::kOwned;
+  T* ring = do_tile + Tile::kOwned;  // stage s: K at ring + 2 s kStreamed, V after it
 
   const int n_qblocks = (lq + kOwnedRows - 1) / kOwnedRows;
   const int bh = blockIdx.x / n_qblocks;
@@ -291,10 +125,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   int n_kblocks = (lk + BN - 1) / BN;
   if (causal) n_kblocks = min(n_kblocks, (q0 + kOwnedRows - 1) / BN + 1);
 
-  load_tile_async<T, D, kOwnedRows>(q_tile, qp, q_st.l, q0, lq);
-  load_tile_async<T, D, kOwnedRows>(do_tile, dop, do_st.l, q0, lq);
-  load_tile_async<T, D, BN>(ring, kp, k_st.l, 0, lk);
-  load_tile_async<T, D, BN>(ring + Tiles::kStreamed, vp, v_st.l, 0, lk);
+  load_tile_async<T, D, kOwnedRows, kThreads>(q_tile, qp, q_st.l, q0, lq);
+  load_tile_async<T, D, kOwnedRows, kThreads>(do_tile, dop, do_st.l, q0, lq);
+  load_tile_async<T, D, BN, kThreads>(ring, kp, k_st.l, 0, lk);
+  load_tile_async<T, D, BN, kThreads>(ring + Tile::kStreamed, vp, v_st.l, 0, lk);
   cp_async_commit();
 
   // exp(S scale - LSE) is taken as exp2(S scale log2e - LSE log2e)
@@ -313,17 +147,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int j = 0; j < n_kblocks; ++j) {
     const int k0 = j * BN;
     if (j + 1 < n_kblocks) {  // the next K and V tiles fly while this one is used
-      T* next = ring + ((j + 1) & 1) * 2 * Tiles::kStreamed;
-      load_tile_async<T, D, BN>(next, kp, k_st.l, k0 + BN, lk);
-      load_tile_async<T, D, BN>(next + Tiles::kStreamed, vp, v_st.l, k0 + BN, lk);
+      T* next = ring + ((j + 1) & 1) * 2 * Tile::kStreamed;
+      load_tile_async<T, D, BN, kThreads>(next, kp, k_st.l, k0 + BN, lk);
+      load_tile_async<T, D, BN, kThreads>(next + Tile::kStreamed, vp, v_st.l, k0 + BN, lk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* k_tile = ring + (j & 1) * 2 * Tiles::kStreamed;
-    const T* v_tile = k_tile + Tiles::kStreamed;
+    const T* k_tile = ring + (j & 1) * 2 * Tile::kStreamed;
+    const T* v_tile = k_tile + Tile::kStreamed;
 
     float s[BN / 8][4], dp[BN / 8][4];
     zero(s);
@@ -370,21 +204,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int heads, int lq, int lk, Strides q_st, Strides k_st, Strides v_st,
                      Strides do_st, int causal, float scale) {
-  using Tiles = BwdTiles<T, D>;
-  constexpr int BN = Tiles::kStream;
-  constexpr int ST = Tiles::kStride;
+  using Tile = Tiles<T, D>;
+  constexpr int BN = Tile::kStream;
+  constexpr int ST = Tile::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_tile = reinterpret_cast<T*>(smem);
-  T* v_tile = k_tile + Tiles::kOwned;
-  T* ring = v_tile + Tiles::kOwned;  // stage s: Q at ring + 2 s kStreamed, dO after it
+  T* v_tile = k_tile + Tile::kOwned;
+  T* ring = v_tile + Tile::kOwned;  // stage s: Q at ring + 2 s kStreamed, dO after it
   // stage s: LSE at vecs + 2 s BN, Delta after it
-  float* vecs = reinterpret_cast<float*>(ring + 4 * Tiles::kStreamed);
+  float* vecs = reinterpret_cast<float*>(ring + 4 * Tile::kStreamed);
 
   const int n_kblocks = (lk + kOwnedRows - 1) / kOwnedRows;
   const int bh = blockIdx.x / n_kblocks;
@@ -411,16 +245,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int first_qblock = causal ? k0 / BN : 0;
 
   auto load_stage = [&](int stage, int iq) {
-    T* dst = ring + stage * 2 * Tiles::kStreamed;
+    T* dst = ring + stage * 2 * Tile::kStreamed;
     float* vec = vecs + stage * 2 * BN;
-    load_tile_async<T, D, BN>(dst, qp, q_st.l, iq * BN, lq);
-    load_tile_async<T, D, BN>(dst + Tiles::kStreamed, dop, do_st.l, iq * BN, lq);
+    load_tile_async<T, D, BN, kThreads>(dst, qp, q_st.l, iq * BN, lq);
+    load_tile_async<T, D, BN, kThreads>(dst + Tile::kStreamed, dop, do_st.l, iq * BN, lq);
     load_vec_async<BN>(vec, lse_bh, iq * BN, lq);
     load_vec_async<BN>(vec + BN, delta_bh, iq * BN, lq);
   };
 
-  load_tile_async<T, D, kOwnedRows>(k_tile, kp, k_st.l, k0, lk);
-  load_tile_async<T, D, kOwnedRows>(v_tile, vp, v_st.l, k0, lk);
+  load_tile_async<T, D, kOwnedRows, kThreads>(k_tile, kp, k_st.l, k0, lk);
+  load_tile_async<T, D, kOwnedRows, kThreads>(v_tile, vp, v_st.l, k0, lk);
   if (first_qblock < n_qblocks) load_stage(0, first_qblock);
   cp_async_commit();
 
@@ -439,8 +273,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* q_tile = ring + stage * 2 * Tiles::kStreamed;
-    const T* do_tile = q_tile + Tiles::kStreamed;
+    const T* q_tile = ring + stage * 2 * Tile::kStreamed;
+    const T* do_tile = q_tile + Tile::kStreamed;
     const float* lse_tile = vecs + stage * 2 * BN;
     const float* delta_tile = lse_tile + BN;
 
@@ -505,11 +339,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-int check_grid(long long blocks) {
-  return (blocks <= 0 || blocks > 0x7fffffffLL) ? static_cast<int>(cudaErrorInvalidConfiguration)
-                                                : 0;
-}
-
 template <typename T, int D>
 int launch_dq(const Args& a, void* dq) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
@@ -519,7 +348,7 @@ int launch_dq(const Args& a, void* dq) {
   const long long blocks =
       static_cast<long long>(a.batch) * a.heads * ((a.lq + kOwnedRows - 1) / kOwnedRows);
   if (int bad = check_grid(blocks)) return bad;
-  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, bytes, a.stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.heads, a.lq, a.lk,
       a.q_st, a.k_st, a.v_st, a.do_st, a.causal, a.scale);
@@ -535,7 +364,7 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   const long long blocks =
       static_cast<long long>(a.batch) * a.heads * ((a.lk + kOwnedRows - 1) / kOwnedRows);
   if (int bad = check_grid(blocks)) return bad;
-  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, bytes, a.stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
       a.heads, a.lq, a.lk, a.q_st, a.k_st, a.v_st, a.do_st, a.causal, a.scale);

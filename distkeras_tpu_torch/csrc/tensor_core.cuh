@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks for sm_80 and later
 // (used on sm_90a): mma.sync products on TF32 and bf16 operands, the
-// 3xTF32 split of an f32 value, ldmatrix, and cp.async with zero-fill.
+// 3xTF32 split of an f32 value, ldmatrix, cp.async with zero-fill, strided
+// tile copies into padded shared rows, and paired stores.
 //
 // A TF32 operand is an f32 register of which the tensor cores read the
 // sign, the exponent and the top 10 mantissa bits: the low 13 bits are
@@ -84,6 +85,44 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Shared row stride, in elements, of a tile of D-element rows: the row plus
+// 16 bytes, which makes the f32 fragment loads and the bf16 ldmatrix loads
+// of a warp free of bank conflicts and keeps every row 16-byte aligned.
+template <typename T, int D>
+__host__ __device__ constexpr int padded_stride() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+// Start copying rows [row0, row0 + ROWS) of a [rows, D] slice (row stride
+// `row_stride` elements, every row 16-byte aligned) into a shared tile of
+// padded rows, 16 bytes a copy, spread over the THREADS threads of the
+// block; rows at or past `rows_valid` are zero-filled.
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
+                                                int row0, int rows_valid) {
+  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte copies a row
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));
+  constexpr int ST = padded_stride<T, D>();
+  static_assert((ROWS * kChunks) % THREADS == 0, "every thread copies alike");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * THREADS;
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * kElems;
+    const int row = row0 + r;
+    const bool valid = row < rows_valid;
+    cp_async16(dst + r * ST + c, src + (valid ? row * row_stride + c : 0), valid ? 16 : 0);
+  }
+}
+
+// Two adjacent outputs from f32 values, in one store.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 }  // namespace

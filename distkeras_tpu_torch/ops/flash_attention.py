@@ -9,10 +9,13 @@ kernels replace the three Pallas TPU kernels one for one:
   triangle masked with -1e30;
 * ``csrc/flash_attention_bwd.cu`` — ``_dq_kernel`` and ``_dkv_kernel``:
   the FlashAttention-2 backward, recomputing P = exp(S − LSE) blockwise in
-  a dQ pass and a dK/dV pass, on the tensor cores (3xTF32 for f32 inputs,
-  bf16 products then two TF32 passes for bf16).  Δ = rowsum(dO∘O) is
-  computed outside the kernels, as the JAX package does.  Their inputs'
-  rows must be 16-byte aligned; the wrappers copy a tensor whose are not.
+  a dQ pass and a dK/dV pass.  Δ = rowsum(dO∘O) is computed outside the
+  kernels, as the JAX package does.
+
+All three run their products on the tensor cores: 3xTF32 for f32 inputs
+(f32 accuracy), bf16 products then two TF32 passes for bf16 (P and dS stay
+f32, as on the TPU).  Their inputs' rows must be 16-byte aligned; the
+wrappers copy a tensor whose are not.
 
 What lives here:
 
@@ -155,6 +158,19 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _aligned(*tensors):
+    """Each tensor as is if its rows are 16-byte aligned (the kernels copy
+    rows 16 bytes at a time: the data pointer and the batch, seq and head
+    strides in bytes must be multiples of 16), else a contiguous copy, which
+    a fresh allocation aligns."""
+    def aligned(t):
+        size = t.element_size()
+        return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in _strides(t))
+
+    return tuple(t if aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
+
+
 def _raise_on_error(lib, err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(
@@ -166,6 +182,7 @@ def _raise_on_error(lib, err: int, kernel: str) -> None:
 def _launch(q, k, v, causal: bool):
     """Run the forward kernel: allocate ``o`` and ``lse`` and launch once."""
     _check_launch(q=q, k=k, v=v)
+    q, k, v = _aligned(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     lib = _build.flash_attention_fwd_library()
@@ -207,19 +224,6 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be a contiguous float32 [batch, heads, lq] tensor")
     if not (q.device == do.device == lse.device == delta.device):
         raise ValueError("q, k, v, do, lse and delta must be on one device")
-
-
-def _aligned(*tensors):
-    """Each tensor as is if its rows are 16-byte aligned (the backward
-    kernels copy rows 16 bytes at a time: the data pointer and the batch,
-    seq and head strides in bytes must be multiples of 16), else a
-    contiguous copy, which a fresh allocation aligns."""
-    def aligned(t):
-        size = t.element_size()
-        return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in _strides(t))
-
-    return tuple(t if aligned(t) else t.clone(memory_format=torch.contiguous_format)
-                 for t in tensors)
 
 
 def _bwd_launch(lib, fn, q, k, v, do, lse, delta, causal, *outs):

@@ -108,7 +108,7 @@ def test_dispatcher_segment_ids_take_local_attention():
     assert torch.equal(out, local_attention(q, k, v, causal=True, segment_ids=seg))
 
 
-def test_requires_grad_inputs_raise():
+def test_requires_grad_inputs_are_differentiated():
     # Inputs that require grad are differentiated now (they were refused
     # before the backward kernels existed): the gradient through the
     # wrapper equals the gradient through the reference path, within f32

@@ -38,40 +38,82 @@ def _card():
     yield
 
 
-def _qkv(shape, dtype, fused=False):
+def _inputs(shape, lk, dtype, layout):
+    """q, k, v and dO for a case of ``FWD_CASES`` or ``BWD_CASES``, on the card."""
+    b, lq, h, d = shape
+    lk = lq if lk is None else lk
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, l, h, d = shape
-    if fused:  # strided views of one QKV projection, as _SelfAttention makes them
-        return torch.randn((b, l, 3, h, d), generator=gen, device="cuda").to(dtype).unbind(2)
-    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+
+    def draw(length, offset=0):
+        n = b * length * h * d
+        flat = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+        return flat[offset:].view(b, length, h, d)
+
+    if layout == "fused":
+        assert lk == lq
+        q, k, v = torch.randn((b, lq, 3, h, d), generator=gen,
+                              device="cuda").to(dtype).unbind(2)
+    else:
+        offset = 4 // torch.empty((), dtype=dtype).element_size() if layout == "offset" else 0
+        q, k, v = draw(lq, offset), draw(lk, offset), draw(lk, offset)
+    do = draw(lq, 2 * offset if layout == "offset" else 0)
+    if layout == "offset":
+        assert all(t.data_ptr() % 16 for t in (q, k, v, do))
+    return q, k, v, do
 
 
-@pytest.mark.parametrize(
-    "shape,dtype,causal,fused",
-    [
-        ((2, 100, 2, 32), torch.float32, False, False),
-        ((2, 100, 2, 32), torch.float32, True, False),
-        ((1, 257, 4, 128), torch.float32, False, False),
-        ((2, 130, 3, 16), torch.float32, True, False),
-        ((2, 192, 2, 64), torch.bfloat16, True, False),
-        ((2, 200, 3, 64), torch.float32, True, True),
-    ],
-)
-def test_kernel_matches_plain_version_on_card(shape, dtype, causal, fused):
-    q, k, v = _qkv(shape, dtype, fused)
+# (q shape [b, lq, h, d], lk or None for lq, dtype, causal, layout): "fused"
+# takes q, k, v as strided views of one QKV projection; "offset" starts every
+# input 4 bytes past a 16-byte boundary, which the wrapper must copy first
+FWD_CASES = [
+    ((2, 100, 2, 32), None, torch.float32, False, "plain"),
+    ((2, 100, 2, 32), None, torch.float32, True, "plain"),
+    ((1, 257, 4, 128), None, torch.float32, False, "plain"),
+    ((2, 130, 3, 16), None, torch.float32, True, "plain"),
+    ((2, 192, 2, 64), None, torch.bfloat16, True, "plain"),
+    ((2, 200, 3, 64), None, torch.float32, True, "fused"),
+    ((2, 130, 3, 16), None, torch.bfloat16, True, "plain"),
+    ((2, 100, 2, 32), None, torch.bfloat16, False, "plain"),
+    ((1, 257, 4, 128), None, torch.bfloat16, True, "plain"),
+    ((1, 200, 2, 128), None, torch.bfloat16, False, "fused"),
+    ((2, 63, 2, 64), 130, torch.float32, True, "plain"),
+    ((2, 63, 2, 64), 130, torch.float32, False, "plain"),
+    ((2, 130, 2, 64), 63, torch.float32, True, "plain"),
+    ((2, 130, 2, 64), 63, torch.bfloat16, False, "plain"),
+    ((1, 63, 2, 128), 1000, torch.float32, True, "plain"),
+    ((1, 1000, 2, 32), 63, torch.bfloat16, True, "plain"),
+    ((2, 1, 2, 64), None, torch.float32, True, "plain"),
+    ((1, 1, 2, 32), 1000, torch.bfloat16, False, "plain"),
+    ((1, 1000, 2, 16), 1, torch.float32, True, "plain"),
+    ((2, 100, 2, 64), None, torch.float32, True, "offset"),
+    ((2, 100, 2, 32), None, torch.bfloat16, False, "offset"),
+]
+
+
+@pytest.mark.parametrize("shape,lk,dtype,causal,layout", FWD_CASES)
+def test_kernel_matches_plain_version_on_card(shape, lk, dtype, causal, layout):
+    q, k, v, _ = _inputs(shape, lk, dtype, layout)
     o, lse = flash_attention_fwd(q, k, v, causal)
     ref_o, ref_lse = flash_attention_plain(q, k, v, causal)
     assert flash_attention.launches == 1
     assert o.shape == q.shape and o.dtype == dtype and lse.shape == (shape[0], shape[2], shape[1])
-    # f32: summation order only; bf16: O rounded to bf16 at the end
+    # f32: 3xTF32 and summation order; bf16: O rounded to bf16 at the end
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(o.float(), ref_o.float(), atol=atol, rtol=1e-4)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3 if dtype == torch.bfloat16 else 1e-4,
                                rtol=1e-4)
 
 
+def test_forward_kernel_is_deterministic_on_card():
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = _inputs((2, 300, 2, 64), None, dtype, "fused")
+        runs = [flash_attention_fwd(q, k, v, True) for _ in range(2)]
+        for first, second in zip(*runs):
+            assert torch.equal(first, second)
+
+
 def test_dispatcher_default_launches_the_kernel_for_cuda_tensors():
-    q, k, v = _qkv((2, 64, 2, 32), torch.float32)
+    q, k, v = _inputs((2, 64, 2, 32), None, torch.float32, "plain")[:3]
     out = attention(q, k, v, causal=True)
     assert flash_attention.launches == 1
     torch.testing.assert_close(out, flash_attention_plain(q, k, v, True)[0], atol=1e-4, rtol=1e-4)
@@ -88,9 +130,7 @@ def test_classifier_on_card_launches_once_per_layer_and_matches_cpu():
     torch.testing.assert_close(on_card.cpu(), on_cpu, atol=1e-4, rtol=1e-4)
 
 
-# (q shape [b, lq, h, d], lk or None for lq, dtype, causal, layout): "fused"
-# takes q, k, v as strided views of one QKV projection; "offset" starts every
-# input 4 bytes past a 16-byte boundary, which the wrapper must copy first
+# backward cases, as FWD_CASES
 BWD_CASES = [
     ((2, 100, 2, 32), None, torch.float32, False, "plain"),
     ((2, 100, 2, 32), None, torch.float32, True, "plain"),
@@ -116,33 +156,9 @@ BWD_CASES = [
 ]
 
 
-def _bwd_inputs(shape, lk, dtype, layout):
-    """q, k, v and dO for a backward case, on the card."""
-    b, lq, h, d = shape
-    lk = lq if lk is None else lk
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def draw(length, offset=0):
-        n = b * length * h * d
-        flat = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
-        return flat[offset:].view(b, length, h, d)
-
-    if layout == "fused":
-        assert lk == lq
-        q, k, v = torch.randn((b, lq, 3, h, d), generator=gen,
-                              device="cuda").to(dtype).unbind(2)
-    else:
-        offset = 4 // torch.empty((), dtype=dtype).element_size() if layout == "offset" else 0
-        q, k, v = draw(lq, offset), draw(lk, offset), draw(lk, offset)
-    do = draw(lq, 2 * offset if layout == "offset" else 0)
-    if layout == "offset":
-        assert all(t.data_ptr() % 16 for t in (q, k, v, do))
-    return q, k, v, do
-
-
 @pytest.mark.parametrize("shape,lk,dtype,causal,layout", BWD_CASES)
 def test_backward_kernels_match_plain_version_on_card(shape, lk, dtype, causal, layout):
-    q, k, v, do = _bwd_inputs(shape, lk, dtype, layout)
+    q, k, v, do = _inputs(shape, lk, dtype, layout)
     o, lse = flash_attention_plain(q, k, v, causal)
     delta = attention_delta(o, do)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -158,7 +174,7 @@ def test_backward_kernels_match_plain_version_on_card(shape, lk, dtype, causal, 
 
 
 def test_backward_kernels_are_deterministic_on_card():
-    q, k, v, do = _bwd_inputs((2, 300, 2, 64), None, torch.float32, "fused")
+    q, k, v, do = _inputs((2, 300, 2, 64), None, torch.float32, "fused")
     o, lse = flash_attention_plain(q, k, v, True)
     delta = attention_delta(o, do)
     runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
@@ -168,7 +184,7 @@ def test_backward_kernels_are_deterministic_on_card():
 
 
 def test_autograd_launches_each_kernel_once_and_matches_plain():
-    q, k, v = (t.detach().requires_grad_(True) for t in _qkv((2, 96, 2, 32), torch.float32))
+    q, k, v = (t.detach().requires_grad_(True) for t in _inputs((2, 96, 2, 32), None, torch.float32, "plain")[:3])
     out = flash_attention(q, k, v, True)
     out.sum().backward()  # an all-zero-stride output gradient
     assert (flash_attention.launches, flash_attention_bwd_dq.launches,
