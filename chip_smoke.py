@@ -28,14 +28,33 @@ toolkit.  Phases, each printing JSON lines:
 6. training: ``DOWNPOUR`` over the same ``TransformerLM`` (depth not cut),
    2 workers, batch 4, window 2, Adam, 2 epochs over 32 rows of 1024 tokens
    of the ``(token + 1) mod vocab`` task, then one training step at
-   ``[1, 1024]`` held against the same step on the CPU.
+   ``[1, 1024]`` held against the same step on the CPU;
+7. the paper's training suite (``bench.py``'s six configurations, one JSON
+   line each): ``SingleTrainer`` over ``MLP``, ``DOWNPOUR`` over
+   ``MNISTCNN`` and ``CIFARCNN``, ``AEASGD`` and ``EAMSGD`` over
+   ``CIFARCNN``, ``ADAG`` over ``ResNet20``, ``DynSGD`` over ``TextCNN``, at
+   the published widths and per-worker batches, bf16 compute, 2 workers,
+   window 16, 2 epochs of 2 windows, on bench.py's random data drawn from
+   ``--seed``.  Each line has samples/s, seconds per local step, the
+   seconds of the model's own forward + backward at the same batch (CUDA
+   events; the rest of a step is the engine's), the loss history, the
+   commit count and peak memory; each configuration then holds one f32
+   step on 32 rows against the CPU.  ``cifar_cnn_downpour`` trains twice
+   (is it bitwise repeatable?), must lower its loss from epoch 1 to 2 and
+   serves ``ModelPredictor`` against the CPU; ``ResNet20``'s running
+   statistics must move and be equal across workers after a commit;
+8. staleness: ``DynSGD`` over ``TextCNN`` with ``commit_schedule=[16, 32]``,
+   64 steps an epoch: the commit count and the workers' clocks must equal
+   a host-side count of the race, with at least one stale commit.
 
 Phases 4 to 6 set the kernels' launch counts to 0 just before and read them
 just after, check that every kernel of the path ran as often as the model
-needs, and hold the output against the same model on the CPU.  The last
-lines are a ``{"kernels": [...]}`` summary, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
-exits non-zero without the ``ok`` line; so does a machine without CUDA.
+needs, and hold the output against the same model on the CPU.  Phases 7
+and 8 run no kernel of the port's own: convolutions, dense products and
+embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
+[...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
+{...}}``.  Any failed check raises, so the script exits non-zero without
+the ``ok`` line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -546,6 +565,361 @@ def train_phase(seed: int):
     return launches
 
 
+# The paper's training suite (bench.py's table of configurations), at the
+# published widths and per-worker batches, bf16 compute: (phase, trainer,
+# model, model kwargs, per-worker batch, input shape, int ids?, classes,
+# worker optimizer (None: the trainer's default), trainer kwargs)
+ZOO_CONFIGS = [
+    ("mnist_mlp_single", "SingleTrainer", "MLP", {}, 512, (784,), False, 10,
+     ("sgd", {"learning_rate": 0.1}), {}),
+    ("mnist_cnn_downpour", "DOWNPOUR", "MNISTCNN", {}, 256, (28, 28, 1), False, 10,
+     ("sgd", {"learning_rate": 0.05}), {}),
+    ("cifar_cnn_downpour", "DOWNPOUR", "CIFARCNN", {}, 256, (32, 32, 3), False, 10,
+     ("sgd", {"learning_rate": 0.05, "momentum": 0.9}), {}),
+    ("cifar_cnn_aeasgd", "AEASGD", "CIFARCNN", {}, 256, (32, 32, 3), False, 10,
+     ("sgd", {"learning_rate": 0.05}), {"rho": 5.0, "learning_rate": 0.05}),
+    ("cifar_cnn_aeasgd", "EAMSGD", "CIFARCNN", {}, 256, (32, 32, 3), False, 10,
+     None, {"rho": 5.0, "learning_rate": 0.05}),
+    ("cifar_resnet20_adag", "ADAG", "ResNet20", {}, 128, (32, 32, 3), False, 10,
+     ("sgd", {"learning_rate": 0.1, "momentum": 0.9}), {}),
+    ("imdb_textcnn_dynsgd", "DynSGD", "TextCNN", {"vocab_size": 20000, "num_classes": 2}, 128,
+     (256,), True, 2, ("adam", {"learning_rate": 1e-3}), {}),
+]
+# every configuration: 2 workers (SingleTrainer: 1), window 16, 2 windows an
+# epoch, 2 epochs
+ZOO_WORKERS, ZOO_WINDOW, ZOO_WINDOWS, ZOO_EPOCHS = 2, 16, 2, 2
+ZOO_DEVICE = "cuda"  # the zoo phases' device (a CPU rehearsal at small sizes sets "cpu")
+ZOO_STEP_ROWS = 32  # rows of the f32 step held against the CPU
+ZOO_PREDICT_ROWS = 256
+REPEAT_CONFIG = "cifar_cnn_downpour"  # trained twice: is the run bitwise repeatable?
+# configurations whose model forward + backward is traced by torch.profiler
+PROFILE_CONFIGS = ("cifar_cnn_downpour", "cifar_resnet20_adag")
+# kernel-name fragments of cuDNN convolutions and cuBLAS/CUTLASS products
+CONV_GEMM_KERNELS = ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "cudnn",
+                     "sm90_", "nchw", "nhwc")
+# the staleness run: DynSGD over TextCNN, per-worker commit periods, 64 steps an epoch
+STALENESS_SCHEDULE, STALENESS_STEPS, STALENESS_EPOCHS, STALENESS_BATCH = (16, 32), 64, 2, 128
+
+
+def zoo_data(shape, int_data: bool, classes: int, rows: int, seed: int):
+    """bench.py's data: normal features (int ids in [0, 1000) for the text
+    model) and random one-hot labels, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    if int_data:
+        x = rng.integers(0, 1000, size=(rows,) + shape).astype(np.int32)
+    else:
+        x = rng.standard_normal(size=(rows,) + shape, dtype=np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, rows)]
+    return x, y
+
+
+def _keeping_fit(cls):
+    """``cls`` whose instances keep the ``(engine, state, adapter)`` of
+    their last fit, for checks on the state the trainer does not return."""
+
+    class Kept(cls):
+        def _fit(self, *args, **kwargs):
+            self.fit_result = super()._fit(*args, **kwargs)
+            return self.fit_result
+
+    Kept.__name__ = cls.__name__
+    return Kept
+
+
+def simulate_clocks(schedule, n_steps: int, n_epochs: int):
+    """Host-side count of the race the staleness simulation models: each
+    step, every worker whose period divides ``t + 1`` commits; committers
+    of one step all see the update count from before the step, then their
+    clocks jump to the count after it.  Returns (clocks, num_updates,
+    staleness of every commit)."""
+    clocks, num_updates, staleness = [0] * len(schedule), 0, []
+    for _ in range(n_epochs):
+        for t in range(n_steps):
+            committers = [i for i, p in enumerate(schedule) if (t + 1) % p == 0]
+            staleness += [num_updates - clocks[i] for i in committers]
+            num_updates += len(committers)
+            for i in committers:
+                clocks[i] = num_updates
+    return clocks, num_updates, staleness
+
+
+def fwd_bwd(adapter, params, state, x, y, loss_fn, dtype):
+    """One forward + backward of the model alone, params cast to ``dtype``
+    inside the loss as the engine does: a step less the optimizer update and
+    the engine's bookkeeping."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    x_c = x.to(dtype) if x.is_floating_point() else x
+
+    def run():
+        p = {k: v.to(dtype) for k, v in leaves.items()}
+        out, _ = adapter.apply(p, {k: v.clone() for k, v in state.items()}, x_c, training=True)
+        torch.autograd.grad(loss_fn(out.float(), y), list(leaves.values()))
+
+    return run
+
+
+def fwd_bwd_profile(run, iters: int = 5):
+    """Where the model's forward + backward ``run`` spends the card's time:
+    ``torch.profiler`` over ``iters`` calls, kernel time split into
+    convolutions and dense products (cuDNN, cuBLAS, CUTLASS) and the rest
+    (pooling, BatchNorm, ReLU, casts, the loss), per call, and the card's
+    busy share of the wall time.  A profiler that records no device time
+    gives ``None`` for the device numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, launches = {}, 0
+    for event in prof.key_averages():
+        if getattr(event, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = event.self_cuda_time_total
+        if us > 0:
+            kernels[event.key] = kernels.get(event.key, 0.0) + us
+            launches += event.count
+    total_us = sum(kernels.values())
+    if not total_us:
+        return dict(profile_iters=iters, device_ms_per_call=None, conv_gemm_share=None,
+                    device_busy_share=None, top_kernels=[])
+    conv_us = sum(us for name, us in kernels.items()
+                  if any(f in name.lower() for f in CONV_GEMM_KERNELS))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return dict(profile_iters=iters, device_ms_per_call=total_us / iters / 1e3,
+                conv_gemm_ms_per_call=conv_us / iters / 1e3,
+                other_ms_per_call=(total_us - conv_us) / iters / 1e3,
+                conv_gemm_share=conv_us / total_us,
+                device_busy_share=total_us / 1e6 / wall, wall_ms_per_call=wall / iters * 1e3,
+                kernels_per_call=launches / iters,
+                top_kernels=[[name[:80], us / iters / 1e3] for name, us in top])
+
+
+def training_step(adapter, params, state, x, y, loss_fn, device, dtype):
+    """One training-mode forward + backward from ``params`` in ``dtype`` on
+    ``device``: the loss and each parameter's gradient (in f64, on the CPU)."""
+    leaves = {k: v.detach().to(device, dtype).requires_grad_(True) for k, v in params.items()}
+    st = {k: v.detach().to(device, dtype).clone() for k, v in state.items()}
+    x_d = torch.from_numpy(x).to(device)
+    out, _ = adapter.apply(leaves, st, x_d.to(dtype) if x_d.is_floating_point() else x_d,
+                           training=True)
+    loss = loss_fn(out.to(dtype), torch.from_numpy(y).to(device, dtype))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), {k: g.cpu().double() for k, g in zip(leaves, grads)}
+
+
+def step_errors(step, reference):
+    """(loss relative error, worst gradient relative norm error, its
+    parameter) of ``step`` against ``reference``."""
+    (loss, grads), (ref_loss, ref_grads) = step, reference
+    errs = {k: ((grads[k] - g).norm() / g.norm().clamp(min=1e-30)).item()
+            for k, g in ref_grads.items()}
+    worst = max(errs, key=errs.get)
+    return abs(loss - ref_loss) / abs(ref_loss), errs[worst], worst
+
+
+def train_zoo_config(config, seed: int):
+    """Train one configuration of ``ZOO_CONFIGS`` on the card through its
+    trainer class.  Returns (trainer, trained model, row of numbers)."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.data import epoch_arrays
+    from distkeras_tpu_torch.models import TorchModel, zoo
+    from distkeras_tpu_torch.ops import get_loss
+
+    name, trainer_name, model_name, model_kw, batch, shape, int_data, classes, opt, extra = config
+    single = trainer_name == "SingleTrainer"
+    workers = 1 if single else ZOO_WORKERS
+    rows = workers * ZOO_WINDOWS * ZOO_WINDOW * batch
+    x, y = zoo_data(shape, int_data, classes, rows, seed)
+    model = getattr(zoo, model_name)(**model_kw, generator=torch.Generator().manual_seed(seed))
+    adapter, loss_fn = TorchModel(model), get_loss("categorical_crossentropy")
+
+    # the model alone at the same batch (this also warms cuDNN and the allocator)
+    params = {k: p.detach().to(ZOO_DEVICE) for k, p in model.named_parameters()}
+    buffers = {k: b.detach().to(ZOO_DEVICE) for k, b in model.named_buffers()}
+    xb = torch.from_numpy(x[:batch]).to(ZOO_DEVICE)
+    yb = torch.from_numpy(y[:batch]).to(ZOO_DEVICE)
+    run = fwd_bwd(adapter, params, buffers, xb, yb, loss_fn, torch.bfloat16)
+    model_ms = cuda_ms(run, 20, warmup=3)
+    profile_row = fwd_bwd_profile(run) if name in PROFILE_CONFIGS else None
+    del run, params, buffers, xb, yb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kwargs = dict(loss="categorical_crossentropy", metrics=(), batch_size=batch,
+                  num_epoch=ZOO_EPOCHS, seed=seed, compute_dtype="bfloat16", device=ZOO_DEVICE)
+    if opt is not None:
+        kwargs["worker_optimizer"] = opt
+    if not single:
+        kwargs.update(num_workers=workers, communication_window=ZOO_WINDOW)
+    trainer = _keeping_fit(getattr(tdk, trainer_name))(model, **kwargs, **extra)
+    trained = trainer.train(tdk.from_numpy(x, y))
+    torch.cuda.synchronize()
+    history = trainer.get_history()
+    seconds = history["training_time"]
+    local_steps = ZOO_EPOCHS * workers * ZOO_WINDOWS * ZOO_WINDOW
+    expected_updates = None if single else ZOO_EPOCHS * ZOO_WINDOWS * workers
+    row = dict(config=name, trainer=trainer_name, model=model_name, **model_kw,
+               workers=workers, batch_size=batch, window=None if single else ZOO_WINDOW,
+               epochs=ZOO_EPOCHS, rows=rows, compute_dtype="bfloat16", local_steps=local_steps,
+               seconds=seconds, samples_per_s=ZOO_EPOCHS * rows / seconds,
+               seconds_per_step=seconds / local_steps, model_fwd_bwd_seconds=model_ms / 1e3,
+               engine_overhead_seconds=seconds / local_steps - model_ms / 1e3,
+               loss=history["loss"],
+               num_updates=None if single else trainer.num_updates,
+               expected_num_updates=expected_updates,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               params=sum(p.numel() for p in trained.params.values()))
+    if profile_row is not None:
+        row["model_profile"] = profile_row
+    # the host's share: one epoch's shuffle-free gather and copy to the card
+    # (data.epoch_arrays + engine.shard_batches), as the trainer runs it
+    engine = trainer.fit_result[0]
+    t0 = time.perf_counter()
+    xs, ys = engine.shard_batches(*epoch_arrays(x, y, workers, batch, ZOO_WINDOW))
+    torch.cuda.synchronize()
+    data_per_step = (time.perf_counter() - t0) / (local_steps // ZOO_EPOCHS)
+    del xs, ys
+    row.update(data_seconds_per_step=data_per_step,
+               optimizer_and_commit_seconds_per_step=row["engine_overhead_seconds"] - data_per_step)
+    losses = np.asarray(history["loss"])
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}/{trainer_name}: loss not finite: {losses.tolist()}")
+    if row["num_updates"] != expected_updates:
+        raise AssertionError(f"{name}/{trainer_name}: {row['num_updates']} updates, "
+                             f"expected {expected_updates}")
+
+    # one f32 step on [32, ...] rows, card against CPU (TF32 is off), and
+    # the same step in f64
+    args = (adapter, {k: v.cpu() for k, v in trained.params.items()},
+            {k: v.cpu() for k, v in trained.state.items()},
+            x[:ZOO_STEP_ROWS], y[:ZOO_STEP_ROWS], loss_fn)
+    steps = {(device, dtype): training_step(*args, device, dtype)
+             for device in (ZOO_DEVICE, "cpu") for dtype in (torch.float32, torch.float64)}
+    loss_err, grad_err, worst = step_errors(steps[ZOO_DEVICE, torch.float32],
+                                            steps["cpu", torch.float32])
+    loss64_err, grad64_err, worst64 = step_errors(steps[ZOO_DEVICE, torch.float64],
+                                                  steps["cpu", torch.float64])
+    _, cpu_f32_err, cpu_worst = step_errors(steps["cpu", torch.float32],
+                                            steps["cpu", torch.float64])
+    # A ReLU's gradient jumps at its kink: where two f32 evaluations round
+    # a pre-activation to opposite sides of zero, the gradients part by up
+    # to ~5e-3 (one such element in a trained ResNet20 at 32 rows).  So the
+    # f32 gradients are held to 1e-3 where f32 resolves this step to 1e-3
+    # at all, as the CPU's own f32 step against its f64 step shows; the
+    # f64 step (no kink within reach) is always held, and so is the loss.
+    f32_resolves = cpu_f32_err <= STEP_GRAD_RTOL
+    row.update(step_rows=ZOO_STEP_ROWS, step_loss_rel_err=loss_err, step_loss_rtol=STEP_LOSS_RTOL,
+               step_max_grad_rel_norm_err=grad_err, step_worst_param=worst,
+               step_grad_rtol=STEP_GRAD_RTOL, step_cpu_f32_vs_f64_grad_err=cpu_f32_err,
+               step_cpu_f32_worst_param=cpu_worst, step_f32_grads_held=f32_resolves,
+               step_f64_loss_rel_err=loss64_err, step_f64_max_grad_rel_norm_err=grad64_err,
+               step_f64_worst_param=worst64)
+    gated = {"f32 step": (loss_err, grad_err if f32_resolves else 0.0, worst),
+             "f64 step": (loss64_err, grad64_err, worst64)}
+    row["failures"] = [f"card and CPU differ in the {what}: loss {l_err}, {param} gradient {g_err}"
+                       for what, (l_err, g_err, param) in gated.items()
+                       if l_err > STEP_LOSS_RTOL or g_err > STEP_GRAD_RTOL]
+    return trainer, trained, row, x
+
+
+def zoo_phase(seed: int):
+    """Every configuration of ``ZOO_CONFIGS``, one JSON line each, with the
+    checks of each; ``cifar_cnn_downpour`` twice (bitwise repeatable?)."""
+    from distkeras_tpu_torch import ModelPredictor, from_numpy
+    from distkeras_tpu_torch.models import TrainedModel
+
+    rows = []
+    for config in ZOO_CONFIGS:
+        name, trainer_name = config[0], config[1]
+        trainer, trained, row, x = train_zoo_config(config, seed)
+        if name == REPEAT_CONFIG:
+            _, again, _, _ = train_zoo_config(config, seed)
+            row["bitwise_repeatable"] = all(torch.equal(v, again.params[k])
+                                            for k, v in trained.params.items())
+            row["second_run_seconds_per_step"] = again.history["training_time"] / row["local_steps"]
+            losses = row["loss"]
+            if not losses[1] < losses[0]:
+                row["failures"].append(f"loss did not fall from epoch 1 to 2: {losses}")
+            # ModelPredictor over the trained CIFARCNN, card against CPU
+            frame = from_numpy(x[:ZOO_PREDICT_ROWS])
+            card = ModelPredictor(trained, batch_size=128, device=ZOO_DEVICE).predict(frame)
+            cpu_model = TrainedModel(trained.adapter,
+                                     {k: v.cpu() for k, v in trained.params.items()},
+                                     {k: v.cpu() for k, v in trained.state.items()}, device="cpu")
+            cpu = ModelPredictor(cpu_model, batch_size=128, device="cpu").predict(frame)
+            err = float(np.abs(card["prediction"] - cpu["prediction"]).max())
+            row.update(predict_rows=ZOO_PREDICT_ROWS, predict_max_abs_err_vs_cpu=err,
+                       predict_atol=PREDICT_ATOL)
+            if err > PREDICT_ATOL:
+                row["failures"].append(f"card and CPU predictions differ by {err}")
+        if trainer_name == "ADAG":
+            # BatchNorm running statistics: moved from their init, and the same
+            # on every worker right after the last window's commit
+            engine, state, _ = trainer.fit_result
+            stats = {k: v for k, v in state.model_state.items() if "running" in k}
+            moved = max(float((v - (1.0 if k.endswith("var") else 0.0)).abs().max())
+                        for k, v in stats.items())
+            synced = all(torch.equal(v[0], v[1]) for v in stats.values())
+            row.update(running_stats=len(stats), running_stats_moved=moved,
+                       running_stats_equal_across_workers=synced)
+            if len(stats) != 2 * 19 or not moved > 0.0 or not synced:
+                row["failures"].append(f"running statistics moved {moved}, "
+                                       f"equal across workers {synced}")
+        emit(phase="zoo", **row)
+        if row["failures"]:
+            raise AssertionError(f"{name}/{trainer_name}: {row['failures']}")
+        rows.append(row)
+        del trainer, trained
+    return rows
+
+
+def staleness_phase(seed: int):
+    """DynSGD over TextCNN with per-worker commit periods: the realised
+    update count and clocks must equal the host-side count of the race."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import zoo
+
+    workers, batch = len(STALENESS_SCHEDULE), STALENESS_BATCH
+    rows = workers * STALENESS_STEPS * batch
+    x, y = zoo_data((256,), True, 2, rows, seed + 3)
+    model = zoo.TextCNN(vocab_size=20000, num_classes=2,
+                        generator=torch.Generator().manual_seed(seed + 3))
+    trainer = _keeping_fit(tdk.DynSGD)(
+        model, loss="categorical_crossentropy", worker_optimizer=("adam", {"learning_rate": 1e-3}),
+        metrics=(), num_workers=workers, batch_size=batch, num_epoch=STALENESS_EPOCHS,
+        communication_window=ZOO_WINDOW, commit_schedule=list(STALENESS_SCHEDULE),
+        compute_dtype="bfloat16", seed=seed, device=ZOO_DEVICE)
+    trainer.train(tdk.from_numpy(x, y))
+    torch.cuda.synchronize()
+    _, state, _ = trainer.fit_result
+    clocks = state.rule_local["clock"].tolist()
+    want_clocks, want_updates, staleness = simulate_clocks(STALENESS_SCHEDULE, STALENESS_STEPS,
+                                                           STALENESS_EPOCHS)
+    history = trainer.get_history()
+    seconds = history["training_time"]
+    local_steps = STALENESS_EPOCHS * STALENESS_STEPS * workers
+    row = dict(trainer="DynSGD", model="TextCNN", commit_schedule=list(STALENESS_SCHEDULE),
+               steps_per_epoch=STALENESS_STEPS, epochs=STALENESS_EPOCHS, batch_size=batch,
+               num_updates=trainer.num_updates, expected_num_updates=want_updates,
+               clocks=clocks, expected_clocks=want_clocks,
+               max_staleness=max(staleness), stale_commits=sum(s > 0 for s in staleness),
+               loss=history["loss"], seconds=seconds, seconds_per_step=seconds / local_steps)
+    emit(phase="staleness", **row)
+    if trainer.num_updates != want_updates or clocks != want_clocks:
+        raise AssertionError(f"staleness run: updates {trainer.num_updates} (want "
+                             f"{want_updates}), clocks {clocks} (want {want_clocks})")
+    if not max(staleness) > 0 or not np.isfinite(history["loss"]).all():
+        raise AssertionError(f"staleness run: no stale commit or a non-finite loss: {row}")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -589,6 +963,8 @@ def main(argv=None) -> int:
     predictor_launches = predictor_phase(args.seed)
     lm_launches = lm_phase(args.seed)
     train_launches = train_phase(args.seed)
+    zoo_phase(args.seed)
+    staleness_phase(args.seed)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]

@@ -22,16 +22,30 @@ from distkeras_tpu_torch.frame import (
 )
 from distkeras_tpu_torch.predictors import ModelPredictor
 from distkeras_tpu_torch.trainers import (
+    ADAG,
+    AEASGD,
     DOWNPOUR,
+    EAMSGD,
+    AdaptiveDynSGD,
     AsynchronousDistributedTrainer,
+    AveragingTrainer,
     DistributedTrainer,
+    DynSGD,
+    EnsembleTrainer,
     SingleTrainer,
     Trainer,
 )
 
 __all__ = [
+    "ADAG",
+    "AEASGD",
+    "AdaptiveDynSGD",
     "AsynchronousDistributedTrainer",
+    "AveragingTrainer",
     "DOWNPOUR",
+    "DynSGD",
+    "EAMSGD",
+    "EnsembleTrainer",
     "DataFrame",
     "DistributedTrainer",
     "ModelPredictor",

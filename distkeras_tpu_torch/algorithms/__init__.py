@@ -1,7 +1,11 @@
-"""Async-SGD update rules — the port of :mod:`distkeras_tpu.algorithms` as
-far as this slice goes: ``Sequential``, ``OneShotAverage`` and ``Downpour``.
-AEASGD, EAMSGD, ADAG and DynSGD come with ROADMAP Queue A item 9."""
+"""Async-SGD update rules — the port of :mod:`distkeras_tpu.algorithms`:
+the pure-function form of the reference's worker/parameter-server pairs.
+The host-side ``AdaptiveBound`` policy comes with the dynamics telemetry
+(ROADMAP Queue A item 19)."""
 
+from distkeras_tpu_torch.algorithms.adag import Adag
+from distkeras_tpu_torch.algorithms.adaptive import AdaptiveDynSGD
+from distkeras_tpu_torch.algorithms.aeasgd import Aeasgd, Eamsgd
 from distkeras_tpu_torch.algorithms.base import (
     CommitCtx,
     CommitResult,
@@ -10,6 +14,7 @@ from distkeras_tpu_torch.algorithms.base import (
     stacked_ctx,
 )
 from distkeras_tpu_torch.algorithms.downpour import Downpour
+from distkeras_tpu_torch.algorithms.dynsgd import DynSGD
 from distkeras_tpu_torch.algorithms.sequential import OneShotAverage, Sequential
 
 __all__ = [
@@ -19,6 +24,11 @@ __all__ = [
     "make_ctx",
     "stacked_ctx",
     "Downpour",
+    "Adag",
+    "Aeasgd",
+    "Eamsgd",
+    "DynSGD",
+    "AdaptiveDynSGD",
     "Sequential",
     "OneShotAverage",
 ]

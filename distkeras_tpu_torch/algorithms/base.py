@@ -19,7 +19,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from distkeras_tpu_torch.utils.pytree import tree_map, tree_where
+from distkeras_tpu_torch.utils.pytree import bcast, tree_map, tree_where
 
 __all__ = ["CommitCtx", "CommitResult", "UpdateRule", "make_ctx", "stacked_ctx"]
 
@@ -30,7 +30,11 @@ class CommitCtx(NamedTuple):
     ``psum``  — sum over workers (identity when testing a single worker).
     ``mask``  — bool: does each worker commit at this boundary?  A scalar
                 for a single worker, ``[num_workers]`` for stacked workers.
-    ``steps_in_window`` — local optimizer steps since the last commit.
+                In the uniform-window engine every worker commits; in the
+                staleness simulation the mask is each worker's own commit
+                schedule.
+    ``steps_in_window`` — local optimizer steps since the last commit: a
+                scalar, or one count per worker in the staleness simulation.
     """
 
     psum: Callable[[Any], Any]
@@ -56,13 +60,16 @@ def make_ctx(mask=True, steps_in_window=1, num_workers=1) -> CommitCtx:
     )
 
 
-def stacked_ctx(num_workers: int, steps_in_window, device) -> CommitCtx:
-    """Context for ``num_workers`` workers stacked on one device, all
-    committing: ``psum`` sums each leaf over its leading worker dim."""
+def stacked_ctx(num_workers: int, steps_in_window, device, mask=None) -> CommitCtx:
+    """Context for ``num_workers`` workers stacked on one device:
+    ``psum`` sums each leaf over its leading worker dim.  Every worker
+    commits unless ``mask`` (``[num_workers]`` bool) says otherwise."""
+    if mask is None:
+        mask = torch.ones(num_workers, dtype=torch.bool, device=device)
     return CommitCtx(
         psum=lambda t: tree_map(lambda x: x.sum(dim=0), t),
-        mask=torch.ones(num_workers, dtype=torch.bool, device=device),
-        steps_in_window=torch.as_tensor(steps_in_window, dtype=torch.float32),
+        mask=mask,
+        steps_in_window=torch.as_tensor(steps_in_window, dtype=torch.float32, device=device),
         num_workers=num_workers,
     )
 
@@ -96,8 +103,12 @@ class UpdateRule:
     # -- shared helpers ----------------------------------------------------
     @staticmethod
     def _masked(ctx: CommitCtx, tree):
-        m = ctx.mask.to(torch.float32)
-        return tree_map(lambda x: x * m.reshape(m.shape + (1,) * (x.dim() - m.dim())), tree)
+        return UpdateRule._scaled(ctx.mask.to(torch.float32), tree)
+
+    @staticmethod
+    def _scaled(scale: torch.Tensor, tree):
+        """Each leaf times ``scale``: a scalar, or one value per worker."""
+        return tree_map(lambda x: x * bcast(scale, x), tree)
 
     @staticmethod
     def _count_commits(ctx: CommitCtx):

@@ -1,5 +1,5 @@
-"""Model layer: functional adapters over torch modules, and the in-tree
-transformer models."""
+"""Model layer: functional adapters over torch modules, the in-tree
+transformer models and the model zoo of the paper's training suite."""
 
 from distkeras_tpu_torch.models.adapter import (
     FunctionalModel,
@@ -8,12 +8,13 @@ from distkeras_tpu_torch.models.adapter import (
     TrainedModel,
     as_adapter,
 )
-from distkeras_tpu_torch.models.convert import params_from_flax
+from distkeras_tpu_torch.models.convert import params_from_flax, variables_from_flax
 from distkeras_tpu_torch.models.transformer import (
     TransformerClassifier,
     TransformerEncoderBlock,
     TransformerLM,
 )
+from distkeras_tpu_torch.models.zoo import CIFARCNN, MLP, MNISTCNN, ResNet20, TextCNN
 
 __all__ = [
     "FunctionalModel",
@@ -22,7 +23,13 @@ __all__ = [
     "TrainedModel",
     "as_adapter",
     "params_from_flax",
+    "variables_from_flax",
     "TransformerClassifier",
     "TransformerEncoderBlock",
     "TransformerLM",
+    "MLP",
+    "MNISTCNN",
+    "CIFARCNN",
+    "ResNet20",
+    "TextCNN",
 ]

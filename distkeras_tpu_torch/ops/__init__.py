@@ -1,6 +1,6 @@
-"""Compute ops: losses, metrics, the optimizer registry, and hand-written
-CUDA kernels for the framework's hot ops, each with its plain PyTorch
-version beside it.
+"""Compute ops: losses, metrics, the optimizer registry, max pooling, and
+hand-written CUDA kernels for the framework's hot ops, each with its plain
+PyTorch version beside it.
 
 A kernel wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors, the role the Pallas interpreter plays in the JAX
@@ -20,6 +20,7 @@ from distkeras_tpu_torch.ops.flash_attention import (
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import accuracy, get_metric, token_accuracy
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
+from distkeras_tpu_torch.ops.pooling import max_pool
 
 __all__ = [
     "accuracy",
@@ -33,5 +34,6 @@ __all__ = [
     "get_loss",
     "get_metric",
     "get_optimizer",
+    "max_pool",
     "token_accuracy",
 ]

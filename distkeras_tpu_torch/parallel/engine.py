@@ -1,12 +1,21 @@
 """The training engine: windowed local SGD + commits, on one card.
 
-The port of :mod:`distkeras_tpu.parallel.engine` (``WindowedEngine`` in its
-uniform-window mode).  A *worker* is a logical training replica.  Every
-per-worker tensor carries a leading ``[num_workers]`` dim, the layout of
-the JAX engine's state; the parameter-server center variable has none.
-One epoch is a loop over commit windows: in each window every worker takes
-``window`` local optimizer steps, then the rule's ``commit`` runs once over
-all workers, its ``psum`` a sum over the worker dim.
+The port of :mod:`distkeras_tpu.parallel.engine` (``WindowedEngine``).  A
+*worker* is a logical training replica.  Every per-worker tensor carries a
+leading ``[num_workers]`` dim, the layout of the JAX engine's state; the
+parameter-server center variable has none.  Two modes, as in JAX:
+
+* **Uniform windows.**  One epoch is a loop over commit windows: in each
+  window every worker takes ``window`` local optimizer steps, then the
+  rule's ``commit`` runs once over all workers, its ``psum`` a sum over the
+  worker dim.
+* **Staleness simulation** (``commit_schedule``: one commit period per
+  worker).  At each step every worker takes one local step, then **one**
+  commit runs over all workers with the per-worker mask ``(t + 1) % period
+  == 0`` and each worker's steps since its last commit.  All committers of
+  a step race the same center, as under the JAX engine's ``vmap``: a rule
+  that counts staleness (DynSGD) sees the update count from before the
+  step's commits.
 
 Deliberate differences from the JAX engine:
 
@@ -21,9 +30,9 @@ Deliberate differences from the JAX engine:
   seeded from the init generator (JAX splits a key per worker).
 
 Not in this slice: several cards (the cross-card sum of the commit),
-sequence parallelism, FSDP, rematerialisation and the stepwise staleness
-simulation (``commit_schedule``), whose options the constructor refuses;
-and the dynamics telemetry (``DISTKERAS_DYNAMICS`` is not read).
+sequence parallelism, FSDP and rematerialisation, whose options the
+constructor refuses; and the dynamics telemetry (``DISTKERAS_DYNAMICS`` is
+not read).
 """
 
 from __future__ import annotations
@@ -108,8 +117,6 @@ class WindowedEngine:
         unroll=1,
         device="cuda",
     ):
-        if commit_schedule is not None:
-            raise _not_ported("commit_schedule (the stepwise staleness simulation)", "item 9")
         if remat:
             raise _not_ported("remat=True", "item 9")
         if unroll != 1:
@@ -134,6 +141,16 @@ class WindowedEngine:
         self.metric_fns = [get_metric(m) for m in metrics]
         self.compute_dtype = compute_dtype
         self.sync_model_state = sync_model_state
+        # per-worker commit periods (staleness simulation); None => uniform
+        # synchronous windows
+        self.commit_schedule = (
+            None if commit_schedule is None else np.asarray(commit_schedule, np.int32)
+        )
+        if self.commit_schedule is not None and len(self.commit_schedule) != self.num_workers:
+            raise ValueError(
+                f"commit_schedule has {len(self.commit_schedule)} entries for "
+                f"{self.num_workers} workers"
+            )
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: torch.Generator, sample_input) -> TrainState:
@@ -149,7 +166,8 @@ class WindowedEngine:
         params = tree_map(lambda x: x.detach().to(dev, copy=True), params)
 
         def tile(tree):
-            return tree_map(lambda x: x.expand(n, *x.shape).clone(), tree)
+            # on the device: a rule's fresh counters (DynSGD's clock) start on the CPU
+            return tree_map(lambda x: x.to(dev).expand(n, *x.shape).clone(), tree)
 
         seeds = torch.randint(0, 2**62, (n,), generator=generator)
         return TrainState(
@@ -157,7 +175,7 @@ class WindowedEngine:
             center_rule=tree_map(lambda x: x.to(dev), self.rule.init_center_state()),
             local_params=tile(params),
             opt_state=tile(self.optimizer.init(params)),
-            model_state=tile(tree_map(lambda x: x.detach().to(dev), model_state)),
+            model_state=tile(tree_map(torch.Tensor.detach, model_state)),
             rule_local=tile(self.rule.init_local_state(params)),
             rng=[torch.Generator(device=dev).manual_seed(int(s)) for s in seeds],
             epoch=0,
@@ -201,6 +219,38 @@ class WindowedEngine:
         mean = tree_map(lambda x: ctx.psum(x) / self.num_workers, model_state)
         return tree_where(ctx.mask, mean, model_state)
 
+    def _worker_steps(self, state: TrainState, w: int, xs, ys):
+        """Worker ``w`` takes one local step per leading row of ``xs``/``ys``
+        (``[steps, batch, ...]``), from and into its slice of ``state``.
+        Returns its losses ``[steps]`` and metrics ``[steps, n_metrics]``."""
+        worker = lambda tree: tree_map(lambda x: x[w], tree)
+        params, opt_state = worker(state.local_params), worker(state.opt_state)
+        model_state = worker(state.model_state)
+        losses, mets = [], []
+        for t in range(xs.shape[0]):
+            params, opt_state, model_state, loss, met = self._local_step(
+                params, opt_state, model_state, state.rng[w], xs[t], ys[t])
+            losses.append(loss)
+            mets.append(met)
+        with torch.no_grad():
+            for dst, src in ((state.local_params, params), (state.opt_state, opt_state),
+                             (state.model_state, model_state)):
+                tree_map(lambda d, s: d[w].copy_(s), dst, src)
+        return torch.stack(losses), torch.stack(mets)
+
+    def _commit(self, state: TrainState, ctx: CommitCtx) -> TrainState:
+        """The rule's commit over all workers, and the model state synced
+        under the same mask."""
+        with torch.no_grad():
+            res = self.rule.commit(ctx, state.local_params, state.center_params,
+                                   state.rule_local, state.center_rule)
+            model_state = self._sync_model_state(ctx, state.model_state)
+        return state.replace(
+            local_params=res.local_params, center_params=res.center_params,
+            rule_local=res.local_state, center_rule=res.center_state,
+            model_state=model_state,
+        )
+
     def _run_window(self, state: TrainState, xs, ys, do_commit: bool):
         """One window: every worker takes ``xs.shape[1]`` local steps on its
         own rows of ``xs``/``ys`` (``[num_workers, window, batch, ...]``),
@@ -209,33 +259,32 @@ class WindowedEngine:
         n, window = self.num_workers, xs.shape[1]
         loss_sum, mets_sum = 0.0, 0.0
         for w in range(n):
-            worker = lambda tree, w=w: tree_map(lambda x: x[w], tree)
-            params, opt_state = worker(state.local_params), worker(state.opt_state)
-            model_state = worker(state.model_state)
-            losses, mets = [], []
-            for t in range(window):
-                params, opt_state, model_state, loss, met = self._local_step(
-                    params, opt_state, model_state, state.rng[w], xs[w, t], ys[w, t])
-                losses.append(loss)
-                mets.append(met)
-            with torch.no_grad():
-                for dst, src in ((state.local_params, params), (state.opt_state, opt_state),
-                                 (state.model_state, model_state)):
-                    tree_map(lambda d, s, w=w: d[w].copy_(s), dst, src)
-            loss_sum = loss_sum + torch.stack(losses).mean()
-            mets_sum = mets_sum + torch.stack(mets).mean(dim=0)
+            losses, mets = self._worker_steps(state, w, xs[w], ys[w])
+            loss_sum = loss_sum + losses.mean()
+            mets_sum = mets_sum + mets.mean(dim=0)
         if do_commit:
-            ctx = stacked_ctx(self.num_workers, float(window), self.device)
-            with torch.no_grad():
-                res = self.rule.commit(ctx, state.local_params, state.center_params,
-                                       state.rule_local, state.center_rule)
-                model_state = self._sync_model_state(ctx, state.model_state)
-            state = state.replace(
-                local_params=res.local_params, center_params=res.center_params,
-                rule_local=res.local_state, center_rule=res.center_state,
-                model_state=model_state,
-            )
+            state = self._commit(state, stacked_ctx(n, float(window), self.device))
         return state, loss_sum / n, mets_sum / n
+
+    def _run_stepwise(self, state: TrainState, xs, ys):
+        """The staleness simulation over ``xs``/``ys`` shaped
+        ``[num_workers, n_steps, batch, ...]``: each step, every worker takes
+        one local step, then one masked commit runs over all of them.
+        Returns the state and the per-step loss ``[n_steps]``, averaged over
+        workers."""
+        n = self.num_workers
+        periods = torch.as_tensor(self.commit_schedule, device=self.device)
+        since = torch.zeros(n, dtype=torch.int32, device=self.device)
+        losses = []
+        for t in range(xs.shape[1]):
+            step = [self._worker_steps(state, w, xs[w, t:t + 1], ys[w, t:t + 1])[0]
+                    for w in range(n)]
+            since = since + 1
+            mask = (t + 1) % periods == 0
+            state = self._commit(state, stacked_ctx(n, since, self.device, mask))
+            since = torch.where(mask, 0, since)
+            losses.append(torch.cat(step).sum() / n)
+        return state, torch.stack(losses)
 
     # ----------------------------------------------------------------- epoch
     def shard_batches(self, xs: np.ndarray, ys: np.ndarray):
@@ -245,10 +294,18 @@ class WindowedEngine:
 
     def run_epoch(self, state: TrainState, xs, ys):
         """Run one epoch over ``xs``/``ys`` shaped ``[num_workers,
-        n_windows, window, batch, ...]``.  Returns the new state and the
-        epoch's stats as numpy: ``loss`` ``[n_windows]`` and ``metrics``
-        ``[n_windows, n_metrics]``, each averaged over the window's steps
-        and the workers.  The stats are read back once, at the end."""
+        n_windows, window, batch, ...]`` (uniform windows) or
+        ``[num_workers, n_steps, batch, ...]`` (staleness simulation).
+        Returns the new state and the epoch's stats as numpy: ``loss``
+        ``[n_windows]`` and ``metrics`` ``[n_windows, n_metrics]``, each
+        averaged over the window's steps and the workers; or, simulating
+        staleness, ``loss`` ``[n_steps]`` averaged over the workers and no
+        metrics (``[0]``), as the JAX engine's stepwise program returns.
+        The stats are read back once, at the end."""
+        if self.commit_schedule is not None:
+            state, losses = self._run_stepwise(state, xs, ys)
+            stats = {"loss": losses.cpu().numpy(), "metrics": np.zeros((0,), np.float32)}
+            return state.replace(epoch=state.epoch + 1), stats
         n_windows = xs.shape[1]
         do_commit = self.rule.communication_window > 0
         losses, mets = [], []

@@ -1,11 +1,10 @@
 """Parameter servers — the center-variable facade.
 
-The port of :mod:`distkeras_tpu.parameter_servers` for the rules of this
-slice.  The center variable lives on the card, in the engine's state, and
-commits run inside the training loop; these classes keep the reference's
-parameter-server lifecycle and observability API (``start``/``stop``/
-``get_model``/``num_updates``) over that state.  The ADAG and DynSGD
-servers come with their rules (ROADMAP Queue A item 9).
+The port of :mod:`distkeras_tpu.parameter_servers`.  The center variable
+lives on the card, in the engine's state, and commits run inside the
+training loop; these classes keep the reference's parameter-server
+lifecycle and observability API (``start``/``stop``/``get_model``/
+``num_updates``) over that state.
 """
 
 from __future__ import annotations
@@ -14,9 +13,15 @@ from typing import Any
 
 import torch
 
-from distkeras_tpu_torch.algorithms import Downpour
+from distkeras_tpu_torch.algorithms import Adag, Downpour, DynSGD
 
-__all__ = ["ParameterServer", "SocketParameterServer", "DeltaParameterServer"]
+__all__ = [
+    "ParameterServer",
+    "SocketParameterServer",
+    "DeltaParameterServer",
+    "ADAGParameterServer",
+    "DynSGDParameterServer",
+]
 
 
 class ParameterServer:
@@ -83,6 +88,19 @@ class SocketParameterServer(ParameterServer):
 
 
 class DeltaParameterServer(SocketParameterServer):
-    """``center += delta`` (DOWNPOUR commits)."""
+    """``center += delta`` (DOWNPOUR / AEASGD / EAMSGD commits)."""
 
     rule_class = Downpour
+
+
+class ADAGParameterServer(SocketParameterServer):
+    """Window-normalised delta (``center += delta / window``)."""
+
+    rule_class = Adag
+
+
+class DynSGDParameterServer(SocketParameterServer):
+    """Staleness-aware: ``center += delta / (staleness + 1)`` with per-worker
+    update clocks (see :class:`distkeras_tpu_torch.algorithms.DynSGD`)."""
+
+    rule_class = DynSGD

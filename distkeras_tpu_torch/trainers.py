@@ -1,9 +1,11 @@
 """Trainers — the user-facing API, signature-compatible with the reference.
 
-The port of :mod:`distkeras_tpu.trainers` for this slice: ``Trainer``,
-``SingleTrainer``, ``DistributedTrainer``, ``AsynchronousDistributedTrainer``
-and ``DOWNPOUR``, on the in-memory per-epoch path.  Construct a trainer
-around a model and call ``trainer.train(dataframe)`` to get a
+The port of :mod:`distkeras_tpu.trainers` on the in-memory per-epoch path:
+``SingleTrainer``, ``AveragingTrainer``, ``EnsembleTrainer`` and the
+parameter-server trainers ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
+``DynSGD`` and ``AdaptiveDynSGD``, with the staleness simulation
+(``commit_schedule``).  Construct a trainer around a model and call
+``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back; the constructor
 kwargs and their defaults are the JAX package's, plus ``device``
 (``"cuda"`` by default; ``"cpu"`` must be asked for).  On a card the
@@ -18,7 +20,7 @@ set to anything but its default; none is silently ignored.
 from __future__ import annotations
 
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,14 +33,26 @@ from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainedModel, as_ad
 from distkeras_tpu_torch.ops.metrics import per_token_metric_names
 from distkeras_tpu_torch.parallel.engine import WindowedEngine, device_count
 from distkeras_tpu_torch.parallel.mesh import resolve_device
-from distkeras_tpu_torch.parameter_servers import DeltaParameterServer, ParameterServer
+from distkeras_tpu_torch.parameter_servers import (
+    ADAGParameterServer,
+    DeltaParameterServer,
+    DynSGDParameterServer,
+    ParameterServer,
+)
 
 __all__ = [
     "Trainer",
     "SingleTrainer",
+    "AveragingTrainer",
+    "EnsembleTrainer",
     "DistributedTrainer",
     "AsynchronousDistributedTrainer",
     "DOWNPOUR",
+    "AEASGD",
+    "EAMSGD",
+    "ADAG",
+    "DynSGD",
+    "AdaptiveDynSGD",
 ]
 
 # kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
@@ -52,8 +66,7 @@ _UNPORTED = {
     "dispatch_epochs": (1, "item 9 (run_epochs: several epochs a dispatch)"),
     "remat": (False, "item 9 (rematerialisation)"),
     "unroll": (1, "item 9 (a scan unroll of the jitted epoch)"),
-    "commit_schedule": (None, "item 9 (the stepwise staleness simulation)"),
-    "staleness_policy": (None, "item 9 (adaptive DynSGD)"),
+    "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
     "tensorboard_dir": (None, "item 12 (utils/tb.py scalar logging)"),
     "seq_shards": (1, "item 14 (sequence parallelism)"),
     "tp_shards": (1, "item 15 (tensor parallelism)"),
@@ -189,11 +202,12 @@ class Trainer:
         return feats, labels
 
     def _fit(self, dataframe: DataFrame, rule, num_workers: int, *, shuffle: bool = True,
-             average_at_end: bool = False):
+             average_at_end: bool = False, commit_schedule=None):
         """Train: build the engine, draw the initial parameters from
         ``seed``, and run ``num_epoch`` epochs over the whole frame, each
         shuffled (when ``shuffle``) by one ``np.random.default_rng(seed)``
-        stream, as the JAX package's in-memory per-epoch path does."""
+        stream, as the JAX package's in-memory per-epoch path does.  With
+        ``commit_schedule`` the engine simulates staleness step by step."""
         adapter = as_adapter(self.master_model)
         # per-token models rename accuracy -> token_accuracy, without
         # mutating the user-visible self.metrics
@@ -204,7 +218,8 @@ class Trainer:
             feats, labels = self._load_columns(dataframe)
         engine = WindowedEngine(
             adapter, self.loss, self._effective_worker_optimizer(), rule, num_workers,
-            metrics=metrics, compute_dtype=self.compute_dtype, device=self.device,
+            metrics=metrics, compute_dtype=self.compute_dtype, commit_schedule=commit_schedule,
+            device=self.device,
         )
         window = rule.communication_window if rule.communication_window > 0 else None
         rng = np.random.default_rng(self.seed)
@@ -221,6 +236,7 @@ class Trainer:
                                           rng=rng if shuffle else None)
                 else:
                     xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size, window,
+                                          stepwise=commit_schedule is not None,
                                           rng=rng if shuffle else None)
                 xs, ys = engine.shard_batches(xs, ys)
                 state, stats = engine.run_epoch(state, xs, ys)
@@ -267,6 +283,42 @@ class SingleTrainer(Trainer):
         engine, state, adapter = self._fit(dataframe, worker.rule, num_workers=1,
                                            shuffle=shuffle)
         return self._finalize(engine, state, adapter, use_center=False)
+
+
+class AveragingTrainer(Trainer):
+    """Synchronous one-shot weight averaging (reference parity:
+    ``AveragingTrainer.average_models``): N independent replicas, averaged
+    once at the end."""
+
+    def __init__(self, *args, num_workers: int = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.num_workers = num_workers or device_count(self.device)
+
+    def train(self, dataframe: DataFrame, shuffle: bool = False):
+        worker = workers_mod.AveragingWorker(self.worker_optimizer, self.batch_size)
+        engine, state, adapter = self._fit(dataframe, worker.rule, self.num_workers,
+                                           shuffle=shuffle, average_at_end=True)
+        return self._finalize(engine, state, adapter, use_center=True)
+
+
+class EnsembleTrainer(Trainer):
+    """Train N independent models and return all of them (reference parity:
+    ``EnsembleTrainer``), as ``TrainedModel``s; each carries the mean of
+    the workers' model state, as in the JAX package.  The JAX package's
+    Keras branch comes with the Keras adapter (ROADMAP Queue A item 12)."""
+
+    def __init__(self, *args, num_models: int = 2, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.num_models = num_models
+
+    def train(self, dataframe: DataFrame, shuffle: bool = False) -> List[TrainedModel]:
+        worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
+        engine, state, adapter = self._fit(dataframe, worker.rule, self.num_models,
+                                           shuffle=shuffle)
+        model_state = engine.final_model_state(state)
+        return [TrainedModel(adapter, engine.worker_slice(state.local_params, i), model_state,
+                             device=engine.device, history=self.history)
+                for i in range(self.num_models)]
 
 
 class DistributedTrainer(Trainer):
@@ -316,8 +368,7 @@ class DistributedTrainer(Trainer):
         staleness_policy: Optional[Any] = None,
         device="cuda",
     ):
-        _refuse_unported(commit_schedule=commit_schedule, elastic=elastic,
-                         staleness_policy=staleness_policy)
+        _refuse_unported(elastic=elastic, staleness_policy=staleness_policy)
         super().__init__(
             keras_model, loss, worker_optimizer, metrics,
             features_col, label_col, batch_size, num_epoch, seed, compute_dtype,
@@ -329,6 +380,10 @@ class DistributedTrainer(Trainer):
         self.num_workers = num_workers or device_count(self.device)
         self.master_port = master_port
         self.parameter_server: Optional[ParameterServer] = None
+        # optional per-worker commit periods: the staleness simulation
+        self.commit_schedule = (
+            None if commit_schedule is None else np.asarray(commit_schedule, np.int32)
+        )
 
     def allocate_worker(self) -> workers_mod.Worker:
         raise NotImplementedError
@@ -361,7 +416,7 @@ class DistributedTrainer(Trainer):
         worker = self.allocate_worker()
         self.service()
         engine, state, adapter = self._fit(dataframe, worker.rule, self._logical_workers,
-                                           shuffle=shuffle)
+                                           shuffle=shuffle, commit_schedule=self.commit_schedule)
         self.parameter_server.attach(engine.gather_center(state), state.center_rule)
         self.stop_service()
         model = self._finalize(engine, state, adapter, use_center=True)
@@ -389,4 +444,104 @@ class DOWNPOUR(AsynchronousDistributedTrainer):
         return workers_mod.DOWNPOURWorker(
             self.worker_optimizer, self.batch_size, self.features_col,
             self.label_col, self.communication_window,
+        )
+
+
+class AEASGD(AsynchronousDistributedTrainer):
+    """Asynchronous Elastic Averaging SGD (Zhang et al. 2015)."""
+
+    def __init__(self, *args, communication_window: int = 32, rho: float = 5.0,
+                 learning_rate: float = 0.1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.communication_window = communication_window
+        self.rho = rho
+        self.learning_rate = learning_rate
+
+    def allocate_worker(self):
+        return workers_mod.AEASGDWorker(
+            self.worker_optimizer, self.batch_size, self.features_col, self.label_col,
+            self.communication_window, self.rho, self.learning_rate,
+        )
+
+
+class EAMSGD(AsynchronousDistributedTrainer):
+    """Elastic averaging with Nesterov momentum (Zhang et al. 2015).
+
+    The worker optimizer defaults to Nesterov-momentum SGD at
+    ``learning_rate`` and ``momentum`` only when the caller passes none,
+    positionally (``EAMSGD(model, loss, "sgd")``) or by keyword."""
+
+    def __init__(self, *args, communication_window: int = 32, rho: float = 5.0,
+                 learning_rate: float = 0.1, momentum: float = 0.9, **kwargs):
+        # args[2] is worker_optimizer in the Trainer signature
+        if len(args) < 3 and "worker_optimizer" not in kwargs:
+            kwargs["worker_optimizer"] = None
+        super().__init__(*args, **kwargs)
+        self.communication_window = communication_window
+        self.rho = rho
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+
+    def _effective_worker_optimizer(self):
+        # resolved at each train() so a changed learning_rate/momentum counts
+        if self.worker_optimizer is not None:
+            return self.worker_optimizer
+        return ("sgd", {"learning_rate": self.learning_rate, "momentum": self.momentum,
+                        "nesterov": True})
+
+    def allocate_worker(self):
+        return workers_mod.EAMSGDWorker(
+            self._effective_worker_optimizer(), self.batch_size, self.features_col,
+            self.label_col, self.communication_window, self.rho, self.learning_rate,
+            self.momentum,
+        )
+
+
+class ADAG(AsynchronousDistributedTrainer):
+    """Accumulated-gradient normalisation (Hermans, arXiv:1710.02368)."""
+
+    parameter_server_class = ADAGParameterServer
+
+    def __init__(self, *args, communication_window: int = 12, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.communication_window = communication_window
+
+    def allocate_worker(self):
+        return workers_mod.ADAGWorker(
+            self.worker_optimizer, self.batch_size, self.features_col,
+            self.label_col, self.communication_window,
+        )
+
+
+class DynSGD(AsynchronousDistributedTrainer):
+    """Staleness-aware dynamic-learning-rate SGD (the SIGMOD'17 rule)."""
+
+    parameter_server_class = DynSGDParameterServer
+
+    def __init__(self, *args, communication_window: int = 5, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.communication_window = communication_window
+
+    def allocate_worker(self):
+        return workers_mod.DynSGDWorker(
+            self.worker_optimizer, self.batch_size, self.features_col,
+            self.label_col, self.communication_window,
+        )
+
+
+class AdaptiveDynSGD(DynSGD):
+    """DynSGD with an SSP-style staleness bound carried in the center state;
+    with the default ``inf`` bound its trajectory is DynSGD's.  Retuning
+    the bound online (``staleness_policy``) comes with the dynamics
+    telemetry (ROADMAP Queue A item 19)."""
+
+    def __init__(self, *args, communication_window: int = 5,
+                 initial_bound: float = float("inf"), **kwargs):
+        super().__init__(*args, communication_window=communication_window, **kwargs)
+        self.initial_bound = initial_bound
+
+    def allocate_worker(self):
+        return workers_mod.AdaptiveDynSGDWorker(
+            self.worker_optimizer, self.batch_size, self.features_col,
+            self.label_col, self.communication_window, self.initial_bound,
         )

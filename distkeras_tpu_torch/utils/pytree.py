@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tree_add", "tree_leaves", "tree_map", "tree_sub", "tree_where", "tree_zeros_like"]
+__all__ = [
+    "bcast", "tree_add", "tree_leaves", "tree_map", "tree_sub", "tree_where", "tree_zeros_like",
+]
 
 
 def tree_map(fn, tree, *rest):
@@ -42,14 +44,15 @@ def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 
 
-def _bcast(pred: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``pred`` with trailing unit dims so that it broadcasts over ``x``: a
-    scalar as is, a per-worker ``[n]`` mask against ``[n, ...]`` leaves."""
-    return pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim()))
+def bcast(value: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``value`` with trailing unit dims so that it broadcasts over ``x``: a
+    scalar as is, one value per worker (``[n]``: a mask, a staleness)
+    against ``[n, ...]`` leaves."""
+    return value.reshape(value.shape + (1,) * (x.dim() - value.dim()))
 
 
 def tree_where(pred, a, b):
     """Per-leaf select.  ``pred`` is a bool scalar, or one bool per worker
     (``[n]``) when the leaves of ``b`` carry a leading worker dim."""
     pred = torch.as_tensor(pred)
-    return tree_map(lambda x, y: torch.where(_bcast(pred.to(y.device), y), x, y), a, b)
+    return tree_map(lambda x, y: torch.where(bcast(pred.to(y.device), y), x, y), a, b)

@@ -1,0 +1,95 @@
+"""``chip_smoke.py``'s training-suite phases rehearsed on the CPU.
+
+The script runs on an H100; here its zoo and staleness phases run on the
+CPU (``ZOO_DEVICE = "cpu"``) at small batches and windows, with the CUDA
+timers replaced by the host clock, so a fault in their control flow, their
+checks or their JSON shows before a card is asked for.  The numbers they
+print here are the CPU's and mean nothing for the card.  Without a card the
+script itself must exit non-zero and print no result.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+torch.set_num_threads(1)  # the suite runs under xdist: keep each worker small
+
+
+def _host_ms(fn, iters, warmup=2):
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "ZOO_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "cuda_ms", _host_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    # batch 4, window 2: the configurations' widths, far fewer rows
+    monkeypatch.setattr(chip_smoke, "ZOO_CONFIGS",
+                        [c[:4] + (4,) + c[5:] for c in chip_smoke.ZOO_CONFIGS])
+    monkeypatch.setattr(chip_smoke, "ZOO_WINDOW", 2)
+    monkeypatch.setattr(chip_smoke, "ZOO_STEP_ROWS", 4)
+    monkeypatch.setattr(chip_smoke, "ZOO_PREDICT_ROWS", 8)
+    monkeypatch.setattr(chip_smoke, "STALENESS_SCHEDULE", (2, 4))
+    monkeypatch.setattr(chip_smoke, "STALENESS_STEPS", 8)
+    monkeypatch.setattr(chip_smoke, "STALENESS_BATCH", 4)
+
+
+def _emitted(capsys, phase):
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{") and json.loads(line).get("phase") == phase]
+
+
+def test_zoo_phase_rehearsal(on_cpu, capsys):
+    rows = chip_smoke.zoo_phase(0)
+    printed = _emitted(capsys, "zoo")
+    assert [(r["config"], r["trainer"]) for r in printed] == [
+        (c[0], c[1]) for c in chip_smoke.ZOO_CONFIGS]
+    assert len(rows) == 7 and all(not r["failures"] for r in rows)
+    for row in rows:
+        assert row["num_updates"] == row["expected_num_updates"]
+        assert row["step_f64_max_grad_rel_norm_err"] < 1e-9  # one device: the same step
+        assert all(v > 0 for v in (row["seconds_per_step"], row["samples_per_s"]))
+    by_name = {r["config"]: r for r in rows}
+    assert by_name["cifar_cnn_downpour"]["bitwise_repeatable"] is True
+    assert by_name["cifar_resnet20_adag"]["running_stats_equal_across_workers"] is True
+    # no device time on the CPU: the profiler split reports none
+    assert by_name["cifar_resnet20_adag"]["model_profile"]["device_ms_per_call"] is None
+
+
+def test_staleness_phase_rehearsal(on_cpu, capsys):
+    row = chip_smoke.staleness_phase(0)
+    assert _emitted(capsys, "staleness") == [{"phase": "staleness", **row}]
+    # periods 2 and 4 over 8 steps, 2 epochs: 4 + 2 commits an epoch
+    assert row["num_updates"] == row["expected_num_updates"] == 12
+    assert row["clocks"] == row["expected_clocks"] and row["stale_commits"] > 0
+
+
+def test_without_a_card_the_script_fails_with_no_result(tmp_path):
+    # alone in a directory, as it must also fail there
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
+    for cwd, path in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, script)):
+        proc = subprocess.run([sys.executable, str(path)], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -131,13 +131,30 @@ def test_no_commit_rule_keeps_workers_apart():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(commit_schedule=np.array([1, 2])), dict(remat=True), dict(unroll=2),
-     dict(mesh=object()), dict(seq_shards=2), dict(fsdp=True)],
+    [dict(remat=True), dict(unroll=2), dict(mesh=object()), dict(seq_shards=2),
+     dict(fsdp=True)],
 )
 def test_unported_engine_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         WindowedEngine(TorchModel(TransformerLM(**LM)), "mse", "sgd", Downpour(2),
                        num_workers=2, device="cpu", **kwargs)
+
+
+def test_commit_schedule_is_accepted_and_runs_a_step():
+    # the staleness simulation: epoch arrays [workers, steps, batch, ...]
+    x, y = lm_data(n=32)
+    engine = WindowedEngine(TorchModel(TransformerLM(**LM)), "token_crossentropy", "sgd",
+                            Downpour(2), num_workers=2, metrics=(),
+                            commit_schedule=np.array([1, 2]), device="cpu")
+    state = engine.init_state(torch.Generator().manual_seed(0), None)
+    xs, ys = x[:16].reshape(2, 1, 8, -1), y[:16].reshape(2, 1, 8, -1)
+    state, stats = engine.run_epoch(state, *engine.shard_batches(xs, ys))
+    assert stats["loss"].shape == (1,) and np.isfinite(stats["loss"]).all()
+    assert stats["metrics"].shape == (0,)
+    assert int(state.center_rule["num_updates"]) == 1  # period 1 commits, period 2 waits
+    with pytest.raises(ValueError, match="commit_schedule has 3 entries"):
+        WindowedEngine(TorchModel(TransformerLM(**LM)), "mse", "sgd", Downpour(2),
+                       num_workers=2, commit_schedule=[1, 2, 3], device="cpu")
 
 
 def test_plan_workers_matches_jax():

@@ -36,7 +36,8 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.parameter_servers, distkeras_tpu_torch.data, "
         "distkeras_tpu_torch.parallel.engine, distkeras_tpu_torch.algorithms, "
         "distkeras_tpu_torch.utils, distkeras_tpu_torch.ops.losses, "
-        "distkeras_tpu_torch.ops.metrics, distkeras_tpu_torch.ops.optimizers\n"
+        "distkeras_tpu_torch.ops.metrics, distkeras_tpu_torch.ops.optimizers, "
+        "distkeras_tpu_torch.ops.pooling, distkeras_tpu_torch.models.zoo\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -52,6 +53,9 @@ def test_sources_found():
     assert "distkeras_tpu_torch/ops/flash_attention.py" in SOURCES
     assert "distkeras_tpu_torch/trainers.py" in SOURCES
     assert "distkeras_tpu_torch/parallel/engine.py" in SOURCES
+    assert "distkeras_tpu_torch/models/zoo.py" in SOURCES
+    assert "distkeras_tpu_torch/ops/pooling.py" in SOURCES
+    assert "distkeras_tpu_torch/algorithms/adaptive.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)

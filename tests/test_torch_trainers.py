@@ -198,12 +198,23 @@ def test_training_with_dropout_is_reproducible():
      dict(seq_shards=2), dict(tp_shards=2), dict(fsdp=True), dict(streaming=True),
      dict(remat=True), dict(dispatch_epochs=2), dict(pipeline_stages=2),
      dict(tensorboard_dir="tb"), dict(prefetch=2), dict(unroll=True),
-     dict(commit_schedule=[1, 2]), dict(elastic=object()), dict(staleness_policy=object())],
+     dict(elastic=object()), dict(staleness_policy=object())],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_kwargs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+
+
+def test_commit_schedule_kwarg_trains():
+    # accepted since the staleness simulation is ported; one epoch of one
+    # step a worker, where only the period-1 worker commits
+    x, y = lm_data(n=16)
+    t = tdk.DOWNPOUR(TransformerLM(**LM), loss="token_crossentropy", metrics=(),
+                     num_workers=2, batch_size=8, communication_window=1,
+                     commit_schedule=[1, 2], device="cpu")
+    t.train(tdk.from_numpy(x, y))
+    assert t.num_updates == 1 and np.isfinite(t.get_history()["loss"]).all()
 
 
 def test_device_defaults_to_cuda_and_raises_without_a_card():
@@ -225,3 +236,136 @@ def test_constructor_defaults_match_jax():
         assert ours["device"].default == "cuda"
     assert tdk.DOWNPOUR(TransformerLM(**LM), device="cpu").communication_window == 5
     assert tdk.DOWNPOUR(TransformerLM(**LM), device="cpu").num_workers == 1
+
+
+# --- the paper's training suite: the zoo models under the other trainers ---
+
+ZOO_TRAINERS = ["AEASGD", "EAMSGD", "ADAG", "DynSGD", "AveragingTrainer", "EnsembleTrainer"]
+MLP_KW = dict(features=(16, 8), num_classes=3)
+
+
+def _zoo_case(model_name):
+    """(JAX model, port model factory, x, one-hot y): 4 workers x batch 4 x
+    2 windows of 2 steps a worker."""
+    from distkeras_tpu.models import zoo as jax_zoo
+    from distkeras_tpu_torch.models import zoo
+
+    rng = np.random.default_rng(11)
+    if model_name == "mlp":
+        x = rng.normal(size=(64, 12)).astype(np.float32)
+        jax_model, port = jax_zoo.MLP(**MLP_KW), lambda: zoo.MLP(**MLP_KW, in_features=12)
+    else:
+        x = rng.normal(size=(64, 784)).astype(np.float32)
+        jax_model, port = jax_zoo.MNISTCNN(num_classes=3), lambda: zoo.MNISTCNN(num_classes=3)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, len(x))]
+    return jax_model, port, x, y
+
+
+class FixedVariables(TorchModel):
+    """Test-side adapter whose ``init`` returns given parameters and buffers."""
+
+    def __init__(self, module, params, buffers):
+        super().__init__(module)
+        self.params, self.buffers = params, buffers
+
+    def init(self, generator, sample_input):
+        return dict(self.params), dict(self.buffers)
+
+
+def _zoo_kwargs(name, lr):
+    """Each trainer's kwargs at learning rate ``lr``: small enough that
+    training does not diverge, where round-off would grow without bound."""
+    kwargs = dict(loss="categorical_crossentropy", metrics=("accuracy",), batch_size=4,
+                  num_epoch=2, seed=5)
+    if name == "EnsembleTrainer":
+        return dict(kwargs, num_models=4, worker_optimizer=("sgd", {"learning_rate": lr}))
+    kwargs["num_workers"] = 4
+    if name == "AveragingTrainer":
+        return dict(kwargs, worker_optimizer=("sgd", {"learning_rate": lr}))
+    if name == "EAMSGD":  # its default worker optimizer: Nesterov SGD
+        return dict(kwargs, communication_window=2, rho=2.0, learning_rate=lr / 2)
+    if name == "AEASGD":
+        return dict(kwargs, communication_window=2, rho=2.0, learning_rate=lr / 2,
+                    worker_optimizer=("sgd", {"learning_rate": lr / 2}))
+    return dict(kwargs, communication_window=2,
+                worker_optimizer=("sgd", {"learning_rate": lr, "momentum": 0.9}))
+
+
+@pytest.mark.parametrize("model_name", ["mlp", "mnist_cnn"])
+@pytest.mark.parametrize("name", ZOO_TRAINERS)
+def test_zoo_trainer_matches_jax(name, model_name):
+    from distkeras_tpu_torch.models import variables_from_flax
+
+    jax_model, port_model, x, y = _zoo_case(model_name)
+    kwargs = _zoo_kwargs(name, 0.1 if model_name == "mlp" else 0.01)
+    jt = getattr(jdk, name)(FlaxModel(jax_model), unroll=True, **kwargs)
+    jm = jt.train(jdk.from_numpy(x, y), shuffle=True)
+    variables = jax_model.init(jax.random.PRNGKey(kwargs["seed"]), x[:4], training=False)
+    params, buffers = variables_from_flax(port_model(), variables)
+    pt = getattr(tdk, name)(FixedVariables(port_model(), params, buffers), device="cpu",
+                            **kwargs)
+    pm = pt.train(tdk.from_numpy(x, y), shuffle=True)
+
+    h, ph = jt.get_history(), pt.get_history()
+    assert ph.keys() == h.keys()
+    for key in h:
+        if key != "training_time":
+            np.testing.assert_allclose(ph[key], h[key], **LOSS_TOL, err_msg=key)
+    jax_models, port_models = (jm, pm) if isinstance(jm, list) else ([jm], [pm])
+    assert len(port_models) == len(jax_models)
+    for want_model, got_model in zip(jax_models, port_models):
+        assert isinstance(got_model, TrainedModel) and got_model.history is ph
+        want, _ = variables_from_flax(port_model(), {"params": jax.tree_util.tree_map(
+            np.asarray, want_model.params)})
+        assert got_model.params.keys() == want.keys()
+        for k, value in want.items():
+            np.testing.assert_allclose(got_model.params[k].numpy(), value.numpy(),
+                                       **PARAM_TOL, err_msg=k)
+    if hasattr(jt, "num_updates"):
+        assert pt.num_updates == jt.num_updates
+
+
+def test_new_trainer_signatures_and_defaults_match_jax():
+    import inspect
+
+    for name in ("AveragingTrainer", "EnsembleTrainer", "AEASGD", "EAMSGD", "ADAG",
+                 "DynSGD", "AdaptiveDynSGD"):
+        ours = inspect.signature(getattr(tdk, name).__init__).parameters
+        theirs = inspect.signature(getattr(jdk, name).__init__).parameters
+        assert list(ours) == list(theirs), name
+        for p, param in theirs.items():
+            assert ours[p].default == param.default, (name, p)
+    model = TransformerLM(**LM)
+    for name in ("AEASGD", "EAMSGD", "ADAG", "DynSGD", "AdaptiveDynSGD"):
+        ours, theirs = getattr(tdk, name)(model, device="cpu"), getattr(jdk, name)(model)
+        for attr in ("communication_window", "rho", "learning_rate", "momentum",
+                     "initial_bound", "parallelism_factor"):
+            assert getattr(ours, attr, None) == getattr(theirs, attr, None), (name, attr)
+        assert ours.num_workers == 1 and ours.commit_schedule is None
+        assert (ours.parameter_server_class.__name__
+                == theirs.parameter_server_class.__name__), name
+        rule, jax_rule = ours.allocate_worker().rule, theirs.allocate_worker().rule
+        assert type(rule).__name__ == type(jax_rule).__name__, name
+    assert tdk.EnsembleTrainer(model, device="cpu").num_models == 2
+    assert tdk.AveragingTrainer(model, device="cpu").num_workers == 1
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdk.AEASGD(model)
+
+
+@pytest.mark.parametrize(
+    "args, kwargs, want",
+    [((), {}, ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "nesterov": True})),
+     (("categorical_crossentropy",), {"learning_rate": 0.2, "momentum": 0.5},
+      ("sgd", {"learning_rate": 0.2, "momentum": 0.5, "nesterov": True})),
+     (("categorical_crossentropy", "adam"), {}, "adam"),
+     ((), {"worker_optimizer": "adagrad"}, "adagrad"),
+     (("categorical_crossentropy", None), {}, ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                                                        "nesterov": True}))],
+    ids=["default", "default_tuned", "positional", "keyword", "positional_none"],
+)
+def test_eamsgd_optimizer_default_matches_jax(args, kwargs, want):
+    model = TransformerLM(**LM)
+    ours = tdk.EAMSGD(model, *args, device="cpu", **kwargs)
+    theirs = jdk.EAMSGD(model, *args, **kwargs)
+    assert ours._effective_worker_optimizer() == theirs._effective_worker_optimizer() == want
+    assert ours.allocate_worker().optimizer == theirs.allocate_worker().optimizer == want
