@@ -11,15 +11,18 @@ toolkit.  Phases, each printing JSON lines:
    ``nvcc`` per source, all at once; then each kernel's registers and
    spills (ptxas) and its tensor-core instructions (HMMA in cuobjdump's
    SASS): every instantiation of the forward (B1), dQ (B2) and dK/dV (B3)
-   kernels must have them;
+   kernels (f32, bf16 and f16; head dims 16 to 256) must have them;
 3. kernels: each kernel against its plain PyTorch version on the card,
    with its time, the plain version's, one library call's and the bound:
    the forward (B1, also at lq != lk and on misaligned inputs that the
    wrapper copies) and the backward's dQ (B2) and dK/dV (B3) kernels,
    whose f32 rows give two bounds (the CUDA cores' f32 rate and the
-   tensor cores' 3xTF32 rate); the forward on the LM shape and the
-   backward kernels on the training shape run twice and must agree bit
-   for bit;
+   tensor cores' 3xTF32 rate); also at head dims 8, 96 and 256 (f32,
+   ``[4, 1024, 12, d]`` causal; the wrappers zero-pad 8 and 96, and the
+   padding copy is timed alone) and in f16 (B1 at ``[16, 1024, 12, 64]``,
+   B2/B3 at the training shape), each bound on the true head dim; the
+   forward on the LM shape and the backward kernels on the training shape,
+   the three head dims and f16 run twice and must agree bit for bit;
 4. ``ModelPredictor`` over a ``TransformerClassifier`` at GPT-2-small widths
    (768 wide, 12 heads, 12 layers, 1024 positions, 50257 tokens), weights
    drawn from ``--seed``: 64 rows of 1024 tokens in batches of 16;
@@ -45,13 +48,33 @@ toolkit.  Phases, each printing JSON lines:
    statistics must move and be equal across workers after a commit;
 8. staleness: ``DynSGD`` over ``TextCNN`` with ``commit_schedule=[16, 32]``,
    64 steps an epoch: the commit count and the workers' clocks must equal
-   a host-side count of the race, with at least one stale commit.
+   a host-side count of the race, with at least one stale commit;
+9. flow: the paper's DataFrame flow (``examples/mnist.py``) through the
+   public API at MNIST's shape, on 60,000 synthetic rows of 784 pixels
+   drawn from ``--seed``: ``from_numpy`` -> ``MinMaxTransformer`` ->
+   ``OneHotTransformer`` -> ``split(0.8)`` -> ``SingleTrainer``,
+   ``DOWNPOUR``, ``AEASGD`` and ``ADAG`` over ``MLP(256, 128)`` (2 workers,
+   batch 32, the example's settings, 2 epochs where the example has 5)
+   and ``SingleTrainer`` over ``MNISTCNN`` (batch 256, through
+   ``ReshapeTransformer``), each with ``tensorboard_dir`` -> ``ModelPredictor``
+   -> ``LabelIndexTransformer`` -> ``AccuracyEvaluator``, and
+   ``LossEvaluator``; one line each, with samples/s and s/step.  Gates: the
+   held-out accuracy, predictions and ``LossEvaluator`` against the CPU,
+   ``AccuracyEvaluator`` against a numpy recount, one scalar-log entry per
+   epoch holding the history's loss, the commit counts;
+10. head-dim models: ``ModelPredictor`` over a ``TransformerLM`` at GPT-2
+    small's widths with 8 heads (head dim 96) and over a ``dim=16, heads=2``
+    ``TransformerClassifier`` (head dim 8), card against CPU, and
+    ``PerplexityEvaluator`` over the LM's output;
+11. networking: ``networking.initialize`` over NCCL at world size 1, one
+    ``all_reduce`` of a CUDA tensor, ``shutdown``; a ``send_data`` /
+    ``recv_data`` round trip over a socket pair.
 
-Phases 4 to 6 set the kernels' launch counts to 0 just before and read them
-just after, check that every kernel of the path ran as often as the model
-needs, and hold the output against the same model on the CPU.  Phases 7
-and 8 run no kernel of the port's own: convolutions, dense products and
-embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
+Phases 4 to 6 and 10 set the kernels' launch counts to 0 just before and
+read them just after, check that every kernel of the path ran as often as
+the model needs, and hold the output against the same model on the CPU.
+Phases 7 to 9 and 11 run no kernel of the port's own: convolutions, dense
+products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits non-zero without
 the ``ok`` line; so does a machine without CUDA.
@@ -70,7 +93,8 @@ import torch
 
 # f32: the kernel and the plain version differ only in summation order.
 F32_ATOL = F32_RTOL = 1e-4
-# bf16: both compute in f32, but O is rounded to bf16 at the end (LSE stays f32).
+# bf16 (and f16, held to the same gates): both compute in f32, but O is
+# rounded to 16 bits at the end (LSE stays f32).
 BF16_O_ATOL = 2e-2
 BF16_LSE_ATOL = 1e-3
 # ModelPredictor probabilities and LM logits on the card against the CPU.
@@ -90,7 +114,7 @@ STEP_GRAD_RTOL = 1e-3
 
 # Published H100 SXM peaks (dense): f32 outside the tensor cores, bf16
 # tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 # f32 products on the tensor cores at f32 accuracy: three TF32 products
 # (3xTF32) at the 495 TFLOP/s TF32 peak, as the backward kernels run them.
@@ -113,6 +137,12 @@ KERNEL_CASES = [
     ("dim128_bf16", (1, 257, 4, 128), None, torch.bfloat16, True, "plain"),
     ("lq_gt_lk_causal", (2, 200, 2, 64), 77, torch.float32, True, "plain"),
     ("offset", (2, 100, 2, 64), None, torch.float32, True, "offset"),
+    # head dims outside the built sizes (zero-padded to 16, 128, and the
+    # d = 256 build) and f16
+    ("d8", (4, 1024, 12, 8), None, torch.float32, True, "plain"),
+    ("d96", (4, 1024, 12, 96), None, torch.float32, True, "plain"),
+    ("d256", (4, 1024, 12, 256), None, torch.float32, True, "plain"),
+    ("f16", (16, 1024, 12, 64), None, torch.float16, False, "plain"),
 ]
 MAIN_PATH_CASE = "classifier"  # the shape ModelPredictor hands the kernel
 DETERMINISM_CASE = "lm"  # the forward runs twice here and must agree bit for bit
@@ -129,7 +159,15 @@ BWD_CASES = [
     ("train_noncausal", (4, 1024, 12, 64), torch.float32, False, True),
     ("train_bf16", (4, 1024, 12, 64), torch.bfloat16, True, True),
     ("dim128_bf16", (1, 257, 4, 128), torch.bfloat16, True, True),
+    ("d8", (4, 1024, 12, 8), torch.float32, True, False),
+    ("d96", (4, 1024, 12, 96), torch.float32, True, False),
+    ("d256", (4, 1024, 12, 256), torch.float32, True, False),
+    ("train_f16", (4, 1024, 12, 64), torch.float16, True, True),
 ]
+# cases whose backward kernels also run twice and must agree bit for bit
+BWD_RERUN_CASES = ("train", "d8", "d96", "d256", "train_f16")
+# the head-dim and f16 rows of the kernels line: (forward case, backward case)
+COVERAGE_CASES = (("d8", "d8"), ("d96", "d96"), ("d256", "d256"), ("f16", "train_f16"))
 BWD_MAIN_PATH_CASE = "train"
 # training phase: DOWNPOUR over GPT-2-small widths
 TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS = 32, 1024, 4, 2, 2, 2
@@ -204,7 +242,9 @@ def kernel_resources():
 
     from distkeras_tpu_torch.ops import _build
 
-    name_re = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+    name_re = re.compile(
+        r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
+    dtype_names = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
     frame_re = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads")
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -215,7 +255,7 @@ def kernel_resources():
 
     def row_of(match):
         kernel, dtype, head_dim = match.group(1), match.group(2), int(match.group(3))
-        dtype = "float32" if dtype == "f" else "bfloat16"
+        dtype = dtype_names[dtype]
         return rows.setdefault((kernel, dtype, head_dim),
                                dict(kernel=kernel, dtype=dtype, head_dim=head_dim, hmma=0))
 
@@ -268,6 +308,8 @@ def kernel_phase(seed: int):
     import torch.nn.functional as F
 
     from distkeras_tpu_torch.ops.flash_attention import (
+        HEAD_DIMS,
+        _pad_head_dim,
         flash_attention_fwd,
         flash_attention_plain,
     )
@@ -281,7 +323,7 @@ def kernel_phase(seed: int):
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             ok = err_o <= BF16_O_ATOL and err_lse <= BF16_LSE_ATOL
             tol = {"o_atol": BF16_O_ATOL, "lse_atol": BF16_LSE_ATOL}
         else:
@@ -306,6 +348,8 @@ def kernel_phase(seed: int):
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         if dtype == torch.float32:  # on the tensor cores in 3xTF32
             row["bound_tc_ms"] = attention_bound_ms(shape, dtype, causal, PEAK_TC_F32, lk)[0]
+        if shape[3] not in HEAD_DIMS:  # the wrapper's zero-padding copy, inside kernel_ms
+            row["pad_ms"] = cuda_ms(lambda: _pad_head_dim(q, k, v), 10 if big else 50)
         if name == DETERMINISM_CASE:  # no atomics: a second run agrees bit for bit
             o2, lse2 = flash_attention_fwd(q, k, v, causal)
             row["deterministic"] = torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -323,6 +367,8 @@ def bwd_kernel_phase(seed: int):
     import torch.nn.functional as F
 
     from distkeras_tpu_torch.ops.flash_attention import (
+        HEAD_DIMS,
+        _pad_head_dim,
         attention_delta,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
@@ -343,7 +389,7 @@ def bwd_kernel_phase(seed: int):
         torch.cuda.synchronize()
         errs = [(got.float() - want.float()).abs().max().item()
                 for got, want in zip((dq, dk, dv), ref)]
-        tol = BWD_BF16 if dtype == torch.bfloat16 else BWD_F32
+        tol = BWD_F32 if dtype == torch.float32 else BWD_BF16
         ok = all(torch.allclose(got.float(), want.float(), **tol)
                  for got, want in zip((dq, dk, dv), ref))
         big = shape[1] >= 1024
@@ -378,7 +424,9 @@ def bwd_kernel_phase(seed: int):
             if dtype == torch.float32:
                 row[f"{prefix}bound_tc_ms"] = kernel_bound_ms(
                     shape, dtype, causal, flops, tensors, PEAK_TC_F32)[0]
-        if name == BWD_MAIN_PATH_CASE:  # no atomics: a second run agrees bit for bit
+        if shape[3] not in HEAD_DIMS:  # each kernel's padding copy (q, k, v, dO), in its ms
+            row["pad_ms"] = cuda_ms(lambda: _pad_head_dim(q, k, v, do), iters)
+        if name in BWD_RERUN_CASES:  # no atomics: a second run agrees bit for bit
             again = (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
                      *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
             row["deterministic"] = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
@@ -920,6 +968,332 @@ def staleness_phase(seed: int):
     return row
 
 
+# The paper's DataFrame flow (examples/mnist.py) at MNIST's shape: synthetic
+# rows of 784 integer pixels in [0, 255], labelled by a fixed random linear
+# map of the pixels (so the task can be learned), split 0.8 / 0.2.
+FLOW_ROWS, FLOW_FEATURES, FLOW_CLASSES = 60000, 784, 10
+FLOW_EPOCHS = 2  # the example's default is 5: cut for time
+FLOW_BATCH, FLOW_CNN_BATCH, FLOW_WORKERS = 32, 256, 2
+FLOW_CPU_ROWS = 2048  # held-out rows predicted again on the CPU
+FLOW_PIXEL_NOISE = 400.0  # std of the pixels around their class prototype
+# Held-out accuracy each model's trainers must beat after 2 epochs.  The
+# same flow on the CPU (flow_phase with ZOO_DEVICE = "cpu", at these
+# sizes) gave 0.9306 (SingleTrainer), 0.9516 (DOWNPOUR), 0.9582 (AEASGD),
+# 0.9604 (ADAG) and 0.3847 (MNISTCNN, 375 steps of SGD at batch 256);
+# chance is 0.1.  The card sums in another order and 1,500 SGD steps an
+# epoch carry that apart: its SingleTrainer reached 0.8908 where the CPU's
+# reached 0.9306.  The limits leave room for that.
+FLOW_MIN_ACCURACY = {"MLP": 0.8, "MNISTCNN": 0.2}
+FLOW_PREDICT_ATOL = 1e-5
+FLOW_LOSS_RTOL = 1e-5
+# (name, trainer, model, batch, trainer kwargs): the example's settings
+FLOW_TRAINERS = [
+    ("SingleTrainer", "SingleTrainer", "MLP", FLOW_BATCH,
+     {"worker_optimizer": ("sgd", {"learning_rate": 0.1})}),
+    ("DOWNPOUR", "DOWNPOUR", "MLP", FLOW_BATCH,
+     {"worker_optimizer": ("adam", {"learning_rate": 1e-3 / FLOW_WORKERS}),
+      "communication_window": 5}),
+    ("AEASGD", "AEASGD", "MLP", FLOW_BATCH,
+     {"worker_optimizer": ("sgd", {"learning_rate": 0.1}), "communication_window": 16,
+      "rho": 1.0, "learning_rate": 0.05}),
+    ("ADAG", "ADAG", "MLP", FLOW_BATCH,
+     {"worker_optimizer": ("adam", {"learning_rate": 1e-3 * 8 / FLOW_WORKERS}),
+      "communication_window": 8}),
+    ("SingleTrainer_MNISTCNN", "SingleTrainer", "MNISTCNN", FLOW_CNN_BATCH,
+     {"worker_optimizer": ("sgd", {"learning_rate": 0.05})}),
+]
+
+
+def synthetic_mnist(rows: int, features: int, classes: int, seed: int):
+    """MNIST-shaped data drawn from ``seed``: integer pixels in [0, 255] and
+    labels from a fixed random linear map ``w`` of them.  Each row is a noisy
+    copy of one of ``classes`` prototypes (bright where a column of ``w`` is
+    positive), so the classes form clusters that a model learns in an epoch,
+    as MNIST's digits do; the label is the map's argmax, not the prototype."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((features, classes)).astype(np.float32)
+    prototypes = np.where(w > 0, 200.0, 55.0).T  # [classes, features]
+    drawn = rng.integers(0, classes, rows)
+    noise = rng.normal(0.0, FLOW_PIXEL_NOISE, (rows, features))
+    x = np.clip(np.rint(prototypes[drawn] + noise), 0, 255).astype(np.float32)
+    y = np.argmax((x / 255.0 - 0.5) @ w, axis=-1).astype(np.int64)
+    return x, y
+
+
+def logged_scalars(logdir: str):
+    """What a trainer's ``ScalarLogger`` wrote to ``logdir``, as
+    ``(sink, [{"step", "loss", ...}])``: its ``scalars.jsonl``, or, where
+    ``torch.utils.tensorboard`` imports and the logger took it, its
+    TensorBoard event files."""
+    import os
+
+    jsonl = os.path.join(logdir, "scalars.jsonl")
+    if os.path.exists(jsonl):
+        with open(jsonl) as f:
+            return "jsonl", [json.loads(line) for line in f]
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(logdir)
+    acc.Reload()
+    lines = {}
+    for tag in acc.Tags()["scalars"]:
+        for event in acc.Scalars(tag):
+            lines.setdefault(event.step, {"step": event.step})[tag] = event.value
+    return "tensorboard", [lines[step] for step in sorted(lines)]
+
+
+def windows_per_epoch(rows: int, workers: int, batch: int, window: int) -> int:
+    """Commits a worker makes in an epoch: the windows that cover ``rows``
+    (the last one padded by wrapping round), as the JAX package plans them."""
+    steps = -(-rows // (workers * batch))
+    return -(-steps // window)
+
+
+def flow_phase(seed: int):
+    """The paper's flow through the port's public API: ``from_numpy`` ->
+    ``MinMaxTransformer`` -> ``OneHotTransformer`` -> ``split`` -> a trainer
+    -> ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
+    ``AccuracyEvaluator``, and ``LossEvaluator``, for each of
+    ``FLOW_TRAINERS``, with ``tensorboard_dir`` set.  One JSON line each."""
+    import tempfile
+
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TrainedModel, zoo
+
+    t0 = time.perf_counter()
+    x, y = synthetic_mnist(FLOW_ROWS, FLOW_FEATURES, FLOW_CLASSES, seed + 4)
+    df = tdk.from_numpy(x, y, features_col="features_raw", label_col="label")
+    df = tdk.MinMaxTransformer(0.0, 1.0, 0.0, 255.0, input_col="features_raw",
+                               output_col="features").transform(df)
+    df = tdk.OneHotTransformer(FLOW_CLASSES, input_col="label",
+                               output_col="label_encoded").transform(df)
+    df = tdk.ReshapeTransformer("features", "image", (28, 28, 1)).transform(df)
+    train_df, test_df = df.split(0.8, seed=seed)
+    prepare_seconds = time.perf_counter() - t0
+    n_train, n_test = len(train_df), len(test_df)
+    rows = []
+    for name, trainer_name, model_name, batch, kwargs in FLOW_TRAINERS:
+        single = trainer_name == "SingleTrainer"
+        workers = 1 if single else FLOW_WORKERS
+        features_col = "image" if model_name == "MNISTCNN" else "features"
+        if model_name == "MLP":
+            model = zoo.MLP(features=(256, 128), num_classes=FLOW_CLASSES,
+                            in_features=FLOW_FEATURES,
+                            generator=torch.Generator().manual_seed(seed))
+        else:
+            model = zoo.MNISTCNN(num_classes=FLOW_CLASSES,
+                                 generator=torch.Generator().manual_seed(seed))
+        extra = {} if single else {"num_workers": workers}
+        with tempfile.TemporaryDirectory() as logdir:
+            trainer = getattr(tdk, trainer_name)(
+                model, loss="categorical_crossentropy", features_col=features_col,
+                label_col="label_encoded", batch_size=batch, num_epoch=FLOW_EPOCHS, seed=seed,
+                tensorboard_dir=logdir, device=ZOO_DEVICE, **extra, **kwargs)
+            trained = trainer.train(train_df)
+            sink, scalars = logged_scalars(logdir)
+        torch.cuda.synchronize()
+        history = trainer.get_history()
+        seconds = history["training_time"]
+        window = kwargs.get("communication_window")
+        if single:
+            local_steps = FLOW_EPOCHS * -(-n_train // batch)
+            expected_updates = None
+        else:
+            n_windows = windows_per_epoch(n_train, workers, batch, window)
+            local_steps = FLOW_EPOCHS * n_windows * window * workers
+            expected_updates = FLOW_EPOCHS * n_windows * workers
+
+        t1 = time.perf_counter()
+        pred = tdk.ModelPredictor(trained, features_col=features_col,
+                                  device=ZOO_DEVICE).predict(test_df)
+        pred = tdk.LabelIndexTransformer(FLOW_CLASSES, input_col="prediction",
+                                         output_col="prediction_index").transform(pred)
+        accuracy = tdk.AccuracyEvaluator(prediction_col="prediction_index",
+                                         label_col="label").evaluate(pred)
+        predict_seconds = time.perf_counter() - t1
+        loss = tdk.LossEvaluator("categorical_crossentropy", prediction_col="prediction",
+                                 label_col="label_encoded", device=ZOO_DEVICE).evaluate(pred)
+        recount = float(np.mean(np.argmax(pred["prediction"], -1) == pred["label"]))
+        # the same trained parameters on the CPU
+        cpu_model = TrainedModel(trained.adapter, {k: v.cpu() for k, v in trained.params.items()},
+                                 {k: v.cpu() for k, v in trained.state.items()}, device="cpu")
+        head = pred.limit(FLOW_CPU_ROWS)
+        cpu_pred = tdk.ModelPredictor(cpu_model, features_col=features_col,
+                                      device="cpu").predict(head)
+        predict_err = float(np.abs(head["prediction"] - cpu_pred["prediction"]).max())
+        cpu_loss = tdk.LossEvaluator("categorical_crossentropy", prediction_col="prediction",
+                                     label_col="label_encoded", device="cpu").evaluate(pred)
+        loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+        logged_loss = [line.get("loss") for line in scalars]
+        row = dict(trainer=name, model=model_name, workers=workers, batch_size=batch,
+                   window=window, epochs=FLOW_EPOCHS, example_epochs=5,
+                   cut="2 epochs instead of examples/mnist.py's 5, for time",
+                   train_rows=n_train, test_rows=n_test, local_steps=local_steps,
+                   seconds=seconds, samples_per_s=FLOW_EPOCHS * n_train / seconds,
+                   seconds_per_step=seconds / local_steps, loss=history["loss"],
+                   accuracy=accuracy, accuracy_recount=recount,
+                   min_accuracy=FLOW_MIN_ACCURACY[model_name], predict_seconds=predict_seconds,
+                   predict_rows_per_s=n_test / predict_seconds, loss_evaluator=loss,
+                   loss_evaluator_cpu=cpu_loss, loss_evaluator_rel_err=loss_err,
+                   loss_rtol=FLOW_LOSS_RTOL, predict_cpu_rows=len(head),
+                   predict_max_abs_err_vs_cpu=predict_err, predict_atol=FLOW_PREDICT_ATOL,
+                   scalar_sink=sink, scalar_lines=len(scalars), scalar_loss=logged_loss,
+                   num_updates=None if single else trainer.num_updates,
+                   expected_num_updates=expected_updates)
+        failures = []
+        if not accuracy > FLOW_MIN_ACCURACY[model_name]:
+            failures.append(f"held-out accuracy {accuracy} not above "
+                            f"{FLOW_MIN_ACCURACY[model_name]}")
+        if accuracy != recount:
+            failures.append(f"AccuracyEvaluator {accuracy} != numpy recount {recount}")
+        if predict_err > FLOW_PREDICT_ATOL:
+            failures.append(f"card and CPU predictions differ by {predict_err}")
+        if loss_err > FLOW_LOSS_RTOL:
+            failures.append(f"card and CPU LossEvaluator differ by {loss_err} relative")
+        if len(scalars) != FLOW_EPOCHS or [line["step"] for line in scalars] != list(
+                range(FLOW_EPOCHS)) or not np.array_equal(
+                np.float32(logged_loss), np.float32(history["loss"])):
+            failures.append(f"scalar log {scalars} does not hold the epochs' losses "
+                            f"{history['loss']}")
+        if row["num_updates"] != expected_updates:
+            failures.append(f"{row['num_updates']} commits, expected {expected_updates}")
+        if not np.isfinite(history["loss"]).all():
+            failures.append(f"loss not finite: {history['loss']}")
+        row["failures"] = failures
+        emit(phase="flow", **row)
+        if failures:
+            raise AssertionError(f"flow/{name}: {failures}")
+        rows.append(row)
+        del trainer, trained, pred, cpu_model
+    emit(phase="flow_data", rows=FLOW_ROWS, features=FLOW_FEATURES, train_rows=n_train,
+         test_rows=n_test, prepare_seconds=prepare_seconds,
+         steps="from_numpy, MinMaxTransformer(0, 1, 0, 255), OneHotTransformer(10), "
+               "ReshapeTransformer(28, 28, 1), split(0.8)")
+    return rows
+
+
+# The head-dim check on whole models: GPT-2 small's widths over 8 heads
+# (d = 96, which the wrappers pad to the d = 128 build) and the JAX tests'
+# dim 16 over 2 heads (d = 8, padded to 16)
+LM_D96 = dict(GPT2_SMALL, heads=8)
+LM_D96_ROWS = 2
+CLASSIFIER_D8 = dict(vocab_size=64, num_classes=3, dim=16, heads=2, num_layers=2, max_len=32)
+CLASSIFIER_D8_ROWS, CLASSIFIER_D8_BATCH = 64, 16
+
+
+def head_dim_phase(seed: int):
+    """``ModelPredictor`` over models whose head dim is not a built size,
+    card against CPU, with the forward kernel's launch counts;
+    ``PerplexityEvaluator`` over the LM's output."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import (
+        TorchModel,
+        TrainedModel,
+        TransformerClassifier,
+        TransformerLM,
+    )
+    from distkeras_tpu_torch.ops import flash_attention
+
+    out = {}
+    rng = np.random.default_rng(seed + 5)
+    lm = TransformerLM(**LM_D96, generator=torch.Generator().manual_seed(seed + 5))
+    params = {name: p.detach() for name, p in lm.named_parameters()}
+    tokens = rng.integers(0, LM_D96["vocab_size"], (LM_D96_ROWS, LM_D96["max_len"]),
+                          dtype=np.int32)
+    frame = tdk.from_numpy(tokens, (tokens + 1) % LM_D96["vocab_size"])
+    card = tdk.ModelPredictor(TrainedModel(TorchModel(lm), params, device=ZOO_DEVICE),
+                              batch_size=LM_D96_ROWS, device=ZOO_DEVICE)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    probs = card.predict(frame)
+    seconds = time.perf_counter() - t0
+    launches = flash_attention.launches
+    perplexity = tdk.PerplexityEvaluator().evaluate(probs)
+    cpu = tdk.ModelPredictor(TrainedModel(TorchModel(lm), params, device="cpu"),
+                             batch_size=1, device="cpu").predict(frame.limit(1))
+    err = float(np.abs(probs["prediction"][:1] - cpu["prediction"]).max())
+    out["lm_d96"] = dict(model="TransformerLM", **LM_D96, head_dim=96, rows=LM_D96_ROWS,
+                         launches=launches, expected_launches=LM_D96["num_layers"],
+                         seconds=seconds, perplexity=perplexity,
+                         max_abs_err_vs_cpu=err, atol=PREDICT_ATOL)
+    del probs, cpu, card
+
+    clf = TransformerClassifier(**CLASSIFIER_D8, generator=torch.Generator().manual_seed(seed))
+    params = {name: p.detach() for name, p in clf.named_parameters()}
+    tokens = rng.integers(0, CLASSIFIER_D8["vocab_size"],
+                          (CLASSIFIER_D8_ROWS, CLASSIFIER_D8["max_len"]), dtype=np.int32)
+    frame = tdk.from_numpy(tokens)
+    flash_attention.launches = 0
+    card = tdk.ModelPredictor(TrainedModel(TorchModel(clf), params, device=ZOO_DEVICE),
+                              batch_size=CLASSIFIER_D8_BATCH, device=ZOO_DEVICE).predict(frame)
+    launches = flash_attention.launches
+    cpu = tdk.ModelPredictor(TrainedModel(TorchModel(clf), params, device="cpu"),
+                             batch_size=CLASSIFIER_D8_BATCH, device="cpu").predict(frame)
+    err = float(np.abs(card["prediction"] - cpu["prediction"]).max())
+    out["classifier_d8"] = dict(
+        model="TransformerClassifier", **CLASSIFIER_D8, head_dim=8, rows=CLASSIFIER_D8_ROWS,
+        launches=launches,
+        expected_launches=CLASSIFIER_D8["num_layers"] * CLASSIFIER_D8_ROWS // CLASSIFIER_D8_BATCH,
+        max_abs_err_vs_cpu=err, atol=PREDICT_ATOL)
+
+    for name, row in out.items():
+        emit(phase="head_dim_models", case=name, **row)
+        # on the CPU the models take the reference path: no launch to count
+        want = row["expected_launches"] if ZOO_DEVICE == "cuda" else 0
+        if row["launches"] != want:
+            raise AssertionError(f"{name}: the forward kernel launched {row['launches']} "
+                                 f"times, expected {want}")
+        if not row["max_abs_err_vs_cpu"] <= PREDICT_ATOL:
+            raise AssertionError(f"{name}: card and CPU differ by {row['max_abs_err_vs_cpu']}")
+    if not (np.isfinite(out["lm_d96"]["perplexity"]) and out["lm_d96"]["perplexity"] > 1.0):
+        raise AssertionError(f"perplexity {out['lm_d96']['perplexity']}")
+    return out
+
+
+def networking_phase(seed: int):
+    """``networking.initialize`` / ``shutdown`` over NCCL at world size 1
+    with one ``all_reduce`` of a CUDA tensor between them, and a
+    ``send_data`` / ``recv_data`` round trip over a socket pair."""
+    import socket
+
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch import networking
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    networking.initialize(f"127.0.0.1:{port}", 1, 0, device=ZOO_DEVICE)
+    try:
+        backend = dist.get_backend()
+        t = torch.arange(8, dtype=torch.float32, device=ZOO_DEVICE)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        reduced = t.cpu().tolist()
+    finally:
+        networking.shutdown()
+    rng = np.random.default_rng(seed)
+    msg = {"delta": {"w": rng.standard_normal((64, 32)).astype(np.float32),
+                     "step": np.arange(5, dtype=np.int64)},
+           "blob": bytes(range(256)), "verb": "commit"}
+    a, b = socket.socketpair()
+    try:
+        networking.send_data(a, msg)
+        got = networking.recv_data(b)
+    finally:
+        a.close()
+        b.close()
+    same = (got["verb"] == msg["verb"] and got["blob"] == msg["blob"]
+            and all(np.array_equal(got["delta"][k], v) for k, v in msg["delta"].items()))
+    row = dict(backend=backend, world_size=1, all_reduce=reduced,
+               group_left=not dist.is_initialized(), wire_round_trip=same)
+    emit(phase="networking", **row)
+    if (reduced != [float(i) for i in range(8)] or not row["group_left"] or not same
+            or backend != ("nccl" if ZOO_DEVICE == "cuda" else "gloo")):
+        raise AssertionError(f"networking: {row}")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -952,8 +1326,8 @@ def main(argv=None) -> int:
         emit(phase="resources", **row)
     for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
         found = [r for r in resources if r["kernel"] == kernel]
-        if len(found) != 2 * 4:  # float32 and bfloat16, head dims 16 to 128
-            raise AssertionError(f"{kernel}: {len(found)} instantiations in the SASS, expected 8")
+        if len(found) != 3 * 5:  # float32, bfloat16 and float16, head dims 16 to 256
+            raise AssertionError(f"{kernel}: {len(found)} instantiations in the SASS, expected 15")
     no_tensor_cores = [r for r in resources if not r["hmma"]]
     if no_tensor_cores:
         raise AssertionError(f"kernels without tensor-core instructions: {no_tensor_cores}")
@@ -965,12 +1339,40 @@ def main(argv=None) -> int:
     train_launches = train_phase(args.seed)
     zoo_phase(args.seed)
     staleness_phase(args.seed)
+    flow_phase(args.seed)
+    head_dim_rows = head_dim_phase(args.seed)
+    networking_phase(args.seed)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
     lm_bf16 = cases["lm_bf16"]
     bwd = bwd_cases[BWD_MAIN_PATH_CASE]
     bwd_bf16 = bwd_cases["train_bf16"]
+    from distkeras_tpu_torch.ops.flash_attention import kernel_head_dim
+
+    def coverage(kind):
+        """The head-dim and f16 rows of one kernel: its time (the wrapper's,
+        the padding copy included), the padding copy's alone, the plain
+        version's, SDPA's and the bound on the true head dim."""
+        out = []
+        for fwd_case, bwd_case in COVERAGE_CASES:
+            row = cases[fwd_case] if kind == "fwd" else bwd_cases[bwd_case]
+            prefix = "" if kind == "fwd" else f"{kind}_"
+            d = row["shape"][3]
+            entry = dict(case=row["case"], shape=row["shape"], dtype=row["dtype"],
+                         causal=row["causal"], head_dim=d, built_head_dim=kernel_head_dim(d),
+                         plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                         bound_ms=row[f"{prefix}bound_ms"], bound_by=row[f"{prefix}bound_by"],
+                         pad_ms=row.get("pad_ms"))
+            if kind == "fwd":
+                entry.update(ms=row["kernel_ms"], max_abs_err=row["max_abs_err_o"])
+            else:
+                entry.update(ms=row[f"{kind}_ms"], deterministic=row["deterministic"],
+                             max_abs_err=(row["max_abs_err_dq"] if kind == "dq" else
+                                          max(row["max_abs_err_dk"], row["max_abs_err_dv"])))
+            out.append(entry)
+        return out
+
     bwd_entry = dict(route="cuda", source="distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
                      plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"],
                      shape=bwd["shape"], causal=True, deterministic=bwd["deterministic"],
@@ -1002,6 +1404,9 @@ def main(argv=None) -> int:
         "training_bf16_library_ms": lm_bf16["library_ms"],
         "training_bf16_bound_ms": lm_bf16["bound_ms"],
         "training_bf16_bound_by": lm_bf16["bound_by"],
+        "launches_head_dim_models": {name: row["launches"]
+                                     for name, row in head_dim_rows.items()},
+        "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
         "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:247",
@@ -1013,6 +1418,7 @@ def main(argv=None) -> int:
         "bound_tc_ms": bwd["dq_bound_tc_ms"],
         "bf16_ms": bwd_bf16["dq_ms"],
         "bf16_bound_ms": bwd_bf16["dq_bound_ms"],
+        "head_dims_and_f16": coverage("dq"),
         **bwd_entry,
     }, {
         "name": "flash_attention_bwd_dkv",
@@ -1025,6 +1431,7 @@ def main(argv=None) -> int:
         "bound_tc_ms": bwd["dkv_bound_tc_ms"],
         "bf16_ms": bwd_bf16["dkv_ms"],
         "bf16_bound_ms": bwd_bf16["dkv_bound_ms"],
+        "head_dims_and_f16": coverage("dkv"),
         **bwd_entry,
     }]}), flush=True)
     print(smi, flush=True)

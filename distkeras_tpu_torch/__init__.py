@@ -12,13 +12,17 @@ This package imports torch and numpy, never jax or the JAX package.
 
 __version__ = "0.1.0"
 
+from distkeras_tpu_torch import frame, utils
+from distkeras_tpu_torch.evaluators import AccuracyEvaluator, LossEvaluator, PerplexityEvaluator
 from distkeras_tpu_torch.frame import (
     DataFrame,
     Row,
     from_numpy,
     from_pandas,
     from_rows,
+    from_spark,
     read_csv,
+    to_spark,
 )
 from distkeras_tpu_torch.predictors import ModelPredictor
 from distkeras_tpu_torch.trainers import (
@@ -35,26 +39,47 @@ from distkeras_tpu_torch.trainers import (
     SingleTrainer,
     Trainer,
 )
+from distkeras_tpu_torch.transformers import (
+    DenseTransformer,
+    LabelIndexTransformer,
+    MinMaxTransformer,
+    OneHotTransformer,
+    ReshapeTransformer,
+    StandardScaleTransformer,
+)
 
 __all__ = [
-    "ADAG",
-    "AEASGD",
-    "AdaptiveDynSGD",
-    "AsynchronousDistributedTrainer",
-    "AveragingTrainer",
-    "DOWNPOUR",
-    "DynSGD",
-    "EAMSGD",
-    "EnsembleTrainer",
     "DataFrame",
-    "DistributedTrainer",
-    "ModelPredictor",
-    "SingleTrainer",
-    "Trainer",
     "Row",
-    "__version__",
     "from_numpy",
     "from_pandas",
+    "from_spark",
+    "to_spark",
     "from_rows",
     "read_csv",
+    "Trainer",
+    "SingleTrainer",
+    "AveragingTrainer",
+    "EnsembleTrainer",
+    "DistributedTrainer",
+    "AsynchronousDistributedTrainer",
+    "DOWNPOUR",
+    "AEASGD",
+    "EAMSGD",
+    "ADAG",
+    "DynSGD",
+    "AdaptiveDynSGD",
+    "ModelPredictor",
+    "AccuracyEvaluator",
+    "LossEvaluator",
+    "PerplexityEvaluator",
+    "LabelIndexTransformer",
+    "OneHotTransformer",
+    "MinMaxTransformer",
+    "ReshapeTransformer",
+    "DenseTransformer",
+    "StandardScaleTransformer",
+    "frame",
+    "utils",
+    "__version__",
 ]

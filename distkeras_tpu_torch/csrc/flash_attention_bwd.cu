@@ -14,8 +14,10 @@
 //   dS = P * (dP - Delta), Delta = rowsum(dO * O) computed by the caller;
 // then dQ = scale * dS K (accumulated over K tiles) in the first kernel and
 // dV = P^T dO, dK = scale * dS^T Q (accumulated over Q tiles) in the second.
-// Inputs are f32 or bf16; every sum is f32; the outputs are written in the
-// inputs' dtype.
+// Inputs are f32, bf16 or f16; every sum is f32; the outputs are written in
+// the inputs' dtype.  Head dims 16, 32, 64, 128 and 256 are built; the
+// wrapper zero-pads any other d up to the next of them (zero columns change
+// neither S, dP nor Delta, and their gradients are sliced off).
 //
 // What bounds them on this card.  The two kernels do 14*d FLOPs per attended
 // pair (S and dP in both, dQ in one, dK and dV in the other): at the
@@ -32,7 +34,8 @@
 //   Tensor cores.  Every product runs on mma.sync with f32 accumulators,
 //     as flash_attention_common.cuh sets out: f32 inputs in 3xTF32; bf16
 //     inputs with S and dP as bf16 products and the second products (P or
-//     dS, kept in f32, times a bf16 tile) as two TF32 passes.
+//     dS, kept in f32, times a bf16 tile) as two TF32 passes; f16 inputs
+//     alike, on the f16 m16n8k16 product.
 //   Issue slots.  Three mma.sync a product and a split an operand leave the
 //     kernels bound by instructions issued, not by the tensor cores, so the
 //     split is the cheapest there is (a mask and a subtraction,
@@ -51,7 +54,9 @@
 //     the same from run to run.  Tiles wholly above the diagonal are skipped
 //     when causal, and the heaviest blocks are issued first.  A streamed tile
 //     has 64 rows (32 at d = 128, which keeps the dK/dV kernel's 2 x 64
-//     accumulators and its S and dP tiles in registers).
+//     accumulators and its S and dP tiles in registers; 16 at d = 256, which
+//     keeps the f32 tiles within shared memory: there the dK/dV kernel's
+//     2 x 128 accumulators cannot all stay in registers and spill).
 //   Copies.  Tiles stay in the input dtype in shared memory and arrive by
 //     cp.async, 16 bytes a copy, in a two-stage ring: tile j + 1 is in
 //     flight while tile j is multiplied; rows past the ragged edge are
@@ -371,7 +376,7 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dispatch on dtype code (0 = float32, 1 = bfloat16) and head dim.
+// Dispatch on dtype code (0 = float32, 1 = bfloat16, 2 = float16) and head dim.
 template <template <typename, int> class Launch, typename... Out>
 int dispatch(int dtype, int head_dim, const Args& a, Out... out) {
 #define DK_HEAD_DIMS(T)                                     \
@@ -380,10 +385,12 @@ int dispatch(int dtype, int head_dim, const Args& a, Out... out) {
     case 32: return Launch<T, 32>::run(a, out...);          \
     case 64: return Launch<T, 64>::run(a, out...);          \
     case 128: return Launch<T, 128>::run(a, out...);        \
+    case 256: return Launch<T, 256>::run(a, out...);        \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
   if (dtype == 0) { DK_HEAD_DIMS(float) }
   if (dtype == 1) { DK_HEAD_DIMS(__nv_bfloat16) }
+  if (dtype == 2) { DK_HEAD_DIMS(__half) }
 #undef DK_HEAD_DIMS
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -416,8 +423,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // pointer and every stride) is 16-byte aligned.  `lse` and `delta` are
 // contiguous [batch, heads, lq] f32 tensors; dq, dk and dv are contiguous
 // [batch, seq, heads, head_dim] tensors of the input dtype, written whole.
-// dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of its
-// launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 16, 32, 64,
+// 128 or 256 (the wrapper zero-pads any other d and passes 1/sqrt(d) of the
+// true d as `scale`).  Each returns the cudaError_t of its launch.
 extern "C" int dk_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, void* dq, int batch, int heads, int lq, int lk, int head_dim,

@@ -11,10 +11,11 @@
 //     TF32 and small = x - big, and a b = a_small b_big + a_big b_small +
 //     a_big b_big, which keeps about f32 accuracy (one TF32 pass does not:
 //     its 2^-10 relative error breaks the 1e-4 gates);
-//   bf16 tiles: a product of two bf16 tiles on m16n8k16 bf16 (bf16
-//     products are exact in f32, as on the TPU); an f32 left operand (P or
-//     dS, never rounded to bf16: the TPU kernels multiply them in f32) times
-//     a bf16 tile, which is exact in TF32, as two TF32 passes.
+//   bf16 and f16 tiles: a product of two 16-bit tiles on m16n8k16 in their
+//     type (16-bit products are exact in f32, as on the TPU); an f32 left
+//     operand (P or dS, never rounded to 16 bits: the TPU kernels multiply
+//     them in f32) times a 16-bit tile, which is exact in TF32, as two TF32
+//     passes.
 // The first product (rows_dot_rows) leaves its 16 x BN result in the
 // accumulator layout, which holds columns 2t and 2t+1 of each 8-column
 // block where an A fragment wants columns t and t+4; the second product
@@ -25,7 +26,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -47,8 +51,10 @@ struct Strides {  // element strides of a [batch, seq, heads, dim] tensor
 template <typename T, int D>
 struct Tiles {
   // rows of a streamed tile: 32 at d = 128 keeps the accumulators and the
-  // tile's scores in registers and two blocks' tiles in shared memory
-  static constexpr int kStream = D == 128 ? 32 : 64;
+  // tile's scores in registers and two blocks' tiles in shared memory; 16
+  // at d = 256 keeps the backward's f32 tiles (two owned, two stages of two
+  // streamed: 195 KB) within the 227 KB a block may have
+  static constexpr int kStream = D == 256 ? 16 : D == 128 ? 32 : 64;
   static constexpr int kStride = padded_stride<T, D>();  // shared row stride in elements
   static constexpr int kOwned = kOwnedRows * kStride;    // elements of an owned tile
   static constexpr int kStreamed = kStream * kStride;    // elements of a streamed tile
@@ -68,11 +74,11 @@ __device__ __forceinline__ void a_fragment(const float* a, int kk, int lane, uns
   split_tf32(a[(g + 8) * ST + kk + t + 4], big[3], small[3]);
 }
 
-// The A fragment of k-step [kk, kk + 16) of the warp's 16 rows of a bf16 tile.
-template <int D>
-__device__ __forceinline__ void a_fragment(const __nv_bfloat16* a, int kk, int lane,
-                                           unsigned (&f)[4]) {
-  constexpr int ST = Tiles<__nv_bfloat16, D>::kStride;
+// The A fragment of k-step [kk, kk + 16) of the warp's 16 rows of a 16-bit
+// (bf16 or f16) tile.
+template <int D, typename T, std::enable_if_t<kIs16Bit<T>, int> = 0>
+__device__ __forceinline__ void a_fragment(const T* a, int kk, int lane, unsigned (&f)[4]) {
+  constexpr int ST = Tiles<T, D>::kStride;
   ldmatrix_x4(f, a + (lane & 15) * ST + kk + (lane >> 4) * 8);
 }
 
@@ -96,18 +102,18 @@ __device__ __forceinline__ void dot_rows_step(float (&s)[BN / 8][4], const unsig
   }
 }
 
-// As above over k-step [kk, kk + 16) of bf16 tiles: m16n8k16 bf16
-// products, B's fragments by ldmatrix.
-template <int D, int BN>
+// As above over k-step [kk, kk + 16) of 16-bit tiles: m16n8k16 products in
+// the tiles' type, B's fragments by ldmatrix.
+template <int D, int BN, typename T, std::enable_if_t<kIs16Bit<T>, int> = 0>
 __device__ __forceinline__ void dot_rows_step(float (&s)[BN / 8][4], const unsigned (&af)[4],
-                                              const __nv_bfloat16* b, int kk, int lane) {
-  constexpr int ST = Tiles<__nv_bfloat16, D>::kStride;
+                                              const T* b, int kk, int lane) {
+  constexpr int ST = Tiles<T, D>::kStride;
 #pragma unroll
   for (int n = 0; n < BN / 8; n += 2) {
     unsigned bf[4];  // column blocks n and n + 1, k halves low and high
     ldmatrix_x4(bf, b + (8 * n + (lane & 7) + (lane >> 4) * 8) * ST + kk + ((lane >> 3) & 1) * 8);
-    mma_bf16(s[n], af, bf[0], bf[1]);
-    mma_bf16(s[n + 1], af, bf[2], bf[3]);
+    mma_16bit<T>(s[n], af, bf[0], bf[1]);
+    mma_16bit<T>(s[n + 1], af, bf[2], bf[3]);
   }
 }
 
@@ -125,9 +131,9 @@ __device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const float
   }
 }
 
-template <int D, int BN>
-__device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const __nv_bfloat16* a,
-                                              const __nv_bfloat16* b, int lane) {
+template <int D, int BN, typename T, std::enable_if_t<kIs16Bit<T>, int> = 0>
+__device__ __forceinline__ void rows_dot_rows(float (&s)[BN / 8][4], const T* a, const T* b,
+                                              int lane) {
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
     unsigned af[4];
@@ -174,23 +180,23 @@ __device__ __forceinline__ void tile_times_rows(float (&acc)[D / 8][4],
   }
 }
 
-// As above with a bf16 B, exact in TF32: two passes (P_small B + P_big B).
-template <int D, int BN>
+// As above with a 16-bit B, exact in TF32: two passes (P_small B + P_big B).
+template <int D, int BN, typename T, std::enable_if_t<kIs16Bit<T>, int> = 0>
 __device__ __forceinline__ void tile_times_rows(float (&acc)[D / 8][4],
-                                                const float (&p)[BN / 8][4],
-                                                const __nv_bfloat16* b, int lane) {
-  constexpr int ST = Tiles<__nv_bfloat16, D>::kStride;
+                                                const float (&p)[BN / 8][4], const T* b,
+                                                int lane) {
+  constexpr int ST = Tiles<T, D>::kStride;
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     unsigned ab[4], as[4];
     acc_to_a(p[j], ab, as);
-    const __nv_bfloat16* r = b + (8 * j + 2 * t) * ST + g;
+    const T* r = b + (8 * j + 2 * t) * ST + g;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      const unsigned bb[2] = {__float_as_uint(__bfloat162float(r[8 * n])),
-                              __float_as_uint(__bfloat162float(r[ST + 8 * n]))};
+      const unsigned bb[2] = {__float_as_uint(to_float(r[8 * n])),
+                              __float_as_uint(to_float(r[ST + 8 * n]))};
       mma_tf32(acc[n], as, bb);
       mma_tf32(acc[n], ab, bb);
     }

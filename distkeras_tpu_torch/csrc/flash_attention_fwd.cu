@@ -11,7 +11,9 @@
 //   O = acc / l in the input dtype, LSE = m + log(l) in f32 and natural-log
 //   units (the backward kernels read it so), and O = 0, LSE = 0 for a row
 //   whose denominator is 0.
-// Inputs are f32 or bf16; S, P and every sum are f32.
+// Inputs are f32, bf16 or f16; S, P and every sum are f32.  Head dims 16,
+// 32, 64, 128 and 256 are built; the wrapper zero-pads any other d up to the
+// next of them (zero columns change neither S nor the kept columns of O).
 //
 // What bounds it on this card.  The kernel does 4*d FLOPs per attended pair
 // (S and P V): at the inference path's shape (b*h = 16*12, L = 1024,
@@ -27,11 +29,11 @@
 //     (flash_attention_common.cuh): f32 inputs in 3xTF32; bf16 inputs with S
 //     as bf16 products (exact in f32, as on the TPU) and P V as two TF32
 //     passes, P kept in f32 (the TPU kernel multiplies it in f32) and V exact
-//     in TF32.
+//     in TF32; f16 inputs as bf16, on the f16 m16n8k16 product.
 //   Registers.  Q's A fragments are read from shared memory once and kept in
 //     registers, split into big and small in f32, where they take at most 64
-//     a thread (f32 up to d = 64, bf16 at every d); f32 at d = 128 re-reads
-//     them for each K tile.  P goes from S's accumulators straight into P V's
+//     a thread (f32 up to d = 64, 16-bit up to d = 128); f32 at d = 128 and
+//     every dtype at d = 256 re-read them for each K tile.  P goes from S's accumulators straight into P V's
 //     A fragments.  The softmax runs on the accumulator layout: a thread holds
 //     rows g and g + 8, a row's max is taken across its quad by two shuffles,
 //     and the denominator is summed across the quad once, at the end.
@@ -40,7 +42,8 @@
 //     the tiles that cross the diagonal or the ragged key edge are masked;
 //     the 3xTF32 split is a mask and a subtraction (tensor_core.cuh).
 //   Tiles.  One block of 4 warps owns a 64-row Q tile (16 rows a warp) of one
-//     (batch*head) and loops over K/V tiles of 64 rows (32 at d = 128), which
+//     (batch*head) and loops over K/V tiles of 64 rows (32 at d = 128, 16 at
+//     d = 256, which keeps two stages within shared memory), which
 //     replaces the TPU's sequential innermost grid axis.  K tiles wholly
 //     above the diagonal are never visited when causal, and the blocks of a
 //     (batch, head) are issued heaviest Q tile first so that causal tails do
@@ -69,14 +72,28 @@ struct FwdTiles : Tiles<T, D> {
   static constexpr int kBytes =
       (Base::kOwned + 4 * Base::kStreamed) * static_cast<int>(sizeof(T));
   // Q's A fragments stay in registers where they take at most 64 a thread
-  // (D of them in f32, big and small; D / 4 in bf16)
+  // (D of them in f32, big and small; D / 4 in bf16 and f16): f32 up to
+  // d = 64, 16-bit up to d = 128; d = 256 reads them from shared memory
   static constexpr bool kQInRegisters = D * static_cast<int>(sizeof(T)) <= 256;
 };
 
 // The Q operand of S = Q K^T for the warp's 16 rows: its A fragments held in
 // registers (read from shared memory once), or re-read for every K tile.
+// The primary template holds a 16-bit (bf16 or f16) Q in registers.
 template <typename T, int D, bool IN_REGISTERS>
-struct QOperand;
+struct QOperand {
+  static_assert(kIs16Bit<T> && IN_REGISTERS, "f32 and shared-memory Q are specialised below");
+  unsigned f[D / 16][4];
+  __device__ __forceinline__ void load(const T* q, int lane) {
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) a_fragment<D>(q, 16 * i, lane, f[i]);
+  }
+  template <int BN>
+  __device__ __forceinline__ void dot(float (&s)[BN / 8][4], const T* k, int lane) const {
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) dot_rows_step<D, BN>(s, f[i], k, 16 * i, lane);
+  }
+};
 
 template <int D>
 struct QOperand<float, D, true> {
@@ -89,21 +106,6 @@ struct QOperand<float, D, true> {
   __device__ __forceinline__ void dot(float (&s)[BN / 8][4], const float* k, int lane) const {
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) dot_rows_step<D, BN>(s, big[i], small[i], k, 8 * i, lane);
-  }
-};
-
-template <int D>
-struct QOperand<__nv_bfloat16, D, true> {
-  unsigned f[D / 16][4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* q, int lane) {
-#pragma unroll
-    for (int i = 0; i < D / 16; ++i) a_fragment<D>(q, 16 * i, lane, f[i]);
-  }
-  template <int BN>
-  __device__ __forceinline__ void dot(float (&s)[BN / 8][4], const __nv_bfloat16* k,
-                                      int lane) const {
-#pragma unroll
-    for (int i = 0; i < D / 16; ++i) dot_rows_step<D, BN>(s, f[i], k, 16 * i, lane);
   }
 };
 
@@ -293,6 +295,7 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v, void* 
     case 32: return launch<T, 32>(q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st, v_st, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st, v_st, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st, v_st, causal, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st, v_st, causal, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -304,8 +307,10 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v, void* 
 // read through the given element strides; each row (the data pointer and
 // every stride) is 16-byte aligned.  `o` is a contiguous [batch, lq, heads,
 // head_dim] tensor of the input dtype and `lse` a contiguous [batch, heads,
-// lq] f32 tensor, both written whole.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch.
+// lq] f32 tensor, both written whole.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.  head_dim: 16, 32, 64, 128 or 256 (the wrapper zero-pads any
+// other d up to the next of them and passes 1/sqrt(d) of the true d as
+// `scale`).  Returns the cudaError_t of the launch.
 extern "C" int dk_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       float* lse, int batch, int heads, int lq, int lk,
                                       int head_dim, long long q_sb, long long q_sl, long long q_sh,
@@ -322,5 +327,8 @@ extern "C" int dk_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype == 1)
     return launch_dim<__nv_bfloat16>(head_dim, q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st,
                                      v_st, causal, scale, s);
+  if (dtype == 2)
+    return launch_dim<__half>(head_dim, q, k, v, o, lse, batch, heads, lq, lk, q_st, k_st, v_st,
+                              causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
 // Tensor-core and asynchronous-copy building blocks for sm_80 and later
-// (used on sm_90a): mma.sync products on TF32 and bf16 operands, the
+// (used on sm_90a): mma.sync products on TF32, bf16 and f16 operands, the
 // 3xTF32 split of an f32 value, ldmatrix, cp.async with zero-fill, strided
 // tile copies into padded shared rows, and paired stores.
 //
@@ -7,9 +7,9 @@
 // sign, the exponent and the top 10 mantissa bits: the low 13 bits are
 // dropped (truncation), so any f32 value may be passed as is.
 //
-// Fragment layouts of mma.sync.m16n8k8 (TF32) and m16n8k16 (bf16), with
-// g = lane / 4 and t = lane % 4 (the PTX ISA, "Matrix Fragments for
-// mma.m16n8k8" and "... mma.m16n8k16"):
+// Fragment layouts of mma.sync.m16n8k8 (TF32) and m16n8k16 (bf16; f16 has
+// the same), with g = lane / 4 and t = lane % 4 (the PTX ISA, "Matrix
+// Fragments for mma.m16n8k8" and "... mma.m16n8k16"):
 //   C/D (16 x 8, f32):  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
 //   A tf32 (16 x 8):    a0 (g, t)   a1 (g+8, t)   a2 (g, t+4)   a3 (g+8, t+4)
 //   B tf32 (8 x 8):     b0 (k t, n g)  b1 (k t+4, n g)
@@ -19,7 +19,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,6 +51,36 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// d += a b on the tensor cores: A 16 x 16 and B 16 x 8 in f16, D in f32.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16-bit input types (bf16 and f16): their products run on m16n8k16.
+template <typename T>
+inline constexpr bool kIs16Bit =
+    std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>;
+
+// d += a b on m16n8k16 in T, bf16 or f16.
+template <typename T>
+__device__ __forceinline__ void mma_16bit(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  if constexpr (std::is_same_v<T, __half>) {
+    mma_f16(d, a, b0, b1);
+  } else {
+    mma_bf16(d, a, b0, b1);
+  }
+}
+
+// A 16-bit value as f32 (exact: bf16 and f16 both fit TF32's 11
+// significant bits and f32's exponent range).
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -123,6 +156,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 }  // namespace

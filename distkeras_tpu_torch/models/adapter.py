@@ -8,7 +8,9 @@ the module itself.  :class:`TorchModel` wraps an ``nn.Module`` through
 ``torch.func.functional_call``, the counterpart of the JAX package's
 ``FlaxModel``; :class:`FunctionalModel` wraps a plain ``(init_fn,
 apply_fn)`` pair.  Dropout randomness is an explicit ``torch.Generator``
-(JAX's ``rng``).  Keras and Hugging Face adapters come with later slices.
+(JAX's ``rng``).  :func:`as_adapter` wraps a Keras 3 model (torch backend)
+in :class:`~distkeras_tpu_torch.models.keras_adapter.KerasModel`; Hugging
+Face adapters come with a later slice.
 """
 
 from __future__ import annotations
@@ -156,12 +158,19 @@ class TrainedModel:
 
 
 def as_adapter(model) -> ModelAdapter:
-    """Coerce user input (an ``nn.Module`` or an adapter) to an adapter."""
+    """Coerce user input (a Keras 3 model, an ``nn.Module`` or an adapter)
+    to an adapter."""
     if isinstance(model, ModelAdapter):
         return model
+    # Keras model? Checked first: on the torch backend a Keras layer is an
+    # nn.Module too.  (Lazy import: keras is heavy.)
+    if type(model).__module__.split(".")[0] in ("keras", "tf_keras", "tensorflow"):
+        from distkeras_tpu_torch.models.keras_adapter import KerasModel
+
+        return KerasModel(model)
     if isinstance(model, nn.Module):
         return TorchModel(model)
     raise TypeError(
-        f"cannot adapt {type(model)!r}: pass a torch.nn.Module or a "
-        "distkeras_tpu_torch ModelAdapter"
+        f"cannot adapt {type(model)!r}: pass a Keras 3 model, a torch.nn.Module "
+        "or a distkeras_tpu_torch ModelAdapter"
     )

@@ -13,9 +13,13 @@ kernels replace the three Pallas TPU kernels one for one:
   kernels, as the JAX package does.
 
 All three run their products on the tensor cores: 3xTF32 for f32 inputs
-(f32 accuracy), bf16 products then two TF32 passes for bf16 (P and dS stay
-f32, as on the TPU).  Their inputs' rows must be 16-byte aligned; the
-wrappers copy a tensor whose are not.
+(f32 accuracy), bf16 or f16 products then two TF32 passes for bf16 and f16
+(P and dS stay f32, as on the TPU).  They are built for head dims 16, 32,
+64, 128 and 256 (:data:`HEAD_DIMS`): the wrappers zero-pad any other head
+dim up to the next of them, pass the scale ``1/sqrt(d)`` of the true ``d``
+and slice the outputs back (zero columns leave QKᵀ, LSE, dP and Δ as they
+are); a head dim above 256 raises.  Their inputs' rows must be 16-byte
+aligned; the wrappers copy a tensor whose are not.
 
 What lives here:
 
@@ -39,13 +43,17 @@ Layout matches the rest of the package: ``[batch, seq, heads, dim]``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from distkeras_tpu_torch.ops import _build
 
 __all__ = [
     "HEAD_DIMS",
+    "MAX_HEAD_DIM",
+    "kernel_head_dim",
     "attention_delta",
     "flash_attention",
     "flash_attention_bwd",
@@ -57,8 +65,30 @@ __all__ = [
 ]
 
 _NEG_BIG = -1e30  # used instead of -inf so fully-masked rows stay NaN-free
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are compiled for
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the kernels are compiled for
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a true head dim ``d`` at: the smallest
+    of :data:`HEAD_DIMS` that holds it."""
+    for built in HEAD_DIMS:
+        if d <= built:
+            return built
+    raise ValueError(f"head dim {d} exceeds the kernels' limit of {MAX_HEAD_DIM}")
+
+
+def _pad_head_dim(*tensors):
+    """Each tensor zero-padded in its last (head) dim to
+    :func:`kernel_head_dim` of it; as is where that is its own."""
+    d = tensors[0].shape[3]
+    pad = kernel_head_dim(d) - d
+    return tuple(F.pad(t, (0, pad)) if pad else t for t in tensors)
+
+
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else scale
 
 
 def _causal_mask(lq: int, lk: int, device) -> torch.Tensor:
@@ -66,17 +96,18 @@ def _causal_mask(lq: int, lk: int, device) -> torch.Tensor:
     return torch.ones(lq, lk, dtype=torch.bool, device=device).tril()
 
 
-def flash_attention_plain(q, k, v, causal: bool = False):
+def flash_attention_plain(q, k, v, causal: bool = False, scale: Optional[float] = None):
     """Plain PyTorch flash-attention forward: ``(o, lse)``.
 
     Computes what the kernel computes, in f32 whatever the input dtype:
     ``o`` ``[b, lq, h, d]`` in the input dtype and ``lse`` ``[b, h, lq]``
     f32 (``m + log l``; 0 for a row with nothing to attend).  The causal
-    mask keeps ``row >= col``, aligned at the top-left corner.
+    mask keeps ``row >= col``, aligned at the top-left corner.  ``scale``
+    multiplies QKᵀ (default ``1/sqrt(d)``).
     """
     lq, d = q.shape[1], q.shape[3]
     lk = k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(d, scale)
     if causal:
         mask = _causal_mask(lq, lk, q.device)
         s = s.masked_fill(~mask, _NEG_BIG)
@@ -97,24 +128,31 @@ def attention_delta(o, do) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
+                              scale: Optional[float] = None):
     """Plain PyTorch flash-attention backward: ``(dq, dk, dv)``.
 
     A direct transcription of the JAX kernels' ``_p_ds`` and their two
     accumulations, in f32 whatever the input dtype: P = exp(S − LSE) where
     the pair is attended and 0 elsewhere, dS = P∘(dP − Δ), dQ = scale·dS·K,
-    dK = scale·dSᵀ·Q, dV = Pᵀ·dO.  Each gradient comes back in its input's
-    dtype."""
+    dK = scale·dSᵀ·Q, dV = Pᵀ·dO (``scale`` defaults to ``1/sqrt(d)``).
+    Each gradient comes back in its input's dtype."""
+    return _bwd_plain_from_delta(q, k, v, lse, do, attention_delta(o, do), causal, scale)
+
+
+def _bwd_plain_from_delta(q, k, v, lse, do, delta, causal: bool, scale: Optional[float]):
+    """:func:`flash_attention_bwd_plain` from Δ (what the kernels read)
+    rather than from ``o``."""
     lq, d = q.shape[1], q.shape[3]
     lk = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.exp(s - lse[..., None])
     if causal:
         p = torch.where(_causal_mask(lq, lk, q.device), p, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - attention_delta(o, do)[..., None])
+    ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -132,12 +170,14 @@ def _check_inputs(q, k, v):
         )
     if lq == 0 or k.shape[1] == 0:
         raise ValueError("flash_attention needs non-empty sequences")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported: the kernel is built for {HEAD_DIMS}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} not supported: the kernels take head dims up to {MAX_HEAD_DIM}"
+        )
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention takes float32 or bfloat16 inputs of one dtype, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
+            f"flash_attention takes float32, bfloat16 or float16 inputs of one dtype, "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
@@ -179,9 +219,9 @@ def _raise_on_error(lib, err: int, kernel: str) -> None:
         )
 
 
-def _launch(q, k, v, causal: bool):
-    """Run the forward kernel: allocate ``o`` and ``lse`` and launch once."""
-    _check_launch(q=q, k=k, v=v)
+def _launch_fwd(q, k, v, causal: bool, scale: float):
+    """Run the forward kernel on inputs of a built head dim: allocate ``o``
+    and ``lse`` and launch once."""
     q, k, v = _aligned(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
@@ -193,11 +233,20 @@ def _launch(q, k, v, causal: bool):
         err = lib.dk_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, lq, lk, d, *_strides(q), *_strides(k), *_strides(v),
-            int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d), stream,
+            int(causal), _DTYPE_CODES[q.dtype], scale, stream,
         )
     _raise_on_error(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
     return o, lse
+
+
+def _kernel_fwd(q, k, v, causal: bool):
+    """The forward kernel at any head dim: zero-pad d to the next built
+    size, launch with the scale of the true d, slice ``o`` back."""
+    _check_launch(q=q, k=k, v=v)
+    d = q.shape[3]
+    o, lse = _launch_fwd(*_pad_head_dim(q, k, v), causal, 1.0 / math.sqrt(d))
+    return o[..., :d], lse
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False):
@@ -209,7 +258,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
-    return _launch(q, k, v, causal)
+    return _kernel_fwd(q, k, v, causal)
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta):
@@ -226,7 +275,7 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
         raise ValueError("q, k, v, do, lse and delta must be on one device")
 
 
-def _bwd_launch(lib, fn, q, k, v, do, lse, delta, causal, *outs):
+def _bwd_launch(lib, fn, q, k, v, do, lse, delta, causal, scale, *outs):
     q, k, v, do = _aligned(q, k, v, do)
     b, lq, h, d = q.shape
     with torch.cuda.device(q.device):
@@ -236,8 +285,31 @@ def _bwd_launch(lib, fn, q, k, v, do, lse, delta, causal, *outs):
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             b, h, lq, k.shape[1], d,
             *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-            int(causal), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d), stream,
+            int(causal), _DTYPE_CODES[q.dtype], scale, stream,
         )
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Run the dQ kernel on inputs of a built head dim."""
+    lib = _build.flash_attention_bwd_library()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _bwd_launch(lib, lib.dk_flash_attention_bwd_dq, q, k, v, do, lse, delta, causal,
+                      scale, dq)
+    _raise_on_error(lib, err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Run the dK/dV kernel on inputs of a built head dim."""
+    lib = _build.flash_attention_bwd_library()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    err = _bwd_launch(lib, lib.dk_flash_attention_bwd_dkv, q, k, v, do, lse, delta, causal,
+                      scale, dk, dv)
+    _raise_on_error(lib, err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
@@ -246,26 +318,18 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     :func:`attention_delta`'s.  CUDA tensors only: the CPU computes all
     three gradients at once in :func:`flash_attention_bwd_plain`."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    lib = _build.flash_attention_bwd_library()
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _bwd_launch(lib, lib.dk_flash_attention_bwd_dq, q, k, v, do, lse, delta, causal, dq)
-    _raise_on_error(lib, err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
-    return dq
+    d = q.shape[3]
+    dq = _launch_dq(*_pad_head_dim(q, k, v, do), lse, delta, causal, 1.0 / math.sqrt(d))
+    return dq[..., :d]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     """dK and dV of flash attention (the ``_dkv_kernel`` port): two
     ``[b, lk, h, d]`` tensors in k's and v's dtype.  CUDA tensors only."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    lib = _build.flash_attention_bwd_library()
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    err = _bwd_launch(lib, lib.dk_flash_attention_bwd_dkv, q, k, v, do, lse, delta, causal,
-                      dk, dv)
-    _raise_on_error(lib, err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    d = q.shape[3]
+    dk, dv = _launch_dkv(*_pad_head_dim(q, k, v, do), lse, delta, causal, 1.0 / math.sqrt(d))
+    return dk[..., :d], dv[..., :d]
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
@@ -284,9 +348,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} must match q {tuple(q.shape)} {q.dtype}")
     delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-    return dq, dk, dv
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    d = q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    padded = _pad_head_dim(q, k, v, do)  # padded once for both kernels
+    dq = _launch_dq(*padded, lse, delta, causal, scale)
+    dk, dv = _launch_dkv(*padded, lse, delta, causal, scale)
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -35,8 +35,12 @@ class ModelPredictor(Predictor):
     are then drawn lazily, at the first ``predict``, from a
     ``torch.Generator`` seeded with 0.  ``device`` defaults to ``"cuda"``
     and raises without a card; pass ``device="cpu"`` to run on the CPU.
-    Prediction over several cards (``num_devices > 1``) and through a
-    serving engine (``engine=``) come with later slices.
+    The parameters before ``device`` are the JAX package's, in its order.
+    ``distribute_threshold`` (the row count from which the JAX package
+    shards a batch over several devices) is accepted and has no effect on
+    one card, as there.  Prediction over several cards (``num_devices >
+    1``) and through a serving engine (``engine=``, whose generations are
+    ``max_new_tokens`` long) come with later slices.
     """
 
     def __init__(
@@ -48,7 +52,9 @@ class ModelPredictor(Predictor):
         params: Any = None,
         state: Any = None,
         num_devices: Optional[int] = None,
+        distribute_threshold: Optional[int] = None,
         engine: Any = None,
+        max_new_tokens: int = 16,
         device="cuda",
     ):
         if engine is not None:
@@ -66,6 +72,8 @@ class ModelPredictor(Predictor):
         self.features_col = features_col
         self.output_col = output_col
         self.batch_size = int(batch_size)
+        self.distribute_threshold = distribute_threshold
+        self.max_new_tokens = int(max_new_tokens)
         self.device = resolve_device(device)
         if isinstance(keras_model, TrainedModel):
             self.adapter = keras_model.adapter

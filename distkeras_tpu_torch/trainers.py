@@ -6,7 +6,8 @@ parameter-server trainers ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
 ``DynSGD`` and ``AdaptiveDynSGD``, with the staleness simulation
 (``commit_schedule``).  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
-:class:`~distkeras_tpu_torch.models.TrainedModel` back; the constructor
+:class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
+its trained weights written back, when one was passed in); the constructor
 kwargs and their defaults are the JAX package's, plus ``device``
 (``"cuda"`` by default; ``"cpu"`` must be asked for).  On a card the
 transformer models' attention runs the flash-attention kernels, forward and
@@ -67,7 +68,6 @@ _UNPORTED = {
     "remat": (False, "item 9 (rematerialisation)"),
     "unroll": (1, "item 9 (a scan unroll of the jitted epoch)"),
     "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
-    "tensorboard_dir": (None, "item 12 (utils/tb.py scalar logging)"),
     "seq_shards": (1, "item 14 (sequence parallelism)"),
     "tp_shards": (1, "item 15 (tensor parallelism)"),
     "fsdp": (False, "item 15 (FSDP)"),
@@ -103,6 +103,22 @@ def _epoch_mean(stats, key):
     """Per-epoch mean of ``stats[key]`` over its window axis."""
     values = np.asarray(stats[key])
     return np.mean(values, axis=0) if values.ndim > 1 else np.mean(values)
+
+
+def _metric_key(name, index: int) -> str:
+    """The history and scalar-log key of metric ``name``."""
+    return name if isinstance(name, str) else getattr(name, "__name__", f"metric_{index}")
+
+
+def _epoch_scalars(stats, metrics) -> dict:
+    """One epoch's scalars for the scalar log: the mean loss and the mean of
+    each metric, as the JAX trainers log them."""
+    scalars = {"loss": float(_epoch_mean(stats, "loss"))}
+    if np.asarray(stats["metrics"]).size:
+        per_metric = _epoch_mean(stats, "metrics")
+        for i, name in enumerate(metrics):
+            scalars[_metric_key(name, i)] = float(per_metric[i])
+    return scalars
 
 
 class Trainer:
@@ -143,7 +159,7 @@ class Trainer:
         _refuse_unported(
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
             profile_dir=profile_dir, seq_shards=seq_shards, tp_shards=tp_shards, fsdp=fsdp,
-            tensorboard_dir=tensorboard_dir, streaming=streaming, remat=remat, unroll=unroll,
+            streaming=streaming, remat=remat, unroll=unroll,
             dispatch_epochs=dispatch_epochs, pipeline_stages=pipeline_stages,
             pp_microbatches=pp_microbatches, tp_spec_fn=tp_spec_fn, prefetch=prefetch,
             checkpoint_blocks=checkpoint_blocks,
@@ -158,6 +174,7 @@ class Trainer:
         self.num_epoch = int(num_epoch)
         self.seed = seed
         self.compute_dtype = _torch_dtype(compute_dtype)
+        self.tensorboard_dir = tensorboard_dir
         self.device = resolve_device(device)
         self.history: dict = {}
         self.training_time: float = 0.0
@@ -225,25 +242,38 @@ class Trainer:
         rng = np.random.default_rng(self.seed)
         state = engine.init_state(torch.Generator().manual_seed(self.seed),
                                   feats[: self.batch_size])
+        scalar_log = None
+        if self.tensorboard_dir:
+            from distkeras_tpu_torch.utils.tb import ScalarLogger
+
+            scalar_log = ScalarLogger(self.tensorboard_dir)
         epoch_stats = []
         self.record_training_start()
-        for epoch in range(self.num_epoch):
-            with telemetry.trace.span("epoch", epoch=epoch):
-                if window is None:
-                    # one window spanning the whole epoch (no commits)
-                    steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
-                    xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size, steps,
-                                          rng=rng if shuffle else None)
-                else:
-                    xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size, window,
-                                          stepwise=commit_schedule is not None,
-                                          rng=rng if shuffle else None)
-                xs, ys = engine.shard_batches(xs, ys)
-                state, stats = engine.run_epoch(state, xs, ys)
-                ps = getattr(self, "parameter_server", None)
-                if ps is not None:
-                    ps.track(state.center_rule)
-                epoch_stats.append(stats)
+        # try/finally so the scalar logger releases its writer even when an
+        # epoch raises
+        try:
+            for epoch in range(self.num_epoch):
+                with telemetry.trace.span("epoch", epoch=epoch):
+                    if window is None:
+                        # one window spanning the whole epoch (no commits)
+                        steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
+                        xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size,
+                                              steps, rng=rng if shuffle else None)
+                    else:
+                        xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size,
+                                              window, stepwise=commit_schedule is not None,
+                                              rng=rng if shuffle else None)
+                    xs, ys = engine.shard_batches(xs, ys)
+                    state, stats = engine.run_epoch(state, xs, ys)
+                    ps = getattr(self, "parameter_server", None)
+                    if ps is not None:
+                        ps.track(state.center_rule)
+                    epoch_stats.append(stats)
+                    if scalar_log is not None:
+                        scalar_log.log(epoch, **_epoch_scalars(stats, metrics))
+        finally:
+            if scalar_log is not None:
+                scalar_log.close()
         if average_at_end:
             state, _ = engine.average_workers(state)
         self.record_training_stop()
@@ -256,19 +286,23 @@ class Trainer:
                              if np.asarray(s["metrics"]).size]
         for i, name in enumerate(metrics):
             if metrics_per_epoch:
-                key = name if isinstance(name, str) else getattr(name, "__name__", f"metric_{i}")
-                self.history[key] = [float(m[i]) for m in metrics_per_epoch]
+                self.history[_metric_key(name, i)] = [float(m[i]) for m in metrics_per_epoch]
         return engine, state, adapter
 
     def _finalize(self, engine: WindowedEngine, state, adapter: ModelAdapter,
-                  use_center: bool = True) -> TrainedModel:
-        """The trained model, on the engine's device, with the history."""
+                  use_center: bool = True):
+        """The trained model in the type the user passed in: a Keras model
+        with the trained values written back, else a :class:`TrainedModel`
+        on the engine's device, with the history."""
         if use_center:
             params = engine.gather_center(state)
         else:
             params = engine.worker_slice(state.local_params, 0)
-        return TrainedModel(adapter, params, engine.final_model_state(state),
-                            device=engine.device, history=self.history)
+        model_state = engine.final_model_state(state)
+        if hasattr(adapter, "assign"):  # Keras path: write back and return the Keras model
+            return adapter.assign(params, model_state)
+        return TrainedModel(adapter, params, model_state, device=engine.device,
+                            history=self.history)
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         raise NotImplementedError
@@ -303,18 +337,36 @@ class AveragingTrainer(Trainer):
 
 class EnsembleTrainer(Trainer):
     """Train N independent models and return all of them (reference parity:
-    ``EnsembleTrainer``), as ``TrainedModel``s; each carries the mean of
-    the workers' model state, as in the JAX package.  The JAX package's
-    Keras branch comes with the Keras adapter (ROADMAP Queue A item 12)."""
+    ``EnsembleTrainer``): for a Keras model, N independent clones, each
+    carrying its own worker's weights and model state; otherwise N
+    ``TrainedModel``s, each carrying the mean of the workers' model state,
+    as in the JAX package."""
 
     def __init__(self, *args, num_models: int = 2, **kwargs):
         super().__init__(*args, **kwargs)
         self.num_models = num_models
 
-    def train(self, dataframe: DataFrame, shuffle: bool = False) -> List[TrainedModel]:
+    def train(self, dataframe: DataFrame, shuffle: bool = False) -> List:
         worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
         engine, state, adapter = self._fit(dataframe, worker.rule, self.num_models,
                                            shuffle=shuffle)
+        if hasattr(adapter, "assign"):
+            # Keras in -> Keras models out: one clone per member (assigning
+            # into the one wrapped model N times would leave N handles to
+            # the last worker's weights)
+            import keras
+
+            from distkeras_tpu_torch.models.keras_adapter import assign_keras_weights
+
+            models = []
+            for i in range(self.num_models):
+                clone = keras.models.clone_model(adapter.model)
+                if not clone.built:
+                    clone.build(adapter.model.input_shape)
+                assign_keras_weights(clone, engine.worker_slice(state.local_params, i),
+                                     engine.worker_slice(state.model_state, i))
+                models.append(clone)
+            return models
         model_state = engine.final_model_state(state)
         return [TrainedModel(adapter, engine.worker_slice(state.local_params, i), model_state,
                              device=engine.device, history=self.history)

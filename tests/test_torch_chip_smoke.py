@@ -1,10 +1,13 @@
-"""``chip_smoke.py``'s training-suite phases rehearsed on the CPU.
+"""``chip_smoke.py``'s training-suite, flow, head-dim and networking phases
+rehearsed on the CPU.
 
-The script runs on an H100; here its zoo and staleness phases run on the
-CPU (``ZOO_DEVICE = "cpu"``) at small batches and windows, with the CUDA
-timers replaced by the host clock, so a fault in their control flow, their
-checks or their JSON shows before a card is asked for.  The numbers they
-print here are the CPU's and mean nothing for the card.  Without a card the
+The script runs on an H100; here those phases run on the CPU
+(``ZOO_DEVICE = "cpu"``) at small batches, windows, row counts and model
+sizes, with the CUDA timers replaced by the host clock, so a fault in their
+control flow, their checks or their JSON shows before a card is asked for.
+The numbers they print here are the CPU's and mean nothing for the card;
+the flow phase's accuracy gate is set for the card's 48,000 training rows
+and is not held on the rehearsal's 480.  Without a card the
 script itself must exit non-zero and print no result.
 """
 
@@ -93,3 +96,43 @@ def test_without_a_card_the_script_fails_with_no_result(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_flow_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    from distkeras_tpu_torch.utils.tb import ScalarLogger
+
+    monkeypatch.setattr(ScalarLogger, "_try_torch", lambda self: False)  # the JSONL sink
+    monkeypatch.setattr(chip_smoke, "FLOW_ROWS", 600)
+    monkeypatch.setattr(chip_smoke, "FLOW_CNN_BATCH", 64)
+    monkeypatch.setattr(chip_smoke, "FLOW_CPU_ROWS", 64)
+    monkeypatch.setattr(chip_smoke, "FLOW_MIN_ACCURACY", {"MLP": 0.0, "MNISTCNN": 0.0})
+    rows = chip_smoke.flow_phase(0)
+    printed = _emitted(capsys, "flow")
+    assert [r["trainer"] for r in printed] == [t[0] for t in chip_smoke.FLOW_TRAINERS]
+    for row in rows:
+        assert not row["failures"] and row["scalar_sink"] == "jsonl"
+        assert row["accuracy"] == row["accuracy_recount"]
+        assert row["scalar_lines"] == chip_smoke.FLOW_EPOCHS
+        assert row["scalar_loss"] == row["loss"]
+        assert row["num_updates"] == row["expected_num_updates"]
+        assert row["predict_max_abs_err_vs_cpu"] == 0.0  # one device: the same numbers
+    by_name = {r["trainer"]: r for r in rows}
+    # 480 training rows, 2 workers of batch 32, window 5: 8 steps, 2 windows
+    assert by_name["DOWNPOUR"]["expected_num_updates"] == 2 * 2 * 2
+
+
+def test_head_dim_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # the models' widths cut to a CPU's size, their head dims kept (96 and 8)
+    monkeypatch.setattr(chip_smoke, "LM_D96", dict(vocab_size=64, dim=192, heads=2,
+                                                   num_layers=2, max_len=16))
+    out = chip_smoke.head_dim_phase(0)
+    assert [r["case"] for r in _emitted(capsys, "head_dim_models")] == ["lm_d96", "classifier_d8"]
+    assert out["lm_d96"]["expected_launches"] == 2
+    assert out["classifier_d8"]["expected_launches"] == 2 * 64 // 16
+    assert 1.0 < out["lm_d96"]["perplexity"] < 1e3
+
+
+def test_networking_phase_rehearsal(on_cpu, capsys):
+    row = chip_smoke.networking_phase(0)
+    assert _emitted(capsys, "networking") == [{"phase": "networking", **row}]
+    assert row["backend"] == "gloo" and row["wire_round_trip"] and row["group_left"]

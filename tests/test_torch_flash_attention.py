@@ -134,11 +134,33 @@ def test_non_cpu_tensor_goes_to_the_kernel_or_raises():
     assert flash_attention.launches == 0
 
 
+def test_wrapper_takes_head_dim_24():
+    # d = 24 goes through the wrapper (it was refused before the kernels
+    # zero-padded the head dim): the plain version at the true d on the CPU
+    q, k, v = map(torch.from_numpy, _qkv(9, 1, 16, 2, 24))
+    o, lse = flash_attention_fwd(q, k, v, True)
+    assert o.shape == (1, 16, 2, 24) and lse.shape == (1, 2, 16)
+    np.testing.assert_allclose(o.numpy(), local_attention(q, k, v, causal=True).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    assert flash_attention.launches == 0
+
+
+def test_wrapper_returns_f16_for_f16():
+    # f16 goes through the wrapper (it was refused before the kernels had
+    # an f16 build) and comes back in f16, the LSE in f32
+    q, k, v = (torch.from_numpy(x).half() for x in _qkv(10, 1, 16, 2, 16))
+    o, lse = flash_attention_fwd(q, k, v, False)
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
+    assert flash_attention(q, k, v).dtype == torch.float16
+    ref = local_attention(q.float(), k.float(), v.float())
+    np.testing.assert_allclose(o.float().numpy(), ref.numpy(), atol=2e-3)
+
+
 @pytest.mark.parametrize(
     "shapes,dtype,error",
     [
-        (((1, 16, 2, 24),) * 3, torch.float32, ValueError),      # head dim not built
-        (((1, 16, 2, 16),) * 3, torch.float16, TypeError),       # dtype not built
+        (((1, 16, 2, 264),) * 3, torch.float32, ValueError),     # head dim above 256
+        (((1, 16, 2, 16),) * 3, torch.float64, TypeError),       # dtype not built
         (((1, 16, 2, 16), (1, 16, 3, 16), (1, 16, 3, 16)), torch.float32, ValueError),
         (((1, 16, 2, 16), (1, 16, 2, 16), (1, 8, 2, 16)), torch.float32, ValueError),
         (((1, 0, 2, 16),) * 3, torch.float32, ValueError),       # empty sequence

@@ -87,6 +87,16 @@ FWD_CASES = [
     ((1, 1000, 2, 16), 1, torch.float32, True, "plain"),
     ((2, 100, 2, 64), None, torch.float32, True, "offset"),
     ((2, 100, 2, 32), None, torch.bfloat16, False, "offset"),
+    # head dims the wrapper zero-pads (8, 24, 96, 200), the d = 256 build, f16
+    ((2, 100, 2, 8), None, torch.float32, True, "plain"),
+    ((2, 100, 2, 24), None, torch.float32, False, "plain"),
+    ((1, 130, 2, 96), None, torch.float32, True, "fused"),
+    ((1, 257, 2, 200), None, torch.float32, False, "plain"),
+    ((1, 200, 2, 256), None, torch.float32, True, "plain"),
+    ((1, 200, 2, 256), None, torch.bfloat16, False, "plain"),
+    ((2, 192, 2, 64), None, torch.float16, True, "plain"),
+    ((2, 130, 2, 96), 63, torch.float16, False, "plain"),
+    ((1, 200, 2, 256), None, torch.float16, True, "fused"),
 ]
 
 
@@ -97,10 +107,10 @@ def test_kernel_matches_plain_version_on_card(shape, lk, dtype, causal, layout):
     ref_o, ref_lse = flash_attention_plain(q, k, v, causal)
     assert flash_attention.launches == 1
     assert o.shape == q.shape and o.dtype == dtype and lse.shape == (shape[0], shape[2], shape[1])
-    # f32: 3xTF32 and summation order; bf16: O rounded to bf16 at the end
-    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    # f32: 3xTF32 and summation order; bf16 and f16: O rounded to 16 bits at the end
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(o.float(), ref_o.float(), atol=atol, rtol=1e-4)
-    torch.testing.assert_close(lse, ref_lse, atol=1e-3 if dtype == torch.bfloat16 else 1e-4,
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4 if dtype == torch.float32 else 1e-3,
                                rtol=1e-4)
 
 
@@ -153,6 +163,15 @@ BWD_CASES = [
     ((1, 200, 2, 128), None, torch.bfloat16, False, "fused"),
     ((2, 100, 2, 64), None, torch.float32, True, "offset"),
     ((2, 100, 2, 32), None, torch.bfloat16, False, "offset"),
+    ((2, 100, 2, 8), None, torch.float32, True, "plain"),
+    ((2, 100, 2, 24), None, torch.float32, False, "plain"),
+    ((1, 130, 2, 96), None, torch.float32, True, "fused"),
+    ((1, 257, 2, 200), None, torch.float32, False, "plain"),
+    ((1, 200, 2, 256), None, torch.float32, True, "plain"),
+    ((1, 200, 2, 256), None, torch.bfloat16, False, "plain"),
+    ((2, 192, 2, 64), None, torch.float16, True, "plain"),
+    ((2, 130, 2, 96), 63, torch.float16, False, "plain"),
+    ((1, 200, 2, 256), None, torch.float16, True, "fused"),
 ]
 
 
@@ -166,11 +185,37 @@ def test_backward_kernels_match_plain_version_on_card(shape, lk, dtype, causal, 
     torch.cuda.synchronize()
     assert flash_attention_bwd_dq.launches == flash_attention_bwd_dkv.launches == 1
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    # f32: 3xTF32 and summation order; bf16: gradients rounded to bf16 at the end
-    atol, rtol = (3e-2, 2e-2) if dtype == torch.bfloat16 else (2e-4, 1e-4)
+    # f32: 3xTF32 and summation order; bf16 and f16: gradients rounded to 16 bits
+    atol, rtol = (2e-4, 1e-4) if dtype == torch.float32 else (3e-2, 2e-2)
     for got, want, like in zip((dq, dk, dv), ref, (q, k, v)):
         assert got.shape == like.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_classifier_with_head_dim_8_on_card_matches_cpu():
+    # dim 16 over 2 heads: d = 8, which the wrapper pads to the d = 16 build
+    cfg = dict(vocab_size=64, num_classes=3, dim=16, heads=2, num_layers=2, max_len=64)
+    model = TransformerClassifier(**cfg, generator=torch.Generator().manual_seed(0))
+    params = {name: p.detach() for name, p in model.named_parameters()}
+    tokens = np.random.default_rng(0).integers(0, 64, (4, 48), dtype=np.int32)
+    on_card = TrainedModel(TorchModel(model), params, device="cuda")(tokens)
+    assert flash_attention.launches == cfg["num_layers"]
+    on_cpu = TrainedModel(TorchModel(model), params, device="cpu")(tokens)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, atol=1e-4, rtol=1e-4)
+
+
+def test_autograd_at_head_dim_24_returns_unpadded_gradients():
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in _inputs((2, 96, 2, 24), None, torch.float32, "plain")[:3])
+    flash_attention(q, k, v, True).sum().backward()
+    assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (1, 1, 1)
+    o, lse = flash_attention_plain(q.detach(), k.detach(), v.detach(), True)
+    ref = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o, lse,
+                                    torch.ones_like(o), True)
+    for leaf, want in zip((q, k, v), ref):
+        assert leaf.grad.shape == (2, 96, 2, 24)
+        torch.testing.assert_close(leaf.grad, want, atol=2e-4, rtol=1e-4)
 
 
 def test_backward_kernels_are_deterministic_on_card():

@@ -1,6 +1,9 @@
 """The port stands alone: importing ``distkeras_tpu_torch`` loads none of JAX,
 flax, optax or the JAX package, and no module of the port (nor
-``chip_smoke.py``) imports them."""
+``chip_smoke.py``) imports them.  Importing the package also loads no
+``keras`` (the Keras adapter imports it when a Keras model is adapted) and
+sets up no ``torch.distributed`` process group (``networking.initialize``
+does, when called)."""
 
 import ast
 import os
@@ -30,7 +33,15 @@ def test_package_import_loads_no_jax():
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
-        "import distkeras_tpu_torch, distkeras_tpu_torch.models, "
+        "import distkeras_tpu_torch\n"
+        "import torch.distributed as dist\n"
+        "keras = sorted(m for m in set(sys.modules) - before if m.split('.')[0] == 'keras')\n"
+        "assert not keras, keras\n"
+        "assert not (dist.is_available() and dist.is_initialized())\n"
+        "import distkeras_tpu_torch.models, distkeras_tpu_torch.transformers, "
+        "distkeras_tpu_torch.evaluators, distkeras_tpu_torch.networking, "
+        "distkeras_tpu_torch.utils.serialization, distkeras_tpu_torch.utils.tb, "
+        "distkeras_tpu_torch.models.keras_adapter, "
         "distkeras_tpu_torch.ops, distkeras_tpu_torch.parallel, distkeras_tpu_torch.telemetry, "
         "distkeras_tpu_torch.trainers, distkeras_tpu_torch.workers, "
         "distkeras_tpu_torch.parameter_servers, distkeras_tpu_torch.data, "
@@ -56,6 +67,9 @@ def test_sources_found():
     assert "distkeras_tpu_torch/models/zoo.py" in SOURCES
     assert "distkeras_tpu_torch/ops/pooling.py" in SOURCES
     assert "distkeras_tpu_torch/algorithms/adaptive.py" in SOURCES
+    for module in ("transformers", "evaluators", "networking", "utils/serialization",
+                   "utils/tb", "models/keras_adapter"):
+        assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)

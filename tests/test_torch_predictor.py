@@ -143,3 +143,30 @@ def test_spans_are_noops_when_telemetry_is_off(models):
         assert port_telemetry.trace.events() == []
     finally:
         port_telemetry.configure(None)
+
+
+def test_signature_matches_jax_in_order():
+    # the JAX package's parameters, names, order and defaults, then the
+    # port's trailing ``device``
+    import inspect
+
+    ours = list(inspect.signature(tdk.ModelPredictor.__init__).parameters.values())
+    theirs = list(inspect.signature(jdk.ModelPredictor.__init__).parameters.values())
+    assert [p.name for p in ours] == [p.name for p in theirs] + ["device"]
+    for mine, ref in zip(ours, theirs):
+        assert (mine.kind, mine.default) == (ref.kind, ref.default), ref.name
+    assert ours[-1].default == "cuda"
+
+
+def test_distribute_threshold_and_max_new_tokens_are_accepted(models):
+    # distribute_threshold is inert on one card, as in the JAX package with
+    # one device; a positional 8th argument is distribute_threshold, not engine
+    _, _, port_model, port_params, tokens = models
+    frame = tdk.from_numpy(tokens)
+    base = tdk.ModelPredictor(port_model, params=port_params, batch_size=BATCH, device="cpu")
+    p = tdk.ModelPredictor(port_model, "features", "prediction", BATCH, port_params, None, None,
+                           4, max_new_tokens=8, device="cpu")
+    assert (p.distribute_threshold, p.max_new_tokens) == (4, 8)
+    np.testing.assert_array_equal(p.predict(frame)["prediction"],
+                                  base.predict(frame)["prediction"])
+    assert p.last_mode == "single"

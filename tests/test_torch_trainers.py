@@ -10,6 +10,8 @@ package's own for equivalent trajectories: losses within rtol 2e-4 /
 atol 2e-5, parameters within rtol 2e-3 / atol 2e-4.
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -197,13 +199,31 @@ def test_training_with_dropout_is_reproducible():
     [dict(checkpoint_dir="ckpt"), dict(resume=True), dict(profile_dir="prof"),
      dict(seq_shards=2), dict(tp_shards=2), dict(fsdp=True), dict(streaming=True),
      dict(remat=True), dict(dispatch_epochs=2), dict(pipeline_stages=2),
-     dict(tensorboard_dir="tb"), dict(prefetch=2), dict(unroll=True),
+     dict(prefetch=2), dict(unroll=True),
      dict(elastic=object()), dict(staleness_policy=object())],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_kwargs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+
+
+def test_tensorboard_dir_kwarg_logs_each_epoch(tmp_path, monkeypatch):
+    # accepted since utils/tb.py is ported (it replaces this kwarg's case in
+    # test_unported_kwargs_raise): one line per epoch, the epoch means that
+    # the history holds, in the JSONL sink
+    from distkeras_tpu_torch.utils.tb import ScalarLogger
+
+    monkeypatch.setattr(ScalarLogger, "_try_torch", lambda self: False)
+    x, y = lm_data(n=32)
+    t = tdk.SingleTrainer(TransformerLM(**LM), loss="token_crossentropy",
+                          metrics=("token_accuracy",), batch_size=8, num_epoch=2,
+                          tensorboard_dir=str(tmp_path / "tb"), device="cpu")
+    t.train(tdk.from_numpy(x, y))
+    lines = [json.loads(line) for line in (tmp_path / "tb" / "scalars.jsonl").read_text().splitlines()]
+    h = t.get_history()
+    assert lines == [{"step": e, "loss": h["loss"][e], "token_accuracy": h["token_accuracy"][e]}
+                     for e in range(2)]
 
 
 def test_commit_schedule_kwarg_trains():
