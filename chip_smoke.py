@@ -68,13 +68,37 @@ toolkit.  Phases, each printing JSON lines:
     ``PerplexityEvaluator`` over the LM's output;
 11. networking: ``networking.initialize`` over NCCL at world size 1, one
     ``all_reduce`` of a CUDA tensor, ``shutdown``; a ``send_data`` /
-    ``recv_data`` round trip over a socket pair.
+    ``recv_data`` round trip over a socket pair;
+12. epochs: ``cifar_cnn_downpour`` (the zoo's configuration, 2 epochs of 4
+    windows) eager, with ``dispatch_epochs=2`` and with ``unroll=True``
+    (every window a captured CUDA graph), each with samples/s and s/step
+    end to end and in a steady pass on the trained engine, and the card's
+    busy share under ``torch.profiler``: ``dispatch_epochs`` must equal
+    eager bit for bit, the graph within 1e-6 (loss, relative) and 1e-5
+    (center parameters);
+13. streaming: the same run with ``streaming=True``, ``prefetch`` 0 and 2,
+    held to the in-memory run with the same gates; the native gather must
+    be built;
+14. checkpoint: the same run with ``checkpoint_dir``; 1 epoch and a resume
+    for 1 more, a resume after a flipped byte quarantined the newest step,
+    and ``train_with_recovery`` over one injected failure, each bitwise the
+    uninterrupted run; the save's host-blocking ms and bytes;
+15. remat and graph on the attention path: the train phase's ``DOWNPOUR``
+    at GPT-2-small widths with dropout 0.1, trained eagerly, with
+    ``remat=True`` and with ``unroll=True`` from the same seeds, each held
+    to the eager run with the epochs phase's gates; B1 launched twice as
+    often under remat, B1-B3 launched inside the graph (counted as the
+    wrappers' capture ticks times the replays, plus the warm-up window);
+    peak memory of all three; two replays of one captured window from the
+    same state draw different dropout masks, and the same masks again
+    once the generators are put back.
 
-Phases 4 to 6 and 10 set the kernels' launch counts to 0 just before and
-read them just after, check that every kernel of the path ran as often as
-the model needs, and hold the output against the same model on the CPU.
-Phases 7 to 9 and 11 run no kernel of the port's own: convolutions, dense
-products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
+Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
+and read them just after, check that every kernel of the path ran as often
+as the model needs, and hold the output against the same model on the CPU
+(phase 15: against the eager run).  Phases 7 to 9 and 11 to 14 run no
+kernel of the port's own: convolutions, dense products and embedding
+gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits non-zero without
 the ``ok`` line; so does a machine without CUDA.
@@ -610,7 +634,9 @@ def train_phase(seed: int):
     if loss_err > STEP_LOSS_RTOL or grad_errs[worst] > STEP_GRAD_RTOL:
         raise AssertionError(f"card and CPU training steps differ: loss {loss_err}, "
                              f"{worst} gradient {grad_errs[worst]}")
-    return launches
+    run = dict(loss=history["loss"], params={k: v.detach().float().cpu().clone()
+                                             for k, v in trained.params.items()})
+    return launches, run
 
 
 # The paper's training suite (bench.py's table of configurations), at the
@@ -1294,6 +1320,427 @@ def networking_phase(seed: int):
     return row
 
 
+# The training surface of this slice, on cifar_cnn_downpour at bench.py's
+# widths (CIFARCNN, per-worker batch 256, Downpour(16), SGD lr 0.05 with
+# momentum 0.9, bf16 compute), 2 workers, 2 epochs of EPOCHS_WINDOWS windows
+EPOCHS_CONFIG = "cifar_cnn_downpour"
+EPOCHS_WINDOWS = 4
+# the captured window against eager: the step checks' loss tolerance and a
+# 1e-5 bound on the center parameters
+GRAPH_LOSS_RTOL, GRAPH_PARAM_ATOL = 1e-6, 1e-5
+# the remat/graph phase: the train phase's DOWNPOUR over GPT-2-small widths,
+# with dropout, so that remat's recomputation and the graph's replays must
+# draw the eager run's masks
+REMAT_MODEL, REMAT_DROPOUT = GPT2_SMALL, 0.1
+
+
+def _epochs_config():
+    return next(c for c in ZOO_CONFIGS if c[0] == EPOCHS_CONFIG)
+
+
+def _cifar_trainer(model_seed: int, **kwargs):
+    """cifar_cnn_downpour's trainer (the zoo's configuration), 2 epochs."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import zoo
+
+    _, trainer_name, model_name, model_kw, batch, _, _, _, opt, extra = _epochs_config()
+    model = getattr(zoo, model_name)(**model_kw,
+                                     generator=torch.Generator().manual_seed(model_seed))
+    kwargs = dict(dict(num_epoch=ZOO_EPOCHS, **extra), **kwargs)
+    return _keeping_fit(getattr(tdk, trainer_name))(
+        model, loss="categorical_crossentropy", metrics=(), batch_size=batch,
+        seed=model_seed, compute_dtype="bfloat16", device=ZOO_DEVICE, worker_optimizer=opt,
+        num_workers=ZOO_WORKERS, communication_window=ZOO_WINDOW, **kwargs)
+
+
+def _trained(trainer, frame):
+    model = trainer.train(frame)
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    history = trainer.get_history()
+    return dict(loss=history["loss"], seconds=history["training_time"],
+                params={k: v.detach().float().cpu().clone() for k, v in model.params.items()})
+
+
+def _versus(run, reference):
+    """How far ``run`` lies from ``reference``: bitwise?, the largest loss
+    relative error and center-parameter difference."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run["loss"], reference["loss"]))
+    param = max(float((run["params"][k] - v).abs().max()) for k, v in reference["params"].items())
+    bitwise = run["loss"] == reference["loss"] and all(
+        torch.equal(run["params"][k], v) for k, v in reference["params"].items())
+    return dict(bitwise=bitwise, loss_rel_err=loss, max_param_err=param)
+
+
+def _steady(trainer, x, y, dispatch: bool):
+    """One more pass of 2 epochs on the trained engine and state, as the
+    trainer runs them (the window graphs, if any, already captured): its
+    seconds a local step and samples/s, then the card's busy share of one
+    more pass under torch.profiler."""
+    from distkeras_tpu_torch.data import epoch_arrays
+
+    engine, state, _ = trainer.fit_result
+    batch = _epochs_config()[4]
+    xs, ys = engine.shard_batches(*epoch_arrays(x, y, ZOO_WORKERS, batch, ZOO_WINDOW))
+    box = [state]
+
+    def run():
+        if dispatch:
+            box[0], _ = engine.run_epochs(box[0], xs, ys, ZOO_EPOCHS)
+        else:
+            for _ in range(ZOO_EPOCHS):
+                box[0], _ = engine.run_epoch(box[0], xs, ys)
+
+    run()  # warm
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = ZOO_EPOCHS * EPOCHS_WINDOWS * ZOO_WINDOW * ZOO_WORKERS
+    # the CPU has no device time to split (a rehearsal skips the profiler)
+    profile = fwd_bwd_profile(run, iters=1) if ZOO_DEVICE == "cuda" else {}
+    return dict(steady_seconds_per_step=seconds / steps,
+                steady_samples_per_s=ZOO_EPOCHS * len(x) / seconds,
+                device_busy_share=profile.get("device_busy_share"),
+                device_ms_per_pass=profile.get("device_ms_per_call"),
+                kernels_per_pass=profile.get("kernels_per_call"))
+
+
+def epochs_phase(seed: int):
+    """cifar_cnn_downpour three ways: eager per epoch, ``dispatch_epochs=2``
+    (the on-device reshuffle off: ``train`` does not shuffle) and
+    ``unroll=True`` (each window a captured CUDA graph).  The first two
+    must agree bit for bit; the graph within the step checks' tolerances.
+    Returns the eager run, which the next phases are held to."""
+    import distkeras_tpu_torch as tdk
+
+    batch, shape = _epochs_config()[4], _epochs_config()[5]
+    rows = ZOO_WORKERS * EPOCHS_WINDOWS * ZOO_WINDOW * batch
+    x, y = zoo_data(shape, False, 10, rows, seed)
+    frame = tdk.from_numpy(x, y)
+    runs, rows_out = {}, []
+    for mode, kwargs in (("eager", {}), ("dispatch_epochs", {"dispatch_epochs": 2}),
+                         ("graph", {"unroll": True})):
+        trainer = _cifar_trainer(seed, **kwargs)
+        run = runs[mode] = _trained(trainer, frame)
+        steps = ZOO_EPOCHS * EPOCHS_WINDOWS * ZOO_WINDOW * ZOO_WORKERS
+        row = dict(config=EPOCHS_CONFIG, mode=mode, **kwargs, workers=ZOO_WORKERS,
+                   batch_size=batch, window=ZOO_WINDOW, windows_per_epoch=EPOCHS_WINDOWS,
+                   epochs=ZOO_EPOCHS, rows=rows, local_steps=steps, loss=run["loss"],
+                   seconds=run["seconds"], seconds_per_step=run["seconds"] / steps,
+                   samples_per_s=ZOO_EPOCHS * rows / run["seconds"])
+        row.update(_steady(trainer, x, y, dispatch=mode == "dispatch_epochs"))
+        engine = trainer.fit_result[0]
+        if mode == "graph":
+            row.update(graphs=engine.use_graphs, graph_stats=dict(engine.graph_stats))
+        if mode != "eager":
+            row.update(vs_eager=_versus(run, runs["eager"]))
+        emit(phase="epochs", **row)
+        rows_out.append(row)
+        del trainer, engine
+    if not rows_out[1]["vs_eager"]["bitwise"]:
+        raise AssertionError(f"dispatch_epochs=2 differs from the per-epoch loop: "
+                             f"{rows_out[1]['vs_eager']}")
+    graph = rows_out[2]["vs_eager"]
+    if ZOO_DEVICE == "cuda" and not rows_out[2]["graphs"]:
+        raise AssertionError("unroll=True did not capture the windows")
+    if graph["loss_rel_err"] > GRAPH_LOSS_RTOL or graph["max_param_err"] > GRAPH_PARAM_ATOL:
+        raise AssertionError(f"the captured windows differ from eager: {graph}")
+    losses = np.asarray(runs["eager"]["loss"])
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"epochs phase: loss not finite: {losses.tolist()}")
+    return runs["eager"], frame, x, y
+
+
+def streaming_phase(seed: int, eager, frame):
+    """The same configuration streamed, with no prefetch and through a
+    prefetch ring of 2, against the in-memory run: the same trajectory
+    within the epochs phase's gates.  The native gather must be built."""
+    from distkeras_tpu_torch import native
+
+    rows = []
+    for prefetch in (0, 2):
+        trainer = _cifar_trainer(seed, streaming=True, prefetch=prefetch)
+        run = _trained(trainer, frame)
+        steps = ZOO_EPOCHS * EPOCHS_WINDOWS * ZOO_WINDOW * ZOO_WORKERS
+        row = dict(config=EPOCHS_CONFIG, streaming=True, prefetch=prefetch, loss=run["loss"],
+                   seconds=run["seconds"], seconds_per_step=run["seconds"] / steps,
+                   samples_per_s=ZOO_EPOCHS * len(frame) / run["seconds"],
+                   native_available=native.available(),
+                   last_stream_report=trainer.fit_result[0].last_stream_report,
+                   vs_in_memory=_versus(run, eager))
+        emit(phase="streaming", **row)
+        rows.append(row)
+        versus = row["vs_in_memory"]
+        if versus["loss_rel_err"] > GRAPH_LOSS_RTOL or versus["max_param_err"] > GRAPH_PARAM_ATOL:
+            raise AssertionError(f"streaming (prefetch {prefetch}) differs from the in-memory "
+                                 f"run: {versus}")
+    if not native.available():
+        raise AssertionError("the native gather did not build: the numpy fallback ran")
+    return rows
+
+
+class _FailOnce:
+    """``WindowedEngine.run_epoch`` raising once, on its ``at``-th call
+    (1-based), while in the ``with`` block."""
+
+    def __init__(self, at: int):
+        self.at, self.calls = at, 0
+
+    def __enter__(self):
+        from distkeras_tpu_torch.parallel import WindowedEngine
+
+        self.real = real = WindowedEngine.run_epoch
+
+        def run_epoch(engine, *args, **kwargs):
+            self.calls += 1
+            if self.calls == self.at:
+                raise RuntimeError("injected transient failure")
+            return real(engine, *args, **kwargs)
+
+        WindowedEngine.run_epoch = run_epoch
+        return self
+
+    def __exit__(self, *exc):
+        from distkeras_tpu_torch.parallel import WindowedEngine
+
+        WindowedEngine.run_epoch = self.real
+        return False
+
+
+def checkpoint_phase(seed: int, eager, frame):
+    """Checkpoints on the card: 2 epochs with ``checkpoint_dir`` against 1
+    epoch and a resume for 1 more (bitwise); a flipped byte in the newest
+    step quarantines it and the resume falls back one step (bitwise again);
+    ``train_with_recovery`` with one failure injected after epoch 1 ends
+    where the uninterrupted run ends.  Prints the save's host-blocking ms
+    and the files' bytes."""
+    import json as json_mod
+    import os
+    import tempfile
+
+    from distkeras_tpu_torch import checkpoint
+
+    row = dict(config=EPOCHS_CONFIG)
+    with tempfile.TemporaryDirectory() as root:
+        whole = os.path.join(root, "whole")
+        full = _trained(_cifar_trainer(seed, checkpoint_dir=whole), frame)
+        row["with_checkpoints_vs_eager"] = _versus(full, eager)
+        split = os.path.join(root, "split")
+        _trained(_cifar_trainer(seed, checkpoint_dir=split, num_epoch=1), frame)
+        resumed = _trained(_cifar_trainer(seed, checkpoint_dir=split, resume=True), frame)
+        # a resumed run's history holds the epochs it ran: the second
+        tail = dict(full, loss=full["loss"][1:])
+        row["resume_vs_uninterrupted"] = _versus(resumed, tail)
+        row["resumed_loss"] = resumed["loss"]
+
+        # a flipped byte in the newest step: quarantined, and resume falls back
+        victim = os.path.join(whole, "step_2", "center_params.npz")
+        with open(victim, "rb") as fh:
+            raw = bytearray(fh.read())
+        raw[len(raw) // 2] ^= 0x01
+        with open(victim + ".tmp", "wb") as fh:
+            fh.write(bytes(raw))
+        os.replace(victim + ".tmp", victim)
+        fallback = _trained(_cifar_trainer(seed, checkpoint_dir=whole, resume=True), frame)
+        row.update(quarantined="step_2.corrupt" in os.listdir(whole),
+                   fallback_loss=fallback["loss"],
+                   fallback_vs_uninterrupted=_versus(fallback, tail))
+
+        # train_with_recovery with one transient failure in the second epoch
+        # (it installs the SIGTERM-to-flag handler: put the old one back after)
+        import signal
+
+        from distkeras_tpu_torch import fleet
+
+        recovering = _cifar_trainer(seed, checkpoint_dir=os.path.join(root, "recover"))
+        sigterm = signal.getsignal(signal.SIGTERM)
+        try:
+            with _FailOnce(at=2) as failing:
+                model = recovering.train_with_recovery(frame, backoff_base=0)
+        finally:
+            signal.signal(signal.SIGTERM, sigterm)
+            fleet._HANDLER_INSTALLED = False
+        if ZOO_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        recovered = dict(loss=recovering.get_history()["loss"],
+                         params={k: v.detach().float().cpu().clone()
+                                 for k, v in model.params.items()})
+        row.update(recovery_calls=failing.calls,
+                   recovery_vs_uninterrupted=_versus(recovered, tail))
+
+        # the save itself: host-blocking ms (the snapshot off the card) and
+        # the files written
+        engine, state, _ = recovering.fit_result
+        target = os.path.join(root, "timed")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(target, state, 1)
+        blocking = time.perf_counter() - t0
+        checkpoint.wait_until_finished()
+        total = time.perf_counter() - t0
+        with open(checkpoint.manifest_path(target, 1)) as fh:
+            files = json_mod.load(fh)["files"]
+        row.update(save_host_blocking_ms=blocking * 1e3, save_total_ms=total * 1e3,
+                   checkpoint_bytes=sum(f["bytes"] for f in files.values()),
+                   checkpoint_files=sorted(files))
+    emit(phase="checkpoint", **row)
+    for key in ("resume_vs_uninterrupted", "fallback_vs_uninterrupted",
+                "recovery_vs_uninterrupted"):
+        if not row[key]["bitwise"]:
+            raise AssertionError(f"checkpoint phase: {key} is not bitwise: {row[key]}")
+    if not row["quarantined"]:
+        raise AssertionError("the damaged step was not quarantined")
+    if row["fallback_loss"] != full["loss"][1:] or row["recovery_calls"] < 3:
+        raise AssertionError(f"checkpoint phase: fallback or recovery did not rerun: {row}")
+    return row
+
+
+def replay_masks(engine) -> dict:
+    """Replays of a captured window draw fresh dropout masks.  The engine's
+    first captured window is replayed three times from the same state
+    values and inputs: the second replay must differ from the first (each
+    replay advances the workers' registered generators), and the third,
+    with the generators put back as well, must give the first again bit
+    for bit.  The state and the generators are left as they were found."""
+    from distkeras_tpu_torch.parallel.engine import _state_trees
+    from distkeras_tpu_torch.utils.pytree import tree_leaves
+
+    captured = next(iter(engine._graphs.values()))
+    static = engine._static
+    leaves = tree_leaves(_state_trees(static))
+    values = [t.clone() for t in leaves]
+    rng = [g.get_state() for g in static.rng]
+
+    def put_back(generators: bool):
+        with torch.no_grad():
+            for t, v in zip(leaves, values):
+                t.copy_(v)
+        if generators:
+            for g, s in zip(static.rng, rng):
+                g.set_state(s)
+
+    def replay(generators: bool):
+        put_back(generators)
+        captured.graph.replay()
+        torch.cuda.synchronize()
+        return [t.clone() for t in tree_leaves(static.local_params)]
+
+    first, second, third = replay(True), replay(False), replay(True)
+    put_back(True)
+    fresh = any(not torch.equal(a, b) for a, b in zip(first, second))
+    repeatable = all(torch.equal(a, b) for a, b in zip(first, third))
+    return dict(fresh_masks_each_replay=fresh, replay_repeatable=repeatable)
+
+
+def remat_graph_phase(seed: int, train_run):
+    """The attention path under ``remat`` and in captured windows, through
+    the trainer: the train phase's ``DOWNPOUR`` over a GPT-2-small-wide LM
+    with dropout ``REMAT_DROPOUT``, trained eagerly, with ``remat=True`` and
+    with ``unroll=True`` from the same seeds.  Remat and the graph are each
+    held to the eager run within the epochs phase's gates (loss 1e-6
+    relative, center parameters 1e-5): remat's recomputation and the
+    graph's replays must draw the eager run's masks.  Remat launches the
+    forward kernel (B1) twice as often as eager and B2/B3 as often; the
+    graph run launches B1-B3 inside its windows; peak memory is printed for
+    all three.  Two replays of a window from the same state must draw
+    different masks (:func:`replay_masks`), and the eager run must differ
+    from the train phase's run without dropout (``train_run``)."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    x, y = lm_task(TRAIN_ROWS, REMAT_MODEL["max_len"], REMAT_MODEL["vocab_size"], seed + 2)
+    frame = tdk.from_numpy(x, y)
+
+    def train(**kwargs):
+        model = TransformerLM(**REMAT_MODEL, dropout=REMAT_DROPOUT,
+                              generator=torch.Generator().manual_seed(seed + 2))
+        trainer = _keeping_fit(tdk.DOWNPOUR)(
+            model, loss="token_crossentropy", metrics=("token_accuracy",),
+            worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+            batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=TRAIN_EPOCHS,
+            seed=seed, device=ZOO_DEVICE, **kwargs)
+        if ZOO_DEVICE == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        run = _trained(trainer, frame)
+        run.update(launches=[c.launches for c in counters],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return trainer, run
+
+    trainer, eager = train()
+    del trainer
+    trainer, remat = train(remat=True)
+    del trainer
+    trainer, graph = train(unroll=True)
+    engine = trainer.fit_result[0]
+    ticks_and_launches = engine.graph_launches()
+    # a wrapper's counter ticks at the warm-up window (real launches) and at
+    # capture (none); the graph's launches are its capture ticks x replays
+    graph_launches = [c.launches - ticks_and_launches.get(c.__name__, (0, 0))[0]
+                      + ticks_and_launches.get(c.__name__, (0, 0))[1] for c in counters]
+    replays = replay_masks(engine) if engine.use_graphs else {}
+    graph_stats, use_graphs = dict(engine.graph_stats), engine.use_graphs
+    del trainer, engine
+
+    local_steps = TRAIN_EPOCHS * (TRAIN_ROWS // (TRAIN_WORKERS * TRAIN_BATCH)) * TRAIN_WORKERS
+    expected = REMAT_MODEL["num_layers"] * local_steps
+    window_launches = REMAT_MODEL["num_layers"] * TRAIN_WORKERS * TRAIN_WINDOW
+    row = dict(trainer="DOWNPOUR", model="TransformerLM", **REMAT_MODEL, dropout=REMAT_DROPOUT,
+               workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+               epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, local_steps=local_steps,
+               loss=eager["loss"], remat_loss=remat["loss"], graph_loss=graph["loss"],
+               seconds=eager["seconds"], remat_seconds=remat["seconds"],
+               graph_seconds=graph["seconds"],
+               dropout_changed_loss=eager["loss"] != train_run["loss"],
+               remat_vs_eager=_versus(remat, eager), graph_vs_eager=_versus(graph, eager),
+               launches_eager=eager["launches"], launches_remat=remat["launches"],
+               expected_launches_eager=expected,
+               peak_memory_gb_eager=eager["peak_memory_gb"],
+               peak_memory_gb_remat=remat["peak_memory_gb"],
+               peak_memory_gb_graph=graph["peak_memory_gb"],
+               remat_lowered_peak_memory=remat["peak_memory_gb"] < eager["peak_memory_gb"],
+               graph_stats=graph_stats, graphs=use_graphs,
+               graph_ticks_and_launches=ticks_and_launches, launches_graph=graph_launches,
+               expected_launches_graph=expected + window_launches,  # + the warm-up window
+               launches_counted_as="wrapper counter - capture ticks + capture ticks x replays",
+               **replays)
+    failures = []
+    if not row["dropout_changed_loss"]:
+        failures.append("the loss with dropout equals the train phase's without: no mask drawn")
+    for mode in ("remat", "graph"):
+        versus = row[f"{mode}_vs_eager"]
+        if versus["loss_rel_err"] > GRAPH_LOSS_RTOL or versus["max_param_err"] > GRAPH_PARAM_ATOL:
+            failures.append(f"{mode} differs from eager with dropout: {versus}")
+    if ZOO_DEVICE == "cuda":
+        if eager["launches"] != [expected] * 3:
+            failures.append(f"eager launched {eager['launches']}, expected {expected} each")
+        if remat["launches"] != [2 * expected, expected, expected]:
+            failures.append(f"remat launched {remat['launches']}, expected "
+                            f"{[2 * expected, expected, expected]} (B1 twice)")
+        if not use_graphs or graph_launches != [expected + window_launches] * 3:
+            failures.append(f"graph launches {graph_launches}, expected "
+                            f"{expected + window_launches} each")
+        if not (replays["fresh_masks_each_replay"] and replays["replay_repeatable"]):
+            failures.append(f"replays of a captured window: {replays}")
+    row["failures"] = failures
+    emit(phase="remat_graph", **row)
+    if failures:
+        raise AssertionError(f"remat/graph phase: {failures}")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -1336,12 +1783,16 @@ def main(argv=None) -> int:
     bwd_cases = bwd_kernel_phase(args.seed)
     predictor_launches = predictor_phase(args.seed)
     lm_launches = lm_phase(args.seed)
-    train_launches = train_phase(args.seed)
+    train_launches, train_run = train_phase(args.seed)
     zoo_phase(args.seed)
     staleness_phase(args.seed)
     flow_phase(args.seed)
     head_dim_rows = head_dim_phase(args.seed)
     networking_phase(args.seed)
+    eager_run, cifar_frame, _, _ = epochs_phase(args.seed)
+    streaming_phase(args.seed, eager_run, cifar_frame)
+    checkpoint_phase(args.seed, eager_run, cifar_frame)
+    remat_graph = remat_graph_phase(args.seed, train_run)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -1406,11 +1857,17 @@ def main(argv=None) -> int:
         "training_bf16_bound_by": lm_bf16["bound_by"],
         "launches_head_dim_models": {name: row["launches"]
                                      for name, row in head_dim_rows.items()},
+        "launches_train_eager_and_remat": [remat_graph["launches_eager"][0],
+                                           remat_graph["launches_remat"][0]],
+        "launches_graph": remat_graph["launches_graph"][0],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
         "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:247",
         "launches": train_launches["flash_attention_bwd_dq"],
+        "launches_train_eager_and_remat": [remat_graph["launches_eager"][1],
+                                           remat_graph["launches_remat"][1]],
+        "launches_graph": remat_graph["launches_graph"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -1424,6 +1881,9 @@ def main(argv=None) -> int:
         "name": "flash_attention_bwd_dkv",
         "replaces": "distkeras_tpu/ops/pallas/flash_attention.py:264",
         "launches": train_launches["flash_attention_bwd_dkv"],
+        "launches_train_eager_and_remat": [remat_graph["launches_eager"][2],
+                                           remat_graph["launches_remat"][2]],
+        "launches_graph": remat_graph["launches_graph"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -66,10 +66,14 @@ def stacked_ctx(num_workers: int, steps_in_window, device, mask=None) -> CommitC
     commits unless ``mask`` (``[num_workers]`` bool) says otherwise."""
     if mask is None:
         mask = torch.ones(num_workers, dtype=torch.bool, device=device)
+    if isinstance(steps_in_window, torch.Tensor):
+        steps = steps_in_window.to(device, torch.float32)
+    else:  # a fill, not a copy from the host: a captured window may hold it
+        steps = torch.full((), float(steps_in_window), dtype=torch.float32, device=device)
     return CommitCtx(
         psum=lambda t: tree_map(lambda x: x.sum(dim=0), t),
         mask=mask,
-        steps_in_window=torch.as_tensor(steps_in_window, dtype=torch.float32, device=device),
+        steps_in_window=steps,
         num_workers=num_workers,
     )
 

@@ -76,7 +76,10 @@ def _device(params) -> torch.device:
 
 
 def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    return 1 - torch.tensor(decay, dtype=torch.float32, device=count.device) ** count.float()
+    # a float32 base from a scalar, with no copy from the host: a captured
+    # window may hold it
+    base = torch.full((), decay, dtype=torch.float32, device=count.device)
+    return 1 - base ** count.float()
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

@@ -17,32 +17,55 @@ parameter-server center variable has none.  Two modes, as in JAX:
   that counts staleness (DynSGD) sees the update count from before the
   step's commits.
 
+Epochs run from in-memory arrays (``run_epoch``; ``run_epochs`` for several
+epochs with one read-back and an optional on-device reshuffle) or from a
+stream of per-window blocks (``run_epoch_streaming``, fed by
+``stream_put``).
+
 Deliberate differences from the JAX engine:
 
 * Workers on one card run **one after another** inside a window.  JAX
   batches them with ``vmap``, a compile-time transform that
   ``torch.func.vmap`` cannot apply to a kernel launched through ``ctypes``.
   Workers are independent between commits, so the result is the same.
-* Steps run eagerly: there is no jitted epoch program, no donation and no
-  scan unroll.  ``run_epoch`` consumes its input state (its tensors are
-  updated in place), as the JAX engine's donated dispatch does.
+* Steps run eagerly, and ``run_epoch`` consumes its input state (its
+  tensors are updated in place, the commit's too), as the JAX engine's
+  donated dispatch does.  The counterpart of the jitted window is a
+  **captured CUDA graph**: with ``unroll`` other than 1 (an int > 1, or
+  ``True``) on a card, one uniform window (every worker's local steps and
+  the commit) is captured once and replayed once a window.  On the CPU,
+  where there are no graphs, ``unroll`` stays the scan hint it is in JAX
+  and changes nothing.  The staleness simulation stays eager under any
+  ``unroll``.
 * Dropout randomness is one ``torch.Generator`` per worker on the card,
   seeded from the init generator (JAX splits a key per worker).
+* The on-device reshuffle of ``run_epochs`` draws ``torch.randperm``, not
+  ``jax.random.permutation`` (:func:`epoch_permutation`): both are uniform
+  permutations keyed by ``(shuffle_seed, epoch)``, not the same ones.
+* ``remat`` wraps the model's apply in ``torch.utils.checkpoint``, whose
+  recomputation draws dropout from a copy of each worker's generator taken
+  before the forward, so the recomputed masks are the forward's.
 
 Not in this slice: several cards (the cross-card sum of the commit),
-sequence parallelism, FSDP and rematerialisation, whose options the
-constructor refuses; and the dynamics telemetry (``DISTKERAS_DYNAMICS`` is
-not read).
+sequence parallelism and FSDP, whose options the constructor refuses;
+``remat`` inside a captured window; and the dynamics telemetry
+(``DISTKERAS_DYNAMICS`` is not read).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+import warnings
+from collections import deque
 from typing import TYPE_CHECKING, Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.algorithms.base import CommitCtx, UpdateRule, stacked_ctx
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric, per_token_metric_names
@@ -53,7 +76,11 @@ from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_where
 if TYPE_CHECKING:  # models.adapter imports this package (resolve_device)
     from distkeras_tpu_torch.models.adapter import ModelAdapter
 
-__all__ = ["TrainState", "WindowedEngine", "device_count", "plan_workers"]
+__all__ = ["TrainState", "WindowedEngine", "device_count", "epoch_permutation", "plan_workers"]
+
+#: pinned host buffers per block shape for ``stream_put``: a buffer is
+#: written again only after its copy to the card has landed (its event)
+_PINNED_SLOTS = 3
 
 
 def plan_workers(num_workers: int, n_devices: int) -> tuple[int, int]:
@@ -95,6 +122,106 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it comes with ROADMAP Queue A {item}")
 
 
+def _mix64(seed: int, epoch: int) -> int:
+    """A 63-bit generator seed for ``(seed, epoch)`` (SplitMix64's finaliser
+    over both), so that neighbouring epochs get unrelated streams."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(epoch) + 0x632BE59BD9B4E019) % 2**64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2**64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2**64
+    return (z ^ (z >> 31)) >> 1
+
+
+def epoch_permutation(shuffle_seed: int, epoch: int, n: int, device) -> torch.Tensor:
+    """The on-device reshuffle of epoch ``epoch``: a uniform permutation of
+    ``range(n)`` from ``torch.randperm`` on a generator on ``device`` seeded
+    from ``(shuffle_seed, epoch)``.  Keyed by the epoch counter, so a
+    resumed run continues the same stream.  The JAX engine draws
+    ``jax.random.permutation(fold_in(PRNGKey(shuffle_seed), epoch), n)``,
+    which torch cannot reproduce (ROADMAP Queue C, C6)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_mix64(shuffle_seed, epoch))
+    return torch.randperm(n, generator=g, device=device)
+
+
+def _graphs_requested(unroll) -> bool:
+    """``unroll`` other than 1: ``True``, or an int > 1 (``False`` is 1)."""
+    if isinstance(unroll, bool):
+        return unroll
+    if not isinstance(unroll, (int, np.integer)) or unroll < 1:
+        raise ValueError(f"unroll must be True, False or an int >= 1, got {unroll!r}")
+    return unroll > 1
+
+
+def _remat_apply(adapter, params, model_state, x, generator):
+    """``adapter.apply`` in training under ``torch.utils.checkpoint``: the
+    forward keeps no activations and the backward recomputes them.
+    ``torch.utils.checkpoint`` restores only the device's default
+    generator, and the port's dropout draws from ``generator``, so the
+    recomputation draws from a fresh generator set to ``generator``'s state
+    from before the forward: the same masks, hence the same gradients."""
+    saved = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(x):
+        g = generator
+        if calls[0] and generator is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(saved)
+        calls[0] += 1
+        return adapter.apply(params, model_state, x, training=True, generator=g)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _copy_into(dst_trees, src_trees) -> None:
+    """Copy each ``src`` leaf into its ``dst`` leaf, in place (in the
+    destination's dtype).  A source that shares memory with some
+    destination is cloned first, so no copy reads a leaf that an earlier
+    copy already overwrote."""
+    pairs = []
+    for dt, st in zip(dst_trees, src_trees):  # paired by key, not by position
+        tree_map(lambda d, s: pairs.append((d, s)) if d is not s else None, dt, st)
+    dst_ptrs = {d.data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s.data_ptr() in dst_ptrs else s) for d, s in pairs]
+    for d, s in pairs:
+        # an integer leaf averaged over workers rounds to the nearest integer
+        d.copy_(s.round() if s.is_floating_point() and not d.is_floating_point() else s)
+
+
+def _state_trees(state) -> tuple:
+    return (state.center_params, state.center_rule, state.local_params, state.opt_state,
+            state.model_state, state.rule_local)
+
+
+def _state_key(state) -> tuple:
+    """What a captured window reads: the addresses of the state's tensors and
+    the identity of its generators."""
+    return (tuple(t.data_ptr() for t in tree_leaves(_state_trees(state))),
+            tuple(id(g) for g in state.rng))
+
+
+class _PutBlock(tuple):
+    """A block :meth:`WindowedEngine.stream_put` has put: ``(xs, ys)``
+    tensors on the engine's device and the event (or None) the compute
+    stream waits on before reading them."""
+
+    def __new__(cls, tensors, ready):
+        block = super().__new__(cls, tensors)
+        block.ready = ready
+        return block
+
+
+class _Captured:
+    """One captured window: the graph, its input buffers and its outputs."""
+
+    def __init__(self, graph, x, y, loss, mets, ticks):
+        self.graph, self.x, self.y, self.loss, self.mets = graph, x, y, loss, mets
+        #: kernel launches recorded in the graph, by wrapper
+        self.ticks = ticks
+        self.replays = 0
+
+
 class WindowedEngine:
     """Owns the training loop for one (model, rule) pair on one device."""
 
@@ -117,10 +244,6 @@ class WindowedEngine:
         unroll=1,
         device="cuda",
     ):
-        if remat:
-            raise _not_ported("remat=True", "item 9")
-        if unroll != 1:
-            raise _not_ported("unroll (a scan unroll of the jitted epoch)", "item 9")
         if mesh is not None:
             raise _not_ported("mesh= (training over several cards)", "item 13")
         if int(seq_shards) != 1:
@@ -130,6 +253,16 @@ class WindowedEngine:
         self.adapter = adapter
         self.rule = rule
         self.device = resolve_device(device)
+        # rematerialise the model's forward on the backward
+        # (torch.utils.checkpoint; jax.checkpoint in the JAX engine)
+        self.remat = bool(remat)
+        self.unroll = unroll
+        # unroll other than 1 on a card: each uniform window is a captured
+        # CUDA graph; on the CPU the option is the JAX scan hint and inert
+        self.use_graphs = _graphs_requested(unroll) and self.device.type == "cuda"
+        if self.use_graphs and self.remat:
+            raise _not_ported("remat=True inside a captured window (unroll other than 1 on a "
+                              "card)", "item 20 (CUDA-graph follow-ups)")
         self.num_workers = int(num_workers or device_count(self.device))
         # one card: every worker is a virtual worker on it (the cross-card
         # sum of the commit comes with ROADMAP Queue A item 13)
@@ -151,6 +284,18 @@ class WindowedEngine:
                 f"commit_schedule has {len(self.commit_schedule)} entries for "
                 f"{self.num_workers} workers"
             )
+        # captured windows, keyed as the JAX engine keys its epoch programs;
+        # every graph reads and writes the one state ``_static`` holds
+        self._graphs: dict = {}
+        self._static: Optional[TrainState] = None
+        #: captures made and windows replayed since the cache was last cleared
+        self.graph_stats = {"captures": 0, "replays": 0}
+        #: filled by :meth:`run_epoch_streaming`: source timing and the
+        #: link-bound verdict of the last streamed epoch
+        self.last_stream_report = None
+        self._link_warned = False
+        self._pinned: dict = {}
+        self._copy_stream = None
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: torch.Generator, sample_input) -> TrainState:
@@ -181,6 +326,24 @@ class WindowedEngine:
             epoch=0,
         )
 
+    def state_from_center(self, generator: torch.Generator, center_params, center_rule,
+                          model_state, epoch: int) -> TrainState:
+        """Elastic resume: rebuild the full training state around a restored
+        center variable at this engine's worker count, which may differ
+        from the count the checkpoint was written at.
+
+        Local replicas adopt the center (the reference's retried worker
+        reconnects to the parameter server and pulls), optimizer and rule
+        local state start afresh, and the center's rule state (the commit
+        counters) and the epoch carry over.  Leaves may be numpy arrays or
+        tensors.  A resume at the same worker count restores bitwise
+        instead (``CheckpointManager.restore(like=...)``)."""
+        as_tensor = lambda x: x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        params = tree_map(as_tensor, center_params)
+        state = self._assemble_state(generator, params, tree_map(as_tensor, model_state))
+        rule = tree_map(lambda t: as_tensor(t).to(self.device, copy=True), center_rule)
+        return state.replace(center_rule=rule, epoch=int(epoch))
+
     # ------------------------------------------------------------- local step
     def _local_step(self, params, opt_state, model_state, generator, x, y):
         """One optimizer step of one worker: forward, loss (plus the model's
@@ -196,8 +359,11 @@ class WindowedEngine:
                 cast = self.compute_dtype
                 p = tree_map(lambda t: t.to(cast) if t.is_floating_point() else t, leaves)
                 x_c = x.to(cast) if x.is_floating_point() else x
-            out, model_state = self.adapter.apply(p, model_state, x_c, training=True,
-                                                  generator=generator)
+            if self.remat:
+                out, model_state = _remat_apply(self.adapter, p, model_state, x_c, generator)
+            else:
+                out, model_state = self.adapter.apply(p, model_state, x_c, training=True,
+                                                      generator=generator)
             out = out.float()
             loss = self.loss_fn(out, y) + self.adapter.aux_loss(model_state)
             flat = tree_leaves(leaves)
@@ -240,22 +406,26 @@ class WindowedEngine:
 
     def _commit(self, state: TrainState, ctx: CommitCtx) -> TrainState:
         """The rule's commit over all workers, and the model state synced
-        under the same mask."""
+        under the same mask, written into the state's tensors in place (a
+        captured window replays into the same memory)."""
         with torch.no_grad():
             res = self.rule.commit(ctx, state.local_params, state.center_params,
                                    state.rule_local, state.center_rule)
             model_state = self._sync_model_state(ctx, state.model_state)
-        return state.replace(
-            local_params=res.local_params, center_params=res.center_params,
-            rule_local=res.local_state, center_rule=res.center_state,
-            model_state=model_state,
-        )
+            _copy_into(
+                (state.local_params, state.center_params, state.rule_local,
+                 state.center_rule, state.model_state),
+                (res.local_params, res.center_params, res.local_state, res.center_state,
+                 model_state),
+            )
+        return state
 
-    def _run_window(self, state: TrainState, xs, ys, do_commit: bool):
-        """One window: every worker takes ``xs.shape[1]`` local steps on its
-        own rows of ``xs``/``ys`` (``[num_workers, window, batch, ...]``),
-        then (``do_commit``) the rule commits all of them.  Returns the
-        window's loss and metrics, averaged over steps and workers."""
+    def _window_body(self, state: TrainState, xs, ys, do_commit: bool):
+        """One window, in place: every worker takes ``xs.shape[1]`` local
+        steps on its own rows of ``xs``/``ys`` (``[num_workers, window,
+        batch, ...]``), then (``do_commit``) the rule commits all of them.
+        Returns the window's loss and metrics, averaged over steps and
+        workers, as device tensors."""
         n, window = self.num_workers, xs.shape[1]
         loss_sum, mets_sum = 0.0, 0.0
         for w in range(n):
@@ -263,8 +433,97 @@ class WindowedEngine:
             loss_sum = loss_sum + losses.mean()
             mets_sum = mets_sum + mets.mean(dim=0)
         if do_commit:
-            state = self._commit(state, stacked_ctx(n, float(window), self.device))
-        return state, loss_sum / n, mets_sum / n
+            self._commit(state, stacked_ctx(n, float(window), self.device))
+        return loss_sum / n, mets_sum / n
+
+    def _run_window(self, state: TrainState, xs, ys, do_commit: bool):
+        """One window, eager or replayed from its captured graph.  Returns
+        the state (the engine's captured state when graphs are on) and the
+        window's loss and metrics."""
+        if not self.use_graphs:
+            loss, mets = self._window_body(state, xs, ys, do_commit)
+            return state, loss, mets
+        key = ("win", do_commit, tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
+        state = self._adopt(state)
+        captured = self._graphs.get(key)
+        if captured is None:
+            captured = self._graphs[key] = self._capture(state, xs, ys, do_commit)
+        captured.x.copy_(xs)
+        captured.y.copy_(ys)
+        captured.graph.replay()
+        captured.replays += 1
+        self.graph_stats["replays"] += 1
+        return state, captured.loss.clone(), captured.mets.clone()
+
+    def _adopt(self, state: TrainState) -> TrainState:
+        """The state every captured window reads and writes: ``state`` itself
+        the first time; later, when ``state`` holds other tensors (a
+        restore, a fresh init), its values and generator states are copied
+        into the captured ones."""
+        static = self._static
+        if static is None:
+            self._static = state
+            return state
+        if _state_key(state) != _state_key(static):
+            with torch.no_grad():
+                _copy_into(_state_trees(static), _state_trees(state))
+            for mine, theirs in zip(static.rng, state.rng):
+                mine.set_state(theirs.get_state())
+        return static.replace(epoch=state.epoch)
+
+    def _capture(self, state: TrainState, xs, ys, do_commit: bool) -> _Captured:
+        """Capture one window as a CUDA graph over ``state``'s tensors and
+        static input buffers.  A warm-up window runs first on a side stream
+        (lazy initialisation must not happen inside a capture) and is undone:
+        the state's values and generators are restored.  Each worker's
+        dropout generator is registered with the graph, so every replay
+        draws fresh masks.  A failed capture raises: nothing falls back to
+        eager."""
+        from distkeras_tpu_torch.ops import (
+            flash_attention,
+            flash_attention_bwd_dkv,
+            flash_attention_bwd_dq,
+        )
+
+        x, y = xs.clone(), ys.clone()
+        leaves = tree_leaves(_state_trees(state))
+        saved = [t.clone() for t in leaves]
+        saved_rng = [g.get_state() for g in state.rng]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._window_body(state, x, y, do_commit)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(leaves, saved):
+                t.copy_(v)
+        for g, v in zip(state.rng, saved_rng):
+            g.set_state(v)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        for g in state.rng:
+            graph.register_generator_state(g)
+        counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+        before = [c.launches for c in counters]
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            loss, mets = self._window_body(state, x, y, do_commit)
+        # kernels launched inside the graph at each replay, by wrapper
+        ticks = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+        self.graph_stats["captures"] += 1
+        return _Captured(graph, x, y, loss, mets, ticks)
+
+    def graph_launches(self) -> dict:
+        """Kernel launches of the captured windows since the cache was last
+        cleared, by wrapper, as ``(capture ticks, launches)``: a wrapper's
+        counter ticks once per launch site at capture, which launches
+        nothing, and each replay launches every recorded kernel once, so
+        the launches are the ticks times the replays."""
+        out: dict = {}
+        for captured in self._graphs.values():
+            for name, ticks in captured.ticks.items():
+                t, n = out.get(name, (0, 0))
+                out[name] = (t + ticks, n + ticks * captured.replays)
+        return out
 
     def _run_stepwise(self, state: TrainState, xs, ys):
         """The staleness simulation over ``xs``/``ys`` shaped
@@ -292,6 +551,19 @@ class WindowedEngine:
         return (torch.from_numpy(np.ascontiguousarray(xs)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(ys)).to(self.device))
 
+    def _run_windows(self, state: TrainState, xs, ys):
+        """Every window of ``xs``/``ys`` (``[num_workers, n_windows, window,
+        batch, ...]``) in turn.  Returns the state and the per-window loss
+        ``[n_windows]`` and metrics ``[n_windows, n_metrics]`` on the
+        device; nothing is read back."""
+        do_commit = self.rule.communication_window > 0
+        losses, mets = [], []
+        for i in range(xs.shape[1]):
+            state, loss, met = self._run_window(state, xs[:, i], ys[:, i], do_commit)
+            losses.append(loss)
+            mets.append(met)
+        return state, torch.stack(losses), torch.stack(mets)
+
     def run_epoch(self, state: TrainState, xs, ys):
         """Run one epoch over ``xs``/``ys`` shaped ``[num_workers,
         n_windows, window, batch, ...]`` (uniform windows) or
@@ -306,16 +578,262 @@ class WindowedEngine:
             state, losses = self._run_stepwise(state, xs, ys)
             stats = {"loss": losses.cpu().numpy(), "metrics": np.zeros((0,), np.float32)}
             return state.replace(epoch=state.epoch + 1), stats
-        n_windows = xs.shape[1]
-        do_commit = self.rule.communication_window > 0
+        state, losses, mets = self._run_windows(state, xs, ys)
+        stats = {"loss": losses.cpu().numpy(), "metrics": mets.cpu().numpy()}
+        return state.replace(epoch=state.epoch + 1), stats
+
+    def run_epochs(self, state: TrainState, xs, ys, num_epochs: int, *,
+                   shuffle_seed: Optional[int] = None):
+        """Run ``num_epochs`` epochs over in-memory data with one read-back
+        of the stats, at the end.
+
+        With ``shuffle_seed=None`` this is ``num_epochs`` calls of
+        :meth:`run_epoch`, bit for bit.  With a seed, each epoch first
+        permutes the flattened step stream (workers x windows x window x
+        batch) on the card by :func:`epoch_permutation`, keyed by
+        ``(shuffle_seed, epoch)``, so a resumed run continues the same
+        stream.  As in the JAX engine, the permutation acts on the padded
+        stream: when the data do not divide evenly, the same wrap-pad
+        duplicates recur every epoch.  Stats leaves concatenate over the
+        epochs exactly like consecutive ``run_epoch`` results.  Uniform
+        windows only: the staleness simulation runs per epoch."""
+        if self.commit_schedule is not None:
+            raise ValueError(
+                "run_epochs runs uniform windows; the staleness simulation "
+                "dispatches per epoch (run_epoch)"
+            )
+        num_epochs = int(num_epochs)
+        if num_epochs < 1:
+            raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
+        n_total = int(np.prod(xs.shape[:4]))
         losses, mets = [], []
-        for i in range(n_windows):
-            state, loss, met = self._run_window(state, xs[:, i], ys[:, i], do_commit)
+        for _ in range(num_epochs):
+            xs_e, ys_e = xs, ys
+            if shuffle_seed is not None:
+                perm = epoch_permutation(shuffle_seed, state.epoch, n_total, xs.device)
+                perm = perm.to(xs.device)
+                xs_e = xs.reshape((n_total,) + xs.shape[4:])[perm].reshape(xs.shape)
+                ys_e = ys.reshape((n_total,) + ys.shape[4:])[perm].reshape(ys.shape)
+            state, loss, met = self._run_windows(state, xs_e, ys_e)
+            state = state.replace(epoch=state.epoch + 1)
             losses.append(loss)
             mets.append(met)
+        return state, {"loss": torch.cat(losses).cpu().numpy(),
+                       "metrics": torch.cat(mets).cpu().numpy()}
+
+    def clear_program_cache(self, keep_multi: Optional[tuple] = None) -> None:
+        """Drop the captured windows (the JAX engine's compiled epoch
+        programs) and the state they were captured over; state and data
+        tensors are unaffected, and the next window captures anew.
+
+        ``keep_multi`` is accepted for the JAX engine's signature, where it
+        names the ``(num_epochs, shuffle_seed)`` of a multi-epoch program
+        to keep.  Here ``run_epochs`` has no program of its own: it replays
+        the same window graphs as ``run_epoch``, so there is nothing to
+        keep, and every graph is dropped whatever ``keep_multi`` says."""
+        self._graphs.clear()
+        self._static = None
+        self.graph_stats = {"captures": 0, "replays": 0}
+
+    # ------------------------------------------------------------- streaming
+    def stream_put(self, block):
+        """Copy one streamed window block ``(xs, ys)`` shaped ``[num_workers,
+        window, batch, ...]`` to the card, as ``[num_workers, 1, window,
+        batch, ...]`` tensors: the copy half of the streaming path, which
+        the :class:`~distkeras_tpu_torch.datapipe.PrefetchRing` runs on its
+        producer thread.
+
+        Float features go over in the compute dtype (the local step's first
+        act is that cast, so it changes no value, and bf16 halves the
+        bytes); blocks from the fused native bf16 gather arrive in it.  On
+        a card each leaf goes through a pinned host buffer, copied with
+        ``non_blocking=True`` on a copy stream; a pinned buffer is written
+        again only once its previous copy has landed (its event), and the
+        block carries the event the compute stream waits on before use."""
+        xs, ys = (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(t))
+                  for t in block)
+        cast = self.compute_dtype
+        if cast is not None and xs.is_floating_point():
+            xs = xs.to(cast)
+        if self.device.type != "cuda":
+            return _PutBlock((xs[:, None], ys[:, None]), None)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        out = []
+        with torch.cuda.stream(self._copy_stream):
+            for t in (xs, ys):
+                key = (tuple(t.shape), t.dtype)
+                slots = self._pinned.setdefault(key, [])
+                if len(slots) < _PINNED_SLOTS:
+                    slot = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True), None]
+                    slots.append(slot)
+                else:
+                    slot = slots.pop(0)
+                    slots.append(slot)
+                    slot[1].synchronize()  # its last copy has landed
+                slot[0].copy_(t)
+                dev = slot[0].to(self.device, non_blocking=True)
+                slot[1] = torch.cuda.Event()
+                slot[1].record(self._copy_stream)
+                out.append(dev[:, None])
+        return _PutBlock(out, slot[1])
+
+    def run_epoch_streaming(self, state: TrainState, window_iter, prefetch: int = 2,
+                            strict_link=None, on_window=None):
+        """Run one epoch from an iterator of per-window blocks ``(xs, ys)``
+        shaped ``[num_workers, window, batch, ...]`` (see
+        :func:`distkeras_tpu_torch.data.epoch_window_iter`).
+
+        The whole-epoch array never exists on the card: each block is put
+        as it is consumed, and as the card runs asynchronously, the next
+        block's host gather and copy overlap the current window's compute.
+        Blocks on the card are bounded at about ``2 x prefetch``: up to
+        ``prefetch`` put blocks wait in the buffer while up to ``prefetch``
+        windows are in flight (the loop waits on the window put
+        ``prefetch`` windows ago).  Each window runs as :meth:`run_epoch`
+        runs it, so the trajectory is the in-memory one bit for bit.
+
+        **Link guardrail**: overlap only hides source latency while the
+        source is faster than the card.  The loop times the pulls it makes
+        (no added sync), and when the steady-state unhideable source share
+        exceeds 25 % it warns once, or raises with ``strict_link=True``
+        (default: ``DISTKERAS_STREAMING_STRICT``).  The report is kept on
+        ``self.last_stream_report``.
+
+        ``on_window(state, n)`` fires after window ``n`` (1-based) was
+        launched, with the live state (its epoch counter still the epoch
+        being trained): the trainers' mid-epoch checkpoint hook.
+        ``window_iter.close()``, where it exists (generators, the
+        prefetch ring), runs on every exit path."""
+        if self.commit_schedule is not None:
+            raise ValueError(
+                "streaming runs uniform windows; the staleness simulation "
+                "needs the whole epoch in one program (run_epoch)"
+            )
+        if strict_link is None:
+            strict_link = os.environ.get(
+                "DISTKERAS_STREAMING_STRICT", "").lower() not in ("", "0", "false")
+        it = iter(window_iter)
+        buf = deque()
+        losses, mets, done_events = [], [], []
+        steps_list = []  # per-window step counts (ragged tail weighting)
+        n_windows = 0
+        depth = max(1, prefetch)
+        do_commit = self.rule.communication_window > 0
+        src_seconds = 0.0
+        steady_src = 0.0
+        steady_t0 = None
+
+        def pull():
+            nonlocal src_seconds, steady_src
+            t0 = time.perf_counter()
+            block = next(it, None)
+            if block is not None:
+                if not isinstance(block, _PutBlock):
+                    block = self.stream_put(block)
+                steps_list.append(int(block[0].shape[2]))
+            dt = time.perf_counter() - t0
+            src_seconds += dt
+            if steady_t0 is not None:
+                steady_src += dt
+            return block
+
+        try:
+            while True:
+                if not buf:
+                    block = pull()
+                    if block is None:
+                        break
+                    buf.append(block)
+                block = buf.popleft()
+                if block.ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(block.ready)
+                xs, ys = block
+                with telemetry.trace.span("window_dispatch", window=n_windows):
+                    state, loss, met = self._run_window(state, xs[:, 0], ys[:, 0], do_commit)
+                if self.device.type == "cuda":
+                    for t in block:
+                        t.record_stream(torch.cuda.current_stream(self.device))
+                    done = torch.cuda.Event()
+                    done.record()
+                    done_events.append(done)
+                n_windows += 1
+                losses.append(loss)
+                mets.append(met)
+                if on_window is not None:
+                    on_window(state, n_windows)
+                # backpressure: wait on the window launched ``depth`` windows ago
+                if n_windows > depth:
+                    if done_events:
+                        with telemetry.trace.span("window_wait", phase="step",
+                                                  window=n_windows - 1 - depth):
+                            done_events[n_windows - 1 - depth].synchronize()
+                    if steady_t0 is None:
+                        steady_t0 = time.perf_counter()
+                while len(buf) < depth:
+                    block = pull()
+                    if block is None:
+                        break
+                    buf.append(block)
+        finally:
+            close = getattr(window_iter, "close", None)
+            if close is not None:
+                close()
+        if not losses:
+            raise ValueError("empty window iterator")
+        self._report_stream_link(src_seconds, steady_src, steady_t0, n_windows, strict_link,
+                                 time.perf_counter())
         stats = {"loss": torch.stack(losses).cpu().numpy(),
-                 "metrics": torch.stack(mets).cpu().numpy()}
+                 "metrics": torch.stack(mets).cpu().numpy(),
+                 # per-window step counts, so the history can weight a ragged
+                 # tail window by its steps
+                 "window_steps": np.asarray(steps_list, np.int64)}
         return state.replace(epoch=state.epoch + 1), stats
+
+    def _report_stream_link(self, src_seconds, steady_src, steady_t0, n_windows, strict_link,
+                            now):
+        """Judge the last streamed epoch's source/compute balance.
+
+        Over the steady state (first backpressure wait to the epoch's end)
+        the loop alternates pulling blocks and waiting on the card; source
+        time hidden behind compute shows up as wall time not spent in
+        pulls, so ``unhideable = steady_src - (steady_wall - steady_src)``
+        is the part of the source cost the card waited out.  A share above
+        0.25 of the steady wall time means the source, not the model,
+        bounds throughput: warn once per engine, or raise in strict mode.
+        Epochs too short to reach backpressure measure nothing."""
+        steady_wall = (now - steady_t0) if steady_t0 is not None else 0.0
+        if steady_wall > 0:
+            hidden = max(0.0, steady_wall - steady_src)
+            unhideable = max(0.0, steady_src - hidden)
+            fraction = unhideable / steady_wall
+        else:
+            fraction = 0.0
+        link_bound = fraction > 0.25
+        self.last_stream_report = {
+            "windows": n_windows,
+            "source_seconds": src_seconds,
+            "steady_wall_seconds": steady_wall,
+            "steady_source_seconds": steady_src,
+            "unhideable_fraction": fraction,
+            "link_bound": link_bound,
+        }
+        if not link_bound:
+            return
+        msg = (
+            f"streaming source is the bottleneck: {fraction:.0%} of "
+            f"steady-state wall time ({steady_src:.2f}s of "
+            f"{steady_wall:.2f}s over {n_windows} windows) is source/"
+            "transfer latency no prefetch depth can hide — the card is "
+            "idling on the source.  Stage the dataset closer (local disk / "
+            "in-memory), widen the link, or grow per-window compute "
+            "(larger window/batch).  See engine.last_stream_report."
+        )
+        if strict_link:
+            raise RuntimeError(msg)
+        if not self._link_warned:
+            self._link_warned = True
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
     # ------------------------------------------------------------- read-outs
     def average_workers(self, state: TrainState):

@@ -1,10 +1,15 @@
 """Trainers — the user-facing API, signature-compatible with the reference.
 
-The port of :mod:`distkeras_tpu.trainers` on the in-memory per-epoch path:
-``SingleTrainer``, ``AveragingTrainer``, ``EnsembleTrainer`` and the
-parameter-server trainers ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
-``DynSGD`` and ``AdaptiveDynSGD``, with the staleness simulation
-(``commit_schedule``).  Construct a trainer around a model and call
+The port of :mod:`distkeras_tpu.trainers`: ``SingleTrainer``,
+``AveragingTrainer``, ``EnsembleTrainer`` and the parameter-server trainers
+``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``, ``DynSGD`` and
+``AdaptiveDynSGD``, with the staleness simulation (``commit_schedule``);
+several epochs a dispatch with the on-device reshuffle
+(``dispatch_epochs``), captured windows (``unroll``), ``remat``, streaming
+with the prefetch ring (``streaming``, ``prefetch``), checkpoints and
+resume (``checkpoint_dir``, ``checkpoint_every``, ``resume``,
+``checkpoint_blocks``, elastic resume at another worker count), the SIGTERM
+boundary checkpoint and ``DistributedTrainer.train_with_recovery``.  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
 its trained weights written back, when one was passed in); the constructor
@@ -20,19 +25,20 @@ set to anything but its default; none is silently ignored.
 
 from __future__ import annotations
 
+import random
 import time
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch import fleet, telemetry
 from distkeras_tpu_torch import workers as workers_mod
-from distkeras_tpu_torch.data import epoch_arrays, plan_epoch
+from distkeras_tpu_torch.data import epoch_arrays, epoch_window_iter, plan_epoch
 from distkeras_tpu_torch.frame import DataFrame
 from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainedModel, as_adapter
 from distkeras_tpu_torch.ops.metrics import per_token_metric_names
-from distkeras_tpu_torch.parallel.engine import WindowedEngine, device_count
+from distkeras_tpu_torch.parallel.engine import WindowedEngine, _mix64, device_count
 from distkeras_tpu_torch.parallel.mesh import resolve_device
 from distkeras_tpu_torch.parameter_servers import (
     ADAGParameterServer,
@@ -58,15 +64,6 @@ __all__ = [
 
 # kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
 _UNPORTED = {
-    "checkpoint_dir": (None, "item 11 (checkpointing)"),
-    "checkpoint_every": (1, "item 11 (checkpointing)"),
-    "resume": (False, "item 11 (checkpointing)"),
-    "checkpoint_blocks": (0, "item 11 (checkpointing)"),
-    "streaming": (False, "item 11 (streaming and the datapipe)"),
-    "prefetch": (0, "item 11 (streaming and the datapipe)"),
-    "dispatch_epochs": (1, "item 9 (run_epochs: several epochs a dispatch)"),
-    "remat": (False, "item 9 (rematerialisation)"),
-    "unroll": (1, "item 9 (a scan unroll of the jitted epoch)"),
     "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
     "seq_shards": (1, "item 14 (sequence parallelism)"),
     "tp_shards": (1, "item 15 (tensor parallelism)"),
@@ -100,8 +97,15 @@ def _torch_dtype(dtype) -> Optional[torch.dtype]:
 
 
 def _epoch_mean(stats, key):
-    """Per-epoch mean of ``stats[key]`` over its window axis."""
+    """Per-epoch mean of ``stats[key]`` over its window axis, weighted by
+    the windows' step counts when a streamed epoch had a ragged tail
+    (``window_steps``), so that the mean is over steps, as the in-memory
+    path's; uniform windows take the plain mean."""
     values = np.asarray(stats[key])
+    weights = stats.get("window_steps")
+    if (weights is not None and values.ndim >= 1 and values.shape[0] == len(weights)
+            and int(np.min(weights)) != int(np.max(weights))):
+        return np.average(values, axis=0, weights=np.asarray(weights))
     return np.mean(values, axis=0) if values.ndim > 1 else np.mean(values)
 
 
@@ -157,12 +161,9 @@ class Trainer:
         device="cuda",
     ):
         _refuse_unported(
-            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
             profile_dir=profile_dir, seq_shards=seq_shards, tp_shards=tp_shards, fsdp=fsdp,
-            streaming=streaming, remat=remat, unroll=unroll,
-            dispatch_epochs=dispatch_epochs, pipeline_stages=pipeline_stages,
-            pp_microbatches=pp_microbatches, tp_spec_fn=tp_spec_fn, prefetch=prefetch,
-            checkpoint_blocks=checkpoint_blocks,
+            pipeline_stages=pipeline_stages, pp_microbatches=pp_microbatches,
+            tp_spec_fn=tp_spec_fn,
         )
         self.master_model = keras_model
         self.loss = loss
@@ -174,7 +175,42 @@ class Trainer:
         self.num_epoch = int(num_epoch)
         self.seed = seed
         self.compute_dtype = _torch_dtype(compute_dtype)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.resume = resume
         self.tensorboard_dir = tensorboard_dir
+        # feed the engine window blocks through epoch_window_iter instead of
+        # whole epochs (the same trajectory; for datasets near device size)
+        self.streaming = bool(streaming)
+        # recompute the forward on the backward (torch.utils.checkpoint)
+        self.remat = bool(remat)
+        # other than 1 on a card: windows run as captured CUDA graphs; on the
+        # CPU the JAX scan hint, inert
+        self.unroll = unroll
+        # >1: up to this many epochs per engine.run_epochs call, reshuffled
+        # on the card between epochs (a uniform permutation drawn on the
+        # device, not the host rng's, so the trajectory differs from
+        # dispatch_epochs=1); chunks never straddle a checkpoint_every
+        # boundary.  Incompatible with streaming and commit_schedule.
+        self.dispatch_epochs = int(dispatch_epochs)
+        if self.dispatch_epochs < 1:
+            raise ValueError(f"dispatch_epochs must be >= 1, got {dispatch_epochs}")
+        # >0 with streaming=True: a PrefetchRing of this depth gathers and
+        # copies blocks to the card on a producer thread (same trajectory)
+        self.prefetch = int(prefetch)
+        if self.prefetch < 0:
+            raise ValueError(f"prefetch must be >= 0, got {prefetch}")
+        # >0 with streaming + checkpoint_dir: also checkpoint every N blocks
+        # mid-epoch (state + DataState cursor)
+        self.checkpoint_blocks = int(checkpoint_blocks)
+        if self.checkpoint_blocks < 0:
+            raise ValueError(f"checkpoint_blocks must be >= 0, got {checkpoint_blocks}")
+        if self.checkpoint_blocks and not self.streaming:
+            raise ValueError(
+                "checkpoint_blocks>0 saves at streaming block boundaries; "
+                "set streaming=True (the in-memory path dispatches whole "
+                "epochs, so there is no mid-epoch point to save at)"
+            )
         self.device = resolve_device(device)
         self.history: dict = {}
         self.training_time: float = 0.0
@@ -218,13 +254,37 @@ class Trainer:
             labels = labels_raw.astype(np.float32)
         return feats, labels
 
+    def _restore_state(self, ckpt, engine, state, elastic: bool, step=None):
+        """Resume from ``checkpoint_dir``: bitwise when the checkpoint was
+        written at this trainer's worker count; **elastic** otherwise — the
+        restored center variable (and its commit counters and epoch) carry
+        over, and the new workers pull it as fresh local replicas (the
+        reference's retried worker reconnecting to the parameter server).
+        Both reads pin ``step``."""
+        if not elastic:
+            return ckpt.restore(like=state, step=step)
+        raw = ckpt.restore_center(step, include_model_state=False)
+        epoch = int(raw["epoch"])
+        model_state = ckpt.model_state_worker_mean(step)
+        generator = torch.Generator().manual_seed(_mix64(self.seed, epoch))
+        return engine.state_from_center(generator, raw["center_params"], raw["center_rule"],
+                                        model_state, epoch)
+
     def _fit(self, dataframe: DataFrame, rule, num_workers: int, *, shuffle: bool = True,
              average_at_end: bool = False, commit_schedule=None):
-        """Train: build the engine, draw the initial parameters from
-        ``seed``, and run ``num_epoch`` epochs over the whole frame, each
-        shuffled (when ``shuffle``) by one ``np.random.default_rng(seed)``
-        stream, as the JAX package's in-memory per-epoch path does.  With
-        ``commit_schedule`` the engine simulates staleness step by step."""
+        """Train, as the JAX package's ``_fit_inner``: build the engine, draw
+        the initial parameters from ``seed`` (or resume from
+        ``checkpoint_dir``), and run the epochs — in memory one epoch at a
+        time, each shuffled (when ``shuffle``) by one
+        ``np.random.default_rng(seed)`` stream; ``dispatch_epochs`` at a
+        time with the on-device reshuffle; or streamed window by window.
+        With ``commit_schedule`` the engine simulates staleness step by
+        step.  Checkpoints land every ``checkpoint_every`` epochs (and every
+        ``checkpoint_blocks`` streamed blocks) with their data-state
+        sidecar; after a SIGTERM the epoch boundary is checkpointed and
+        :class:`~distkeras_tpu_torch.fleet.Preempted` raised."""
+        from distkeras_tpu_torch.datapipe import DataState
+
         adapter = as_adapter(self.master_model)
         # per-token models rename accuracy -> token_accuracy, without
         # mutating the user-visible self.metrics
@@ -236,41 +296,188 @@ class Trainer:
         engine = WindowedEngine(
             adapter, self.loss, self._effective_worker_optimizer(), rule, num_workers,
             metrics=metrics, compute_dtype=self.compute_dtype, commit_schedule=commit_schedule,
-            device=self.device,
+            remat=self.remat, unroll=self.unroll, device=self.device,
         )
         window = rule.communication_window if rule.communication_window > 0 else None
         rng = np.random.default_rng(self.seed)
-        state = engine.init_state(torch.Generator().manual_seed(self.seed),
-                                  feats[: self.batch_size])
+
+        ckpt = None
+        start_epoch = 0
+        resuming = elastic = False
+        if self.checkpoint_dir:
+            from distkeras_tpu_torch.checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(self.checkpoint_dir, every=self.checkpoint_every)
+            # resolve the resume step once, verified (a corrupt newest step is
+            # quarantined and the newest that verifies is taken); every read
+            # below pins it
+            resume_step = ckpt.latest_verified() if self.resume else None
+            resuming = resume_step is not None
+            elastic = resuming and ckpt.saved_worker_count(resume_step) != engine.num_workers
+            if elastic and rule.communication_window <= 0:
+                # no-commit rules never fold progress into the center, so an
+                # elastic resume would silently restart from initialization
+                raise ValueError(
+                    f"elastic resume (checkpoint at "
+                    f"{ckpt.saved_worker_count(resume_step)} workers, trainer at "
+                    f"{engine.num_workers}) requires a committing rule; "
+                    f"{type(rule).__name__} only produces its result at the "
+                    "end of training, so the checkpointed center carries no "
+                    "progress to adopt.  Resume with the original "
+                    "num_workers instead."
+                )
+        # the elastic path builds its state from the partial restore; the
+        # bitwise path restores into a fresh state
+        state = None
+        if not elastic:
+            state = engine.init_state(torch.Generator().manual_seed(self.seed),
+                                      feats[: self.batch_size])
+        resume_data = None
+        if resuming:
+            state = self._restore_state(ckpt, engine, state, elastic, step=resume_step)
+            start_epoch = int(state.epoch)
+            # the data-state sidecar: exact RNG bits and the mid-epoch block
+            # cursor; one whose epoch does not match the restored state's is
+            # ignored
+            resume_data = ckpt.restore_data_state(resume_step)
+            if resume_data is not None and int(resume_data.epoch) != start_epoch:
+                resume_data = None
+            if resume_data is not None and resume_data.block_cursor and not self.streaming:
+                raise ValueError(
+                    f"checkpoint at step {resume_step} was saved mid-epoch "
+                    f"(block cursor {resume_data.block_cursor}); resuming it "
+                    "requires streaming=True — the in-memory path dispatches "
+                    "whole epochs and cannot skip consumed blocks"
+                )
+        # keep the host RNG stream aligned with the epoch counter on resume:
+        # the exact bit state when a DataState was saved, else one
+        # permutation per epoch (dispatch_epochs>1 shuffles on the card,
+        # keyed by the epoch, and never draws from the host stream)
+        if self.dispatch_epochs == 1:
+            if resume_data is not None and resume_data.rng_state is not None:
+                resume_data.restore_rng(rng)
+            else:
+                for _ in range(start_epoch):
+                    rng.permutation(len(feats))
+
+        def data_state(epoch):
+            """The epoch-boundary DataState: cursor 0 at the next epoch, the
+            RNG bits as they stand (before the next epoch's shuffle)."""
+            return DataState(epoch=epoch + 1, block_cursor=0,
+                             rng_state=rng.bit_generator.state if shuffle else None)
+
         scalar_log = None
         if self.tensorboard_dir:
             from distkeras_tpu_torch.utils.tb import ScalarLogger
 
             scalar_log = ScalarLogger(self.tensorboard_dir)
-        epoch_stats = []
+
+        def log(stats, epoch):
+            if scalar_log is not None:
+                scalar_log.log(epoch, **_epoch_scalars(stats, metrics))
+
+        epoch_stats: List[dict] = []
         self.record_training_start()
         # try/finally so the scalar logger releases its writer even when an
         # epoch raises
         try:
-            for epoch in range(self.num_epoch):
+            if self.streaming and commit_schedule is not None:
+                raise ValueError(
+                    "streaming=True is incompatible with commit_schedule: the "
+                    "staleness simulation scans the whole epoch in one program"
+                )
+            if self.dispatch_epochs > 1:
+                if self.streaming:
+                    raise ValueError(
+                        "dispatch_epochs>1 needs the whole epoch on device; "
+                        "streaming=True feeds it window by window"
+                    )
+                if commit_schedule is not None:
+                    raise ValueError(
+                        "dispatch_epochs>1 is incompatible with commit_schedule "
+                        "(the staleness simulation dispatches per epoch)"
+                    )
+                state, epoch_stats = self._train_chunked(
+                    engine, state, feats, labels, num_workers, window, shuffle, ckpt,
+                    start_epoch, log)
+                start_epoch = self.num_epoch  # the per-epoch loop below runs 0 times
+            stream_window = window
+            if self.streaming and window is None:
+                # no-commit trainers have no natural window: stream fixed
+                # blocks with a ragged tail, so the step count (and the
+                # trajectory) is the in-memory path's
+                steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
+                stream_window = min(steps, 32)
+            for epoch in range(start_epoch, self.num_epoch):
                 with telemetry.trace.span("epoch", epoch=epoch):
-                    if window is None:
-                        # one window spanning the whole epoch (no commits)
-                        steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
-                        xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size,
-                                              steps, rng=rng if shuffle else None)
+                    if self.streaming:
+                        if window is not None:
+                            total_windows = plan_epoch(len(feats), num_workers,
+                                                       self.batch_size, window)[0]
+                        else:
+                            steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
+                            total_windows = -(-steps // stream_window)
+                        start_block = 0
+                        if resume_data is not None and epoch == start_epoch:
+                            start_block = min(int(resume_data.block_cursor), total_windows)
+                        # bit state BEFORE this epoch's shuffle, what a
+                        # mid-epoch DataState carries (the iterator is lazy)
+                        rng_bits = rng.bit_generator.state if shuffle else None
+                        blocks = epoch_window_iter(
+                            feats, labels, num_workers, self.batch_size, stream_window,
+                            rng=rng if shuffle else None, pad_to_window=window is not None,
+                            feature_dtype=self.compute_dtype, start_block=start_block,
+                        )
+                        if self.prefetch > 0:
+                            from distkeras_tpu_torch.datapipe import PrefetchRing
+
+                            blocks = PrefetchRing(blocks, depth=self.prefetch,
+                                                  put_fn=engine.stream_put)
+                        on_window = None
+                        if ckpt is not None and self.checkpoint_blocks:
+                            def on_window(live_state, done, _epoch=epoch, _base=start_block,
+                                          _bits=rng_bits, _total=total_windows):
+                                # skip the final block: the epoch-boundary
+                                # save supersedes it
+                                cursor = _base + done
+                                if done % self.checkpoint_blocks or cursor >= _total:
+                                    return
+                                ckpt.save_partial(live_state, _epoch, DataState(
+                                    epoch=_epoch, block_cursor=cursor, rng_state=_bits))
+
+                        state, stats = engine.run_epoch_streaming(state, blocks,
+                                                                  on_window=on_window)
                     else:
-                        xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size,
-                                              window, stepwise=commit_schedule is not None,
-                                              rng=rng if shuffle else None)
-                    xs, ys = engine.shard_batches(xs, ys)
-                    state, stats = engine.run_epoch(state, xs, ys)
+                        if window is None:
+                            # one window spanning the whole epoch (no commits)
+                            steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
+                            xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size,
+                                                  steps, rng=rng if shuffle else None)
+                        else:
+                            xs, ys = epoch_arrays(feats, labels, num_workers, self.batch_size,
+                                                  window, stepwise=commit_schedule is not None,
+                                                  rng=rng if shuffle else None)
+                        xs, ys = engine.shard_batches(xs, ys)
+                        state, stats = engine.run_epoch(state, xs, ys)
                     ps = getattr(self, "parameter_server", None)
                     if ps is not None:
                         ps.track(state.center_rule)
                     epoch_stats.append(stats)
-                    if scalar_log is not None:
-                        scalar_log.log(epoch, **_epoch_scalars(stats, metrics))
+                    log(stats, epoch)
+                    if ckpt is not None:
+                        ckpt.maybe_save(state, epoch, data_state=data_state(epoch))
+                    if fleet.preemption_requested():
+                        # SIGTERM: leave a boundary checkpoint for whoever
+                        # resumes, then exit loudly instead of dying mid-step
+                        if ckpt is not None:
+                            if (epoch + 1) % self.checkpoint_every:
+                                ckpt.save_partial(state, epoch, data_state(epoch))
+                            ckpt.wait()
+                        raise fleet.Preempted(
+                            f"preempted (SIGTERM); drained to the epoch {epoch + 1} boundary"
+                            + (" checkpoint" if ckpt is not None else ""))
+            if ckpt is not None:
+                ckpt.wait()  # flush in-flight saves before declaring done
         finally:
             if scalar_log is not None:
                 scalar_log.close()
@@ -288,6 +495,39 @@ class Trainer:
             if metrics_per_epoch:
                 self.history[_metric_key(name, i)] = [float(m[i]) for m in metrics_per_epoch]
         return engine, state, adapter
+
+    def _train_chunked(self, engine, state, feats, labels, num_workers, window, shuffle, ckpt,
+                       start_epoch, log):
+        """The ``dispatch_epochs>1`` epoch loop: up to ``dispatch_epochs``
+        epochs per :meth:`WindowedEngine.run_epochs` call, reshuffled on the
+        card between epochs when ``shuffle`` is set.  Chunks never straddle
+        a ``checkpoint_every`` boundary, so the checkpointed epochs are the
+        per-epoch loop's.  Returns ``(state, per-epoch stats)``."""
+        steps = window or plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
+        xs, ys = engine.shard_batches(*epoch_arrays(feats, labels, num_workers,
+                                                    self.batch_size, steps))
+        shuffle_seed = self.seed if shuffle else None
+        epoch_stats: List[dict] = []
+        epoch = start_epoch
+        while epoch < self.num_epoch:
+            chunk = min(self.dispatch_epochs, self.num_epoch - epoch)
+            if ckpt is not None:
+                chunk = min(chunk, self.checkpoint_every - epoch % self.checkpoint_every)
+            with telemetry.trace.span("epoch", epoch=epoch, epochs=chunk):
+                state, stats = engine.run_epochs(state, xs, ys, chunk, shuffle_seed=shuffle_seed)
+            # chunk stats -> per-epoch dicts (leaves keep [n_windows, ...])
+            for e in range(chunk):
+                one = {k: v.reshape((chunk, v.shape[0] // chunk) + v.shape[1:])[e]
+                       for k, v in stats.items()}
+                epoch_stats.append(one)
+                log(one, epoch + e)
+            epoch += chunk
+            ps = getattr(self, "parameter_server", None)
+            if ps is not None:
+                ps.track(state.center_rule)
+            if ckpt is not None:
+                ckpt.maybe_save(state, epoch - 1)
+        return state, epoch_stats
 
     def _finalize(self, engine: WindowedEngine, state, adapter: ModelAdapter,
                   use_center: bool = True):
@@ -456,6 +696,58 @@ class DistributedTrainer(Trainer):
     @property
     def num_updates(self) -> int:
         return self.parameter_server.num_updates if self.parameter_server else 0
+
+    def train_with_recovery(self, dataframe: DataFrame, shuffle: bool = False,
+                            max_retries: int = 2, backoff_base: float = 0.5,
+                            backoff_cap: float = 30.0):
+        """Failure-tolerant training, as the JAX package's.
+
+        The reference leaned on Spark task retries; here the recovery unit
+        is the checkpoint: on an exception the trainer resumes from the
+        latest verified checkpoint (bitwise).  Requires ``checkpoint_dir``.
+
+        Retries are kept for transient failures: a retry happens only if a
+        checkpoint exists, and never for the same failure (type and message)
+        twice unless a checkpoint landed in between — a deterministic bug
+        surfaces at once.  Retries back off exponentially
+        (``backoff_base * 2^k`` capped at ``backoff_cap``, times 0.5-1.0
+        jitter), and a SIGTERM preemption
+        (:class:`~distkeras_tpu_torch.fleet.Preempted`) is never retried:
+        its boundary checkpoint is on disk and the process is meant to exit.
+        """
+        if not self.checkpoint_dir:
+            raise ValueError("train_with_recovery requires checkpoint_dir")
+        from distkeras_tpu_torch.checkpoint import committed_steps, latest_step
+
+        fleet.install_preemption_handler()
+        attempts = 0
+        last_failure = None
+        last_step = None
+        while True:
+            try:
+                return self.train(dataframe, shuffle)
+            except fleet.Preempted:
+                raise  # drained to a boundary checkpoint; exit, don't retry
+            except Exception as e:  # noqa: BLE001 — re-raised unless retryable
+                failure = (type(e), str(e))
+                try:
+                    step = latest_step(self.checkpoint_dir)
+                except Exception:  # noqa: BLE001 — a failed save must not mask e
+                    on_disk = committed_steps(self.checkpoint_dir)
+                    step = on_disk[-1] if on_disk else None
+                if step != last_step:
+                    # progress checkpointed since the previous failure: a
+                    # repeating failure is a recurring transient
+                    last_failure = None
+                attempts += 1
+                if attempts > max_retries or failure == last_failure or step is None:
+                    raise
+                last_failure = failure
+                last_step = step
+                self.resume = True  # pick up from the latest checkpoint
+                if backoff_base > 0:
+                    delay = min(backoff_cap, backoff_base * (2 ** (attempts - 1)))
+                    time.sleep(delay * (0.5 + 0.5 * random.random()))
 
     @property
     def _logical_workers(self) -> int:

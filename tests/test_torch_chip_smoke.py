@@ -1,5 +1,5 @@
-"""``chip_smoke.py``'s training-suite, flow, head-dim and networking phases
-rehearsed on the CPU.
+"""``chip_smoke.py``'s training-suite, flow, head-dim, networking, epochs,
+streaming, checkpoint and remat/graph phases rehearsed on the CPU.
 
 The script runs on an H100; here those phases run on the CPU
 (``ZOO_DEVICE = "cpu"``) at small batches, windows, row counts and model
@@ -7,8 +7,10 @@ sizes, with the CUDA timers replaced by the host clock, so a fault in their
 control flow, their checks or their JSON shows before a card is asked for.
 The numbers they print here are the CPU's and mean nothing for the card;
 the flow phase's accuracy gate is set for the card's 48,000 training rows
-and is not held on the rehearsal's 480.  Without a card the
-script itself must exit non-zero and print no result.
+and is not held on the rehearsal's 480.  On the CPU ``unroll`` is a hint,
+so the graph phases' capture runs only in the ``cuda``-marked test, which
+skips here.  Without a card the script itself must exit non-zero and print
+no result.
 """
 
 import json
@@ -136,3 +138,85 @@ def test_networking_phase_rehearsal(on_cpu, capsys):
     row = chip_smoke.networking_phase(0)
     assert _emitted(capsys, "networking") == [{"phase": "networking", **row}]
     assert row["backend"] == "gloo" and row["wire_round_trip"] and row["group_left"]
+
+
+def test_epochs_streaming_checkpoint_phases_rehearsal(on_cpu, capsys, monkeypatch):
+    import signal
+
+    sigterm = signal.getsignal(signal.SIGTERM)
+    monkeypatch.setattr(chip_smoke, "EPOCHS_WINDOWS", 1)
+    eager, frame, x, _ = chip_smoke.epochs_phase(0)
+    rows = _emitted(capsys, "epochs")
+    assert [r["mode"] for r in rows] == ["eager", "dispatch_epochs", "graph"]
+    # 2 workers x 1 window x 2 steps x batch 4, 2 epochs
+    assert len(x) == len(frame) == 16 and rows[0]["local_steps"] == 8
+    for row in rows[1:]:
+        assert row["vs_eager"]["bitwise"]  # unroll is a hint on the CPU
+    assert rows[2]["graphs"] is False and rows[2]["graph_stats"]["captures"] == 0
+    assert all(r["steady_seconds_per_step"] > 0 and r["device_busy_share"] is None for r in rows)
+
+    streamed = chip_smoke.streaming_phase(0, eager, frame)
+    assert [r["prefetch"] for r in streamed] == [0, 2]
+    for row in streamed:
+        assert row["native_available"] and row["vs_in_memory"]["bitwise"]
+        assert row["last_stream_report"]["windows"] == 1
+
+    row = chip_smoke.checkpoint_phase(0, eager, frame)
+    assert _emitted(capsys, "checkpoint") == [{"phase": "checkpoint", **row}]
+    assert row["with_checkpoints_vs_eager"]["bitwise"] and row["quarantined"]
+    assert row["recovery_calls"] == 3 and len(row["resumed_loss"]) == 1
+    assert row["checkpoint_bytes"] > 0 and "tree.json" in row["checkpoint_files"]
+    # train_with_recovery's SIGTERM handler is taken down after the phase
+    assert signal.getsignal(signal.SIGTERM) is sigterm
+
+
+TINY_LM = dict(vocab_size=64, dim=32, heads=2, num_layers=2, max_len=16)
+
+
+def _eager_lm_run(device):
+    """The train phase's DOWNPOUR over ``TINY_LM`` (eager), as the remat/graph
+    phase's reference."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**TINY_LM, generator=torch.Generator().manual_seed(2))
+    x, y = chip_smoke.lm_task(chip_smoke.TRAIN_ROWS, TINY_LM["max_len"],
+                              TINY_LM["vocab_size"], 2)
+    trainer = tdk.DOWNPOUR(model, loss="token_crossentropy", metrics=("token_accuracy",),
+                           worker_optimizer=("adam", {"learning_rate": 2e-4}),
+                           num_workers=chip_smoke.TRAIN_WORKERS,
+                           batch_size=chip_smoke.TRAIN_BATCH,
+                           communication_window=chip_smoke.TRAIN_WINDOW,
+                           num_epoch=chip_smoke.TRAIN_EPOCHS, seed=0, device=device)
+    trained = trainer.train(tdk.from_numpy(x, y))
+    return dict(loss=trainer.get_history()["loss"],
+                params={k: v.detach().float().cpu().clone() for k, v in trained.params.items()})
+
+
+def test_remat_graph_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "REMAT_MODEL", TINY_LM)
+    row = chip_smoke.remat_graph_phase(0, _eager_lm_run("cpu"))
+    assert _emitted(capsys, "remat_graph") == [{"phase": "remat_graph", **row}]
+    assert not row["failures"] and row["dropout"] > 0 and row["dropout_changed_loss"]
+    # remat's recomputation draws the forward's masks: bitwise on the CPU
+    assert row["remat_vs_eager"]["bitwise"] and row["graph_vs_eager"]["bitwise"]
+    # the CPU runs the plain attention: no kernel launch to count
+    assert row["launches_eager"] == row["launches_remat"] == [0, 0, 0]
+    assert row["graphs"] is False and row["expected_launches_graph"] == 2 * 16 + 2 * 2 * 2
+    assert "fresh_masks_each_replay" not in row  # no graph to replay on the CPU
+
+
+@pytest.mark.cuda
+def test_remat_graph_phase_on_the_card(monkeypatch, capsys):
+    # the phase at the tiny widths: remat and the captured windows through
+    # DOWNPOUR with dropout, B1-B3 inside the graph, fresh masks each replay
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+    monkeypatch.setattr(chip_smoke, "REMAT_MODEL", TINY_LM)
+    row = chip_smoke.remat_graph_phase(0, _eager_lm_run("cuda"))
+    assert not row["failures"] and row["graphs"] is True
+    assert row["graph_stats"]["captures"] == 1 and row["graph_stats"]["replays"] == 4
+    expected = row["expected_launches_eager"]
+    assert row["launches_eager"] == [expected] * 3 == [2 * 16] * 3
+    assert row["launches_remat"] == [2 * expected, expected, expected]
+    assert row["fresh_masks_each_replay"] and row["replay_repeatable"]

@@ -129,11 +129,31 @@ def test_no_commit_rule_keeps_workers_apart():
     torch.testing.assert_close(averaged.center_params[w], state.local_params[w].mean(0))
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(remat=True), dict(unroll=2), dict(mesh=object()), dict(seq_shards=2),
-     dict(fsdp=True)],
-)
+@pytest.mark.parametrize("kwargs", [dict(remat=True), dict(unroll=2), dict(unroll=True)],
+                         ids=lambda kw: f"{next(iter(kw))}={next(iter(kw.values()))}")
+def test_ported_engine_options_keep_the_trajectory(kwargs):
+    # accepted since remat and unroll are ported (these replace their cases
+    # in test_unported_engine_options_raise): on the CPU, remat recomputes
+    # the same forward and unroll is a hint, so an epoch is bitwise the
+    # default one
+    x, y = lm_data(n=32)
+    xs, ys = epoch_data(x, y, num_workers=2, n_windows=2, window=2, batch=4)
+    init = port_params(FlaxModel(JaxLM(**LM)).init(jax.random.PRNGKey(1), x[:4])[0])
+
+    def run(**kw):
+        engine = WindowedEngine(FixedInit(TransformerLM(**LM), init), "token_crossentropy",
+                                ("sgd", {"learning_rate": 0.1}), Downpour(2), num_workers=2,
+                                metrics=(), device="cpu", **kw)
+        state = engine.init_state(torch.Generator().manual_seed(0), None)
+        return engine.run_epoch(state, *engine.shard_batches(xs, ys))
+
+    (state, stats), (want_state, want_stats) = run(**kwargs), run()
+    np.testing.assert_array_equal(stats["loss"], want_stats["loss"])
+    for name, value in want_state.center_params.items():
+        assert torch.equal(state.center_params[name], value), name
+
+
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(seq_shards=2), dict(fsdp=True)])
 def test_unported_engine_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         WindowedEngine(TorchModel(TransformerLM(**LM)), "mse", "sgd", Downpour(2),

@@ -1,6 +1,6 @@
 """The port stands alone: importing ``distkeras_tpu_torch`` loads none of JAX,
-flax, optax or the JAX package, and no module of the port (nor
-``chip_smoke.py``) imports them.  Importing the package also loads no
+flax, optax or the JAX package, and no module of the port (nor its
+``scripts/`` or ``chip_smoke.py``) imports them.  Importing the package also loads no
 ``keras`` (the Keras adapter imports it when a Keras model is adapted) and
 sets up no ``torch.distributed`` process group (``networking.initialize``
 does, when called)."""
@@ -20,7 +20,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distkeras_tpu")
 SOURCES = sorted(
     str(p.relative_to(ROOT))
-    for p in [*(ROOT / "distkeras_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    for p in [*(ROOT / "distkeras_tpu_torch").rglob("*.py"), *(ROOT / "scripts").rglob("*.py"),
+              ROOT / "chip_smoke.py"]
 )
 
 
@@ -48,7 +49,10 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.parallel.engine, distkeras_tpu_torch.algorithms, "
         "distkeras_tpu_torch.utils, distkeras_tpu_torch.ops.losses, "
         "distkeras_tpu_torch.ops.metrics, distkeras_tpu_torch.ops.optimizers, "
-        "distkeras_tpu_torch.ops.pooling, distkeras_tpu_torch.models.zoo\n"
+        "distkeras_tpu_torch.ops.pooling, distkeras_tpu_torch.models.zoo, "
+        "distkeras_tpu_torch.native, distkeras_tpu_torch.datapipe, "
+        "distkeras_tpu_torch.checkpoint, distkeras_tpu_torch.fleet, "
+        "distkeras_tpu_torch.telemetry.correlate\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -60,7 +64,7 @@ def test_package_import_loads_no_jax():
 
 
 def test_sources_found():
-    assert "chip_smoke.py" in SOURCES
+    assert "chip_smoke.py" in SOURCES and "scripts/ab_eager.py" in SOURCES
     assert "distkeras_tpu_torch/ops/flash_attention.py" in SOURCES
     assert "distkeras_tpu_torch/trainers.py" in SOURCES
     assert "distkeras_tpu_torch/parallel/engine.py" in SOURCES
@@ -68,7 +72,9 @@ def test_sources_found():
     assert "distkeras_tpu_torch/ops/pooling.py" in SOURCES
     assert "distkeras_tpu_torch/algorithms/adaptive.py" in SOURCES
     for module in ("transformers", "evaluators", "networking", "utils/serialization",
-                   "utils/tb", "models/keras_adapter"):
+                   "utils/tb", "models/keras_adapter", "native/__init__", "datapipe/__init__",
+                   "datapipe/source", "datapipe/ring", "datapipe/state", "checkpoint",
+                   "fleet", "telemetry/correlate"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

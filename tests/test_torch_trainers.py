@@ -196,11 +196,41 @@ def test_training_with_dropout_is_reproducible():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(checkpoint_dir="ckpt"), dict(resume=True), dict(profile_dir="prof"),
-     dict(seq_shards=2), dict(tp_shards=2), dict(fsdp=True), dict(streaming=True),
-     dict(remat=True), dict(dispatch_epochs=2), dict(pipeline_stages=2),
-     dict(prefetch=2), dict(unroll=True),
-     dict(elastic=object()), dict(staleness_policy=object())],
+    [dict(checkpoint_dir=True), dict(resume=True), dict(streaming=True), dict(remat=True),
+     dict(dispatch_epochs=2), dict(prefetch=2), dict(unroll=True),
+     dict(streaming=True, checkpoint_blocks=1, checkpoint_dir=True)],
+    ids=lambda kw: "+".join(kw),
+)
+def test_ported_kwargs_train(kwargs, tmp_path):
+    # accepted since item 9 and item 11 (but packing) are ported; these
+    # replace their cases in test_unported_kwargs_raise.  Each trains two
+    # epochs to a finite loss; the ones that keep the math (all but the
+    # on-device reshuffle) keep the default run's history bit for bit
+    kwargs = {k: (str(tmp_path / "ckpt") if k == "checkpoint_dir" else v)
+              for k, v in kwargs.items()}
+    x, y = lm_data(n=32)
+
+    def train(**kw):
+        t = tdk.DOWNPOUR(TransformerLM(**LM), loss="token_crossentropy",
+                         metrics=("token_accuracy",), num_workers=2, batch_size=4,
+                         communication_window=2, num_epoch=2, seed=1, device="cpu", **kw)
+        t.train(tdk.from_numpy(x, y), shuffle=True)
+        return t.get_history()["loss"]
+
+    got, want = train(**kwargs), train()
+    assert len(got) == 2 and np.isfinite(got).all()
+    if "dispatch_epochs" not in kwargs:
+        assert got == want
+    if "checkpoint_dir" in kwargs:
+        from distkeras_tpu_torch.checkpoint import committed_steps
+
+        assert committed_steps(kwargs["checkpoint_dir"]) == [1, 2]
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(profile_dir="prof"), dict(seq_shards=2), dict(tp_shards=2), dict(fsdp=True),
+     dict(pipeline_stages=2), dict(elastic=object()), dict(staleness_policy=object())],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_kwargs_raise(kwargs):
