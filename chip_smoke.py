@@ -91,12 +91,25 @@ toolkit.  Phases, each printing JSON lines:
     wrappers' capture ticks times the replays, plus the warm-up window);
     peak memory of all three; two replays of one captured window from the
     same state draw different dropout masks, and the same masks again
-    once the generators are put back.
+    once the generators are put back;
+16. serving: KV-cache decode and the serving engine at GPT-2-small widths
+    through ``greedy_generate`` (each token against the argmax of a
+    full-context forward, which runs B1), ``ServingEngine`` (24 staggered
+    requests, half greedy held to ``greedy_generate``, half sampled held to
+    themselves rerun alone; EOS, a full queue, pages returned),
+    speculative decoding (a 2-layer draft, and the target as its own) and
+    ``ModelPredictor(engine=)``; TTFT and step-latency quantiles, decode
+    tokens/s, the profiled decode step, prefill ms per bucket, peak pages
+    and memory.  A greedy token may differ from its reference only where
+    the reference's two best logits are within ``GREEDY_GAP``.
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
 as the model needs, and hold the output against the same model on the CPU
-(phase 15: against the eager run).  Phases 7 to 9 and 11 to 14 run no
+(phase 15: against the eager run).  Phase 16 does so around the serving
+path, which launches no kernel of the port's own (decode attention is the
+reference's plain masked product, as there), and around its check's
+forward, which launches B1.  Phases 7 to 9 and 11 to 14 run no
 kernel of the port's own: convolutions, dense products and embedding
 gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -1741,6 +1754,374 @@ def remat_graph_phase(seed: int, train_run):
     return row
 
 
+# serving phase: KV-cache decode and the serving engine at GPT-2-small widths
+SERVE_MODEL = GPT2_SMALL
+SERVE_DRAFT = dict(vocab_size=50257, dim=256, heads=4, num_layers=2, max_len=1024)
+SERVE_GREEDY = (4, 128, 64)  # greedy_generate: batch, prompt length, steps
+SERVE_SLOTS, SERVE_PAGE = 8, 16
+SERVE_REQUESTS = 24
+SERVE_PROMPT_LEN = (16, 768)  # drawn from --seed, inclusive
+SERVE_NEW_TOKENS = (32, 128)
+SERVE_STAGGER_S = 0.02  # between submissions
+SERVE_SAMPLING = dict(temperature=0.9, top_k=50, top_p=0.95)
+SERVE_SPEC_TOKENS = 4
+SERVE_SPEC_PROMPTS = 4  # greedy requests of the traffic run through the speculative engines
+SERVE_PREDICT = (16, 64, 16)  # ModelPredictor(engine=): rows, prompt length, new tokens
+SERVE_PROFILE = (64, 64)  # profiled decode: prompt length, new tokens, one request a slot
+# A greedy token may differ from its reference only where the reference's
+# two best logits are closer than this (f32, the orders of summation differ).
+GREEDY_GAP = 1e-4
+
+
+def _top_two_gap(logits) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _held_to_greedy(trained, prompt, tokens, ref):
+    """Where ``tokens`` first departs from the greedy reference ``ref`` (both
+    continuations of ``prompt``): None if it never does, else ``(position,
+    the reference's top-two gap there)`` from a full-context forward over
+    the shared prefix.  Raises if that gap is not below ``GREEDY_GAP``."""
+    n = min(len(tokens), len(ref))
+    diff = next((j for j in range(n) if tokens[j] != ref[j]), None)
+    if diff is None:
+        if len(tokens) != len(ref):
+            raise AssertionError(f"{len(tokens)} tokens against {len(ref)} in the reference")
+        return None
+    context = np.asarray([list(prompt) + list(ref[:diff])], np.int32)
+    gap = _top_two_gap(trained(context)[0, -1])
+    if not gap < GREEDY_GAP:
+        raise AssertionError(f"token {diff} differs from greedy ({tokens[diff]} against "
+                             f"{ref[diff]}) where the reference's top-two gap is {gap}")
+    return diff, gap
+
+
+def _hist_delta(after: dict, before: dict) -> dict:
+    """A histogram snapshot less an earlier one of the same instrument."""
+    if not before:
+        return after
+    return dict(type="histogram", sum=after["sum"] - before["sum"],
+                count=after["count"] - before["count"],
+                buckets={le: n - before["buckets"].get(le, 0)
+                         for le, n in after["buckets"].items()})
+
+
+def _hist_quantile(payload: dict, q: float):
+    """The upper bound of the bucket holding the ``q`` quantile of a
+    histogram snapshot (cumulative ``le`` counts), in ms; None when empty."""
+    if not payload["count"]:
+        return None
+    rank = q * payload["count"]
+    for le, n in payload["buckets"].items():
+        if n >= rank:
+            return float("inf") if le == "+Inf" else float(le) * 1e3
+    return float("inf")
+
+
+def _serving_engine(trained, registry, **kwargs):
+    """A ``ServingEngine`` at the phase's geometry whose prefill times (by
+    bucket width) and peak page count are recorded for the summary."""
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(trained, num_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                           registry=registry, device=ZOO_DEVICE, **kwargs)
+    prefill_into, alloc = engine._prefill_into, engine._cache.alloc
+    engine.prefill_ms, engine.peak_pages = {}, 0
+
+    def timed_prefill(slot, pending, need):
+        width = next(w for w in engine.prefill_buckets if w >= len(pending.request.prompt))
+        t0 = time.perf_counter()
+        prefill_into(slot, pending, need)  # ends on the first token's copy to the host
+        engine.prefill_ms.setdefault(width, []).append((time.perf_counter() - t0) * 1e3)
+
+    def counted_alloc(slot, n):
+        alloc(slot, n)
+        engine.peak_pages = max(engine.peak_pages, engine._cache.pages_in_use)
+
+    engine._prefill_into, engine._cache.alloc = timed_prefill, counted_alloc
+    return engine
+
+
+def serving_phase(seed: int):
+    """KV-cache decode and the serving engine through their entry points at
+    GPT-2-small widths (random weights from ``--seed``, f32):
+
+    1. ``greedy_generate`` over a ``TrainedModel`` (batch 4, 128-token
+       prompts, 64 steps), each token held against the argmax of one
+       full-context forward over the prompt and the tokens so far (which
+       runs B1: its launches are counted); a token may differ only where
+       that forward's top-two gap is below ``GREEDY_GAP``;
+    2. ``ServingEngine`` (8 slots, pages of 16, buckets 16 to 1024): 24
+       staggered requests, prompts of 16-768 tokens and 32-128 new ones
+       drawn from ``--seed``; the greedy half held to ``greedy_generate``
+       under the same gap rule, the sampled half (each its own seed) to
+       itself rerun alone, exactly; one request retires on EOS; a drained
+       engine's full queue refuses one more (``QueueFull``); every page
+       comes back;
+    3. speculative decoding (a 2-layer, 256-wide draft; 4 tokens a window),
+       one request at a time, held to plain greedy, and the target as its
+       own draft accepting every proposal, in fewer decode steps than the
+       tokens they emitted (a draft that is never right takes one step a
+       token);
+    4. ``ModelPredictor(engine=)`` over 16 prompts, held row by row to
+       ``engine.generate``, exactly.
+
+    Prints TTFT and decode-step latency quantiles from the engine's
+    histograms, the traffic run's generated tokens over its wall (prefills
+    and the stagger included) and its decode tokens over the summed
+    decode-step wall, decode-step ms, device operations and the card's busy
+    share under ``torch.profiler``, prefill ms per bucket width, peak pages
+    and memory, and B1's launches (0 on the serving path, which runs the
+    reference's plain masked attention)."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TorchModel, TrainedModel, TransformerLM, greedy_generate
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.serving import GenerateRequest, QueueFull
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    cuda = ZOO_DEVICE == "cuda"
+    vocab = SERVE_MODEL["vocab_size"]
+    model = TransformerLM(**SERVE_MODEL, generator=torch.Generator().manual_seed(seed + 7))
+    trained = TrainedModel(TorchModel(model), {k: v.detach() for k, v in model.named_parameters()},
+                           device=ZOO_DEVICE)
+    rng = np.random.default_rng(seed + 7)
+    out = {}
+
+    # 1. greedy_generate against full-context forwards
+    batch, plen, steps = SERVE_GREEDY
+    prompt = rng.integers(0, vocab, (batch, plen), dtype=np.int32)
+    greedy_generate(trained, prompt[:, :16], 4)  # warm-up
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generated = greedy_generate(trained, prompt, steps)
+    greedy_s = time.perf_counter() - t0
+    greedy_launches = flash_attention.launches
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        ref_logits = trained(generated[:, :-1])[:, plen - 1:]
+    check_launches = flash_attention.launches
+    ref_tokens = ref_logits.argmax(-1).cpu().numpy()
+    departures = []
+    for row in range(batch):
+        for j in np.nonzero(ref_tokens[row] != generated[row, plen:])[0]:
+            gap = _top_two_gap(ref_logits[row, j])
+            departures.append(dict(row=row, position=int(j), gap=gap))
+            if not gap < GREEDY_GAP:
+                raise AssertionError(f"greedy_generate row {row} token {j} is not the "
+                                     f"full-context argmax (top-two gap {gap})")
+    out["greedy"] = dict(batch=batch, prompt=plen, steps=steps, seconds=greedy_s,
+                         ms_per_step=greedy_s / steps * 1e3,
+                         tokens_per_s=batch * steps / greedy_s, departures=departures,
+                         launches_b1=greedy_launches, launches_b1_check=check_launches)
+    if greedy_launches != 0 or check_launches != (SERVE_MODEL["num_layers"] if cuda else 0):
+        raise AssertionError(f"B1 launches: {greedy_launches} in greedy_generate (want 0), "
+                             f"{check_launches} in the check's forward")
+    del ref_logits
+
+    # 2. the engine under staggered traffic
+    lengths = rng.integers(SERVE_PROMPT_LEN[0], SERVE_PROMPT_LEN[1] + 1, SERVE_REQUESTS)
+    new = rng.integers(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lengths]
+    greedy = [i for i in range(SERVE_REQUESTS) if i % 2 == 0]
+    refs = {i: greedy_generate(trained, np.asarray([prompts[i]], np.int32),
+                               int(new[i]))[0, lengths[i]:].tolist() for i in greedy}
+    eos_request = greedy[0]
+    eos_id = refs[eos_request][3]
+    requests = []
+    for i in range(SERVE_REQUESTS):
+        knobs = {} if i in refs else dict(SERVE_SAMPLING, seed=1000 + i)
+        if i == eos_request:
+            knobs["eos_id"] = eos_id
+        requests.append(GenerateRequest(prompt=prompts[i], max_new_tokens=int(new[i]),
+                                        **knobs))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    registry = Registry()
+    engine = _serving_engine(trained, registry, queue_size=SERVE_REQUESTS + 8)
+    try:
+        engine.generate(prompts[1][:16], max_new_tokens=4, timeout=600)  # warm-up
+        before = registry.snapshot()
+        counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        pendings = []
+        for req in requests:
+            pendings.append(engine.submit(req))
+            time.sleep(SERVE_STAGGER_S)
+        results = [p.result(timeout=600) for p in pendings]
+        wall = time.perf_counter() - t0
+        serve_launches = [counter.launches for counter in counters]
+        after = registry.snapshot()
+        if any(r is None or r.finish_reason == "aborted" for r in results) or not engine.alive:
+            raise AssertionError(f"the engine failed: {engine.error!r}")
+        greedy_departures = []
+        for i in greedy:
+            tokens, ref = results[i].tokens, refs[i]
+            if i == eos_request:
+                ref = ref[:ref.index(eos_id) + 1]
+            hit = _held_to_greedy(trained, prompts[i], tokens, ref)
+            if hit is not None:
+                greedy_departures.append(dict(request=i, position=hit[0], gap=hit[1]))
+            elif i == eos_request and results[i].finish_reason != "eos":
+                raise AssertionError(f"the EOS request finished on {results[i].finish_reason}")
+        reruns = {i: engine.generate(prompts[i], max_new_tokens=int(new[i]), timeout=600,
+                                     **SERVE_SAMPLING, seed=1000 + i).tokens
+                  for i in range(SERVE_REQUESTS) if i not in refs}
+        mismatched = [i for i, tokens in reruns.items() if tokens != results[i].tokens]
+        if mismatched:
+            raise AssertionError(f"sampled requests {mismatched} gave other tokens alone")
+        k = min(reruns)
+        other_seed = engine.generate(prompts[k], max_new_tokens=int(new[k]), timeout=600,
+                                     **SERVE_SAMPLING, seed=1000 + k + SERVE_REQUESTS).tokens
+        if other_seed == results[k].tokens:
+            raise AssertionError("another seed gave the same sampled tokens")
+
+        # a drained engine queues but does not admit: one past the queue is refused
+        engine.drain(timeout=60)
+        held = [engine.submit(GenerateRequest(prompt=prompts[0][:16], max_new_tokens=1))
+                for _ in range(engine._queue.maxsize)]
+        try:
+            engine.submit(GenerateRequest(prompt=prompts[0][:16], max_new_tokens=1))
+            raise AssertionError("a full queue took one more request")
+        except QueueFull:
+            pass
+        engine.resume()
+        if any(p.result(timeout=600).finish_reason != "length" for p in held):
+            raise AssertionError("queued requests did not finish after resume")
+        rejected = registry.snapshot()["serving_requests_rejected_total"]["value"]
+
+        # the decode step under torch.profiler: one request a slot, admitted
+        # together (queued while drained), short prompts
+        profile_prompts = [rng.integers(0, vocab, SERVE_PROFILE[0]).tolist()
+                           for _ in range(SERVE_SLOTS)]
+        run_steps = []
+
+        def run():
+            steps_before = engine._metrics["decode_steps"].value
+            engine.drain(timeout=60)
+            batch = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=SERVE_PROFILE[1]))
+                     for p in profile_prompts]
+            engine.resume()
+            for p in batch:
+                p.result(timeout=600)
+            run_steps.append(engine._metrics["decode_steps"].value - steps_before)
+
+        # the CPU has no device time to split: a rehearsal runs it unprofiled
+        profile = fwd_bwd_profile(run, iters=1) if cuda else run() or {}
+        profiled_steps = run_steps[-1]
+
+        # 4. ModelPredictor(engine=) row by row against engine.generate
+        rows, prow, pnew = SERVE_PREDICT
+        frame = tdk.from_numpy(rng.integers(0, vocab, (rows, prow), dtype=np.int32))
+        predictor = tdk.ModelPredictor(engine=engine, max_new_tokens=pnew)
+        column = predictor.predict(frame)["prediction"]
+        single = [engine.generate(row.tolist(), max_new_tokens=pnew, timeout=600).tokens
+                  for row in frame["features"]]
+        if predictor.last_mode != "engine" or [list(c) for c in column] != single:
+            raise AssertionError("ModelPredictor(engine=) differs from engine.generate")
+        time.sleep(0.05)
+        pages_after = engine.stats()["pages_in_use"]
+        if pages_after != 0:
+            raise AssertionError(f"{pages_after} pages still in use after the traffic")
+    finally:
+        engine.stop()
+    peak_memory = torch.cuda.max_memory_allocated() if cuda else None
+
+    ttft = _hist_delta(after["serving_ttft_seconds"], before.get("serving_ttft_seconds", {}))
+    itl = _hist_delta(after["serving_token_latency_seconds"],
+                      before.get("serving_token_latency_seconds", {}))
+    tokens = sum(len(r.tokens) for r in results)
+    ttfts = sorted(r.ttft_s * 1e3 for r in results)
+    out["engine"] = dict(
+        slots=SERVE_SLOTS, page_size=SERVE_PAGE, buckets=list(engine.prefill_buckets),
+        requests=SERVE_REQUESTS, prompt_tokens=int(lengths.sum()), tokens=tokens,
+        seconds=wall, generated_tokens_per_s=tokens / wall,
+        # each request's first token comes from its prefill, the rest from
+        # decode steps, whose walls the step histogram sums
+        decode_tokens_per_s=(tokens - SERVE_REQUESTS) / itl["sum"] if itl["sum"] else None,
+        ttft_ms_p50=_hist_quantile(ttft, 0.5), ttft_ms_p99=_hist_quantile(ttft, 0.99),
+        ttft_ms_exact_p50=float(np.percentile(ttfts, 50)),
+        ttft_ms_exact_p99=float(np.percentile(ttfts, 99)),
+        step_ms_p50=_hist_quantile(itl, 0.5), step_ms_p99=_hist_quantile(itl, 0.99),
+        step_ms_mean=itl["sum"] / max(itl["count"], 1) * 1e3, decode_steps=itl["count"],
+        prefill_ms={w: dict(n=len(v), mean=float(np.mean(v)), min=float(np.min(v)))
+                    for w, v in sorted(engine.prefill_ms.items())},
+        peak_pages=engine.peak_pages, pages_total=engine._cache.num_pages - 1,
+        pages_after=pages_after, peak_memory_bytes=peak_memory,
+        launches_b1=serve_launches[0], launches_b2_b3=serve_launches[1:],
+        greedy_departures=greedy_departures,
+        eos_finish=results[eos_request].finish_reason, sampled_rerun_equal=True,
+        other_seed_differs=True, queue_full_rejected=rejected,
+        predictor_rows=rows, predictor_equal=True,
+        profiled_decode=dict(slots=SERVE_SLOTS, steps=profiled_steps,
+                             # the run's wall over its decode steps (8 prefills in it)
+                             wall_ms_per_step=(profile.get("wall_ms_per_call", 0.0)
+                                               / max(profiled_steps, 1)),
+                             device_ms_per_step=(profile["device_ms_per_call"]
+                                                 / max(profiled_steps, 1)
+                                                 if profile.get("device_ms_per_call") else None),
+                             device_busy_share=profile.get("device_busy_share"),
+                             # every device operation of the run (kernels and
+                             # copies, the 8 prefills' included) and a step's share
+                             device_ops=profile.get("kernels_per_call"),
+                             device_ops_per_step=(profile["kernels_per_call"]
+                                                  / max(profiled_steps, 1)
+                                                  if profile.get("kernels_per_call") else None),
+                             top_kernels=profile.get("top_kernels")))
+    if serve_launches != [0, 0, 0]:
+        raise AssertionError(f"B1-B3 launched {serve_launches} times on the serving path")
+
+    # 3. speculative decoding: a shallow draft, and the target as its own,
+    # one request in flight at a time, so that decode steps count per token
+    draft = TransformerLM(**SERVE_DRAFT, generator=torch.Generator().manual_seed(seed + 8))
+    draft_params = {k: v.detach() for k, v in draft.named_parameters()}
+    spec_rows = {}
+    for name, kwargs in (("draft", dict(draft_model=draft, draft_params=draft_params)),
+                         ("faithful", dict(draft_model=trained))):
+        registry = Registry()
+        engine = _serving_engine(trained, registry, spec_tokens=SERVE_SPEC_TOKENS, **kwargs)
+        try:
+            t0 = time.perf_counter()
+            results = [engine.submit(requests[i]).result(timeout=600)
+                       for i in greedy[1:1 + SERVE_SPEC_PROMPTS]]
+            seconds = time.perf_counter() - t0
+        finally:
+            engine.stop()
+        departures = []
+        for i, result in zip(greedy[1:1 + SERVE_SPEC_PROMPTS], results):
+            hit = _held_to_greedy(trained, prompts[i], result.tokens, refs[i])
+            if hit is not None:
+                departures.append(dict(request=i, position=hit[0], gap=hit[1]))
+        snap = {k[len("serving_"):]: v["value"] for k, v in registry.snapshot().items()
+                if v["type"] == "counter"}
+        spec_rows[name] = dict(
+            requests=len(results), tokens=snap["tokens_total"], seconds=seconds,
+            tokens_per_s=snap["tokens_total"] / seconds,
+            decode_steps=snap["decode_steps_total"], proposed=snap["spec_proposed_total"],
+            accepted=snap["spec_accepted_total"],
+            # a request's first token is its prefill's: the steps emit the rest
+            steps_per_decode_token=(snap["decode_steps_total"]
+                                    / max(snap["tokens_total"] - len(results), 1)),
+            accept_rate=snap["spec_accepted_total"] / max(snap["spec_proposed_total"], 1),
+            departures=departures)
+    faithful = spec_rows["faithful"]
+    if (faithful["accepted"] != faithful["proposed"]
+            or not faithful["steps_per_decode_token"] < 1):
+        raise AssertionError(f"the target as its own draft: {faithful}")
+    out["speculative"] = dict(spec_tokens=SERVE_SPEC_TOKENS, draft_model=SERVE_DRAFT, **spec_rows)
+
+    for case, row in out.items():
+        emit(phase="serving", case=case, model="TransformerLM", **SERVE_MODEL, **row)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -1793,6 +2174,7 @@ def main(argv=None) -> int:
     streaming_phase(args.seed, eager_run, cifar_frame)
     checkpoint_phase(args.seed, eager_run, cifar_frame)
     remat_graph = remat_graph_phase(args.seed, train_run)
+    serving = serving_phase(args.seed)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -1860,6 +2242,9 @@ def main(argv=None) -> int:
         "launches_train_eager_and_remat": [remat_graph["launches_eager"][0],
                                            remat_graph["launches_remat"][0]],
         "launches_graph": remat_graph["launches_graph"][0],
+        "launches_serving": serving["engine"]["launches_b1"],
+        "launches_greedy_generate": serving["greedy"]["launches_b1"],
+        "launches_greedy_check": serving["greedy"]["launches_b1_check"],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",

@@ -1,5 +1,6 @@
 """Model layer: functional adapters over torch modules, the in-tree
-transformer models and the model zoo of the paper's training suite."""
+transformer models with KV-cached greedy decoding, and the model zoo of the
+paper's training suite."""
 
 from distkeras_tpu_torch.models.adapter import (
     FunctionalModel,
@@ -9,7 +10,9 @@ from distkeras_tpu_torch.models.adapter import (
     as_adapter,
 )
 from distkeras_tpu_torch.models.convert import params_from_flax, variables_from_flax
+from distkeras_tpu_torch.models.generate import greedy_generate
 from distkeras_tpu_torch.models.transformer import (
+    KVCache,
     TransformerClassifier,
     TransformerEncoderBlock,
     TransformerLM,
@@ -24,6 +27,8 @@ __all__ = [
     "as_adapter",
     "params_from_flax",
     "variables_from_flax",
+    "greedy_generate",
+    "KVCache",
     "TransformerClassifier",
     "TransformerEncoderBlock",
     "TransformerLM",

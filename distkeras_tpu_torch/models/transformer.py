@@ -1,14 +1,20 @@
 """Transformer classifier and language model.
 
-The port of :mod:`distkeras_tpu.models.transformer` for the single-device,
-non-decode forward: pre-LayerNorm encoder blocks whose attention goes
-through :func:`distkeras_tpu_torch.parallel.ring.attention`, so a CUDA input
-runs the flash-attention kernel, forward and backward.  Dropout draws its
-masks from the ``torch.Generator`` a training call passes in (flax's
-``dropout`` rng), never from torch's global generator.  KV-cache decode,
-sequence parallelism
-(``seq_axis``) and sequence packing (``packed=True``) raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The port of :mod:`distkeras_tpu.models.transformer` on one device:
+pre-LayerNorm encoder blocks whose attention goes through
+:func:`distkeras_tpu_torch.parallel.ring.attention`, so a CUDA input runs
+the flash-attention kernel, forward and backward.  Dropout draws its masks
+from the ``torch.Generator`` a training call passes in (flax's ``dropout``
+rng), never from torch's global generator.
+
+KV-cache decode (``TransformerLM(tokens, decode=True, cache=cache)``) runs
+the reference's ``_decode_attention`` math, plain masked products and a
+softmax as there (no Pallas kernel carries it): each chunk's K/V are written
+into the :class:`KVCache` the caller holds (``TransformerLM.init_cache``) at
+its cursor, and the chunk's queries attend over the whole padded cache with
+``key_pos <= q_pos``.  Sequence parallelism (``seq_axis``) and sequence
+packing (``packed=True``) raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 
 Out-of-range ids gather as the JAX package's flax ``nn.Embed`` does
 (``jnp.take`` in its ``"fill"`` mode), on the device and without a host
@@ -28,14 +34,13 @@ from torch import nn
 
 from distkeras_tpu_torch.parallel.ring import attention
 
-__all__ = ["TransformerClassifier", "TransformerEncoderBlock", "TransformerLM"]
+__all__ = ["KVCache", "TransformerClassifier", "TransformerEncoderBlock", "TransformerLM"]
 
 _LN_EPS = 1e-6  # flax LayerNorm's default, used by the blocks and the final LN
 # flax's lecun_normal draws from a normal truncated at two standard
 # deviations, scaled up by 1 / this to keep the requested variance
 _TRUNC_STD_CORRECTION = 0.87962566103423978
 
-_DECODE = "KV-cache decode comes with the serving slice (ROADMAP Queue A item 16)"
 _SEQ_AXIS = "seq_axis (ring attention) comes with sequence parallelism (ROADMAP Queue A item 14)"
 _PACKED = "packed=True comes with datapipe sequence packing (ROADMAP Queue A item 11)"
 
@@ -81,6 +86,33 @@ def _normal_(weight: torch.Tensor, std: float, generator) -> None:
     weight.copy_(draw)
 
 
+def masked_attention(q, k, v, hidden):
+    """Softmax attention of ``q [batch, m, heads, head_dim]`` over ``k``/``v
+    [batch, ctx, heads, head_dim]`` as the reference's decode path computes
+    it, plain products and a softmax: ``hidden`` (broadcast to ``[batch, m,
+    heads, ctx]``) is True at the keys a query must not see, which score
+    ``-inf``.  The one copy of this math: the KV-cache decode and the serving
+    engine's prefill and paged decode step all call it."""
+    s = torch.einsum("bmhd,bkhd->bmhk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    s = s.masked_fill(hidden, float("-inf"))
+    return torch.einsum("bmhk,bkhd->bmhd", torch.softmax(s, dim=-1), v)
+
+
+class KVCache:
+    """The KV cache of one decode: per block a key and a value buffer
+    ``[batch, max_len, heads, head_dim]`` and one cursor, ``index``, the
+    position the next chunk is written at (the reference's per-block
+    ``cache_index`` and top-level ``pos_index``, which advance together).
+    Made by :meth:`TransformerLM.init_cache` and held by the caller; each
+    ``decode=True`` forward writes its chunk's K/V in place and advances
+    ``index`` by the chunk's length."""
+
+    def __init__(self, keys, values, index: int = 0):
+        self.keys = list(keys)
+        self.values = list(values)
+        self.index = int(index)
+
+
 class _SelfAttention(nn.Module):
     """Multi-head self-attention: fused QKV projection, attention over
     ``[batch, seq, heads, head_dim]``, output projection."""
@@ -96,14 +128,49 @@ class _SelfAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * heads * self.head_dim)
         self.proj = nn.Linear(heads * self.head_dim, dim)
 
-    def forward(self, x, training: bool = False, decode: bool = False, segment_ids=None):
-        if decode:
-            raise NotImplementedError(_DECODE)
+    def forward(self, x, training: bool = False, decode: bool = False, segment_ids=None,
+                kv=None, index: int = 0):
         b, l, _ = x.shape
         # [b, l, 3, h, hd]: q, k and v are strided views the kernel reads as is
         q, k, v = self.qkv(x).view(b, l, 3, self.heads, self.head_dim).unbind(2)
-        out = attention(q, k, v, causal=self.causal, segment_ids=segment_ids)
+        if decode:
+            if segment_ids is not None:
+                raise ValueError(
+                    "segment_ids (sequence packing) is a training-path "
+                    "feature; decode serves one sequence per row"
+                )
+            out = self._decode_attention(q, k, v, kv, index)
+        else:
+            out = attention(q, k, v, causal=self.causal, segment_ids=segment_ids)
         return self.proj(out.reshape(b, l, self.heads * self.head_dim))
+
+    def _decode_attention(self, q, k, v, kv, index: int):
+        """Chunked KV-cache attention: write this chunk's K/V into the
+        block's buffers ``kv = (key, value)`` at ``index``, attend the
+        chunk's queries over the whole padded cache with position masking.
+        Padded rows mask to ``exp(-inf) = 0`` exactly, so the math matches
+        the full-context recompute path."""
+        if not self.causal or kv is None:
+            raise ValueError(
+                "KV-cache decode needs causal=True and a cache "
+                "(TransformerLM.init_cache)"
+            )
+        key, value = kv
+        chunk, cap = q.shape[1], key.shape[1]
+        if chunk > cap:
+            raise ValueError(f"a decode chunk of {chunk} tokens exceeds the cache's {cap}")
+        # lax.dynamic_update_slice clamps the start so the write stays in bounds
+        start = min(max(index, 0), cap - chunk)
+        key[:, start:start + chunk] = k
+        value[:, start:start + chunk] = v
+        q_pos = index + torch.arange(chunk, device=q.device)[:, None]
+        key_pos = torch.arange(cap, device=q.device)[None, :]
+        out = masked_attention(q, key, value, (key_pos > q_pos)[None, :, None, :])
+        if index + chunk > cap:
+            # decoding past max_len would attend over clamped, overwritten
+            # rows: poison the output with NaN, as the reference does
+            out = torch.full_like(out, float("nan"))
+        return out
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -122,8 +189,9 @@ class TransformerEncoderBlock(nn.Module):
         self.fc2 = nn.Linear(dim * mlp_ratio, dim)
 
     def forward(self, x, training: bool = False, decode: bool = False, segment_ids=None,
-                generator: Optional[torch.Generator] = None):
-        h = self.attn(self.ln1(x), training, decode, segment_ids=segment_ids)
+                generator: Optional[torch.Generator] = None, kv=None, index: int = 0):
+        h = self.attn(self.ln1(x), training, decode, segment_ids=segment_ids, kv=kv,
+                      index=index)
         x = x + _dropout(h, self.dropout, training, generator)
         h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
         return x + _dropout(h, self.dropout, training, generator)
@@ -167,14 +235,24 @@ class _TokenEncoder(nn.Module):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
 
-    def encode(self, tokens, training: bool = False, generator=None):
+    def encode(self, tokens, training: bool = False, generator=None,
+               cache: Optional[KVCache] = None):
+        """The trunk's output; with ``cache``, one decode chunk whose
+        positions start at the cache's cursor, which then advances."""
         if tokens.dim() != 2:
             raise ValueError(f"tokens must be [batch, seq], got shape {tuple(tokens.shape)}")
         tokens = tokens.long()
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        offset = 0 if cache is None else cache.index
+        pos = offset + torch.arange(tokens.shape[1], device=tokens.device)
         x = _take_fill(self.tok_embed, tokens) + _take_fill(self.pos_embed, pos)[None]
-        for block in self.blocks:
-            x = block(x, training, generator=generator)
+        for i, block in enumerate(self.blocks):
+            if cache is None:
+                x = block(x, training, generator=generator)
+            else:
+                x = block(x, training, decode=True, generator=generator,
+                          kv=(cache.keys[i], cache.values[i]), index=offset)
+        if cache is not None:
+            cache.index = offset + tokens.shape[1]
         return self.final_ln(x)
 
 
@@ -196,10 +274,25 @@ class TransformerLM(_TokenEncoder):
         self.lm_head = nn.Linear(dim, vocab_size)
         self.reset_parameters(generator)
 
-    def forward(self, tokens, training: bool = False, decode: bool = False, generator=None):
-        if decode:
-            raise NotImplementedError(_DECODE)
-        return self.lm_head(self.encode(tokens, training, generator))
+    def forward(self, tokens, training: bool = False, decode: bool = False, generator=None,
+                cache: Optional[KVCache] = None):
+        """Next-token logits.  ``decode=True`` runs one chunk through the
+        KV cache ``cache`` (from :meth:`init_cache`), which it updates in
+        place: the prefill chunk is the prompt, then one token a step."""
+        if decode and cache is None:
+            raise ValueError("decode=True needs cache=model.init_cache(batch)")
+        if cache is not None and not decode:
+            raise ValueError("a cache is read only with decode=True")
+        return self.lm_head(self.encode(tokens, training, generator, cache=cache))
+
+    def init_cache(self, batch: int, device=None, dtype=torch.float32) -> KVCache:
+        """An empty KV cache for ``batch`` rows on ``device``: per block a
+        zeroed key and value buffer ``[batch, max_len, heads, head_dim]``."""
+        shape = (int(batch), self.max_len, self.heads, self.dim // self.heads)
+        return KVCache(
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in range(self.num_layers)],
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in range(self.num_layers)],
+        )
 
     def decode_spec(self, params):
         """Slice ``params`` (parameter name -> tensor) into the layout the

@@ -1,0 +1,1145 @@
+"""Continuous-batching serving engine: one decode step over every slot.
+
+The port of :mod:`distkeras_tpu.serving.engine`.  ``greedy_generate`` runs
+a whole batch in lockstep; an online service sees requests that arrive
+whenever, want different lengths and sampling, and must not wait for each
+other.  This engine is the standard continuous-batching formulation
+(Orca/vLLM):
+
+* a fixed ring of ``num_slots`` **batch slots**;
+* ONE single-token **decode step** over all slots — every per-request
+  quantity (position, last token, seed and counter of its random stream,
+  temperature/top-k/top-p, active flag, speculative opt-in) is *data* in
+  tensors of fixed shape on the engine's device, so admitting or retiring a
+  request changes no shape and allocates nothing;
+* a **paged KV cache** (:mod:`distkeras_tpu_torch.serving.cache`): K/V
+  pools shared by all slots, updated in place (their storage never moves),
+  per-slot page tables, pages allocated at admission and freed at
+  retirement;
+* between decode steps the host loop **admits** queued requests into free
+  slots (prefill) and **retires** finished ones (EOS / max-new-tokens), so
+  a long request never convoys short ones;
+* SLO metrics through the telemetry registry — TTFT and per-step-latency
+  histograms, queue depth, token/request counters.
+
+Fast paths:
+
+* **Prefill width bucketing** — prompts prefill at the smallest
+  power-of-two page-multiple width that fits them (``prefill_buckets``)
+  instead of the slot's full page capacity; one input shape per *used*
+  bucket; ``serving_prefill_padded_tokens`` counts the padding burned.
+* **Speculative decoding** (``draft_model``) — a cheaper draft model
+  (anything with a ``decode_spec``, e.g. a shallower ``TransformerLM``)
+  proposes ``spec_tokens`` tokens per engine iteration via single-token
+  draft steps; ONE multi-token target step verifies the window against the
+  paged cache and emits the accepted prefix plus a correction token
+  (:func:`distkeras_tpu_torch.serving.sampling.speculative_verify`).  There
+  is no bonus token, so draft and target caches never develop holes.
+  Greedy emitted tokens are target-argmax rows, hence the non-speculative
+  greedy stream regardless of draft quality; stochastic requests use exact
+  acceptance-rejection resampling.  Requests opt out per call
+  (``speculative=False``) and ride the same step as data.
+
+Numerics: ``_block_apply`` restates ``TransformerEncoderBlock``'s math
+(the LayerNorms, the fused QKV and output projections, the tanh-GELU MLP)
+over the parameter dicts the model's ``decode_spec`` hook slices out, as the
+reference's engine restates its flax block: a hot swap replaces those dicts,
+and the module binds its own parameters.  A test holds the two to each
+other.  Attention is the KV-cache decode's own
+:func:`~distkeras_tpu_torch.models.transformer.masked_attention` over a
+gather of the slot's pages, ``key_pos <= pos``: plain PyTorch products, as
+the reference's are plain XLA ones (no Pallas kernel carries decode).  The
+pools take the served parameters' dtype.  Prefill writes the whole
+right-padded bucket into the slot's pages; rows past the prompt are causally
+masked and overwritten by decode before they could be attended.
+
+The loop runs on a daemon thread with the engine's device set and
+gradients off.  Each step uploads the host-side slot arrays (pinned on a
+card, copied without blocking) and brings the sampled tokens back in one
+copy, the step's only wait for the device.  A failure in the loop is not
+swallowed: every pending request resolves ``"aborted"``, the error is
+printed, and ``submit`` raises :class:`EngineCrashed` from then on.
+
+Random numbers are counter-based streams keyed by each request's seed
+(ROADMAP C9, :mod:`~distkeras_tpu_torch.serving.sampling`): a request's
+counter advances once per engine iteration *of that request*, so its
+sampled tokens are a function of (params, prompt, knobs, seed) alone.
+
+Not ported here: the tensor-parallel decode over a mesh (``mesh=``, ROADMAP
+Queue A item 13), ``StagedLM`` targets (item 15), the chaos fault point and
+the per-tenant accounting ledger (items 18 and 19) and the lock-order
+watchdog around the engine's condition variable (item 19).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import threading
+import time
+import traceback
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from distkeras_tpu_torch.models.transformer import masked_attention
+from distkeras_tpu_torch.parallel.mesh import resolve_device
+from distkeras_tpu_torch.serving.cache import PagedKVCache, append_rows, rollback_rows
+from distkeras_tpu_torch.serving.frontend import GenerateRequest, GenerateResult, RequestQueue
+from distkeras_tpu_torch.serving.sampling import (
+    STREAM_DRAFT,
+    modified_probs,
+    sample_tokens,
+    seed_value,
+    speculative_verify_tokens,
+)
+from distkeras_tpu_torch.telemetry import runtime as _truntime
+from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
+
+__all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
+
+_MESH = "mesh= (tensor-parallel decode) comes with the multi-GPU slice (ROADMAP Queue A item 13)"
+_STAGED = "serving a StagedLM comes with the pipeline slice (ROADMAP Queue A item 15)"
+
+
+class EngineCrashed(RuntimeError):
+    """The engine's host loop died: every request aborted, the replica is
+    dead.  Raised by ``submit``/``hot_swap`` so a caller can tell "dead"
+    from "saturated"."""
+
+
+def serving_metrics(registry=None) -> dict:
+    """Get-or-create the engine's SLO instruments on ``registry`` (default:
+    the process-global one), with the JAX package's names, help text and
+    bucket ladder."""
+    if registry is None:
+        from distkeras_tpu_torch.telemetry.metrics import metrics as registry
+    return {
+        "ttft": registry.histogram(
+            "serving_ttft_seconds",
+            help="time from request admission-queue entry to first token",
+        ),
+        "token_latency": registry.histogram(
+            "serving_token_latency_seconds",
+            help="wall time of one continuous-batching decode step",
+        ),
+        "prefill_seconds": registry.histogram(
+            "serving_prefill_seconds",
+            help="wall time of one prefill dispatch (bucketed width)",
+        ),
+        "queue_depth": registry.gauge(
+            "serving_queue_depth", help="requests waiting for a batch slot"
+        ),
+        "active_slots": registry.gauge(
+            "serving_active_slots", help="batch slots generating right now"
+        ),
+        "pages_in_use": registry.gauge(
+            "serving_kv_pages_in_use", help="allocated KV cache pages"
+        ),
+        "tokens": registry.counter(
+            "serving_tokens_total", help="tokens generated across all requests"
+        ),
+        "requests": registry.counter(
+            "serving_requests_total", help="requests completed (any finish reason)"
+        ),
+        "rejected": registry.counter(
+            "serving_requests_rejected_total",
+            help="requests shed by queue backpressure",
+        ),
+        "prefill_padded": registry.counter(
+            "serving_prefill_padded_tokens",
+            help="padding tokens burned by bucketed prefill (width - prompt)",
+        ),
+        "decode_steps": registry.counter(
+            "serving_decode_steps_total",
+            help="target decode/verify iterations (speculative emits >1 "
+                 "token per step, so steps/tokens < 1)",
+        ),
+        "spec_proposed": registry.counter(
+            "serving_spec_proposed_total",
+            help="draft tokens proposed by speculative decoding",
+        ),
+        "spec_accepted": registry.counter(
+            "serving_spec_accepted_total",
+            help="draft tokens accepted by target verification",
+        ),
+        "hot_swaps": registry.counter(
+            "serving_hot_swaps_total",
+            help="in-place param hot-swaps applied by this engine",
+        ),
+    }
+
+
+# ------------------------------------------------------------ model slicing
+
+
+@dataclasses.dataclass
+class _Spec:
+    """Normalized decode view of one causal LM: embedding tables, per-block
+    parameter dicts, final LN + head, and the static config the steps read.
+    Built from the model's ``decode_spec`` hook."""
+
+    tok: Any
+    pos: Any
+    blocks: List[Any]
+    final_ln: Any
+    head: Any
+    dim: int
+    heads: int
+    head_dim: int
+    max_len: int
+    vocab: int
+    ln_eps: float
+
+    def params(self) -> dict:
+        return {
+            "tok": self.tok, "pos": self.pos, "blocks": list(self.blocks),
+            "final_ln": self.final_ln, "head": self.head,
+        }
+
+
+def _resolve_spec(model, params, device) -> _Spec:
+    """Accept a ``TrainedModel``, a ``TorchModel`` adapter + params, or a
+    module with a ``decode_spec`` hook + params (name -> tensor); the
+    tensors are put on ``device``."""
+    from distkeras_tpu_torch.models.adapter import TorchModel, TrainedModel
+
+    if isinstance(model, TrainedModel):
+        return _resolve_spec(model.adapter, model.params, device)
+    if hasattr(model, "decode_step"):  # StagedLM
+        raise NotImplementedError(_STAGED)
+    if isinstance(model, TorchModel):
+        model = model.module
+    hook = getattr(model, "decode_spec", None)
+    if hook is None:
+        raise TypeError(
+            f"{type(model).__name__} has no decode_spec hook; serving "
+            "supports TransformerLM"
+        )
+    if params is None:
+        raise ValueError(
+            "params required when passing a bare module/adapter "
+            "(a TrainedModel carries its own)"
+        )
+    raw = hook(params)
+    cfg = raw["config"]
+
+    def put(tree):
+        return {k: v.detach().to(device) for k, v in tree.items()}
+
+    return _Spec(
+        tok=raw["embed"]["tok"].detach().to(device),
+        pos=raw["embed"]["pos"].detach().to(device),
+        blocks=[put(b) for b in raw["blocks"]],
+        final_ln=put(raw["final_ln"]),
+        head=put(raw["head"]),
+        dim=int(cfg["dim"]),
+        heads=int(cfg["heads"]),
+        head_dim=int(cfg["head_dim"]),
+        max_len=int(cfg["max_len"]),
+        vocab=int(cfg["vocab_size"]),
+        ln_eps=float(cfg["ln_eps"]),
+    )
+
+
+def _block_apply(bp, x, attend, eps, heads, head_dim):
+    """One encoder block over the parameter dict ``bp`` (the names of
+    ``TransformerEncoderBlock``), with its math: pre-LayerNorm attention
+    and tanh-GELU MLP, dropout off.  ``attend(q, k, v)`` (``[b, l, heads,
+    head_dim]`` each) supplies the paged-cache attention."""
+    dim = x.shape[-1]
+    b, l = x.shape[:2]
+    h = F.layer_norm(x, (dim,), bp["ln1.weight"], bp["ln1.bias"], eps)
+    qkv = F.linear(h, bp["attn.qkv.weight"], bp["attn.qkv.bias"])
+    q, k, v = qkv.view(b, l, 3, heads, head_dim).unbind(2)
+    out = attend(q, k, v)
+    x = x + F.linear(out.reshape(b, l, heads * head_dim), bp["attn.proj.weight"],
+                     bp["attn.proj.bias"])
+    h = F.layer_norm(x, (dim,), bp["ln2.weight"], bp["ln2.bias"], eps)
+    h = F.gelu(F.linear(h, bp["fc1.weight"], bp["fc1.bias"]), approximate="tanh")
+    return x + F.linear(h, bp["fc2.weight"], bp["fc2.bias"])
+
+
+def _head_apply(final_ln, head, x, eps):
+    h = F.layer_norm(x, (x.shape[-1],), final_ln["weight"], final_ln["bias"], eps)
+    return F.linear(h, head["weight"], head["bias"])
+
+
+def _paged_attention(q, kpool, vpool, tables, hidden):
+    """Each slot's queries ``q [slots, m, heads, head_dim]`` over its pages
+    (``kpool``/``vpool [pages, page_size, heads, head_dim]`` of one layer,
+    gathered through ``tables [slots, pages_per_slot]``); ``hidden [slots,
+    m, 1, ctx]`` is True at the keys past each query's position."""
+    s = q.shape[0]
+    kg = kpool[tables].reshape(s, -1, *kpool.shape[-2:])  # [slots, ctx, heads, hd]
+    vg = vpool[tables].reshape(s, -1, *vpool.shape[-2:])
+    return masked_attention(q, kg, vg, hidden)
+
+
+def _resolve_buckets(prefill_buckets, page_size: int, max_context: int):
+    """The prefill width ladder: ascending page-multiple widths ending at
+    ``max_context``.  Default: ``page_size * 2**i`` capped at capacity."""
+    if prefill_buckets is None:
+        widths, w = [], page_size
+        while w < max_context:
+            widths.append(w)
+            w *= 2
+        widths.append(max_context)
+        return tuple(widths)
+    widths = sorted({int(w) for w in prefill_buckets})
+    if not widths:
+        raise ValueError("prefill_buckets must be non-empty")
+    for w in widths:
+        if w < 1 or w > max_context or w % page_size:
+            raise ValueError(
+                f"prefill bucket {w} must be a positive multiple of "
+                f"page_size {page_size} and <= max context {max_context}"
+            )
+    if widths[-1] != max_context:
+        widths.append(max_context)  # every admissible prompt needs a bucket
+    return tuple(widths)
+
+
+# -------------------------------------------------------------- bookkeeping
+
+
+class _Pending:
+    """Handle returned by :meth:`ServingEngine.submit` — resolves to a
+    :class:`GenerateResult` when the request retires."""
+
+    __slots__ = ("request", "max_new", "enqueue_t", "_event", "_result")
+
+    def __init__(self, request: GenerateRequest, max_new: int, enqueue_t: float):
+        self.request = request
+        self.max_new = max_new
+        self.enqueue_t = enqueue_t
+        self._event = threading.Event()
+        self._result: Optional[GenerateResult] = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> Optional[GenerateResult]:
+        """Block for the result; ``None`` on timeout."""
+        if not self._event.wait(timeout):
+            return None
+        return self._result
+
+    def _resolve(self, result: GenerateResult) -> None:
+        self._result = result
+        self._event.set()
+
+
+class _SlotState:
+    """Host-side record for one occupied batch slot."""
+
+    __slots__ = ("pending", "tokens", "plen", "ttft_s")
+
+    def __init__(self, pending: _Pending, plen: int):
+        self.pending = pending
+        self.tokens: List[int] = []
+        self.plen = plen
+        self.ttft_s = 0.0
+
+
+# The host-side slot arrays uploaded before every step: name -> dtype.
+# ``ctr``/``dctr`` count the draws of a request's target and draft streams.
+_SLOT_ARRAYS = {
+    "pos": torch.int64, "last": torch.int64, "seed": torch.int64, "ctr": torch.int64,
+    "dctr": torch.int64, "temp": torch.float32, "topk": torch.int64, "topp": torch.float32,
+    "active": torch.bool, "spec_on": torch.bool,
+}
+
+
+# -------------------------------------------------------------------- engine
+
+
+class ServingEngine:
+    """Online inference engine with continuous batching over a paged KV
+    cache.  See the module docstring for the design; quick start::
+
+        engine = ServingEngine(trained_model, num_slots=4, page_size=16)
+        out = engine.generate([1, 2, 3], max_new_tokens=8)   # blocking
+        pending = engine.submit(GenerateRequest(prompt=[1, 2, 3]))  # async
+        result = pending.result(timeout=30)
+        engine.stop()
+
+    The host loop runs on a daemon thread started lazily by the first
+    ``submit``/``generate`` (or explicitly via :meth:`start`).  ``model``
+    is a ``TrainedModel``, or a ``TransformerLM`` (raw or behind
+    ``TorchModel``) plus ``params``.  ``device`` defaults to ``"cuda"`` and
+    raises without a card; pass ``device="cpu"`` to serve on the CPU.
+
+    Fast-path knobs: ``prefill_buckets`` (width ladder; default
+    power-of-two), ``draft_model``/``draft_params``/``spec_tokens``
+    (speculative decoding).
+    """
+
+    def __init__(self, model, params=None, *, num_slots: int = 4,
+                 page_size: int = 16, pages_per_slot: Optional[int] = None,
+                 num_pages: Optional[int] = None, queue_size: int = 64,
+                 registry=None,
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 draft_model=None, draft_params=None, spec_tokens: int = 4,
+                 mesh=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        self.device = resolve_device(device)
+        self._spec = _resolve_spec(model, params, self.device)
+        spec = self._spec
+        if pages_per_slot is None:
+            pages_per_slot = -(-spec.max_len // page_size)
+        self.num_slots = int(num_slots)
+        self._cache = PagedKVCache(
+            num_layers=len(spec.blocks), num_slots=num_slots,
+            page_size=page_size, pages_per_slot=pages_per_slot,
+            heads=spec.heads, head_dim=spec.head_dim,
+            num_pages=num_pages, dtype=spec.tok.dtype, device=self.device,
+        )
+        self._width = self._cache.max_context()
+        self._buckets = _resolve_buckets(
+            prefill_buckets, self._cache.page_size, self._width)
+        self._queue = RequestQueue(queue_size)
+        self._metrics = serving_metrics(registry)
+
+        # --------------------------------------------------- draft / verify
+        self._draft_spec = None
+        self._draft_cache = None
+        self._spec_tokens = int(spec_tokens)
+        if draft_model is not None:
+            if self._spec_tokens < 1:
+                raise ValueError("spec_tokens must be >= 1")
+            dspec = _resolve_spec(draft_model, draft_params, self.device)
+            if dspec.vocab != spec.vocab:
+                raise ValueError(
+                    f"draft vocab {dspec.vocab} != target vocab {spec.vocab}"
+                )
+            serviceable = min(self._width, spec.max_len)
+            if dspec.max_len < serviceable:
+                raise ValueError(
+                    f"draft max_len {dspec.max_len} < serviceable context "
+                    f"{serviceable}; pick a draft trained at the same length"
+                )
+            self._draft_spec = dspec
+            # same page geometry so the target's page tables address the
+            # draft pools directly; its bookkeeping (free list) is unused
+            self._draft_cache = PagedKVCache(
+                num_layers=len(dspec.blocks), num_slots=num_slots,
+                page_size=page_size, pages_per_slot=pages_per_slot,
+                heads=dspec.heads, head_dim=dspec.head_dim,
+                num_pages=self._cache.num_pages, dtype=dspec.tok.dtype, device=self.device,
+            )
+
+        # Slot arrays: host tensors (pinned on a card) with numpy views the
+        # loop edits, and their device twins, refreshed before every step.
+        s = self.num_slots
+        pin = self.device.type == "cuda"
+        host = {name: torch.zeros(s, dtype=dt, pin_memory=pin)
+                for name, dt in _SLOT_ARRAYS.items()}
+        host["tables"] = torch.zeros(self._cache.tables.shape, dtype=torch.int64,
+                                     pin_memory=pin)
+        host["prompt"] = torch.zeros(self._width, dtype=torch.int64, pin_memory=pin)
+        self._host = host
+        self._dev = {name: torch.zeros_like(t, device=self.device) for name, t in host.items()}
+        self._pos = host["pos"].numpy()        # position of the fed token
+        self._last = host["last"].numpy()      # token being fed this step
+        self._seed = host["seed"].numpy()
+        self._ctr = host["ctr"].numpy()
+        self._dctr = host["dctr"].numpy()
+        self._temp = host["temp"].numpy()
+        self._topk = host["topk"].numpy()
+        self._topp = host["topp"].numpy()
+        self._active = host["active"].numpy()
+        self._spec_on = host["spec_on"].numpy()
+        self._topp[:] = 1.0
+
+        self._slots: List[Optional[_SlotState]] = [None] * s
+        self._cv = threading.Condition()
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        # drain/hot-swap/cancel state, all owned by the loop thread except
+        # the flags themselves (set under _cv by callers)
+        self._crashed = False
+        self._error: Optional[BaseException] = None
+        self._draining = False
+        self._drain_ack = False
+        self._swap: Optional[Tuple[_Spec, threading.Event]] = None
+        self._cancelled: List[_Pending] = []
+
+    # --------------------------------------------------------- device steps
+
+    def _upload(self) -> None:
+        """Copy the host slot arrays (and the page tables) to the device.
+        The copies do not block: the host buffers are rewritten only after
+        the step's token copy, which waits for everything before it."""
+        np.copyto(self._host["tables"].numpy(), self._cache.tables)
+        for name, dst in self._dev.items():
+            dst.copy_(self._host[name], non_blocking=True)
+
+    def _prefill(self, spec: _Spec, kpool, vpool, width: int, slot: int, plen: int,
+                 sample: bool):
+        """Run the slot's right-padded prompt (``prompt[:width]`` of the
+        uploaded arrays) through ``spec``, writing every row's K/V into the
+        slot's first ``width // page_size`` pages; with ``sample``, return
+        the first token (the request's draw 0)."""
+        st = self._dev
+        ps = self._cache.page_size
+        npages = width // ps
+        table = st["tables"][slot, :npages]
+        tokens = st["prompt"][:width][None]
+        positions = torch.clamp(torch.arange(width, device=self.device), 0, spec.max_len - 1)
+        x = spec.tok[tokens] + spec.pos[positions][None]
+        hidden = torch.ones(width, width, dtype=torch.bool, device=self.device).triu(1)
+        hidden = hidden[None, :, None, :]
+
+        def attend(li):
+            def fn(q, k, v):
+                # stash the whole padded chunk into this slot's pages; rows
+                # past the prompt are causally masked below, never attended
+                kpool[li, table] = k[0].reshape(npages, ps, *k.shape[-2:])
+                vpool[li, table] = v[0].reshape(npages, ps, *v.shape[-2:])
+                return masked_attention(q, k, v, hidden)
+
+            return fn
+
+        for li, bp in enumerate(spec.blocks):
+            x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim)
+        if not sample:
+            return None
+        logits = _head_apply(spec.final_ln, spec.head, x[:, plen - 1], spec.ln_eps)
+        return sample_tokens(logits, st["seed"][slot:slot + 1], st["ctr"][slot:slot + 1],
+                             st["temp"][slot:slot + 1], st["topk"][slot:slot + 1],
+                             st["topp"][slot:slot + 1])
+
+    def _run_blocks(self, spec: _Spec, kpool, vpool, fed, positions):
+        """Feed ``fed [slots, m]`` tokens at ``positions [slots, m]`` through
+        ``spec``, appending their K/V at each slot's position; returns the
+        logits ``[slots, m, vocab]``."""
+        st = self._dev
+        tables, pos = st["tables"], positions[:, 0]
+        x = spec.tok[fed] + spec.pos[torch.clamp(positions, 0, spec.max_len - 1)]
+        key_pos = torch.arange(self._width, device=self.device)
+        hidden = (key_pos[None, None, :] > positions[:, :, None])[:, :, None, :]
+
+        def attend(li):
+            def fn(q, k, v):
+                append_rows(kpool, li, tables, pos, k)
+                append_rows(vpool, li, tables, pos, v)
+                return _paged_attention(q, kpool[li], vpool[li], tables, hidden)
+
+            return fn
+
+        for li, bp in enumerate(spec.blocks):
+            x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim)
+        return _head_apply(spec.final_ln, spec.head, x, spec.ln_eps)
+
+    def _decode(self, spec: _Spec, kpool, vpool):
+        """One token for every slot.  Inactive slots compute garbage into
+        the scratch page (their tables point at physical page 0) and emit
+        token 0 — all masked out host-side."""
+        st = self._dev
+        logits = self._run_blocks(spec, kpool, vpool, st["last"][:, None], st["pos"][:, None])
+        tok = sample_tokens(logits[:, 0], st["seed"], st["ctr"], st["temp"], st["topk"],
+                            st["topp"])
+        return torch.where(st["active"], tok, 0)
+
+    def _draft_step(self, kpool, vpool, pos, last, i: int):
+        """One single-token draft step over all slots at ``pos``: writes
+        draft K/V, samples the proposal from the draft stream, and returns
+        it with the draft's *modified* distribution (the q of the
+        acceptance test)."""
+        st = self._dev
+        logits = self._run_blocks(self._draft_spec, kpool, vpool, last[:, None],
+                                  pos[:, None])[:, 0]
+        tok = sample_tokens(logits, st["seed"], st["dctr"] + i, st["temp"], st["topk"],
+                            st["topp"], stream=STREAM_DRAFT)
+        tok = torch.where(st["active"], tok, 0)
+        return tok, modified_probs(logits, st["temp"], st["topk"], st["topp"])
+
+    def _verify(self, spec: _Spec, kpool, vpool, drafts, qprobs):
+        """The multi-token target step: feed the window ``[last, d_1 ..
+        d_{m-1}]``, write its K/V through the page tables, compute all m
+        next-token logits in one pass, judge the drafts per slot
+        (:func:`speculative_verify_tokens`), and roll the rejected suffix
+        rows back out of the pools."""
+        st = self._dev
+        m = self._spec_tokens
+        pos = st["pos"]
+        fed = torch.cat([st["last"][:, None], drafts[:, :-1]], dim=1)
+        positions = pos[:, None] + torch.arange(m, device=self.device)[None, :]
+        logits = self._run_blocks(spec, kpool, vpool, fed, positions)
+        out, count, accepted = speculative_verify_tokens(
+            logits, drafts, qprobs, st["seed"], st["ctr"], st["temp"], st["topk"],
+            st["topp"], st["spec_on"] & st["active"])
+        out = torch.where(st["active"][:, None], out, 0)
+        # erase the rejected suffix so the pools only ever hold
+        # accepted-token K/V between iterations
+        for li in range(len(spec.blocks)):
+            rollback_rows(kpool, li, st["tables"], pos, count, m)
+            rollback_rows(vpool, li, st["tables"], pos, count, m)
+        return out, count, accepted
+
+    # ----------------------------------------------------------- public API
+
+    def start(self) -> None:
+        """Start the host loop thread (idempotent; ``submit`` calls this)."""
+        with self._cv:
+            if self._running:
+                return
+            self._running = True
+            self._thread = threading.Thread(
+                target=self._loop, name="serving-engine", daemon=True
+            )
+            self._thread.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        """Stop the loop; queued and in-flight requests resolve with
+        ``finish_reason="aborted"`` (partial tokens included)."""
+        with self._cv:
+            if not self._running:
+                thread = None
+            else:
+                self._running = False
+                thread = self._thread
+                self._thread = None
+            self._cv.notify_all()
+        if thread is not None:
+            thread.join(timeout=timeout)
+        for slot in range(self.num_slots):
+            if self._slots[slot] is not None:
+                self._retire(slot, "aborted")
+        while True:
+            pending = self._queue.pop()
+            if pending is None:
+                break
+            self._finish(pending, [], "aborted", 0.0)
+        self._metrics["queue_depth"].set(0)
+
+    def submit(self, request: GenerateRequest) -> _Pending:
+        """Validate + enqueue; returns a :class:`_Pending` handle.  Raises
+        :class:`~distkeras_tpu_torch.serving.frontend.QueueFull` under
+        backpressure and ``ValueError`` for an unservable request.  The
+        admission is a ``serving.admit`` span on the caller's thread."""
+        span = NOOP_SPAN
+        if _truntime.enabled():
+            span = _trace.span(
+                "serving.admit", request_id=request.request_id,
+                trace_id=request.trace_id)
+        with span:
+            return self._submit(request)
+
+    def _submit(self, request: GenerateRequest) -> _Pending:
+        with self._cv:
+            # snapshot the published spec: hot-swap replaces it under _cv
+            crashed, spec, error = self._crashed, self._spec, self._error
+        if crashed:
+            raise EngineCrashed(f"serving engine crashed ({error!r}); replica is dead")
+        request.validate()
+        plen = len(request.prompt)
+        if plen > self._width or plen >= spec.max_len:
+            raise ValueError(
+                f"prompt length {plen} exceeds serviceable context "
+                f"(width {self._width}, model max_len {spec.max_len})"
+            )
+        if int(np.max(request.prompt)) >= spec.vocab:
+            raise ValueError("prompt token id out of vocabulary")
+        if request.speculative and self._draft_spec is None:
+            raise ValueError(
+                "request asks for speculative decoding but the engine was "
+                "built without a draft_model"
+            )
+        max_new = min(request.max_new_tokens, spec.max_len - plen,
+                      self._width - plen)
+        pending = _Pending(request, max_new, time.perf_counter())
+        try:
+            self._queue.put(pending)
+        except Exception:
+            self._metrics["rejected"].inc()
+            raise
+        self._metrics["queue_depth"].set(len(self._queue))
+        self.start()
+        with self._cv:
+            self._cv.notify_all()
+        return pending
+
+    def generate(self, prompt, max_new_tokens: int = 16,
+                 timeout: Optional[float] = 60.0,
+                 **knobs) -> GenerateResult:
+        """Blocking convenience: submit one request, wait for its result.
+        ``knobs`` forwards temperature/top_k/top_p/seed/eos_id/speculative."""
+        req = GenerateRequest(prompt=[int(t) for t in prompt],
+                              max_new_tokens=max_new_tokens, **knobs)
+        result = self.submit(req).result(timeout=timeout)
+        if result is None:
+            raise TimeoutError(f"generation did not finish in {timeout}s")
+        return result
+
+    def stats(self) -> Dict[str, float]:
+        """Host-side snapshot for bench/debug (not the metrics surface)."""
+        return {
+            "queue_depth": float(len(self._queue)),
+            "active_slots": float(int(self._active.sum())),
+            "pages_in_use": float(self._cache.pages_in_use),
+            "pages_free": float(self._cache.pages_free),
+            "slots_total": float(self.num_slots),
+        }
+
+    @property
+    def alive(self) -> bool:
+        """``False`` once the loop has crashed."""
+        with self._cv:
+            return not self._crashed
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        """The exception that crashed the loop, if it did."""
+        with self._cv:
+            return self._error
+
+    @property
+    def draining(self) -> bool:
+        """Whether admission is paused (explicit :meth:`drain` or an
+        in-flight :meth:`hot_swap`)."""
+        with self._cv:
+            return self._draining or self._swap is not None
+
+    # ------------------------------------------------- tier hooks (host side)
+
+    def cancel(self, pending: _Pending) -> bool:
+        """Abort a submitted request: queued — removed and resolved
+        ``"aborted"`` immediately; in a slot — retired ``"aborted"`` at the
+        loop's next iteration (slot and pages reclaimed).  Returns ``False``
+        when the request had already finished."""
+        if pending.done():
+            return False
+        if self._queue.remove(pending):
+            self._finish(pending, [], "aborted", 0.0)
+            self._metrics["queue_depth"].set(len(self._queue))
+            return True
+        with self._cv:
+            running = self._running
+            if running:
+                self._cancelled.append(pending)
+                self._cv.notify_all()
+        if not running and not pending.done():
+            # no loop to process it — resolve it directly
+            self._finish(pending, [], "aborted", 0.0)
+        return True
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Pause admission and wait until every occupied slot retires.
+        Queued requests stay queued (they admit again after
+        :meth:`resume`).  Returns ``True`` once drained; ``False`` on
+        timeout (admission stays paused either way)."""
+        span = NOOP_SPAN
+        if _truntime.enabled():
+            span = _trace.span("serving.drain")
+        with span:
+            with self._cv:
+                self._draining = True
+                started = self._thread is not None
+                self._cv.notify_all()
+            if not started:
+                return True  # no loop => nothing in flight, nothing can admit
+            deadline = time.perf_counter() + timeout
+            while time.perf_counter() < deadline:
+                with self._cv:
+                    running, acked = self._running, self._drain_ack
+                if not running:
+                    return True  # stopped/crashed under us — slots are clear
+                if acked and not self._active.any():
+                    return True
+                time.sleep(0.002)
+            return False
+
+    def resume(self) -> None:
+        """Reopen admission after :meth:`drain`."""
+        with self._cv:
+            self._draining = False
+            self._drain_ack = False
+            self._cv.notify_all()
+
+    def hot_swap(self, model, params=None, timeout: float = 30.0) -> None:
+        """Swap the served params in place.
+
+        Geometry (dim/heads/head_dim/max_len/vocab/depth/ln_eps) must match
+        the engine's current spec, so every step keeps its shapes.  The loop
+        applies the swap at the first iteration with zero active slots
+        (admission pauses until then): in-flight requests finish under the
+        old params, queued requests decode under the new, and nothing
+        drops.  With a draft model, only the target swaps.  Returns
+        ``None``; raises ``TimeoutError`` when the engine did not drain in
+        ``timeout``."""
+        span = NOOP_SPAN
+        if _truntime.enabled():
+            span = _trace.span("serving.hot_swap")
+        with span:
+            self._hot_swap(model, params, timeout)
+
+    def _hot_swap(self, model, params, timeout: float) -> None:
+        new = _resolve_spec(model, params, self.device)
+        with self._cv:
+            old = self._spec
+        for f in ("dim", "heads", "head_dim", "max_len", "vocab", "ln_eps"):
+            if getattr(new, f) != getattr(old, f):
+                raise ValueError(
+                    f"hot_swap geometry mismatch on {f}: "
+                    f"{getattr(new, f)} != {getattr(old, f)}"
+                )
+        if len(new.blocks) != len(old.blocks):
+            raise ValueError(
+                f"hot_swap depth mismatch: {len(new.blocks)} blocks "
+                f"!= {len(old.blocks)}"
+            )
+        with self._cv:
+            if self._crashed:
+                raise EngineCrashed("engine crashed; cannot hot_swap")
+            if self._swap is not None:
+                raise RuntimeError("another hot_swap is already in flight")
+            if not self._running:
+                # no loop => no in-flight work: swap synchronously
+                self._spec = new
+                self._metrics["hot_swaps"].inc()
+                return
+            done = threading.Event()
+            self._swap = (new, done)
+            self._cv.notify_all()
+        if not done.wait(timeout):
+            with self._cv:
+                self._swap = None
+            raise TimeoutError(f"hot_swap did not drain within {timeout}s")
+
+    @property
+    def prefill_buckets(self) -> Tuple[int, ...]:
+        return self._buckets
+
+    # ------------------------------------------------------------ host loop
+
+    def _loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        try:
+            with torch.no_grad():
+                self._serve()
+        except Exception as exc:  # noqa: BLE001 — re-raised to every caller
+            traceback.print_exc(file=sys.stderr)
+            self._crash(exc)
+
+    def _serve(self) -> None:
+        while True:
+            with self._cv:
+                if not self._running:
+                    return
+                self._drain_ack = self._draining
+                swap_pending = self._swap is not None
+                paused = self._draining or swap_pending
+            self._cancel_requested()
+            if swap_pending and not self._active.any():
+                self._apply_swap()
+                with self._cv:
+                    paused = self._draining
+            progressed = False if paused else self._admit()
+            progressed = self._decode_once() or progressed
+            if not progressed:
+                with self._cv:
+                    if (self._running and self._swap is None
+                            and not self._cancelled
+                            and (paused or len(self._queue) == 0)):
+                        self._cv.wait(timeout=0.05)
+
+    def _cancel_requested(self) -> None:
+        """Retire every slot whose request was cancelled (loop thread only)."""
+        with self._cv:
+            if not self._cancelled:
+                return
+            cancelled, self._cancelled = self._cancelled, []
+        for pending in cancelled:
+            if pending.done():
+                continue
+            if self._queue.remove(pending):
+                self._finish(pending, [], "aborted", 0.0)
+                continue
+            for slot, state in enumerate(self._slots):
+                if state is not None and state.pending is pending:
+                    self._retire(slot, "aborted")
+                    break
+        self._metrics["queue_depth"].set(len(self._queue))
+
+    def _apply_swap(self) -> None:
+        """Apply a pending hot-swap (loop thread, zero active slots)."""
+        with self._cv:
+            if self._swap is None:
+                return  # hot_swap timed out and withdrew the request
+            spec, done = self._swap
+            self._spec = spec
+            self._swap = None
+        self._metrics["hot_swaps"].inc()
+        done.set()
+
+    def _crash(self, error: BaseException) -> None:
+        # Runs ON the loop thread after a failed step: every in-flight and
+        # queued request aborts (partial tokens included) and the engine
+        # refuses further work.
+        with self._cv:
+            self._crashed = True
+            self._error = error
+            self._running = False
+            self._thread = None
+            self._cv.notify_all()
+        for slot in range(self.num_slots):
+            if self._slots[slot] is not None:
+                self._retire(slot, "aborted")
+        while True:
+            pending = self._queue.pop()
+            if pending is None:
+                break
+            self._finish(pending, [], "aborted", 0.0)
+        self._metrics["queue_depth"].set(0)
+
+    def _admit(self) -> bool:
+        """Move queued requests into free slots (prefill).  FIFO with
+        head-of-line blocking: when the page pool can't fit the next
+        request yet, it waits for a retirement rather than being skipped —
+        no starvation of big requests."""
+        admitted = False
+        while True:
+            free = [i for i, st in enumerate(self._slots) if st is None]
+            if not free:
+                break
+            pending = self._queue.pop()
+            if pending is None:
+                break
+            need = self._cache.pages_needed(
+                len(pending.request.prompt) + pending.max_new
+            )
+            if not self._cache.can_alloc(need):
+                self._queue.requeue_front(pending)
+                break
+            self._prefill_into(free[0], pending, need)
+            admitted = True
+        self._metrics["queue_depth"].set(len(self._queue))
+        return admitted
+
+    def _prefill_into(self, slot: int, pending: _Pending, need: int) -> None:
+        req = pending.request
+        plen = len(req.prompt)
+        self._cache.alloc(slot, need)
+        # smallest bucket that fits the prompt (the ladder always ends at
+        # max_context and submit bounded plen, so next() can't exhaust)
+        width = next(w for w in self._buckets if w >= plen)
+        t0 = time.perf_counter()
+        span = NOOP_SPAN
+        if _truntime.enabled():
+            # the loop thread serves every request, so the ids ride span
+            # args; queue wait spans the enqueue-to-prefill gap
+            _trace.record(
+                "serving.queue_wait", pending.enqueue_t, t0,
+                request_id=req.request_id, trace_id=req.trace_id,
+                parent="serving.admit")
+            attrs: Dict[str, Any] = dict(
+                request_id=req.request_id, trace_id=req.trace_id,
+                parent="serving.admit", slot=slot, width=width, plen=plen)
+            if req.tenant:
+                attrs["tenant"] = req.tenant
+            span = _trace.span("serving.prefill", **attrs)
+        spec_on = self._draft_spec is not None and req.speculative is not False
+        with span:
+            prompt = self._host["prompt"].numpy()
+            prompt[:] = 0
+            prompt[:plen] = req.prompt
+            self._seed[slot] = seed_value(req.seed)
+            self._ctr[slot] = 0
+            self._dctr[slot] = 0
+            self._temp[slot] = req.temperature
+            self._topk[slot] = req.top_k
+            self._topp[slot] = req.top_p
+            self._upload()
+            with self._cv:
+                spec = self._spec
+            tok = self._prefill(spec, self._cache.k_pages, self._cache.v_pages, width, slot,
+                                plen, sample=True)
+            if spec_on:
+                dc = self._draft_cache
+                self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, slot, plen,
+                              sample=False)
+            tok0 = int(tok.item())  # device sync: the prefill is done here
+        now = time.perf_counter()
+        self._metrics["prefill_seconds"].observe(now - t0)
+        self._metrics["prefill_padded"].inc(width - plen)
+
+        state = _SlotState(pending, plen)
+        state.tokens.append(tok0)
+        state.ttft_s = now - pending.enqueue_t
+        self._metrics["ttft"].observe(state.ttft_s)
+        self._metrics["tokens"].inc()
+        self._slots[slot] = state
+        self._pos[slot] = plen
+        self._last[slot] = tok0
+        self._ctr[slot] = 1
+        self._active[slot] = True
+        self._spec_on[slot] = spec_on
+        self._refresh_gauges()
+
+        if req.eos_id is not None and tok0 == req.eos_id:
+            self._retire(slot, "eos")
+        elif len(state.tokens) >= pending.max_new:
+            self._retire(slot, "length")
+
+    def _decode_once(self) -> bool:
+        """One engine iteration over every active slot: a plain decode
+        step, or (with a draft model) m draft steps + one verify step."""
+        if not self._active.any():
+            return False
+        if self._draft_spec is not None:
+            self._spec_once()
+        else:
+            self._plain_once()
+        return True
+
+    def _step_span(self):
+        """A ``serving.decode_step`` span for one engine iteration, listing
+        the request ids it served (``args.requests``); NOOP when telemetry
+        is off."""
+        if not _truntime.enabled():
+            return NOOP_SPAN
+        reqs = [self._slots[i].pending.request
+                for i in range(self.num_slots)
+                if self._active[i] and self._slots[i] is not None]
+        attrs: Dict[str, Any] = {
+            "requests": [r.request_id for r in reqs],
+            "n_active": len(reqs),
+        }
+        traces = sorted({r.trace_id for r in reqs if r.trace_id})
+        if len(reqs) == 1:
+            attrs["request_id"] = reqs[0].request_id
+            attrs["parent"] = "serving.prefill"
+        if len(traces) == 1:
+            attrs["trace_id"] = traces[0]
+        elif traces:
+            attrs["trace_ids"] = traces
+        tenants = sorted({r.tenant for r in reqs if r.tenant})
+        if len(tenants) == 1:
+            attrs["tenant"] = tenants[0]
+        elif tenants:
+            attrs["tenants"] = tenants
+        return _trace.span("serving.decode_step", **attrs)
+
+    def _plain_once(self) -> None:
+        t0 = time.perf_counter()
+        with self._step_span():
+            self._upload()
+            with self._cv:
+                spec = self._spec
+            tok = self._decode(spec, self._cache.k_pages, self._cache.v_pages)
+            toks = tok.cpu().numpy()  # device sync: the step is done here
+        dt = time.perf_counter() - t0
+        self._metrics["token_latency"].observe(dt)
+        self._metrics["decode_steps"].inc()
+        self._ctr[self._active] += 1
+
+        for slot in range(self.num_slots):
+            state = self._slots[slot]
+            if state is None or not self._active[slot]:
+                continue
+            t = int(toks[slot])
+            state.tokens.append(t)
+            self._metrics["tokens"].inc()
+            self._pos[slot] += 1
+            self._last[slot] = t
+            eos = state.pending.request.eos_id
+            if eos is not None and t == eos:
+                self._retire(slot, "eos")
+            elif len(state.tokens) >= state.pending.max_new:
+                self._retire(slot, "length")
+
+    def _spec_once(self) -> None:
+        """One speculative iteration: chain m draft steps (the proposals
+        stay on the device between them), verify the window in one target
+        step, then emit each slot's accepted prefix."""
+        t0 = time.perf_counter()
+        m = self._spec_tokens
+        with self._step_span():
+            self._upload()
+            with self._cv:
+                spec = self._spec
+            st = self._dev
+            dc = self._draft_cache
+            last = st["last"]
+            drafts, qprobs = [], []
+            for i in range(m):
+                last, qp = self._draft_step(dc.k_pages, dc.v_pages, st["pos"] + i, last, i)
+                drafts.append(last)
+                qprobs.append(qp)
+            out, count, accepted = self._verify(
+                spec, self._cache.k_pages, self._cache.v_pages,
+                torch.stack(drafts, dim=1), torch.stack(qprobs, dim=1))
+            # one copy back: the iteration is done here
+            packed = torch.cat([out, count[:, None], accepted[:, None]], dim=1).cpu().numpy()
+        out, counts, acc = packed[:, :m], packed[:, m], packed[:, m + 1]
+        dt = time.perf_counter() - t0
+        self._metrics["token_latency"].observe(dt)
+        self._metrics["decode_steps"].inc()
+        spec_slots = self._active & self._spec_on
+        n_spec = int(spec_slots.sum())
+        if n_spec:
+            self._metrics["spec_proposed"].inc(m * n_spec)
+            self._metrics["spec_accepted"].inc(int(acc[spec_slots].sum()))
+        self._ctr[self._active] += 1
+        self._dctr[self._active] += m
+
+        for slot in range(self.num_slots):
+            state = self._slots[slot]
+            if state is None or not self._active[slot]:
+                continue
+            req = state.pending.request
+            retired = False
+            emitted = 0
+            for j in range(int(counts[slot])):
+                t = int(out[slot, j])
+                state.tokens.append(t)
+                emitted += 1
+                self._metrics["tokens"].inc()
+                if req.eos_id is not None and t == req.eos_id:
+                    self._retire(slot, "eos")
+                    retired = True
+                    break
+                if len(state.tokens) >= state.pending.max_new:
+                    self._retire(slot, "length")
+                    retired = True
+                    break
+            if not retired:
+                self._pos[slot] += emitted
+                self._last[slot] = int(out[slot, emitted - 1])
+
+    def _retire(self, slot: int, reason: str) -> None:
+        state = self._slots[slot]
+        self._cache.free(slot)
+        self._slots[slot] = None
+        self._active[slot] = False
+        self._spec_on[slot] = False
+        self._pos[slot] = 0
+        self._last[slot] = 0
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        self._topp[slot] = 1.0
+        self._finish(state.pending, state.tokens, reason, state.ttft_s)
+        self._refresh_gauges()
+
+    def _finish(self, pending: _Pending, tokens: List[int], reason: str,
+                ttft_s: float) -> None:
+        self._metrics["requests"].inc()
+        pending._resolve(GenerateResult(
+            request_id=pending.request.request_id,
+            prompt=list(pending.request.prompt),
+            tokens=list(tokens),
+            finish_reason=reason,
+            ttft_s=ttft_s,
+            latency_s=time.perf_counter() - pending.enqueue_t,
+            trace_id=pending.request.trace_id,
+        ))
+
+    def _refresh_gauges(self) -> None:
+        self._metrics["active_slots"].set(int(self._active.sum()))
+        self._metrics["pages_in_use"].set(self._cache.pages_in_use)

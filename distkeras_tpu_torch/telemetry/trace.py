@@ -1,14 +1,15 @@
 """Span tracer recording Chrome trace events.
 
 The port of :mod:`distkeras_tpu.telemetry.trace` as far as the predictor
-uses it:
+and the serving engine use it:
 
     with trace.span("predict", rows=n):
         with trace.span("predict_batch", phase="infer"):
             ...
 
 Spans clock with ``time.perf_counter``, nest per thread, and are recorded as
-complete (``"ph": "X"``) events carrying an explicit ``args.parent``.  With
+complete (``"ph": "X"``) events carrying an explicit ``args.parent``;
+:meth:`Tracer.record` records a span timed elsewhere.  With
 telemetry off, ``span()`` returns a shared no-op context manager.  The
 ``phase=`` histograms, trace export, request-trace binding and flight
 recorder of the JAX package come with the telemetry slice; until then
@@ -79,6 +80,15 @@ class Tracer:
             return NOOP_SPAN
         del phase  # read by the phase histograms of the telemetry slice
         return Span(self, name, attrs)
+
+    def record(self, name, t0, t1, **attrs):
+        """Record an already-timed span (``perf_counter`` endpoints) without
+        entering a context manager — for threads attributing work that began
+        elsewhere, like the serving loop recording a request's queue wait
+        from its admission-thread enqueue timestamp."""
+        if not runtime.enabled():
+            return
+        self._record(name, t0, t1, None, attrs)
 
     def _stack(self):
         stack = getattr(self._tls, "stack", None)

@@ -220,3 +220,61 @@ def test_remat_graph_phase_on_the_card(monkeypatch, capsys):
     assert row["launches_eager"] == [expected] * 3 == [2 * 16] * 3
     assert row["launches_remat"] == [2 * expected, expected, expected]
     assert row["fresh_masks_each_replay"] and row["replay_repeatable"]
+
+
+@pytest.fixture
+def tiny_serving(monkeypatch):
+    # the phase's widths cut to a CPU's size, its head dims (64) kept
+    monkeypatch.setattr(chip_smoke, "SERVE_MODEL", dict(vocab_size=64, dim=128, heads=2,
+                                                        num_layers=2, max_len=64))
+    monkeypatch.setattr(chip_smoke, "SERVE_DRAFT", dict(vocab_size=64, dim=64, heads=1,
+                                                        num_layers=2, max_len=64))
+    monkeypatch.setattr(chip_smoke, "SERVE_GREEDY", (2, 8, 6))
+    monkeypatch.setattr(chip_smoke, "SERVE_SLOTS", 3)
+    monkeypatch.setattr(chip_smoke, "SERVE_PAGE", 8)
+    monkeypatch.setattr(chip_smoke, "SERVE_REQUESTS", 6)
+    monkeypatch.setattr(chip_smoke, "SERVE_PROMPT_LEN", (4, 20))
+    monkeypatch.setattr(chip_smoke, "SERVE_NEW_TOKENS", (4, 10))
+    monkeypatch.setattr(chip_smoke, "SERVE_STAGGER_S", 0.005)
+    monkeypatch.setattr(chip_smoke, "SERVE_SPEC_PROMPTS", 2)
+    monkeypatch.setattr(chip_smoke, "SERVE_PREDICT", (4, 6, 4))
+    monkeypatch.setattr(chip_smoke, "SERVE_PROFILE", (8, 4))
+
+
+def test_serving_phase_rehearsal(on_cpu, tiny_serving, capsys):
+    out = chip_smoke.serving_phase(0)
+    printed = _emitted(capsys, "serving")
+    assert [r["case"] for r in printed] == ["greedy", "engine", "speculative"]
+    greedy, engine, spec = out["greedy"], out["engine"], out["speculative"]
+    # the CPU runs the plain attention: no kernel launch to count
+    assert greedy["launches_b1"] == greedy["launches_b1_check"] == engine["launches_b1"] == 0
+    assert engine["launches_b2_b3"] == [0, 0]
+    assert greedy["departures"] == [] and engine["greedy_departures"] == []
+    assert engine["eos_finish"] == "eos" and engine["queue_full_rejected"] == 1
+    assert engine["pages_after"] == 0 and 0 < engine["peak_pages"] <= engine["pages_total"]
+    assert engine["buckets"] == [8, 16, 32, 64]
+    assert set(engine["prefill_ms"]) <= {8, 16, 32, 64} and engine["decode_steps"] > 0
+    assert engine["ttft_ms_p50"] <= engine["ttft_ms_p99"]
+    # no profiler on the CPU
+    assert engine["profiled_decode"]["device_busy_share"] is None
+    assert engine["profiled_decode"]["device_ops_per_step"] is None
+    assert 0 < engine["decode_tokens_per_s"] and 0 < engine["generated_tokens_per_s"]
+    faithful = spec["faithful"]
+    assert faithful["accept_rate"] == 1.0 and faithful["steps_per_decode_token"] < 1
+    # one request at a time: a step emits at least one token, so never more
+    # steps than decode tokens
+    assert spec["draft"]["steps_per_decode_token"] <= 1
+    assert spec["draft"]["departures"] == [] and spec["draft"]["proposed"] > 0
+
+
+@pytest.mark.cuda
+def test_serving_phase_on_the_card(tiny_serving, capsys):
+    # the phase at the tiny widths on the card: its checks, B1 in the check
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = chip_smoke.serving_phase(0)
+    assert out["greedy"]["launches_b1"] == out["engine"]["launches_b1"] == 0
+    assert out["engine"]["launches_b2_b3"] == [0, 0]
+    assert out["greedy"]["launches_b1_check"] == 2
+    assert out["engine"]["profiled_decode"]["steps"] > 0
+    assert out["engine"]["profiled_decode"]["device_ops_per_step"] > 0

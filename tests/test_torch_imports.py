@@ -3,7 +3,8 @@ flax, optax or the JAX package, and no module of the port (nor its
 ``scripts/`` or ``chip_smoke.py``) imports them.  Importing the package also loads no
 ``keras`` (the Keras adapter imports it when a Keras model is adapted) and
 sets up no ``torch.distributed`` process group (``networking.initialize``
-does, when called)."""
+does, when called).  The serving slice's modules (``serving/``,
+``models/generate.py``, ``telemetry/metrics.py``) are held to the same."""
 
 import ast
 import os
@@ -52,7 +53,10 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.ops.pooling, distkeras_tpu_torch.models.zoo, "
         "distkeras_tpu_torch.native, distkeras_tpu_torch.datapipe, "
         "distkeras_tpu_torch.checkpoint, distkeras_tpu_torch.fleet, "
-        "distkeras_tpu_torch.telemetry.correlate\n"
+        "distkeras_tpu_torch.telemetry.correlate, distkeras_tpu_torch.telemetry.metrics, "
+        "distkeras_tpu_torch.models.generate, distkeras_tpu_torch.serving, "
+        "distkeras_tpu_torch.serving.cache, distkeras_tpu_torch.serving.sampling, "
+        "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -74,7 +78,9 @@ def test_sources_found():
     for module in ("transformers", "evaluators", "networking", "utils/serialization",
                    "utils/tb", "models/keras_adapter", "native/__init__", "datapipe/__init__",
                    "datapipe/source", "datapipe/ring", "datapipe/state", "checkpoint",
-                   "fleet", "telemetry/correlate"):
+                   "fleet", "telemetry/correlate", "telemetry/metrics", "models/generate",
+                   "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
+                   "serving/engine"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

@@ -100,11 +100,45 @@ def test_default_device_raises_without_cuda(models):
         TrainedModel(TorchModel(port_model), port_params)
 
 
-@pytest.mark.parametrize("kwargs", [{"num_devices": 2}, {"engine": object()}])
+@pytest.mark.parametrize("kwargs", [{"num_devices": 2}])
 def test_unported_modes_raise(models, kwargs):
     _, _, port_model, port_params, _ = models
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tdk.ModelPredictor(port_model, params=port_params, device="cpu", **kwargs)
+
+
+def test_engine_predictions_match_jax():
+    # ModelPredictor(engine=) (ported with the serving slice): each row is a
+    # prompt, the column holds its greedy continuation, as the JAX
+    # predictor's through the JAX engine on the same parameters
+    from distkeras_tpu.models.transformer import TransformerLM as JaxLM
+    from distkeras_tpu.serving import ServingEngine as JaxEngine
+    from distkeras_tpu.telemetry.metrics import Registry as JaxRegistry
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.serving import ServingEngine
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    cfg = dict(vocab_size=23, dim=16, heads=2, num_layers=2, max_len=32)
+    jax_model = JaxLM(**cfg)
+    params = jax_model.init(jax.random.key(0), np.zeros((1, 4), np.int32))["params"]
+    port_model = TransformerLM(**cfg)
+    prompts = np.random.default_rng(6).integers(0, 23, (7, 4)).astype(np.int32)
+    ref_engine = JaxEngine(jax_model, params, num_slots=3, page_size=8, registry=JaxRegistry())
+    engine = ServingEngine(port_model, params_from_flax(port_model, params), num_slots=3,
+                           page_size=8, queue_size=2, registry=Registry(), device="cpu")
+    try:
+        ref = jdk.ModelPredictor(engine=ref_engine, max_new_tokens=5).predict(
+            jdk.from_numpy(prompts))
+        predictor = tdk.ModelPredictor(engine=engine, max_new_tokens=5)
+        out = predictor.predict(tdk.from_numpy(prompts))
+    finally:
+        ref_engine.stop()
+        engine.stop()
+    assert predictor.last_mode == "engine" and out.columns == ref.columns
+    assert [list(v) for v in out["prediction"]] == [list(v) for v in ref["prediction"]]
+    assert all(len(v) == 5 for v in out["prediction"])
+    with pytest.raises(TypeError, match="engine"):
+        tdk.ModelPredictor()  # neither a model nor an engine
 
 
 def _span_shapes(events):

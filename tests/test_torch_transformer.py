@@ -147,12 +147,32 @@ def test_block_matches_jax():
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("what", ["decode", "seq_axis_lm", "seq_axis_classifier", "packed"])
+def test_decode_matches_jax(jax_reference):
+    # KV-cache decode (ported with the serving slice): a prefill chunk and
+    # two single-token steps, each against the flax model's decode=True
+    import jax.numpy as jnp
+
+    flax_params, _ = jax_reference("lm")
+    jax_model, model = _pair("lm")
+    params = params_from_flax(model, flax_params)
+    tokens = _tokens()
+    cache = model.init_cache(tokens.shape[0])
+    variables = {"params": flax_params}
+    for a, b in ((0, 20), (20, 21), (21, 22)):
+        ref, mutated = jax_model.apply(variables, jnp.asarray(tokens[:, a:b]), decode=True,
+                                       mutable=["cache"])
+        variables = {"params": flax_params, "cache": mutated["cache"]}
+        with torch.no_grad():
+            out = torch.func.functional_call(model, params, (torch.from_numpy(tokens[:, a:b]),),
+                                             {"decode": True, "cache": cache})
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert cache.index == 22
+
+
+@pytest.mark.parametrize("what", ["seq_axis_lm", "seq_axis_classifier", "packed"])
 def test_unported_options_raise(what):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        if what == "decode":
-            TransformerLM(**CFG)(torch.from_numpy(_tokens()), decode=True)
-        elif what == "seq_axis_lm":
+        if what == "seq_axis_lm":
             TransformerLM(**CFG, seq_axis="seq")
         elif what == "seq_axis_classifier":
             TransformerClassifier(**CFG, seq_axis="seq")
