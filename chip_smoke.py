@@ -101,7 +101,29 @@ toolkit.  Phases, each printing JSON lines:
     ``ModelPredictor(engine=)``; TTFT and step-latency quantiles, decode
     tokens/s, the profiled decode step, prefill ms per bucket, peak pages
     and memory.  A greedy token may differ from its reference only where
-    the reference's two best logits are within ``GREEDY_GAP``.
+    the reference's two best logits are within ``GREEDY_GAP``;
+17. packing: 96 ragged sequences (``bench.py``'s log-normal length mix
+    scaled to width 1024, clipped to 16..1024) through ``pack_sequences``
+    (efficiency printed), each segment's logits through a GPT-2-small
+    ``TransformerLM(packed=True)`` against the same sequence alone through
+    its ``packed=False`` twin on the same parameters (B1) within
+    ``PACK_LOGITS_ATOL``, and ``DOWNPOUR`` (2 workers, batch 4, window 2,
+    2 epochs) on 16 packed rows with ``masked_token_crossentropy``: real
+    tokens/s, peak memory, a finite loss;
+18. mesh: (a) ``networking.initialize`` over NCCL at world size 1 and
+    ``make_mesh()``: ``cifar_cnn_downpour`` eager and in captured windows
+    (the commit's all-reduce inside the graph) bitwise the epochs phase's
+    no-mesh run, and the train phase's GPT-2-small ``DOWNPOUR`` over the
+    mesh launching B1-B3 as often as there; (b) two gloo ranks spawned on
+    the one card (``--mesh-rank``; NCCL refuses two ranks on one card),
+    ``cifar_cnn_downpour`` with 4 workers, 2 a rank, against one rank
+    with 4: commit counts exact, the first window's center in f32 within
+    ``MESH_F32_PARAM_ATOL``, the bf16 run (2 epochs) within
+    ``MESH_BF16_*``, samples/s; (c) where the machine has several cards,
+    ``min(4, count)`` NCCL ranks, one a card, the same checks (one card:
+    ``mesh_cards_run: 1``); (d) ``ModelPredictor`` over every card and
+    over two replicas on one card within ``MESH_PREDICT_ATOL`` of
+    ``num_devices=1``.
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -109,9 +131,12 @@ as the model needs, and hold the output against the same model on the CPU
 (phase 15: against the eager run).  Phase 16 does so around the serving
 path, which launches no kernel of the port's own (decode attention is the
 reference's plain masked product, as there), and around its check's
-forward, which launches B1.  Phases 7 to 9 and 11 to 14 run no
-kernel of the port's own: convolutions, dense products and embedding
-gathers are PyTorch's.  The last lines are a ``{"kernels":
+forward, which launches B1; phase 17 around the packed forwards and the
+packed training (0 launches: the packed path is the reference's masked
+product, as there) and each segment's forward alone (B1); phase 18
+around its GPT-2 run over the mesh.  Phases 7 to 9, 11 to 14 and 18's
+CIFAR runs launch no kernel of the port's own: convolutions, dense
+products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits non-zero without
 the ``ok`` line; so does a machine without CUDA.
@@ -559,9 +584,26 @@ def lm_task(rows: int, seq: int, vocab: int, seed: int):
     return x.astype(np.int32), ((x + 1) % vocab).astype(np.int32)
 
 
+def _gpt2_downpour(seed: int):
+    """The train phase's ``DOWNPOUR`` over a GPT-2-small ``TransformerLM``:
+    ``(model, trainer, x, y)``."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**GPT2_SMALL, generator=torch.Generator().manual_seed(seed + 2))
+    x, y = lm_task(TRAIN_ROWS, TRAIN_SEQ, GPT2_SMALL["vocab_size"], seed + 2)
+    trainer = _keeping_fit(tdk.DOWNPOUR)(
+        model, loss="token_crossentropy", metrics=("token_accuracy",),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=TRAIN_EPOCHS,
+        seed=seed, device="cuda",
+    )
+    return model, trainer, x, y
+
+
 def train_phase(seed: int):
     import distkeras_tpu_torch as tdk
-    from distkeras_tpu_torch.models import TorchModel, TransformerLM
+    from distkeras_tpu_torch.models import TorchModel
     from distkeras_tpu_torch.ops import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -569,14 +611,7 @@ def train_phase(seed: int):
         get_loss,
     )
 
-    model = TransformerLM(**GPT2_SMALL, generator=torch.Generator().manual_seed(seed + 2))
-    x, y = lm_task(TRAIN_ROWS, TRAIN_SEQ, GPT2_SMALL["vocab_size"], seed + 2)
-    trainer = tdk.DOWNPOUR(
-        model, loss="token_crossentropy", metrics=("token_accuracy",),
-        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
-        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=TRAIN_EPOCHS,
-        seed=seed, device="cuda",
-    )
+    model, trainer, x, y = _gpt2_downpour(seed)
     # warm-up outside the counted run: cuBLAS handles, allocator, kernels
     adapter = TorchModel(model)
     loss_fn = get_loss("token_crossentropy")
@@ -1299,10 +1334,7 @@ def networking_phase(seed: int):
 
     from distkeras_tpu_torch import networking
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    networking.initialize(f"127.0.0.1:{port}", 1, 0, device=ZOO_DEVICE)
+    networking.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=ZOO_DEVICE)
     try:
         backend = dist.get_backend()
         t = torch.arange(8, dtype=torch.float32, device=ZOO_DEVICE)
@@ -1359,11 +1391,12 @@ def _cifar_trainer(model_seed: int, **kwargs):
     _, trainer_name, model_name, model_kw, batch, _, _, _, opt, extra = _epochs_config()
     model = getattr(zoo, model_name)(**model_kw,
                                      generator=torch.Generator().manual_seed(model_seed))
-    kwargs = dict(dict(num_epoch=ZOO_EPOCHS, **extra), **kwargs)
+    kwargs = dict(dict(num_epoch=ZOO_EPOCHS, compute_dtype="bfloat16", num_workers=ZOO_WORKERS,
+                       **extra), **kwargs)
     return _keeping_fit(getattr(tdk, trainer_name))(
         model, loss="categorical_crossentropy", metrics=(), batch_size=batch,
-        seed=model_seed, compute_dtype="bfloat16", device=ZOO_DEVICE, worker_optimizer=opt,
-        num_workers=ZOO_WORKERS, communication_window=ZOO_WINDOW, **kwargs)
+        seed=model_seed, device=ZOO_DEVICE, worker_optimizer=opt,
+        communication_window=ZOO_WINDOW, **kwargs)
 
 
 def _trained(trainer, frame):
@@ -1377,12 +1410,19 @@ def _trained(trainer, frame):
 
 def _versus(run, reference):
     """How far ``run`` lies from ``reference``: bitwise?, the largest loss
-    relative error and center-parameter difference."""
+    relative error and center-parameter difference, and the norm of the
+    parameters' difference relative to the reference's (all leaves as one
+    vector)."""
     loss = max(abs(a - b) / abs(b) for a, b in zip(run["loss"], reference["loss"]))
     param = max(float((run["params"][k] - v).abs().max()) for k, v in reference["params"].items())
+    diff = sum(float((run["params"][k] - v).double().square().sum())
+               for k, v in reference["params"].items())
+    norm = sum(float(v.double().square().sum()) for v in reference["params"].values())
+    rel = (diff / max(norm, 1e-300)) ** 0.5
     bitwise = run["loss"] == reference["loss"] and all(
         torch.equal(run["params"][k], v) for k, v in reference["params"].items())
-    return dict(bitwise=bitwise, loss_rel_err=loss, max_param_err=param)
+    return dict(bitwise=bitwise, loss_rel_err=loss, max_param_err=param,
+                param_rel_norm_err=rel)
 
 
 def _steady(trainer, x, y, dispatch: bool):
@@ -2122,10 +2162,395 @@ def serving_phase(seed: int):
     return out
 
 
+# packing phase: GPT-2-small widths at pack width 1024, random weights from
+# --seed; bench.py's ragged length mix (log-normal, mu 4.0 and sigma 0.8 at
+# width 256, bench.py:1946-1948) scaled to width 1024 (mu 4.0 + ln 4) and
+# clipped to 16..1024
+PACK_MODEL = GPT2_SMALL
+PACK_WIDTH, PACK_SEQUENCES, PACK_MIN_LEN = 1024, 96, 16
+PACK_LOGITS_ATOL = 1e-4  # a segment's packed logits against its logits alone (B1)
+PACK_EPOCHS = 2
+# mesh phase: cifar_cnn_downpour with 4 workers over ranks of one group
+MESH_WORKERS, MESH_RANK_TIMEOUT_S = 4, 600
+MESH_F32_PARAM_ATOL = 1e-5  # the first window's center in f32, 2 ranks against 1
+# the bf16 run (2 epochs) at 2 ranks against 1 rank: the commit's sum order
+# differs, (w0 + w1) + (w2 + w3) against w0 + w1 + w2 + w3, and the bf16
+# steps amplify that ulp into a different trajectory.  scripts/mesh_tolerance.py
+# measured it on the CPU (this commit pattern, batch 16 and 32, seeds 0-3):
+# loss within 1.5e-4 relative, parameters within 5.6e-3 in relative norm;
+# the bounds are about 5x those
+MESH_BF16_LOSS_RTOL, MESH_BF16_PARAM_RTOL = 1e-3, 3e-2
+MESH_PREDICT_ROWS, MESH_PREDICT_ATOL = 1024, 1e-5
+CARD = None  # the nvidia-smi name and power limit, beside the new phases' numbers
+
+
+def packed_lengths(n: int, width: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    mu = 4.0 + np.log(width / 256)
+    return np.clip(rng.lognormal(mu, 0.8, size=n).astype(int), PACK_MIN_LEN, width)
+
+
+def packing_phase(seed: int):
+    """Sequence packing at GPT-2-small widths: ``pack_sequences`` over the
+    ragged mix, every segment's logits through ``TransformerLM(packed=True)``
+    against the same sequence alone through its ``packed=False`` twin on the
+    same parameters (B1, on the card), and ``DOWNPOUR`` over the packed rows
+    with ``masked_token_crossentropy``.  The packed path is the reference's
+    masked product (no kernel has a segment mask): B1-B3 launch 0 times in
+    the packed forwards and the packed training."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.datapipe import pack_sequences
+    from distkeras_tpu_torch.models import TorchModel, TransformerLM
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    cfg = dict(PACK_MODEL, max_len=PACK_WIDTH)
+    rng = np.random.default_rng(seed + 7)
+    seqs = [rng.integers(1, cfg["vocab_size"], size=int(m)).astype(np.int32)
+            for m in packed_lengths(PACK_SEQUENCES, PACK_WIDTH, seed + 7)]
+    t0 = time.perf_counter()
+    pb = pack_sequences(seqs, PACK_WIDTH)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    rows = pb.tokens.shape[0]
+    train_rows = TRAIN_WORKERS * TRAIN_BATCH * TRAIN_WINDOW
+    if rows < train_rows:
+        raise AssertionError(f"packing: {rows} rows, the training needs {train_rows}")
+
+    packed = TransformerLM(**cfg, packed=True, generator=torch.Generator().manual_seed(seed + 7))
+    params = {k: p.detach().to(ZOO_DEVICE) for k, p in packed.named_parameters()}
+    on_card, twin = TorchModel(packed), TorchModel(TransformerLM(**cfg))
+    inputs = pb.model_inputs()
+    worst, packed_launches, alone_launches = 0.0, 0, 0
+    with torch.inference_mode():
+        for r in range(rows):
+            flash_attention.launches = 0
+            out = on_card.apply(params, {}, torch.from_numpy(inputs[r:r + 1]).to(ZOO_DEVICE))[0][0]
+            packed_launches += flash_attention.launches
+            for seg in range(1, int(pb.segment_ids[r].max()) + 1):
+                sel = torch.from_numpy(pb.segment_ids[r] == seg).to(ZOO_DEVICE)
+                tokens = torch.from_numpy(pb.tokens[r][pb.segment_ids[r] == seg])[None]
+                flash_attention.launches = 0
+                alone = twin.apply(params, {}, tokens.to(ZOO_DEVICE))[0][0]
+                alone_launches += flash_attention.launches
+                worst = max(worst, float((out[sel] - alone).abs().max()))
+            del out
+
+    x, y = inputs[:train_rows], pb.labels[:train_rows]
+    real_tokens = int((pb.segment_ids[:train_rows] != 0).sum())
+    trainer = tdk.DOWNPOUR(
+        packed, loss="masked_token_crossentropy", metrics=(),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=PACK_EPOCHS,
+        seed=seed, device=ZOO_DEVICE)
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    trainer.train(tdk.from_numpy(x, y))
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    train_launches = [c.launches for c in counters]
+    history = trainer.get_history()
+    row = dict(model="TransformerLM", packed=True, **cfg, sequences=len(seqs), width=PACK_WIDTH,
+               rows=rows, lengths=[int(min(map(len, seqs))), int(max(map(len, seqs)))],
+               real_tokens=pb.total_tokens, efficiency=pb.efficiency,
+               fixed_width_padding_fraction=1.0 - pb.total_tokens / (len(seqs) * PACK_WIDTH),
+               pack_ms=pack_ms, max_abs_err_packed_vs_alone=worst, atol=PACK_LOGITS_ATOL,
+               launches_packed_forward=packed_launches, launches_alone=alone_launches,
+               expected_launches_alone=cfg["num_layers"] * len(seqs),
+               train=dict(trainer="DOWNPOUR", loss_fn="masked_token_crossentropy",
+                          workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+                          epochs=PACK_EPOCHS, rows=train_rows, real_tokens=real_tokens,
+                          loss=history["loss"], seconds=history["training_time"],
+                          real_tokens_per_s=PACK_EPOCHS * real_tokens / history["training_time"],
+                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          num_updates=trainer.num_updates, launches_b1_b2_b3=train_launches),
+               card=CARD)
+    emit(phase="packing", **row)
+    if worst > PACK_LOGITS_ATOL:
+        raise AssertionError(f"packing: packed and alone logits differ by {worst}")
+    if packed_launches or any(train_launches):
+        raise AssertionError(f"packing: the packed path launched a kernel: forward "
+                             f"{packed_launches}, training {train_launches}")
+    want = row["expected_launches_alone"] if ZOO_DEVICE == "cuda" else 0
+    if alone_launches != want:
+        raise AssertionError(f"packing: B1 launched {alone_launches} times alone, expected {want}")
+    if not np.isfinite(history["loss"]).all():
+        raise AssertionError(f"packing: loss not finite: {history['loss']}")
+    return row
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_frame(seed: int):
+    """The epochs phase's cifar_cnn_downpour rows: ``(x, y)``."""
+    batch, shape = _epochs_config()[4], _epochs_config()[5]
+    return zoo_data(shape, False, 10, ZOO_WORKERS * EPOCHS_WINDOWS * ZOO_WINDOW * batch, seed)
+
+
+def _mesh_runs(seed: int) -> dict:
+    """cifar_cnn_downpour with MESH_WORKERS workers over whatever group this
+    process is in (none: one rank): one window in f32, and the bf16 run of
+    2 epochs.  Returns the runs and their commit counts."""
+    import distkeras_tpu_torch as tdk
+
+    x, y = _mesh_frame(seed)
+    one_window = MESH_WORKERS * ZOO_WINDOW * _epochs_config()[4]
+    out = {}
+    for name, rows, kwargs in (("f32", one_window, dict(num_epoch=1, compute_dtype=None)),
+                               ("bf16", len(x), {})):
+        trainer = _cifar_trainer(seed, num_workers=MESH_WORKERS, **kwargs)
+        # deterministic convolutions: cuDNN's default choice for f32 may sum a
+        # weight gradient with atomics, and then no two runs agree, whatever
+        # the ranks (the workers' own steps must be the same at one rank and
+        # at two for the commit's sum order to be all that differs)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            run = _trained(trainer, tdk.from_numpy(x[:rows], y[:rows]))
+        engine = trainer.fit_result[0]
+        run.update(num_updates=trainer.num_updates, ranks=engine.ranks, rows=rows,
+                   samples_per_s=len(run["loss"]) * rows / run["seconds"])
+        out[name] = run
+        del trainer, engine
+    return out
+
+
+def mesh_rank_main(spec_path: str) -> int:
+    """One spawned rank of the mesh phase: the settings of the parent (its
+    device, sizes and configuration) from ``spec_path``, the group joined,
+    :func:`_mesh_runs`, the group left on every path; rank 0 writes the
+    runs next to the spec."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, ZOO_WINDOW, EPOCHS_WINDOWS, ZOO_EPOCHS, ZOO_CONFIGS
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, ZOO_WINDOW = spec["device"], spec["window"]
+    EPOCHS_WINDOWS, ZOO_EPOCHS = spec["windows"], spec["epochs"]
+    config = list(spec["config"])  # JSON made the tuples lists
+    config[5] = tuple(config[5])
+    config[8] = None if config[8] is None else tuple(config[8])
+    ZOO_CONFIGS = [tuple(config)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        runs = _mesh_runs(spec["seed"])
+    finally:
+        dist.destroy_process_group()
+    if spec["rank"] == 0:
+        torch.save(runs, spec["out"])
+    return 0
+
+
+def _spawn_mesh(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
+    """Spawn ``world`` ranks of this script (``--mesh-rank``), each on
+    ``cuda:0`` or, with ``cards``, on ``cuda:<rank>``; wait for all of them
+    and return rank 0's runs.  A rank that fails fails the phase, and no
+    rank outlives it."""
+    import os
+
+    port, out = _free_port(), os.path.join(workdir, f"mesh_{backend}_{world}.pt")
+    procs = []
+    try:
+        for rank in range(world):
+            spec = dict(seed=seed, device=ZOO_DEVICE, window=ZOO_WINDOW, windows=EPOCHS_WINDOWS,
+                        epochs=ZOO_EPOCHS, config=list(_epochs_config()), backend=backend,
+                        world=world, rank=rank, port=port, out=out,
+                        device_index=rank if cards else 0,
+                        # the parent's: on the CPU the thread count changes the
+                        # convolutions' sums, which this run amplifies
+                        threads=torch.get_num_threads())
+            path = os.path.join(workdir, f"spec_{backend}_{world}_{rank}.json")
+            with open(path, "w", encoding="utf-8") as fh:
+                json.dump(spec, fh)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", path],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        logs = [p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh: rank {rank} of {world} ({backend}) exited "
+                                 f"{p.returncode}:\n{log[-3000:]}")
+    return torch.load(out)
+
+
+def _mesh_versus(got: dict, want: dict) -> dict:
+    """A spawned run against the one-rank run, and the phase's gates."""
+    f32 = _versus(got["f32"], want["f32"])
+    bf16 = _versus(got["bf16"], want["bf16"])
+    row = dict(ranks=got["f32"]["ranks"], f32_vs_one_rank=f32, bf16_vs_one_rank=bf16,
+               num_updates=[got["f32"]["num_updates"], got["bf16"]["num_updates"]],
+               num_updates_one_rank=[want["f32"]["num_updates"], want["bf16"]["num_updates"]],
+               bf16_loss=got["bf16"]["loss"], samples_per_s=got["bf16"]["samples_per_s"],
+               samples_per_s_one_rank=want["bf16"]["samples_per_s"],
+               f32_param_atol=MESH_F32_PARAM_ATOL, bf16_loss_rtol=MESH_BF16_LOSS_RTOL,
+               bf16_param_rel_norm_rtol=MESH_BF16_PARAM_RTOL)
+    failures = []
+    if row["num_updates"] != row["num_updates_one_rank"]:
+        failures.append("commit counts differ")
+    if not f32["max_param_err"] <= MESH_F32_PARAM_ATOL:
+        failures.append(f"f32 first window's center off by {f32['max_param_err']}")
+    if not (bf16["loss_rel_err"] <= MESH_BF16_LOSS_RTOL
+            and bf16["param_rel_norm_err"] <= MESH_BF16_PARAM_RTOL):
+        failures.append(f"bf16 run off: {bf16}")
+    if not np.isfinite(got["bf16"]["loss"]).all():
+        failures.append("bf16 loss not finite")
+    return row, failures
+
+
+def mesh_phase(seed: int, eager_run, frame, train_launches, train_run) -> dict:
+    """Training over meshes: (a) one NCCL rank through ``networking.initialize``
+    and ``make_mesh()``, cifar_cnn_downpour bitwise the epochs phase's
+    no-mesh run (eager, and captured windows whose commit all-reduce sits in
+    the graph, within the epochs phase's gates), and the train phase's
+    GPT-2-small ``DOWNPOUR`` launching B1-B3 as often as there; (b) two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one card),
+    spawned, cifar_cnn_downpour with 4 workers against one rank with 4;
+    (c) on a machine with several cards, ``min(4, count)`` NCCL ranks, one
+    a card; (d) ``ModelPredictor`` over every card, and over two replicas
+    on one card, against ``num_devices=1``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch import networking
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel import make_mesh
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    out = {}
+    # (a) one rank over NCCL (gloo on a CPU rehearsal)
+    networking.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=ZOO_DEVICE)
+    try:
+        mesh = make_mesh()
+        row = dict(case="one_rank", backend=dist.get_backend(), mesh=type(mesh).__name__,
+                   mesh_dim_names=list(mesh.mesh_dim_names), ranks=mesh.size())
+        trainer = _cifar_trainer(seed)
+        run = _trained(trainer, frame)
+        engine = trainer.fit_result[0]
+        row.update(engine_group=engine.group is not None, vs_no_mesh=_versus(run, eager_run),
+                   samples_per_s=ZOO_EPOCHS * len(frame) / run["seconds"])
+        del trainer, engine
+        trainer = _cifar_trainer(seed, unroll=True)
+        run = _trained(trainer, frame)
+        engine = trainer.fit_result[0]
+        row.update(graph=dict(use_graphs=engine.use_graphs, stats=dict(engine.graph_stats),
+                              vs_no_mesh_eager=_versus(run, eager_run)))
+        del trainer, engine
+        if ZOO_DEVICE == "cuda":
+            _, trainer, x, y = _gpt2_downpour(seed)
+            for c in counters:
+                c.launches = 0
+            lm = _trained(trainer, tdk.from_numpy(x, y))
+            row.update(lm=dict(launches=[c.launches for c in counters],
+                               launches_train_phase=list(train_launches.values()),
+                               engine_group=trainer.fit_result[0].group is not None,
+                               vs_train_phase=_versus(lm, train_run)))
+            del trainer
+    finally:
+        networking.shutdown()
+    row["card"] = CARD
+    emit(phase="mesh", **row)
+    out["one_rank"] = row
+    if not (row["vs_no_mesh"]["bitwise"] and row["engine_group"]):
+        raise AssertionError(f"mesh: one NCCL rank is not the no-mesh run: {row}")
+    graph = row["graph"]["vs_no_mesh_eager"]
+    if ZOO_DEVICE == "cuda" and not row["graph"]["use_graphs"]:
+        raise AssertionError("mesh: unroll=True did not capture over the one-rank mesh")
+    if graph["loss_rel_err"] > GRAPH_LOSS_RTOL or graph["max_param_err"] > GRAPH_PARAM_ATOL:
+        raise AssertionError(f"mesh: the captured windows differ from eager: {graph}")
+    if "lm" in row and (row["lm"]["launches"] != row["lm"]["launches_train_phase"]
+                        or not row["lm"]["engine_group"]):
+        raise AssertionError(f"mesh: the GPT-2 DOWNPOUR over the mesh: {row['lm']}")
+
+    # (b) two ranks on the one card, and (c) one rank a card
+    one_rank = _mesh_runs(seed)
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    with tempfile.TemporaryDirectory() as workdir:
+        got = _spawn_mesh(seed, 2, "gloo", False, workdir)
+        row, failures = _mesh_versus(got, one_rank)
+        row = dict(case="two_ranks_one_card", backend="gloo", **row, card=CARD)
+        emit(phase="mesh", **row)
+        out["two_ranks"] = row
+        if failures:
+            raise AssertionError(f"mesh: two ranks on one card: {failures}")
+        if count > 1:
+            world = min(4, count)
+            got = _spawn_mesh(seed, world, "nccl", True, workdir)
+            row, failures = _mesh_versus(got, one_rank)
+            row = dict(case="cards", backend="nccl", mesh_cards_run=world, **row, card=CARD)
+            emit(phase="mesh", **row)
+            out["cards"] = row
+            if failures:
+                raise AssertionError(f"mesh: {world} cards: {failures}")
+        else:
+            emit(phase="mesh", case="cards", mesh_cards_run=1,
+                 reason="this machine has one card: the several-card run needs "
+                        "torch.cuda.device_count() > 1", card=CARD)
+
+    # (d) the predictor over the cards, and two replicas on one card
+    from distkeras_tpu_torch.models import zoo
+
+    x, _ = _mesh_frame(seed)
+    rows = tdk.from_numpy(x[:MESH_PREDICT_ROWS])
+    _, _, model_name, model_kw, batch = _epochs_config()[:5]
+    model = getattr(zoo, model_name)(**model_kw, generator=torch.Generator().manual_seed(seed))
+    ref = tdk.ModelPredictor(model, batch_size=batch, num_devices=1, device=ZOO_DEVICE)
+    want = ref.predict(rows)["prediction"]
+    row = dict(case="predictor", rows=MESH_PREDICT_ROWS, batch_size=batch, atol=MESH_PREDICT_ATOL,
+               card=CARD)
+    for name, kwargs in (("all_cards", dict(num_devices=count, device=ZOO_DEVICE)),
+                         ("two_replicas_one_card", dict(num_devices=2, device=[ZOO_DEVICE] * 2))):
+        pred = tdk.ModelPredictor(model, batch_size=batch, **kwargs)
+        got = pred.predict(rows)["prediction"]
+        row[name] = dict(num_devices=pred.n_dev, mode=pred.last_mode,
+                         max_abs_err=float(np.abs(got - want).max()))
+    emit(phase="mesh", **row)
+    out["predictor"] = row
+    if row["two_replicas_one_card"]["mode"] != "distributed":
+        raise AssertionError(f"mesh: the predictor did not split the rows: {row}")
+    for name in ("all_cards", "two_replicas_one_card"):
+        if not row[name]["max_abs_err"] <= MESH_PREDICT_ATOL:
+            raise AssertionError(f"mesh: predictor {name} off: {row[name]}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
+    parser.add_argument("--mesh-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the mesh phase (internal)")
     args = parser.parse_args(argv)
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args.mesh_rank)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2142,6 +2567,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     emit(phase="device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -2175,6 +2602,8 @@ def main(argv=None) -> int:
     checkpoint_phase(args.seed, eager_run, cifar_frame)
     remat_graph = remat_graph_phase(args.seed, train_run)
     serving = serving_phase(args.seed)
+    packing = packing_phase(args.seed)
+    mesh = mesh_phase(args.seed, eager_run, cifar_frame, train_launches, train_run)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -2245,6 +2674,10 @@ def main(argv=None) -> int:
         "launches_serving": serving["engine"]["launches_b1"],
         "launches_greedy_generate": serving["greedy"]["launches_b1"],
         "launches_greedy_check": serving["greedy"]["launches_b1_check"],
+        "launches_packing_forward": packing["launches_packed_forward"],
+        "launches_packing_alone": packing["launches_alone"],
+        "launches_packing_train": packing["train"]["launches_b1_b2_b3"][0],
+        "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][0],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -2253,6 +2686,8 @@ def main(argv=None) -> int:
         "launches_train_eager_and_remat": [remat_graph["launches_eager"][1],
                                            remat_graph["launches_remat"][1]],
         "launches_graph": remat_graph["launches_graph"][1],
+        "launches_packing_train": packing["train"]["launches_b1_b2_b3"][1],
+        "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -2269,6 +2704,8 @@ def main(argv=None) -> int:
         "launches_train_eager_and_remat": [remat_graph["launches_eager"][2],
                                            remat_graph["launches_remat"][2]],
         "launches_graph": remat_graph["launches_graph"][2],
+        "launches_packing_train": packing["train"]["launches_b1_b2_b3"][2],
+        "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -11,6 +11,7 @@ from distkeras_tpu_torch.algorithms.base import (
     CommitResult,
     UpdateRule,
     make_ctx,
+    mesh_ctx,
     stacked_ctx,
 )
 from distkeras_tpu_torch.algorithms.downpour import Downpour
@@ -22,6 +23,7 @@ __all__ = [
     "CommitCtx",
     "CommitResult",
     "make_ctx",
+    "mesh_ctx",
     "stacked_ctx",
     "Downpour",
     "Adag",

@@ -6,10 +6,12 @@ at a window boundary: the worker-side delta, then the server-side "apply to
 center" as a ``psum`` over workers followed by the center update.  In the
 port, workers are stacked along a leading dim of every per-worker tensor
 (``[num_workers, ...]``) and ``psum`` sums over that dim, so one ``commit``
-call commits every worker on the card at once; the sum across cards comes
-with the multi-GPU slice.  Every rule is a pure function of name -> tensor
-dicts, testable against the closed-form math with ``psum`` = identity on a
-single unstacked worker.
+call commits every worker on the card at once.  Over a mesh of several
+ranks (one process per card) each rank stacks its own block of workers, and
+``psum`` is the local sum followed by an all-reduce over the mesh's group
+(:func:`mesh_ctx`).  Every rule is a pure function of name -> tensor dicts,
+testable against the closed-form math with ``psum`` = identity on a single
+unstacked worker.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from distkeras_tpu_torch.utils.pytree import bcast, tree_map, tree_where
+from distkeras_tpu_torch.utils.pytree import bcast, tree_leaves, tree_map, tree_where
 
-__all__ = ["CommitCtx", "CommitResult", "UpdateRule", "make_ctx", "stacked_ctx"]
+__all__ = ["CommitCtx", "CommitResult", "UpdateRule", "make_ctx", "mesh_ctx", "stacked_ctx"]
 
 
 class CommitCtx(NamedTuple):
@@ -76,6 +78,27 @@ def stacked_ctx(num_workers: int, steps_in_window, device, mask=None) -> CommitC
         steps_in_window=steps,
         num_workers=num_workers,
     )
+
+
+def mesh_ctx(num_workers: int, steps_in_window, device, group, mask) -> CommitCtx:
+    """Context for one rank of a mesh, which stacks its own block of the
+    ``num_workers`` workers (``mask``: the block's ``[v]`` bool mask):
+    ``psum`` sums each leaf over the rank's worker dim, then over the ranks
+    of ``group``, one all-reduce per dtype.  With ``group=None`` this is
+    :func:`stacked_ctx`."""
+    ctx = stacked_ctx(num_workers, steps_in_window, device, mask)
+    if group is None:
+        return ctx
+    # parallel.mesh imports nothing of the rules, but its package imports
+    # the engine, which imports this module
+    from distkeras_tpu_torch.parallel.mesh import all_reduce_sum
+
+    def psum(tree):
+        local = tree_map(lambda x: x.sum(dim=0), tree)
+        summed = iter(all_reduce_sum(tree_leaves(local), group))
+        return tree_map(lambda _: next(summed), local)
+
+    return ctx._replace(psum=psum)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,15 @@ Directories without a manifest are *unverified*: never restored, never
 GC'd, never quarantined.  The JAX package's ``verify_checkpoint`` accepts a
 step this module published.  The JAX package's fault-injection hooks
 (``chaos``) come with ROADMAP Queue A item 18.
+
+**Over a mesh** (one process per card, each rank holding its block of the
+workers) a :class:`CheckpointManager` built with the engine's ``mesh``
+gathers every worker's slice onto mesh rank 0 (:func:`gather_workers`,
+broadcasts from each rank in turn, through the host), global rank 0 alone
+writes and publishes, and the other ranks wait at a barrier; on resume rank
+0 resolves the step and every rank reads the files and takes its own slice
+(``restore_checkpoint(..., workers=)``).  The files are the one-rank
+engine's: a checkpoint written at two ranks resumes at one, bitwise.
 """
 
 from __future__ import annotations
@@ -48,9 +57,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distkeras_tpu_torch import telemetry
-from distkeras_tpu_torch.utils.pytree import tree_map
+from distkeras_tpu_torch.parallel.mesh import barrier, broadcast, mesh_group, mesh_rank, mesh_size
+from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map
 from distkeras_tpu_torch.utils.serialization import _flatten, _unflatten
 
 __all__ = [
@@ -59,12 +70,14 @@ __all__ = [
     "checkpoint_num_workers", "CheckpointManager", "CheckpointWatcher",
     "save_data_state", "restore_data_state", "wait_until_finished",
     "manifest_path", "write_manifest", "verify_checkpoint", "verify_failure",
-    "quarantine_step", "committed_steps",
+    "quarantine_step", "committed_steps", "gather_workers",
 ]
 
 #: the ``TrainState`` fields in the JAX dataclass's (= ``tree.flatten``'s) order
 FIELDS = ("center_params", "center_rule", "local_params", "opt_state", "model_state",
           "rule_local", "rng", "epoch")
+#: the fields with a leading worker dim (``rng``: one generator per worker)
+WORKER_FIELDS = ("local_params", "opt_state", "model_state", "rule_local")
 _TREE_FILE = "tree.json"
 
 # ------------------------------------------------------ verified publication
@@ -525,11 +538,13 @@ def _field_tree(path: str, tree: dict, field: str):
 
 
 def restore_checkpoint(directory: str, step: Optional[int] = None, like: Any = None,
-                       verify: str = "full") -> Any:
+                       verify: str = "full", workers: Optional[slice] = None) -> Any:
     """Load training state.  With ``like`` (a ``TrainState``, e.g. a freshly
     built one) the result is a ``TrainState`` with ``like``'s structure,
     dtypes and devices, and ``like``'s generators set to the saved states;
-    without it, a dict of the fields as CPU tensor trees.
+    without it, a dict of the fields as CPU tensor trees.  ``workers`` (a
+    mesh rank's block) keeps those rows of every per-worker field: the
+    scatter of a checkpoint gathered by :func:`gather_workers`.
 
     Verifies before load (default ``full``: a bit flip keeps sizes, so only
     digests prove the bytes): a corrupt step is quarantined and the newest
@@ -541,6 +556,8 @@ def restore_checkpoint(directory: str, step: Optional[int] = None, like: Any = N
     changes = {}
     for field in FIELDS:
         saved = _read_field(path, tree, field)
+        if workers is not None and (field in WORKER_FIELDS or field == "rng"):
+            saved = saved[workers] if field == "rng" else [t[workers] for t in saved]
         if field == "rng":
             if len(saved) != len(like.rng):
                 raise ValueError(f"checkpoint has {len(saved)} workers, the state {len(like.rng)}")
@@ -621,14 +638,58 @@ def checkpoint_num_workers(directory: str, step: Optional[int] = None) -> int:
     return int(_read_tree(_step_path(directory, step))["num_workers"])
 
 
+class _SavedGenerator:
+    """A gathered worker's generator: its ``get_state()`` bytes, which is all
+    a save reads of a generator."""
+
+    def __init__(self, state: torch.Tensor):
+        self._state = state
+
+    def get_state(self) -> torch.Tensor:
+        return self._state
+
+
+def gather_workers(state: Any, mesh) -> Any:
+    """Every worker's slice of ``state`` on mesh rank 0, as one
+    ``TrainState`` of all the workers (its per-worker leaves on the host),
+    and None on the other ranks; ``state`` itself without a group.  Every
+    rank of the mesh makes the call: each rank's block goes out in turn by
+    broadcast, the collective gloo also takes for CUDA tensors."""
+    group = mesh_group(mesh)
+    if group is None:
+        return state
+    leaves = tree_leaves([getattr(state, f) for f in WORKER_FIELDS])
+    mine = leaves + [torch.stack([g.get_state() for g in state.rng])]
+    blocks = []
+    for r in range(mesh_size(mesh)):
+        got = broadcast(mine, r, group)
+        blocks.append([t.to("cpu", copy=True) for t in got])
+    if mesh_rank(mesh) != 0:
+        return None
+    whole = iter([torch.cat([b[i] for b in blocks]) for i in range(len(leaves))])
+    fields = {f: tree_map(lambda _: next(whole), getattr(state, f)) for f in WORKER_FIELDS}
+    rng = [_SavedGenerator(row) for row in torch.cat([b[-1] for b in blocks])]
+    return state.replace(rng=rng, **fields)
+
+
 class CheckpointManager:
     """Every-N-epochs checkpointing hook used by trainers (``checkpoint_dir``
-    + ``checkpoint_every`` kwargs)."""
+    + ``checkpoint_every`` kwargs).
 
-    def __init__(self, directory: str, every: int = 1, keep: int = 3):
+    ``mesh`` (the engine's) makes it a collective: every rank makes the same
+    calls, saves gather the workers onto mesh rank 0 and only global rank 0
+    writes, reads resolve the step on global rank 0, and each call ends at
+    a barrier over the process group."""
+
+    def __init__(self, directory: str, every: int = 1, keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.every = max(1, int(every))
         self.keep = keep
+        self.mesh = mesh
+        #: the process group the ranks meet in, None outside one
+        self._world = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+        #: does this process write? (every process outside a group)
+        self._writer = self._world is None or dist.get_rank() == 0
         self._saved: set = set()
         # steps whose latest save is a mid-epoch (partial) one: their
         # epoch-boundary save must overwrite (force=True), and their stale
@@ -650,6 +711,10 @@ class CheckpointManager:
         if (epoch + 1) % self.every:
             return None
         step = epoch + 1
+        state = gather_workers(state, self.mesh)
+        if not self._writer:
+            barrier(self._world)
+            return os.path.join(self.directory, f"step_{step}")
         path = save_checkpoint(self.directory, state, step, force=self._is_partial(step))
         if data_state is not None:
             save_data_state(self.directory, data_state, step)
@@ -663,6 +728,7 @@ class CheckpointManager:
         self._partial.discard(step)
         self._saved.add(step)
         self._gc()
+        barrier(self._world)
         return path
 
     def save_partial(self, state: Any, epoch: int, data_state) -> str:
@@ -671,11 +737,16 @@ class CheckpointManager:
         the epoch-boundary save will later claim (``epoch + 1``), saved
         again in place as the cursor advances."""
         step = epoch + 1
+        state = gather_workers(state, self.mesh)
+        if not self._writer:
+            barrier(self._world)
+            return os.path.join(self.directory, f"step_{step}")
         path = save_checkpoint(self.directory, state, step, force=True)
         save_data_state(self.directory, data_state, step)
         self._partial.add(step)
         self._saved.add(step)
         self._gc()
+        barrier(self._world)
         return path
 
     def restore_data_state(self, step: Optional[int] = None):
@@ -683,9 +754,14 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Flush in-flight saves (end of the trainer epoch loop), then apply
-        the keep policy exactly."""
-        wait_until_finished()
-        self._gc()
+        the keep policy exactly.  Over a group every rank waits for the
+        writer, which re-raises a failed save."""
+        try:
+            if self._writer:
+                wait_until_finished()
+                self._gc()
+        finally:
+            barrier(self._world)
 
     def _gc(self) -> None:
         # Only PUBLISHED steps are GC candidates: counting an in-flight save
@@ -715,12 +791,19 @@ class CheckpointManager:
     def latest_verified(self, mode: str = "full") -> Optional[int]:
         """The newest step whose bytes provably match their manifest — what
         resume pins; corrupt steps found on the way are quarantined.
-        ``None`` when nothing verifiable exists."""
+        ``None`` when nothing verifiable exists.  Over a group global rank 0
+        resolves it (it alone quarantines) and every rank takes its answer."""
         self.wait()
-        try:
-            return _resolve_verified(self.directory, None, mode)
-        except FileNotFoundError:
-            return None
+        step = None
+        if self._writer:
+            try:
+                step = _resolve_verified(self.directory, None, mode)
+            except FileNotFoundError:
+                step = None
+        if self._world is None:
+            return step
+        got = broadcast([torch.tensor([-1 if step is None else step])], 0, self._world)
+        return None if int(got[0]) < 0 else int(got[0])
 
     def saved_worker_count(self, step: Optional[int] = None) -> int:
         return checkpoint_num_workers(self.directory, step)
@@ -735,4 +818,10 @@ class CheckpointManager:
 
     def restore(self, like: Any = None, step: Optional[int] = None,
                 verify: str = "full") -> Any:
-        return restore_checkpoint(self.directory, step, like, verify)
+        """Restore into ``like``; over a mesh, this rank's block of the
+        workers (``like`` holds that many)."""
+        workers = None
+        if like is not None and mesh_group(self.mesh) is not None:
+            v = len(like.rng)
+            workers = slice(mesh_rank(self.mesh) * v, (mesh_rank(self.mesh) + 1) * v)
+        return restore_checkpoint(self.directory, step, like, verify, workers)

@@ -87,6 +87,7 @@ def epoch_window_iter(
     pad_to_window: bool = True,
     feature_dtype=None,
     start_block: int = 0,
+    workers: Optional[slice] = None,
 ):
     """Lazily yield one epoch as per-window blocks ``(xs, ys)`` shaped
     ``[num_workers, window, batch, ...]``: the streaming twin of
@@ -113,6 +114,10 @@ def epoch_window_iter(
     ``rng``: restore the numpy bit state captured before the epoch's
     shuffle (:class:`~distkeras_tpu_torch.datapipe.DataState`) and the
     remaining blocks are bitwise the uninterrupted epoch's tail.
+
+    ``workers`` (a mesh rank's block of the workers) gathers only those
+    workers' rows: each block is ``[len(workers), window, batch, ...]``,
+    the rows of the whole block at those positions, bitwise.
     """
     n = len(features)
     if n == 0:
@@ -131,6 +136,8 @@ def epoch_window_iter(
     # epoch_arrays reshapes worker-major: worker k / window w covers the flat
     # slice idx2[k, w*window:(w+1)*window] below.
     idx2 = idx.reshape(num_workers, steps, batch_size)
+    if workers is not None:
+        idx2 = idx2[workers]
     fused_bf16 = _is_bf16(feature_dtype) and np.issubdtype(features.dtype, np.floating)
     start_block = int(start_block)
     if not 0 <= start_block <= n_windows:
@@ -141,7 +148,7 @@ def epoch_window_iter(
         block = idx2[:, w * window : (w + 1) * window]
         cur = block.shape[1]  # < window only for a ragged final block
         sel = np.ascontiguousarray(block).ravel()
-        block_shape = (num_workers, cur, batch_size)
+        block_shape = (block.shape[0], cur, batch_size)
         with telemetry.trace.span("window_gather", phase="data", window=w, rows=int(sel.size)):
             if fused_bf16:
                 bits = native.gather_rows_bf16(features, sel)

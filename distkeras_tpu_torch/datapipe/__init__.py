@@ -1,8 +1,6 @@
 """Data plane — sharded, prefetching, resumable input pipeline.
 
-The port of :mod:`distkeras_tpu.datapipe` but for sequence packing
-(``packing.py``, with ``TransformerLM(packed=True)``), which stays in
-ROADMAP Queue A item 11:
+The port of :mod:`distkeras_tpu.datapipe`:
 
 * :mod:`~distkeras_tpu_torch.datapipe.source` — where rows live: in-memory
   arrays / DataFrame columns, or memory-mapped ``.npy`` file shards, each
@@ -15,8 +13,12 @@ ROADMAP Queue A item 11:
   checkpoint (epoch, block cursor, numpy bit-generator state) saved next to
   model checkpoints, so a killed run resumes mid-epoch on the identical
   remaining blocks.
+* :mod:`~distkeras_tpu_torch.datapipe.packing` — :func:`pack_sequences`,
+  first-fit-decreasing sequence packing into fixed-width rows with segment
+  IDs (the input of ``TransformerLM(packed=True)``).
 """
 
+from distkeras_tpu_torch.datapipe.packing import PackedBatch, pack_sequences
 from distkeras_tpu_torch.datapipe.ring import PrefetchRing
 from distkeras_tpu_torch.datapipe.source import (
     ArraySource,
@@ -31,8 +33,10 @@ __all__ = [
     "ArraySource",
     "DataState",
     "MemmapSource",
+    "PackedBatch",
     "PrefetchRing",
     "Source",
     "atomic_write_npy",
     "host_shard",
+    "pack_sequences",
 ]

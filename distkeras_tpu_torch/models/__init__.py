@@ -16,6 +16,7 @@ from distkeras_tpu_torch.models.transformer import (
     TransformerClassifier,
     TransformerEncoderBlock,
     TransformerLM,
+    packed_positions,
 )
 from distkeras_tpu_torch.models.zoo import CIFARCNN, MLP, MNISTCNN, ResNet20, TextCNN
 
@@ -32,6 +33,7 @@ __all__ = [
     "TransformerClassifier",
     "TransformerEncoderBlock",
     "TransformerLM",
+    "packed_positions",
     "MLP",
     "MNISTCNN",
     "CIFARCNN",

@@ -12,9 +12,13 @@ the reference's ``_decode_attention`` math, plain masked products and a
 softmax as there (no Pallas kernel carries it): each chunk's K/V are written
 into the :class:`KVCache` the caller holds (``TransformerLM.init_cache``) at
 its cursor, and the chunk's queries attend over the whole padded cache with
-``key_pos <= q_pos``.  Sequence parallelism (``seq_axis``) and sequence
-packing (``packed=True``) raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+``key_pos <= q_pos``.  Sequence packing (``TransformerLM(packed=True)``)
+reads ``[batch, width, 2]`` token and segment-ID channels
+(:meth:`~distkeras_tpu_torch.datapipe.PackedBatch.model_inputs`): positions
+restart per segment (:func:`packed_positions`) and attention is causal and
+intra-segment, the reference's masked product (the kernel has no segment
+mask, as the Pallas kernel has none).  Sequence parallelism (``seq_axis``)
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Out-of-range ids gather as the JAX package's flax ``nn.Embed`` does
 (``jnp.take`` in its ``"fill"`` mode), on the device and without a host
@@ -34,7 +38,8 @@ from torch import nn
 
 from distkeras_tpu_torch.parallel.ring import attention
 
-__all__ = ["KVCache", "TransformerClassifier", "TransformerEncoderBlock", "TransformerLM"]
+__all__ = ["KVCache", "TransformerClassifier", "TransformerEncoderBlock", "TransformerLM",
+           "packed_positions"]
 
 _LN_EPS = 1e-6  # flax LayerNorm's default, used by the blocks and the final LN
 # flax's lecun_normal draws from a normal truncated at two standard
@@ -42,7 +47,22 @@ _LN_EPS = 1e-6  # flax LayerNorm's default, used by the blocks and the final LN
 _TRUNC_STD_CORRECTION = 0.87962566103423978
 
 _SEQ_AXIS = "seq_axis (ring attention) comes with sequence parallelism (ROADMAP Queue A item 14)"
-_PACKED = "packed=True comes with datapipe sequence packing (ROADMAP Queue A item 11)"
+
+
+def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-segment positions ``[batch, width]`` from packed segment IDs
+    (:func:`~distkeras_tpu_torch.datapipe.pack_sequences` convention:
+    monotone per row, 0 = pad): each token's index minus the index of its
+    segment's first token, so every segment sees the positions ``0..len-1``
+    a standalone sequence would.  Computed on the device with a cummax over
+    segment starts (no host round-trip, no python loop), as the JAX
+    package's."""
+    segment_ids = torch.as_tensor(segment_ids)
+    idx = torch.arange(segment_ids.shape[1], dtype=torch.int32, device=segment_ids.device)
+    prev = torch.cat([torch.full_like(segment_ids[:, :1], -1), segment_ids[:, :-1]], dim=1)
+    is_start = segment_ids != prev
+    start = torch.cummax(torch.where(is_start, idx[None], 0), dim=1).values
+    return idx[None] - start
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
@@ -236,29 +256,43 @@ class _TokenEncoder(nn.Module):
                 module.bias.zero_()
 
     def encode(self, tokens, training: bool = False, generator=None,
-               cache: Optional[KVCache] = None):
+               cache: Optional[KVCache] = None, segment_ids=None):
         """The trunk's output; with ``cache``, one decode chunk whose
-        positions start at the cache's cursor, which then advances."""
+        positions start at the cache's cursor, which then advances.  With
+        ``segment_ids`` (``[batch, seq]``, sequence packing) positions
+        restart per segment and attention stays inside each segment."""
         if tokens.dim() != 2:
             raise ValueError(f"tokens must be [batch, seq], got shape {tuple(tokens.shape)}")
         tokens = tokens.long()
-        offset = 0 if cache is None else cache.index
-        pos = offset + torch.arange(tokens.shape[1], device=tokens.device)
-        x = _take_fill(self.tok_embed, tokens) + _take_fill(self.pos_embed, pos)[None]
+        if segment_ids is not None:
+            pos = _take_fill(self.pos_embed, packed_positions(segment_ids).long())
+        else:
+            offset = 0 if cache is None else cache.index
+            pos = _take_fill(self.pos_embed,
+                             offset + torch.arange(tokens.shape[1], device=tokens.device))[None]
+        x = _take_fill(self.tok_embed, tokens) + pos
         for i, block in enumerate(self.blocks):
             if cache is None:
-                x = block(x, training, generator=generator)
+                x = block(x, training, segment_ids=segment_ids, generator=generator)
             else:
                 x = block(x, training, decode=True, generator=generator,
-                          kv=(cache.keys[i], cache.values[i]), index=offset)
+                          kv=(cache.keys[i], cache.values[i]), index=cache.index)
         if cache is not None:
-            cache.index = offset + tokens.shape[1]
+            cache.index += tokens.shape[1]
         return self.final_ln(x)
 
 
 class TransformerLM(_TokenEncoder):
     """Causal language model over ``[batch, seq]`` int tokens, emitting
-    per-token next-token logits ``[batch, seq, vocab]``."""
+    per-token next-token logits ``[batch, seq, vocab]``.
+
+    ``packed=True`` consumes sequence-packed input
+    (:func:`~distkeras_tpu_torch.datapipe.pack_sequences`): ``[batch, width,
+    2]`` ints with token and segment-ID channels.  Positions restart per
+    segment and attention is masked intra-segment, so each packed segment's
+    logits equal the logits the sequence would get alone in a row.  Train
+    packed models with ``loss="masked_token_crossentropy"``: the packer
+    marks pads and segment tails with ``-1`` labels."""
 
     #: trained against per-token labels ``[batch, seq]``
     per_token_labels = True
@@ -267,10 +301,14 @@ class TransformerLM(_TokenEncoder):
                  num_layers: int = 2, max_len: int = 2048,
                  seq_axis: Optional[str] = None, dropout: float = 0.0,
                  packed: bool = False, generator: Optional[torch.Generator] = None):
-        if packed:
-            raise NotImplementedError(_PACKED)
+        if packed and seq_axis is not None:
+            raise ValueError(
+                "packed=True is incompatible with seq_axis (ring "
+                "attention has no segment-mask block structure)"
+            )
         super().__init__(vocab_size, dim, heads, num_layers, max_len, seq_axis,
                          causal=True, dropout=dropout)
+        self.packed = bool(packed)
         self.lm_head = nn.Linear(dim, vocab_size)
         self.reset_parameters(generator)
 
@@ -279,11 +317,20 @@ class TransformerLM(_TokenEncoder):
         """Next-token logits.  ``decode=True`` runs one chunk through the
         KV cache ``cache`` (from :meth:`init_cache`), which it updates in
         place: the prefill chunk is the prompt, then one token a step."""
+        segment_ids = None
+        if self.packed:
+            if decode:
+                raise ValueError(
+                    "packed=True is a training-path layout; decode with a "
+                    "packed=False twin (same params)"
+                )
+            tokens, segment_ids = tokens[..., 0], tokens[..., 1].to(torch.int32)
         if decode and cache is None:
             raise ValueError("decode=True needs cache=model.init_cache(batch)")
         if cache is not None and not decode:
             raise ValueError("a cache is read only with decode=True")
-        return self.lm_head(self.encode(tokens, training, generator, cache=cache))
+        return self.lm_head(self.encode(tokens, training, generator, cache=cache,
+                                        segment_ids=segment_ids))
 
     def init_cache(self, batch: int, device=None, dtype=torch.float32) -> KVCache:
         """An empty KV cache for ``batch`` rows on ``device``: per block a

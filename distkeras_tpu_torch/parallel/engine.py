@@ -1,4 +1,4 @@
-"""The training engine: windowed local SGD + commits, on one card.
+"""The training engine: windowed local SGD + commits, on one card or a mesh.
 
 The port of :mod:`distkeras_tpu.parallel.engine` (``WindowedEngine``).  A
 *worker* is a logical training replica.  Every per-worker tensor carries a
@@ -21,6 +21,20 @@ Epochs run from in-memory arrays (``run_epoch``; ``run_epochs`` for several
 epochs with one read-back and an optional on-device reshuffle) or from a
 stream of per-window blocks (``run_epoch_streaming``, fed by
 ``stream_put``).
+
+**Over a mesh** (``mesh=``, or every rank of the process group when one
+exists: :mod:`~distkeras_tpu_torch.parallel.mesh`) the engine runs SPMD,
+one process per card: every rank makes the same calls, owns the contiguous
+block ``[r*v, (r+1)*v)`` of the ``num_workers`` logical workers (its
+per-worker tensors carry ``[v]``, not ``[num_workers]``) and holds a replica
+of the center.  The commit's ``psum`` is the local sum followed by an
+all-reduce over the mesh's group (:func:`~distkeras_tpu_torch.algorithms.
+base.mesh_ctx`).  The trajectory does not depend on the world size: every
+rank draws all ``num_workers`` dropout seeds and keeps its block, starts
+from rank 0's parameters (a broadcast), draws the same reshuffle (rank 0's,
+broadcast), and the stats are the mean over all workers (one all-reduce of
+the sums an epoch).  Without a group the engine is the one-card engine,
+bit for bit.
 
 Deliberate differences from the JAX engine:
 
@@ -45,11 +59,13 @@ Deliberate differences from the JAX engine:
 * ``remat`` wraps the model's apply in ``torch.utils.checkpoint``, whose
   recomputation draws dropout from a copy of each worker's generator taken
   before the forward, so the recomputed masks are the forward's.
+* A mesh is one process per card (ROADMAP Queue C, C10), and every rank of
+  it owns the same number of workers: ``num_workers`` must be a multiple of
+  the rank count (JAX tiles fewer workers onto fewer of its devices).
 
-Not in this slice: several cards (the cross-card sum of the commit),
-sequence parallelism and FSDP, whose options the constructor refuses;
-``remat`` inside a captured window; and the dynamics telemetry
-(``DISTKERAS_DYNAMICS`` is not read).
+Not in this slice: sequence parallelism and FSDP, whose options the
+constructor refuses; ``remat`` inside a captured window; and the dynamics
+telemetry (``DISTKERAS_DYNAMICS`` is not read).
 """
 
 from __future__ import annotations
@@ -63,20 +79,31 @@ from typing import TYPE_CHECKING, Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from distkeras_tpu_torch import telemetry
-from distkeras_tpu_torch.algorithms.base import CommitCtx, UpdateRule, stacked_ctx
+from distkeras_tpu_torch.algorithms.base import CommitCtx, UpdateRule, mesh_ctx
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric, per_token_metric_names
 from distkeras_tpu_torch.ops.optimizers import apply_updates, get_optimizer
-from distkeras_tpu_torch.parallel.mesh import resolve_device
+from distkeras_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    broadcast,
+    local_device_count,
+    make_mesh,
+    mesh_group,
+    mesh_rank,
+    mesh_size,
+    resolve_device,
+    worker_sharding,
+)
 from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_where
 
 if TYPE_CHECKING:  # models.adapter imports this package (resolve_device)
     from distkeras_tpu_torch.models.adapter import ModelAdapter
 
-__all__ = ["TrainState", "WindowedEngine", "device_count", "epoch_permutation", "plan_workers"]
+__all__ = ["TrainState", "WindowedEngine", "epoch_permutation", "plan_workers"]
 
 #: pinned host buffers per block shape for ``stream_put``: a buffer is
 #: written again only after its copy to the card has landed (its event)
@@ -93,17 +120,12 @@ def plan_workers(num_workers: int, n_devices: int) -> tuple[int, int]:
     return d, num_workers // d
 
 
-def device_count(device: torch.device) -> int:
-    """Cards an entry point may count on: every CUDA card for a CUDA
-    device, one for the CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 @dataclasses.dataclass
 class TrainState:
     """Full training state.  ``center_*`` leaves have no worker dim; every
-    other tensor leaf carries a leading ``[num_workers]`` dim; ``rng`` holds
-    one generator per worker."""
+    other tensor leaf carries a leading worker dim, ``[num_workers]`` on one
+    rank and the rank's block ``[v]`` on a mesh; ``rng`` holds one
+    generator per worker of that dim."""
 
     center_params: Any
     center_rule: Any
@@ -223,7 +245,8 @@ class _Captured:
 
 
 class WindowedEngine:
-    """Owns the training loop for one (model, rule) pair on one device."""
+    """Owns the training loop for one (model, rule) pair on one device, or
+    on this rank's device of a mesh."""
 
     def __init__(
         self,
@@ -244,8 +267,6 @@ class WindowedEngine:
         unroll=1,
         device="cuda",
     ):
-        if mesh is not None:
-            raise _not_ported("mesh= (training over several cards)", "item 13")
         if int(seq_shards) != 1:
             raise _not_ported("seq_shards>1 (sequence parallelism)", "item 14")
         if fsdp:
@@ -263,10 +284,30 @@ class WindowedEngine:
         if self.use_graphs and self.remat:
             raise _not_ported("remat=True inside a captured window (unroll other than 1 on a "
                               "card)", "item 20 (CUDA-graph follow-ups)")
-        self.num_workers = int(num_workers or device_count(self.device))
-        # one card: every worker is a virtual worker on it (the cross-card
-        # sum of the commit comes with ROADMAP Queue A item 13)
-        self.n_dev, self.virtual = plan_workers(self.num_workers, 1)
+        default_workers = local_device_count(self.device) if mesh is None else mesh_size(mesh)
+        # every rank of the group, as JAX takes every device (one rank without)
+        self.mesh = make_mesh() if mesh is None else mesh
+        #: the mesh's process group; None runs no collective (one rank)
+        self.group = mesh_group(self.mesh)
+        if self.group is not None and self.mesh.get_coordinate() is None:
+            raise ValueError(f"this process (rank {dist.get_rank()}) is not a rank of {mesh}")
+        self.ranks, self.rank = mesh_size(self.mesh), mesh_rank(self.mesh)
+        self.num_workers = int(num_workers or default_workers)
+        self.n_dev, self.virtual = plan_workers(self.num_workers, self.ranks)
+        if self.n_dev != self.ranks:
+            raise ValueError(
+                f"num_workers={self.num_workers} does not split evenly over the mesh's "
+                f"{self.ranks} ranks: every rank owns the same number of workers"
+            )
+        #: this rank's block of the workers
+        self.workers = worker_sharding(self.mesh).local_slice(self.num_workers)
+        if self.use_graphs and self.group is not None and dist.get_backend(self.group) != "nccl":
+            raise ValueError(
+                "captured windows (unroll other than 1 on a card) hold the commit's "
+                "all-reduce inside the CUDA graph, and only NCCL collectives can be "
+                f"captured; this mesh's group runs {dist.get_backend(self.group)}: "
+                "train with unroll=1, or over NCCL (one rank per card)"
+            )
         self.optimizer = get_optimizer(worker_optimizer)
         self.loss_fn = get_loss(loss, from_logits=self.adapter.outputs_logits)
         if getattr(self.adapter, "per_token_labels", False):
@@ -306,21 +347,33 @@ class WindowedEngine:
         params, model_state = self.adapter.init(generator, sample_input)
         return self._assemble_state(generator, params, model_state)
 
+    def _from_rank0(self, tree):
+        """``tree`` as mesh rank 0 holds it, on every rank (one broadcast
+        per dtype); the tree itself without a group."""
+        if self.group is None:
+            return tree
+        leaves = iter(t.clone() for t in broadcast(tree_leaves(tree), 0, self.group))
+        return tree_map(lambda _: next(leaves), tree)
+
     def _assemble_state(self, generator, params, model_state) -> TrainState:
-        n, dev = self.num_workers, self.device
+        v, dev = self.virtual, self.device
         params = tree_map(lambda x: x.detach().to(dev, copy=True), params)
+        params, model_state = self._from_rank0(
+            (params, tree_map(lambda x: x.detach().to(dev), model_state)))
 
         def tile(tree):
             # on the device: a rule's fresh counters (DynSGD's clock) start on the CPU
-            return tree_map(lambda x: x.to(dev).expand(n, *x.shape).clone(), tree)
+            return tree_map(lambda x: x.to(dev).expand(v, *x.shape).clone(), tree)
 
-        seeds = torch.randint(0, 2**62, (n,), generator=generator)
+        # every rank draws all the workers' seeds and keeps its block, so a
+        # worker's stream does not depend on where it runs
+        seeds = torch.randint(0, 2**62, (self.num_workers,), generator=generator)[self.workers]
         return TrainState(
             center_params=params,
             center_rule=tree_map(lambda x: x.to(dev), self.rule.init_center_state()),
             local_params=tile(params),
             opt_state=tile(self.optimizer.init(params)),
-            model_state=tile(tree_map(torch.Tensor.detach, model_state)),
+            model_state=tile(model_state),
             rule_local=tile(self.rule.init_local_state(params)),
             rng=[torch.Generator(device=dev).manual_seed(int(s)) for s in seeds],
             epoch=0,
@@ -379,6 +432,26 @@ class WindowedEngine:
         return params, opt_state, model_state, loss.detach(), mets
 
     # ---------------------------------------------------------------- window
+    def _ctx(self, steps_in_window, mask=None) -> CommitCtx:
+        """The commit context of this rank's workers (``mask``: their
+        block of the mask, every worker committing by default)."""
+        if mask is None:
+            mask = torch.ones(self.virtual, dtype=torch.bool, device=self.device)
+        return mesh_ctx(self.num_workers, steps_in_window, self.device, self.group, mask)
+
+    def _mean_over_workers(self, *sums):
+        """Per-window (or per-step) sums over this rank's workers, as the
+        mean over all workers: one all-reduce for all of them."""
+        return [s / self.num_workers for s in all_reduce_sum(sums, self.group)]
+
+    def _check_block(self, *tensors):
+        """Over a mesh, data carry this rank's block of the workers
+        (:meth:`shard_batches`), not every worker's rows."""
+        for t in tensors:
+            if t.shape[0] != self.virtual:
+                raise ValueError(f"leading dim {t.shape[0]}: this rank holds {self.virtual} of "
+                                 f"the {self.num_workers} workers (shard_batches)")
+
     def _sync_model_state(self, ctx: CommitCtx, model_state):
         if not self.sync_model_state or not tree_leaves(model_state):
             return model_state
@@ -421,25 +494,25 @@ class WindowedEngine:
         return state
 
     def _window_body(self, state: TrainState, xs, ys, do_commit: bool):
-        """One window, in place: every worker takes ``xs.shape[1]`` local
-        steps on its own rows of ``xs``/``ys`` (``[num_workers, window,
-        batch, ...]``), then (``do_commit``) the rule commits all of them.
-        Returns the window's loss and metrics, averaged over steps and
-        workers, as device tensors."""
-        n, window = self.num_workers, xs.shape[1]
+        """One window, in place: every worker of this rank takes
+        ``xs.shape[1]`` local steps on its own rows of ``xs``/``ys`` (``[v,
+        window, batch, ...]``), then (``do_commit``) the rule commits all
+        workers.  Returns the window's loss and metrics, averaged over steps
+        and summed over this rank's workers, as device tensors."""
+        window = xs.shape[1]
         loss_sum, mets_sum = 0.0, 0.0
-        for w in range(n):
+        for w in range(self.virtual):
             losses, mets = self._worker_steps(state, w, xs[w], ys[w])
             loss_sum = loss_sum + losses.mean()
             mets_sum = mets_sum + mets.mean(dim=0)
         if do_commit:
-            self._commit(state, stacked_ctx(n, float(window), self.device))
-        return loss_sum / n, mets_sum / n
+            self._commit(state, self._ctx(float(window)))
+        return loss_sum, mets_sum
 
     def _run_window(self, state: TrainState, xs, ys, do_commit: bool):
         """One window, eager or replayed from its captured graph.  Returns
         the state (the engine's captured state when graphs are on) and the
-        window's loss and metrics."""
+        window's loss and metrics summed over this rank's workers."""
         if not self.use_graphs:
             loss, mets = self._window_body(state, xs, ys, do_commit)
             return state, loss, mets
@@ -500,6 +573,10 @@ class WindowedEngine:
         for g, v in zip(state.rng, saved_rng):
             g.set_state(v)
         del saved
+        if self.group is not None:
+            # NCCL captures a collective only once its communicator exists
+            all_reduce_sum([torch.zeros(1, device=self.device)], self.group)
+            torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         for g in state.rng:
             graph.register_generator_state(g)
@@ -526,54 +603,62 @@ class WindowedEngine:
         return out
 
     def _run_stepwise(self, state: TrainState, xs, ys):
-        """The staleness simulation over ``xs``/``ys`` shaped
-        ``[num_workers, n_steps, batch, ...]``: each step, every worker takes
-        one local step, then one masked commit runs over all of them.
+        """The staleness simulation over ``xs``/``ys`` shaped ``[v, n_steps,
+        batch, ...]``: each step, every worker takes one local step, then
+        one masked commit runs over all of them (across the ranks too).
         Returns the state and the per-step loss ``[n_steps]``, averaged over
-        workers."""
-        n = self.num_workers
-        periods = torch.as_tensor(self.commit_schedule, device=self.device)
-        since = torch.zeros(n, dtype=torch.int32, device=self.device)
+        all workers."""
+        v = self.virtual
+        periods = torch.as_tensor(self.commit_schedule[self.workers], device=self.device)
+        since = torch.zeros(v, dtype=torch.int32, device=self.device)
         losses = []
         for t in range(xs.shape[1]):
             step = [self._worker_steps(state, w, xs[w, t:t + 1], ys[w, t:t + 1])[0]
-                    for w in range(n)]
+                    for w in range(v)]
             since = since + 1
             mask = (t + 1) % periods == 0
-            state = self._commit(state, stacked_ctx(n, since, self.device, mask))
+            state = self._commit(state, self._ctx(since, mask))
             since = torch.where(mask, 0, since)
-            losses.append(torch.cat(step).sum() / n)
-        return state, torch.stack(losses)
+            losses.append(torch.cat(step).sum())
+        return state, self._mean_over_workers(torch.stack(losses))[0]
 
     # ----------------------------------------------------------------- epoch
-    def shard_batches(self, xs: np.ndarray, ys: np.ndarray):
-        """Epoch data onto the device, as tensors of the arrays' dtypes."""
+    def shard_batches(self, xs: np.ndarray, ys: np.ndarray, whole: bool = False):
+        """Epoch data onto the device, as tensors of the arrays' dtypes:
+        this rank's block of the workers, or with ``whole=True`` every
+        worker's rows (what ``run_epochs``' reshuffle permutes over a mesh
+        of several ranks)."""
+        if not whole:
+            xs, ys = xs[self.workers], ys[self.workers]
         return (torch.from_numpy(np.ascontiguousarray(xs)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(ys)).to(self.device))
 
     def _run_windows(self, state: TrainState, xs, ys):
-        """Every window of ``xs``/``ys`` (``[num_workers, n_windows, window,
-        batch, ...]``) in turn.  Returns the state and the per-window loss
-        ``[n_windows]`` and metrics ``[n_windows, n_metrics]`` on the
-        device; nothing is read back."""
+        """Every window of ``xs``/``ys`` (``[v, n_windows, window, batch,
+        ...]``) in turn.  Returns the state and the per-window loss
+        ``[n_windows]`` and metrics ``[n_windows, n_metrics]``, averaged
+        over all workers, on the device; nothing is read back."""
         do_commit = self.rule.communication_window > 0
         losses, mets = [], []
         for i in range(xs.shape[1]):
             state, loss, met = self._run_window(state, xs[:, i], ys[:, i], do_commit)
             losses.append(loss)
             mets.append(met)
-        return state, torch.stack(losses), torch.stack(mets)
+        loss, mets = self._mean_over_workers(torch.stack(losses), torch.stack(mets))
+        return state, loss, mets
 
     def run_epoch(self, state: TrainState, xs, ys):
         """Run one epoch over ``xs``/``ys`` shaped ``[num_workers,
         n_windows, window, batch, ...]`` (uniform windows) or
-        ``[num_workers, n_steps, batch, ...]`` (staleness simulation).
+        ``[num_workers, n_steps, batch, ...]`` (staleness simulation); over a
+        mesh, this rank's block of that leading dim (:meth:`shard_batches`).
         Returns the new state and the epoch's stats as numpy: ``loss``
         ``[n_windows]`` and ``metrics`` ``[n_windows, n_metrics]``, each
         averaged over the window's steps and the workers; or, simulating
         staleness, ``loss`` ``[n_steps]`` averaged over the workers and no
         metrics (``[0]``), as the JAX engine's stepwise program returns.
         The stats are read back once, at the end."""
+        self._check_block(xs, ys)
         if self.commit_schedule is not None:
             state, losses = self._run_stepwise(state, xs, ys)
             stats = {"loss": losses.cpu().numpy(), "metrics": np.zeros((0,), np.float32)}
@@ -596,7 +681,12 @@ class WindowedEngine:
         stream: when the data do not divide evenly, the same wrap-pad
         duplicates recur every epoch.  Stats leaves concatenate over the
         epochs exactly like consecutive ``run_epoch`` results.  Uniform
-        windows only: the staleness simulation runs per epoch."""
+        windows only: the staleness simulation runs per epoch.
+
+        Over a mesh of several ranks the permutation mixes every worker's
+        rows, so a reshuffle needs the whole epoch on every rank
+        (``shard_batches(..., whole=True)``); every rank takes rank 0's
+        permutation (a broadcast) and its own block of the result."""
         if self.commit_schedule is not None:
             raise ValueError(
                 "run_epochs runs uniform windows; the staleness simulation "
@@ -605,15 +695,27 @@ class WindowedEngine:
         num_epochs = int(num_epochs)
         if num_epochs < 1:
             raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
+        if shuffle_seed is None:
+            self._check_block(xs, ys)
+        elif xs.shape[0] != self.num_workers:
+            raise ValueError(
+                "the reshuffle permutes every worker's rows: pass the whole epoch "
+                "(shard_batches(xs, ys, whole=True))"
+            )
         n_total = int(np.prod(xs.shape[:4]))
+        local_shape = (self.virtual,) + tuple(xs.shape[1:4])
         losses, mets = [], []
         for _ in range(num_epochs):
             xs_e, ys_e = xs, ys
             if shuffle_seed is not None:
                 perm = epoch_permutation(shuffle_seed, state.epoch, n_total, xs.device)
-                perm = perm.to(xs.device)
-                xs_e = xs.reshape((n_total,) + xs.shape[4:])[perm].reshape(xs.shape)
-                ys_e = ys.reshape((n_total,) + ys.shape[4:])[perm].reshape(ys.shape)
+                perm = self._from_rank0(perm.to(xs.device))
+                # this rank's rows of the permuted stream
+                perm = perm.view(self.num_workers, -1)[self.workers].reshape(-1)
+                xs_e = xs.reshape((n_total,) + xs.shape[4:])[perm].reshape(
+                    local_shape + xs.shape[4:])
+                ys_e = ys.reshape((n_total,) + ys.shape[4:])[perm].reshape(
+                    local_shape + ys.shape[4:])
             state, loss, met = self._run_windows(state, xs_e, ys_e)
             state = state.replace(epoch=state.epoch + 1)
             losses.append(loss)
@@ -637,10 +739,11 @@ class WindowedEngine:
 
     # ------------------------------------------------------------- streaming
     def stream_put(self, block):
-        """Copy one streamed window block ``(xs, ys)`` shaped ``[num_workers,
-        window, batch, ...]`` to the card, as ``[num_workers, 1, window,
-        batch, ...]`` tensors: the copy half of the streaming path, which
-        the :class:`~distkeras_tpu_torch.datapipe.PrefetchRing` runs on its
+        """Copy one streamed window block ``(xs, ys)`` shaped ``[v, window,
+        batch, ...]`` (this rank's workers, ``v = num_workers`` on one rank)
+        to the card, as ``[v, 1, window, batch, ...]`` tensors: the copy
+        half of the streaming path, which the
+        :class:`~distkeras_tpu_torch.datapipe.PrefetchRing` runs on its
         producer thread.
 
         Float features go over in the compute dtype (the local step's first
@@ -652,6 +755,7 @@ class WindowedEngine:
         block carries the event the compute stream waits on before use."""
         xs, ys = (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(t))
                   for t in block)
+        self._check_block(xs, ys)
         cast = self.compute_dtype
         if cast is not None and xs.is_floating_point():
             xs = xs.to(cast)
@@ -681,8 +785,10 @@ class WindowedEngine:
     def run_epoch_streaming(self, state: TrainState, window_iter, prefetch: int = 2,
                             strict_link=None, on_window=None):
         """Run one epoch from an iterator of per-window blocks ``(xs, ys)``
-        shaped ``[num_workers, window, batch, ...]`` (see
-        :func:`distkeras_tpu_torch.data.epoch_window_iter`).
+        shaped ``[num_workers, window, batch, ...]``, over a mesh this
+        rank's block of them (see
+        :func:`distkeras_tpu_torch.data.epoch_window_iter` and its
+        ``workers``).
 
         The whole-epoch array never exists on the card: each block is put
         as it is consumed, and as the card runs asynchronously, the next
@@ -783,8 +889,9 @@ class WindowedEngine:
             raise ValueError("empty window iterator")
         self._report_stream_link(src_seconds, steady_src, steady_t0, n_windows, strict_link,
                                  time.perf_counter())
-        stats = {"loss": torch.stack(losses).cpu().numpy(),
-                 "metrics": torch.stack(mets).cpu().numpy(),
+        loss, mets = self._mean_over_workers(torch.stack(losses), torch.stack(mets))
+        stats = {"loss": loss.cpu().numpy(),
+                 "metrics": mets.cpu().numpy(),
                  # per-window step counts, so the history can weight a ragged
                  # tail window by its steps
                  "window_steps": np.asarray(steps_list, np.int64)}
@@ -836,21 +943,48 @@ class WindowedEngine:
             warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
     # ------------------------------------------------------------- read-outs
+    def _worker_mean(self, tree):
+        """The mean over all workers of each leaf of a per-worker tree: on
+        one rank ``mean(dim=0)``; over a mesh the local sums, one
+        all-reduce, divided by ``num_workers``."""
+        if self.group is None:
+            return tree_map(lambda x: x.mean(dim=0), tree)
+        summed = iter(all_reduce_sum([x.sum(dim=0) for x in tree_leaves(tree)], self.group))
+        return tree_map(lambda _: next(summed) / self.num_workers, tree)
+
     def average_workers(self, state: TrainState):
         """One-shot synchronous weight average (AveragingTrainer's final step)."""
-        mean_p = tree_map(lambda x: x.mean(dim=0), state.local_params)
+        mean_p = self._worker_mean(state.local_params)
         return state.replace(center_params=mean_p), self.final_model_state(state)
 
     def final_model_state(self, state: TrainState):
         """Model state for the returned model: the mean over workers (the
-        first worker's for integer buffers)."""
-        return tree_map(lambda x: x.mean(dim=0) if x.is_floating_point() else x[0].clone(),
+        first worker's for integer buffers, which mesh rank 0 holds)."""
+        if self.group is None:
+            return tree_map(lambda x: x.mean(dim=0) if x.is_floating_point() else x[0].clone(),
+                            state.model_state)
+        leaves = tree_leaves(state.model_state)
+        sums = all_reduce_sum([x.sum(dim=0) for x in leaves if x.is_floating_point()],
+                              self.group)
+        means = iter(t / self.num_workers for t in sums)
+        firsts = iter(broadcast([x[0] for x in leaves if not x.is_floating_point()], 0,
+                                self.group))
+        return tree_map(lambda x: next(means) if x.is_floating_point() else next(firsts).clone(),
                         state.model_state)
 
     def worker_slice(self, tree, index: int):
-        """One worker's copy of per-worker state."""
-        return tree_map(lambda x: x[index].clone(), tree)
+        """One worker's copy of per-worker state, on every rank: over a mesh
+        the rank that owns worker ``index`` broadcasts it (every rank makes
+        the call)."""
+        if self.group is None:
+            return tree_map(lambda x: x[index].clone(), tree)
+        owner, local = divmod(int(index), self.virtual)
+        leaves = [x[local].clone() for x in tree_leaves(tree)]
+        got = iter(t.clone() for t in broadcast(leaves, owner, self.group))
+        return tree_map(lambda _: next(got), tree)
 
     def gather_center(self, state: TrainState):
-        """The center parameters (one copy on this engine's device)."""
+        """The center parameters (one copy on this engine's device, the same
+        on every rank of a mesh)."""
         return state.center_params
+

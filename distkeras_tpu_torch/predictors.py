@@ -1,9 +1,10 @@
 """Batch inference over a DataFrame — the port of :mod:`distkeras_tpu.predictors`.
 
 ``ModelPredictor.predict(df)`` appends a ``prediction`` column: the frame's
-features run through the model in fixed-size batches on one device, under
-``torch.inference_mode()``, and logits with more than one class become
-softmax probabilities.  On a CUDA device the transformer models' attention
+features run through the model in fixed-size batches on one device (or,
+from ``distribute_threshold`` rows, split over several of this process's
+cards, the model replicated on each), under ``torch.inference_mode()``, and
+logits with more than one class become softmax probabilities.  On a CUDA device the transformer models' attention
 runs the hand-written flash-attention kernel.  With ``engine=`` (a
 :class:`~distkeras_tpu_torch.serving.ServingEngine`) each row is a token-id
 prompt and the column holds its generated continuation.
@@ -11,10 +12,11 @@ prompt and the column holds its generated continuation.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.frame import DataFrame
@@ -38,12 +40,19 @@ class ModelPredictor(Predictor):
     ``torch.Generator`` seeded with 0.  ``device`` defaults to ``"cuda"``
     and raises without a card; pass ``device="cpu"`` to run on the CPU.
     The parameters before ``device`` are the JAX package's, in its order.
-    ``distribute_threshold`` (the row count from which the JAX package
-    shards a batch over several devices) is accepted and has no effect on
-    one card, as there.  With ``engine=`` the rows go through that serving
-    engine, ``max_new_tokens`` each, on the engine's device, and no model is
-    needed.  Prediction over several cards (``num_devices > 1``) comes with
-    a later slice.
+
+    ``num_devices=n`` predicts on the first ``n`` of this process's cards
+    (every card by default; JAX's ``jax.local_devices()``), or on the first
+    ``n`` entries of ``device`` when it is a list of devices (several
+    entries may name the CPU).  From ``distribute_threshold`` rows (default
+    ``batch_size * n``) each batch of ``batch_size * n`` rows is split into
+    ``n`` slices of ``batch_size``, one per device, each device holding its
+    own copy of the model; the outputs are gathered in row order.  Fewer
+    rows run on the first device alone.  Inside a process group of several
+    ranks each rank predicts on its own card: ``num_devices > 1`` raises
+    ``ValueError`` there.  With ``engine=`` the rows go through that
+    serving engine, ``max_new_tokens`` each, on the engine's device, and no
+    model is needed.
     """
 
     def __init__(
@@ -58,13 +67,8 @@ class ModelPredictor(Predictor):
         distribute_threshold: Optional[int] = None,
         engine: Any = None,
         max_new_tokens: int = 16,
-        device="cuda",
+        device: Union[str, torch.device, Sequence] = "cuda",
     ):
-        if num_devices is not None and int(num_devices) != 1:
-            raise NotImplementedError(
-                "prediction over several cards comes with the multi-GPU slice "
-                "(ROADMAP Queue A item 13); pass num_devices=1 or None"
-            )
         self.features_col = features_col
         self.output_col = output_col
         self.batch_size = int(batch_size)
@@ -73,7 +77,7 @@ class ModelPredictor(Predictor):
         # forward pass: the engine carries the model and its device.
         self.engine = engine
         self.max_new_tokens = int(max_new_tokens)
-        #: how the last ``predict`` ran: None | "single" | "engine"
+        #: how the last ``predict`` ran: None | "single" | "distributed" | "engine"
         self.last_mode = None
         if engine is not None:
             self.adapter = None
@@ -81,7 +85,16 @@ class ModelPredictor(Predictor):
             return
         if keras_model is None:
             raise TypeError("ModelPredictor needs a model (or an engine=)")
-        self.device = resolve_device(device)
+        self.devices = _local_devices(device, num_devices)
+        self.device = self.devices[0]
+        self.n_dev = len(self.devices)
+        # below this many rows the split is not worth it: every device should
+        # get a whole batch_size slice (as the JAX package scales it)
+        self.distribute_threshold = (
+            int(distribute_threshold) if distribute_threshold is not None
+            else self.batch_size * self.n_dev
+        )
+        self._replicas = None
         if isinstance(keras_model, TrainedModel):
             self.adapter = keras_model.adapter
             params, state = keras_model.params, keras_model.state
@@ -96,6 +109,13 @@ class ModelPredictor(Predictor):
             params, state = self.adapter.init(torch.Generator().manual_seed(0), sample)
             self.params = to_device(params, self.device)
             self.state = to_device(state, self.device)
+
+    def _replicated(self):
+        """``(params, state)`` on each device, the first device's own."""
+        if self._replicas is None:
+            self._replicas = [(self.params, self.state)] + [
+                (to_device(self.params, d), to_device(self.state, d)) for d in self.devices[1:]]
+        return self._replicas
 
     def _predict_via_engine(self, dataframe: DataFrame) -> DataFrame:
         """Generation-shaped prediction: every row's features are a token-id
@@ -152,24 +172,30 @@ class ModelPredictor(Predictor):
         )
         n = len(feats)
         self._ensure_params(feats[:1])
-        self.last_mode = "single"
-        # Every batch has batch_size rows: pad the tail, slice the output.
+        distributed = self.n_dev > 1 and n >= self.distribute_threshold
+        self.last_mode = "distributed" if distributed else "single"
+        replicas = self._replicated() if distributed else [(self.params, self.state)]
+        # Every batch has batch_size rows a device: pad the tail, slice the output.
         bs = self.batch_size
+        wide = bs * len(replicas)
         outs = []
         with telemetry.trace.span("predict", rows=int(n), mode=self.last_mode), \
                 torch.inference_mode():
-            for i in range(0, n, bs):
-                chunk = feats[i : i + bs]
-                pad = bs - len(chunk)
+            for i in range(0, n, wide):
+                chunk = feats[i : i + wide]
+                pad = wide - len(chunk)
                 if pad:
                     chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-                # .cpu() waits for the device result, so the per-batch span
-                # needs no extra sync
+                # every device's slice is launched before any is read back,
+                # so the devices run side by side; .cpu() waits for each
                 with telemetry.trace.span("predict_batch", phase="infer",
                                           batch=len(chunk)):
-                    x = torch.from_numpy(chunk).to(self.device)
-                    out = self.adapter.apply(self.params, self.state, x, training=False)[0].cpu()
-                outs.append(out[: bs - pad] if pad else out)
+                    pending = []
+                    for k, (device, (params, state)) in enumerate(zip(self.devices, replicas)):
+                        x = torch.from_numpy(chunk[k * bs:(k + 1) * bs]).to(device)
+                        pending.append(self.adapter.apply(params, state, x, training=False)[0])
+                    out = torch.cat([o.cpu() for o in pending])
+                outs.append(out[: wide - pad] if pad else out)
         preds = torch.cat(outs) if outs else torch.zeros((0,))
         if self.adapter.outputs_logits and preds.ndim > 1 and preds.shape[-1] > 1:
             preds = torch.softmax(preds, dim=-1)
@@ -177,3 +203,39 @@ class ModelPredictor(Predictor):
 
     # Spark-ML style alias used in the reference notebooks.
     transform = predict
+
+
+def _local_devices(device, num_devices: Optional[int]) -> list:
+    """The devices a predictor runs on: the first ``num_devices`` of
+    ``device`` when it is a list (all of them by default); for ``"cuda"``
+    this process's cards from the current one on (all of them by default,
+    as JAX takes ``jax.local_devices()``, but one for a card named by its
+    index or inside a process group of several ranks); else the one
+    device."""
+    n = None if num_devices is None else int(num_devices)
+    if n is not None and n < 1:
+        raise ValueError(f"num_devices must be >= 1, got {n}")
+    in_group = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if in_group and n is not None and n > 1:
+        raise ValueError(
+            f"num_devices={n} inside a process group of {dist.get_world_size()} ranks: "
+            "each rank predicts on its own card (num_devices=1)"
+        )
+    if isinstance(device, (list, tuple)):
+        candidates = [resolve_device(d) for d in device]
+        default = len(candidates)
+    else:
+        first = resolve_device(device)
+        candidates = [first]
+        default = 1
+        if first.type == "cuda":
+            count = torch.cuda.device_count()
+            candidates += [torch.device("cuda", (first.index + k) % count)
+                           for k in range(1, count)]
+            if torch.device(device).index is None and not in_group:
+                default = count
+    n = default if n is None else n
+    if n > len(candidates):
+        raise ValueError(f"num_devices={n} exceeds the {len(candidates)} device(s) "
+                         f"this process can use")
+    return candidates[:n]

@@ -66,7 +66,7 @@ counter advances once per engine iteration *of that request*, so its
 sampled tokens are a function of (params, prompt, knobs, seed) alone.
 
 Not ported here: the tensor-parallel decode over a mesh (``mesh=``, ROADMAP
-Queue A item 13), ``StagedLM`` targets (item 15), the chaos fault point and
+Queue A item 15, tensor parallelism), ``StagedLM`` targets (item 15), the chaos fault point and
 the per-tenant accounting ledger (items 18 and 19) and the lock-order
 watchdog around the engine's condition variable (item 19).
 """
@@ -100,7 +100,7 @@ from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
 
 __all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
 
-_MESH = "mesh= (tensor-parallel decode) comes with the multi-GPU slice (ROADMAP Queue A item 13)"
+_MESH = "mesh= (tensor-parallel decode) comes with tensor parallelism (ROADMAP Queue A item 15)"
 _STAGED = "serving a StagedLM comes with the pipeline slice (ROADMAP Queue A item 15)"
 
 

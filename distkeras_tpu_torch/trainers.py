@@ -9,7 +9,16 @@ several epochs a dispatch with the on-device reshuffle
 with the prefetch ring (``streaming``, ``prefetch``), checkpoints and
 resume (``checkpoint_dir``, ``checkpoint_every``, ``resume``,
 ``checkpoint_blocks``, elastic resume at another worker count), the SIGTERM
-boundary checkpoint and ``DistributedTrainer.train_with_recovery``.  Construct a trainer around a model and call
+boundary checkpoint and ``DistributedTrainer.train_with_recovery``.
+
+Inside a ``torch.distributed`` process group (``torchrun --nproc-per-node
+N``, or :func:`~distkeras_tpu_torch.networking.initialize` in each process)
+every trainer runs over a mesh of the group's ranks, one process per card:
+each process makes the same ``train`` call on the same frame, its engine
+trains its block of the workers, and the commit sums over every rank
+(:mod:`~distkeras_tpu_torch.parallel.engine`).  ``num_workers`` defaults
+to the rank count; every process returns the same model and history.
+``SingleTrainer``'s one worker trains whole on every rank.  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
 its trained weights written back, when one was passed in); the constructor
@@ -38,8 +47,13 @@ from distkeras_tpu_torch.data import epoch_arrays, epoch_window_iter, plan_epoch
 from distkeras_tpu_torch.frame import DataFrame
 from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainedModel, as_adapter
 from distkeras_tpu_torch.ops.metrics import per_token_metric_names
-from distkeras_tpu_torch.parallel.engine import WindowedEngine, _mix64, device_count
-from distkeras_tpu_torch.parallel.mesh import resolve_device
+from distkeras_tpu_torch.parallel.engine import WindowedEngine, _mix64
+from distkeras_tpu_torch.parallel.mesh import (
+    LocalMesh,
+    broadcast,
+    local_device_count,
+    resolve_device,
+)
 from distkeras_tpu_torch.parameter_servers import (
     ADAGParameterServer,
     DeltaParameterServer,
@@ -271,7 +285,7 @@ class Trainer:
                                         model_state, epoch)
 
     def _fit(self, dataframe: DataFrame, rule, num_workers: int, *, shuffle: bool = True,
-             average_at_end: bool = False, commit_schedule=None):
+             average_at_end: bool = False, commit_schedule=None, mesh=None):
         """Train, as the JAX package's ``_fit_inner``: build the engine, draw
         the initial parameters from ``seed`` (or resume from
         ``checkpoint_dir``), and run the epochs — in memory one epoch at a
@@ -282,7 +296,9 @@ class Trainer:
         step.  Checkpoints land every ``checkpoint_every`` epochs (and every
         ``checkpoint_blocks`` streamed blocks) with their data-state
         sidecar; after a SIGTERM the epoch boundary is checkpointed and
-        :class:`~distkeras_tpu_torch.fleet.Preempted` raised."""
+        :class:`~distkeras_tpu_torch.fleet.Preempted` raised.  ``mesh``
+        goes to the engine (None: every rank of the process group, if
+        any)."""
         from distkeras_tpu_torch.datapipe import DataState
 
         adapter = as_adapter(self.master_model)
@@ -296,7 +312,7 @@ class Trainer:
         engine = WindowedEngine(
             adapter, self.loss, self._effective_worker_optimizer(), rule, num_workers,
             metrics=metrics, compute_dtype=self.compute_dtype, commit_schedule=commit_schedule,
-            remat=self.remat, unroll=self.unroll, device=self.device,
+            mesh=mesh, remat=self.remat, unroll=self.unroll, device=self.device,
         )
         window = rule.communication_window if rule.communication_window > 0 else None
         rng = np.random.default_rng(self.seed)
@@ -307,7 +323,8 @@ class Trainer:
         if self.checkpoint_dir:
             from distkeras_tpu_torch.checkpoint import CheckpointManager
 
-            ckpt = CheckpointManager(self.checkpoint_dir, every=self.checkpoint_every)
+            ckpt = CheckpointManager(self.checkpoint_dir, every=self.checkpoint_every,
+                                     mesh=engine.mesh)
             # resolve the resume step once, verified (a corrupt newest step is
             # quarantined and the newest that verifies is taken); every read
             # below pins it
@@ -427,6 +444,7 @@ class Trainer:
                             feats, labels, num_workers, self.batch_size, stream_window,
                             rng=rng if shuffle else None, pad_to_window=window is not None,
                             feature_dtype=self.compute_dtype, start_block=start_block,
+                            workers=engine.workers,
                         )
                         if self.prefetch > 0:
                             from distkeras_tpu_torch.datapipe import PrefetchRing
@@ -504,9 +522,11 @@ class Trainer:
         a ``checkpoint_every`` boundary, so the checkpointed epochs are the
         per-epoch loop's.  Returns ``(state, per-epoch stats)``."""
         steps = window or plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
-        xs, ys = engine.shard_batches(*epoch_arrays(feats, labels, num_workers,
-                                                    self.batch_size, steps))
         shuffle_seed = self.seed if shuffle else None
+        # over several ranks the reshuffle permutes every worker's rows
+        xs, ys = engine.shard_batches(*epoch_arrays(feats, labels, num_workers,
+                                                    self.batch_size, steps),
+                                      whole=shuffle_seed is not None and engine.ranks > 1)
         epoch_stats: List[dict] = []
         epoch = start_epoch
         while epoch < self.num_epoch:
@@ -550,12 +570,14 @@ class Trainer:
 
 class SingleTrainer(Trainer):
     """Single-worker baseline (reference parity: ``SingleTrainer`` — one
-    partition, a SequentialWorker)."""
+    partition, a SequentialWorker).  Inside a process group every rank
+    trains the one worker whole (a one-rank mesh), so every rank returns
+    the same model; global rank 0 alone writes checkpoints."""
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
         engine, state, adapter = self._fit(dataframe, worker.rule, num_workers=1,
-                                           shuffle=shuffle)
+                                           shuffle=shuffle, mesh=LocalMesh())
         return self._finalize(engine, state, adapter, use_center=False)
 
 
@@ -566,7 +588,7 @@ class AveragingTrainer(Trainer):
 
     def __init__(self, *args, num_workers: int = None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.num_workers = num_workers or device_count(self.device)
+        self.num_workers = num_workers or local_device_count(self.device)
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.AveragingWorker(self.worker_optimizer, self.batch_size)
@@ -618,8 +640,9 @@ class DistributedTrainer(Trainer):
 
     Owns the parameter-server facade's lifecycle and the worker allocation
     hook; subclasses pick the algorithm.  ``num_workers`` defaults to the
-    number of cards; on one card every worker runs there in turn (the
-    commit's sum across cards comes with ROADMAP Queue A item 13).
+    ranks of the process group (one process per card), else to the number
+    of cards; the workers of one rank run on its card in turn, and the
+    commit sums over every rank.
     """
 
     parameter_server_class = DeltaParameterServer
@@ -669,7 +692,7 @@ class DistributedTrainer(Trainer):
             dispatch_epochs, pipeline_stages, pp_microbatches, tp_spec_fn,
             prefetch, checkpoint_blocks, device,
         )
-        self.num_workers = num_workers or device_count(self.device)
+        self.num_workers = num_workers or local_device_count(self.device)
         self.master_port = master_port
         self.parameter_server: Optional[ParameterServer] = None
         # optional per-worker commit periods: the staleness simulation
@@ -709,7 +732,10 @@ class DistributedTrainer(Trainer):
         Retries are kept for transient failures: a retry happens only if a
         checkpoint exists, and never for the same failure (type and message)
         twice unless a checkpoint landed in between — a deterministic bug
-        surfaces at once.  Retries back off exponentially
+        surfaces at once.  Inside a process group every rank runs this
+        loop; the failure must reach every rank (a collective raises on all
+        of them), and the newest step is global rank 0's, broadcast, so
+        every rank takes the same decision.  Retries back off exponentially
         (``backoff_base * 2^k`` capped at ``backoff_cap``, times 0.5-1.0
         jitter), and a SIGTERM preemption
         (:class:`~distkeras_tpu_torch.fleet.Preempted`) is never retried:
@@ -735,6 +761,7 @@ class DistributedTrainer(Trainer):
                 except Exception:  # noqa: BLE001 — a failed save must not mask e
                     on_disk = committed_steps(self.checkpoint_dir)
                     step = on_disk[-1] if on_disk else None
+                step = _rank0_step(step)
                 if step != last_step:
                     # progress checkpointed since the previous failure: a
                     # repeating failure is a recurring transient
@@ -766,6 +793,17 @@ class DistributedTrainer(Trainer):
         model = self._finalize(engine, state, adapter, use_center=True)
         self.parameter_server.model = model
         return model
+
+
+def _rank0_step(step: Optional[int]) -> Optional[int]:
+    """Global rank 0's ``step`` on every rank of the process group (the
+    value itself outside one)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return step
+    got = broadcast([torch.tensor([-1 if step is None else int(step)])], 0, dist.group.WORLD)
+    return None if int(got[0]) < 0 else int(got[0])
 
 
 class AsynchronousDistributedTrainer(DistributedTrainer):

@@ -278,3 +278,53 @@ def test_serving_phase_on_the_card(tiny_serving, capsys):
     assert out["greedy"]["launches_b1_check"] == 2
     assert out["engine"]["profiled_decode"]["steps"] > 0
     assert out["engine"]["profiled_decode"]["device_ops_per_step"] > 0
+
+
+TINY_PACK = dict(vocab_size=64, dim=32, heads=2, num_layers=2, max_len=64)
+
+
+def test_packing_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "PACK_MODEL", TINY_PACK)
+    monkeypatch.setattr(chip_smoke, "PACK_WIDTH", 64)
+    monkeypatch.setattr(chip_smoke, "PACK_MIN_LEN", 4)
+    monkeypatch.setattr(chip_smoke, "PACK_SEQUENCES", 80)
+    row = chip_smoke.packing_phase(0)
+    assert _emitted(capsys, "packing") == [{"phase": "packing", **row}]
+    assert row["sequences"] == 80 and row["rows"] >= 16 and 0.5 < row["efficiency"] <= 1.0
+    assert 4 <= row["lengths"][0] <= row["lengths"][1] <= 64
+    assert row["max_abs_err_packed_vs_alone"] <= chip_smoke.PACK_LOGITS_ATOL
+    # the CPU takes the reference path: no launch anywhere
+    assert row["launches_packed_forward"] == row["launches_alone"] == 0
+    train = row["train"]
+    assert train["launches_b1_b2_b3"] == [0, 0, 0] and train["num_updates"] > 0
+    assert len(train["loss"]) == chip_smoke.PACK_EPOCHS and train["real_tokens_per_s"] > 0
+
+
+def test_mesh_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # batch 16 (batch 4 diverges at the configuration's learning rate), 1
+    # window of 2 steps an epoch at 4 workers; the spawned gloo ranks take
+    # these settings from their spec
+    monkeypatch.setattr(chip_smoke, "ZOO_CONFIGS",
+                        [c[:4] + (16,) + c[5:] for c in chip_smoke.ZOO_CONFIGS])
+    monkeypatch.setattr(chip_smoke, "EPOCHS_WINDOWS", 2)
+    monkeypatch.setattr(chip_smoke, "MESH_PREDICT_ROWS", 64)
+    import distkeras_tpu_torch as tdk
+
+    x, y = chip_smoke._mesh_frame(0)
+    frame = tdk.from_numpy(x, y)
+    eager = chip_smoke._trained(chip_smoke._cifar_trainer(0), frame)
+    out = chip_smoke.mesh_phase(0, eager, frame, None, None)
+    rows = _emitted(capsys, "mesh")
+    assert [r["case"] for r in rows] == ["one_rank", "two_ranks_one_card", "cards", "predictor"]
+    one = out["one_rank"]
+    assert one["backend"] == "gloo" and one["ranks"] == 1 and one["engine_group"]
+    assert one["mesh"] == "DeviceMesh" and one["mesh_dim_names"] == ["workers"]
+    assert one["vs_no_mesh"]["bitwise"] and "lm" not in one
+    two = out["two_ranks"]
+    assert two["ranks"] == 2 and two["num_updates"] == two["num_updates_one_rank"] == [4, 8]
+    # the workers' own steps are the same sums at one and two ranks
+    assert two["f32_vs_one_rank"]["loss_rel_err"] == 0.0
+    assert rows[2]["mesh_cards_run"] == 1
+    pred = out["predictor"]
+    assert pred["two_replicas_one_card"]["mode"] == "distributed"
+    assert pred["two_replicas_one_card"]["max_abs_err"] <= chip_smoke.MESH_PREDICT_ATOL

@@ -153,7 +153,7 @@ def test_ported_engine_options_keep_the_trajectory(kwargs):
         assert torch.equal(state.center_params[name], value), name
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(seq_shards=2), dict(fsdp=True)])
+@pytest.mark.parametrize("kwargs", [dict(seq_shards=2), dict(fsdp=True)])
 def test_unported_engine_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         WindowedEngine(TorchModel(TransformerLM(**LM)), "mse", "sgd", Downpour(2),

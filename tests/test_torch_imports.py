@@ -4,7 +4,10 @@ flax, optax or the JAX package, and no module of the port (nor its
 ``keras`` (the Keras adapter imports it when a Keras model is adapted) and
 sets up no ``torch.distributed`` process group (``networking.initialize``
 does, when called).  The serving slice's modules (``serving/``,
-``models/generate.py``, ``telemetry/metrics.py``) are held to the same."""
+``models/generate.py``, ``telemetry/metrics.py``) are held to the same, and so
+are sequence packing (``datapipe/packing.py``, a copy of the JAX package's
+numpy) and the meshes (``parallel/mesh.py``, which imports
+``torch.distributed.device_mesh`` when a group exists)."""
 
 import ast
 import os
@@ -56,7 +59,11 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.telemetry.correlate, distkeras_tpu_torch.telemetry.metrics, "
         "distkeras_tpu_torch.models.generate, distkeras_tpu_torch.serving, "
         "distkeras_tpu_torch.serving.cache, distkeras_tpu_torch.serving.sampling, "
-        "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine\n"
+        "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine, "
+        "distkeras_tpu_torch.datapipe.packing, distkeras_tpu_torch.parallel.mesh\n"
+        # what make_mesh imports once a process group exists
+        "import torch.distributed.device_mesh\n"
+        "assert not (dist.is_available() and dist.is_initialized())\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
     )
@@ -69,6 +76,7 @@ def test_package_import_loads_no_jax():
 
 def test_sources_found():
     assert "chip_smoke.py" in SOURCES and "scripts/ab_eager.py" in SOURCES
+    assert "scripts/mesh_tolerance.py" in SOURCES
     assert "distkeras_tpu_torch/ops/flash_attention.py" in SOURCES
     assert "distkeras_tpu_torch/trainers.py" in SOURCES
     assert "distkeras_tpu_torch/parallel/engine.py" in SOURCES
@@ -80,7 +88,7 @@ def test_sources_found():
                    "datapipe/source", "datapipe/ring", "datapipe/state", "checkpoint",
                    "fleet", "telemetry/correlate", "telemetry/metrics", "models/generate",
                    "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
-                   "serving/engine"):
+                   "serving/engine", "datapipe/packing", "parallel/mesh"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

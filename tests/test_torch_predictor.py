@@ -100,11 +100,44 @@ def test_default_device_raises_without_cuda(models):
         TrainedModel(TorchModel(port_model), port_params)
 
 
-@pytest.mark.parametrize("kwargs", [{"num_devices": 2}])
-def test_unported_modes_raise(models, kwargs):
+def test_two_devices_match_jax_in_row_order(models):
+    # num_devices=2 (ported with the meshes): from distribute_threshold rows
+    # (default batch_size * 2) each batch of 32 rows splits over two
+    # replicas, here two CPU devices; the JAX predictor on two of its CPU
+    # devices does the same split
+    jax_model, params, port_model, port_params, tokens = models
+    ref = jdk.ModelPredictor(JaxTrainedModel(FlaxModel(jax_model), params, {}),
+                             batch_size=BATCH, num_devices=2)
+    port = tdk.ModelPredictor(TrainedModel(TorchModel(port_model), port_params, device="cpu"),
+                              batch_size=BATCH, num_devices=2, device=["cpu", "cpu"])
+    assert port.n_dev == ref.n_dev == 2
+    assert port.distribute_threshold == ref.distribute_threshold == 2 * BATCH
+    out, out_ref = port.predict(tdk.from_numpy(tokens)), ref.predict(jdk.from_numpy(tokens))
+    assert port.last_mode == ref.last_mode == "distributed"
+    np.testing.assert_allclose(out["prediction"], out_ref["prediction"], atol=1e-5, rtol=1e-5)
+    # row order: the same as the single-device run's, bit for bit
+    single = tdk.ModelPredictor(TrainedModel(TorchModel(port_model), port_params, device="cpu"),
+                                batch_size=BATCH, device="cpu")
+    np.testing.assert_array_equal(out["prediction"],
+                                  single.predict(tdk.from_numpy(tokens))["prediction"])
+    # below the threshold the first device predicts alone
+    port.predict(tdk.from_numpy(tokens[:2 * BATCH - 1]))
+    assert port.last_mode == "single"
+
+
+def test_num_devices_refusals(models, monkeypatch):
     _, _, port_model, port_params, _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        tdk.ModelPredictor(port_model, params=port_params, device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="exceeds the 1 device"):
+        tdk.ModelPredictor(port_model, params=port_params, device="cpu", num_devices=2)
+    with pytest.raises(ValueError, match="num_devices must be >= 1"):
+        tdk.ModelPredictor(port_model, params=port_params, device="cpu", num_devices=0)
+    # inside a process group of several ranks each rank predicts on its own
+    # card (tests/test_torch_mesh.py checks it inside a real gloo group)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    with pytest.raises(ValueError, match="each rank predicts on its own card"):
+        tdk.ModelPredictor(port_model, params=port_params, device=["cpu", "cpu"],
+                           num_devices=2)
 
 
 def test_engine_predictions_match_jax():

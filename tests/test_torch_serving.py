@@ -565,7 +565,7 @@ def test_cancel_releases_the_slot(make_engine):
 
 def test_unported_options_raise_naming_their_items(lm):
     _, _, model, params = lm
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=r"tensor parallelism \(ROADMAP Queue A item 15"):
         ServingEngine(model, params, mesh=object(), device="cpu")
 
     class Staged(TorchModel):

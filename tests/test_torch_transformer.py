@@ -169,15 +169,13 @@ def test_decode_matches_jax(jax_reference):
     assert cache.index == 22
 
 
-@pytest.mark.parametrize("what", ["seq_axis_lm", "seq_axis_classifier", "packed"])
+@pytest.mark.parametrize("what", ["seq_axis_lm", "seq_axis_classifier"])
 def test_unported_options_raise(what):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         if what == "seq_axis_lm":
             TransformerLM(**CFG, seq_axis="seq")
-        elif what == "seq_axis_classifier":
-            TransformerClassifier(**CFG, seq_axis="seq")
         else:
-            TransformerLM(**CFG, packed=True)
+            TransformerClassifier(**CFG, seq_axis="seq")
 
 
 @pytest.mark.parametrize("bad", ["negative", "below_minus_vocab", "past_vocab", "past_max_len"])
