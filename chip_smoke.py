@@ -123,7 +123,21 @@ toolkit.  Phases, each printing JSON lines:
     ``min(4, count)`` NCCL ranks, one a card, the same checks (one card:
     ``mesh_cards_run: 1``); (d) ``ModelPredictor`` over every card and
     over two replicas on one card within ``MESH_PREDICT_ATOL`` of
-    ``num_devices=1``.
+    ``num_devices=1``;
+19. seq: sequence parallelism, (a) two gloo ranks spawned on the one card
+    (``--seq-rank``), the ``(workers, seq)`` grid 1 x 2: the train phase's
+    ``DOWNPOUR`` over ``TransformerLM(seq_axis="seq")`` at GPT-2-small
+    widths with ``seq_shards=2`` (each rank holds 512 tokens of each row)
+    against the train phase's one-rank run (the first window's loss within
+    ``SEQ_FIRST_LOSS_RTOL``, the loss history and the center within
+    ``SEQ_LOSS_RTOL`` and ``SEQ_PARAM_REL_NORM``), then ``fsdp=True`` bit
+    for bit the replicated run, with its center in seq shards; tokens/s,
+    peak memory of rank 0 against the one rank's, the ring's forward ms a
+    layer and the bytes staged through the host; (b) the classifier's
+    logits at 2 ranks against one rank (B1) within ``SEQ_CLS_ATOL``; (c)
+    the twin the trainer returned through ``ModelPredictor``; (d) on a
+    machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
+    checks (else ``seq_cards_run: 1``).
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -134,7 +148,9 @@ reference's plain masked product, as there), and around its check's
 forward, which launches B1; phase 17 around the packed forwards and the
 packed training (0 launches: the packed path is the reference's masked
 product, as there) and each segment's forward alone (B1); phase 18
-around its GPT-2 run over the mesh.  Phases 7 to 9, 11 to 14 and 18's
+around its GPT-2 run over the mesh; phase 19 around each rank's
+seq-sharded training and classifier forward (0 launches: the ring is the
+reference's plain products, as there) and the twin's predictor (B1).  Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -636,14 +652,14 @@ def train_phase(seed: int):
     history = trainer.get_history()
     seconds = history["training_time"]
     tokens = TRAIN_EPOCHS * TRAIN_ROWS * TRAIN_SEQ
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit(phase="train", trainer="DOWNPOUR", model="TransformerLM", **GPT2_SMALL,
          workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
          epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, seq=TRAIN_SEQ, local_steps=local_steps,
          launches=launches, expected_launches=expected, loss=history["loss"],
          token_accuracy=history["token_accuracy"], num_updates=trainer.num_updates,
          seconds=seconds, seconds_per_step=seconds / local_steps,
-         tokens_per_s=tokens / seconds,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         tokens_per_s=tokens / seconds, peak_memory_gb=peak_gb,
          params=sum(p.numel() for p in trained.params.values()))
     for name, count in launches.items():
         if count != expected:
@@ -682,8 +698,9 @@ def train_phase(seed: int):
     if loss_err > STEP_LOSS_RTOL or grad_errs[worst] > STEP_GRAD_RTOL:
         raise AssertionError(f"card and CPU training steps differ: loss {loss_err}, "
                              f"{worst} gradient {grad_errs[worst]}")
-    run = dict(loss=history["loss"], params={k: v.detach().float().cpu().clone()
-                                             for k, v in trained.params.items()})
+    run = dict(loss=history["loss"], first_window_loss=trainer.window_losses[0],
+               peak_memory_gb=peak_gb, tokens_per_s=tokens / seconds,
+               params={k: v.detach().float().cpu().clone() for k, v in trained.params.items()})
     return launches, run
 
 
@@ -737,11 +754,25 @@ def zoo_data(shape, int_data: bool, classes: int, rows: int, seed: int):
 
 def _keeping_fit(cls):
     """``cls`` whose instances keep the ``(engine, state, adapter)`` of
-    their last fit, for checks on the state the trainer does not return."""
+    their last fit, for checks on the state the trainer does not return,
+    and the per-window losses of its in-memory epochs (``window_losses``,
+    each the mean over the workers)."""
+    from distkeras_tpu_torch.parallel import WindowedEngine
 
     class Kept(cls):
         def _fit(self, *args, **kwargs):
-            self.fit_result = super()._fit(*args, **kwargs)
+            real, self.window_losses = WindowedEngine.run_epoch, []
+
+            def run_epoch(engine, *a, **kw):
+                state, stats = real(engine, *a, **kw)
+                self.window_losses.extend(np.asarray(stats["loss"]).tolist())
+                return state, stats
+
+            WindowedEngine.run_epoch = run_epoch
+            try:
+                self.fit_result = super()._fit(*args, **kwargs)
+            finally:
+                WindowedEngine.run_epoch = real
             return self.fit_result
 
     Kept.__name__ = cls.__name__
@@ -2359,41 +2390,51 @@ def mesh_rank_main(spec_path: str) -> int:
     return 0
 
 
-def _spawn_mesh(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
-    """Spawn ``world`` ranks of this script (``--mesh-rank``), each on
-    ``cuda:0`` or, with ``cards``, on ``cuda:<rank>``; wait for all of them
-    and return rank 0's runs.  A rank that fails fails the phase, and no
-    rank outlives it."""
+def _run_ranks(flag: str, specs, workdir: str, timeout: int, phase: str):
+    """Spawn one process of this script per spec (``flag SPEC.json``), all
+    at once, and wait for all of them.  A rank that fails fails the phase,
+    and no rank outlives it."""
     import os
 
-    port, out = _free_port(), os.path.join(workdir, f"mesh_{backend}_{world}.pt")
     procs = []
     try:
-        for rank in range(world):
-            spec = dict(seed=seed, device=ZOO_DEVICE, window=ZOO_WINDOW, windows=EPOCHS_WINDOWS,
-                        epochs=ZOO_EPOCHS, config=list(_epochs_config()), backend=backend,
-                        world=world, rank=rank, port=port, out=out,
-                        device_index=rank if cards else 0,
-                        # the parent's: on the CPU the thread count changes the
-                        # convolutions' sums, which this run amplifies
-                        threads=torch.get_num_threads())
-            path = os.path.join(workdir, f"spec_{backend}_{world}_{rank}.json")
+        for spec in specs:
+            path = os.path.join(workdir, f"spec_{spec['backend']}_{spec['world']}_"
+                                f"{spec['rank']}.json")
             with open(path, "w", encoding="utf-8") as fh:
                 json.dump(spec, fh)
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mesh-rank", path],
+                [sys.executable, os.path.abspath(__file__), flag, path],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 cwd=os.path.dirname(os.path.abspath(__file__))))
-        logs = [p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0] for p in procs]
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
+    for spec, p, log in zip(specs, procs, logs):
         if p.returncode != 0:
-            raise AssertionError(f"mesh: rank {rank} of {world} ({backend}) exited "
-                                 f"{p.returncode}:\n{log[-3000:]}")
+            raise AssertionError(f"{phase}: rank {spec['rank']} of {spec['world']} "
+                                 f"({spec['backend']}) exited {p.returncode}:\n{log[-3000:]}")
+
+
+def _spawn_mesh(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
+    """Spawn ``world`` ranks of this script (``--mesh-rank``), each on
+    ``cuda:0`` or, with ``cards``, on ``cuda:<rank>``; wait for all of them
+    and return rank 0's runs."""
+    import os
+
+    port, out = _free_port(), os.path.join(workdir, f"mesh_{backend}_{world}.pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, window=ZOO_WINDOW, windows=EPOCHS_WINDOWS,
+                  epochs=ZOO_EPOCHS, config=list(_epochs_config()), backend=backend,
+                  world=world, rank=rank, port=port, out=out,
+                  device_index=rank if cards else 0,
+                  # the parent's: on the CPU the thread count changes the
+                  # convolutions' sums, which this run amplifies
+                  threads=torch.get_num_threads())
+             for rank in range(world)]
+    _run_ranks("--mesh-rank", specs, workdir, MESH_RANK_TIMEOUT_S, "mesh")
     return torch.load(out)
 
 
@@ -2543,14 +2584,312 @@ def mesh_phase(seed: int, eager_run, frame, train_launches, train_run) -> dict:
     return out
 
 
+# sequence-parallel phase: the train phase's DOWNPOUR over a GPT-2-small
+# TransformerLM(seq_axis="seq") on the (workers, seq) grid, 2 seq ranks
+SEQ_MODEL = GPT2_SMALL
+SEQ_SHARDS, SEQ_RANK_TIMEOUT_S = 2, 900
+# The first window's loss, before any commit: the same arithmetic up to the
+# order of the products (the ring's plain f32 products against B1-B3's
+# 3xTF32), so f32 round-off alone.
+SEQ_FIRST_LOSS_RTOL = 1e-5
+# The loss history and the center, 2 seq ranks against one rank: JAX's own
+# bounds for sequence parallelism against data parallelism
+# (tests/test_lm.py:97-101): losses within 2e-4 relative; parameters within
+# 5e-3 relative, held here as the center's relative norm error.  Adam
+# (lr 2e-4, 16 steps a worker) turns round-off in the exactly-zero gradient
+# of the key bias into steps of up to lr, which JAX's bound allows for.
+SEQ_LOSS_RTOL, SEQ_PARAM_REL_NORM = 2e-4, 5e-3
+SEQ_CLS_ROWS, SEQ_CLS_ATOL = 4, PACK_LOGITS_ATOL  # the classifier's logits, 2 ranks vs B1
+SEQ_PREDICT_ROWS = 2  # the twin's ModelPredictor rows (per-token outputs of 50257)
+SEQ_RING_ITERS = 10
+
+
+def _seq_cls_inputs(seed: int):
+    x = np.random.default_rng(seed + 11).integers(
+        0, SEQ_MODEL["vocab_size"], (SEQ_CLS_ROWS, SEQ_MODEL["max_len"]))
+    return x.astype(np.int32)
+
+
+def seq_train(seed: int, seq_shards: int, **kwargs):
+    """The train phase's ``DOWNPOUR`` over ``SEQ_MODEL`` (seq_axis="seq"
+    when ``seq_shards > 1``), 2 workers, batch 4, window 2, Adam, on the
+    train phase's task: ``(trainer, run)``."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**SEQ_MODEL, seq_axis="seq" if seq_shards > 1 else None,
+                          generator=torch.Generator().manual_seed(seed + 2))
+    x, y = lm_task(TRAIN_ROWS, SEQ_MODEL["max_len"], SEQ_MODEL["vocab_size"], seed + 2)
+    trainer = _keeping_fit(tdk.DOWNPOUR)(
+        model, loss="token_crossentropy", metrics=("token_accuracy",),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=TRAIN_EPOCHS,
+        seed=seed, device=ZOO_DEVICE, seq_shards=seq_shards, **kwargs)
+    run = _trained(trainer, tdk.from_numpy(x, y))
+    run.update(first_window_loss=trainer.window_losses[0],
+               tokens_per_s=TRAIN_EPOCHS * TRAIN_ROWS * SEQ_MODEL["max_len"] / run["seconds"])
+    return trainer, run
+
+
+def _ring_ms_per_layer(batch: int, mesh) -> float:
+    """One layer's ring attention forward at the training shape (this
+    rank's block of a ``[batch, max_len]`` row), host clock around
+    synchronised runs: the hop crosses the host on gloo."""
+    from distkeras_tpu_torch.parallel import ring_attention
+
+    heads = SEQ_MODEL["heads"]
+    shape = (batch, SEQ_MODEL["max_len"] // SEQ_SHARDS, heads, SEQ_MODEL["dim"] // heads)
+    gen = torch.Generator(device=ZOO_DEVICE).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=ZOO_DEVICE) for _ in range(3))
+    sync = torch.cuda.synchronize if ZOO_DEVICE == "cuda" else (lambda: None)
+    with torch.no_grad():
+        ring_attention(q, k, v, "seq", True, mesh)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(SEQ_RING_ITERS):
+            ring_attention(q, k, v, "seq", True, mesh)
+        sync()
+    return (time.perf_counter() - t0) / SEQ_RING_ITERS * 1e3
+
+
+def _seq_runs(seed: int) -> dict:
+    """One rank's share of the phase, in the grid of the group it is in:
+    the SP ``DOWNPOUR`` (center replicated, then ``fsdp=True``), the ring's
+    ms a layer, the classifier's forward on this rank's block, and (rank 0,
+    after the group is left) the returned twin through ``ModelPredictor``."""
+    import torch.distributed as dist
+
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TorchModel, TransformerClassifier
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import bind_mesh, transport_stats
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    out = {}
+    on_card = ZOO_DEVICE == "cuda"
+    for name, kwargs in (("sp", {}), ("fsdp", dict(fsdp=True))):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        transport_stats["host_staged_bytes"] = 0
+        trainer, run = seq_train(seed, SEQ_SHARDS, **kwargs)
+        engine, state, _ = trainer.fit_result
+        run.update(launches=[c.launches for c in counters],
+                   host_staged_bytes=transport_stats["host_staged_bytes"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                   center_bytes=sum(t.numel() * t.element_size()
+                                    for t in state.center_params.values()),
+                   grid=list(engine.mesh.shape), num_updates=trainer.num_updates)
+        out[name] = run
+        if name == "sp":  # the grid, and the model the trainer returned
+            mesh, twin = engine.mesh, trainer.parameter_server.model
+            out["ring_ms_per_layer"] = _ring_ms_per_layer(TRAIN_BATCH, mesh)
+        del trainer, engine, state
+    model = TransformerClassifier(**SEQ_MODEL, seq_axis="seq",
+                                  generator=torch.Generator().manual_seed(seed + 11))
+    x = _seq_cls_inputs(seed)
+    block = x.shape[1] // SEQ_SHARDS
+    index = dist.get_rank() % SEQ_SHARDS
+    params = {k: p.detach().to(ZOO_DEVICE) for k, p in model.named_parameters()}
+    for c in counters:
+        c.launches = 0
+    with torch.inference_mode(), bind_mesh(mesh):
+        logits = TorchModel(model).apply(params, {}, torch.from_numpy(
+            x[:, index * block:(index + 1) * block]).to(ZOO_DEVICE))[0]
+    out["classifier"] = dict(logits=logits.float().cpu(), launches=[c.launches for c in counters])
+    out["twin"] = twin
+    return out
+
+
+def _twin_predictor(twin, seed: int) -> dict:
+    """The trained seq-free twin through ``ModelPredictor`` on the card, its
+    B1 launches counted."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.ops import flash_attention
+
+    x, _ = lm_task(SEQ_PREDICT_ROWS, SEQ_MODEL["max_len"], SEQ_MODEL["vocab_size"], seed + 2)
+    flash_attention.launches = 0
+    pred = tdk.ModelPredictor(twin, batch_size=SEQ_PREDICT_ROWS, num_devices=1,
+                              device=ZOO_DEVICE)
+    out = np.stack(pred.predict(tdk.from_numpy(x))["prediction"])
+    launches = flash_attention.launches
+    modules = list(twin.adapter.module.modules())
+    return dict(rows=SEQ_PREDICT_ROWS, shape=list(out.shape), finite=bool(np.isfinite(out).all()),
+                seq_free=all(getattr(m, "seq_axis", None) is None for m in modules),
+                launches_b1=launches, expected_launches_b1=SEQ_MODEL["num_layers"]
+                if ZOO_DEVICE == "cuda" else 0)
+
+
+def seq_rank_main(spec_path: str) -> int:
+    """One spawned rank of the sequence-parallel phase: the parent's
+    settings from ``spec_path``, the group joined, :func:`_seq_runs`, the
+    group left on every path; rank 0 then runs the twin's predictor and
+    writes the runs next to the spec."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, SEQ_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW
+    global TRAIN_EPOCHS, SEQ_CLS_ROWS, SEQ_PREDICT_ROWS
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, SEQ_MODEL = spec["device"], spec["model"]
+    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS = spec["train"]
+    SEQ_CLS_ROWS, SEQ_PREDICT_ROWS = spec["cls_rows"], spec["predict_rows"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        runs = _seq_runs(spec["seed"])
+    finally:
+        dist.destroy_process_group()
+    if spec["rank"] == 0:
+        runs["twin"] = _twin_predictor(runs["twin"], spec["seed"])
+        torch.save(runs, spec["out"])
+    return 0
+
+
+def _spawn_seq(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
+    import os
+
+    port, out = _free_port(), os.path.join(workdir, f"seq_{backend}_{world}.pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=SEQ_MODEL, backend=backend,
+                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS],
+                  cls_rows=SEQ_CLS_ROWS, predict_rows=SEQ_PREDICT_ROWS, world=world,
+                  rank=rank, port=port, out=out, device_index=rank if cards else 0,
+                  threads=torch.get_num_threads())
+             for rank in range(world)]
+    _run_ranks("--seq-rank", specs, workdir, SEQ_RANK_TIMEOUT_S, "seq")
+    return torch.load(out)
+
+
+def _seq_versus(got: dict, train_run: dict, cls_want, backend: str) -> tuple:
+    """A spawned grid's runs against the one-rank train run and the one-rank
+    classifier, and the phase's gates."""
+    sp, fsdp = got["sp"], got["fsdp"]
+    versus = _versus(sp, train_run)
+    first = abs(sp["first_window_loss"] - train_run["first_window_loss"]) / abs(
+        train_run["first_window_loss"])
+    cls_err = float((got["classifier"]["logits"] - cls_want).abs().max())
+    row = dict(grid=sp["grid"], seq_shards=SEQ_SHARDS, model="TransformerLM", **SEQ_MODEL,
+               workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+               epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, tokens_per_rank=SEQ_MODEL["max_len"]
+               // SEQ_SHARDS, loss=sp["loss"], loss_one_rank=train_run["loss"],
+               first_window_loss=sp["first_window_loss"],
+               first_window_loss_one_rank=train_run["first_window_loss"],
+               first_window_loss_rel_err=first, first_window_loss_rtol=SEQ_FIRST_LOSS_RTOL,
+               vs_one_rank=versus, loss_rtol=SEQ_LOSS_RTOL, param_rel_norm_rtol=SEQ_PARAM_REL_NORM,
+               fsdp_vs_sp=_versus(fsdp, sp), num_updates=[sp["num_updates"], fsdp["num_updates"]],
+               seconds=sp["seconds"], tokens_per_s=sp["tokens_per_s"],
+               tokens_per_s_one_rank=train_run.get("tokens_per_s"),
+               fsdp_tokens_per_s=fsdp["tokens_per_s"],
+               peak_memory_gb_rank0=sp["peak_memory_gb"],
+               peak_memory_gb_rank0_fsdp=fsdp["peak_memory_gb"],
+               peak_memory_gb_one_rank=train_run.get("peak_memory_gb"),
+               center_bytes_rank0=sp["center_bytes"], center_bytes_rank0_fsdp=fsdp["center_bytes"],
+               ring_fwd_ms_per_layer=got["ring_ms_per_layer"],
+               ring_timed_as="host clock, synchronised, one layer's forward on rank 0",
+               host_staged_bytes_rank0=sp["host_staged_bytes"],
+               host_staged_bytes_rank0_fsdp=fsdp["host_staged_bytes"],
+               launches_b1_b2_b3=sp["launches"], launches_b1_b2_b3_fsdp=fsdp["launches"],
+               classifier=dict(rows=SEQ_CLS_ROWS, max_abs_err_vs_one_rank=cls_err,
+                               atol=SEQ_CLS_ATOL, launches_b1_b2_b3=got["classifier"]["launches"]),
+               twin_predictor=got["twin"], card=CARD)
+    failures = []
+    if first > SEQ_FIRST_LOSS_RTOL:
+        failures.append(f"first window's loss off by {first}")
+    if versus["loss_rel_err"] > SEQ_LOSS_RTOL or versus["param_rel_norm_err"] > SEQ_PARAM_REL_NORM:
+        failures.append(f"SP against one rank: {versus}")
+    if not row["fsdp_vs_sp"]["bitwise"]:
+        failures.append(f"fsdp is not the replicated SP run bit for bit: {row['fsdp_vs_sp']}")
+    # every leaf but those no dim of which splits (the LM head's bias over
+    # an odd vocabulary) is stored in seq shards
+    if not 0 < fsdp["center_bytes"] <= sp["center_bytes"] / SEQ_SHARDS * 1.01:
+        failures.append(f"fsdp center bytes {fsdp['center_bytes']} against {sp['center_bytes']}")
+    if any(sp["launches"]) or any(fsdp["launches"]) or any(got["classifier"]["launches"]):
+        failures.append("a kernel launched on the seq-sharded path")
+    if cls_err > SEQ_CLS_ATOL:
+        failures.append(f"classifier logits off by {cls_err}")
+    twin = got["twin"]
+    if not (twin["seq_free"] and twin["finite"]
+            and twin["launches_b1"] == twin["expected_launches_b1"]):
+        failures.append(f"the twin's predictor: {twin}")
+    if ZOO_DEVICE == "cuda" and backend == "gloo" and not sp["host_staged_bytes"] > 0:
+        failures.append("gloo on the card staged no byte through the host")
+    return row, failures
+
+
+def seq_phase(seed: int, train_run) -> dict:
+    """Sequence parallelism at GPT-2-small widths: (a) two gloo ranks
+    spawned on the one card (``--seq-rank``; NCCL refuses two ranks on one
+    card), grid 1 x 2: the train phase's ``DOWNPOUR`` with ``seq_shards=2``
+    (each rank holds 512 tokens of each row) against the train phase's
+    one-rank run, then ``fsdp=True`` bit for bit the replicated run; (b)
+    ``TransformerClassifier(seq_axis="seq")``'s logits at 2 ranks against
+    one rank (B1); (c) the trained twin through ``ModelPredictor`` (B1); (d)
+    on a machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
+    checks (else ``seq_cards_run: 1``).  B1-B3 launch 0 times on the
+    seq-sharded path: the ring is plain products, as in JAX."""
+    import tempfile
+
+    from distkeras_tpu_torch.models import TorchModel, TransformerClassifier
+    from distkeras_tpu_torch.ops import flash_attention
+
+    model = TransformerClassifier(**SEQ_MODEL, generator=torch.Generator().manual_seed(seed + 11))
+    params = {k: p.detach().to(ZOO_DEVICE) for k, p in model.named_parameters()}
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        cls_want = TorchModel(model).apply(params, {}, torch.from_numpy(
+            _seq_cls_inputs(seed)).to(ZOO_DEVICE))[0].float().cpu()
+    cls_launches = flash_attention.launches
+    del model, params
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = [("two_ranks_one_card", 2, "gloo", False)]
+        if count >= 4:
+            runs.append(("cards", 4, "nccl", True))
+        for case, world, backend, cards in runs:
+            got = _spawn_seq(seed, world, backend, cards, workdir)
+            row, failures = _seq_versus(got, train_run, cls_want, backend)
+            row = dict(case=case, backend=backend, ranks=world,
+                       **({"seq_cards_run": world} if cards else {}), **row)
+            row["classifier"]["one_rank_launches_b1"] = cls_launches
+            row["failures"] = failures
+            emit(phase="seq", **row)
+            out[case] = row
+            if failures:
+                raise AssertionError(f"seq: {case}: {failures}")
+    if count < 4:
+        emit(phase="seq", case="cards", seq_cards_run=1,
+             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4",
+             card=CARD)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
     parser.add_argument("--mesh-rank", metavar="SPEC", default=None,
                         help="run one spawned rank of the mesh phase (internal)")
+    parser.add_argument("--seq-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the sequence-parallel phase (internal)")
     args = parser.parse_args(argv)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
+    if args.seq_rank is not None:
+        return seq_rank_main(args.seq_rank)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2604,6 +2943,7 @@ def main(argv=None) -> int:
     serving = serving_phase(args.seed)
     packing = packing_phase(args.seed)
     mesh = mesh_phase(args.seed, eager_run, cifar_frame, train_launches, train_run)
+    seq = seq_phase(args.seed, train_run)["two_ranks_one_card"]
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -2678,6 +3018,9 @@ def main(argv=None) -> int:
         "launches_packing_alone": packing["launches_alone"],
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][0],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][0],
+        "launches_seq_train": seq["launches_b1_b2_b3"][0],
+        "launches_seq_classifier": seq["classifier"]["launches_b1_b2_b3"][0],
+        "launches_seq_twin_predictor": seq["twin_predictor"]["launches_b1"],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -2688,6 +3031,7 @@ def main(argv=None) -> int:
         "launches_graph": remat_graph["launches_graph"][1],
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][1],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][1],
+        "launches_seq_train": seq["launches_b1_b2_b3"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -2706,6 +3050,7 @@ def main(argv=None) -> int:
         "launches_graph": remat_graph["launches_graph"][2],
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][2],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][2],
+        "launches_seq_train": seq["launches_b1_b2_b3"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -41,7 +41,12 @@ broadcasts from each rank in turn, through the host), global rank 0 alone
 writes and publishes, and the other ranks wait at a barrier; on resume rank
 0 resolves the step and every rank reads the files and takes its own slice
 (``restore_checkpoint(..., workers=)``).  The files are the one-rank
-engine's: a checkpoint written at two ranks resumes at one, bitwise.
+engine's: a checkpoint written at two ranks resumes at one, bitwise.  Under
+sequence parallelism every seq row of the grid gathers its workers alike,
+and with ``fsdp=True`` (the center split over the seq ranks) the manager
+built with ``center=engine`` first gathers the whole center on every rank
+(``engine.gather_center``); on restore each rank keeps its own slice
+(``engine.shard_center``).  The files stay the one-rank engine's.
 """
 
 from __future__ import annotations
@@ -538,13 +543,16 @@ def _field_tree(path: str, tree: dict, field: str):
 
 
 def restore_checkpoint(directory: str, step: Optional[int] = None, like: Any = None,
-                       verify: str = "full", workers: Optional[slice] = None) -> Any:
+                       verify: str = "full", workers: Optional[slice] = None,
+                       center=None) -> Any:
     """Load training state.  With ``like`` (a ``TrainState``, e.g. a freshly
     built one) the result is a ``TrainState`` with ``like``'s structure,
     dtypes and devices, and ``like``'s generators set to the saved states;
     without it, a dict of the fields as CPU tensor trees.  ``workers`` (a
     mesh rank's block) keeps those rows of every per-worker field: the
-    scatter of a checkpoint gathered by :func:`gather_workers`.
+    scatter of a checkpoint gathered by :func:`gather_workers`.  ``center``
+    (a function of the whole saved center) gives the center as ``like``
+    holds it: its seq shards under fsdp.
 
     Verifies before load (default ``full``: a bit flip keeps sizes, so only
     digests prove the bytes): a corrupt step is quarantined and the newest
@@ -572,9 +580,11 @@ def restore_checkpoint(directory: str, step: Optional[int] = None, like: Any = N
         if len(ref_leaves) != len(saved):
             raise ValueError(f"checkpoint field {field} has {len(saved)} leaves, "
                              f"the state {len(ref_leaves)}")
+        value = _unflatten(treedef, iter(saved))
+        if field == "center_params" and center is not None:
+            value = center(value)
         # rebuilt in the template's own key order, on its devices and dtypes
-        changes[field] = tree_map(lambda r, s: s.to(device=r.device, dtype=r.dtype), ref,
-                                  _unflatten(treedef, iter(saved)))
+        changes[field] = tree_map(lambda r, s: s.to(device=r.device, dtype=r.dtype), ref, value)
     return like.replace(**changes)
 
 
@@ -679,13 +689,16 @@ class CheckpointManager:
     ``mesh`` (the engine's) makes it a collective: every rank makes the same
     calls, saves gather the workers onto mesh rank 0 and only global rank 0
     writes, reads resolve the step on global rank 0, and each call ends at
-    a barrier over the process group."""
+    a barrier over the process group.  ``center`` (the engine, under fsdp)
+    gathers a seq-sharded center whole before a save (``gather_center``)
+    and slices a restored one (``shard_center``)."""
 
-    def __init__(self, directory: str, every: int = 1, keep: int = 3, mesh=None):
+    def __init__(self, directory: str, every: int = 1, keep: int = 3, mesh=None, center=None):
         self.directory = os.path.abspath(directory)
         self.every = max(1, int(every))
         self.keep = keep
         self.mesh = mesh
+        self.center = center
         #: the process group the ranks meet in, None outside one
         self._world = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
         #: does this process write? (every process outside a group)
@@ -707,11 +720,18 @@ class CheckpointManager:
         ds = restore_data_state(self.directory, step)
         return ds is not None and int(ds.block_cursor) > 0
 
+    def _gathered(self, state: Any) -> Any:
+        """``state`` with its center whole (every rank calls it) and every
+        worker's slice on mesh rank 0 (None on the other ranks)."""
+        if self.center is not None:
+            state = state.replace(center_params=self.center.gather_center(state))
+        return gather_workers(state, self.mesh)
+
     def maybe_save(self, state: Any, epoch: int, data_state=None) -> Optional[str]:
         if (epoch + 1) % self.every:
             return None
         step = epoch + 1
-        state = gather_workers(state, self.mesh)
+        state = self._gathered(state)
         if not self._writer:
             barrier(self._world)
             return os.path.join(self.directory, f"step_{step}")
@@ -737,7 +757,7 @@ class CheckpointManager:
         the epoch-boundary save will later claim (``epoch + 1``), saved
         again in place as the cursor advances."""
         step = epoch + 1
-        state = gather_workers(state, self.mesh)
+        state = self._gathered(state)
         if not self._writer:
             barrier(self._world)
             return os.path.join(self.directory, f"step_{step}")
@@ -824,4 +844,5 @@ class CheckpointManager:
         if like is not None and mesh_group(self.mesh) is not None:
             v = len(like.rng)
             workers = slice(mesh_rank(self.mesh) * v, (mesh_rank(self.mesh) + 1) * v)
-        return restore_checkpoint(self.directory, step, like, verify, workers)
+        center = None if self.center is None else self.center.shard_center
+        return restore_checkpoint(self.directory, step, like, verify, workers, center)

@@ -17,8 +17,19 @@ reads ``[batch, width, 2]`` token and segment-ID channels
 (:meth:`~distkeras_tpu_torch.datapipe.PackedBatch.model_inputs`): positions
 restart per segment (:func:`packed_positions`) and attention is causal and
 intra-segment, the reference's masked product (the kernel has no segment
-mask, as the Pallas kernel has none).  Sequence parallelism (``seq_axis``)
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+mask, as the Pallas kernel has none).
+
+Sequence parallelism (``seq_axis``, the mesh axis the sequence is split
+over, run inside :func:`~distkeras_tpu_torch.parallel.mesh.bind_mesh`, which
+the engine does): a model's input is its rank's sequence block, attention
+is :func:`~distkeras_tpu_torch.parallel.ring.ring_attention` (plain
+products, no kernel, as in JAX), positions are offset by the block index,
+the LM's logits stay local to the block and the classifier sums its
+per-token logits over the block, divides by the whole sequence and
+``psum``s over the axis.  A ``seq_axis`` model's parameters are those of
+the same model without one, so the port builds it outside any ring; KV-cache
+decode and serving run on its seq-free twin (:meth:`_TokenEncoder.twin`,
+the same parameters), which the trainers return.
 
 Out-of-range ids gather as the JAX package's flax ``nn.Embed`` does
 (``jnp.take`` in its ``"fill"`` mode), on the device and without a host
@@ -29,6 +40,7 @@ row of NaN.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -36,7 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distkeras_tpu_torch.parallel.ring import attention
+from distkeras_tpu_torch.parallel.mesh import psum, resolve_axis
+from distkeras_tpu_torch.parallel.ring import attention, ring_attention
 
 __all__ = ["KVCache", "TransformerClassifier", "TransformerEncoderBlock", "TransformerLM",
            "packed_positions"]
@@ -45,8 +58,6 @@ _LN_EPS = 1e-6  # flax LayerNorm's default, used by the blocks and the final LN
 # flax's lecun_normal draws from a normal truncated at two standard
 # deviations, scaled up by 1 / this to keep the requested variance
 _TRUNC_STD_CORRECTION = 0.87962566103423978
-
-_SEQ_AXIS = "seq_axis (ring attention) comes with sequence parallelism (ROADMAP Queue A item 14)"
 
 
 def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -135,13 +146,13 @@ class KVCache:
 
 class _SelfAttention(nn.Module):
     """Multi-head self-attention: fused QKV projection, attention over
-    ``[batch, seq, heads, head_dim]``, output projection."""
+    ``[batch, seq, heads, head_dim]`` (ring attention over ``seq_axis``
+    when set), output projection."""
 
     def __init__(self, dim: int, heads: int, seq_axis: Optional[str] = None,
                  causal: bool = False):
         super().__init__()
-        if seq_axis is not None:
-            raise NotImplementedError(_SEQ_AXIS)
+        self.seq_axis = seq_axis
         self.heads = heads
         self.head_dim = dim // heads
         self.causal = causal
@@ -160,6 +171,14 @@ class _SelfAttention(nn.Module):
                     "feature; decode serves one sequence per row"
                 )
             out = self._decode_attention(q, k, v, kv, index)
+        elif self.seq_axis is not None:
+            if segment_ids is not None:
+                raise ValueError(
+                    "segment_ids is incompatible with seq_axis: ring "
+                    "attention has no segment-mask block structure — pack "
+                    "with seq_axis=None"
+                )
+            out = ring_attention(q, k, v, self.seq_axis, causal=self.causal)
         else:
             out = attention(q, k, v, causal=self.causal, segment_ids=segment_ids)
         return self.proj(out.reshape(b, l, self.heads * self.head_dim))
@@ -170,10 +189,11 @@ class _SelfAttention(nn.Module):
         chunk's queries over the whole padded cache with position masking.
         Padded rows mask to ``exp(-inf) = 0`` exactly, so the math matches
         the full-context recompute path."""
-        if not self.causal or kv is None:
+        if not self.causal or self.seq_axis is not None or kv is None:
             raise ValueError(
-                "KV-cache decode needs causal=True and a cache "
-                "(TransformerLM.init_cache)"
+                "KV-cache decode needs causal=True, seq_axis=None and a cache "
+                "(TransformerLM.init_cache; generation runs on the "
+                "single-device twin)"
             )
         key, value = kv
         chunk, cap = q.shape[1], key.shape[1]
@@ -224,8 +244,7 @@ class _TokenEncoder(nn.Module):
     def __init__(self, vocab_size: int, dim: int, heads: int, num_layers: int,
                  max_len: int, seq_axis: Optional[str], causal: bool, dropout: float):
         super().__init__()
-        if seq_axis is not None:
-            raise NotImplementedError(_SEQ_AXIS)
+        self.seq_axis = seq_axis
         self.vocab_size = vocab_size
         self.dim = dim
         self.heads = heads
@@ -234,7 +253,8 @@ class _TokenEncoder(nn.Module):
         self.tok_embed = nn.Embedding(vocab_size, dim)
         self.pos_embed = nn.Embedding(max_len, dim)
         self.blocks = nn.ModuleList(
-            TransformerEncoderBlock(dim, heads, causal=causal, dropout=dropout)
+            TransformerEncoderBlock(dim, heads, seq_axis=seq_axis, causal=causal,
+                                    dropout=dropout)
             for _ in range(num_layers)
         )
         self.final_ln = nn.LayerNorm(dim, eps=_LN_EPS)
@@ -255,6 +275,18 @@ class _TokenEncoder(nn.Module):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
 
+    def twin(self, seq_axis: Optional[str] = None) -> "_TokenEncoder":
+        """This model with ``seq_axis`` set on it and every block, sharing
+        its parameters and buffers (flax's ``module.clone(seq_axis=...)``):
+        the seq-free twin of a sequence-parallel model serves and decodes
+        on one card."""
+        shared = {id(t): t for t in (*self.parameters(), *self.buffers())}
+        twin = copy.deepcopy(self, memo=shared)
+        for module in twin.modules():
+            if hasattr(module, "seq_axis"):
+                module.seq_axis = seq_axis
+        return twin
+
     def encode(self, tokens, training: bool = False, generator=None,
                cache: Optional[KVCache] = None, segment_ids=None):
         """The trunk's output; with ``cache``, one decode chunk whose
@@ -268,6 +300,9 @@ class _TokenEncoder(nn.Module):
             pos = _take_fill(self.pos_embed, packed_positions(segment_ids).long())
         else:
             offset = 0 if cache is None else cache.index
+            if self.seq_axis is not None and cache is None:
+                # this rank's block starts at its index times the block length
+                offset = resolve_axis(self.seq_axis).index * tokens.shape[1]
             pos = _take_fill(self.pos_embed,
                              offset + torch.arange(tokens.shape[1], device=tokens.device))[None]
         x = _take_fill(self.tok_embed, tokens) + pos
@@ -335,6 +370,11 @@ class TransformerLM(_TokenEncoder):
     def init_cache(self, batch: int, device=None, dtype=torch.float32) -> KVCache:
         """An empty KV cache for ``batch`` rows on ``device``: per block a
         zeroed key and value buffer ``[batch, max_len, heads, head_dim]``."""
+        if self.seq_axis is not None:
+            raise ValueError(
+                "KV-cache decode needs causal=True, seq_axis=None and a cache "
+                "(generation runs on the single-device twin)"
+            )
         shape = (int(batch), self.max_len, self.heads, self.dim // self.heads)
         return KVCache(
             [torch.zeros(shape, dtype=dtype, device=device) for _ in range(self.num_layers)],
@@ -346,6 +386,12 @@ class TransformerLM(_TokenEncoder):
         serving engine consumes: embedding tables, per-block subtrees, final
         LayerNorm, LM head, plus static config.  Kept next to the model so
         the serving slice cannot drift from the names this module builds."""
+
+        if self.seq_axis is not None:
+            raise ValueError(
+                "serving decodes on the single-device twin — build the "
+                "engine from a seq_axis=None model with the same params"
+            )
 
         def sub(prefix):
             return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
@@ -370,7 +416,10 @@ class TransformerLM(_TokenEncoder):
 
 class TransformerClassifier(_TokenEncoder):
     """Sequence classifier over ``[batch, seq]`` int tokens: per-token
-    logits mean-pooled over the sequence, ``[batch, num_classes]``."""
+    logits mean-pooled over the sequence, ``[batch, num_classes]``.  With
+    ``seq_axis`` the input is this rank's sequence block: its per-token
+    logits are summed, divided by the whole sequence's length and
+    ``psum``med over the axis (replicated logits out)."""
 
     def __init__(self, vocab_size: int, num_classes: int = 2, dim: int = 128,
                  heads: int = 4, num_layers: int = 2, max_len: int = 2048,
@@ -384,4 +433,7 @@ class TransformerClassifier(_TokenEncoder):
 
     def forward(self, tokens, training: bool = False, generator=None):
         token_logits = self.head(self.encode(tokens, training, generator))  # [b, seq, C]
-        return token_logits.sum(dim=1) / tokens.shape[1]
+        if self.seq_axis is None:
+            return token_logits.sum(dim=1) / tokens.shape[1]
+        seq_total = tokens.shape[1] * resolve_axis(self.seq_axis).size
+        return psum(token_logits.sum(dim=1) / seq_total, self.seq_axis)

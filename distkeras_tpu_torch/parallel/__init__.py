@@ -1,11 +1,18 @@
 """Parallel runtime: device resolution, meshes over the ranks of a process
-group, single-device attention and the windowed training engine."""
+group and their named-axis collectives, attention (single-device and ring)
+and the windowed training engine."""
 
-from distkeras_tpu_torch.parallel.engine import TrainState, WindowedEngine, plan_workers
+from distkeras_tpu_torch.parallel.engine import (
+    TrainState,
+    WindowedEngine,
+    plan_workers,
+    zero_shard_dim,
+)
 from distkeras_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
     WORKER_AXIS,
     LocalMesh,
+    bind_mesh,
     local_device_count,
     make_mesh,
     make_mesh_grid,
@@ -13,7 +20,12 @@ from distkeras_tpu_torch.parallel.mesh import (
     resolve_device,
     worker_sharding,
 )
-from distkeras_tpu_torch.parallel.ring import attention, local_attention
+from distkeras_tpu_torch.parallel.ring import (
+    attention,
+    local_attention,
+    ring_attention,
+    ring_attention_sharded,
+)
 
 __all__ = [
     "SEQ_AXIS",
@@ -22,6 +34,7 @@ __all__ = [
     "TrainState",
     "WindowedEngine",
     "attention",
+    "bind_mesh",
     "local_attention",
     "local_device_count",
     "make_mesh",
@@ -29,5 +42,8 @@ __all__ = [
     "plan_workers",
     "replicated_sharding",
     "resolve_device",
+    "ring_attention",
+    "ring_attention_sharded",
     "worker_sharding",
+    "zero_shard_dim",
 ]

@@ -63,9 +63,27 @@ Deliberate differences from the JAX engine:
   it owns the same number of workers: ``num_workers`` must be a multiple of
   the rank count (JAX tiles fewer workers onto fewer of its devices).
 
-Not in this slice: sequence parallelism and FSDP, whose options the
-constructor refuses; ``remat`` inside a captured window; and the dynamics
-telemetry (``DISTKERAS_DYNAMICS`` is not read).
+**Sequence parallelism** (``seq_shards > 1``, a model built with
+``seq_axis="seq"``): the ranks form the ``(workers, seq)`` grid of
+:func:`~distkeras_tpu_torch.parallel.mesh.make_mesh_grid`, ``world /
+seq_shards`` rows of workers ranks by ``seq_shards`` sequence blocks.  Each
+rank takes its workers' rows and its block of the sequence (last) dim, of
+the labels too when they are per-token; the model runs ring attention over
+the ``seq`` axis inside :func:`~distkeras_tpu_torch.parallel.mesh.bind_mesh`;
+each step's gradients are ``pmean``'d over ``seq`` (the exact total
+gradient, as the JAX engine's ``_sync_grads`` argues); a per-token model's
+stats are ``pmean``'d over ``seq``.  The commit's sum and the stats' mean
+run over the **workers** axis only: the ranks of one seq row hold the same
+workers' blocks.  Rank 0's parameters and the reshuffle reach the whole
+grid (a broadcast over ``seq``, then one over ``workers``).  Every seq rank
+of a worker draws dropout from that worker's generator (ROADMAP C11).
+``fsdp=True`` (with ``seq_shards > 1`` only) stores 1/``seq_shards`` of
+each evenly splitting center leaf on each seq rank
+(:func:`zero_shard_dim`) and gathers it at use, around the commit and the
+read-outs: the trajectory is the replicated center's, bit for bit.
+
+Not in this slice: ``remat`` or ``seq_shards > 1`` inside a captured
+window; the dynamics telemetry (``DISTKERAS_DYNAMICS`` is not read).
 """
 
 from __future__ import annotations
@@ -88,13 +106,20 @@ from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric, per_token_metric_names
 from distkeras_tpu_torch.ops.optimizers import apply_updates, get_optimizer
 from distkeras_tpu_torch.parallel.mesh import (
+    SEQ_AXIS,
+    WORKER_AXIS,
+    all_gather,
     all_reduce_sum,
+    axis_group,
+    bind_mesh,
     broadcast,
     local_device_count,
     make_mesh,
+    make_mesh_grid,
     mesh_group,
     mesh_rank,
     mesh_size,
+    resolve_axis,
     resolve_device,
     worker_sharding,
 )
@@ -103,7 +128,8 @@ from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_where
 if TYPE_CHECKING:  # models.adapter imports this package (resolve_device)
     from distkeras_tpu_torch.models.adapter import ModelAdapter
 
-__all__ = ["TrainState", "WindowedEngine", "epoch_permutation", "plan_workers"]
+__all__ = ["TrainState", "WindowedEngine", "epoch_permutation", "plan_workers",
+           "zero_shard_dim"]
 
 #: pinned host buffers per block shape for ``stream_put``: a buffer is
 #: written again only after its copy to the card has landed (its event)
@@ -118,6 +144,26 @@ def plan_workers(num_workers: int, n_devices: int) -> tuple[int, int]:
     while num_workers % d:
         d -= 1
     return d, num_workers // d
+
+
+def zero_shard_dim(shape, shards: int) -> int:
+    """The ZeRO shard placement: the largest dim of ``shape`` that splits
+    evenly over ``shards`` with at least 2 rows a shard, or -1 to stay
+    whole (the JAX package's policy, so that both place a leaf alike)."""
+    free = [d for d, s in enumerate(shape) if s % shards == 0 and s >= 2 * shards]
+    return max(free, key=lambda d: shape[d]) if free else -1
+
+
+def _seq_grid(seq_shards: int):
+    """The ``(workers, seq)`` grid over every rank of the process group."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world % seq_shards:
+        raise ValueError(
+            f"seq_shards={seq_shards} needs a multiple of {seq_shards} ranks, the process "
+            f"group has {world}: launch one process per rank (torchrun --nproc-per-node N "
+            "with N = workers ranks x seq_shards)"
+        )
+    return make_mesh_grid(world // seq_shards, seq_shards)
 
 
 @dataclasses.dataclass
@@ -267,10 +313,22 @@ class WindowedEngine:
         unroll=1,
         device="cuda",
     ):
-        if int(seq_shards) != 1:
-            raise _not_ported("seq_shards>1 (sequence parallelism)", "item 14")
-        if fsdp:
-            raise _not_ported("fsdp=True", "item 15")
+        self.seq_shards = int(seq_shards)
+        if self.seq_shards < 1:
+            raise ValueError(f"seq_shards must be >= 1, got {seq_shards}")
+        # the seq-axis ZeRO center: fsdp without sequence parallelism is
+        # the GSPMD engine's (ROADMAP Queue A item 15)
+        self.fsdp = bool(fsdp)
+        if self.fsdp and self.seq_shards <= 1:
+            raise ValueError(
+                "fsdp=True on WindowedEngine shards the center over the seq "
+                "axis and needs seq_shards>1; for fsdp without sequence "
+                "parallelism use the GSPMD engine (trainers route it there)"
+            )
+        module_axis = getattr(getattr(adapter, "module", None), "seq_axis", None)
+        if self.seq_shards > 1 and module_axis != SEQ_AXIS:
+            raise ValueError(f"seq_shards={self.seq_shards} needs a model built with "
+                             f"seq_axis={SEQ_AXIS!r}, got seq_axis={module_axis!r}")
         self.adapter = adapter
         self.rule = rule
         self.device = resolve_device(device)
@@ -284,10 +342,26 @@ class WindowedEngine:
         if self.use_graphs and self.remat:
             raise _not_ported("remat=True inside a captured window (unroll other than 1 on a "
                               "card)", "item 20 (CUDA-graph follow-ups)")
-        default_workers = local_device_count(self.device) if mesh is None else mesh_size(mesh)
-        # every rank of the group, as JAX takes every device (one rank without)
-        self.mesh = make_mesh() if mesh is None else mesh
-        #: the mesh's process group; None runs no collective (one rank)
+        if self.use_graphs and self.seq_shards > 1:
+            raise _not_ported("seq_shards>1 inside a captured window (unroll other than 1 on "
+                              "a card)", "item 20 (CUDA-graph follow-ups)")
+        if self.seq_shards > 1:
+            self.mesh = _seq_grid(self.seq_shards) if mesh is None else mesh
+            names = tuple(self.mesh.mesh_dim_names or ())
+            if names != (WORKER_AXIS, SEQ_AXIS) or resolve_axis(
+                    SEQ_AXIS, self.mesh).size != self.seq_shards:
+                raise ValueError(f"seq_shards={self.seq_shards} needs a ({WORKER_AXIS}, "
+                                 f"{SEQ_AXIS}) grid with {self.seq_shards} seq ranks, got "
+                                 f"{self.mesh}")
+            default_workers = mesh_size(self.mesh)
+        else:
+            default_workers = local_device_count(self.device) if mesh is None else mesh_size(mesh)
+            # every rank of the group, as JAX takes every device (one rank without)
+            self.mesh = make_mesh() if mesh is None else mesh
+        #: the seq axis's name, and its group (None without sequence parallelism)
+        self.seq_axis = SEQ_AXIS if self.seq_shards > 1 else None
+        self.seq_group = axis_group(self.mesh, SEQ_AXIS) if self.seq_axis else None
+        #: the mesh's workers-axis process group; None runs no collective (one rank)
         self.group = mesh_group(self.mesh)
         if self.group is not None and self.mesh.get_coordinate() is None:
             raise ValueError(f"this process (rank {dist.get_rank()}) is not a rank of {mesh}")
@@ -337,6 +411,9 @@ class WindowedEngine:
         self._link_warned = False
         self._pinned: dict = {}
         self._copy_stream = None
+        #: per center leaf, the dim fsdp splits over seq (-1: whole); set
+        #: from the parameters when a state is built
+        self._fsdp_dims = None
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: torch.Generator, sample_input) -> TrainState:
@@ -348,18 +425,70 @@ class WindowedEngine:
         return self._assemble_state(generator, params, model_state)
 
     def _from_rank0(self, tree):
-        """``tree`` as mesh rank 0 holds it, on every rank (one broadcast
-        per dtype); the tree itself without a group."""
-        if self.group is None:
-            return tree
-        leaves = iter(t.clone() for t in broadcast(tree_leaves(tree), 0, self.group))
+        """``tree`` as mesh rank 0 holds it, on every rank of the grid (one
+        broadcast per dtype and axis: over seq, then over workers); the
+        tree itself without a group."""
+        leaves = tree_leaves(tree)
+        for group in (self.seq_group, self.group):
+            if group is not None:
+                leaves = [t.clone() for t in broadcast(leaves, 0, group)]
+        leaves = iter(leaves)
         return tree_map(lambda _: next(leaves), tree)
+
+    # ---------------------------------------------- fsdp (seq-axis ZeRO center)
+    def _record_fsdp_dims(self, params) -> None:
+        """Choose, per center leaf, the dim the seq axis splits
+        (:func:`zero_shard_dim`), from the real parameter shapes; every
+        later gather and slice reads this one table."""
+        if not self.fsdp:
+            return
+        self._fsdp_dims = tree_map(lambda x: zero_shard_dim(tuple(x.shape), self.seq_shards),
+                                   params)
+        if all(d < 0 for d in tree_leaves(self._fsdp_dims)):
+            warnings.warn(
+                f"fsdp=True: no center leaf has a dim divisible by seq_shards="
+                f"{self.seq_shards} (with >=2 rows per shard); the center stays "
+                "whole on every rank", stacklevel=3)
+
+    def _fsdp_gather(self, tree):
+        """The whole center from its seq shards (gather at use); the tree
+        itself without fsdp."""
+        if not self.fsdp:
+            return tree
+        return tree_map(lambda d, x: x if d < 0 else all_gather(x, SEQ_AXIS, d, self.mesh),
+                        self._fsdp_dims, tree)
+
+    def _fsdp_shard(self, tree):
+        """This seq rank's block of each leaf of a whole center (views);
+        the tree itself without fsdp."""
+        if not self.fsdp:
+            return tree
+        index = resolve_axis(SEQ_AXIS, self.mesh).index
+
+        def one(d, x):
+            if d < 0:
+                return x
+            block = x.shape[d] // self.seq_shards
+            return x.narrow(d, index * block, block)
+
+        return tree_map(one, self._fsdp_dims, tree)
+
+    def shard_center(self, tree):
+        """A whole center (a checkpoint's) as this rank stores it: its seq
+        block of each leaf under fsdp, as new tensors; else the tree."""
+        if not self.fsdp:
+            return tree
+        return tree_map(lambda x: x.clone(), self._fsdp_shard(tree))
 
     def _assemble_state(self, generator, params, model_state) -> TrainState:
         v, dev = self.virtual, self.device
+        # a seq_axis model's parameters are the seq-free model's (JAX builds
+        # them inside the ring, init_on_mesh): built outside any ring here,
+        # and every rank of the grid takes rank 0's
         params = tree_map(lambda x: x.detach().to(dev, copy=True), params)
         params, model_state = self._from_rank0(
             (params, tree_map(lambda x: x.detach().to(dev), model_state)))
+        self._record_fsdp_dims(params)
 
         def tile(tree):
             # on the device: a rule's fresh counters (DynSGD's clock) start on the CPU
@@ -369,7 +498,7 @@ class WindowedEngine:
         # worker's stream does not depend on where it runs
         seeds = torch.randint(0, 2**62, (self.num_workers,), generator=generator)[self.workers]
         return TrainState(
-            center_params=params,
+            center_params=self.shard_center(params),
             center_rule=tree_map(lambda x: x.to(dev), self.rule.init_center_state()),
             local_params=tile(params),
             opt_state=tile(self.optimizer.init(params)),
@@ -404,7 +533,9 @@ class WindowedEngine:
         new ``(params, opt_state, model_state)`` and this step's loss and
         metrics as device tensors."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
+        # the ring's collectives resolve the seq axis against this mesh; the
+        # binding spans the backward too (remat recomputes the forward there)
+        with torch.enable_grad(), bind_mesh(self.mesh):
             p, x_c = leaves, x
             if self.compute_dtype is not None:
                 # f32 master params, cast inside the loss (engine.py:456-462
@@ -421,7 +552,12 @@ class WindowedEngine:
             loss = self.loss_fn(out, y) + self.adapter.aux_loss(model_state)
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = iter([torch.zeros_like(t) if g is None else g for t, g in zip(flat, grads)])
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, grads)]
+        if self.seq_axis is not None:
+            # each seq rank holds its partial gradient (times seq_shards under
+            # the classifier's psum): the pmean is the exact total gradient
+            grads = [g / self.seq_shards for g in all_reduce_sum(grads, self.seq_group)]
+        grads = iter(grads)
         grads = tree_map(lambda _: next(grads), leaves)
         with torch.no_grad():
             out = out.detach()
@@ -441,8 +577,29 @@ class WindowedEngine:
 
     def _mean_over_workers(self, *sums):
         """Per-window (or per-step) sums over this rank's workers, as the
-        mean over all workers: one all-reduce for all of them."""
-        return [s / self.num_workers for s in all_reduce_sum(sums, self.group)]
+        mean over all workers: one all-reduce for all of them, over the
+        workers axis.  A per-token model's stats are local to each rank's
+        sequence block: they are then averaged over the seq axis (a
+        classifier's psum-pooled logits are already the same on every seq
+        rank)."""
+        means = [s / self.num_workers for s in all_reduce_sum(sums, self.group)]
+        if self.seq_axis is not None and self.adapter.per_token_labels:
+            means = [m / self.seq_shards for m in all_reduce_sum(means, self.seq_group)]
+        return means
+
+    def _seq_block(self, xs, ys):
+        """This rank's block of the sequence (last) dim of ``xs``, and of
+        ``ys`` when the labels are per-token; both as given without
+        sequence parallelism."""
+        if self.seq_axis is None:
+            return xs, ys
+        n = xs.shape[-1]
+        if n % self.seq_shards:
+            raise ValueError(f"a sequence of {n} does not split over seq_shards={self.seq_shards}")
+        block = n // self.seq_shards
+        index = resolve_axis(SEQ_AXIS, self.mesh).index
+        cut = slice(index * block, (index + 1) * block)
+        return xs[..., cut], (ys[..., cut] if self.adapter.per_token_labels else ys)
 
     def _check_block(self, *tensors):
         """Over a mesh, data carry this rank's block of the workers
@@ -482,14 +639,17 @@ class WindowedEngine:
         under the same mask, written into the state's tensors in place (a
         captured window replays into the same memory)."""
         with torch.no_grad():
-            res = self.rule.commit(ctx, state.local_params, state.center_params,
+            # fsdp: the rule's math runs on the whole center (gathered at
+            # use), and this rank keeps its block of the result
+            res = self.rule.commit(ctx, state.local_params,
+                                   self._fsdp_gather(state.center_params),
                                    state.rule_local, state.center_rule)
             model_state = self._sync_model_state(ctx, state.model_state)
             _copy_into(
                 (state.local_params, state.center_params, state.rule_local,
                  state.center_rule, state.model_state),
-                (res.local_params, res.center_params, res.local_state, res.center_state,
-                 model_state),
+                (res.local_params, self._fsdp_shard(res.center_params), res.local_state,
+                 res.center_state, model_state),
             )
         return state
 
@@ -627,9 +787,11 @@ class WindowedEngine:
         """Epoch data onto the device, as tensors of the arrays' dtypes:
         this rank's block of the workers, or with ``whole=True`` every
         worker's rows (what ``run_epochs``' reshuffle permutes over a mesh
-        of several ranks)."""
+        of several ranks); under sequence parallelism, of those rows this
+        rank's block of the sequence."""
         if not whole:
             xs, ys = xs[self.workers], ys[self.workers]
+        xs, ys = self._seq_block(xs, ys)
         return (torch.from_numpy(np.ascontiguousarray(xs)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(ys)).to(self.device))
 
@@ -753,8 +915,9 @@ class WindowedEngine:
         ``non_blocking=True`` on a copy stream; a pinned buffer is written
         again only once its previous copy has landed (its event), and the
         block carries the event the compute stream waits on before use."""
+        xs, ys = self._seq_block(*block)  # this rank's sequence block alone crosses
         xs, ys = (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(t))
-                  for t in block)
+                  for t in (xs, ys))
         self._check_block(xs, ys)
         cast = self.compute_dtype
         if cast is not None and xs.is_floating_point():
@@ -954,7 +1117,7 @@ class WindowedEngine:
 
     def average_workers(self, state: TrainState):
         """One-shot synchronous weight average (AveragingTrainer's final step)."""
-        mean_p = self._worker_mean(state.local_params)
+        mean_p = self.shard_center(self._worker_mean(state.local_params))
         return state.replace(center_params=mean_p), self.final_model_state(state)
 
     def final_model_state(self, state: TrainState):
@@ -985,6 +1148,8 @@ class WindowedEngine:
 
     def gather_center(self, state: TrainState):
         """The center parameters (one copy on this engine's device, the same
-        on every rank of a mesh)."""
-        return state.center_params
+        on every rank of a mesh); under fsdp gathered whole from the seq
+        shards, a collective every rank of the grid takes part in."""
+        with torch.no_grad():
+            return self._fsdp_gather(state.center_params)
 

@@ -15,15 +15,32 @@ returns a :class:`LocalMesh`: one rank, no group, no collective.  A run
 over N cards is ``torchrun --nproc-per-node N script.py``, or a call to
 :func:`distkeras_tpu_torch.networking.initialize` in each process.
 
-Only all-reduce and broadcast run on the training path: they are what
-gloo takes for CUDA tensors too, so two ranks can share one card over gloo
-(NCCL refuses two ranks on one card).
+On the data-parallel path only all-reduce and broadcast run: they are
+what gloo takes for CUDA tensors too, so two ranks can share one card over
+gloo (NCCL refuses two ranks on one card).
+
+**Named axes** (sequence parallelism).  A :func:`make_mesh_grid` mesh has
+one process group per axis (``axis_group``); :func:`bind_mesh` binds a
+mesh the way JAX's ``shard_map`` binds axis names, and inside it the
+differentiable collectives :func:`ppermute`, :func:`all_gather`,
+:func:`psum` and :func:`pmean` run over one named axis.  Each is a
+``torch.autograd.Function`` whose backward is JAX's transpose (the other
+shift; a reduce-scatter; a psum; a pmean) and which keeps its group from
+the forward, so the backward needs no binding.  The route is picked by the
+group's backend: NCCL's own collectives (ring shifts as one
+``batch_isend_irecv``); gloo with CPU tensors directly; gloo with CUDA
+tensors staged through pinned host memory for the ring shift and the
+gather (gloo's send/recv and gather take no CUDA tensor), while psum and
+pmean are :func:`all_reduce_sum`, which gloo copies through the host
+itself.  Every byte a collective moves through the host is counted in
+:data:`transport_stats` (ROADMAP Queue C, C11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -31,10 +48,17 @@ import torch.distributed as dist
 __all__ = [
     "WORKER_AXIS",
     "SEQ_AXIS",
+    "Axis",
     "LocalMesh",
     "Sharding",
+    "all_gather",
     "all_reduce_sum",
+    "axis_group",
+    "axis_index",
+    "axis_size",
     "barrier",
+    "bind_mesh",
+    "bound_mesh",
     "broadcast",
     "local_device_count",
     "make_mesh",
@@ -42,8 +66,13 @@ __all__ = [
     "mesh_group",
     "mesh_rank",
     "mesh_size",
+    "pmean",
+    "ppermute",
+    "psum",
     "replicated_sharding",
+    "resolve_axis",
     "resolve_device",
+    "transport_stats",
     "worker_sharding",
 ]
 
@@ -146,8 +175,10 @@ def make_mesh(num_workers: Optional[int] = None, axis_name: str = WORKER_AXIS):
 def make_mesh_grid(*dims: int, axis_names: tuple = (WORKER_AXIS, SEQ_AXIS)):
     """An N-D mesh, one named dim per entry of ``dims`` over the first
     ``prod(dims)`` ranks, row-major: (workers, seq) for data x sequence
-    parallelism.  No engine reads it yet (ring attention over the seq dim
-    comes with ROADMAP Queue A item 14)."""
+    parallelism, the grid :class:`~distkeras_tpu_torch.parallel.engine.
+    WindowedEngine` builds for ``seq_shards > 1`` (mesh rank ``(w, s)`` is
+    global rank ``w * seq_shards + s``).  Every rank of the process group
+    makes the call; each axis has its own group (:func:`axis_group`)."""
     if len(dims) != len(axis_names):
         raise ValueError(f"{len(dims)} mesh dims for axis names {axis_names}")
     need = 1
@@ -244,13 +275,17 @@ def _unflatten_into(out, tensors, idx, flat) -> None:
 def all_reduce_sum(tensors, group):
     """The elementwise sum of each tensor over the group's ranks, as new
     tensors (the inputs are not written).  One all-reduce per dtype; with
-    ``group=None`` the tensors come back as they are."""
+    ``group=None`` the tensors come back as they are.  gloo takes a CUDA
+    tensor here and copies it through the host itself: those bytes count
+    in :data:`transport_stats`."""
     tensors = list(tensors)
     if group is None or not tensors:
         return tensors
     out = [None] * len(tensors)
     for (_, device), (idx, flat) in _flat_by_dtype(tensors).items():
         flat = flat.to(_comm_device(group, device))
+        if _route(group, flat) == "host":
+            transport_stats["host_staged_bytes"] += 2 * flat.numel() * flat.element_size()
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         _unflatten_into(out, tensors, idx, flat)
     return out
@@ -279,3 +314,237 @@ def barrier(group) -> None:
             dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
         else:
             dist.barrier(group=group)
+
+
+# -------------------------------------------------------------- named axes
+
+#: meshes bound by :func:`bind_mesh`, innermost last.  A plain list, not a
+#: thread-local: the autograd engine runs a CUDA backward on its own thread,
+#: and a rematerialised forward there must see the same binding
+_BOUND: list = []
+
+#: bytes the collectives copied between the card and the host (gloo with
+#: CUDA tensors; both directions counted); reset it to 0 freely
+transport_stats = {"host_staged_bytes": 0}
+
+
+@contextlib.contextmanager
+def bind_mesh(mesh):
+    """Bind ``mesh`` for the collectives of the block: an axis name given
+    to :func:`ppermute` and the others (and to a model's ``seq_axis``)
+    resolves against the innermost bound mesh, as a name inside JAX's
+    ``shard_map`` resolves against its mesh."""
+    _BOUND.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _BOUND.pop()
+
+
+def bound_mesh():
+    """The innermost mesh :func:`bind_mesh` bound, or None."""
+    return _BOUND[-1] if _BOUND else None
+
+
+def _axis_dim(mesh, axis: str) -> int:
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh axis {axis!r} is not one of the mesh's axes {names}")
+    return names.index(axis)
+
+
+def axis_group(mesh, axis: str):
+    """The process group of the ranks that differ only along ``axis`` and
+    share this rank's other coordinates; None on a :class:`LocalMesh`."""
+    if mesh is None:
+        return None
+    return mesh.get_group(_axis_dim(mesh, axis))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+    if mesh is None:
+        return 0
+    return int(mesh.get_local_rank(_axis_dim(mesh, axis)))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The number of ranks along ``axis`` (``lax.axis_size``)."""
+    if mesh is None:
+        return 1
+    return int(mesh.size(_axis_dim(mesh, axis)))
+
+
+class Axis(NamedTuple):
+    """One named axis of a mesh as this rank sees it: its group (None for
+    one rank), this rank's index along it and its size."""
+
+    name: str
+    group: Any
+    index: int
+    size: int
+
+
+def resolve_axis(axis: str, mesh=None) -> Axis:
+    """``axis`` of ``mesh``, or of the bound mesh (:func:`bind_mesh`)."""
+    mesh = bound_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise ValueError(
+            f"mesh axis {axis!r} is not bound: run inside bind_mesh(mesh) (the "
+            "engine binds its mesh), as a JAX axis name needs shard_map"
+        )
+    return Axis(axis, axis_group(mesh, axis), axis_index(mesh, axis), axis_size(mesh, axis))
+
+
+def _route(group, t: torch.Tensor) -> str:
+    """How a collective moves ``t``: ``"nccl"``, ``"direct"``
+    (gloo, a CPU tensor) or ``"host"`` (gloo, a CUDA tensor: staged through
+    pinned host memory).  Picked by the backend, never by a failed try."""
+    if dist.get_backend(group) == "nccl":
+        return "nccl"
+    return "host" if t.is_cuda else "direct"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    transport_stats["host_staged_bytes"] += t.numel() * t.element_size()
+    return buf
+
+
+def _from_host(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    transport_stats["host_staged_bytes"] += buf.numel() * buf.element_size()
+    return buf.to(device)
+
+
+def _shift(flat: torch.Tensor, ax: Axis, shift: int) -> torch.Tensor:
+    """``flat`` from the rank ``shift`` places back along the ring, as this
+    rank sends its own ``shift`` places on."""
+    dst = dist.get_global_rank(ax.group, (ax.index + shift) % ax.size)
+    src = dist.get_global_rank(ax.group, (ax.index - shift) % ax.size)
+    route = _route(ax.group, flat)
+    if route == "nccl":
+        out = torch.empty_like(flat)
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, flat, dst, ax.group),
+                                       dist.P2POp(dist.irecv, out, src, ax.group)])
+        for r in reqs:
+            r.wait()
+        return out
+    send = _to_host(flat) if route == "host" else flat
+    recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=route == "host")
+    reqs = [dist.isend(send, dst, group=ax.group), dist.irecv(recv, src, group=ax.group)]
+    for r in reqs:
+        r.wait()
+    return _from_host(recv, flat.device) if route == "host" else recv
+
+
+def _gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """Every rank's ``x`` stacked in axis order: ``[size, *x.shape]``."""
+    x = x.contiguous()
+    route = _route(ax.group, x)
+    if route == "nccl":
+        out = torch.empty((ax.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=ax.group)
+        return out
+    send = _to_host(x) if route == "host" else x
+    bufs = [torch.empty_like(send) for _ in range(ax.size)]
+    dist.all_gather(bufs, send, group=ax.group)
+    out = torch.stack(bufs)
+    return _from_host(out, x.device) if route == "host" else out
+
+
+def _reduce_scatter(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over the axis, and of it this rank's block along
+    ``dim``.  gloo has no reduce-scatter: there it is an all-reduce, then
+    the block."""
+    block = x.shape[dim] // ax.size
+    if _route(ax.group, x) == "nccl":
+        chunks = torch.stack(x.split(block, dim=dim)).contiguous()
+        out = torch.empty(chunks.shape[1:], dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, chunks, op=dist.ReduceOp.SUM, group=ax.group)
+        return out
+    whole = all_reduce_sum([x], ax.group)[0]
+    return whole.narrow(dim, ax.index * block, block).clone()
+
+
+class _PPermute(torch.autograd.Function):
+    """A ring shift of several same-dtype tensors in one transfer."""
+
+    @staticmethod
+    def forward(ctx, ax, shift, *tensors):
+        ctx.ax, ctx.shift = ax, shift
+        ctx.shapes = [t.shape for t in tensors]
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        return tuple(p.view(s) for p, s in zip(_shift(flat, ax, shift).split(
+            [t.numel() for t in tensors]), ctx.shapes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        back = _shift(flat, ctx.ax, -ctx.shift).split([g.numel() for g in grads])
+        return (None, None) + tuple(b.view(s) for b, s in zip(back, ctx.shapes))
+
+
+def ppermute(tensors, axis: str, shift: int = 1, mesh=None):
+    """``lax.ppermute`` over ``axis`` with the ring ``i -> i + shift``:
+    each tensor as the rank ``shift`` places back holds it.  ``tensors`` is
+    a tensor or a sequence of same-dtype tensors, all moved in one
+    transfer; the backward shifts the cotangents the other way."""
+    ax = resolve_axis(axis, mesh)
+    single = isinstance(tensors, torch.Tensor)
+    tensors = (tensors,) if single else tuple(tensors)
+    if ax.size == 1:
+        return tensors[0] if single else tensors
+    out = _PPermute.apply(ax, int(shift), *tensors)
+    return out[0] if single else out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, dim, x):
+        ctx.ax, ctx.dim = ax, dim
+        return torch.cat(list(_gather(x, ax).unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _reduce_scatter(g, ctx.ax, ctx.dim)
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int = 0, mesh=None) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: every rank's
+    ``x`` concatenated along ``dim`` in axis order.  The backward is JAX's
+    transpose, a reduce-scatter (``psum_scatter``): each rank gets the
+    sum over ranks of its block of the cotangent."""
+    ax = resolve_axis(axis, mesh)
+    if ax.size == 1:
+        return x
+    return _AllGather.apply(ax, dim % x.dim(), x)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, scale, x):
+        ctx.ax, ctx.scale = ax, scale
+        out = all_reduce_sum([x], ax.group)[0]
+        return out if scale == 1 else out / scale
+
+    @staticmethod
+    def backward(ctx, g):
+        out = all_reduce_sum([g], ctx.ax.group)[0]
+        return None, None, out if ctx.scale == 1 else out / ctx.scale
+
+
+def psum(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """``lax.psum`` over ``axis``.  Its backward is a psum too, JAX's
+    transpose inside ``shard_map``: a replicated loss downstream hands
+    each rank ``size`` times its own share of the gradient, which the
+    engine's pmean of the gradients turns back into the total."""
+    ax = resolve_axis(axis, mesh)
+    return x if ax.size == 1 else _PSum.apply(ax, 1, x)
+
+
+def pmean(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """``lax.pmean`` over ``axis``: the psum over the size; the backward
+    is a pmean."""
+    ax = resolve_axis(axis, mesh)
+    return x if ax.size == 1 else _PSum.apply(ax, ax.size, x)

@@ -18,7 +18,13 @@ each process makes the same ``train`` call on the same frame, its engine
 trains its block of the workers, and the commit sums over every rank
 (:mod:`~distkeras_tpu_torch.parallel.engine`).  ``num_workers`` defaults
 to the rank count; every process returns the same model and history.
-``SingleTrainer``'s one worker trains whole on every rank.  Construct a trainer around a model and call
+``SingleTrainer``'s one worker trains whole on every rank.  With
+``seq_shards > 1`` (a model built with ``seq_axis="seq"``) the ranks form a
+``(workers, seq)`` grid of ``world / seq_shards`` workers ranks by
+``seq_shards`` sequence blocks (ring attention), ``num_workers`` defaults to
+``world / seq_shards``, and ``fsdp=True`` splits the center over the seq
+ranks; every return path hands back the model's seq-free twin on the
+trained parameters, which serves on one card.  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
 its trained weights written back, when one was passed in); the constructor
@@ -34,6 +40,7 @@ set to anything but its default; none is silently ignored.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 import time
 from typing import Any, List, Optional, Sequence
@@ -79,9 +86,8 @@ __all__ = [
 # kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
 _UNPORTED = {
     "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
-    "seq_shards": (1, "item 14 (sequence parallelism)"),
     "tp_shards": (1, "item 15 (tensor parallelism)"),
-    "fsdp": (False, "item 15 (FSDP)"),
+    "fsdp": (False, "item 15 (GSPMD fsdp (no seq axis))"),
     "pipeline_stages": (1, "item 15 (pipeline parallelism)"),
     "pp_microbatches": (None, "item 15 (pipeline parallelism)"),
     "tp_spec_fn": (None, "item 15 (tensor parallelism)"),
@@ -97,6 +103,18 @@ def _refuse_unported(**kwargs) -> None:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet: it comes with ROADMAP Queue A {item}"
             )
+
+
+def _serving_twin(adapter: ModelAdapter) -> ModelAdapter:
+    """The seq-free twin of a sequence-parallel adapter, on the same
+    parameters: a ``seq_axis`` model runs the ring's collectives and needs
+    its mesh, so every trainer return path hands back the ``seq_axis=None``
+    twin, and ``train(df)`` returns a servable model (the JAX package's
+    ``_serving_twin``).  Any other adapter as it is."""
+    module = getattr(adapter, "module", None)
+    if module is not None and getattr(module, "seq_axis", None) is not None:
+        return dataclasses.replace(adapter, module=module.twin(None))
+    return adapter
 
 
 def _torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -174,8 +192,21 @@ class Trainer:
         checkpoint_blocks: int = 0,
         device="cuda",
     ):
+        self.seq_shards = int(seq_shards)
+        if self.seq_shards < 1:
+            raise ValueError(f"seq_shards must be >= 1, got {seq_shards}")
+        if tp_shards > 1 and self.seq_shards > 1:
+            raise ValueError(
+                "tp_shards>1 (GSPMD engine) is incompatible with "
+                "seq_shards>1 (ring attention needs the shard_map "
+                "engine); fsdp + seq_shards IS supported — drop tp_shards"
+            )
+        # fsdp with seq_shards>1 is the seq-axis ZeRO center of the windowed
+        # engine; fsdp alone is the GSPMD engine's (item 15)
+        self.fsdp = bool(fsdp)
         _refuse_unported(
-            profile_dir=profile_dir, seq_shards=seq_shards, tp_shards=tp_shards, fsdp=fsdp,
+            profile_dir=profile_dir, tp_shards=tp_shards,
+            fsdp=self.fsdp and self.seq_shards == 1,
             pipeline_stages=pipeline_stages, pp_microbatches=pp_microbatches,
             tp_spec_fn=tp_spec_fn,
         )
@@ -312,7 +343,8 @@ class Trainer:
         engine = WindowedEngine(
             adapter, self.loss, self._effective_worker_optimizer(), rule, num_workers,
             metrics=metrics, compute_dtype=self.compute_dtype, commit_schedule=commit_schedule,
-            mesh=mesh, remat=self.remat, unroll=self.unroll, device=self.device,
+            mesh=mesh, seq_shards=self.seq_shards, fsdp=self.fsdp, remat=self.remat,
+            unroll=self.unroll, device=self.device,
         )
         window = rule.communication_window if rule.communication_window > 0 else None
         rng = np.random.default_rng(self.seed)
@@ -324,7 +356,7 @@ class Trainer:
             from distkeras_tpu_torch.checkpoint import CheckpointManager
 
             ckpt = CheckpointManager(self.checkpoint_dir, every=self.checkpoint_every,
-                                     mesh=engine.mesh)
+                                     mesh=engine.mesh, center=engine if engine.fsdp else None)
             # resolve the resume step once, verified (a corrupt newest step is
             # quarantined and the newest that verifies is taken); every read
             # below pins it
@@ -559,6 +591,7 @@ class Trainer:
         else:
             params = engine.worker_slice(state.local_params, 0)
         model_state = engine.final_model_state(state)
+        adapter = _serving_twin(adapter)
         if hasattr(adapter, "assign"):  # Keras path: write back and return the Keras model
             return adapter.assign(params, model_state)
         return TrainedModel(adapter, params, model_state, device=engine.device,
@@ -576,8 +609,10 @@ class SingleTrainer(Trainer):
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
+        # sequence parallelism needs the grid of the group's ranks
+        mesh = None if self.seq_shards > 1 else LocalMesh()
         engine, state, adapter = self._fit(dataframe, worker.rule, num_workers=1,
-                                           shuffle=shuffle, mesh=LocalMesh())
+                                           shuffle=shuffle, mesh=mesh)
         return self._finalize(engine, state, adapter, use_center=False)
 
 
@@ -588,7 +623,7 @@ class AveragingTrainer(Trainer):
 
     def __init__(self, *args, num_workers: int = None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.num_workers = num_workers or local_device_count(self.device)
+        self.num_workers = num_workers or _default_workers(self.device, self.seq_shards)
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.AveragingWorker(self.worker_optimizer, self.batch_size)
@@ -612,6 +647,7 @@ class EnsembleTrainer(Trainer):
         worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
         engine, state, adapter = self._fit(dataframe, worker.rule, self.num_models,
                                            shuffle=shuffle)
+        adapter = _serving_twin(adapter)
         if hasattr(adapter, "assign"):
             # Keras in -> Keras models out: one clone per member (assigning
             # into the one wrapped model N times would leave N handles to
@@ -692,7 +728,7 @@ class DistributedTrainer(Trainer):
             dispatch_epochs, pipeline_stages, pp_microbatches, tp_spec_fn,
             prefetch, checkpoint_blocks, device,
         )
-        self.num_workers = num_workers or local_device_count(self.device)
+        self.num_workers = num_workers or _default_workers(self.device, self.seq_shards)
         self.master_port = master_port
         self.parameter_server: Optional[ParameterServer] = None
         # optional per-worker commit periods: the staleness simulation
@@ -793,6 +829,12 @@ class DistributedTrainer(Trainer):
         model = self._finalize(engine, state, adapter, use_center=True)
         self.parameter_server.model = model
         return model
+
+
+def _default_workers(device, seq_shards: int) -> int:
+    """The default worker count: one per workers rank of the grid (the
+    ranks over ``seq_shards``), else one per card."""
+    return max(1, local_device_count(device) // seq_shards)
 
 
 def _rank0_step(step: Optional[int]) -> Optional[int]:

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s training-suite, flow, head-dim, networking, epochs,
-streaming, checkpoint and remat/graph phases rehearsed on the CPU.
+streaming, checkpoint, remat/graph, serving, packing, mesh and seq phases
+rehearsed on the CPU.
 
 The script runs on an H100; here those phases run on the CPU
 (``ZOO_DEVICE = "cpu"``) at small batches, windows, row counts and model
@@ -328,3 +329,30 @@ def test_mesh_phase_rehearsal(on_cpu, capsys, monkeypatch):
     pred = out["predictor"]
     assert pred["two_replicas_one_card"]["mode"] == "distributed"
     assert pred["two_replicas_one_card"]["max_abs_err"] <= chip_smoke.MESH_PREDICT_ATOL
+
+
+def test_seq_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # phase 19 at TINY_LM's widths: two gloo ranks spawned on the CPU (the
+    # (workers, seq) grid 1 x 2), held to the one-rank run made here
+    monkeypatch.setattr(chip_smoke, "SEQ_MODEL", TINY_LM)
+    monkeypatch.setattr(chip_smoke, "SEQ_PREDICT_ROWS", 2)
+    _, reference = chip_smoke.seq_train(0, 1)
+    out = chip_smoke.seq_phase(0, reference)
+    rows = _emitted(capsys, "seq")
+    assert [r["case"] for r in rows] == ["two_ranks_one_card", "cards"]
+    assert rows[1]["seq_cards_run"] == 1
+    row = out["two_ranks_one_card"]
+    assert rows[0] == {"phase": "seq", **row}
+    assert not row["failures"] and row["backend"] == "gloo" and row["grid"] == [1, 2]
+    assert row["tokens_per_rank"] == TINY_LM["max_len"] // 2
+    assert row["fsdp_vs_sp"]["bitwise"] and row["center_bytes_rank0_fsdp"] < row[
+        "center_bytes_rank0"]
+    assert row["first_window_loss_rel_err"] <= chip_smoke.SEQ_FIRST_LOSS_RTOL
+    # the CPU ranks run gloo on CPU tensors: nothing is staged, nothing launched
+    assert row["host_staged_bytes_rank0"] == 0
+    assert row["launches_b1_b2_b3"] == row["launches_b1_b2_b3_fsdp"] == [0, 0, 0]
+    assert row["classifier"]["max_abs_err_vs_one_rank"] <= chip_smoke.SEQ_CLS_ATOL
+    twin = row["twin_predictor"]
+    assert twin["seq_free"] and twin["finite"] and twin["shape"] == [2, 16, 64]
+    for key in ("tokens_per_s", "ring_fwd_ms_per_layer", "num_updates", "card"):
+        assert key in row

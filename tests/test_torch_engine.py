@@ -153,11 +153,23 @@ def test_ported_engine_options_keep_the_trajectory(kwargs):
         assert torch.equal(state.center_params[name], value), name
 
 
-@pytest.mark.parametrize("kwargs", [dict(seq_shards=2), dict(fsdp=True)])
-def test_unported_engine_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        WindowedEngine(TorchModel(TransformerLM(**LM)), "mse", "sgd", Downpour(2),
-                       num_workers=2, device="cpu", **kwargs)
+@pytest.mark.parametrize("model,kwargs,match", [
+    # the seq-axis ZeRO center needs a seq axis (tests/test_fsdp_sp.py's refusal)
+    ("lm", dict(fsdp=True), "GSPMD"),
+    # the (workers, seq) grid needs a group of seq_shards ranks
+    ("seq_lm", dict(seq_shards=2), "needs a multiple of 2 ranks"),
+    # a model that declares no seq axis would have its features cut in blocks
+    ("mlp", dict(seq_shards=2), "needs a model built with seq_axis='seq'"),
+], ids=["fsdp_without_seq_shards", "seq_shards_without_ranks", "seq_shards_without_seq_axis"])
+def test_engine_refuses_what_its_grid_cannot_hold(model, kwargs, match):
+    from distkeras_tpu_torch.models.zoo import MLP
+
+    module = {"lm": lambda: TransformerLM(**LM),
+              "seq_lm": lambda: TransformerLM(**LM, seq_axis="seq"),
+              "mlp": lambda: MLP(features=(8,), in_features=16)}[model]()
+    with pytest.raises(ValueError, match=match):
+        WindowedEngine(TorchModel(module), "mse", "sgd",
+                       Downpour(2), num_workers=2, device="cpu", **kwargs)
 
 
 def test_commit_schedule_is_accepted_and_runs_a_step():

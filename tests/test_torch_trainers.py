@@ -229,13 +229,21 @@ def test_ported_kwargs_train(kwargs, tmp_path):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(profile_dir="prof"), dict(seq_shards=2), dict(tp_shards=2), dict(fsdp=True),
+    [dict(profile_dir="prof"), dict(tp_shards=2), dict(fsdp=True),
      dict(pipeline_stages=2), dict(elastic=object()), dict(staleness_policy=object())],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_kwargs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+
+
+def test_tp_shards_with_seq_shards_raises():
+    # tests/test_fsdp_sp.py's refusal: ring attention needs the windowed
+    # engine, tensor parallelism the GSPMD one
+    with pytest.raises(ValueError, match="drop tp_shards"):
+        tdk.DOWNPOUR(TransformerLM(**LM, seq_axis="seq"), seq_shards=2, tp_shards=2,
+                     device="cpu")
 
 
 def test_tensorboard_dir_kwarg_logs_each_epoch(tmp_path, monkeypatch):

@@ -169,13 +169,70 @@ def test_decode_matches_jax(jax_reference):
     assert cache.index == 22
 
 
-@pytest.mark.parametrize("what", ["seq_axis_lm", "seq_axis_classifier"])
-def test_unported_options_raise(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        if what == "seq_axis_lm":
-            TransformerLM(**CFG, seq_axis="seq")
-        else:
-            TransformerClassifier(**CFG, seq_axis="seq")
+# One gloo rank of the seq-sharded forward: torch and the port alone (this
+# file imports JAX).  argv: RANK WORLD PORT DIR.  Each rank takes its block
+# of the tokens and runs both models with seq_axis="seq" on the (1, 2) grid.
+_SHARDED_FORWARD = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from distkeras_tpu_torch.models import TransformerClassifier, TransformerLM
+from distkeras_tpu_torch.parallel.mesh import bind_mesh, make_mesh_grid
+
+rank, world, port, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+inputs = np.load(workdir + "/inputs.npz")
+tokens = torch.from_numpy(inputs["tokens"])
+block = tokens.shape[1] // world
+out = {}
+with torch.no_grad(), bind_mesh(make_mesh_grid(1, world)):
+    for kind, model in (("lm", TransformerLM(**CFG, seq_axis="seq")),
+                        ("classifier", TransformerClassifier(num_classes=3, **CFG,
+                                                             seq_axis="seq"))):
+        params = {k[len(kind) + 1:]: torch.from_numpy(inputs[k]) for k in inputs.files
+                  if k.startswith(kind + "/")}
+        x = tokens[:, rank * block:(rank + 1) * block]
+        out[kind] = torch.func.functional_call(model, params, (x,)).numpy()
+dist.destroy_process_group()
+np.savez(f"{workdir}/rank_{rank}.npz", **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_forward(jax_reference, tmp_path_factory):
+    """Both models' forward at two gloo ranks, ``seq_axis="seq"``: the LM's
+    logits concatenated over the blocks, the classifier's from each rank."""
+    from test_torch_ring import spawn_ranks
+
+    workdir = str(tmp_path_factory.mktemp("seq_forward"))
+    inputs = {"tokens": _tokens()}
+    for kind in ("lm", "classifier"):
+        params = params_from_flax(_pair(kind)[1], jax_reference(kind)[0])
+        inputs.update({f"{kind}/{k}": v.numpy() for k, v in params.items()})
+    np.savez(f"{workdir}/inputs.npz", **inputs)
+    spawn_ranks(["-c", f"CFG = {CFG!r}\n" + _SHARDED_FORWARD], 2, workdir)
+    ranks = [np.load(f"{workdir}/rank_{r}.npz") for r in range(2)]
+    return {"lm": [np.concatenate([r["lm"] for r in ranks], axis=1)],
+            "classifier": [r["classifier"] for r in ranks]}
+
+
+@pytest.mark.parametrize("kind", ["lm", "classifier"])
+def test_seq_sharded_forward_matches_unsharded(kind, jax_reference, sharded_forward):
+    # two sequence blocks through ring attention (block-offset positions; the
+    # classifier psum-pools its logits) against the port's unsharded forward
+    # and JAX's, at JAX's bound for sp against local (tests/test_sequence_parallel.py)
+    flax_params, ref = jax_reference(kind)
+    port_model = _pair(kind)[1]
+    params_from_flax(port_model, flax_params)
+    with torch.no_grad():
+        want = port_model(torch.from_numpy(_tokens())).numpy()
+    for got in sharded_forward[kind]:  # the classifier's logits on every rank
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("bad", ["negative", "below_minus_vocab", "past_vocab", "past_max_len"])
