@@ -1849,11 +1849,12 @@ def _top_two_gap(logits) -> float:
     return float(top[0] - top[1])
 
 
-def _held_to_greedy(trained, prompt, tokens, ref):
+def _held_to_greedy(trained, prompt, tokens, ref, limit=GREEDY_GAP):
     """Where ``tokens`` first departs from the greedy reference ``ref`` (both
     continuations of ``prompt``): None if it never does, else ``(position,
     the reference's top-two gap there)`` from a full-context forward over
-    the shared prefix.  Raises if that gap is not below ``GREEDY_GAP``."""
+    the shared prefix.  Raises if that gap is not below ``limit``
+    (``GREEDY_GAP``)."""
     n = min(len(tokens), len(ref))
     diff = next((j for j in range(n) if tokens[j] != ref[j]), None)
     if diff is None:
@@ -1862,7 +1863,7 @@ def _held_to_greedy(trained, prompt, tokens, ref):
         return None
     context = np.asarray([list(prompt) + list(ref[:diff])], np.int32)
     gap = _top_two_gap(trained(context)[0, -1])
-    if not gap < GREEDY_GAP:
+    if not gap < limit:
         raise AssertionError(f"token {diff} differs from greedy ({tokens[diff]} against "
                              f"{ref[diff]}) where the reference's top-two gap is {gap}")
     return diff, gap
@@ -1888,6 +1889,32 @@ def _hist_quantile(payload: dict, q: float):
         if n >= rank:
             return float("inf") if le == "+Inf" else float(le) * 1e3
     return float("inf")
+
+
+def _kv_rounding_logit_error(model, trained, contexts) -> float:
+    """The largest change in any logit that rounding every block's keys and
+    values to bf16 (what bf16 page pools store) makes in a full-context
+    forward over each of ``contexts``: the forward is run plain, then with a
+    hook on each block's fused QKV projection that rounds its K and V
+    thirds."""
+    dim = model.dim
+
+    def round_kv(module, args, out):
+        kv = out[..., dim:].to(torch.bfloat16).to(out.dtype)
+        return torch.cat([out[..., :dim], kv], dim=-1)
+
+    worst = 0.0
+    for context in contexts:
+        tokens = np.asarray([context], np.int32)
+        plain = trained(tokens)
+        hooks = [block.attn.qkv.register_forward_hook(round_kv) for block in model.blocks]
+        try:
+            rounded = trained(tokens)
+        finally:
+            for h in hooks:
+                h.remove()
+        worst = max(worst, float((plain - rounded).abs().max()))
+    return worst
 
 
 def _serving_engine(trained, registry, **kwargs):
@@ -2125,6 +2152,7 @@ def serving_phase(seed: int):
         prefill_ms={w: dict(n=len(v), mean=float(np.mean(v)), min=float(np.min(v)))
                     for w, v in sorted(engine.prefill_ms.items())},
         peak_pages=engine.peak_pages, pages_total=engine._cache.num_pages - 1,
+        pool_bytes=engine._cache.k_pages.nbytes + engine._cache.v_pages.nbytes,
         pages_after=pages_after, peak_memory_bytes=peak_memory,
         launches_b1=serve_launches[0], launches_b2_b3=serve_launches[1:],
         greedy_departures=greedy_departures,
@@ -2187,6 +2215,39 @@ def serving_phase(seed: int):
             or not faithful["steps_per_decode_token"] < 1):
         raise AssertionError(f"the target as its own draft: {faithful}")
     out["speculative"] = dict(spec_tokens=SERVE_SPEC_TOKENS, draft_model=SERVE_DRAFT, **spec_rows)
+
+    # 5. bf16 page pools under the f32 parameters (ServingEngine(dtype=)),
+    # one greedy request at a time; prefill attends its own f32 K/V, decode
+    # reads them back from the pools rounded to bf16
+    chosen = greedy[1:1 + SERVE_SPEC_PROMPTS]
+    limit = max(GREEDY_GAP, 2 * _kv_rounding_logit_error(
+        model, trained, [prompts[i] + refs[i] for i in chosen[:2]]))
+    registry = Registry()
+    engine = _serving_engine(trained, registry, dtype=torch.bfloat16)
+    try:
+        pool_dtypes = {str(engine._cache.k_pages.dtype), str(engine._cache.v_pages.dtype)}
+        pool_bytes = engine._cache.k_pages.nbytes + engine._cache.v_pages.nbytes
+        t0 = time.perf_counter()
+        results = [engine.submit(requests[i]).result(timeout=600) for i in chosen]
+        seconds = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    departures = []
+    for i, result in zip(chosen, results):
+        if result.tokens[:1] != refs[i][:1]:
+            raise AssertionError(f"bf16 pools: request {i}'s first token (its f32 prefill) "
+                                 f"is {result.tokens[:1]}, greedy's {refs[i][:1]}")
+        hit = _held_to_greedy(trained, prompts[i], result.tokens, refs[i], limit)
+        if hit is not None:
+            departures.append(dict(request=i, position=hit[0], gap=hit[1]))
+    f32_bytes = out["engine"]["pool_bytes"]
+    out["bf16_pools"] = dict(requests=len(results), tokens=sum(len(r.tokens) for r in results),
+                             seconds=seconds, pool_dtypes=sorted(pool_dtypes),
+                             pool_bytes=pool_bytes, pool_bytes_f32=f32_bytes,
+                             gap_limit=limit, departures=departures)
+    if pool_dtypes != {"torch.bfloat16"} or pool_bytes * 2 != f32_bytes:
+        raise AssertionError(f"bf16 pools: {pool_dtypes}, {pool_bytes} bytes against the f32 "
+                             f"pools' {f32_bytes}")
 
     for case, row in out.items():
         emit(phase="serving", case=case, model="TransformerLM", **SERVE_MODEL, **row)
@@ -2878,6 +2939,294 @@ def seq_phase(seed: int, train_run) -> dict:
     return out
 
 
+# tensor-parallel phase: the train phase's DOWNPOUR over a GPT-2-small
+# TransformerLM on the GSPMD engine's (workers, model) grid, 2 model ranks
+TP_MODEL = GPT2_SMALL
+TP_SHARDS, TP_RANK_TIMEOUT_S = 2, 900
+# One epoch where the train phase runs two: the phase moves ~4 GB through
+# the host a local step on the shared card (every column-parallel product's
+# outputs gathered, every input gradient psummed), and one epoch keeps the
+# whole script within the earlier runs' time; its one-rank reference is a
+# one-epoch run of the train phase's trainer, on the card in this process.
+TP_EPOCHS = 1
+# The first window's loss, before any commit: the column-parallel products
+# sum each output over the same inputs as one rank's, but the input
+# gradients sum the two ranks' halves: f32 round-off alone (SEQ_* rationale).
+TP_FIRST_LOSS_RTOL = SEQ_FIRST_LOSS_RTOL
+# The loss history and the center against one rank: JAX's bounds for a
+# layout change against data parallelism, as the seq phase's (Adam's
+# round-off steps on the key bias included).
+TP_LOSS_RTOL, TP_PARAM_REL_NORM = SEQ_LOSS_RTOL, SEQ_PARAM_REL_NORM
+
+
+def tp_train(seed: int, epochs: int, **kwargs):
+    """The train phase's ``DOWNPOUR`` over ``TP_MODEL`` (2 workers, batch 4,
+    window 2, Adam) for ``epochs`` epochs, with the trainer's parallelism
+    ``kwargs``: ``(trainer, run)``."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**TP_MODEL, generator=torch.Generator().manual_seed(seed + 2))
+    x, y = lm_task(TRAIN_ROWS, TP_MODEL["max_len"], TP_MODEL["vocab_size"], seed + 2)
+    trainer = _keeping_fit(tdk.DOWNPOUR)(
+        model, loss="token_crossentropy", metrics=("token_accuracy",),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=epochs,
+        seed=seed, device=ZOO_DEVICE, **kwargs)
+    run = _trained(trainer, tdk.from_numpy(x, y))
+    run.update(first_window_loss=trainer.window_losses[0],
+               tokens_per_s=epochs * TRAIN_ROWS * TP_MODEL["max_len"] / run["seconds"])
+    return trainer, run
+
+
+def _state_bytes(tree) -> int:
+    from distkeras_tpu_torch.utils.pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _resident(engine, state) -> dict:
+    """This rank's bytes of center, local parameters and optimizer state,
+    and what the layout says they must be (each leaf split over the model
+    axis a ``tp_shards``-th of the whole; under fsdp, the center's leaves
+    split over the workers axis too)."""
+    from distkeras_tpu_torch.utils.pytree import tree_leaves
+
+    tp = getattr(engine, "tp_shards", 1)
+    whole = engine.gather_center(state)
+    dims = engine._tp_dims if tp > 1 else {k: -1 for k in whole}
+    fsdp = engine._fsdp_dims if engine.fsdp else {k: -1 for k in whole}
+    rows = engine.n_dev
+    per_leaf = {k: v.numel() * v.element_size() // (tp if dims[k] >= 0 else 1)
+                for k, v in whole.items()}
+    center = sum(b // (rows if fsdp[k] >= 0 else 1) for k, b in per_leaf.items())
+    block = sum(per_leaf.values())
+    opt_leaves = len(tree_leaves(state.opt_state))  # Adam: mu and nu per leaf, one count
+    return dict(center_bytes=_state_bytes(state.center_params), center_bytes_layout=center,
+                local_bytes=_state_bytes(state.local_params),
+                local_bytes_layout=engine.virtual * block,
+                opt_bytes=_state_bytes(state.opt_state),
+                opt_bytes_layout=engine.virtual * (2 * block + 4 * (opt_leaves - 2 * len(whole))),
+                whole_center_bytes=_state_bytes(whole))
+
+
+def _tp_runs(seed: int) -> dict:
+    """One rank's share of the phase, in the group it is in: over 2 ranks
+    (one card) the ``tp_shards=2`` run (grid 1 x 2), then the replicated
+    2-rank run and ``fsdp=True`` alone (grid 2 x 1); over 4 (one a card)
+    ``tp_shards=2, fsdp=True`` (grid 2 x 2).  Each with B1-B3's launches,
+    the bytes staged through the host, peak memory and resident bytes; rank
+    0 keeps the first run's returned model for the predictor."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import transport_stats
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    on_card = ZOO_DEVICE == "cuda"
+    if dist.get_world_size() == 2:
+        cases = (("tp", dict(tp_shards=TP_SHARDS)), ("replicated", {}),
+                 ("fsdp", dict(fsdp=True)))
+    else:
+        cases = (("tp", dict(tp_shards=TP_SHARDS, fsdp=True)),)
+    out = {}
+    for name, kwargs in cases:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        transport_stats["host_staged_bytes"] = 0
+        trainer, run = tp_train(seed, TP_EPOCHS, **kwargs)
+        engine, state, _ = trainer.fit_result
+        run.update(launches=[c.launches for c in counters],
+                   host_staged_bytes=transport_stats["host_staged_bytes"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                   grid=list(engine.mesh.shape), engine=type(engine).__name__,
+                   num_updates=trainer.num_updates, **_resident(engine, state))
+        out[name] = run
+        if name == "tp":
+            out["model"] = trainer.parameter_server.model
+        del trainer, engine, state
+    return out
+
+
+def tp_rank_main(spec_path: str) -> int:
+    """One spawned rank of the tensor-parallel phase: the parent's settings
+    from ``spec_path``, the group joined, :func:`_tp_runs`, the group left
+    on every path; rank 0 then serves the returned model through
+    ``ModelPredictor`` on its card alone and writes the runs."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, TP_MODEL, SEQ_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS
+    global TRAIN_WINDOW, TP_EPOCHS, SEQ_PREDICT_ROWS
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, TP_MODEL = spec["device"], spec["model"]
+    SEQ_MODEL, SEQ_PREDICT_ROWS = TP_MODEL, spec["predict_rows"]  # the predictor's settings
+    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TP_EPOCHS = spec["train"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        runs = _tp_runs(spec["seed"])
+    finally:
+        dist.destroy_process_group()
+    if spec["rank"] == 0:
+        runs["predictor"] = _twin_predictor(runs.pop("model"), spec["seed"])
+        torch.save(runs, spec["out"])
+    return 0
+
+
+def _spawn_tp(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
+    import os
+
+    port, out = _free_port(), os.path.join(workdir, f"tp_{backend}_{world}.pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=TP_MODEL, backend=backend,
+                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TP_EPOCHS],
+                  predict_rows=SEQ_PREDICT_ROWS, world=world, rank=rank, port=port, out=out,
+                  device_index=rank if cards else 0, threads=torch.get_num_threads())
+             for rank in range(world)]
+    _run_ranks("--tp-rank", specs, workdir, TP_RANK_TIMEOUT_S, "tp")
+    return torch.load(out)
+
+
+def _tp_versus(got: dict, ref: dict, ref_launches, train_run, backend: str) -> tuple:
+    """A spawned grid's runs against the one-rank run of as many epochs,
+    and the phase's gates."""
+    tp = got["tp"]
+    rows = tp["grid"][0]
+    versus = _versus(tp, ref)
+    first = abs(tp["first_window_loss"] - ref["first_window_loss"]) / abs(ref["first_window_loss"])
+    resident = {k: [tp[k], tp[f"{k}_layout"], ref[k]]
+                for k in ("center_bytes", "local_bytes", "opt_bytes")}
+    row = dict(grid=tp["grid"], tp_shards=TP_SHARDS, fsdp=tp["grid"][0] > 1,
+               model="TransformerLM", **TP_MODEL, workers=TRAIN_WORKERS,
+               batch_size=TRAIN_BATCH, window=TRAIN_WINDOW, epochs=TP_EPOCHS,
+               train_phase_epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, loss=tp["loss"],
+               loss_one_rank=ref["loss"], train_phase_loss=train_run["loss"],
+               first_window_loss=tp["first_window_loss"],
+               first_window_loss_one_rank=ref["first_window_loss"],
+               first_window_loss_train_phase=train_run["first_window_loss"],
+               first_window_loss_rel_err=first, first_window_loss_rtol=TP_FIRST_LOSS_RTOL,
+               vs_one_rank=versus, loss_rtol=TP_LOSS_RTOL, param_rel_norm_rtol=TP_PARAM_REL_NORM,
+               num_updates=[tp["num_updates"], ref["num_updates"]],
+               seconds=tp["seconds"], tokens_per_s=tp["tokens_per_s"],
+               tokens_per_s_one_rank=ref["tokens_per_s"],
+               peak_memory_gb_rank0=tp["peak_memory_gb"],
+               peak_memory_gb_one_rank=ref["peak_memory_gb"],
+               resident_rank0_layout_one_rank=resident,
+               host_staged_bytes_rank0=tp["host_staged_bytes"],
+               launches_b1_b2_b3=tp["launches"], launches_b1_b2_b3_one_rank=ref_launches,
+               predictor=got["predictor"], card=CARD)
+    failures = []
+    if first > TP_FIRST_LOSS_RTOL:
+        failures.append(f"first window's loss off by {first}")
+    if ref["first_window_loss"] != train_run["first_window_loss"]:
+        failures.append("the one-rank reference's first window is not the train phase's")
+    if versus["loss_rel_err"] > TP_LOSS_RTOL or versus["param_rel_norm_err"] > TP_PARAM_REL_NORM:
+        failures.append(f"TP against one rank: {versus}")
+    if row["num_updates"][0] != row["num_updates"][1]:
+        failures.append("commit counts differ")
+    # every model rank runs every worker of its row on whole heads
+    if [n * rows for n in tp["launches"]] != list(ref_launches):
+        failures.append(f"B1-B3 launched {tp['launches']} times a rank, one rank "
+                        f"{ref_launches} over {rows} workers rows")
+    for key, (mine, layout, one) in resident.items():
+        if mine != layout or not mine < one:
+            failures.append(f"{key}: {mine} a rank, the layout's {layout}, one rank {one}")
+    pred = got["predictor"]
+    if not (pred["finite"] and pred["launches_b1"] == pred["expected_launches_b1"]):
+        failures.append(f"the predictor: {pred}")
+    if ZOO_DEVICE == "cuda" and backend == "gloo" and not tp["host_staged_bytes"] > 0:
+        failures.append("gloo on the card staged no byte through the host")
+    if "fsdp" in got:  # grid 2 x 1: fsdp alone against the replicated 2-rank run
+        fsdp, rep = got["fsdp"], got["replicated"]
+        row["fsdp_alone"] = dict(grid=fsdp["grid"], engine=fsdp["engine"],
+                                 replicated_engine=rep["engine"], vs_replicated=_versus(fsdp, rep),
+                                 center_bytes_rank0=fsdp["center_bytes"],
+                                 center_bytes_layout=fsdp["center_bytes_layout"],
+                                 center_bytes_replicated=rep["center_bytes"],
+                                 tokens_per_s=fsdp["tokens_per_s"],
+                                 tokens_per_s_replicated=rep["tokens_per_s"],
+                                 host_staged_bytes_rank0=fsdp["host_staged_bytes"],
+                                 launches_b1_b2_b3=fsdp["launches"])
+        if not row["fsdp_alone"]["vs_replicated"]["bitwise"]:
+            failures.append(f"fsdp is not the replicated run bit for bit: {row['fsdp_alone']}")
+        if not (fsdp["center_bytes"] == fsdp["center_bytes_layout"]
+                and fsdp["center_bytes"] < rep["center_bytes"]):
+            failures.append("the fsdp center is not stored in worker shards")
+        if fsdp["engine"] != "GSPMDEngine" or rep["engine"] != "WindowedEngine":
+            failures.append(f"engines: fsdp {fsdp['engine']}, replicated {rep['engine']}")
+    return row, failures
+
+
+def tp_phase(seed: int, train_run) -> dict:
+    """Tensor parallelism at GPT-2-small widths (``TP_EPOCHS`` epochs of the
+    train phase's ``DOWNPOUR``): (a) two gloo ranks spawned on the one card
+    (``--tp-rank``), grid 1 x 2, ``tp_shards=2`` against one rank's run of
+    as many epochs in this process (its first window the train phase's):
+    B1-B3 launched on each rank as often as at one rank, each rank's center,
+    local parameters and Adam state as the layout splits them; (b) on the
+    same two ranks ``fsdp=True`` alone (grid 2 x 1) bit for bit the
+    replicated two-rank run, its center in worker shards; (c) the returned
+    model through ``ModelPredictor`` on one rank (B1); (d) on a machine with
+    4 cards, NCCL, one rank a card, grid 2 x 2 with ``tp_shards=2,
+    fsdp=True``, the same checks (else ``tp_cards_run: 1``)."""
+    import tempfile
+
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    trainer, ref = tp_train(seed, TP_EPOCHS)
+    ref_launches = [c.launches for c in counters]
+    ref.update(peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                               if ZOO_DEVICE == "cuda" else None),
+               num_updates=trainer.num_updates, **_resident(*trainer.fit_result[:2]))
+    del trainer
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = [("two_ranks_one_card", 2, "gloo", False)]
+        if count >= 4:
+            runs.append(("cards", 4, "nccl", True))
+        for case, world, backend, cards in runs:
+            got = _spawn_tp(seed, world, backend, cards, workdir)
+            row, failures = _tp_versus(got, ref, ref_launches, train_run, backend)
+            row = dict(case=case, backend=backend, ranks=world,
+                       **({"tp_cards_run": world} if cards else {}), **row)
+            row["failures"] = failures
+            emit(phase="tp", **row)
+            out[case] = row
+            if failures:
+                raise AssertionError(f"tp: {case}: {failures}")
+    if count < 4:
+        emit(phase="tp", case="cards", tp_cards_run=1,
+             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4", card=CARD)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -2885,11 +3234,15 @@ def main(argv=None) -> int:
                         help="run one spawned rank of the mesh phase (internal)")
     parser.add_argument("--seq-rank", metavar="SPEC", default=None,
                         help="run one spawned rank of the sequence-parallel phase (internal)")
+    parser.add_argument("--tp-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the tensor-parallel phase (internal)")
     args = parser.parse_args(argv)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
     if args.seq_rank is not None:
         return seq_rank_main(args.seq_rank)
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2944,6 +3297,7 @@ def main(argv=None) -> int:
     packing = packing_phase(args.seed)
     mesh = mesh_phase(args.seed, eager_run, cifar_frame, train_launches, train_run)
     seq = seq_phase(args.seed, train_run)["two_ranks_one_card"]
+    tp = tp_phase(args.seed, train_run)["two_ranks_one_card"]
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -3021,6 +3375,9 @@ def main(argv=None) -> int:
         "launches_seq_train": seq["launches_b1_b2_b3"][0],
         "launches_seq_classifier": seq["classifier"]["launches_b1_b2_b3"][0],
         "launches_seq_twin_predictor": seq["twin_predictor"]["launches_b1"],
+        "launches_tp_train_per_rank": tp["launches_b1_b2_b3"][0],
+        "launches_tp_train_one_rank": tp["launches_b1_b2_b3_one_rank"][0],
+        "launches_tp_predictor": tp["predictor"]["launches_b1"],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -3032,6 +3389,8 @@ def main(argv=None) -> int:
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][1],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][1],
         "launches_seq_train": seq["launches_b1_b2_b3"][1],
+        "launches_tp_train_per_rank": tp["launches_b1_b2_b3"][1],
+        "launches_tp_train_one_rank": tp["launches_b1_b2_b3_one_rank"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -3051,6 +3410,8 @@ def main(argv=None) -> int:
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][2],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][2],
         "launches_seq_train": seq["launches_b1_b2_b3"][2],
+        "launches_tp_train_per_rank": tp["launches_b1_b2_b3"][2],
+        "launches_tp_train_one_rank": tp["launches_b1_b2_b3_one_rank"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -42,11 +42,13 @@ writes and publishes, and the other ranks wait at a barrier; on resume rank
 0 resolves the step and every rank reads the files and takes its own slice
 (``restore_checkpoint(..., workers=)``).  The files are the one-rank
 engine's: a checkpoint written at two ranks resumes at one, bitwise.  Under
-sequence parallelism every seq row of the grid gathers its workers alike,
-and with ``fsdp=True`` (the center split over the seq ranks) the manager
-built with ``center=engine`` first gathers the whole center on every rank
-(``engine.gather_center``); on restore each rank keeps its own slice
-(``engine.shard_center``).  The files stay the one-rank engine's.
+sequence or tensor parallelism every row of the grid (its seq or model
+ranks) gathers its workers alike.  When the engine splits leaves (the
+center under ``fsdp=True``, over seq or over workers; every parameter-shaped
+leaf over the GSPMD engine's model axis), the manager built with
+``center=engine`` first makes every leaf whole on every rank
+(``engine.checkpoint_state``); on restore each rank keeps its own blocks
+(``engine.restore_field``).  The files stay the one-rank engine's.
 """
 
 from __future__ import annotations
@@ -544,15 +546,16 @@ def _field_tree(path: str, tree: dict, field: str):
 
 def restore_checkpoint(directory: str, step: Optional[int] = None, like: Any = None,
                        verify: str = "full", workers: Optional[slice] = None,
-                       center=None) -> Any:
+                       shard=None) -> Any:
     """Load training state.  With ``like`` (a ``TrainState``, e.g. a freshly
     built one) the result is a ``TrainState`` with ``like``'s structure,
     dtypes and devices, and ``like``'s generators set to the saved states;
     without it, a dict of the fields as CPU tensor trees.  ``workers`` (a
     mesh rank's block) keeps those rows of every per-worker field: the
-    scatter of a checkpoint gathered by :func:`gather_workers`.  ``center``
-    (a function of the whole saved center) gives the center as ``like``
-    holds it: its seq shards under fsdp.
+    scatter of a checkpoint gathered by :func:`gather_workers`.  ``shard``
+    (``shard(field, whole tree)``, the engine's ``restore_field``) gives
+    each field as ``like`` holds it: the center's fsdp shards, a model
+    rank's blocks.
 
     Verifies before load (default ``full``: a bit flip keeps sizes, so only
     digests prove the bytes): a corrupt step is quarantined and the newest
@@ -581,8 +584,8 @@ def restore_checkpoint(directory: str, step: Optional[int] = None, like: Any = N
             raise ValueError(f"checkpoint field {field} has {len(saved)} leaves, "
                              f"the state {len(ref_leaves)}")
         value = _unflatten(treedef, iter(saved))
-        if field == "center_params" and center is not None:
-            value = center(value)
+        if shard is not None:
+            value = shard(field, value)
         # rebuilt in the template's own key order, on its devices and dtypes
         changes[field] = tree_map(lambda r, s: s.to(device=r.device, dtype=r.dtype), ref, value)
     return like.replace(**changes)
@@ -689,9 +692,10 @@ class CheckpointManager:
     ``mesh`` (the engine's) makes it a collective: every rank makes the same
     calls, saves gather the workers onto mesh rank 0 and only global rank 0
     writes, reads resolve the step on global rank 0, and each call ends at
-    a barrier over the process group.  ``center`` (the engine, under fsdp)
-    gathers a seq-sharded center whole before a save (``gather_center``)
-    and slices a restored one (``shard_center``)."""
+    a barrier over the process group.  ``center`` (the engine) makes the
+    leaves it splits (fsdp, tensor parallelism) whole before a save
+    (``checkpoint_state``) and splits a restored state again
+    (``restore_field``)."""
 
     def __init__(self, directory: str, every: int = 1, keep: int = 3, mesh=None, center=None):
         self.directory = os.path.abspath(directory)
@@ -724,7 +728,7 @@ class CheckpointManager:
         """``state`` with its center whole (every rank calls it) and every
         worker's slice on mesh rank 0 (None on the other ranks)."""
         if self.center is not None:
-            state = state.replace(center_params=self.center.gather_center(state))
+            state = self.center.checkpoint_state(state)
         return gather_workers(state, self.mesh)
 
     def maybe_save(self, state: Any, epoch: int, data_state=None) -> Optional[str]:
@@ -844,5 +848,5 @@ class CheckpointManager:
         if like is not None and mesh_group(self.mesh) is not None:
             v = len(like.rng)
             workers = slice(mesh_rank(self.mesh) * v, (mesh_rank(self.mesh) + 1) * v)
-        center = None if self.center is None else self.center.shard_center
-        return restore_checkpoint(self.directory, step, like, verify, workers, center)
+        shard = None if self.center is None else self.center.restore_field
+        return restore_checkpoint(self.directory, step, like, verify, workers, shard)

@@ -1,6 +1,7 @@
 """Parallel runtime: device resolution, meshes over the ranks of a process
-group and their named-axis collectives, attention (single-device and ring)
-and the windowed training engine."""
+group and their named-axis collectives, attention (single-device and ring),
+the windowed training engine and the GSPMD engine (tensor parallelism and
+the workers-axis ZeRO center)."""
 
 from distkeras_tpu_torch.parallel.engine import (
     TrainState,
@@ -8,6 +9,7 @@ from distkeras_tpu_torch.parallel.engine import (
     plan_workers,
     zero_shard_dim,
 )
+from distkeras_tpu_torch.parallel.gspmd import TP_AXIS, GSPMDEngine, default_tp_dim
 from distkeras_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
     WORKER_AXIS,
@@ -29,12 +31,15 @@ from distkeras_tpu_torch.parallel.ring import (
 
 __all__ = [
     "SEQ_AXIS",
+    "TP_AXIS",
     "WORKER_AXIS",
+    "GSPMDEngine",
     "LocalMesh",
     "TrainState",
     "WindowedEngine",
     "attention",
     "bind_mesh",
+    "default_tp_dim",
     "local_attention",
     "local_device_count",
     "make_mesh",

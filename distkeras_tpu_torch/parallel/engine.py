@@ -411,9 +411,14 @@ class WindowedEngine:
         self._link_warned = False
         self._pinned: dict = {}
         self._copy_stream = None
-        #: per center leaf, the dim fsdp splits over seq (-1: whole); set
-        #: from the parameters when a state is built
+        #: per center leaf, the dim fsdp splits over ``_fsdp_axis`` (-1:
+        #: whole); set from the parameters when a state is built
         self._fsdp_dims = None
+        #: the axis the fsdp center is split over (the GSPMD engine: workers)
+        self._fsdp_axis = SEQ_AXIS
+        #: the group of the ranks that hold the same workers (the seq ranks
+        #: of a row; the GSPMD engine's model ranks), or None
+        self._row_group = self.seq_group
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: torch.Generator, sample_input) -> TrainState:
@@ -426,59 +431,85 @@ class WindowedEngine:
 
     def _from_rank0(self, tree):
         """``tree`` as mesh rank 0 holds it, on every rank of the grid (one
-        broadcast per dtype and axis: over seq, then over workers); the
-        tree itself without a group."""
+        broadcast per dtype and axis: over the row's ranks, seq or model,
+        then over workers); the tree itself without a group."""
         leaves = tree_leaves(tree)
-        for group in (self.seq_group, self.group):
+        for group in (self._row_group, self.group):
             if group is not None:
                 leaves = [t.clone() for t in broadcast(leaves, 0, group)]
         leaves = iter(leaves)
         return tree_map(lambda _: next(leaves), tree)
 
-    # ---------------------------------------------- fsdp (seq-axis ZeRO center)
-    def _record_fsdp_dims(self, params) -> None:
-        """Choose, per center leaf, the dim the seq axis splits
+    # ------------------------------------------------- fsdp (ZeRO center)
+    def _record_layout(self, params) -> None:
+        """Choose, per center leaf, the dim fsdp splits over its axis
         (:func:`zero_shard_dim`), from the real parameter shapes; every
         later gather and slice reads this one table."""
         if not self.fsdp:
             return
-        self._fsdp_dims = tree_map(lambda x: zero_shard_dim(tuple(x.shape), self.seq_shards),
-                                   params)
+        shards = resolve_axis(self._fsdp_axis, self.mesh).size
+        self._fsdp_dims = tree_map(lambda x: zero_shard_dim(tuple(x.shape), shards), params)
+        self._warn_if_whole(shards)
+
+    def _warn_if_whole(self, shards: int) -> None:
         if all(d < 0 for d in tree_leaves(self._fsdp_dims)):
             warnings.warn(
-                f"fsdp=True: no center leaf has a dim divisible by seq_shards="
-                f"{self.seq_shards} (with >=2 rows per shard); the center stays "
-                "whole on every rank", stacklevel=3)
+                f"fsdp=True: no center leaf has a dim divisible by the {shards} "
+                f"{self._fsdp_axis} shards (with >=2 rows per shard); the center "
+                "stays whole on every rank", stacklevel=4)
 
     def _fsdp_gather(self, tree):
-        """The whole center from its seq shards (gather at use); the tree
-        itself without fsdp."""
+        """The center from its fsdp shards (gather at use); the tree itself
+        without fsdp."""
         if not self.fsdp:
             return tree
-        return tree_map(lambda d, x: x if d < 0 else all_gather(x, SEQ_AXIS, d, self.mesh),
-                        self._fsdp_dims, tree)
+        return tree_map(
+            lambda d, x: x if d < 0 else all_gather(x, self._fsdp_axis, d, self.mesh),
+            self._fsdp_dims, tree)
 
     def _fsdp_shard(self, tree):
-        """This seq rank's block of each leaf of a whole center (views);
+        """This rank's fsdp block of each leaf of a gathered center (views);
         the tree itself without fsdp."""
         if not self.fsdp:
             return tree
-        index = resolve_axis(SEQ_AXIS, self.mesh).index
+        ax = resolve_axis(self._fsdp_axis, self.mesh)
 
         def one(d, x):
             if d < 0:
                 return x
-            block = x.shape[d] // self.seq_shards
-            return x.narrow(d, index * block, block)
+            block = x.shape[d] // ax.size
+            return x.narrow(d, ax.index * block, block)
 
         return tree_map(one, self._fsdp_dims, tree)
 
     def shard_center(self, tree):
-        """A whole center (a checkpoint's) as this rank stores it: its seq
+        """A whole center (a checkpoint's) as this rank stores it: its fsdp
         block of each leaf under fsdp, as new tensors; else the tree."""
         if not self.fsdp:
             return tree
         return tree_map(lambda x: x.clone(), self._fsdp_shard(tree))
+
+    def _local_block(self, params):
+        """The part of the whole parameters a worker on this rank holds:
+        all of it here; the GSPMD engine's model rank holds its blocks."""
+        return params
+
+    @property
+    def _forward(self):
+        """What the local step (and remat's recompute) calls ``apply`` on:
+        the adapter; the GSPMD engine's places the split parameters."""
+        return self.adapter
+
+    # ------------------------------------------------------- checkpoint views
+    def checkpoint_state(self, state: TrainState) -> TrainState:
+        """``state`` with whole leaves, what a checkpoint holds: the center
+        gathered (a collective every rank of the grid takes part in)."""
+        return state.replace(center_params=self.gather_center(state))
+
+    def restore_field(self, field: str, tree):
+        """A restored field, whole, as this rank stores it
+        (:meth:`checkpoint_state`'s inverse)."""
+        return self.shard_center(tree) if field == "center_params" else tree
 
     def _assemble_state(self, generator, params, model_state) -> TrainState:
         v, dev = self.virtual, self.device
@@ -488,7 +519,8 @@ class WindowedEngine:
         params = tree_map(lambda x: x.detach().to(dev, copy=True), params)
         params, model_state = self._from_rank0(
             (params, tree_map(lambda x: x.detach().to(dev), model_state)))
-        self._record_fsdp_dims(params)
+        self._record_layout(params)
+        local = self._local_block(params)
 
         def tile(tree):
             # on the device: a rule's fresh counters (DynSGD's clock) start on the CPU
@@ -500,10 +532,10 @@ class WindowedEngine:
         return TrainState(
             center_params=self.shard_center(params),
             center_rule=tree_map(lambda x: x.to(dev), self.rule.init_center_state()),
-            local_params=tile(params),
-            opt_state=tile(self.optimizer.init(params)),
+            local_params=tile(local),
+            opt_state=tile(self.optimizer.init(local)),
             model_state=tile(model_state),
-            rule_local=tile(self.rule.init_local_state(params)),
+            rule_local=tile(self.rule.init_local_state(local)),
             rng=[torch.Generator(device=dev).manual_seed(int(s)) for s in seeds],
             epoch=0,
         )
@@ -544,10 +576,10 @@ class WindowedEngine:
                 p = tree_map(lambda t: t.to(cast) if t.is_floating_point() else t, leaves)
                 x_c = x.to(cast) if x.is_floating_point() else x
             if self.remat:
-                out, model_state = _remat_apply(self.adapter, p, model_state, x_c, generator)
+                out, model_state = _remat_apply(self._forward, p, model_state, x_c, generator)
             else:
-                out, model_state = self.adapter.apply(p, model_state, x_c, training=True,
-                                                      generator=generator)
+                out, model_state = self._forward.apply(p, model_state, x_c, training=True,
+                                                       generator=generator)
             out = out.float()
             loss = self.loss_fn(out, y) + self.adapter.aux_loss(model_state)
             flat = tree_leaves(leaves)
@@ -1117,7 +1149,8 @@ class WindowedEngine:
 
     def average_workers(self, state: TrainState):
         """One-shot synchronous weight average (AveragingTrainer's final step)."""
-        mean_p = self.shard_center(self._worker_mean(state.local_params))
+        mean = self._worker_mean(state.local_params)
+        mean_p = tree_map(lambda x: x.clone(), self._fsdp_shard(mean)) if self.fsdp else mean
         return state.replace(center_params=mean_p), self.final_model_state(state)
 
     def final_model_state(self, state: TrainState):
@@ -1148,7 +1181,7 @@ class WindowedEngine:
 
     def gather_center(self, state: TrainState):
         """The center parameters (one copy on this engine's device, the same
-        on every rank of a mesh); under fsdp gathered whole from the seq
+        on every rank of a mesh); under fsdp gathered whole from the fsdp
         shards, a collective every rank of the grid takes part in."""
         with torch.no_grad():
             return self._fsdp_gather(state.center_params)

@@ -19,14 +19,19 @@ On the data-parallel path only all-reduce and broadcast run: they are
 what gloo takes for CUDA tensors too, so two ranks can share one card over
 gloo (NCCL refuses two ranks on one card).
 
-**Named axes** (sequence parallelism).  A :func:`make_mesh_grid` mesh has
-one process group per axis (``axis_group``); :func:`bind_mesh` binds a
-mesh the way JAX's ``shard_map`` binds axis names, and inside it the
+**Named axes** (sequence and tensor parallelism).  A :func:`make_mesh_grid`
+mesh has one process group per axis (``axis_group``); :func:`bind_mesh`
+binds a mesh the way JAX's ``shard_map`` binds axis names, and inside it the
 differentiable collectives :func:`ppermute`, :func:`all_gather`,
 :func:`psum` and :func:`pmean` run over one named axis.  Each is a
 ``torch.autograd.Function`` whose backward is JAX's transpose (the other
 shift; a reduce-scatter; a psum; a pmean) and which keeps its group from
-the forward, so the backward needs no binding.  The route is picked by the
+the forward, so the backward needs no binding.  Two more serve compute
+that is *replicated* over the axis downstream (tensor parallelism's
+column-parallel products, where every rank holds the same whole
+cotangent): :func:`gather_from_axis`, a gather whose backward keeps this
+rank's block of the cotangent, and :func:`copy_to_axis`, the identity
+whose backward is a psum.  The route is picked by the
 group's backend: NCCL's own collectives (ring shifts as one
 ``batch_isend_irecv``); gloo with CPU tensors directly; gloo with CUDA
 tensors staged through pinned host memory for the ring shift and the
@@ -48,6 +53,7 @@ import torch.distributed as dist
 __all__ = [
     "WORKER_AXIS",
     "SEQ_AXIS",
+    "TP_AXIS",
     "Axis",
     "LocalMesh",
     "Sharding",
@@ -60,6 +66,8 @@ __all__ = [
     "bind_mesh",
     "bound_mesh",
     "broadcast",
+    "copy_to_axis",
+    "gather_from_axis",
     "local_device_count",
     "make_mesh",
     "make_mesh_grid",
@@ -78,6 +86,8 @@ __all__ = [
 
 WORKER_AXIS = "workers"
 SEQ_AXIS = "seq"
+#: the tensor-parallel axis of the ``(workers, model)`` grid (the GSPMD engine)
+TP_AXIS = "model"
 
 _LAUNCH = ("launch one process per rank: torchrun --nproc-per-node N, or "
            "networking.initialize(address, num_processes, process_id) in each process")
@@ -177,7 +187,8 @@ def make_mesh_grid(*dims: int, axis_names: tuple = (WORKER_AXIS, SEQ_AXIS)):
     ``prod(dims)`` ranks, row-major: (workers, seq) for data x sequence
     parallelism, the grid :class:`~distkeras_tpu_torch.parallel.engine.
     WindowedEngine` builds for ``seq_shards > 1`` (mesh rank ``(w, s)`` is
-    global rank ``w * seq_shards + s``).  Every rank of the process group
+    global rank ``w * seq_shards + s``), and (workers, model) for tensor
+    parallelism, the :class:`~distkeras_tpu_torch.parallel.gspmd.GSPMDEngine`'s.  Every rank of the process group
     makes the call; each axis has its own group (:func:`axis_group`)."""
     if len(dims) != len(axis_names):
         raise ValueError(f"{len(dims)} mesh dims for axis names {axis_names}")
@@ -548,3 +559,48 @@ def pmean(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
     is a pmean."""
     ax = resolve_axis(axis, mesh)
     return x if ax.size == 1 else _PSum.apply(ax, ax.size, x)
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, dim, x):
+        ctx.ax, ctx.dim, ctx.block = ax, dim, x.shape[dim]
+        return torch.cat(list(_gather(x, ax).unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g.narrow(ctx.dim, ctx.ax.index * ctx.block, ctx.block)
+
+
+def gather_from_axis(x: torch.Tensor, axis: str, dim: int = 0, mesh=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order, for a
+    computation that continues **replicated** over ``axis``: each rank then
+    holds the same whole cotangent, and the backward keeps this rank's block
+    of it.  (:func:`all_gather`'s reduce-scatter would sum ``size`` equal
+    copies: ``size`` times the gradient.)  Tensor parallelism gathers a
+    column-parallel product's outputs, and a split parameter used whole,
+    with it."""
+    ax = resolve_axis(axis, mesh)
+    if ax.size == 1:
+        return x
+    return _GatherFromAxis.apply(ax, dim % x.dim(), x)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, all_reduce_sum([g], ctx.ax.group)[0]
+
+
+def copy_to_axis(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """The identity forward and a psum over ``axis`` backward: the
+    replicated input of a column-parallel product, whose rank computes the
+    outputs of its own block of channels, so that its input's gradient is a
+    partial sum over those channels; the psum makes it the whole one."""
+    ax = resolve_axis(axis, mesh)
+    return x if ax.size == 1 else _CopyToAxis.apply(ax, x)

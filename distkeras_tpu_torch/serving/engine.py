@@ -49,7 +49,10 @@ other.  Attention is the KV-cache decode's own
 :func:`~distkeras_tpu_torch.models.transformer.masked_attention` over a
 gather of the slot's pages, ``key_pos <= pos``: plain PyTorch products, as
 the reference's are plain XLA ones (no Pallas kernel carries decode).  The
-pools take the served parameters' dtype.  Prefill writes the whole
+pools are built in ``dtype`` (f32 by default, as in JAX): K/V rows are cast
+to it on the scatter, as JAX's ``.at[].set`` casts, and the rows attention
+reads back are cast to the query's dtype (torch refuses the mixed-dtype
+product that ``jnp`` promotes).  Prefill writes the whole
 right-padded bucket into the slot's pages; rows past the prompt are causally
 masked and overwritten by decode before they could be attended.
 
@@ -66,7 +69,7 @@ counter advances once per engine iteration *of that request*, so its
 sampled tokens are a function of (params, prompt, knobs, seed) alone.
 
 Not ported here: the tensor-parallel decode over a mesh (``mesh=``, ROADMAP
-Queue A item 15, tensor parallelism), ``StagedLM`` targets (item 15), the chaos fault point and
+Queue A item 15e), ``StagedLM`` targets (item 15), the chaos fault point and
 the per-tenant accounting ledger (items 18 and 19) and the lock-order
 watchdog around the engine's condition variable (item 19).
 """
@@ -100,7 +103,8 @@ from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
 
 __all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
 
-_MESH = "mesh= (tensor-parallel decode) comes with tensor parallelism (ROADMAP Queue A item 15)"
+_MESH = ("mesh= (tensor-parallel decode, one process per card with rank-0 admission) "
+         "comes with ROADMAP Queue A item 15e")
 _STAGED = "serving a StagedLM comes with the pipeline slice (ROADMAP Queue A item 15)"
 
 
@@ -273,8 +277,9 @@ def _paged_attention(q, kpool, vpool, tables, hidden):
     gathered through ``tables [slots, pages_per_slot]``); ``hidden [slots,
     m, 1, ctx]`` is True at the keys past each query's position."""
     s = q.shape[0]
-    kg = kpool[tables].reshape(s, -1, *kpool.shape[-2:])  # [slots, ctx, heads, hd]
-    vg = vpool[tables].reshape(s, -1, *vpool.shape[-2:])
+    # the pools' dtype may differ from the queries' (``dtype=``): read back in q's
+    kg = kpool[tables].reshape(s, -1, *kpool.shape[-2:]).to(q.dtype)  # [slots, ctx, heads, hd]
+    vg = vpool[tables].reshape(s, -1, *vpool.shape[-2:]).to(q.dtype)
     return masked_attention(q, kg, vg, hidden)
 
 
@@ -374,13 +379,15 @@ class ServingEngine:
 
     Fast-path knobs: ``prefill_buckets`` (width ladder; default
     power-of-two), ``draft_model``/``draft_params``/``spec_tokens``
-    (speculative decoding).
+    (speculative decoding).  ``dtype`` is the KV page pools' dtype (both
+    the target's and the draft's), f32 by default as in JAX: bf16 pools
+    halve the cache for f32 parameters.
     """
 
     def __init__(self, model, params=None, *, num_slots: int = 4,
                  page_size: int = 16, pages_per_slot: Optional[int] = None,
                  num_pages: Optional[int] = None, queue_size: int = 64,
-                 registry=None,
+                 registry=None, dtype=torch.float32,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  draft_model=None, draft_params=None, spec_tokens: int = 4,
                  mesh=None, device="cuda"):
@@ -396,7 +403,7 @@ class ServingEngine:
             num_layers=len(spec.blocks), num_slots=num_slots,
             page_size=page_size, pages_per_slot=pages_per_slot,
             heads=spec.heads, head_dim=spec.head_dim,
-            num_pages=num_pages, dtype=spec.tok.dtype, device=self.device,
+            num_pages=num_pages, dtype=dtype, device=self.device,
         )
         self._width = self._cache.max_context()
         self._buckets = _resolve_buckets(
@@ -429,7 +436,7 @@ class ServingEngine:
                 num_layers=len(dspec.blocks), num_slots=num_slots,
                 page_size=page_size, pages_per_slot=pages_per_slot,
                 heads=dspec.heads, head_dim=dspec.head_dim,
-                num_pages=self._cache.num_pages, dtype=dspec.tok.dtype, device=self.device,
+                num_pages=self._cache.num_pages, dtype=dtype, device=self.device,
             )
 
         # Slot arrays: host tensors (pinned on a card) with numpy views the
@@ -498,8 +505,8 @@ class ServingEngine:
             def fn(q, k, v):
                 # stash the whole padded chunk into this slot's pages; rows
                 # past the prompt are causally masked below, never attended
-                kpool[li, table] = k[0].reshape(npages, ps, *k.shape[-2:])
-                vpool[li, table] = v[0].reshape(npages, ps, *v.shape[-2:])
+                kpool[li, table] = k[0].reshape(npages, ps, *k.shape[-2:]).to(kpool.dtype)
+                vpool[li, table] = v[0].reshape(npages, ps, *v.shape[-2:]).to(vpool.dtype)
                 return masked_attention(q, k, v, hidden)
 
             return fn

@@ -24,7 +24,13 @@ to the rank count; every process returns the same model and history.
 ``seq_shards`` sequence blocks (ring attention), ``num_workers`` defaults to
 ``world / seq_shards``, and ``fsdp=True`` splits the center over the seq
 ranks; every return path hands back the model's seq-free twin on the
-trained parameters, which serves on one card.  Construct a trainer around a model and call
+trained parameters, which serves on one card.  With ``tp_shards > 1``, or
+``fsdp=True`` without a seq axis, the ranks form the GSPMD engine's
+``(workers, model)`` grid (:mod:`~distkeras_tpu_torch.parallel.gspmd`):
+parameter leaves split over the ``tp_shards`` model ranks of a row
+(``tp_spec_fn`` overrides the placement), the center also over the workers
+ranks under ``fsdp``; ``num_workers`` defaults to the rank count, as JAX
+defaults it to the device count, and the model comes back whole.  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
 its trained weights written back, when one was passed in); the constructor
@@ -55,7 +61,10 @@ from distkeras_tpu_torch.frame import DataFrame
 from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainedModel, as_adapter
 from distkeras_tpu_torch.ops.metrics import per_token_metric_names
 from distkeras_tpu_torch.parallel.engine import WindowedEngine, _mix64
+from distkeras_tpu_torch.parallel.gspmd import GSPMDEngine
 from distkeras_tpu_torch.parallel.mesh import (
+    TP_AXIS,
+    WORKER_AXIS,
     LocalMesh,
     broadcast,
     local_device_count,
@@ -86,11 +95,8 @@ __all__ = [
 # kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
 _UNPORTED = {
     "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
-    "tp_shards": (1, "item 15 (tensor parallelism)"),
-    "fsdp": (False, "item 15 (GSPMD fsdp (no seq axis))"),
     "pipeline_stages": (1, "item 15 (pipeline parallelism)"),
     "pp_microbatches": (None, "item 15 (pipeline parallelism)"),
-    "tp_spec_fn": (None, "item 15 (tensor parallelism)"),
     "elastic": (None, "item 18 (fleet: elastic membership)"),
     "profile_dir": (None, "item 19 (telemetry: profiler)"),
 }
@@ -201,14 +207,23 @@ class Trainer:
                 "seq_shards>1 (ring attention needs the shard_map "
                 "engine); fsdp + seq_shards IS supported — drop tp_shards"
             )
+        # tensor parallelism shards: >1 selects the GSPMD engine (parameter
+        # leaves split over a 'model' axis of ranks; any model, unmodified)
+        self.tp_shards = int(tp_shards)
         # fsdp with seq_shards>1 is the seq-axis ZeRO center of the windowed
-        # engine; fsdp alone is the GSPMD engine's (item 15)
+        # engine; fsdp alone is the GSPMD engine's workers-axis one
         self.fsdp = bool(fsdp)
+        # optional GSPMD leaf-placement override, (shape, name) -> spec|None
+        self.tp_spec_fn = tp_spec_fn
+        if tp_spec_fn is not None and self.tp_shards <= 1:
+            raise ValueError(
+                "tp_spec_fn places leaves on the model mesh axis, which only "
+                "exists with tp_shards>1 (the GSPMD engine); without it the "
+                "override would be silently ignored"
+            )
         _refuse_unported(
-            profile_dir=profile_dir, tp_shards=tp_shards,
-            fsdp=self.fsdp and self.seq_shards == 1,
-            pipeline_stages=pipeline_stages, pp_microbatches=pp_microbatches,
-            tp_spec_fn=tp_spec_fn,
+            profile_dir=profile_dir, pipeline_stages=pipeline_stages,
+            pp_microbatches=pp_microbatches,
         )
         self.master_model = keras_model
         self.loss = loss
@@ -340,12 +355,7 @@ class Trainer:
             metrics = per_token_metric_names(metrics)
         with telemetry.trace.span("load_columns", phase="data"):
             feats, labels = self._load_columns(dataframe)
-        engine = WindowedEngine(
-            adapter, self.loss, self._effective_worker_optimizer(), rule, num_workers,
-            metrics=metrics, compute_dtype=self.compute_dtype, commit_schedule=commit_schedule,
-            mesh=mesh, seq_shards=self.seq_shards, fsdp=self.fsdp, remat=self.remat,
-            unroll=self.unroll, device=self.device,
-        )
+        engine = self._make_engine(adapter, rule, num_workers, metrics, commit_schedule, mesh)
         window = rule.communication_window if rule.communication_window > 0 else None
         rng = np.random.default_rng(self.seed)
 
@@ -356,7 +366,7 @@ class Trainer:
             from distkeras_tpu_torch.checkpoint import CheckpointManager
 
             ckpt = CheckpointManager(self.checkpoint_dir, every=self.checkpoint_every,
-                                     mesh=engine.mesh, center=engine if engine.fsdp else None)
+                                     mesh=engine.mesh, center=engine)
             # resolve the resume step once, verified (a corrupt newest step is
             # quarantined and the newest that verifies is taken); every read
             # below pins it
@@ -546,6 +556,23 @@ class Trainer:
                 self.history[_metric_key(name, i)] = [float(m[i]) for m in metrics_per_epoch]
         return engine, state, adapter
 
+    def _make_engine(self, adapter, rule, num_workers, metrics, commit_schedule=None,
+                     mesh=None):
+        """The engine ``_fit`` trains with, routed as the JAX package routes
+        it: ``tp_shards > 1``, or ``fsdp`` without a seq axis, builds the
+        GSPMD engine over the ``(workers, model)`` grid; everything else the
+        windowed engine (the seq-axis ZeRO center with ``seq_shards > 1``)."""
+        kwargs = dict(metrics=metrics, compute_dtype=self.compute_dtype,
+                      commit_schedule=commit_schedule, remat=self.remat, unroll=self.unroll,
+                      device=self.device)
+        if self.tp_shards > 1 or (self.fsdp and self.seq_shards == 1):
+            return GSPMDEngine(adapter, self.loss, self._effective_worker_optimizer(), rule,
+                               num_workers, tp_shards=self.tp_shards, fsdp=self.fsdp,
+                               spec_fn=self.tp_spec_fn, mesh=mesh, **kwargs)
+        return WindowedEngine(adapter, self.loss, self._effective_worker_optimizer(), rule,
+                              num_workers, mesh=mesh, seq_shards=self.seq_shards,
+                              fsdp=self.fsdp, **kwargs)
+
     def _train_chunked(self, engine, state, feats, labels, num_workers, window, shuffle, ckpt,
                        start_epoch, log):
         """The ``dispatch_epochs>1`` epoch loop: up to ``dispatch_epochs``
@@ -605,12 +632,18 @@ class SingleTrainer(Trainer):
     """Single-worker baseline (reference parity: ``SingleTrainer`` — one
     partition, a SequentialWorker).  Inside a process group every rank
     trains the one worker whole (a one-rank mesh), so every rank returns
-    the same model; global rank 0 alone writes checkpoints."""
+    the same model; global rank 0 alone writes checkpoints.  With
+    ``tp_shards > 1`` the one worker trains over the model ranks of a
+    one-row grid (every rank of the group)."""
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
-        # sequence parallelism needs the grid of the group's ranks
-        mesh = None if self.seq_shards > 1 else LocalMesh()
+        # sequence and tensor parallelism need the grid of the group's
+        # ranks; the GSPMD engine's fsdp alone trains on a one-rank grid
+        if self.seq_shards > 1 or self.tp_shards > 1:
+            mesh = None
+        else:
+            mesh = LocalMesh((WORKER_AXIS, TP_AXIS)) if self.fsdp else LocalMesh()
         engine, state, adapter = self._fit(dataframe, worker.rule, num_workers=1,
                                            shuffle=shuffle, mesh=mesh)
         return self._finalize(engine, state, adapter, use_center=False)

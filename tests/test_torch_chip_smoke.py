@@ -245,8 +245,13 @@ def tiny_serving(monkeypatch):
 def test_serving_phase_rehearsal(on_cpu, tiny_serving, capsys):
     out = chip_smoke.serving_phase(0)
     printed = _emitted(capsys, "serving")
-    assert [r["case"] for r in printed] == ["greedy", "engine", "speculative"]
+    assert [r["case"] for r in printed] == ["greedy", "engine", "speculative", "bf16_pools"]
     greedy, engine, spec = out["greedy"], out["engine"], out["speculative"]
+    # bf16 page pools under f32 parameters: half the bytes, greedy's tokens
+    bf16 = out["bf16_pools"]
+    assert bf16["pool_dtypes"] == ["torch.bfloat16"]
+    assert 2 * bf16["pool_bytes"] == bf16["pool_bytes_f32"] == engine["pool_bytes"]
+    assert bf16["requests"] == 2 and bf16["gap_limit"] >= chip_smoke.GREEDY_GAP
     # the CPU runs the plain attention: no kernel launch to count
     assert greedy["launches_b1"] == greedy["launches_b1_check"] == engine["launches_b1"] == 0
     assert engine["launches_b2_b3"] == [0, 0]
@@ -355,4 +360,36 @@ def test_seq_phase_rehearsal(on_cpu, capsys, monkeypatch):
     twin = row["twin_predictor"]
     assert twin["seq_free"] and twin["finite"] and twin["shape"] == [2, 16, 64]
     for key in ("tokens_per_s", "ring_fwd_ms_per_layer", "num_updates", "card"):
+        assert key in row
+
+
+def test_tp_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # phase 20 at TINY_LM's widths: two gloo ranks spawned on the CPU, the
+    # (workers, model) grid 1 x 2 with tp_shards=2 held to the one-rank run
+    # made in the phase, then fsdp=True alone (grid 2 x 1) against the
+    # replicated two-rank run
+    monkeypatch.setattr(chip_smoke, "TP_MODEL", TINY_LM)
+    monkeypatch.setattr(chip_smoke, "SEQ_PREDICT_ROWS", 2)
+    _, reference = chip_smoke.tp_train(0, chip_smoke.TP_EPOCHS)
+    out = chip_smoke.tp_phase(0, reference)
+    rows = _emitted(capsys, "tp")
+    assert [r["case"] for r in rows] == ["two_ranks_one_card", "cards"]
+    assert rows[1]["tp_cards_run"] == 1
+    row = out["two_ranks_one_card"]
+    assert rows[0] == {"phase": "tp", **row}
+    assert not row["failures"] and row["backend"] == "gloo" and row["grid"] == [1, 2]
+    assert row["first_window_loss_rel_err"] <= chip_smoke.TP_FIRST_LOSS_RTOL
+    # sharded leaves halve: every resident tree a rank is the layout's, less
+    # than the one rank's
+    for mine, layout, one in row["resident_rank0_layout_one_rank"].values():
+        assert mine == layout < one
+    fsdp = row["fsdp_alone"]
+    assert fsdp["vs_replicated"]["bitwise"] and fsdp["grid"] == [2, 1]
+    assert fsdp["center_bytes_rank0"] < fsdp["center_bytes_replicated"]
+    # the CPU ranks run gloo on CPU tensors: nothing is staged, nothing launched
+    assert row["host_staged_bytes_rank0"] == 0
+    assert row["launches_b1_b2_b3"] == row["launches_b1_b2_b3_one_rank"] == [0, 0, 0]
+    pred = row["predictor"]
+    assert pred["finite"] and pred["shape"] == [2, 16, 64]
+    for key in ("tokens_per_s", "tokens_per_s_one_rank", "num_updates", "card"):
         assert key in row

@@ -60,7 +60,8 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.models.generate, distkeras_tpu_torch.serving, "
         "distkeras_tpu_torch.serving.cache, distkeras_tpu_torch.serving.sampling, "
         "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine, "
-        "distkeras_tpu_torch.datapipe.packing, distkeras_tpu_torch.parallel.mesh\n"
+        "distkeras_tpu_torch.datapipe.packing, distkeras_tpu_torch.parallel.mesh, "
+        "distkeras_tpu_torch.parallel.gspmd\n"
         # what make_mesh imports once a process group exists
         "import torch.distributed.device_mesh\n"
         "assert not (dist.is_available() and dist.is_initialized())\n"
@@ -88,7 +89,7 @@ def test_sources_found():
                    "datapipe/source", "datapipe/ring", "datapipe/state", "checkpoint",
                    "fleet", "telemetry/correlate", "telemetry/metrics", "models/generate",
                    "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
-                   "serving/engine", "datapipe/packing", "parallel/mesh"):
+                   "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

@@ -231,11 +231,11 @@ def test_block_apply_is_the_module_block(lm):
 
 
 def test_pools_take_the_served_dtype(lm):
-    """The KV pools follow the parameters' dtype: an f64 engine serves the
-    JAX package's greedy tokens."""
+    """The KV pools are built in ``dtype=``: an f64 engine (f64 parameters,
+    f64 pools) serves the JAX package's greedy tokens."""
     params = {k: v.double() for k, v in lm[3].items()}
     engine = ServingEngine(lm[2], params, num_slots=2, page_size=8, registry=Registry(),
-                           device="cpu")
+                           dtype=torch.float64, device="cpu")
     try:
         assert engine._cache.k_pages.dtype == engine._cache.v_pages.dtype == torch.float64
         rng = np.random.default_rng(5)
@@ -244,6 +244,53 @@ def test_pools_take_the_served_dtype(lm):
         assert [r.tokens for r in results] == [_ref(lm, p, s) for p, s in zip(prompts, (6, 5))]
     finally:
         engine.stop()
+
+
+def test_bf16_pools_serve_f32_parameters_as_the_jax_engine(lm):
+    """bf16 KV pools under f32 parameters (half the cache): the greedy
+    tokens, target and speculative, equal the JAX engine's at
+    ``dtype=jnp.bfloat16`` on the same parameters and prompts."""
+    jax_model, jparams, model, params = lm
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, VOCAB, size=n).tolist() for n in (3, 7, 12)]
+    steps = (6, 9, 5)
+    ref = jax_engine.ServingEngine(jax_model, jparams, num_slots=3, page_size=8,
+                                   registry=None, dtype=jnp.bfloat16)
+    try:
+        want = [ref.generate(p, max_new_tokens=s).tokens for p, s in zip(prompts, steps)]
+    finally:
+        ref.stop()
+    for draft in (None, model):
+        engine = ServingEngine(model, params, num_slots=3, page_size=8, registry=Registry(),
+                               dtype=torch.bfloat16, draft_model=draft,
+                               draft_params=None if draft is None else params,
+                               spec_tokens=2, device="cpu")
+        try:
+            pools = [engine._cache] + ([engine._draft_cache] if draft is not None else [])
+            assert all(c.k_pages.dtype == c.v_pages.dtype == torch.bfloat16 for c in pools)
+            assert all(v.dtype == torch.float32 for v in params.values())
+            got = [r.tokens for r in _staggered(engine, prompts, steps)]
+        finally:
+            engine.stop()
+        assert got == want, f"draft={draft is not None}"
+
+
+def test_engine_signature_follows_jax_in_order():
+    """``ServingEngine.__init__`` takes the JAX engine's parameters, in its
+    order and with its defaults (``dtype`` f32), then the port's
+    ``device``."""
+    import inspect
+
+    ours = list(inspect.signature(ServingEngine.__init__).parameters.values())
+    theirs = list(inspect.signature(jax_engine.ServingEngine.__init__).parameters.values())
+    assert [p.name for p in ours] == [p.name for p in theirs] + ["device"]
+    for mine, ref in zip(ours, theirs):
+        default = ref.default
+        if ref.name == "dtype":
+            assert default == jnp.float32 and mine.default == torch.float32
+            continue
+        assert (mine.kind, mine.default) == (ref.kind, default), ref.name
+    assert ours[-1].default == "cuda"
 
 
 def test_staggered_greedy_matches_jax(lm, engines):
@@ -565,7 +612,7 @@ def test_cancel_releases_the_slot(make_engine):
 
 def test_unported_options_raise_naming_their_items(lm):
     _, _, model, params = lm
-    with pytest.raises(NotImplementedError, match=r"tensor parallelism \(ROADMAP Queue A item 15"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A item 15e"):
         ServingEngine(model, params, mesh=object(), device="cpu")
 
     class Staged(TorchModel):

@@ -229,13 +229,45 @@ def test_ported_kwargs_train(kwargs, tmp_path):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(profile_dir="prof"), dict(tp_shards=2), dict(fsdp=True),
-     dict(pipeline_stages=2), dict(elastic=object()), dict(staleness_policy=object())],
+    [dict(profile_dir="prof"), dict(pipeline_stages=2), dict(elastic=object()),
+     dict(staleness_policy=object())],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_kwargs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(tp_shards=2), dict(fsdp=True)],
+                         ids=lambda kw: next(iter(kw)))
+def test_gspmd_kwargs_build_the_gspmd_engine(kwargs):
+    # accepted since item 15a (parallel/gspmd.py) is ported; these replace
+    # their cases in test_unported_kwargs_raise.  In one process (no group)
+    # the trainer routes both to the GSPMD engine: fsdp=True trains the
+    # default run's history bit for bit (one workers rank: nothing to
+    # split), and tp_shards=2 asks for the two model ranks it needs
+    from distkeras_tpu_torch.parallel import GSPMDEngine
+    from distkeras_tpu_torch.parallel.mesh import LocalMesh
+
+    x, y = lm_data(n=32)
+
+    def trainer(**kw):
+        return tdk.DOWNPOUR(TransformerLM(**LM), loss="token_crossentropy",
+                            metrics=("token_accuracy",), num_workers=2, batch_size=4,
+                            communication_window=2, num_epoch=2, seed=1, device="cpu", **kw)
+
+    t = trainer(**kwargs)
+    rule = t.allocate_worker().rule
+    if "tp_shards" in kwargs:
+        with pytest.raises(ValueError, match="tp_shards=2 does not divide the rank count 1"):
+            t._make_engine(TorchModel(TransformerLM(**LM)), rule, 2, ())
+        return
+    assert isinstance(t._make_engine(TorchModel(TransformerLM(**LM)), rule, 2, (),
+                                     mesh=LocalMesh(("workers", "model"))), GSPMDEngine)
+    want = trainer()
+    t.train(tdk.from_numpy(x, y))
+    want.train(tdk.from_numpy(x, y))
+    assert t.get_history()["loss"] == want.get_history()["loss"]
 
 
 def test_tp_shards_with_seq_shards_raises():
