@@ -137,7 +137,14 @@ toolkit.  Phases, each printing JSON lines:
     logits at 2 ranks against one rank (B1) within ``SEQ_CLS_ATOL``; (c)
     the twin the trainer returned through ``ModelPredictor``; (d) on a
     machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
-    checks (else ``seq_cards_run: 1``).
+    checks (else ``seq_cards_run: 1``);
+20. tp: tensor parallelism (see :func:`tp_phase`);
+21. serving_tp: ``ServingEngine(mesh=)`` at the serving phase's widths on
+    two gloo ranks sharing the card (and 4 NCCL ranks on a 4-card
+    machine) against the one-rank engine (see :func:`serving_tp_phase`);
+22. moe: ``MoETransformerClassifier`` at switch-base-8's widths under
+    ``DOWNPOUR`` on one rank, then expert-parallel on two gloo ranks (and
+    the 2 x 2 NCCL grid on a 4-card machine; see :func:`moe_phase`).
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -150,7 +157,9 @@ packed training (0 launches: the packed path is the reference's masked
 product, as there) and each segment's forward alone (B1); phase 18
 around its GPT-2 run over the mesh; phase 19 around each rank's
 seq-sharded training and classifier forward (0 launches: the ring is the
-reference's plain products, as there) and the twin's predictor (B1).  Phases 7 to 9, 11 to 14 and 18's
+reference's plain products, as there) and the twin's predictor (B1);
+phase 21 around each rank-0 serving run (0 launches); phase 22 around the
+MoE training (B1-B3 12 a step), its step check and its predictor (B1).  Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -3227,6 +3236,630 @@ def tp_phase(seed: int, train_run) -> dict:
     return out
 
 
+# tensor-parallel serving phase: the serving phase's GPT-2-small LM and
+# engine geometry (8 slots, pages of 16, f32 pools) with mesh= over the
+# model axis: two gloo ranks sharing the card (6 heads a rank) against the
+# one-rank engine in this process; on a 4-card machine also 4 NCCL ranks,
+# one a card (3 heads a rank)
+SERVE_TP_REQUESTS = 12
+SERVE_TP_SPEC_PROMPTS = 2  # greedy requests of the traffic through the mesh's speculative engine
+SERVE_TP_RANK_TIMEOUT_S = 900
+
+
+def _serve_model(seed: int):
+    """The serving phase's LM (random weights from ``--seed``) and its
+    ``TrainedModel`` on the phase's device: ``(model, trained)``."""
+    from distkeras_tpu_torch.models import TorchModel, TrainedModel, TransformerLM
+
+    model = TransformerLM(**SERVE_MODEL, generator=torch.Generator().manual_seed(seed + 7))
+    trained = TrainedModel(TorchModel(model), {k: v.detach() for k, v in model.named_parameters()},
+                           device=ZOO_DEVICE)
+    return model, trained
+
+
+def _serve_tp_requests(seed: int) -> list:
+    """The phase's traffic as ``GenerateRequest`` keyword dicts: prompts of
+    ``SERVE_PROMPT_LEN`` tokens, ``SERVE_NEW_TOKENS`` new ones, every odd
+    request sampled with its own seed."""
+    rng = np.random.default_rng(seed + 21)
+    vocab = SERVE_MODEL["vocab_size"]
+    lengths = rng.integers(SERVE_PROMPT_LEN[0], SERVE_PROMPT_LEN[1] + 1, SERVE_TP_REQUESTS)
+    new = rng.integers(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, SERVE_TP_REQUESTS)
+    return [dict(prompt=rng.integers(0, vocab, int(n)).tolist(), max_new_tokens=int(m),
+                 **(dict(SERVE_SAMPLING, seed=2000 + i) if i % 2 else {}))
+            for i, (n, m) in enumerate(zip(lengths, new))]
+
+
+def _serve_traffic(engine, registry, requests) -> dict:
+    """The requests submitted ``SERVE_STAGGER_S`` apart (after a warm-up):
+    their tokens, the wall, generated tokens/s, TTFT and step quantiles."""
+    from distkeras_tpu_torch.serving import GenerateRequest
+
+    engine.generate(requests[1]["prompt"][:16], max_new_tokens=4, timeout=600)  # warm-up
+    before = registry.snapshot()
+    t0 = time.perf_counter()
+    pendings = []
+    for req in requests:
+        pendings.append(engine.submit(GenerateRequest(**req)))
+        time.sleep(SERVE_STAGGER_S)
+    results = [p.result(timeout=600) for p in pendings]
+    wall = time.perf_counter() - t0
+    if any(r is None or r.finish_reason == "aborted" for r in results) or not engine.alive:
+        raise AssertionError(f"the engine failed: {engine.error!r}")
+    after = registry.snapshot()
+    ttft = _hist_delta(after["serving_ttft_seconds"], before.get("serving_ttft_seconds", {}))
+    itl = _hist_delta(after["serving_token_latency_seconds"],
+                      before.get("serving_token_latency_seconds", {}))
+    tokens = sum(len(r.tokens) for r in results)
+    return dict(tokens=[r.tokens for r in results], generated=tokens, seconds=wall,
+                generated_tokens_per_s=tokens / wall,
+                ttft_ms_p50=_hist_quantile(ttft, 0.5), step_ms_p50=_hist_quantile(itl, 0.5),
+                step_ms_p99=_hist_quantile(itl, 0.99), decode_steps=itl["count"],
+                step_ms_mean=itl["sum"] / max(itl["count"], 1) * 1e3)
+
+
+def _serving_tp_runs(seed: int, world: int) -> dict:
+    """One rank's share of the phase, in the group it is in: the traffic
+    on ``ServingEngine(mesh=)`` over every rank (rank 0 drives, the others
+    follow its plans), the sampled requests rerun alone, the profiled
+    decode step, then the speculative engine on the same mesh.  Rank 0
+    returns what it measured."""
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import make_mesh, transport_stats
+    from distkeras_tpu_torch.serving import GenerateRequest
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    _, trained = _serve_model(seed)
+    requests = _serve_tp_requests(seed)
+    mesh = make_mesh(world, axis_name="model")
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    out = {}
+    registry = Registry()
+    engine = _serving_engine(trained, registry, mesh=mesh, queue_size=SERVE_TP_REQUESTS + 8)
+    if not engine.leads:
+        engine.stop(timeout=SERVE_TP_RANK_TIMEOUT_S)  # follows rank 0's plans until its stop
+    else:
+        try:
+            for c in counters:
+                c.launches = 0
+            transport_stats["host_staged_bytes"] = 0
+            out["traffic"] = _serve_traffic(engine, registry, requests)
+            out["host_staged_bytes"] = transport_stats["host_staged_bytes"]
+            out["launches_b1_b2_b3"] = [c.launches for c in counters]
+            sampled = [i for i, r in enumerate(requests) if "seed" in r]
+            reruns = {i: engine.generate(timeout=600, **requests[i]).tokens for i in sampled}
+            out["sampled_mismatched"] = [i for i in sampled
+                                         if reruns[i] != out["traffic"]["tokens"][i]]
+            # the decode step under torch.profiler: one request a slot,
+            # admitted together; the all-reduces of its decode steps
+            rng = np.random.default_rng(seed + 22)
+            profile_prompts = [rng.integers(0, SERVE_MODEL["vocab_size"],
+                                            SERVE_PROFILE[0]).tolist() for _ in range(SERVE_SLOTS)]
+            counts = []
+
+            def run():
+                steps, reduces = engine._metrics["decode_steps"].value, engine.all_reduces
+                engine.drain(timeout=60)
+                batch = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=SERVE_PROFILE[1]))
+                         for p in profile_prompts]
+                engine.resume()
+                for p in batch:
+                    p.result(timeout=600)
+                counts.append((engine._metrics["decode_steps"].value - steps,
+                               engine.all_reduces - reduces))
+
+            profile = fwd_bwd_profile(run, iters=1) if ZOO_DEVICE == "cuda" else run() or {}
+            steps, reduces = counts[-1]
+            prefill_reduces = SERVE_SLOTS * SERVE_MODEL["num_layers"]
+            out["profiled_decode"] = dict(
+                slots=SERVE_SLOTS, steps=steps,
+                all_reduces_per_decode_step=(reduces - prefill_reduces) / max(steps, 1),
+                wall_ms_per_step=profile.get("wall_ms_per_call", 0.0) / max(steps, 1),
+                device_ms_per_step=(profile["device_ms_per_call"] / max(steps, 1)
+                                    if profile.get("device_ms_per_call") else None),
+                device_busy_share=profile.get("device_busy_share"))
+            out["pool_bytes"] = engine._cache.k_pages.nbytes + engine._cache.v_pages.nbytes
+            out["heads_a_rank"] = engine._spec.heads
+        finally:
+            engine.stop()
+    draft = TransformerLM(**SERVE_DRAFT, generator=torch.Generator().manual_seed(seed + 8))
+    spec = _serving_engine(trained, Registry(), mesh=mesh, draft_model=draft,
+                           draft_params={k: v.detach() for k, v in draft.named_parameters()},
+                           spec_tokens=SERVE_SPEC_TOKENS)
+    if not spec.leads:
+        spec.stop(timeout=SERVE_TP_RANK_TIMEOUT_S)
+        return out
+    try:
+        greedy = [i for i, r in enumerate(requests) if "seed" not in r][:SERVE_TP_SPEC_PROMPTS]
+        t0 = time.perf_counter()
+        out["speculative"] = dict(requests=greedy, tokens=[
+            spec.submit(GenerateRequest(**requests[i])).result(timeout=600).tokens
+            for i in greedy], seconds=time.perf_counter() - t0)
+    finally:
+        spec.stop()
+    return out
+
+
+def serving_tp_rank_main(spec_path: str) -> int:
+    """One spawned rank of the tensor-parallel serving phase: the parent's
+    settings from ``spec_path``, the group joined, :func:`_serving_tp_runs`,
+    the group left; rank 0 writes what it measured."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, SERVE_MODEL, SERVE_DRAFT, SERVE_SLOTS, SERVE_PAGE, SERVE_TP_REQUESTS
+    global SERVE_PROMPT_LEN, SERVE_NEW_TOKENS, SERVE_STAGGER_S, SERVE_PROFILE
+    global SERVE_TP_SPEC_PROMPTS
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, SERVE_MODEL, SERVE_DRAFT = spec["device"], spec["model"], spec["draft"]
+    (SERVE_SLOTS, SERVE_PAGE, SERVE_TP_REQUESTS, SERVE_PROMPT_LEN, SERVE_NEW_TOKENS,
+     SERVE_STAGGER_S, SERVE_PROFILE, SERVE_TP_SPEC_PROMPTS) = spec["serve"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        runs = _serving_tp_runs(spec["seed"], spec["world"])
+    finally:
+        dist.destroy_process_group()
+    if spec["rank"] == 0:
+        torch.save(runs, spec["out"])
+    return 0
+
+
+def _spawn_serving_tp(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
+    import os
+
+    port, out = _free_port(), os.path.join(workdir, f"serving_tp_{backend}_{world}.pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=SERVE_MODEL, draft=SERVE_DRAFT,
+                  serve=[SERVE_SLOTS, SERVE_PAGE, SERVE_TP_REQUESTS, list(SERVE_PROMPT_LEN),
+                         list(SERVE_NEW_TOKENS), SERVE_STAGGER_S, list(SERVE_PROFILE),
+                         SERVE_TP_SPEC_PROMPTS],
+                  backend=backend, world=world, rank=rank, port=port, out=out,
+                  device_index=rank if cards else 0, threads=torch.get_num_threads())
+             for rank in range(world)]
+    _run_ranks("--serving-tp-rank", specs, workdir, SERVE_TP_RANK_TIMEOUT_S, "serving_tp")
+    return torch.load(out)
+
+
+def _serving_tp_versus(got: dict, ref: dict, requests, trained, world: int) -> tuple:
+    """A mesh's run against the one-rank engine's, and the phase's gates."""
+    failures, departures, spec_departures = [], [], []
+    for i, req in enumerate(requests):
+        if "seed" in req:
+            continue
+        try:
+            hit = _held_to_greedy(trained, req["prompt"], got["traffic"]["tokens"][i],
+                                  ref["tokens"][i])
+        except AssertionError as e:
+            failures.append(f"request {i}: {e}")
+            continue
+        if hit is not None:
+            departures.append(dict(request=i, position=hit[0], gap=hit[1]))
+    spec = got["speculative"]
+    for i, tokens in zip(spec["requests"], spec["tokens"]):
+        try:
+            hit = _held_to_greedy(trained, requests[i]["prompt"], tokens,
+                                  got["traffic"]["tokens"][i])
+        except AssertionError as e:
+            failures.append(f"speculative request {i}: {e}")
+            continue
+        if hit is not None:
+            spec_departures.append(dict(request=i, position=hit[0], gap=hit[1]))
+    if got["sampled_mismatched"]:
+        failures.append(f"sampled requests {got['sampled_mismatched']} gave other tokens alone")
+    if got["pool_bytes"] * world != ref["pool_bytes"]:
+        failures.append(f"a rank's pools hold {got['pool_bytes']} bytes, one rank's "
+                        f"{ref['pool_bytes']} over {world}")
+    per_step = got["profiled_decode"]["all_reduces_per_decode_step"]
+    if per_step != SERVE_MODEL["num_layers"]:
+        failures.append(f"{per_step} all-reduces a decode step, one a block expected")
+    if got["launches_b1_b2_b3"] != [0, 0, 0]:
+        failures.append(f"B1-B3 launched {got['launches_b1_b2_b3']} times on the serving path")
+    traffic = {k: v for k, v in got["traffic"].items() if k != "tokens"}
+    row = dict(model="TransformerLM", **SERVE_MODEL, slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+               requests=len(requests), sampled=sum("seed" in r for r in requests),
+               heads_a_rank=got["heads_a_rank"], **traffic,
+               one_rank={k: v for k, v in ref.items() if k != "tokens"},
+               greedy_departures=departures, sampled_rerun_equal=not got["sampled_mismatched"],
+               speculative=dict(requests=len(spec["requests"]), seconds=spec["seconds"],
+                                spec_tokens=SERVE_SPEC_TOKENS, draft_model=SERVE_DRAFT,
+                                departures_from_mesh_plain=spec_departures),
+               pool_bytes_rank=got["pool_bytes"], pool_bytes_one_rank=ref["pool_bytes"],
+               host_staged_bytes_rank0=got["host_staged_bytes"],
+               profiled_decode=got["profiled_decode"],
+               launches_b1_b2_b3=got["launches_b1_b2_b3"], greedy_gap=GREEDY_GAP, card=CARD)
+    return row, failures
+
+
+def serving_tp_phase(seed: int, pair: bool = True) -> dict:
+    """Tensor-parallel serving (``ServingEngine(mesh=)``) at the serving
+    phase's GPT-2-small widths: ``SERVE_TP_REQUESTS`` requests
+    ``SERVE_STAGGER_S`` apart (half sampled) on the one-rank engine in this
+    process, then on (a) two gloo ranks spawned on the one card
+    (``--serving-tp-rank``, 6 heads a rank) and (b) on a machine with 4
+    cards, 4 NCCL ranks, one a card (3 heads a rank; else
+    ``serving_tp_cards_run: 1``).  Gates: greedy tokens equal to the
+    one-rank engine's but where the reference's top-two gap is below
+    ``GREEDY_GAP``; sampled requests equal to themselves rerun alone on the
+    mesh; speculative greedy (the serving phase's draft) the mesh's plain
+    stream under the same rule; a rank's pools ``1/tp`` of one rank's; one
+    all-reduce a block a decode step; B1-B3 never launched (the serving
+    path runs the reference's plain masked attention).  ``pair=False``
+    skips (a), for a 4-card call that runs the NCCL ranks alone."""
+    import tempfile
+
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    _, trained = _serve_model(seed)
+    requests = _serve_tp_requests(seed)
+    registry = Registry()
+    engine = _serving_engine(trained, registry, queue_size=SERVE_TP_REQUESTS + 8)
+    try:
+        ref = _serve_traffic(engine, registry, requests)
+        ref["pool_bytes"] = engine._cache.k_pages.nbytes + engine._cache.v_pages.nbytes
+    finally:
+        engine.stop()
+    out = {}
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
+        if count >= 4:
+            runs.append(("cards", 4, "nccl", True))
+        for case, world, backend, cards in runs:
+            got = _spawn_serving_tp(seed, world, backend, cards, workdir)
+            row, failures = _serving_tp_versus(got, ref, requests, trained, world)
+            row = dict(case=case, backend=backend, ranks=world,
+                       **({"serving_tp_cards_run": world} if cards else {}), **row)
+            row["failures"] = failures
+            emit(phase="serving_tp", **row)
+            out[case] = row
+            if failures:
+                raise AssertionError(f"serving_tp: {case}: {failures}")
+    if count < 4:
+        emit(phase="serving_tp", case="cards", serving_tp_cards_run=1,
+             reason="4 NCCL ranks need torch.cuda.device_count() >= 4", card=CARD)
+    return out
+
+
+# MoE phase: MoETransformerClassifier at google/switch-base-8's widths (Fedus
+# et al. 2021; HF SwitchTransformersConfig: d_model 768, 12 heads, d_ff
+# 3072, 12 blocks, 8 experts, capacity factor 1.25, vocab 32128), sequence
+# 512, 2 classes, f32, random weights from --seed.  Every block is MoE here
+# (the repo's class), where the published model alternates dense and
+# sparse blocks.  DOWNPOUR, 2 workers, batch 4, window 2, Adam, one epoch of
+# 2 windows
+MOE_MODEL = dict(vocab_size=32128, num_classes=2, dim=768, heads=12, num_layers=12,
+                 num_experts=8, mlp_ratio=4, top_k=1, capacity_factor=1.25, max_len=512)
+MOE_WINDOWS, MOE_EPOCHS, MOE_PREDICT_ROWS = 2, 1, 4
+MOE_TP_SHARDS, MOE_RANK_TIMEOUT_S = 2, 900
+# the expert-parallel run against one rank: phase 20's gates
+MOE_FIRST_LOSS_RTOL, MOE_LOSS_RTOL, MOE_PARAM_REL_NORM = (
+    TP_FIRST_LOSS_RTOL, TP_LOSS_RTOL, TP_PARAM_REL_NORM)
+
+
+def moe_task(rows: int, seed: int):
+    """``rows`` token rows of ``MOE_MODEL``'s length and their one-hot
+    class (does token 7 appear more often than token 3?)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, MOE_MODEL["vocab_size"], (rows, MOE_MODEL["max_len"]), dtype=np.int32)
+    x[:, :8] = rng.integers(0, 8, (rows, 8))  # small ids often, so that both classes occur
+    y = ((x == 7).sum(1) > (x == 3).sum(1)).astype(np.int64)
+    return x, np.eye(MOE_MODEL["num_classes"], dtype=np.float32)[y]
+
+
+def moe_train(seed: int, **kwargs):
+    """``DOWNPOUR`` over ``MOE_MODEL`` for ``MOE_EPOCHS`` epochs with the
+    trainer's parallelism ``kwargs``: ``(trainer, run)``, each expert
+    product's expert count recorded in the run."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import MoETransformerClassifier, moe
+
+    rows = TRAIN_WORKERS * MOE_WINDOWS * TRAIN_WINDOW * TRAIN_BATCH
+    model = MoETransformerClassifier(**MOE_MODEL,
+                                     generator=torch.Generator().manual_seed(seed + 22))
+    x, y = moe_task(rows, seed + 22)
+    trainer = _keeping_fit(tdk.DOWNPOUR)(
+        model, loss="categorical_crossentropy", metrics=("accuracy",),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=MOE_EPOCHS,
+        seed=seed, device=ZOO_DEVICE, **kwargs)
+    seen, plain = [], moe._expert_ffn
+
+    def counted(xin, *stacks):
+        seen.append(int(xin.shape[0]))
+        return plain(xin, *stacks)
+
+    moe._expert_ffn = counted
+    try:
+        run = _trained(trainer, tdk.from_numpy(x, y))
+    finally:
+        moe._expert_ffn = plain
+    run.update(first_window_loss=trainer.window_losses[0], experts_seen=sorted(set(seen)),
+               expert_calls=len(seen),
+               tokens_per_s=MOE_EPOCHS * rows * MOE_MODEL["max_len"] / run["seconds"])
+    return trainer, run
+
+
+def _moe_runs(seed: int) -> dict:
+    """One rank's share of the phase, in the group it is in: over 2 ranks
+    (one card) ``tp_shards=2`` with ``expert_partition(8)`` (grid 1 x 2),
+    over 4 (one a card) the same on the 2 x 2 grid; B1-B3's launches, bytes
+    through the host, peak memory, the resident expert bytes."""
+    from distkeras_tpu_torch.models import expert_partition
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import transport_stats
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    on_card = ZOO_DEVICE == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    transport_stats["host_staged_bytes"] = 0
+    trainer, run = moe_train(seed, tp_shards=MOE_TP_SHARDS,
+                             tp_spec_fn=expert_partition(MOE_MODEL["num_experts"]))
+    engine, state, _ = trainer.fit_result
+    run.update(launches=[c.launches for c in counters],
+               host_staged_bytes=transport_stats["host_staged_bytes"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+               grid=list(engine.mesh.shape), num_updates=trainer.num_updates,
+               **_expert_bytes(state.center_params))
+    return run
+
+
+def _expert_bytes(center) -> dict:
+    """Bytes of the center's expert stacks and of the rest of it."""
+    from distkeras_tpu_torch.models.moe import EXPERT_PARAM_NAMES
+
+    expert = sum(v.numel() * v.element_size() for k, v in center.items()
+                 if ".moe." in k and k.split(".")[-1] in EXPERT_PARAM_NAMES)
+    total = sum(v.numel() * v.element_size() for v in center.values())
+    return dict(expert_bytes=expert, other_bytes=total - expert)
+
+
+def moe_rank_main(spec_path: str) -> int:
+    """One spawned rank of the MoE phase: the parent's settings from
+    ``spec_path``, the group joined, :func:`_moe_runs`, the group left;
+    rank 0 writes its run."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, MOE_MODEL, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, MOE_WINDOWS
+    global MOE_EPOCHS
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, MOE_MODEL = spec["device"], spec["model"]
+    TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, MOE_WINDOWS, MOE_EPOCHS = spec["train"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        run = _moe_runs(spec["seed"])
+    finally:
+        dist.destroy_process_group()
+    if spec["rank"] == 0:
+        torch.save(run, spec["out"])
+    return 0
+
+
+def _spawn_moe(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
+    import os
+
+    port, out = _free_port(), os.path.join(workdir, f"moe_{backend}_{world}.pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=MOE_MODEL, backend=backend,
+                  train=[TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, MOE_WINDOWS, MOE_EPOCHS],
+                  world=world, rank=rank, port=port, out=out,
+                  device_index=rank if cards else 0, threads=torch.get_num_threads())
+             for rank in range(world)]
+    _run_ranks("--moe-rank", specs, workdir, MOE_RANK_TIMEOUT_S, "moe")
+    return torch.load(out)
+
+
+def _moe_step(adapter, params, state, x, y, device):
+    """One training-mode forward + backward of the objective the engine
+    minimises, cross-entropy plus the load-balance loss, on ``device``: the
+    loss, the aux loss and each parameter's gradient (f64, on the CPU)."""
+    from distkeras_tpu_torch.ops import get_loss
+
+    leaves = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
+    out, new_state = adapter.apply(leaves, {k: v.to(device) for k, v in state.items()},
+                                   torch.from_numpy(x).to(device), training=True)
+    aux = adapter.aux_loss(new_state)
+    loss = get_loss("categorical_crossentropy")(out.float(), torch.from_numpy(y).to(device)) + aux
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (loss.item(), float(torch.as_tensor(aux).detach()),
+            {k: g.cpu().double() for k, g in zip(leaves, grads)})
+
+
+def moe_phase(seed: int, pair: bool = True) -> dict:
+    """Mixture-of-experts at switch-base-8's widths (``MOE_MODEL``): (a)
+    ``DOWNPOUR`` on one rank (B1 a forward and B2/B3 a backward, 12 each a
+    step), a finite history, one ``[1, 512]`` step of cross-entropy plus
+    the load-balance loss held to the CPU (``STEP_LOSS_RTOL``,
+    ``STEP_GRAD_RTOL``), the engine's loss on a batch equal to cross-entropy
+    plus the aux loss, the trained model through ``ModelPredictor`` against
+    the CPU within ``PREDICT_ATOL`` (B1 12); (b) two gloo ranks spawned on
+    the card (``--moe-rank``), ``tp_shards=2`` with ``expert_partition(8)``
+    (grid 1 x 2): first window, history and center against (a) within phase
+    20's gates, each rank's expert stacks half of one rank's, each expert
+    product on a rank over 4 experts, B1-B3 as at one rank; (c) on a
+    machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
+    checks (else ``moe_cards_run: 1``).  ``pair=False`` skips (b), for a
+    4-card call that runs the NCCL grid alone."""
+    import tempfile
+
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TrainedModel
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    cuda = ZOO_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    trainer, ref = moe_train(seed)
+    launches = [c.launches for c in counters]
+    engine, state, adapter = trainer.fit_result
+    L = MOE_MODEL["num_layers"]
+    local_steps = TRAIN_WORKERS * MOE_EPOCHS * MOE_WINDOWS * TRAIN_WINDOW
+    expected = [L * local_steps if cuda else 0] * 3
+    ref.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               num_updates=trainer.num_updates, launches=launches,
+               **_expert_bytes(state.center_params))
+    model = trainer.parameter_server.model
+    params = {k: v.detach().cpu() for k, v in model.params.items()}
+    buffers = {k: v.detach().cpu() for k, v in model.state.items()}
+    failures = []
+    if launches != expected:
+        failures.append(f"B1-B3 launched {launches} times, expected {expected}")
+    if not np.isfinite(ref["loss"]).all():
+        failures.append(f"the history is not finite: {ref['loss']}")
+
+    # the objective: the engine's loss on one batch is cross-entropy + aux
+    x, y = moe_task(TRAIN_BATCH, seed + 23)
+    xd, yd = torch.from_numpy(x).to(engine.device), torch.from_numpy(y).to(engine.device)
+    pd = {k: v.to(engine.device) for k, v in params.items()}
+    sd = {k: v.to(engine.device) for k, v in buffers.items()}
+    _, _, _, engine_loss, _ = engine._local_step(pd, engine.optimizer.init(pd), sd, None, xd, yd)
+    with torch.no_grad():
+        out, new_state = adapter.apply(pd, sd, xd, training=True)
+        aux = float(adapter.aux_loss(new_state))
+        ce = float(engine.loss_fn(out.float(), yd))
+    objective_err = abs(float(engine_loss) - (ce + aux)) / abs(ce + aux)
+    if not (aux > 0 and objective_err < 1e-6):
+        failures.append(f"the engine's loss {float(engine_loss)} is not ce {ce} + aux {aux}")
+    del pd, sd, xd, yd, out, new_state
+
+    # one [1, 512] step on the card against the CPU
+    x1, y1 = x[:1], y[:1]
+    for c in counters:
+        c.launches = 0
+    loss_card, aux_card, grads_card = _moe_step(adapter, params, buffers, x1, y1, ZOO_DEVICE)
+    step_launches = [c.launches for c in counters]
+    loss_cpu, aux_cpu, grads_cpu = _moe_step(adapter, params, buffers, x1, y1, "cpu")
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    errs = {k: ((grads_card[k] - g).norm() / g.norm().clamp(min=1e-30)).item()
+            for k, g in grads_cpu.items()}
+    worst = max(errs, key=errs.get)
+    if loss_err > STEP_LOSS_RTOL or errs[worst] > STEP_GRAD_RTOL:
+        failures.append(f"card and CPU steps differ: loss {loss_err}, {worst} {errs[worst]}")
+    if step_launches != [L if cuda else 0] * 3:
+        failures.append(f"the step launched B1-B3 {step_launches} times")
+    del grads_card, grads_cpu
+
+    # the trained model through ModelPredictor, against the CPU
+    xp, _ = moe_task(MOE_PREDICT_ROWS, seed + 24)
+    flash_attention.launches = 0
+    pred = tdk.ModelPredictor(model, batch_size=MOE_PREDICT_ROWS, num_devices=1,
+                              device=ZOO_DEVICE)
+    probs = np.stack(pred.predict(tdk.from_numpy(xp))["prediction"])
+    predictor_launches = flash_attention.launches
+    cpu_probs = TrainedModel(model.adapter, params, buffers, device="cpu").predict(xp)
+    predict_err = float(np.abs(probs - cpu_probs).max())
+    if predict_err > PREDICT_ATOL or predictor_launches != (L if cuda else 0):
+        failures.append(f"the predictor: {predict_err} from the CPU, {predictor_launches} B1")
+    one_rank = dict(loss=ref["loss"], first_window_loss=ref["first_window_loss"],
+                    tokens_per_s=ref["tokens_per_s"], seconds=ref["seconds"],
+                    peak_memory_gb=ref["peak_memory_gb"], launches_b1_b2_b3=launches,
+                    expected_launches=expected, num_updates=ref["num_updates"],
+                    experts_seen=ref["experts_seen"], expert_bytes=ref["expert_bytes"],
+                    aux_loss=aux, objective_rel_err=objective_err,
+                    step_vs_cpu=dict(tokens=[1, MOE_MODEL["max_len"]], loss_rel_err=loss_err,
+                                     aux_card=aux_card, aux_cpu=aux_cpu,
+                                     max_grad_rel_norm_err=errs[worst], worst_param=worst,
+                                     launches_b1_b2_b3=step_launches),
+                    predictor=dict(rows=MOE_PREDICT_ROWS, max_abs_err=predict_err,
+                                   launches_b1=predictor_launches))
+    emit(phase="moe", case="one_rank", model="MoETransformerClassifier", **MOE_MODEL,
+         params=sum(v.numel() for v in params.values()), workers=TRAIN_WORKERS,
+         batch_size=TRAIN_BATCH, window=TRAIN_WINDOW, windows=MOE_WINDOWS, epochs=MOE_EPOCHS,
+         failures=failures, card=CARD, **one_rank)
+    if failures:
+        raise AssertionError(f"moe: one rank: {failures}")
+    del trainer, engine, state, model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    out = {"one_rank": one_rank}
+    count = torch.cuda.device_count() if cuda else 1
+    E = MOE_MODEL["num_experts"]
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
+        if count >= 4:
+            runs.append(("cards", 4, "nccl", True))
+        for case, world, backend, cards in runs:
+            got = _spawn_moe(seed, world, backend, cards, workdir)
+            rows = got["grid"][0]
+            versus = _versus(got, ref)
+            first = (abs(got["first_window_loss"] - ref["first_window_loss"])
+                     / abs(ref["first_window_loss"]))
+            row = dict(case=case, backend=backend, ranks=world, grid=got["grid"],
+                       tp_shards=MOE_TP_SHARDS, **({"moe_cards_run": world} if cards else {}),
+                       loss=got["loss"], loss_one_rank=ref["loss"],
+                       first_window_loss_rel_err=first, first_window_loss_rtol=MOE_FIRST_LOSS_RTOL,
+                       vs_one_rank=versus, loss_rtol=MOE_LOSS_RTOL,
+                       param_rel_norm_rtol=MOE_PARAM_REL_NORM,
+                       tokens_per_s=got["tokens_per_s"], tokens_per_s_one_rank=ref["tokens_per_s"],
+                       peak_memory_gb_rank0=got["peak_memory_gb"],
+                       peak_memory_gb_one_rank=ref["peak_memory_gb"],
+                       host_staged_bytes_rank0=got["host_staged_bytes"],
+                       expert_bytes_rank0=got["expert_bytes"], expert_bytes_one_rank=ref[
+                           "expert_bytes"], experts_seen_rank0=got["experts_seen"],
+                       launches_b1_b2_b3=got["launches"], launches_b1_b2_b3_one_rank=launches,
+                       num_updates=[got["num_updates"], ref["num_updates"]], card=CARD)
+            failures = []
+            if first > MOE_FIRST_LOSS_RTOL:
+                failures.append(f"first window's loss off by {first}")
+            if versus["loss_rel_err"] > MOE_LOSS_RTOL or (
+                    versus["param_rel_norm_err"] > MOE_PARAM_REL_NORM):
+                failures.append(f"EP against one rank: {versus}")
+            if row["num_updates"][0] != row["num_updates"][1]:
+                failures.append("commit counts differ")
+            if got["expert_bytes"] * MOE_TP_SHARDS != ref["expert_bytes"]:
+                failures.append(f"expert bytes a rank {got['expert_bytes']}, one rank "
+                                f"{ref['expert_bytes']}")
+            if got["experts_seen"] != [E // MOE_TP_SHARDS]:
+                failures.append(f"expert products saw {got['experts_seen']} experts")
+            if [n * rows for n in got["launches"]] != list(launches):
+                failures.append(f"B1-B3 launched {got['launches']} times a rank, one rank "
+                                f"{launches} over {rows} workers rows")
+            if cuda and backend == "gloo" and not got["host_staged_bytes"] > 0:
+                failures.append("gloo on the card staged no byte through the host")
+            row["failures"] = failures
+            emit(phase="moe", **row)
+            out[case] = row
+            if failures:
+                raise AssertionError(f"moe: {case}: {failures}")
+    if count < 4:
+        emit(phase="moe", case="cards", moe_cards_run=1,
+             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4", card=CARD)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -3236,6 +3869,11 @@ def main(argv=None) -> int:
                         help="run one spawned rank of the sequence-parallel phase (internal)")
     parser.add_argument("--tp-rank", metavar="SPEC", default=None,
                         help="run one spawned rank of the tensor-parallel phase (internal)")
+    parser.add_argument("--serving-tp-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the tensor-parallel serving phase "
+                             "(internal)")
+    parser.add_argument("--moe-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the MoE phase (internal)")
     args = parser.parse_args(argv)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
@@ -3243,6 +3881,10 @@ def main(argv=None) -> int:
         return seq_rank_main(args.seq_rank)
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank)
+    if args.serving_tp_rank is not None:
+        return serving_tp_rank_main(args.serving_tp_rank)
+    if args.moe_rank is not None:
+        return moe_rank_main(args.moe_rank)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3298,6 +3940,8 @@ def main(argv=None) -> int:
     mesh = mesh_phase(args.seed, eager_run, cifar_frame, train_launches, train_run)
     seq = seq_phase(args.seed, train_run)["two_ranks_one_card"]
     tp = tp_phase(args.seed, train_run)["two_ranks_one_card"]
+    serving_tp = serving_tp_phase(args.seed)["two_ranks_one_card"]
+    moe = moe_phase(args.seed)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -3378,6 +4022,11 @@ def main(argv=None) -> int:
         "launches_tp_train_per_rank": tp["launches_b1_b2_b3"][0],
         "launches_tp_train_one_rank": tp["launches_b1_b2_b3_one_rank"][0],
         "launches_tp_predictor": tp["predictor"]["launches_b1"],
+        "launches_serving_tp_rank0": serving_tp["launches_b1_b2_b3"][0],
+        "launches_moe_train_one_rank": moe["one_rank"]["launches_b1_b2_b3"][0],
+        "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][0],
+        "launches_moe_step_check": moe["one_rank"]["step_vs_cpu"]["launches_b1_b2_b3"][0],
+        "launches_moe_predictor": moe["one_rank"]["predictor"]["launches_b1"],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -3391,6 +4040,9 @@ def main(argv=None) -> int:
         "launches_seq_train": seq["launches_b1_b2_b3"][1],
         "launches_tp_train_per_rank": tp["launches_b1_b2_b3"][1],
         "launches_tp_train_one_rank": tp["launches_b1_b2_b3_one_rank"][1],
+        "launches_serving_tp_rank0": serving_tp["launches_b1_b2_b3"][1],
+        "launches_moe_train_one_rank": moe["one_rank"]["launches_b1_b2_b3"][1],
+        "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -3412,6 +4064,9 @@ def main(argv=None) -> int:
         "launches_seq_train": seq["launches_b1_b2_b3"][2],
         "launches_tp_train_per_rank": tp["launches_b1_b2_b3"][2],
         "launches_tp_train_one_rank": tp["launches_b1_b2_b3_one_rank"][2],
+        "launches_serving_tp_rank0": serving_tp["launches_b1_b2_b3"][2],
+        "launches_moe_train_one_rank": moe["one_rank"]["launches_b1_b2_b3"][2],
+        "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

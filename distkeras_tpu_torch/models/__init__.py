@@ -1,5 +1,6 @@
 """Model layer: functional adapters over torch modules, the in-tree
-transformer models with KV-cached greedy decoding, and the model zoo of the
+transformer models with KV-cached greedy decoding, the mixture-of-experts
+classifier with its expert-parallel placement, and the model zoo of the
 paper's training suite."""
 
 from distkeras_tpu_torch.models.adapter import (
@@ -11,6 +12,12 @@ from distkeras_tpu_torch.models.adapter import (
 )
 from distkeras_tpu_torch.models.convert import params_from_flax, variables_from_flax
 from distkeras_tpu_torch.models.generate import greedy_generate
+from distkeras_tpu_torch.models.moe import (
+    MoEEncoderBlock,
+    MoEFeedForward,
+    MoETransformerClassifier,
+    expert_partition,
+)
 from distkeras_tpu_torch.models.transformer import (
     KVCache,
     TransformerClassifier,
@@ -29,6 +36,10 @@ __all__ = [
     "params_from_flax",
     "variables_from_flax",
     "greedy_generate",
+    "MoEEncoderBlock",
+    "MoEFeedForward",
+    "MoETransformerClassifier",
+    "expert_partition",
     "KVCache",
     "TransformerClassifier",
     "TransformerEncoderBlock",

@@ -91,14 +91,26 @@ class TorchModel(ModelAdapter):
     def apply(self, params, state, inputs, training=False, generator=None):
         """Run the module on ``params`` and ``state``.  A training call works
         on a copy of the buffers, which the module may update in place
-        (running statistics), and returns that copy as the new state."""
+        (running statistics, an MoE layer's load-balance loss), and returns
+        that copy as the new state.  The copy is cut from the graph of the
+        step that wrote the incoming state."""
         if training and state:
-            state = {name: t.clone() for name, t in state.items()}
+            state = {name: t.detach().clone() for name, t in state.items()}
         kwargs = {"training": training}
         if generator is not None:
             kwargs["generator"] = generator
         out = torch.func.functional_call(self.module, {**params, **state}, (inputs,), kwargs)
         return out, state
+
+    def aux_loss(self, state):
+        """The sum of every state entry under a ``losses`` module (an MoE
+        layer's load balance, written by the training forward with its
+        graph to the router); 0 for models without one.  The JAX package's
+        ``FlaxModel.aux_loss`` sums the mutable ``losses`` collection."""
+        leaves = [t for name, t in (state or {}).items() if "losses" in name.split(".")[:-1]]
+        if not leaves:
+            return 0.0
+        return sum(t.sum() for t in leaves)
 
 
 @dataclasses.dataclass

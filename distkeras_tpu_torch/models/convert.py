@@ -18,10 +18,11 @@ __all__ = ["params_from_flax", "variables_from_flax"]
 
 
 def params_from_flax(module, flax_params):
-    """Load the flax parameter tree of a ``TransformerLM`` or
-    ``TransformerClassifier`` (``variables["params"]`` or the whole
-    variables dict, as numpy or JAX arrays) into the matching port module
-    ``module`` and return its parameters as a name -> tensor dict.
+    """Load the flax parameter tree of a ``TransformerLM``,
+    ``TransformerClassifier`` or ``MoETransformerClassifier``
+    (``variables["params"]`` or the whole variables dict, as numpy or JAX
+    arrays) into the matching port module ``module`` and return its
+    parameters as a name -> tensor dict.
 
     Layout hazards handled here:
 
@@ -32,6 +33,10 @@ def params_from_flax(module, flax_params):
     * LayerNorm ``scale`` is torch's ``weight``.
     * The final LayerNorm is the top-level ``LayerNorm_0``, whose name
       collides with each block's own ``LayerNorm_0``.
+    * An MoE block's ``MoEFeedForward_0`` holds a Dense ``router`` and the
+      expert stacks ``w1``/``b1``/``w2``/``b2``, whose layout the port keeps.
+      Its ``losses`` buffers are state, not parameters: they keep the
+      module's values.
     """
     tree = flax_params.get("params", flax_params)
 
@@ -61,11 +66,18 @@ def params_from_flax(module, flax_params):
         sd[pre + "attn.proj.bias"] = arr(attn["proj"]["bias"])
         sd.update(layer_norm(pre + "ln1.", node["LayerNorm_0"]))
         sd.update(layer_norm(pre + "ln2.", node["LayerNorm_1"]))
-        sd.update(dense(pre + "fc1.", node["Dense_0"]))
-        sd.update(dense(pre + "fc2.", node["Dense_1"]))
+        if "MoEFeedForward_0" in node:
+            moe = node["MoEFeedForward_0"]
+            sd.update(dense(pre + "moe.router.", moe["router"]))
+            sd.update({pre + "moe." + k: arr(moe[k]) for k in ("w1", "b1", "w2", "b2")})
+        else:
+            sd.update(dense(pre + "fc1.", node["Dense_0"]))
+            sd.update(dense(pre + "fc2.", node["Dense_1"]))
     sd.update(layer_norm("final_ln.", tree["LayerNorm_0"]))
     head = "lm_head" if hasattr(module, "lm_head") else "head"
     sd.update(dense(head + ".", tree[head]))
+    for name, buf in module.named_buffers():
+        sd.setdefault(name, buf.detach().clone())
     module.load_state_dict(sd, strict=True)
     return {name: p.detach() for name, p in module.named_parameters()}
 

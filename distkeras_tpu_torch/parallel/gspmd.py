@@ -29,7 +29,12 @@ placement is carried out by the engine itself, without model surgery:
   is psummed over ``model``), then the outputs gathered over ``model``
   (:func:`~distkeras_tpu_torch.parallel.mesh.gather_from_axis`: the
   gradient keeps this rank's block).  Any other use of a split leaf
-  gathers it whole first.  Everything downstream of a gather is replicated
+  gathers it whole first.  An MoE layer's expert products
+  (:func:`~distkeras_tpu_torch.models.moe.expert_ffn`) over expert stacks
+  split on their expert dim (:func:`~distkeras_tpu_torch.models.moe.expert_partition`)
+  run **expert-parallel**: each model rank computes its own experts on its
+  block of the dispatched tokens, and the outputs are gathered over
+  ``model`` once a layer.  Everything downstream of a gather is replicated
   over ``model``: the attention models run B1-B3 on all heads on every
   model rank, and every model rank of a row draws the same dropout masks
   from its worker's one generator (the ``tp_shards=1`` masks).
@@ -204,7 +209,10 @@ class _TensorParallel(TorchFunctionMode):
     channels, and are gathered whole at any other use (once a forward)."""
 
     def __init__(self, placed: dict, axis: str, mesh):
+        from distkeras_tpu_torch.models.moe import expert_ffn
+
         super().__init__()
+        self._expert_ffn = expert_ffn  # an MoE layer's expert products, taken whole
         #: id -> (the tensor, kept alive so that its id stays its own; _Placed)
         self.placed = placed
         self.axis, self.mesh = axis, mesh
@@ -263,7 +271,10 @@ class _TensorParallel(TorchFunctionMode):
 
     def _column_parallel(self, func, args, kwargs):
         """A product over a leaf split on its output channels, computed
-        column-parallel; None when ``func`` is no such product."""
+        column-parallel, or an MoE layer's expert products over stacks
+        split on their expert dim; None when ``func`` is no such product."""
+        if func is self._expert_ffn:
+            return self._experts(*args, **kwargs)
         if func is F.linear:
             x, w, b = args[0], _arg(args, kwargs, 1, "weight"), _arg(args, kwargs, 2, "bias")
             return self._columns(x, w, b, 0, -1, lambda x, w, b: F.linear(x, w, b))
@@ -287,6 +298,22 @@ class _TensorParallel(TorchFunctionMode):
                 return None
             return self._columns(x, w, None, 1, -1, lambda x, w, b: torch.matmul(x, w))
         return None
+
+    def _experts(self, xin, w1, b1, w2, b2):
+        """Expert parallelism: with all four expert stacks split on dim 0,
+        this rank runs the FFNs of its own experts on its block of the
+        dispatched ``xin [E, C, d]`` (taken after :func:`copy_to_axis`, so
+        that the input's gradient is summed over the ranks' experts) and
+        the ``[E, C, d]`` outputs are gathered over the axis.  Any other
+        placement: None (the leaves are then gathered whole)."""
+        stacks = (w1, b1, w2, b2)
+        if self._get(xin) is not None or any(
+                p is None or p.dim != 0 for p in map(self._get, stacks)):
+            return None
+        per = w1.shape[0]  # this rank's experts (the mode is off in here)
+        index = resolve_axis(self.axis, self.mesh).index
+        block = copy_to_axis(xin, self.axis, self.mesh).narrow(0, index * per, per)
+        return gather_from_axis(self._expert_ffn(block, *stacks), self.axis, 0, self.mesh)
 
     def _columns(self, x, w, b, w_dim: int, out_dim: int, product):
         """``product`` of the replicated ``x`` with this rank's block of

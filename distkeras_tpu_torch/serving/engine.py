@@ -68,15 +68,42 @@ Random numbers are counter-based streams keyed by each request's seed
 counter advances once per engine iteration *of that request*, so its
 sampled tokens are a function of (params, prompt, knobs, seed) alone.
 
-Not ported here: the tensor-parallel decode over a mesh (``mesh=``, ROADMAP
-Queue A item 15e), ``StagedLM`` targets (item 15), the chaos fault point and
-the per-tenant accounting ledger (items 18 and 19) and the lock-order
-watchdog around the engine's condition variable (item 19).
+**Tensor-parallel decode** (``mesh=``, a 1-D mesh over the model axis,
+e.g. ``make_mesh(world, axis_name="model")``): each rank keeps its ``heads
+/ tp`` block of every block's ``qkv`` weight and bias and the matching
+input columns of ``proj``, and page pools of ``heads / tp`` heads; the rest
+of the target, and the draft model with its pools, stay whole on every
+rank.  Each rank contracts its heads with ``proj`` without the bias, the
+partials are summed over the axis (one all-reduce a block), and the bias is
+added once, after the sum, as the reference's ``shard_map`` step does; the
+logits come out whole on every rank.  JAX drives every device from one
+process; the port runs one process per card (ROADMAP C10), so every rank
+builds the engine with the same arguments and runs the host loop in
+lockstep.  Mesh rank 0 owns the front end (``submit``, ``generate``, the
+queue, ``cancel``, ``drain``, ``stop``) and decides: before each device
+operation (a prefill, a decode step, a speculative iteration, a hot swap)
+it broadcasts a fixed-size **plan** that carries the operation, every slot
+array, the page tables and the prompt, over a gloo group of the mesh's
+ranks with a timeout (:data:`PLAN_TIMEOUT_S`); idle, it broadcasts an idle plan
+every loop turn, and ``stop`` a stop plan, so no follower waits on a plan
+that never comes.  The followers (every other rank) only execute: they
+run the same blocks (their all-reduces pair with rank 0's) and sample
+nothing; the tokens the next plan feeds are rank 0's, and so are the
+drafts a verify step feeds and the counts it rolls back, broadcast in the
+step, so no rank's state can depart from rank 0's by a rounding.  A timed-out
+collective crashes the engine on the rank that waits
+(:class:`EngineCrashed`).  ``hot_swap`` is called on every rank with the
+same model, as the constructor is; the plan says when it applies.
+
+Not ported here: ``StagedLM`` targets (ROADMAP Queue A item 15), the chaos
+fault point and the per-tenant accounting ledger (items 18 and 19) and the
+lock-order watchdog around the engine's condition variable (item 19).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import sys
 import threading
 import time
@@ -85,10 +112,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from distkeras_tpu_torch.models.transformer import masked_attention
-from distkeras_tpu_torch.parallel.mesh import resolve_device
+from distkeras_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    mesh_group,
+    mesh_rank,
+    resolve_device,
+    transport_stats,
+)
 from distkeras_tpu_torch.serving.cache import PagedKVCache, append_rows, rollback_rows
 from distkeras_tpu_torch.serving.frontend import GenerateRequest, GenerateResult, RequestQueue
 from distkeras_tpu_torch.serving.sampling import (
@@ -103,8 +137,6 @@ from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
 
 __all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
 
-_MESH = ("mesh= (tensor-parallel decode, one process per card with rank-0 admission) "
-         "comes with ROADMAP Queue A item 15e")
 _STAGED = "serving a StagedLM comes with the pipeline slice (ROADMAP Queue A item 15)"
 
 
@@ -248,22 +280,73 @@ def _resolve_spec(model, params, device) -> _Spec:
     )
 
 
-def _block_apply(bp, x, attend, eps, heads, head_dim):
+def _block_apply(bp, x, attend, eps, heads, head_dim, psum=None):
     """One encoder block over the parameter dict ``bp`` (the names of
     ``TransformerEncoderBlock``), with its math: pre-LayerNorm attention
     and tanh-GELU MLP, dropout off.  ``attend(q, k, v)`` (``[b, l, heads,
-    head_dim]`` each) supplies the paged-cache attention."""
+    head_dim]`` each) supplies the paged-cache attention.  ``psum`` is the
+    sum over the tensor-parallel axis (None unsharded): ``heads`` is then
+    this rank's, each rank contracts them with ``proj`` without the bias,
+    and the bias is added once, after the sum (adding it in each rank's
+    product would add it ``tp`` times)."""
     dim = x.shape[-1]
     b, l = x.shape[:2]
     h = F.layer_norm(x, (dim,), bp["ln1.weight"], bp["ln1.bias"], eps)
     qkv = F.linear(h, bp["attn.qkv.weight"], bp["attn.qkv.bias"])
     q, k, v = qkv.view(b, l, 3, heads, head_dim).unbind(2)
-    out = attend(q, k, v)
-    x = x + F.linear(out.reshape(b, l, heads * head_dim), bp["attn.proj.weight"],
-                     bp["attn.proj.bias"])
+    out = attend(q, k, v).reshape(b, l, heads * head_dim)
+    if psum is None:
+        x = x + F.linear(out, bp["attn.proj.weight"], bp["attn.proj.bias"])
+    else:
+        x = x + (psum(F.linear(out, bp["attn.proj.weight"])) + bp["attn.proj.bias"])
     h = F.layer_norm(x, (dim,), bp["ln2.weight"], bp["ln2.bias"], eps)
     h = F.gelu(F.linear(h, bp["fc1.weight"], bp["fc1.bias"]), approximate="tanh")
     return x + F.linear(h, bp["fc2.weight"], bp["fc2.bias"])
+
+
+def _shard_heads(spec: _Spec, tp: int, index: int) -> _Spec:
+    """Rank ``index``'s part of ``spec`` over a tensor-parallel axis of
+    ``tp`` ranks: its ``heads / tp`` block of each ``attn.qkv`` weight (read
+    as ``[3, heads, head_dim, dim]``) and bias (``[3, heads, head_dim]``),
+    and the matching input columns of ``attn.proj.weight`` (``[dim, heads *
+    head_dim]``), as new tensors; every other tensor whole (shared)."""
+    hl, hd = spec.heads // tp, spec.head_dim
+    cut = slice(index * hl, (index + 1) * hl)
+
+    def block(bp):
+        bp = dict(bp)
+        w = bp["attn.qkv.weight"].view(3, spec.heads, hd, -1)[:, cut]
+        bp["attn.qkv.weight"] = w.reshape(3 * hl * hd, -1).clone()
+        bp["attn.qkv.bias"] = bp["attn.qkv.bias"].view(3, spec.heads, hd)[:, cut].reshape(-1).clone()
+        bp["attn.proj.weight"] = bp["attn.proj.weight"][:, index * hl * hd:(index + 1) * hl * hd].clone()
+        return bp
+
+    return dataclasses.replace(spec, blocks=[block(b) for b in spec.blocks], heads=hl)
+
+
+def _mesh_groups(mesh, heads: int, timeout: float):
+    """``(tp, index, step group, plan group)`` of a serving mesh: its size,
+    this rank's index on it, a group of its ranks for the step's
+    all-reduces (the mesh's backend) and a gloo group for the plans, both
+    with ``timeout``.  ``(1, 0, None, None)`` without a mesh or on one
+    rank.  The JAX package's checks: one axis, ``heads`` divisible."""
+    if mesh is None:
+        return 1, 0, None, None
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if len(names) != 1:
+        raise ValueError(f"serving mesh must be 1-D (one tensor-parallel axis); got axes {names}")
+    tp = int(mesh.size(0))
+    if heads % tp:
+        raise ValueError(f"model heads {heads} not divisible by mesh size {tp}")
+    group = mesh_group(mesh)
+    if tp == 1 or group is None:
+        return 1, 0, None, None
+    ranks = dist.get_process_group_ranks(group)
+    wait = datetime.timedelta(seconds=float(timeout))
+    step = dist.new_group(ranks, timeout=wait, backend=dist.get_backend(group),
+                          use_local_synchronization=True)
+    plan = dist.new_group(ranks, timeout=wait, backend="gloo", use_local_synchronization=True)
+    return tp, mesh_rank(mesh), step, plan
 
 
 def _head_apply(final_ln, head, x, eps):
@@ -357,6 +440,15 @@ _SLOT_ARRAYS = {
     "active": torch.bool, "spec_on": torch.bool,
 }
 
+# The operations a lockstep plan orders (the plan's word 0).
+_OP_IDLE, _OP_PREFILL, _OP_DECODE, _OP_SPEC, _OP_SWAP, _OP_STOP = range(6)
+_PLAN_HEADER = 5  # op, slot, width, plen, spec_on
+#: seconds a rank of a serving mesh waits on a plan or a step's collective
+#: before its engine crashes (rank 0 sends an idle plan every loop turn)
+PLAN_TIMEOUT_S = 60.0
+_FOLLOWER = ("this rank follows mesh rank 0, which owns the serving front end (submit, "
+             "generate, cancel, drain, resume, stop): send requests there")
+
 
 # -------------------------------------------------------------------- engine
 
@@ -391,11 +483,19 @@ class ServingEngine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  draft_model=None, draft_params=None, spec_tokens: int = 4,
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self.device = resolve_device(device)
-        self._spec = _resolve_spec(model, params, self.device)
-        spec = self._spec
+        spec = _resolve_spec(model, params, self.device)
+        self._plan_timeout = float(PLAN_TIMEOUT_S)
+        self._tp, self._tp_index, self._step_group, self._plan_group = _mesh_groups(
+            mesh, spec.heads, self._plan_timeout)
+        #: this rank decides and owns the front end (every rank without a mesh)
+        self.leads = self._tp_index == 0
+        #: all-reduces the tensor-parallel steps ran (one a target block a pass)
+        self.all_reduces = 0
+        self._psum = self._all_reduce if self._tp > 1 else None
+        if self._tp > 1:
+            spec = _shard_heads(spec, self._tp, self._tp_index)
+        self._spec = spec
         if pages_per_slot is None:
             pages_per_slot = -(-spec.max_len // page_size)
         self.num_slots = int(num_slots)
@@ -474,6 +574,113 @@ class ServingEngine:
         self._drain_ack = False
         self._swap: Optional[Tuple[_Spec, threading.Event]] = None
         self._cancelled: List[_Pending] = []
+        # the request between the queue and its slot (its prefill running)
+        self._admitting: Optional[_Pending] = None
+        self._sent = False  # whether this loop turn sent a plan
+
+        if self._plan_group is not None:
+            # the plan: a header, the slot arrays, the page tables, the prompt
+            self._plan = torch.zeros(_PLAN_HEADER + len(_SLOT_ARRAYS) * s
+                                     + self._cache.tables.size + self._width, dtype=torch.int64)
+            # every rank's loop runs from here on, in lockstep
+            self.start()
+
+    # ------------------------------------------------------- lockstep (mesh)
+
+    def _all_reduce(self, t):
+        self.all_reduces += 1
+        return all_reduce_sum([t], self._step_group)[0]
+
+    def _plan_fields(self):
+        """The plan's numpy views after the header, in order: each slot
+        array (float32 fields by their bits), the tables, the prompt."""
+        buf = self._plan.numpy()
+        out, at, s = [], _PLAN_HEADER, self.num_slots
+        for name in _SLOT_ARRAYS:
+            out.append((self._host[name].numpy(), buf[at:at + s]))
+            at += s
+        n = self._cache.tables.size
+        out.append((self._cache.tables.reshape(-1), buf[at:at + n]))
+        out.append((self._host["prompt"].numpy(), buf[at + n:]))
+        return out
+
+    def _lockstep(self, op: int, slot: int = 0, width: int = 0, plen: int = 0,
+                  spec_on: bool = False) -> None:
+        """Rank 0: broadcast the plan of the next operation to the mesh (a
+        no-op without one, and on a follower)."""
+        if self._plan_group is None or not self.leads:
+            return
+        buf = self._plan.numpy()
+        buf[:_PLAN_HEADER] = (op, slot, width, plen, int(spec_on))
+        for host, field in self._plan_fields():
+            field[:] = host.view(np.int32) if host.dtype == np.float32 else host
+        dist.broadcast(self._plan, src=dist.get_global_rank(self._plan_group, 0),
+                       group=self._plan_group)
+        self._sent = True
+
+    def _receive_plan(self) -> Tuple[int, int, int, int, bool]:
+        """A follower: wait for rank 0's next plan (within the plan group's
+        timeout) and take its slot arrays, tables and prompt as its own;
+        returns the header."""
+        dist.broadcast(self._plan, src=dist.get_global_rank(self._plan_group, 0),
+                       group=self._plan_group)
+        for host, field in self._plan_fields():
+            if host.dtype == np.float32:
+                host[:] = field.astype(np.int32).view(np.float32)
+            else:
+                host[:] = field
+        op, slot, width, plen, spec_on = (int(v) for v in self._plan.numpy()[:_PLAN_HEADER])
+        return op, slot, width, plen, bool(spec_on)
+
+    def _from_leader(self, t, shape, dtype):
+        """Rank 0's ``t`` on every rank (through the host, over the plan
+        group); ``t`` itself without a mesh.  A follower passes None."""
+        if self._plan_group is None:
+            return t
+        src = dist.get_global_rank(self._plan_group, 0)
+        host = t.to("cpu", dtype) if self.leads else torch.empty(shape, dtype=dtype)
+        dist.broadcast(host, src=src, group=self._plan_group)
+        if self.device.type == "cuda":
+            transport_stats["host_staged_bytes"] += host.numel() * host.element_size()
+        return t if self.leads else host.to(self.device)
+
+    def _follow(self) -> None:
+        """A follower's loop: execute rank 0's plans until a stop plan."""
+        k, v = self._cache.k_pages, self._cache.v_pages
+        while True:
+            op, slot, width, plen, spec_on = self._receive_plan()
+            if op == _OP_STOP:
+                return
+            if op == _OP_IDLE:
+                continue
+            if op == _OP_SWAP:
+                self._follow_swap()
+                continue
+            self._upload()
+            with self._cv:
+                spec = self._spec
+            if op == _OP_PREFILL:
+                self._prefill(spec, k, v, width, slot, plen, sample=False, psum=self._psum)
+                if spec_on:
+                    dc = self._draft_cache
+                    self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, slot, plen,
+                                  sample=False)
+            elif op == _OP_DECODE:
+                self._decode(spec, k, v)
+            else:
+                self._spec_iteration(spec)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the host buffers are rewritten next
+
+    def _follow_swap(self) -> None:
+        """A follower applies the swap its own ``hot_swap`` call registered
+        (every rank is given the same model), when rank 0's plan says."""
+        with self._cv:
+            if not self._cv.wait_for(lambda: self._swap is not None,
+                                     timeout=self._plan_timeout):
+                raise RuntimeError("mesh rank 0 applied a hot_swap this rank was not given: "
+                                   "call hot_swap on every rank with the same model")
+        self._apply_swap()
 
     # --------------------------------------------------------- device steps
 
@@ -486,7 +693,7 @@ class ServingEngine:
             dst.copy_(self._host[name], non_blocking=True)
 
     def _prefill(self, spec: _Spec, kpool, vpool, width: int, slot: int, plen: int,
-                 sample: bool):
+                 sample: bool, psum=None):
         """Run the slot's right-padded prompt (``prompt[:width]`` of the
         uploaded arrays) through ``spec``, writing every row's K/V into the
         slot's first ``width // page_size`` pages; with ``sample``, return
@@ -512,7 +719,7 @@ class ServingEngine:
             return fn
 
         for li, bp in enumerate(spec.blocks):
-            x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim)
+            x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim, psum)
         if not sample:
             return None
         logits = _head_apply(spec.final_ln, spec.head, x[:, plen - 1], spec.ln_eps)
@@ -520,7 +727,7 @@ class ServingEngine:
                              st["temp"][slot:slot + 1], st["topk"][slot:slot + 1],
                              st["topp"][slot:slot + 1])
 
-    def _run_blocks(self, spec: _Spec, kpool, vpool, fed, positions):
+    def _run_blocks(self, spec: _Spec, kpool, vpool, fed, positions, psum=None):
         """Feed ``fed [slots, m]`` tokens at ``positions [slots, m]`` through
         ``spec``, appending their K/V at each slot's position; returns the
         logits ``[slots, m, vocab]``."""
@@ -539,15 +746,18 @@ class ServingEngine:
             return fn
 
         for li, bp in enumerate(spec.blocks):
-            x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim)
+            x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim, psum)
         return _head_apply(spec.final_ln, spec.head, x, spec.ln_eps)
 
     def _decode(self, spec: _Spec, kpool, vpool):
         """One token for every slot.  Inactive slots compute garbage into
         the scratch page (their tables point at physical page 0) and emit
-        token 0 — all masked out host-side."""
+        token 0 — all masked out host-side.  A follower samples nothing."""
         st = self._dev
-        logits = self._run_blocks(spec, kpool, vpool, st["last"][:, None], st["pos"][:, None])
+        logits = self._run_blocks(spec, kpool, vpool, st["last"][:, None], st["pos"][:, None],
+                                  self._psum)
+        if not self.leads:
+            return None
         tok = sample_tokens(logits[:, 0], st["seed"], st["ctr"], st["temp"], st["topk"],
                             st["topp"])
         return torch.where(st["active"], tok, 0)
@@ -570,17 +780,21 @@ class ServingEngine:
         d_{m-1}]``, write its K/V through the page tables, compute all m
         next-token logits in one pass, judge the drafts per slot
         (:func:`speculative_verify_tokens`), and roll the rejected suffix
-        rows back out of the pools."""
+        rows back out of the pools.  Under a mesh rank 0 judges, and every
+        rank rolls back rank 0's counts."""
         st = self._dev
         m = self._spec_tokens
         pos = st["pos"]
         fed = torch.cat([st["last"][:, None], drafts[:, :-1]], dim=1)
         positions = pos[:, None] + torch.arange(m, device=self.device)[None, :]
-        logits = self._run_blocks(spec, kpool, vpool, fed, positions)
-        out, count, accepted = speculative_verify_tokens(
-            logits, drafts, qprobs, st["seed"], st["ctr"], st["temp"], st["topk"],
-            st["topp"], st["spec_on"] & st["active"])
-        out = torch.where(st["active"][:, None], out, 0)
+        logits = self._run_blocks(spec, kpool, vpool, fed, positions, self._psum)
+        out = count = accepted = None
+        if self.leads:
+            out, count, accepted = speculative_verify_tokens(
+                logits, drafts, qprobs, st["seed"], st["ctr"], st["temp"], st["topk"],
+                st["topp"], st["spec_on"] & st["active"])
+            out = torch.where(st["active"][:, None], out, 0)
+        count = self._from_leader(count, (self.num_slots,), torch.int64)
         # erase the rejected suffix so the pools only ever hold
         # accepted-token K/V between iterations
         for li in range(len(spec.blocks)):
@@ -603,7 +817,15 @@ class ServingEngine:
 
     def stop(self, timeout: float = 10.0) -> None:
         """Stop the loop; queued and in-flight requests resolve with
-        ``finish_reason="aborted"`` (partial tokens included)."""
+        ``finish_reason="aborted"`` (partial tokens included).  Under a
+        mesh rank 0's stop ends every rank's loop (its last plan); a
+        follower's waits up to ``timeout`` for that."""
+        if not self.leads:
+            with self._cv:
+                thread = self._thread
+            if thread is not None:
+                thread.join(timeout=timeout)
+            return
         with self._cv:
             if not self._running:
                 thread = None
@@ -638,6 +860,7 @@ class ServingEngine:
             return self._submit(request)
 
     def _submit(self, request: GenerateRequest) -> _Pending:
+        self._front_end()
         with self._cv:
             # snapshot the published spec: hot-swap replaces it under _cv
             crashed, spec, error = self._crashed, self._spec, self._error
@@ -693,6 +916,10 @@ class ServingEngine:
             "slots_total": float(self.num_slots),
         }
 
+    def _front_end(self) -> None:
+        if not self.leads:
+            raise RuntimeError(f"serving mesh rank {self._tp_index}: {_FOLLOWER}")
+
     @property
     def alive(self) -> bool:
         """``False`` once the loop has crashed."""
@@ -719,6 +946,7 @@ class ServingEngine:
         ``"aborted"`` immediately; in a slot — retired ``"aborted"`` at the
         loop's next iteration (slot and pages reclaimed).  Returns ``False``
         when the request had already finished."""
+        self._front_end()
         if pending.done():
             return False
         if self._queue.remove(pending):
@@ -740,6 +968,7 @@ class ServingEngine:
         Queued requests stay queued (they admit again after
         :meth:`resume`).  Returns ``True`` once drained; ``False`` on
         timeout (admission stays paused either way)."""
+        self._front_end()
         span = NOOP_SPAN
         if _truntime.enabled():
             span = _trace.span("serving.drain")
@@ -763,6 +992,7 @@ class ServingEngine:
 
     def resume(self) -> None:
         """Reopen admission after :meth:`drain`."""
+        self._front_end()
         with self._cv:
             self._draining = False
             self._drain_ack = False
@@ -778,7 +1008,9 @@ class ServingEngine:
         old params, queued requests decode under the new, and nothing
         drops.  With a draft model, only the target swaps.  Returns
         ``None``; raises ``TimeoutError`` when the engine did not drain in
-        ``timeout``."""
+        ``timeout``.  Under a mesh every rank makes the call with the same
+        model (each keeps its part), and rank 0's plan applies it
+        everywhere at once."""
         span = NOOP_SPAN
         if _truntime.enabled():
             span = _trace.span("serving.hot_swap")
@@ -787,6 +1019,11 @@ class ServingEngine:
 
     def _hot_swap(self, model, params, timeout: float) -> None:
         new = _resolve_spec(model, params, self.device)
+        if self._tp > 1:
+            if new.heads != self._spec.heads * self._tp:
+                raise ValueError(f"hot_swap geometry mismatch on heads: {new.heads} != "
+                                 f"{self._spec.heads * self._tp}")
+            new = _shard_heads(new, self._tp, self._tp_index)
         with self._cv:
             old = self._spec
         for f in ("dim", "heads", "head_dim", "max_len", "vocab", "ln_eps"):
@@ -829,15 +1066,28 @@ class ServingEngine:
             torch.cuda.set_device(self.device)
         try:
             with torch.no_grad():
-                self._serve()
+                if self.leads:
+                    self._serve()
+                else:
+                    self._follow()
+                    with self._cv:
+                        self._running = False
+                        self._thread = None
         except Exception as exc:  # noqa: BLE001 — re-raised to every caller
             traceback.print_exc(file=sys.stderr)
             self._crash(exc)
+            if self.leads and self._plan_group is not None:
+                try:  # the followers waiting on a plan end with this one
+                    self._lockstep(_OP_STOP)
+                except Exception:  # noqa: BLE001 — a follower is gone already
+                    pass
 
     def _serve(self) -> None:
         while True:
+            self._sent = False
             with self._cv:
                 if not self._running:
+                    self._lockstep(_OP_STOP)
                     return
                 self._drain_ack = self._draining
                 swap_pending = self._swap is not None
@@ -849,6 +1099,8 @@ class ServingEngine:
                     paused = self._draining
             progressed = False if paused else self._admit()
             progressed = self._decode_once() or progressed
+            if not self._sent:
+                self._lockstep(_OP_IDLE)  # no follower waits past its timeout
             if not progressed:
                 with self._cv:
                     if (self._running and self._swap is None
@@ -880,6 +1132,9 @@ class ServingEngine:
             if self._swap is None:
                 return  # hot_swap timed out and withdrew the request
             spec, done = self._swap
+            # under the lock, so that a timing-out hot_swap cannot withdraw
+            # a swap the followers were just told to apply
+            self._lockstep(_OP_SWAP)
             self._spec = spec
             self._swap = None
         self._metrics["hot_swaps"].inc()
@@ -898,6 +1153,9 @@ class ServingEngine:
         for slot in range(self.num_slots):
             if self._slots[slot] is not None:
                 self._retire(slot, "aborted")
+        if self._admitting is not None and not self._admitting.done():
+            # the loop failed inside this request's prefill
+            self._finish(self._admitting, [], "aborted", 0.0)
         while True:
             pending = self._queue.pop()
             if pending is None:
@@ -924,7 +1182,9 @@ class ServingEngine:
             if not self._cache.can_alloc(need):
                 self._queue.requeue_front(pending)
                 break
+            self._admitting = pending
             self._prefill_into(free[0], pending, need)
+            self._admitting = None
             admitted = True
         self._metrics["queue_depth"].set(len(self._queue))
         return admitted
@@ -962,11 +1222,12 @@ class ServingEngine:
             self._temp[slot] = req.temperature
             self._topk[slot] = req.top_k
             self._topp[slot] = req.top_p
+            self._lockstep(_OP_PREFILL, slot, width, plen, spec_on)
             self._upload()
             with self._cv:
                 spec = self._spec
             tok = self._prefill(spec, self._cache.k_pages, self._cache.v_pages, width, slot,
-                                plen, sample=True)
+                                plen, sample=True, psum=self._psum)
             if spec_on:
                 dc = self._draft_cache
                 self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, slot, plen,
@@ -1036,6 +1297,7 @@ class ServingEngine:
     def _plain_once(self) -> None:
         t0 = time.perf_counter()
         with self._step_span():
+            self._lockstep(_OP_DECODE)
             self._upload()
             with self._cv:
                 spec = self._spec
@@ -1068,20 +1330,11 @@ class ServingEngine:
         t0 = time.perf_counter()
         m = self._spec_tokens
         with self._step_span():
+            self._lockstep(_OP_SPEC)
             self._upload()
             with self._cv:
                 spec = self._spec
-            st = self._dev
-            dc = self._draft_cache
-            last = st["last"]
-            drafts, qprobs = [], []
-            for i in range(m):
-                last, qp = self._draft_step(dc.k_pages, dc.v_pages, st["pos"] + i, last, i)
-                drafts.append(last)
-                qprobs.append(qp)
-            out, count, accepted = self._verify(
-                spec, self._cache.k_pages, self._cache.v_pages,
-                torch.stack(drafts, dim=1), torch.stack(qprobs, dim=1))
+            out, count, accepted = self._spec_iteration(spec)
             # one copy back: the iteration is done here
             packed = torch.cat([out, count[:, None], accepted[:, None]], dim=1).cpu().numpy()
         out, counts, acc = packed[:, :m], packed[:, m], packed[:, m + 1]
@@ -1119,6 +1372,24 @@ class ServingEngine:
             if not retired:
                 self._pos[slot] += emitted
                 self._last[slot] = int(out[slot, emitted - 1])
+
+    def _spec_iteration(self, spec: _Spec):
+        """The device work of one speculative iteration: m draft steps (the
+        proposals stay on the device between them), then the verify step
+        over rank 0's proposals (every rank drafts, as every JAX device
+        runs the replicated draft)."""
+        st = self._dev
+        dc = self._draft_cache
+        m = self._spec_tokens
+        last = st["last"]
+        drafts, qprobs = [], []
+        for i in range(m):
+            last, qp = self._draft_step(dc.k_pages, dc.v_pages, st["pos"] + i, last, i)
+            drafts.append(last)
+            qprobs.append(qp)
+        drafts = self._from_leader(torch.stack(drafts, dim=1), (self.num_slots, m), torch.int64)
+        return self._verify(spec, self._cache.k_pages, self._cache.v_pages, drafts,
+                            torch.stack(qprobs, dim=1))
 
     def _retire(self, slot: int, reason: str) -> None:
         state = self._slots[slot]

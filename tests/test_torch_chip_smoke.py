@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s training-suite, flow, head-dim, networking, epochs,
-streaming, checkpoint, remat/graph, serving, packing, mesh and seq phases
-rehearsed on the CPU.
+streaming, checkpoint, remat/graph, serving, packing, mesh, seq, tp,
+serving_tp and moe phases rehearsed on the CPU.
 
 The script runs on an H100; here those phases run on the CPU
 (``ZOO_DEVICE = "cpu"``) at small batches, windows, row counts and model
@@ -20,6 +20,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -393,3 +394,93 @@ def test_tp_phase_rehearsal(on_cpu, capsys, monkeypatch):
     assert pred["finite"] and pred["shape"] == [2, 16, 64]
     for key in ("tokens_per_s", "tokens_per_s_one_rank", "num_updates", "card"):
         assert key in row
+
+
+def test_serving_tp_phase_rehearsal(on_cpu, tiny_serving, capsys, monkeypatch):
+    # phase 21 at the tiny serving widths: the one-rank engine here, two
+    # gloo ranks spawned on the CPU serving with mesh= (1 head a rank)
+    monkeypatch.setattr(chip_smoke, "SERVE_TP_REQUESTS", 4)
+    monkeypatch.setattr(chip_smoke, "SERVE_TP_SPEC_PROMPTS", 1)
+    spawned = []
+    spawn = chip_smoke._spawn_serving_tp
+
+    def keep(*args):
+        spawned.append(spawn(*args))
+        return spawned[-1]
+
+    monkeypatch.setattr(chip_smoke, "_spawn_serving_tp", keep)
+    out = chip_smoke.serving_tp_phase(0)
+    rows = _emitted(capsys, "serving_tp")
+    assert [r["case"] for r in rows] == ["two_ranks_one_card", "cards"]
+    assert rows[1]["serving_tp_cards_run"] == 1
+    row = out["two_ranks_one_card"]
+    assert rows[0] == {"phase": "serving_tp", **row}
+    assert not row["failures"] and row["backend"] == "gloo" and row["heads_a_rank"] == 1
+    assert row["requests"] == 4 and row["sampled"] == 2 and row["sampled_rerun_equal"]
+    assert row["greedy_departures"] == []
+    assert row["speculative"]["requests"] == 1
+    assert row["speculative"]["departures_from_mesh_plain"] == []
+    assert 2 * row["pool_bytes_rank"] == row["pool_bytes_one_rank"]
+    decode = row["profiled_decode"]
+    assert decode["all_reduces_per_decode_step"] == chip_smoke.SERVE_MODEL["num_layers"]
+    assert decode["steps"] > 0 and decode["device_busy_share"] is None  # no profiler here
+    # CPU ranks: gloo on CPU tensors stages nothing; nothing is launched
+    assert row["host_staged_bytes_rank0"] == 0 and row["launches_b1_b2_b3"] == [0, 0, 0]
+    for key in ("generated_tokens_per_s", "ttft_ms_p50", "step_ms_p50", "step_ms_p99",
+                "one_rank", "card"):
+        assert key in row
+    # a failed gate raises: the same ranks' run with a sampled request off
+    # and with pools that did not split
+    broken = dict(spawned[0], sampled_mismatched=[1])
+    monkeypatch.setattr(chip_smoke, "_spawn_serving_tp", lambda *args: broken)
+    with pytest.raises(AssertionError, match="sampled requests"):
+        chip_smoke.serving_tp_phase(0)
+    _, failures = chip_smoke._serving_tp_versus(
+        dict(spawned[0], pool_bytes=2 * spawned[0]["pool_bytes"]), row["one_rank"] | {
+            "tokens": spawned[0]["traffic"]["tokens"]}, chip_smoke._serve_tp_requests(0),
+        chip_smoke._serve_model(0)[1], 2)
+    assert any("pools" in f for f in failures)
+
+
+TINY_MOE = dict(vocab_size=64, num_classes=2, dim=32, heads=2, num_layers=2, num_experts=4,
+                mlp_ratio=2, top_k=1, capacity_factor=1.25, max_len=16)
+
+
+def test_moe_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # phase 22 at TINY_MOE's widths: one rank here, then two gloo ranks
+    # spawned on the CPU, tp_shards=2 with expert_partition(4) (grid 1 x 2)
+    monkeypatch.setattr(chip_smoke, "MOE_MODEL", TINY_MOE)
+    monkeypatch.setattr(chip_smoke, "MOE_PREDICT_ROWS", 2)
+    spawned = []
+    spawn = chip_smoke._spawn_moe
+
+    def keep(*args):
+        spawned.append(spawn(*args))
+        return spawned[-1]
+
+    monkeypatch.setattr(chip_smoke, "_spawn_moe", keep)
+    out = chip_smoke.moe_phase(0)
+    rows = _emitted(capsys, "moe")
+    assert [r["case"] for r in rows] == ["one_rank", "two_ranks_one_card", "cards"]
+    assert rows[2]["moe_cards_run"] == 1
+    one = out["one_rank"]
+    assert not rows[0]["failures"] and np.isfinite(one["loss"]).all()
+    assert one["aux_loss"] > 0 and one["objective_rel_err"] < 1e-6
+    assert one["step_vs_cpu"]["loss_rel_err"] == 0.0  # the CPU against itself
+    assert one["predictor"]["max_abs_err"] == 0.0 and one["experts_seen"] == [4]
+    # the CPU runs the plain attention: no kernel launch to count
+    assert one["launches_b1_b2_b3"] == one["expected_launches"] == [0, 0, 0]
+    row = out["two_ranks_one_card"]
+    assert rows[1] == {"phase": "moe", **row}
+    assert not row["failures"] and row["grid"] == [1, 2] and row["experts_seen_rank0"] == [2]
+    assert 2 * row["expert_bytes_rank0"] == row["expert_bytes_one_rank"]
+    assert row["first_window_loss_rel_err"] <= chip_smoke.MOE_FIRST_LOSS_RTOL
+    assert row["vs_one_rank"]["param_rel_norm_err"] <= chip_smoke.MOE_PARAM_REL_NORM
+    assert row["host_staged_bytes_rank0"] == 0
+    for key in ("tokens_per_s", "tokens_per_s_one_rank", "peak_memory_gb_rank0", "card"):
+        assert key in row
+    # a failed gate raises: the same ranks' run with whole expert stacks
+    broken = dict(spawned[0], expert_bytes=2 * spawned[0]["expert_bytes"])
+    monkeypatch.setattr(chip_smoke, "_spawn_moe", lambda *args: broken)
+    with pytest.raises(AssertionError, match="expert bytes"):
+        chip_smoke.moe_phase(0)

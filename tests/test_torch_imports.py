@@ -89,7 +89,8 @@ def test_sources_found():
                    "datapipe/source", "datapipe/ring", "datapipe/state", "checkpoint",
                    "fleet", "telemetry/correlate", "telemetry/metrics", "models/generate",
                    "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
-                   "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd"):
+                   "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd",
+                   "models/moe"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

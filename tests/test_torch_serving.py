@@ -610,10 +610,23 @@ def test_cancel_releases_the_slot(make_engine):
 # ------------------------------------------------------------------ refusals
 
 
+class _ModelAxis:
+    """A 1-D model-axis mesh of ``size`` ranks, as far as the engine's
+    checks read one before it joins any group."""
+
+    mesh_dim_names = ("model",)
+
+    def __init__(self, size):
+        self._size = size
+
+    def size(self, mesh_dim=None):
+        return self._size
+
+
 def test_unported_options_raise_naming_their_items(lm):
     _, _, model, params = lm
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A item 15e"):
-        ServingEngine(model, params, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="heads 2 not divisible by mesh size 3"):
+        ServingEngine(model, params, mesh=_ModelAxis(3), device="cpu")
 
     class Staged(TorchModel):
         def decode_step(self, *args):  # what marks a StagedLM
