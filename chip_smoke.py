@@ -144,7 +144,13 @@ toolkit.  Phases, each printing JSON lines:
     machine) against the one-rank engine (see :func:`serving_tp_phase`);
 22. moe: ``MoETransformerClassifier`` at switch-base-8's widths under
     ``DOWNPOUR`` on one rank, then expert-parallel on two gloo ranks (and
-    the 2 x 2 NCCL grid on a 4-card machine; see :func:`moe_phase`).
+    the 2 x 2 NCCL grid on a 4-card machine; see :func:`moe_phase`);
+23. pipeline: a ``StagedLM`` at GPT-2 small's widths (12 blocks as 2
+    stages of 6) under ``DOWNPOUR`` on one rank, then
+    ``pipeline_stages=2, pp_microbatches=2`` on two gloo ranks sharing the
+    card (``--pp-rank``), replicated and with ``fsdp=True``; its greedy
+    decode pipelined over the ranks and a ``ServingEngine`` over it (and
+    the 2 x 2 NCCL grid on a 4-card machine; see :func:`pipeline_phase`).
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -159,7 +165,10 @@ around its GPT-2 run over the mesh; phase 19 around each rank's
 seq-sharded training and classifier forward (0 launches: the ring is the
 reference's plain products, as there) and the twin's predictor (B1);
 phase 21 around each rank-0 serving run (0 launches); phase 22 around the
-MoE training (B1-B3 12 a step), its step check and its predictor (B1).  Phases 7 to 9, 11 to 14 and 18's
+MoE training (B1-B3 12 a step), its step check and its predictor (B1);
+phase 23 around the one-rank training (B1-B3 12 a step) and each stage
+rank's pipelined training (B1-B3 ``blocks_per_stage x microbatches`` a
+step).  Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -1439,13 +1448,22 @@ def _cifar_trainer(model_seed: int, **kwargs):
         communication_window=ZOO_WINDOW, **kwargs)
 
 
+def _flat_params(params) -> dict:
+    """A name -> tensor dict; a staged model's tree with ``key/name`` keys."""
+    out = {}
+    for k, v in params.items():
+        out.update({f"{k}/{n}": t for n, t in v.items()} if isinstance(v, dict) else {k: v})
+    return out
+
+
 def _trained(trainer, frame):
     model = trainer.train(frame)
     if ZOO_DEVICE == "cuda":
         torch.cuda.synchronize()
     history = trainer.get_history()
     return dict(loss=history["loss"], seconds=history["training_time"],
-                params={k: v.detach().float().cpu().clone() for k, v in model.params.items()})
+                params={k: v.detach().float().cpu().clone()
+                        for k, v in _flat_params(model.params).items()})
 
 
 def _versus(run, reference):
@@ -2395,6 +2413,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _rendezvous(workdir: str, name: str) -> str:
+    """The ``init_method`` of one group of spawned ranks: a file store in the
+    phase's own work directory.  A TCP port picked free by the parent and
+    bound by rank 0 only once it has imported torch could be taken by any
+    other process in between; a path in a fresh directory cannot."""
+    import os
+
+    return "file://" + os.path.join(workdir, f"{name}.rendezvous")
+
+
 def _mesh_frame(seed: int):
     """The epochs phase's cifar_cnn_downpour rows: ``(x, y)``."""
     batch, shape = _epochs_config()[4], _epochs_config()[5]
@@ -2449,7 +2477,7 @@ def mesh_rank_main(spec_path: str) -> int:
     torch.set_num_threads(spec["threads"])
     if ZOO_DEVICE == "cuda":
         torch.cuda.set_device(spec["device_index"])
-    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
                             world_size=spec["world"], rank=spec["rank"])
     try:
         runs = _mesh_runs(spec["seed"])
@@ -2462,11 +2490,12 @@ def mesh_rank_main(spec_path: str) -> int:
 
 def _run_ranks(flag: str, specs, workdir: str, timeout: int, phase: str):
     """Spawn one process of this script per spec (``flag SPEC.json``), all
-    at once, and wait for all of them.  A rank that fails fails the phase,
-    and no rank outlives it."""
+    at once, and wait for all of them, ``timeout`` seconds at most.  A rank
+    that fails, or is still running then, fails the phase with the end of
+    every rank's output, and no rank outlives it."""
     import os
 
-    procs = []
+    procs, logs, late = [], [], False
     try:
         for spec in specs:
             path = os.path.join(workdir, f"spec_{spec['backend']}_{spec['world']}_"
@@ -2477,16 +2506,26 @@ def _run_ranks(flag: str, specs, workdir: str, timeout: int, phase: str):
                 [sys.executable, os.path.abspath(__file__), flag, path],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 cwd=os.path.dirname(os.path.abspath(__file__))))
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                late = True
+                break
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
-    for spec, p, log in zip(specs, procs, logs):
+        logs += [p.communicate()[0] for p in procs[len(logs):]]
+    tails = "".join(f"\n--- rank {spec['rank']} (exit {p.returncode}):\n{log[-3000:]}"
+                    for spec, p, log in zip(specs, procs, logs))
+    if late:
+        raise AssertionError(f"{phase}: a rank ran past {timeout} s; every rank's output:{tails}")
+    for spec, p in zip(specs, procs):
         if p.returncode != 0:
             raise AssertionError(f"{phase}: rank {spec['rank']} of {spec['world']} "
-                                 f"({spec['backend']}) exited {p.returncode}:\n{log[-3000:]}")
+                                 f"({spec['backend']}) exited {p.returncode}:{tails}")
 
 
 def _spawn_mesh(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
@@ -2495,10 +2534,11 @@ def _spawn_mesh(seed: int, world: int, backend: str, cards: bool, workdir: str) 
     and return rank 0's runs."""
     import os
 
-    port, out = _free_port(), os.path.join(workdir, f"mesh_{backend}_{world}.pt")
+    name = f"mesh_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, window=ZOO_WINDOW, windows=EPOCHS_WINDOWS,
                   epochs=ZOO_EPOCHS, config=list(_epochs_config()), backend=backend,
-                  world=world, rank=rank, port=port, out=out,
+                  world=world, rank=rank, init=init, out=out,
                   device_index=rank if cards else 0,
                   # the parent's: on the CPU the thread count changes the
                   # convolutions' sums, which this run amplifies
@@ -2816,7 +2856,7 @@ def seq_rank_main(spec_path: str) -> int:
     torch.set_num_threads(spec["threads"])
     if ZOO_DEVICE == "cuda":
         torch.cuda.set_device(spec["device_index"])
-    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
                             world_size=spec["world"], rank=spec["rank"])
     try:
         runs = _seq_runs(spec["seed"])
@@ -2831,11 +2871,12 @@ def seq_rank_main(spec_path: str) -> int:
 def _spawn_seq(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
     import os
 
-    port, out = _free_port(), os.path.join(workdir, f"seq_{backend}_{world}.pt")
+    name = f"seq_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=SEQ_MODEL, backend=backend,
                   train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS],
                   cls_rows=SEQ_CLS_ROWS, predict_rows=SEQ_PREDICT_ROWS, world=world,
-                  rank=rank, port=port, out=out, device_index=rank if cards else 0,
+                  rank=rank, init=init, out=out, device_index=rank if cards else 0,
                   threads=torch.get_num_threads())
              for rank in range(world)]
     _run_ranks("--seq-rank", specs, workdir, SEQ_RANK_TIMEOUT_S, "seq")
@@ -3084,7 +3125,7 @@ def tp_rank_main(spec_path: str) -> int:
     torch.set_num_threads(spec["threads"])
     if ZOO_DEVICE == "cuda":
         torch.cuda.set_device(spec["device_index"])
-    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
                             world_size=spec["world"], rank=spec["rank"])
     try:
         runs = _tp_runs(spec["seed"])
@@ -3099,10 +3140,11 @@ def tp_rank_main(spec_path: str) -> int:
 def _spawn_tp(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
     import os
 
-    port, out = _free_port(), os.path.join(workdir, f"tp_{backend}_{world}.pt")
+    name = f"tp_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=TP_MODEL, backend=backend,
                   train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TP_EPOCHS],
-                  predict_rows=SEQ_PREDICT_ROWS, world=world, rank=rank, port=port, out=out,
+                  predict_rows=SEQ_PREDICT_ROWS, world=world, rank=rank, init=init, out=out,
                   device_index=rank if cards else 0, threads=torch.get_num_threads())
              for rank in range(world)]
     _run_ranks("--tp-rank", specs, workdir, TP_RANK_TIMEOUT_S, "tp")
@@ -3404,7 +3446,7 @@ def serving_tp_rank_main(spec_path: str) -> int:
     torch.set_num_threads(spec["threads"])
     if ZOO_DEVICE == "cuda":
         torch.cuda.set_device(spec["device_index"])
-    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
                             world_size=spec["world"], rank=spec["rank"])
     try:
         runs = _serving_tp_runs(spec["seed"], spec["world"])
@@ -3418,12 +3460,13 @@ def serving_tp_rank_main(spec_path: str) -> int:
 def _spawn_serving_tp(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
     import os
 
-    port, out = _free_port(), os.path.join(workdir, f"serving_tp_{backend}_{world}.pt")
+    name = f"serving_tp_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=SERVE_MODEL, draft=SERVE_DRAFT,
                   serve=[SERVE_SLOTS, SERVE_PAGE, SERVE_TP_REQUESTS, list(SERVE_PROMPT_LEN),
                          list(SERVE_NEW_TOKENS), SERVE_STAGGER_S, list(SERVE_PROFILE),
                          SERVE_TP_SPEC_PROMPTS],
-                  backend=backend, world=world, rank=rank, port=port, out=out,
+                  backend=backend, world=world, rank=rank, init=init, out=out,
                   device_index=rank if cards else 0, threads=torch.get_num_threads())
              for rank in range(world)]
     _run_ranks("--serving-tp-rank", specs, workdir, SERVE_TP_RANK_TIMEOUT_S, "serving_tp")
@@ -3648,7 +3691,7 @@ def moe_rank_main(spec_path: str) -> int:
     torch.set_num_threads(spec["threads"])
     if ZOO_DEVICE == "cuda":
         torch.cuda.set_device(spec["device_index"])
-    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
                             world_size=spec["world"], rank=spec["rank"])
     try:
         run = _moe_runs(spec["seed"])
@@ -3662,10 +3705,11 @@ def moe_rank_main(spec_path: str) -> int:
 def _spawn_moe(seed: int, world: int, backend: str, cards: bool, workdir: str) -> dict:
     import os
 
-    port, out = _free_port(), os.path.join(workdir, f"moe_{backend}_{world}.pt")
+    name = f"moe_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=MOE_MODEL, backend=backend,
                   train=[TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, MOE_WINDOWS, MOE_EPOCHS],
-                  world=world, rank=rank, port=port, out=out,
+                  world=world, rank=rank, init=init, out=out,
                   device_index=rank if cards else 0, threads=torch.get_num_threads())
              for rank in range(world)]
     _run_ranks("--moe-rank", specs, workdir, MOE_RANK_TIMEOUT_S, "moe")
@@ -3860,6 +3904,383 @@ def moe_phase(seed: int, pair: bool = True) -> dict:
     return out
 
 
+# pipeline phase: the train phase's DOWNPOUR over a GPT-2-small StagedLM (12
+# blocks as 2 stages of 6, f32) on the pipeline engine's (workers, stages)
+# grid, the two stage ranks sharing the card over gloo (grid 1 x 2), and on a
+# 4-card machine the 2 x 2 grid over NCCL
+PP_MODEL = dict(vocab_size=GPT2_SMALL["vocab_size"], dim=GPT2_SMALL["dim"],
+                heads=GPT2_SMALL["heads"], num_stages=2, blocks_per_stage=6,
+                max_len=GPT2_SMALL["max_len"])
+# the ranks run ~50 s on one card: a hang surfaces with their output
+# well inside a call's time
+PP_MICROBATCHES, PP_RANK_TIMEOUT_S = 2, 300
+# One epoch of the train phase's rows (8 local steps a worker): the phase
+# moves the head's [4, 1024, 50257] logits through the host a step (the
+# last stage's outputs broadcast to the other, on gloo), so one epoch keeps
+# it near the earlier phases' time
+PP_EPOCHS = 1
+# against one rank: the seq and tp phases' gates for a layout against data
+# parallelism (a microbatch's products see the same rows as the whole
+# batch's; f32 round-off alone, and Adam's steps on the key bias)
+PP_FIRST_LOSS_RTOL = SEQ_FIRST_LOSS_RTOL
+PP_LOSS_RTOL, PP_PARAM_REL_NORM = SEQ_LOSS_RTOL, SEQ_PARAM_REL_NORM
+PP_DECODE = (2, 16, 8)  # greedy decode: rows, prompt length, new tokens
+PP_SERVE_REQUESTS = 3  # greedy requests to the serving engine over the trained StagedLM
+
+
+def pp_train(seed: int, num_workers: int, **kwargs):
+    """The train phase's ``DOWNPOUR`` (batch 4, window 2, Adam) over a
+    ``StagedLM`` at ``PP_MODEL``'s widths for ``PP_EPOCHS`` epochs, with
+    ``num_workers`` and the trainer's pipeline ``kwargs``: ``(trainer,
+    run)``."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import StagedLM
+
+    x, y = lm_task(TRAIN_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 23)
+    trainer = _keeping_fit(tdk.DOWNPOUR)(
+        StagedLM(**PP_MODEL), loss="token_crossentropy", metrics=("token_accuracy",),
+        worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=num_workers,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=PP_EPOCHS,
+        seed=seed, device=ZOO_DEVICE, **kwargs)
+    run = _trained(trainer, tdk.from_numpy(x, y))
+    run.update(first_window_loss=trainer.window_losses[0],
+               tokens_per_s=PP_EPOCHS * TRAIN_ROWS * PP_MODEL["max_len"] / run["seconds"],
+               local_steps=PP_EPOCHS * TRAIN_ROWS // (num_workers * TRAIN_BATCH))
+    return trainer, run
+
+
+def _pp_resident(engine, state) -> dict:
+    """This rank's bytes of the center's staged blocks and of its embedding
+    and head, and the embed/head bytes the stage placement says it must
+    hold (a leaf split over the stages a stage's share, a whole one whole)."""
+    whole = engine.gather_center(state)
+    dims = getattr(engine, "_pp_dims", None)
+    stages = getattr(engine, "pp_stages", 1)
+    layout = sum(v.numel() * v.element_size() // (stages if dims and dims[k][n] >= 0 else 1)
+                 for k in ("embed", "head") for n, v in whole[k].items())
+    return dict(block_bytes=_state_bytes(state.center_params["blocks"]),
+                embed_head_bytes=_state_bytes([state.center_params["embed"],
+                                               state.center_params["head"]]),
+                embed_head_bytes_layout=layout)
+
+
+def _pp_decode(model, seed: int) -> dict:
+    """``greedy_generate`` over the trained ``StagedLM`` on this rank, then
+    with ``pipelined=True`` over the stage ranks (each holding one stage's
+    blocks and KV cache): both token arrays and their tokens/s."""
+    from distkeras_tpu_torch.models import greedy_generate
+
+    rows, length, steps = PP_DECODE
+    prompt = np.random.default_rng(seed + 24).integers(
+        0, PP_MODEL["vocab_size"], (rows, length)).astype(np.int32)
+    out = {}
+    for name, pipelined in (("sequential", False), ("pipelined", True)):
+        t0 = time.perf_counter()
+        out[name] = greedy_generate(model, prompt, steps, pipelined=pipelined)
+        out[f"{name}_tokens_per_s"] = rows * steps / (time.perf_counter() - t0)
+    return out
+
+
+def _pp_serving(model, seed: int) -> dict:
+    """A ``ServingEngine`` over the trained ``StagedLM`` (its ``decode_spec``)
+    answering ``PP_SERVE_REQUESTS`` greedy requests, each held to
+    ``greedy_generate`` (a departure only where its top-two gap is below
+    ``GREEDY_GAP``)."""
+    from distkeras_tpu_torch.models import greedy_generate
+    from distkeras_tpu_torch.serving import GenerateRequest, ServingEngine
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    rows, length, steps = PP_DECODE
+    rng = np.random.default_rng(seed + 25)
+    prompts = [rng.integers(0, PP_MODEL["vocab_size"], length).tolist()
+               for _ in range(PP_SERVE_REQUESTS)]
+    engine = ServingEngine(model, num_slots=PP_SERVE_REQUESTS, page_size=16,
+                           registry=Registry(), device=ZOO_DEVICE)
+    try:
+        pending = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=steps))
+                   for p in prompts]
+        results = [p.result(timeout=600) for p in pending]
+    finally:
+        engine.stop()
+    departures = []
+    for prompt, result in zip(prompts, results):
+        ref = greedy_generate(model, np.asarray([prompt], np.int32), steps)[0, length:].tolist()
+        departures.append(_held_to_greedy(model, prompt, result.tokens, ref))
+    return dict(requests=PP_SERVE_REQUESTS, new_tokens=steps,
+                tokens=[r.tokens for r in results], departures=departures)
+
+
+def _pp_runs(seed: int) -> dict:
+    """One rank's share of the phase, in the group it is in (grid ``world /
+    2 x 2``): the pipeline (``pipeline_stages=2``, ``pp_microbatches=2``)
+    and ``fsdp=True`` on it, each with B1-B3's launches, the bytes staged
+    through the host, peak memory and resident bytes; then greedy decode
+    with the pipeline's model, sequential and pipelined, and on rank 0 the
+    serving engine over it."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import transport_stats
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    on_card = ZOO_DEVICE == "cuda"
+    workers = dist.get_world_size() // PP_MODEL["num_stages"]
+    out = {}
+    for name, kwargs in (("pipeline", {}), ("fsdp", dict(fsdp=True))):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        transport_stats["host_staged_bytes"] = 0
+        trainer, run = pp_train(seed, workers, pipeline_stages=PP_MODEL["num_stages"],
+                                pp_microbatches=PP_MICROBATCHES, **kwargs)
+        engine, state, _ = trainer.fit_result
+        run.update(launches=[c.launches for c in counters],
+                   host_staged_bytes=transport_stats["host_staged_bytes"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                   grid=list(engine.mesh.shape), engine=type(engine).__name__,
+                   stage=engine.stage_index, num_updates=trainer.num_updates,
+                   **_pp_resident(engine, state))
+        out[name] = run
+        if name == "pipeline":
+            model = trainer.parameter_server.model
+        del trainer, engine, state
+    transport_stats["host_staged_bytes"] = 0
+    out["decode"] = _pp_decode(model, seed)
+    out["decode"]["host_staged_bytes"] = transport_stats["host_staged_bytes"]
+    if dist.get_rank() == 0:
+        out["serving"] = _pp_serving(model, seed)
+    return out
+
+
+def pp_rank_main(spec_path: str) -> int:
+    """One spawned rank of the pipeline phase: the parent's settings from
+    ``spec_path``, the group joined, :func:`_pp_runs`, the group left on
+    every path; every rank writes its runs (``OUT.<rank>``)."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, PP_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS
+    global PP_MICROBATCHES, PP_DECODE, PP_SERVE_REQUESTS
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, PP_MODEL = spec["device"], spec["model"]
+    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES = spec["train"]
+    PP_DECODE, PP_SERVE_REQUESTS = tuple(spec["decode"]), spec["serve_requests"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        runs = _pp_runs(spec["seed"])
+    finally:
+        dist.destroy_process_group()
+    torch.save(runs, f"{spec['out']}.{spec['rank']}")
+    return 0
+
+
+def _spawn_pp(seed: int, world: int, backend: str, cards: bool, workdir: str) -> list:
+    """Every rank's runs, in rank order."""
+    import os
+
+    name = f"pp_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=PP_MODEL, backend=backend,
+                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
+                  decode=list(PP_DECODE), serve_requests=PP_SERVE_REQUESTS, world=world,
+                  rank=rank, init=init, out=out, device_index=rank if cards else 0,
+                  threads=torch.get_num_threads())
+             for rank in range(world)]
+    _run_ranks("--pp-rank", specs, workdir, PP_RANK_TIMEOUT_S, "pipeline")
+    return [torch.load(f"{out}.{rank}", weights_only=False) for rank in range(world)]
+
+
+def _pp_one_rank(seed: int, num_workers: int) -> dict:
+    """The reference: the same model and data on one rank
+    (``pipeline_stages=1``, the sequential executor) in this process, with
+    B1-B3's launches, peak memory and resident bytes."""
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    cuda = ZOO_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    trainer, ref = pp_train(seed, num_workers)
+    ref.update(launches=[c.launches for c in counters], num_updates=trainer.num_updates,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               engine=type(trainer.fit_result[0]).__name__,
+               **_pp_resident(*trainer.fit_result[:2]))
+    del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _pp_versus(ranks: list, ref: dict, backend: str) -> tuple:
+    """The spawned grid's runs against the one-rank run, and the phase's
+    gates."""
+    S, P, M = PP_MODEL["num_stages"], PP_MODEL["blocks_per_stage"], PP_MICROBATCHES
+    cuda = ZOO_DEVICE == "cuda"
+    pp = ranks[0]["pipeline"]
+    steps = pp["local_steps"]
+    # the schedule: a stage rank computes on M of the M + S - 1 ticks of a
+    # step, one microbatch each, through its P blocks (B1 in each forward,
+    # B2 and B3 in each backward): P x M x local steps a kernel
+    expected = [P * M * steps if cuda else 0] * 3
+    versus = _versus(pp, ref)
+    first = abs(pp["first_window_loss"] - ref["first_window_loss"]) / abs(ref["first_window_loss"])
+    row = dict(grid=pp["grid"], microbatches=M, model="StagedLM", **PP_MODEL, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+               epochs=PP_EPOCHS, rows=TRAIN_ROWS, local_steps=steps, loss=pp["loss"],
+               loss_one_rank=ref["loss"], first_window_loss_rel_err=first,
+               first_window_loss_rtol=PP_FIRST_LOSS_RTOL, vs_one_rank=versus,
+               loss_rtol=PP_LOSS_RTOL, param_rel_norm_rtol=PP_PARAM_REL_NORM,
+               num_updates=[pp["num_updates"], ref["num_updates"]],
+               seconds=pp["seconds"], tokens_per_s=pp["tokens_per_s"],
+               tokens_per_s_one_rank=ref["tokens_per_s"],
+               peak_memory_gb_per_rank=[r["pipeline"]["peak_memory_gb"] for r in ranks],
+               peak_memory_gb_one_rank=ref["peak_memory_gb"],
+               block_bytes_per_rank=[r["pipeline"]["block_bytes"] for r in ranks],
+               block_bytes_one_rank=ref["block_bytes"],
+               host_staged_bytes_per_rank=[r["pipeline"]["host_staged_bytes"] for r in ranks],
+               launches_b1_b2_b3_per_rank=[r["pipeline"]["launches"] for r in ranks],
+               launches_b1_b2_b3_expected=expected, launches_b1_b2_b3_one_rank=ref["launches"],
+               launches_formula="blocks_per_stage x microbatches x local steps", card=CARD)
+    failures = []
+    if first > PP_FIRST_LOSS_RTOL:
+        failures.append(f"first window's loss off by {first}")
+    if versus["loss_rel_err"] > PP_LOSS_RTOL or versus["param_rel_norm_err"] > PP_PARAM_REL_NORM:
+        failures.append(f"the pipeline against one rank: {versus}")
+    if row["num_updates"][0] != row["num_updates"][1]:
+        failures.append("commit counts differ")
+    for r, got in enumerate(ranks):
+        if got["pipeline"]["launches"] != expected or got["fsdp"]["launches"] != expected:
+            failures.append(f"rank {r} launched B1-B3 {got['pipeline']['launches']} and "
+                            f"{got['fsdp']['launches']} (fsdp) times, the schedule {expected}")
+        if got["pipeline"]["block_bytes"] * S != ref["block_bytes"]:
+            failures.append(f"rank {r} holds {got['pipeline']['block_bytes']} block bytes, "
+                            f"one rank {ref['block_bytes']}")
+        if got["pipeline"]["engine"] != "PipelineEngine" or got["pipeline"]["stage"] != r % S:
+            failures.append(f"rank {r}: {got['pipeline']['engine']} stage "
+                            f"{got['pipeline']['stage']}")
+    fsdp = ranks[0]["fsdp"]
+    row["fsdp"] = dict(vs_pipeline=_versus(fsdp, pp),
+                       embed_head_bytes_per_rank=[r["fsdp"]["embed_head_bytes"] for r in ranks],
+                       embed_head_bytes_layout=fsdp["embed_head_bytes_layout"],
+                       embed_head_bytes_replicated=pp["embed_head_bytes"],
+                       block_bytes_per_rank=[r["fsdp"]["block_bytes"] for r in ranks],
+                       tokens_per_s=fsdp["tokens_per_s"],
+                       peak_memory_gb_per_rank=[r["fsdp"]["peak_memory_gb"] for r in ranks],
+                       host_staged_bytes_per_rank=[r["fsdp"]["host_staged_bytes"] for r in ranks])
+    if not row["fsdp"]["vs_pipeline"]["bitwise"]:
+        failures.append(f"fsdp is not the replicated pipeline bit for bit: {row['fsdp']}")
+    for r, got in enumerate(ranks):
+        f = got["fsdp"]
+        # every leaf of embed and head splits in two but the head's 50257-wide
+        # bias (odd: zero_shard_dim keeps it whole): just over half
+        if not (f["embed_head_bytes"] == f["embed_head_bytes_layout"]
+                and 2 * f["embed_head_bytes"] < 1.01 * pp["embed_head_bytes"]):
+            failures.append(f"rank {r}: fsdp embed/head bytes {f['embed_head_bytes']}, the "
+                            f"layout's {f['embed_head_bytes_layout']}, replicated "
+                            f"{pp['embed_head_bytes']}")
+    decode = [r["decode"] for r in ranks]
+    row["decode"] = dict(rows=PP_DECODE[0], prompt=PP_DECODE[1], new_tokens=PP_DECODE[2],
+                         pipelined_equals_sequential=[
+                             bool(np.array_equal(d["pipelined"], d["sequential"])) for d in decode],
+                         tokens_per_s_sequential=decode[0]["sequential_tokens_per_s"],
+                         tokens_per_s_pipelined=decode[0]["pipelined_tokens_per_s"],
+                         host_staged_bytes_rank0=decode[0]["host_staged_bytes"])
+    if not all(row["decode"]["pipelined_equals_sequential"]):
+        failures.append("pipelined decode departs from the sequential decode")
+    if not all(np.array_equal(d["sequential"], decode[0]["sequential"]) for d in decode):
+        failures.append("the ranks' trained models decode different tokens")
+    row["serving"] = ranks[0]["serving"]
+    if cuda and backend == "gloo" and not all(
+            r["pipeline"]["host_staged_bytes"] > 0 for r in ranks):
+        failures.append("gloo on the card staged no byte through the host")
+    if not np.isfinite(pp["loss"]).all():
+        failures.append(f"the history is not finite: {pp['loss']}")
+    return row, failures
+
+
+def pipeline_phase(seed: int, pair: bool = True) -> dict:
+    """Pipeline parallelism at GPT-2-small widths (a ``StagedLM``, 12 blocks
+    as 2 stages of 6, ``PP_EPOCHS`` epochs of the train phase's
+    ``DOWNPOUR``): (a) the same model on one rank (``pipeline_stages=1``,
+    the sequential executor, B1-B3 12 a step) in this process, and the
+    pipeline engine's refusal of captured windows on a card (item 20); (b)
+    two gloo ranks spawned on the card (``--pp-rank``), grid 1 x 2,
+    ``pipeline_stages=2, pp_microbatches=2``: the first window, history and
+    center against (a) within the seq phase's gates, B1-B3 launched on each
+    rank as the schedule predicts (``blocks_per_stage x microbatches x
+    local steps``), each rank's blocks half of one rank's; ``fsdp=True`` bit
+    for bit the replicated pipeline, its embed/head in stage halves; the
+    trained model's greedy decode pipelined over the ranks token for token
+    its sequential decode; a ``ServingEngine`` over it held to
+    ``greedy_generate``; (c) on a machine with 4 cards, NCCL, one rank a
+    card, grid 2 x 2 against a 2-worker one-rank run, the same checks (else
+    ``pp_cards_run: 1``).  ``pair=False`` skips (b)."""
+    import tempfile
+
+    from distkeras_tpu_torch import algorithms
+    from distkeras_tpu_torch.models import StagedLM
+    from distkeras_tpu_torch.parallel import PipelineEngine
+
+    refused = None
+    if ZOO_DEVICE == "cuda":
+        try:
+            PipelineEngine(StagedLM(**dict(PP_MODEL, num_stages=1, blocks_per_stage=1)),
+                           "token_crossentropy", "adam", algorithms.Downpour(TRAIN_WINDOW),
+                           unroll=2)
+        except NotImplementedError as e:
+            refused = str(e)
+        if refused is None or "item 20" not in refused:
+            raise AssertionError(f"pipeline: unroll=2 on a card was not refused: {refused}")
+    ref = _pp_one_rank(seed, 1)
+    emit(phase="pipeline", case="one_rank", model="StagedLM", **PP_MODEL, workers=1,
+         batch_size=TRAIN_BATCH, window=TRAIN_WINDOW, epochs=PP_EPOCHS, loss=ref["loss"],
+         first_window_loss=ref["first_window_loss"], tokens_per_s=ref["tokens_per_s"],
+         seconds=ref["seconds"], peak_memory_gb=ref["peak_memory_gb"],
+         launches_b1_b2_b3=ref["launches"], engine=ref["engine"], block_bytes=ref["block_bytes"],
+         embed_head_bytes=ref["embed_head_bytes"], unroll_refused=refused, card=CARD)
+    out = {"one_rank": ref}
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
+        if count >= 4:
+            runs.append(("cards", 4, "nccl", True))
+        for case, world, backend, cards in runs:
+            reference = ref if world == PP_MODEL["num_stages"] else _pp_one_rank(
+                seed, world // PP_MODEL["num_stages"])
+            got = _spawn_pp(seed, world, backend, cards, workdir)
+            row, failures = _pp_versus(got, reference, backend)
+            row = dict(case=case, backend=backend, ranks=world,
+                       **({"pp_cards_run": world} if cards else {}), **row, failures=failures)
+            emit(phase="pipeline", **row)
+            out[case] = row
+            if failures:
+                raise AssertionError(f"pipeline: {case}: {failures}")
+    if count < 4:
+        emit(phase="pipeline", case="cards", pp_cards_run=1,
+             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4", card=CARD)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -3874,6 +4295,8 @@ def main(argv=None) -> int:
                              "(internal)")
     parser.add_argument("--moe-rank", metavar="SPEC", default=None,
                         help="run one spawned rank of the MoE phase (internal)")
+    parser.add_argument("--pp-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the pipeline phase (internal)")
     args = parser.parse_args(argv)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
@@ -3885,6 +4308,8 @@ def main(argv=None) -> int:
         return serving_tp_rank_main(args.serving_tp_rank)
     if args.moe_rank is not None:
         return moe_rank_main(args.moe_rank)
+    if args.pp_rank is not None:
+        return pp_rank_main(args.pp_rank)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3942,6 +4367,7 @@ def main(argv=None) -> int:
     tp = tp_phase(args.seed, train_run)["two_ranks_one_card"]
     serving_tp = serving_tp_phase(args.seed)["two_ranks_one_card"]
     moe = moe_phase(args.seed)
+    pp = pipeline_phase(args.seed)["two_ranks_one_card"]
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -4027,6 +4453,8 @@ def main(argv=None) -> int:
         "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][0],
         "launches_moe_step_check": moe["one_rank"]["step_vs_cpu"]["launches_b1_b2_b3"][0],
         "launches_moe_predictor": moe["one_rank"]["predictor"]["launches_b1"],
+        "launches_pp_train_per_rank": [r[0] for r in pp["launches_b1_b2_b3_per_rank"]],
+        "launches_pp_train_one_rank": pp["launches_b1_b2_b3_one_rank"][0],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -4043,6 +4471,8 @@ def main(argv=None) -> int:
         "launches_serving_tp_rank0": serving_tp["launches_b1_b2_b3"][1],
         "launches_moe_train_one_rank": moe["one_rank"]["launches_b1_b2_b3"][1],
         "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][1],
+        "launches_pp_train_per_rank": [r[1] for r in pp["launches_b1_b2_b3_per_rank"]],
+        "launches_pp_train_one_rank": pp["launches_b1_b2_b3_one_rank"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -4067,6 +4497,8 @@ def main(argv=None) -> int:
         "launches_serving_tp_rank0": serving_tp["launches_b1_b2_b3"][2],
         "launches_moe_train_one_rank": moe["one_rank"]["launches_b1_b2_b3"][2],
         "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][2],
+        "launches_pp_train_per_rank": [r[2] for r in pp["launches_b1_b2_b3_per_rank"]],
+        "launches_pp_train_one_rank": pp["launches_b1_b2_b3_one_rank"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -1,5 +1,6 @@
 """Model layer: functional adapters over torch modules, the in-tree
-transformer models with KV-cached greedy decoding, the mixture-of-experts
+transformer models with KV-cached greedy decoding, their pipeline-staged
+forms, the mixture-of-experts
 classifier with its expert-parallel placement, and the model zoo of the
 paper's training suite."""
 
@@ -18,6 +19,7 @@ from distkeras_tpu_torch.models.moe import (
     MoETransformerClassifier,
     expert_partition,
 )
+from distkeras_tpu_torch.models.staged import StagedLM, StagedTransformer, stack_block_params
 from distkeras_tpu_torch.models.transformer import (
     KVCache,
     TransformerClassifier,
@@ -44,6 +46,9 @@ __all__ = [
     "TransformerClassifier",
     "TransformerEncoderBlock",
     "TransformerLM",
+    "StagedTransformer",
+    "StagedLM",
+    "stack_block_params",
     "packed_positions",
     "MLP",
     "MNISTCNN",

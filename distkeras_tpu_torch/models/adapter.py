@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch.parallel.mesh import resolve_device
+from distkeras_tpu_torch.utils.pytree import tree_map
 
 __all__ = [
     "FunctionalModel",
@@ -130,10 +131,10 @@ class FunctionalModel(ModelAdapter):
         return self.apply_fn(params, inputs), state
 
 
-def to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
-    """A name -> tensor dict with every tensor on ``device`` (no copy for
-    tensors already there)."""
-    return {name: t.to(device) for name, t in tensors.items()}
+def to_device(tensors, device):
+    """A name -> tensor dict (or a tree of them: a staged model's) with every
+    tensor on ``device`` (no copy for tensors already there)."""
+    return tree_map(lambda t: t.to(device), tensors)
 
 
 class TrainedModel:

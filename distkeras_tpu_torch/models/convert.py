@@ -22,7 +22,8 @@ def params_from_flax(module, flax_params):
     ``TransformerClassifier`` or ``MoETransformerClassifier``
     (``variables["params"]`` or the whole variables dict, as numpy or JAX
     arrays) into the matching port module ``module`` and return its
-    parameters as a name -> tensor dict.
+    parameters as a name -> tensor dict; for a staged model, the port's
+    staged parameter tree.
 
     Layout hazards handled here:
 
@@ -33,12 +34,18 @@ def params_from_flax(module, flax_params):
     * LayerNorm ``scale`` is torch's ``weight``.
     * The final LayerNorm is the top-level ``LayerNorm_0``, whose name
       collides with each block's own ``LayerNorm_0``.
+    * A ``StagedTransformer`` or ``StagedLM`` (``module`` is the port's
+      staged adapter): the flax ``{"embed", "blocks", "head"}`` tree comes
+      back as the port's (:mod:`~distkeras_tpu_torch.models.staged`), the
+      block leaves keeping their ``[S, per_stage, ...]`` stacking.
     * An MoE block's ``MoEFeedForward_0`` holds a Dense ``router`` and the
       expert stacks ``w1``/``b1``/``w2``/``b2``, whose layout the port keeps.
       Its ``losses`` buffers are state, not parameters: they keep the
       module's values.
     """
     tree = flax_params.get("params", flax_params)
+    if hasattr(module, "num_stages"):
+        return _staged_from_flax(tree)
 
     def arr(x):
         return torch.tensor(np.asarray(x))  # a writable copy
@@ -80,6 +87,39 @@ def params_from_flax(module, flax_params):
         sd.setdefault(name, buf.detach().clone())
     module.load_state_dict(sd, strict=True)
     return {name: p.detach() for name, p in module.named_parameters()}
+
+
+def _staged_from_flax(tree) -> dict:
+    """A flax staged model's ``{"embed", "blocks", "head"}`` tree under the
+    port's names: the block leaves' layouts change in their trailing dims
+    only, behind the ``[S, per_stage]`` stacking."""
+    def arr(x):
+        return torch.tensor(np.asarray(x))
+
+    def dense(prefix, node):  # [..., in, out] -> [..., out, in]
+        return {prefix + "weight": arr(np.swapaxes(np.asarray(node["kernel"]), -1, -2)),
+                prefix + "bias": arr(node["bias"])}
+
+    def layer_norm(prefix, node):
+        return {prefix + "weight": arr(node["scale"]), prefix + "bias": arr(node["bias"])}
+
+    embed = {"tok_embed.weight": arr(tree["embed"]["tok_embed"]["embedding"]),
+             "pos_embed.weight": arr(tree["embed"]["pos_embed"]["embedding"])}
+    node = tree["blocks"]
+    attn = node["_SelfAttention_0"]
+    qkv_kernel = np.asarray(attn["qkv"]["kernel"])        # [S, P, D, 3, H, hd]
+    proj_kernel = np.asarray(attn["proj"]["kernel"])      # [S, P, H, hd, D]
+    lead, dim = qkv_kernel.shape[:2], qkv_kernel.shape[2]
+    blocks = {
+        "attn.qkv.weight": arr(np.swapaxes(qkv_kernel.reshape(*lead, dim, -1), -1, -2)),
+        "attn.qkv.bias": arr(np.asarray(attn["qkv"]["bias"]).reshape(*lead, -1)),
+        "attn.proj.weight": arr(np.swapaxes(proj_kernel.reshape(*lead, -1, dim), -1, -2)),
+        "attn.proj.bias": arr(attn["proj"]["bias"]),
+        **layer_norm("ln1.", node["LayerNorm_0"]), **layer_norm("ln2.", node["LayerNorm_1"]),
+        **dense("fc1.", node["Dense_0"]), **dense("fc2.", node["Dense_1"]),
+    }
+    head = {**layer_norm("ln.", tree["head"]["LayerNorm_0"]), **dense("out.", tree["head"]["out"])}
+    return {"embed": embed, "blocks": blocks, "head": head}
 
 
 def _zoo_paths(module) -> dict:

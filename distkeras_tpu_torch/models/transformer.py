@@ -101,14 +101,19 @@ def _dropout(x: torch.Tensor, rate: float, training: bool, generator) -> torch.T
     return torch.where(keep, x / keep_prob, 0.0)
 
 
-def _take_fill(embed: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
-    """``embed(ids)`` with ``jnp.take(table, ids, axis=0)``'s ``"fill"``
-    semantics: ids in ``[-n, 0)`` wrap to ``n + id``, ids outside
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table`` with ``jnp.take(table, ids, axis=0)``'s
+    ``"fill"`` semantics: ids in ``[-n, 0)`` wrap to ``n + id``, ids outside
     ``[-n, n)`` give a NaN row.  Computed on the device, with no host sync."""
-    n = embed.num_embeddings
-    rows = embed(ids.remainder(n))
+    n = table.shape[0]
+    rows = F.embedding(ids.remainder(n), table)
     valid = (ids >= -n) & (ids < n)
     return torch.where(valid[..., None], rows, float("nan"))
+
+
+def _take_fill(embed: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``embed(ids)`` with :func:`take_rows`' semantics."""
+    return take_rows(embed.weight, ids)
 
 
 def _normal_(weight: torch.Tensor, std: float, generator) -> None:

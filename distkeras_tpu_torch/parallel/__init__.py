@@ -1,7 +1,8 @@
 """Parallel runtime: device resolution, meshes over the ranks of a process
 group and their named-axis collectives, attention (single-device and ring),
-the windowed training engine and the GSPMD engine (tensor parallelism and
-the workers-axis ZeRO center)."""
+the windowed training engine, the GSPMD engine (tensor parallelism and
+the workers-axis ZeRO center) and the pipeline engine (pipeline
+parallelism)."""
 
 from distkeras_tpu_torch.parallel.engine import (
     TrainState,
@@ -10,6 +11,7 @@ from distkeras_tpu_torch.parallel.engine import (
     zero_shard_dim,
 )
 from distkeras_tpu_torch.parallel.gspmd import TP_AXIS, GSPMDEngine, default_tp_dim
+from distkeras_tpu_torch.parallel.pipeline import PP_AXIS, PipelineEngine
 from distkeras_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
     WORKER_AXIS,
@@ -30,11 +32,13 @@ from distkeras_tpu_torch.parallel.ring import (
 )
 
 __all__ = [
+    "PP_AXIS",
     "SEQ_AXIS",
     "TP_AXIS",
     "WORKER_AXIS",
     "GSPMDEngine",
     "LocalMesh",
+    "PipelineEngine",
     "TrainState",
     "WindowedEngine",
     "attention",

@@ -149,6 +149,19 @@ def _same_leaf(tree, ref) -> bool:
     return isinstance(tree, torch.Tensor)
 
 
+def dims_like(tree, dims):
+    """Per-leaf split dims for any tree that holds parameter-shaped subtrees
+    (parameters, optimizer and rule states), from the parameters' ``dims``:
+    those subtrees take the parameters' dims, every other leaf -1."""
+    if _same_structure(tree, dims):
+        return dims
+    if isinstance(tree, dict):
+        return {k: dims_like(v, dims) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(dims_like(v, dims) for v in tree)
+    return -1
+
+
 def leaf_views(adapter) -> dict:
     """Per parameter name, the leaf's shape in the JAX package's flax layout
     (output channels last) and the port's dim that holds that last dim:
@@ -485,15 +498,8 @@ class GSPMDEngine(WindowedEngine):
     # --------------------------------------------------- blocks and wholes
     def _dims_like(self, tree):
         """The model-axis dims of any tree that holds parameter-shaped
-        subtrees (parameters, optimizer and rule states): those subtrees
-        take the parameters' dims, every other leaf -1."""
-        if _same_structure(tree, self._tp_dims):
-            return self._tp_dims
-        if isinstance(tree, dict):
-            return {k: self._dims_like(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(self._dims_like(v) for v in tree)
-        return -1
+        subtrees (:func:`dims_like`)."""
+        return dims_like(tree, self._tp_dims)
 
     def _block(self, tree, lead: int = 0):
         """This model rank's block of each split leaf of a whole tree (new

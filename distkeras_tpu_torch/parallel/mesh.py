@@ -19,7 +19,7 @@ On the data-parallel path only all-reduce and broadcast run: they are
 what gloo takes for CUDA tensors too, so two ranks can share one card over
 gloo (NCCL refuses two ranks on one card).
 
-**Named axes** (sequence and tensor parallelism).  A :func:`make_mesh_grid`
+**Named axes** (sequence, tensor and pipeline parallelism).  A :func:`make_mesh_grid`
 mesh has one process group per axis (``axis_group``); :func:`bind_mesh`
 binds a mesh the way JAX's ``shard_map`` binds axis names, and inside it the
 differentiable collectives :func:`ppermute`, :func:`all_gather`,
@@ -31,7 +31,8 @@ that is *replicated* over the axis downstream (tensor parallelism's
 column-parallel products, where every rank holds the same whole
 cotangent): :func:`gather_from_axis`, a gather whose backward keeps this
 rank's block of the cotangent, and :func:`copy_to_axis`, the identity
-whose backward is a psum.  The route is picked by the
+whose backward is a psum.  The pipeline's :func:`broadcast_from_last` is a
+psum whose backward keeps the cotangent on the axis's last rank.  The route is picked by the
 group's backend: NCCL's own collectives (ring shifts as one
 ``batch_isend_irecv``); gloo with CPU tensors directly; gloo with CUDA
 tensors staged through pinned host memory for the ring shift and the
@@ -54,6 +55,7 @@ __all__ = [
     "WORKER_AXIS",
     "SEQ_AXIS",
     "TP_AXIS",
+    "PP_AXIS",
     "Axis",
     "LocalMesh",
     "Sharding",
@@ -66,6 +68,7 @@ __all__ = [
     "bind_mesh",
     "bound_mesh",
     "broadcast",
+    "broadcast_from_last",
     "copy_to_axis",
     "gather_from_axis",
     "local_device_count",
@@ -88,6 +91,8 @@ WORKER_AXIS = "workers"
 SEQ_AXIS = "seq"
 #: the tensor-parallel axis of the ``(workers, model)`` grid (the GSPMD engine)
 TP_AXIS = "model"
+#: the pipeline axis of the ``(workers, stages)`` grid (the pipeline engine)
+PP_AXIS = "stages"
 
 _LAUNCH = ("launch one process per rank: torchrun --nproc-per-node N, or "
            "networking.initialize(address, num_processes, process_id) in each process")
@@ -187,9 +192,12 @@ def make_mesh_grid(*dims: int, axis_names: tuple = (WORKER_AXIS, SEQ_AXIS)):
     ``prod(dims)`` ranks, row-major: (workers, seq) for data x sequence
     parallelism, the grid :class:`~distkeras_tpu_torch.parallel.engine.
     WindowedEngine` builds for ``seq_shards > 1`` (mesh rank ``(w, s)`` is
-    global rank ``w * seq_shards + s``), and (workers, model) for tensor
-    parallelism, the :class:`~distkeras_tpu_torch.parallel.gspmd.GSPMDEngine`'s.  Every rank of the process group
-    makes the call; each axis has its own group (:func:`axis_group`)."""
+    global rank ``w * seq_shards + s``), (workers, model) for tensor
+    parallelism, the :class:`~distkeras_tpu_torch.parallel.gspmd.GSPMDEngine`'s,
+    and (workers, stages) for pipeline parallelism, the
+    :class:`~distkeras_tpu_torch.parallel.pipeline.PipelineEngine`'s.  Every
+    rank of the process group makes the call; each axis has its own group
+    (:func:`axis_group`)."""
     if len(dims) != len(axis_names):
         raise ValueError(f"{len(dims)} mesh dims for axis names {axis_names}")
     need = 1
@@ -604,3 +612,25 @@ def copy_to_axis(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
     partial sum over those channels; the psum makes it the whole one."""
     ax = resolve_axis(axis, mesh)
     return x if ax.size == 1 else _CopyToAxis.apply(ax, x)
+
+
+class _BroadcastFromLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.last = ax.index == ax.size - 1
+        return all_reduce_sum([x], ax.group)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g if ctx.last else torch.zeros_like(g)
+
+
+def broadcast_from_last(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """The last rank's ``x`` along ``axis`` on every rank of it: the psum of
+    ``x``, which every other rank passes as zeros.  The backward keeps the
+    cotangent on the last rank and hands the others zeros (the JAX
+    package's ``_broadcast_from_last``): every rank computes a copy of the
+    loss downstream, and a psum's backward would sum all ``size`` copies'
+    cotangents, ``size`` times the gradient of the one value there is."""
+    ax = resolve_axis(axis, mesh)
+    return x if ax.size == 1 else _BroadcastFromLast.apply(ax, x)

@@ -95,9 +95,13 @@ collective crashes the engine on the rank that waits
 (:class:`EngineCrashed`).  ``hot_swap`` is called on every rank with the
 same model, as the constructor is; the plan says when it applies.
 
-Not ported here: ``StagedLM`` targets (ROADMAP Queue A item 15), the chaos
-fault point and the per-tenant accounting ledger (items 18 and 19) and the
-lock-order watchdog around the engine's condition variable (item 19).
+A ``StagedLM`` target (raw with its staged parameters, or as a
+``TrainedModel``) resolves through its ``decode_spec`` to the layout a
+``TransformerLM`` gives, and is served as one, with ``mesh=`` too.
+
+Not ported here: the chaos fault point and the per-tenant accounting ledger
+(items 18 and 19) and the lock-order watchdog around the engine's condition
+variable (item 19).
 """
 
 from __future__ import annotations
@@ -136,9 +140,6 @@ from distkeras_tpu_torch.telemetry import runtime as _truntime
 from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
 
 __all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
-
-_STAGED = "serving a StagedLM comes with the pipeline slice (ROADMAP Queue A item 15)"
-
 
 class EngineCrashed(RuntimeError):
     """The engine's host loop died: every request aborted, the replica is
@@ -238,21 +239,19 @@ class _Spec:
 
 def _resolve_spec(model, params, device) -> _Spec:
     """Accept a ``TrainedModel``, a ``TorchModel`` adapter + params, or a
-    module with a ``decode_spec`` hook + params (name -> tensor); the
-    tensors are put on ``device``."""
+    module or adapter with a ``decode_spec`` hook + params (name -> tensor;
+    a ``StagedLM``'s staged tree); the tensors are put on ``device``."""
     from distkeras_tpu_torch.models.adapter import TorchModel, TrainedModel
 
     if isinstance(model, TrainedModel):
         return _resolve_spec(model.adapter, model.params, device)
-    if hasattr(model, "decode_step"):  # StagedLM
-        raise NotImplementedError(_STAGED)
     if isinstance(model, TorchModel):
         model = model.module
     hook = getattr(model, "decode_spec", None)
     if hook is None:
         raise TypeError(
             f"{type(model).__name__} has no decode_spec hook; serving "
-            "supports TransformerLM"
+            "supports TransformerLM and StagedLM"
         )
     if params is None:
         raise ValueError(

@@ -30,7 +30,15 @@ trained parameters, which serves on one card.  With ``tp_shards > 1``, or
 parameter leaves split over the ``tp_shards`` model ranks of a row
 (``tp_spec_fn`` overrides the placement), the center also over the workers
 ranks under ``fsdp``; ``num_workers`` defaults to the rank count, as JAX
-defaults it to the device count, and the model comes back whole.  Construct a trainer around a model and call
+defaults it to the device count, and the model comes back whole.  With
+``pipeline_stages > 1`` (a staged model,
+:class:`~distkeras_tpu_torch.models.StagedTransformer` or ``StagedLM``,
+with as many stages) the ranks form the pipeline engine's ``(workers,
+stages)`` grid (:mod:`~distkeras_tpu_torch.parallel.pipeline`), each step's
+batch running as ``pp_microbatches`` microbatches (default: one a stage)
+through the stages; ``num_workers`` defaults to ``world /
+pipeline_stages``, one worker a workers rank, and the model comes back
+whole.  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
 its trained weights written back, when one was passed in); the constructor
@@ -62,6 +70,7 @@ from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainedModel, as_ad
 from distkeras_tpu_torch.ops.metrics import per_token_metric_names
 from distkeras_tpu_torch.parallel.engine import WindowedEngine, _mix64
 from distkeras_tpu_torch.parallel.gspmd import GSPMDEngine
+from distkeras_tpu_torch.parallel.pipeline import PipelineEngine
 from distkeras_tpu_torch.parallel.mesh import (
     TP_AXIS,
     WORKER_AXIS,
@@ -95,8 +104,6 @@ __all__ = [
 # kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
 _UNPORTED = {
     "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
-    "pipeline_stages": (1, "item 15 (pipeline parallelism)"),
-    "pp_microbatches": (None, "item 15 (pipeline parallelism)"),
     "elastic": (None, "item 18 (fleet: elastic membership)"),
     "profile_dir": (None, "item 19 (telemetry: profiler)"),
 }
@@ -221,10 +228,12 @@ class Trainer:
                 "exists with tp_shards>1 (the GSPMD engine); without it the "
                 "override would be silently ignored"
             )
-        _refuse_unported(
-            profile_dir=profile_dir, pipeline_stages=pipeline_stages,
-            pp_microbatches=pp_microbatches,
-        )
+        _refuse_unported(profile_dir=profile_dir)
+        # pipeline parallelism stages: >1 selects the pipeline engine (a
+        # microbatch pipeline over the stages axis of a (workers, stages)
+        # grid; needs a staged adapter with num_stages == pipeline_stages)
+        self.pipeline_stages = int(pipeline_stages)
+        self.pp_microbatches = pp_microbatches
         self.master_model = keras_model
         self.loss = loss
         self.worker_optimizer = worker_optimizer
@@ -388,7 +397,8 @@ class Trainer:
         # the elastic path builds its state from the partial restore; the
         # bitwise path restores into a fresh state
         state = None
-        if not elastic:
+        if not elastic or self.pipeline_stages > 1:
+            # the pipeline engine's init_state first, as in the JAX package
             state = engine.init_state(torch.Generator().manual_seed(self.seed),
                                       feats[: self.batch_size])
         resume_data = None
@@ -559,9 +569,36 @@ class Trainer:
     def _make_engine(self, adapter, rule, num_workers, metrics, commit_schedule=None,
                      mesh=None):
         """The engine ``_fit`` trains with, routed as the JAX package routes
-        it: ``tp_shards > 1``, or ``fsdp`` without a seq axis, builds the
-        GSPMD engine over the ``(workers, model)`` grid; everything else the
-        windowed engine (the seq-axis ZeRO center with ``seq_shards > 1``)."""
+        it: ``pipeline_stages > 1`` builds the pipeline engine over the
+        ``(workers, stages)`` grid; ``tp_shards > 1``, or ``fsdp`` without a
+        seq axis, the GSPMD engine over the ``(workers, model)`` grid;
+        everything else the windowed engine (the seq-axis ZeRO center with
+        ``seq_shards > 1``)."""
+        if self.pipeline_stages > 1:
+            if self.tp_spec_fn is not None:
+                raise ValueError(
+                    "tp_spec_fn is a GSPMD-engine override; the pipeline "
+                    "engine places the model axis by its staged-leaf shape "
+                    "rule"
+                )
+            if commit_schedule is not None:
+                raise ValueError(
+                    "pipeline_stages>1 is incompatible with commit_schedule "
+                    "(the staleness simulation dispatches per step)"
+                )
+            if getattr(adapter, "num_stages", None) != self.pipeline_stages:
+                raise ValueError(
+                    f"pipeline_stages={self.pipeline_stages} needs a staged "
+                    f"adapter with num_stages={self.pipeline_stages} (e.g. "
+                    "models.StagedTransformer); got "
+                    f"{type(self.master_model).__name__}"
+                )
+            return PipelineEngine(
+                adapter, self.loss, self._effective_worker_optimizer(), rule, num_workers,
+                microbatches=self.pp_microbatches, tp_shards=self.tp_shards,
+                seq_shards=self.seq_shards, fsdp=self.fsdp, metrics=metrics,
+                compute_dtype=self.compute_dtype, remat=self.remat, unroll=self.unroll,
+                mesh=mesh, device=self.device)
         kwargs = dict(metrics=metrics, compute_dtype=self.compute_dtype,
                       commit_schedule=commit_schedule, remat=self.remat, unroll=self.unroll,
                       device=self.device)
@@ -638,9 +675,9 @@ class SingleTrainer(Trainer):
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.SequentialWorker(self.worker_optimizer, self.batch_size)
-        # sequence and tensor parallelism need the grid of the group's
-        # ranks; the GSPMD engine's fsdp alone trains on a one-rank grid
-        if self.seq_shards > 1 or self.tp_shards > 1:
+        # sequence, tensor and pipeline parallelism need the grid of the
+        # group's ranks; the GSPMD engine's fsdp alone trains on a one-rank grid
+        if self.seq_shards > 1 or self.tp_shards > 1 or self.pipeline_stages > 1:
             mesh = None
         else:
             mesh = LocalMesh((WORKER_AXIS, TP_AXIS)) if self.fsdp else LocalMesh()
@@ -656,7 +693,8 @@ class AveragingTrainer(Trainer):
 
     def __init__(self, *args, num_workers: int = None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.num_workers = num_workers or _default_workers(self.device, self.seq_shards)
+        self.num_workers = num_workers or _default_workers(
+            self.device, self.seq_shards * self.pipeline_stages)
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.AveragingWorker(self.worker_optimizer, self.batch_size)
@@ -761,7 +799,8 @@ class DistributedTrainer(Trainer):
             dispatch_epochs, pipeline_stages, pp_microbatches, tp_spec_fn,
             prefetch, checkpoint_blocks, device,
         )
-        self.num_workers = num_workers or _default_workers(self.device, self.seq_shards)
+        self.num_workers = num_workers or _default_workers(
+            self.device, self.seq_shards * self.pipeline_stages)
         self.master_port = master_port
         self.parameter_server: Optional[ParameterServer] = None
         # optional per-worker commit periods: the staleness simulation
@@ -864,10 +903,11 @@ class DistributedTrainer(Trainer):
         return model
 
 
-def _default_workers(device, seq_shards: int) -> int:
+def _default_workers(device, row: int) -> int:
     """The default worker count: one per workers rank of the grid (the
-    ranks over ``seq_shards``), else one per card."""
-    return max(1, local_device_count(device) // seq_shards)
+    ranks over the ``row`` ranks of a worker: its seq shards or pipeline
+    stages), else one per card."""
+    return max(1, local_device_count(device) // row)
 
 
 def _rank0_step(step: Optional[int]) -> Optional[int]:

@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s training-suite, flow, head-dim, networking, epochs,
 streaming, checkpoint, remat/graph, serving, packing, mesh, seq, tp,
-serving_tp and moe phases rehearsed on the CPU.
+serving_tp, moe and pipeline phases rehearsed on the CPU.
 
 The script runs on an H100; here those phases run on the CPU
 (``ZOO_DEVICE = "cpu"``) at small batches, windows, row counts and model
@@ -484,3 +484,54 @@ def test_moe_phase_rehearsal(on_cpu, capsys, monkeypatch):
     monkeypatch.setattr(chip_smoke, "_spawn_moe", lambda *args: broken)
     with pytest.raises(AssertionError, match="expert bytes"):
         chip_smoke.moe_phase(0)
+
+
+TINY_STAGED = dict(vocab_size=64, dim=32, heads=2, num_stages=2, blocks_per_stage=1,
+                   max_len=16)
+
+
+def test_pipeline_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # phase 23 at TINY_STAGED's widths: one rank here, then two gloo ranks
+    # spawned on the CPU, pipeline_stages=2 (grid 1 x 2), replicated and fsdp
+    monkeypatch.setattr(chip_smoke, "PP_MODEL", TINY_STAGED)
+    monkeypatch.setattr(chip_smoke, "PP_DECODE", (2, 4, 4))
+    spawned = []
+    spawn = chip_smoke._spawn_pp
+
+    def keep(*args):
+        spawned.append(spawn(*args))
+        return spawned[-1]
+
+    monkeypatch.setattr(chip_smoke, "_spawn_pp", keep)
+    out = chip_smoke.pipeline_phase(0)
+    rows = _emitted(capsys, "pipeline")
+    assert [r["case"] for r in rows] == ["one_rank", "two_ranks_one_card", "cards"]
+    assert rows[2]["pp_cards_run"] == 1
+    one = out["one_rank"]
+    assert one["engine"] == "WindowedEngine" and np.isfinite(one["loss"]).all()
+    row = out["two_ranks_one_card"]
+    assert rows[1] == {"phase": "pipeline", **json.loads(json.dumps(row))}
+    assert not row["failures"] and row["grid"] == [1, 2] and row["local_steps"] == 8
+    assert row["first_window_loss_rel_err"] <= chip_smoke.PP_FIRST_LOSS_RTOL
+    assert row["vs_one_rank"]["param_rel_norm_err"] <= chip_smoke.PP_PARAM_REL_NORM
+    # each stage rank holds half the blocks; fsdp halves the embed and head
+    assert [2 * b for b in row["block_bytes_per_rank"]] == [row["block_bytes_one_rank"]] * 2
+    fsdp = row["fsdp"]
+    assert fsdp["vs_pipeline"]["bitwise"]
+    assert [2 * b for b in fsdp["embed_head_bytes_per_rank"]] == [
+        fsdp["embed_head_bytes_replicated"]] * 2
+    assert row["decode"]["pipelined_equals_sequential"] == [True, True]
+    assert row["serving"]["requests"] == 3 and len(row["serving"]["tokens"]) == 3
+    # the CPU runs the plain attention over gloo on CPU tensors: no kernel
+    # launch to count, nothing staged
+    assert row["launches_b1_b2_b3_per_rank"] == [[0, 0, 0]] * 2
+    assert row["host_staged_bytes_per_rank"] == [0, 0]
+    for key in ("tokens_per_s", "tokens_per_s_one_rank", "peak_memory_gb_per_rank", "card"):
+        assert key in row
+    # a failed gate raises: the same ranks' run with rank 1 holding every block
+    ranks = spawned[0]
+    broken = [ranks[0], dict(ranks[1], pipeline=dict(
+        ranks[1]["pipeline"], block_bytes=2 * ranks[1]["pipeline"]["block_bytes"]))]
+    monkeypatch.setattr(chip_smoke, "_spawn_pp", lambda *args: broken)
+    with pytest.raises(AssertionError, match="block bytes"):
+        chip_smoke.pipeline_phase(0)

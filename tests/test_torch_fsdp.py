@@ -135,10 +135,10 @@ def _trainer_cases(workdir):
     return out
 
 
-def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
+def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             world_size=world, rank=rank)
     try:
         results = {**_trajectory_cases(workdir), "layout": _layout_case(workdir),
@@ -151,7 +151,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
     sys.exit(0)
 
 
@@ -295,7 +295,11 @@ def test_fsdp_rejects_bad_combos():
     with pytest.raises(ValueError, match="GSPMD engine"):
         WindowedEngine(port_mlp((32,)), "categorical_crossentropy", "sgd",
                        algorithms.Downpour(4), fsdp=True, device="cpu")
-    # pipeline x seq is still to port (ROADMAP Queue A item 15c), and says so
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tdk.DOWNPOUR(TransformerLM(**LM, seq_axis="seq"), num_workers=4, seq_shards=2,
-                     pipeline_stages=2, fsdp=True, device="cpu")
+    # pipeline x seq is still to port (ROADMAP Queue A item 15c-ii), and says
+    # so where a staged model would take the seq axis
+    from distkeras_tpu_torch.models import StagedLM
+
+    with pytest.raises(NotImplementedError, match="item 15c-ii"):
+        tdk.DOWNPOUR(StagedLM(vocab_size=LM["vocab_size"], dim=LM["dim"], heads=LM["heads"],
+                              max_len=LM["max_len"], seq_axis="seq"),
+                     num_workers=4, seq_shards=2, pipeline_stages=2, fsdp=True, device="cpu")

@@ -121,10 +121,10 @@ def _checkpoint_cases(workdir, rank):
     return out
 
 
-def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
+def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             world_size=world, rank=rank)
     try:
         results = {
@@ -141,7 +141,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
     sys.exit(0)
 
 

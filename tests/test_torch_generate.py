@@ -7,7 +7,8 @@ max_len 32)`` whose flax parameters are carried over with
 Cached greedy decode emits the JAX ``greedy_generate_module``'s tokens
 exactly, decode logits are within 1e-5 of the recompute path and of the
 JAX decode, writing past ``max_len`` poisons the output with NaN as there,
-and the validation and refusals raise by name.
+a ``StagedLM`` decodes the JAX package's staged tokens, and the validation
+and refusals raise by name.
 """
 
 import jax
@@ -139,18 +140,27 @@ def test_non_lm_models_are_refused_by_name(lm):
 
 
 def test_staged_and_pipelined_decode_are_refused_by_name(lm):
+    """A ``StagedLM`` decodes since the pipeline slice (ROADMAP Queue A item
+    15c): the JAX package's ``greedy_generate_staged`` tokens; what is
+    still refused says why: ``pipelined=True`` on a model that is not
+    staged, and a pipelined decode on fewer ranks than stages."""
+    from distkeras_tpu.models import StagedLM as JaxStagedLM
+    from distkeras_tpu.models.generate import greedy_generate_staged as jax_staged
+    from distkeras_tpu_torch.models import StagedLM
+
     _, _, model, port_params = lm
-
-    class Staged(TorchModel):
-        def decode_step(self, *args):  # what marks a StagedLM
-            raise AssertionError("not reached")
-
-    trained = TrainedModel(TorchModel(model), port_params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        greedy_generate(trained, _prompt(1, 4, 0), 2, pipelined=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        greedy_generate(TrainedModel(Staged(model), port_params, device="cpu"),
-                        _prompt(1, 4, 0), 2)
+    cfg = dict(vocab_size=23, dim=16, heads=2, num_stages=2, blocks_per_stage=1, max_len=32)
+    jax_staged_lm, staged = JaxStagedLM(**cfg), StagedLM(**cfg)
+    params, _ = jax_staged_lm.init(jax.random.PRNGKey(1), np.zeros((1, 4), np.int32))
+    prompt = _prompt(2, 4, 0)
+    trained = TrainedModel(staged, params_from_flax(staged, params), device="cpu")
+    np.testing.assert_array_equal(greedy_generate(trained, prompt, 5),
+                                  np.asarray(jax_staged(jax_staged_lm, params, prompt, 5)))
+    with pytest.raises(TypeError, match="pipelined decode needs a StagedLM"):
+        greedy_generate(TrainedModel(TorchModel(model), port_params, device="cpu"), prompt, 2,
+                        pipelined=True)
+    with pytest.raises(ValueError, match="2 pipeline stages need >= 2 devices"):
+        greedy_generate(trained, prompt, 2, pipelined=True)
 
 
 def test_decode_misuse_raises(lm):

@@ -7,7 +7,8 @@ does, when called).  The serving slice's modules (``serving/``,
 ``models/generate.py``, ``telemetry/metrics.py``) are held to the same, and so
 are sequence packing (``datapipe/packing.py``, a copy of the JAX package's
 numpy) and the meshes (``parallel/mesh.py``, which imports
-``torch.distributed.device_mesh`` when a group exists)."""
+``torch.distributed.device_mesh`` when a group exists), and so are the
+pipeline's (``models/staged.py``, ``parallel/pipeline.py``)."""
 
 import ast
 import os
@@ -61,7 +62,8 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.serving.cache, distkeras_tpu_torch.serving.sampling, "
         "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine, "
         "distkeras_tpu_torch.datapipe.packing, distkeras_tpu_torch.parallel.mesh, "
-        "distkeras_tpu_torch.parallel.gspmd\n"
+        "distkeras_tpu_torch.parallel.gspmd, distkeras_tpu_torch.models.staged, "
+        "distkeras_tpu_torch.parallel.pipeline\n"
         # what make_mesh imports once a process group exists
         "import torch.distributed.device_mesh\n"
         "assert not (dist.is_available() and dist.is_initialized())\n"
@@ -90,7 +92,7 @@ def test_sources_found():
                    "fleet", "telemetry/correlate", "telemetry/metrics", "models/generate",
                    "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
                    "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd",
-                   "models/moe"):
+                   "models/moe", "models/staged", "parallel/pipeline"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

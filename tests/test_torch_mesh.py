@@ -4,8 +4,9 @@ mesh and against the port's own 1 rank x 4 workers.
 
 Two ranks are spawned **once** for the module (``ranks`` fixture): each
 runs this file as a script (``python tests/test_torch_mesh.py RANK WORLD
-PORT DIR``; only torch and the port are imported there), joins the gloo
-group over ``tcp://127.0.0.1``, runs every case and leaves; rank 0 writes
+INIT DIR``; only torch and the port are imported there), joins the gloo
+group through the file store ``INIT`` in the module's directory, runs every
+case and leaves; rank 0 writes
 the results, which the parametrised tests read.  Each rank owns 2 of the 4
 workers.  The cases start from the JAX engine's initial parameters
 (``params_from_flax``), written by the fixture before the spawn.
@@ -267,13 +268,13 @@ def _error_cases():
     return errors
 
 
-def _world_one_case(workdir, port):
+def _world_one_case(workdir, init):
     """A world of one gloo rank against no group, bit for bit: the commit's
     all-reduce and the stats' run over one rank."""
     import torch.distributed as dist
 
     alone = _engine_case(workdir, "mlp", "downpour")
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    dist.init_process_group("gloo", init_method=init, world_size=1, rank=0)
     try:
         grouped = _engine_case(workdir, "mlp", "downpour")
     finally:
@@ -291,7 +292,7 @@ def _flat(results, prefix=""):
     return out
 
 
-def _rank_main(rank: int, world: int, port: int, workdir: str, device: str) -> None:
+def _rank_main(rank: int, world: int, init: str, workdir: str, device: str) -> None:
     """One rank of the gloo group: every case on the CPU; on a card (both
     ranks sharing ``cuda:0``) the MLP's engine cases alone."""
     import torch.distributed as dist
@@ -299,7 +300,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str, device: str) -> N
     torch.set_num_threads(1)
     if device == "cuda":
         torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             world_size=world, rank=rank)
     errors = {}
     try:
@@ -315,7 +316,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str, device: str) -> N
     if rank != 0:
         return
     if device == "cpu":
-        results["world_one"] = _world_one_case(workdir, port + 1)
+        results["world_one"] = _world_one_case(workdir, init + "_world_one")
     np.savez(os.path.join(workdir, "results.npz"), **_flat(results))
     with open(os.path.join(workdir, "errors.json"), "w", encoding="utf-8") as fh:
         json.dump(errors, fh)
@@ -323,7 +324,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str, device: str) -> N
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     sys.exit(0)
 
 
@@ -398,10 +399,12 @@ def _jax_case(model, rule, module, init_np):
 
 def _spawn(workdir: str, device: str = "cpu"):
     """Run the two ranks to their end; returns ``(results, errors)``."""
-    port = _free_port()
+    from test_torch_ring import rendezvous
+
+    init = rendezvous(workdir)
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
     env.pop("PYTHONSTARTUP", None)
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(WORLD), str(port), workdir,
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(WORLD), init, workdir,
                                device], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]

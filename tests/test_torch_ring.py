@@ -4,8 +4,8 @@ on four of its CPU devices.
 
 Four ranks are spawned **once** for the module (``ranks`` fixture): each
 runs this file as a script (``python tests/test_torch_ring.py RANK WORLD
-PORT DIR``; only torch and the port are imported there), joins the gloo
-group over ``tcp://127.0.0.1``, runs every case and writes its own
+INIT DIR``; only torch and the port are imported there), joins the gloo
+group through the file store ``INIT`` in the module's directory, runs every case and writes its own
 ``rank_<r>.npz``.  The same inputs come from one numpy seed on both sides.
 
 Tolerances: the JAX test's ring bound (tests/test_ring_attention.py),
@@ -18,9 +18,9 @@ the collectives, which move and add a few small integers, exactly.
 """
 
 import os
-import socket
 import subprocess
 import sys
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -44,33 +44,54 @@ def qkv(batch, seq, heads, dim, seed):
                  for _ in range(3))
 
 
-def spawn_ranks(script, world: int, workdir: str, extra=(), timeout: int = SPAWN_TIMEOUT_S):
-    """Run ``python script RANK WORLD PORT WORKDIR *extra`` for every rank to
-    its end (a rank left waiting on a dead peer is killed); each rank must
-    exit 0.  ``script`` is a path, or a list of the interpreter's arguments
-    (``["-c", code]``)."""
+def rendezvous(workdir: str) -> str:
+    """A fresh ``init_method`` for one group of spawned ranks: a file store in
+    the test's own directory.  A TCP port picked free here and bound by rank
+    0 only once it has imported torch could be taken by another process of
+    the suite in between; a new path cannot."""
+    return "file://" + os.path.join(workdir, f"rendezvous_{uuid.uuid4().hex}")
+
+
+def start_ranks(script, world: int, workdir: str, extra=()):
+    """Start ``python script RANK WORLD INIT WORKDIR *extra`` for every rank
+    and return the processes; each writes its output to
+    ``WORKDIR/log_<rank>.txt``.  ``script`` is a path, or a list of the
+    interpreter's arguments (``["-c", code]``)."""
     script = [script] if isinstance(script, (str, Path)) else list(script)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    init = rendezvous(workdir)
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
     env.pop("PYTHONSTARTUP", None)
-    procs = [subprocess.Popen([sys.executable, *script, str(r), str(world), str(port), workdir,
-                               *extra],
-                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    logs = []
+    procs = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"log_{r}.txt"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, *script, str(r), str(world), init, workdir, *extra],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def wait_ranks(procs, workdir: str, timeout: int = SPAWN_TIMEOUT_S):
+    """Wait for every rank of :func:`start_ranks` to its end (a rank left
+    waiting on a dead peer is killed); each rank must exit 0."""
     try:
         for proc in procs:
-            logs.append(proc.communicate(timeout=timeout)[0])
+            proc.wait(timeout=timeout)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for rank, (proc, log) in enumerate(zip(procs, logs)):
-        assert proc.returncode == 0, f"rank {rank}:\n{log[-4000:]}"
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(workdir, f"log_{rank}.txt")) as log:
+                raise AssertionError(f"rank {rank} exited {proc.returncode}:\n"
+                                     f"{log.read()[-4000:]}")
+
+
+def spawn_ranks(script, world: int, workdir: str, extra=(), timeout: int = SPAWN_TIMEOUT_S):
+    """Run ``python script RANK WORLD INIT WORKDIR *extra`` for every rank to
+    its end (:func:`start_ranks`, :func:`wait_ranks`)."""
+    wait_ranks(start_ranks(script, world, workdir, extra), workdir, timeout)
 
 
 # ------------------------------------------------------------------ the ranks
@@ -125,7 +146,7 @@ def _ring_cases(device):
     return out
 
 
-def _rank_main(rank: int, world: int, port: int, workdir: str, device: str = "cpu",
+def _rank_main(rank: int, world: int, init: str, workdir: str, device: str = "cpu",
                backend: str = "gloo") -> None:
     """Every case on ``device``: over gloo on a card the four ranks share
     ``cuda:0`` and the seq collectives are staged through the host; over
@@ -137,7 +158,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str, device: str = "cp
     if device == "cuda":
         torch.cuda.set_device(rank if backend == "nccl" else 0)
         torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group(backend, init_method=init,
                             world_size=world, rank=rank)
     try:
         out = {**_ring_cases(device), **_collective_cases(rank, device)}
@@ -149,7 +170,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str, device: str = "cp
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *sys.argv[5:])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], *sys.argv[5:])
     sys.exit(0)
 
 

@@ -628,12 +628,19 @@ def test_unported_options_raise_naming_their_items(lm):
     with pytest.raises(ValueError, match="heads 2 not divisible by mesh size 3"):
         ServingEngine(model, params, mesh=_ModelAxis(3), device="cpu")
 
-    class Staged(TorchModel):
-        def decode_step(self, *args):  # what marks a StagedLM
-            raise AssertionError("not reached")
+    # a StagedLM serves since the pipeline slice (ROADMAP Queue A item 15c):
+    # through its decode_spec, the greedy tokens of its own decode
+    from distkeras_tpu_torch.models import StagedLM, greedy_generate
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ServingEngine(TrainedModel(Staged(model), params, device="cpu"), device="cpu")
+    staged = StagedLM(vocab_size=VOCAB, dim=16, heads=2, num_stages=2, max_len=32)
+    trained = TrainedModel(staged, staged.init(torch.Generator().manual_seed(0), None)[0],
+                           device="cpu")
+    engine = ServingEngine(trained, num_slots=2, page_size=8, registry=Registry(), device="cpu")
+    try:
+        got = engine.generate([1, 2, 3], max_new_tokens=6, timeout=120).tokens
+    finally:
+        engine.stop()
+    assert got == greedy_generate(trained, np.asarray([[1, 2, 3]]), 6)[0, 3:].tolist()
     with pytest.raises(NotImplementedError, match="item 19"):
         install_http_endpoint(object())
     with pytest.raises(TypeError, match="decode_spec"):

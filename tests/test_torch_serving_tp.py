@@ -197,12 +197,12 @@ def _bad_meshes(out):
             out[name] = str(e)
 
 
-def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
+def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
     from distkeras_tpu_torch.parallel.mesh import make_mesh
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             world_size=world, rank=rank)
     out = {}
     try:
@@ -219,7 +219,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
 
 
 # ------------------------------------------------------------- test process

@@ -336,10 +336,10 @@ def function_inputs():
                  for s in ((3, 5), (6, 5), (3, 6)))
 
 
-def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
+def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             world_size=world, rank=rank)
     try:
         results = {**_mlp_cases(workdir), "cls": _classifier_case(workdir),
@@ -356,7 +356,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
     sys.exit(0)
 
 
@@ -709,8 +709,8 @@ _KERAS_SIDE = textwrap.dedent('''
         import torch.distributed as dist
         torch.set_num_threads(1)
         import distkeras_tpu_torch as dk
-        rank, world, port, workdir = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+        rank, world, init, workdir = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+        dist.init_process_group("gloo", init_method=init,
                                 world_size=world, rank=rank)
         out, device = os.path.join(workdir, "torch.npz"), {"device": "cpu"}
     import keras

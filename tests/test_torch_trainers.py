@@ -229,13 +229,33 @@ def test_ported_kwargs_train(kwargs, tmp_path):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(profile_dir="prof"), dict(pipeline_stages=2), dict(elastic=object()),
-     dict(staleness_policy=object())],
+    [dict(profile_dir="prof"), dict(elastic=object()), dict(staleness_policy=object())],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_kwargs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(pipeline_stages=2, pp_microbatches=2)],
+                         ids=lambda kw: next(iter(kw)))
+def test_pipeline_kwargs_build_the_pipeline_engine(kwargs):
+    # accepted since item 15c (parallel/pipeline.py) is ported; this replaces
+    # its case in test_unported_kwargs_raise.  The trainer keeps the kwargs
+    # and routes a staged model to the pipeline engine, which in one process
+    # (no group) asks for the stage ranks it needs in JAX's words; its
+    # training runs in tests/test_torch_pipeline.py over two ranks
+    from distkeras_tpu_torch.models import StagedLM
+
+    x, y = lm_data(n=32)
+    t = tdk.DOWNPOUR(StagedLM(vocab_size=LM["vocab_size"], dim=LM["dim"], heads=LM["heads"],
+                              max_len=LM["max_len"]),
+                     loss="token_crossentropy", num_workers=1, batch_size=4, device="cpu",
+                     **kwargs)
+    assert (t.pipeline_stages, t.pp_microbatches) == (2, 2)
+    with pytest.raises(ValueError, match="num_stages=2 x tp_shards=1 x seq_shards=1 does not "
+                                         "divide device count 1"):
+        t.train(tdk.from_numpy(x, y))
 
 
 @pytest.mark.parametrize("kwargs", [dict(tp_shards=2), dict(fsdp=True)],

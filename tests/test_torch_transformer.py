@@ -170,7 +170,7 @@ def test_decode_matches_jax(jax_reference):
 
 
 # One gloo rank of the seq-sharded forward: torch and the port alone (this
-# file imports JAX).  argv: RANK WORLD PORT DIR.  Each rank takes its block
+# file imports JAX).  argv: RANK WORLD INIT DIR.  Each rank takes its block
 # of the tokens and runs both models with seq_axis="seq" on the (1, 2) grid.
 _SHARDED_FORWARD = """
 import sys
@@ -180,9 +180,9 @@ import torch.distributed as dist
 from distkeras_tpu_torch.models import TransformerClassifier, TransformerLM
 from distkeras_tpu_torch.parallel.mesh import bind_mesh, make_mesh_grid
 
-rank, world, port, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, world, init, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+dist.init_process_group("gloo", init_method=init,
                         world_size=world, rank=rank)
 inputs = np.load(workdir + "/inputs.npz")
 tokens = torch.from_numpy(inputs["tokens"])
