@@ -150,7 +150,15 @@ toolkit.  Phases, each printing JSON lines:
     ``pipeline_stages=2, pp_microbatches=2`` on two gloo ranks sharing the
     card (``--pp-rank``), replicated and with ``fsdp=True``; its greedy
     decode pipelined over the ranks and a ``ServingEngine`` over it (and
-    the 2 x 2 NCCL grid on a 4-card machine; see :func:`pipeline_phase`).
+    the 2 x 2 NCCL grid on a 4-card machine; see :func:`pipeline_phase`);
+24. pipeline_3d: phase 23's ``StagedLM`` and ``DOWNPOUR`` on four gloo
+    ranks sharing the card (``--pp3d-rank``), grid 1 x 2 x 2:
+    ``tp_shards=2`` (the ``(workers, stages, model)`` grid), then with
+    ``fsdp=True``, then ``seq_shards=2`` with the model built
+    ``seq_axis="seq"`` (the ``(workers, stages, seq)`` grid), each against
+    phase 23's one-rank run (and both grids over NCCL, one rank a card, on
+    a 4-card machine; see :func:`pipeline_3d_phase`).  A ``timing`` line
+    then gives every phase's wall seconds.
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -168,7 +176,9 @@ phase 21 around each rank-0 serving run (0 launches); phase 22 around the
 MoE training (B1-B3 12 a step), its step check and its predictor (B1);
 phase 23 around the one-rank training (B1-B3 12 a step) and each stage
 rank's pipelined training (B1-B3 ``blocks_per_stage x microbatches`` a
-step).  Phases 7 to 9, 11 to 14 and 18's
+step); phase 24 around each rank's training on the 3-D grids (pp x tp as
+phase 23's stage ranks, every model rank running all heads; pp x sp 0: the
+ring's plain products).  Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -3928,17 +3938,18 @@ PP_DECODE = (2, 16, 8)  # greedy decode: rows, prompt length, new tokens
 PP_SERVE_REQUESTS = 3  # greedy requests to the serving engine over the trained StagedLM
 
 
-def pp_train(seed: int, num_workers: int, **kwargs):
+def pp_train(seed: int, num_workers: int, seq_axis=None, **kwargs):
     """The train phase's ``DOWNPOUR`` (batch 4, window 2, Adam) over a
-    ``StagedLM`` at ``PP_MODEL``'s widths for ``PP_EPOCHS`` epochs, with
-    ``num_workers`` and the trainer's pipeline ``kwargs``: ``(trainer,
-    run)``."""
+    ``StagedLM`` at ``PP_MODEL``'s widths (built with ``seq_axis``) for
+    ``PP_EPOCHS`` epochs, with ``num_workers`` and the trainer's pipeline
+    ``kwargs``: ``(trainer, run)``."""
     import distkeras_tpu_torch as tdk
     from distkeras_tpu_torch.models import StagedLM
 
     x, y = lm_task(TRAIN_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 23)
     trainer = _keeping_fit(tdk.DOWNPOUR)(
-        StagedLM(**PP_MODEL), loss="token_crossentropy", metrics=("token_accuracy",),
+        StagedLM(**PP_MODEL, seq_axis=seq_axis), loss="token_crossentropy",
+        metrics=("token_accuracy",),
         worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=num_workers,
         batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=PP_EPOCHS,
         seed=seed, device=ZOO_DEVICE, **kwargs)
@@ -4281,6 +4292,257 @@ def pipeline_phase(seed: int, pair: bool = True) -> dict:
     return out
 
 
+# pipeline_3d phase: phase 23's StagedLM and DOWNPOUR on the pipeline
+# engine's 3-D grids, four gloo ranks sharing the card (grid 1 x 2 x 2):
+# pipeline x tensor parallelism (tp_shards=2; then with fsdp) and pipeline x
+# sequence parallelism (seq_shards=2, the model built with seq_axis), against
+# phase 23's one-rank run; on a 4-card machine both grids over NCCL
+PP3D_SHARDS = 2
+# four ranks on one card, each step's collectives through the host: a hang
+# surfaces with their output well inside a call's time
+PP3D_RANK_TIMEOUT_S = 600
+PP3D_CASES = (("tp", dict(tp_shards=PP3D_SHARDS), None),
+              ("tp_fsdp", dict(tp_shards=PP3D_SHARDS, fsdp=True), None),
+              ("sp", dict(seq_shards=PP3D_SHARDS), "seq"))
+PP3D_PREDICT_ROWS = 1  # rows the returned model predicts on rank 0 (per-token, 50257 wide)
+
+
+def _pp3d_runs(seed: int) -> dict:
+    """One rank's share of the phase, in the group it is in (grid ``world /
+    4 x 2 x 2``): each of :data:`PP3D_CASES` through ``DOWNPOUR(...,
+    pipeline_stages=2, pp_microbatches=2, ...)`` with B1-B3's launches, the
+    bytes staged through the host, peak memory and the center's block
+    bytes; on rank 0 the returned model's predictions on one rank."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import transport_stats
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    on_card = ZOO_DEVICE == "cuda"
+    S = PP_MODEL["num_stages"]
+    workers = dist.get_world_size() // (S * PP3D_SHARDS)
+    x, _ = lm_task(PP3D_PREDICT_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 26)
+    out = {}
+    for name, kwargs, seq_axis in PP3D_CASES:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        transport_stats["host_staged_bytes"] = 0
+        trainer, run = pp_train(seed, workers, seq_axis=seq_axis, pipeline_stages=S,
+                                pp_microbatches=PP_MICROBATCHES, **kwargs)
+        engine, state, _ = trainer.fit_result
+        run.update(launches=[c.launches for c in counters],
+                   host_staged_bytes=transport_stats["host_staged_bytes"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                   grid=list(engine.mesh.shape), axes=list(engine.mesh.mesh_dim_names),
+                   engine=type(engine).__name__, stage=engine.stage_index,
+                   num_updates=trainer.num_updates,
+                   block_bytes=_state_bytes(state.center_params["blocks"]),
+                   embed_head_bytes=_state_bytes([state.center_params["embed"],
+                                                  state.center_params["head"]]))
+        del engine, state
+        if dist.get_rank() == 0:
+            model = trainer.parameter_server.model
+            probs = np.asarray(model.predict(x))
+            run["predict"] = dict(shape=list(probs.shape), finite=bool(np.isfinite(probs).all()),
+                                  row_sum_err=float(np.abs(probs.sum(-1) - 1.0).max()),
+                                  seq_axis=str(model.adapter.seq_axis))
+            del model, probs
+        out[name] = run
+        del trainer
+    return out
+
+
+def pp3d_rank_main(spec_path: str) -> int:
+    """One spawned rank of the pipeline_3d phase: the parent's settings from
+    ``spec_path``, the group joined, :func:`_pp3d_runs`, the group left on
+    every path; every rank writes its runs (``OUT.<rank>``)."""
+    import torch.distributed as dist
+
+    global ZOO_DEVICE, PP_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS
+    global PP_MICROBATCHES
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    ZOO_DEVICE, PP_MODEL = spec["device"], spec["model"]
+    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES = spec["train"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.set_device(spec["device_index"])
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        runs = _pp3d_runs(spec["seed"])
+    finally:
+        dist.destroy_process_group()
+    torch.save(runs, f"{spec['out']}.{spec['rank']}")
+    return 0
+
+
+def _spawn_pp3d(seed: int, world: int, backend: str, cards: bool, workdir: str) -> list:
+    """Every rank's runs, in rank order."""
+    import os
+
+    name = f"pp3d_{backend}_{world}"
+    init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=PP_MODEL, backend=backend,
+                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
+                  world=world, rank=rank, init=init, out=out,
+                  device_index=rank if cards else 0,
+                  # four ranks share the machine's cores
+                  threads=max(1, torch.get_num_threads() // world))
+             for rank in range(world)]
+    _run_ranks("--pp3d-rank", specs, workdir, PP3D_RANK_TIMEOUT_S, "pipeline_3d")
+    return [torch.load(f"{out}.{rank}", weights_only=False) for rank in range(world)]
+
+
+def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
+    """The spawned grid's runs against the one-rank run, and the phase's
+    gates."""
+    S, P, M = PP_MODEL["num_stages"], PP_MODEL["blocks_per_stage"], PP_MICROBATCHES
+    k = PP3D_SHARDS
+    cuda = ZOO_DEVICE == "cuda"
+    steps = ranks[0]["tp"]["local_steps"]
+    # pp x tp: every model rank of a stage runs its M of the M + S - 1 ticks
+    # through its P blocks, all heads on each (B1 in each forward, B2 and B3
+    # in each backward); pp x sp: the ring's blocks are plain products
+    expected = {"tp": [P * M * steps if cuda else 0] * 3, "tp_fsdp": [P * M * steps if cuda else 0] * 3,
+                "sp": [0, 0, 0]}
+    # the center's blocks a rank: its stage's, and of them its model block
+    # (every staged leaf splits at these widths) or all of them (seq)
+    share = {"tp": S * k, "tp_fsdp": S * k, "sp": S}
+    failures, row = [], dict(grid=ranks[0]["tp"]["grid"], microbatches=M, model="StagedLM",
+                             **PP_MODEL, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+                             epochs=PP_EPOCHS, rows=TRAIN_ROWS, local_steps=steps,
+                             loss_one_rank=ref["loss"], tokens_per_s_one_rank=ref["tokens_per_s"],
+                             peak_memory_gb_one_rank=ref["peak_memory_gb"],
+                             block_bytes_one_rank=ref["block_bytes"],
+                             launches_b1_b2_b3_one_rank=ref["launches"],
+                             first_window_loss_rtol=PP_FIRST_LOSS_RTOL, loss_rtol=PP_LOSS_RTOL,
+                             param_rel_norm_rtol=PP_PARAM_REL_NORM,
+                             launches_formula="tp: blocks_per_stage x microbatches x local "
+                                              "steps; sp: 0 (the ring's plain products)",
+                             card=CARD)
+    for name, _, seq_axis in PP3D_CASES:
+        got = ranks[0][name]
+        versus = _versus(got, ref)
+        first = (abs(got["first_window_loss"] - ref["first_window_loss"])
+                 / abs(ref["first_window_loss"]))
+        case = dict(axes=got["axes"], loss=got["loss"], first_window_loss_rel_err=first,
+                    vs_one_rank=versus, num_updates=[got["num_updates"], ref["num_updates"]],
+                    seconds=got["seconds"], tokens_per_s=got["tokens_per_s"],
+                    peak_memory_gb_per_rank=[r[name]["peak_memory_gb"] for r in ranks],
+                    block_bytes_per_rank=[r[name]["block_bytes"] for r in ranks],
+                    embed_head_bytes_per_rank=[r[name]["embed_head_bytes"] for r in ranks],
+                    host_staged_bytes_per_rank=[r[name]["host_staged_bytes"] for r in ranks],
+                    launches_b1_b2_b3_per_rank=[r[name]["launches"] for r in ranks],
+                    launches_b1_b2_b3_expected=expected[name], predict=got["predict"])
+        row[name] = case
+        if first > PP_FIRST_LOSS_RTOL:
+            failures.append(f"{name}: first window's loss off by {first}")
+        if versus["loss_rel_err"] > PP_LOSS_RTOL or versus["param_rel_norm_err"] > PP_PARAM_REL_NORM:
+            failures.append(f"{name} against one rank: {versus}")
+        if case["num_updates"][0] != case["num_updates"][1]:
+            failures.append(f"{name}: commit counts differ")
+        if not np.isfinite(got["loss"]).all():
+            failures.append(f"{name}: the history is not finite: {got['loss']}")
+        pred = got["predict"]
+        if not (pred["finite"] and pred["shape"] == [PP3D_PREDICT_ROWS, PP_MODEL["max_len"],
+                                                     PP_MODEL["vocab_size"]]
+                and pred["row_sum_err"] < 1e-4 and pred["seq_axis"] == "None"):
+            failures.append(f"{name}: the returned model's predictions on one rank: {pred}")
+        for r, run in enumerate(ranks):
+            mine = run[name]
+            if mine["launches"] != expected[name]:
+                failures.append(f"{name}: rank {r} launched B1-B3 {mine['launches']} times, "
+                                f"expected {expected[name]}")
+            if mine["block_bytes"] * share[name] != ref["block_bytes"]:
+                failures.append(f"{name}: rank {r} holds {mine['block_bytes']} block bytes, one "
+                                f"rank {ref['block_bytes']}")
+            stage = (r // k) % S  # mesh rank (w, s, m) is global rank (w S + s) k + m
+            if (mine["engine"] != "PipelineEngine" or mine["stage"] != stage
+                    or mine["axes"] != ["workers", "stages", "seq" if seq_axis else "model"]):
+                failures.append(f"{name}: rank {r}: {mine['engine']} stage {mine['stage']} "
+                                f"axes {mine['axes']}")
+            if cuda and backend == "gloo" and mine["host_staged_bytes"] <= 0:
+                failures.append(f"{name}: rank {r} on gloo staged no byte through the host")
+    row["tp_fsdp"]["vs_tp"] = _versus(ranks[0]["tp_fsdp"], ranks[0]["tp"])
+    if not row["tp_fsdp"]["vs_tp"]["bitwise"]:
+        failures.append(f"tp_fsdp is not pp x tp bit for bit: {row['tp_fsdp']['vs_tp']}")
+    for r, run in enumerate(ranks):
+        # fsdp splits every embed/head leaf over the stages but the head's
+        # odd 50257-wide bias: just over half of the replicated bytes
+        f, t = run["tp_fsdp"]["embed_head_bytes"], run["tp"]["embed_head_bytes"]
+        if not 2 * f < 1.01 * t:
+            failures.append(f"tp_fsdp: rank {r} holds {f} embed/head bytes, replicated {t}")
+    return row, failures
+
+
+def pipeline_3d_phase(seed: int, ref: dict, pair: bool = True) -> dict:
+    """Pipeline x tensor and pipeline x sequence parallelism at GPT-2-small
+    widths (phase 23's ``StagedLM``, 12 blocks as 2 stages of 6, and its
+    ``DOWNPOUR``), against ``ref``, phase 23's one-rank run: (a) four gloo
+    ranks spawned on the card (``--pp3d-rank``), grid 1 x 2 x 2:
+    ``tp_shards=2``, then with ``fsdp=True`` (bit for bit the replicated
+    run), then ``seq_shards=2`` with the model built ``seq_axis="seq"``:
+    each run's first window, history and center within phase 23's gates,
+    B1-B3 launched on each rank ``blocks_per_stage x microbatches x local
+    steps`` times (tp) or never (sp), each rank's blocks a quarter (tp) or
+    half (sp) of one rank's, the returned model predicting on one rank; and
+    ``tp_shards=2`` with ``seq_shards=2`` refused in JAX's words; (b) on a
+    machine with 4 cards, the same over NCCL, one rank a card (else
+    ``pp3d_cards_run: 1``).  ``pair=False`` skips (a)."""
+    import tempfile
+
+    from distkeras_tpu_torch import algorithms
+    from distkeras_tpu_torch.models import StagedLM
+    from distkeras_tpu_torch.parallel import PipelineEngine
+
+    refused = None
+    try:
+        PipelineEngine(StagedLM(**dict(PP_MODEL, num_stages=1, blocks_per_stage=1),
+                                seq_axis="seq"), "token_crossentropy", "adam",
+                       algorithms.Downpour(TRAIN_WINDOW), tp_shards=2, seq_shards=2,
+                       device=ZOO_DEVICE)
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "not supported" not in refused:
+        raise AssertionError(f"pipeline_3d: tp_shards=2 with seq_shards=2 was not refused: "
+                             f"{refused}")
+    out = {}
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = [("four_ranks_one_card", 4, "gloo", False)] if pair else []
+        if count >= 4:
+            runs.append(("cards", 4, "nccl", True))
+        for case, world, backend, cards in runs:
+            t0 = time.perf_counter()
+            got = _spawn_pp3d(seed, world, backend, cards, workdir)
+            row, failures = _pp3d_versus(got, ref, backend)
+            row = dict(case=case, backend=backend, ranks=world,
+                       **({"pp3d_cards_run": world} if cards else {}), **row,
+                       both_axes_refused=refused, seconds=time.perf_counter() - t0,
+                       failures=failures)
+            emit(phase="pipeline_3d", **row)
+            out[case] = row
+            if failures:
+                raise AssertionError(f"pipeline_3d: {case}: {failures}")
+    if count < 4:
+        emit(phase="pipeline_3d", case="cards", pp3d_cards_run=1,
+             reason="the 1 x 2 x 2 grids over NCCL, one rank a card, need "
+                    "torch.cuda.device_count() >= 4", card=CARD)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -4297,6 +4559,8 @@ def main(argv=None) -> int:
                         help="run one spawned rank of the MoE phase (internal)")
     parser.add_argument("--pp-rank", metavar="SPEC", default=None,
                         help="run one spawned rank of the pipeline phase (internal)")
+    parser.add_argument("--pp3d-rank", metavar="SPEC", default=None,
+                        help="run one spawned rank of the pipeline_3d phase (internal)")
     args = parser.parse_args(argv)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
@@ -4310,6 +4574,8 @@ def main(argv=None) -> int:
         return moe_rank_main(args.moe_rank)
     if args.pp_rank is not None:
         return pp_rank_main(args.pp_rank)
+    if args.pp3d_rank is not None:
+        return pp3d_rank_main(args.pp3d_rank)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4346,28 +4612,44 @@ def main(argv=None) -> int:
     if no_tensor_cores:
         raise AssertionError(f"kernels without tensor-core instructions: {no_tensor_cores}")
 
-    cases = kernel_phase(args.seed)
-    bwd_cases = bwd_kernel_phase(args.seed)
-    predictor_launches = predictor_phase(args.seed)
-    lm_launches = lm_phase(args.seed)
-    train_launches, train_run = train_phase(args.seed)
-    zoo_phase(args.seed)
-    staleness_phase(args.seed)
-    flow_phase(args.seed)
-    head_dim_rows = head_dim_phase(args.seed)
-    networking_phase(args.seed)
-    eager_run, cifar_frame, _, _ = epochs_phase(args.seed)
-    streaming_phase(args.seed, eager_run, cifar_frame)
-    checkpoint_phase(args.seed, eager_run, cifar_frame)
-    remat_graph = remat_graph_phase(args.seed, train_run)
-    serving = serving_phase(args.seed)
-    packing = packing_phase(args.seed)
-    mesh = mesh_phase(args.seed, eager_run, cifar_frame, train_launches, train_run)
-    seq = seq_phase(args.seed, train_run)["two_ranks_one_card"]
-    tp = tp_phase(args.seed, train_run)["two_ranks_one_card"]
-    serving_tp = serving_tp_phase(args.seed)["two_ranks_one_card"]
-    moe = moe_phase(args.seed)
-    pp = pipeline_phase(args.seed)["two_ranks_one_card"]
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name`` and printed."""
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t
+            emit(phase="timing", of=name, seconds=seconds[name])
+
+    cases = timed("kernel", kernel_phase, args.seed)
+    bwd_cases = timed("bwd_kernel", bwd_kernel_phase, args.seed)
+    predictor_launches = timed("predictor", predictor_phase, args.seed)
+    lm_launches = timed("lm", lm_phase, args.seed)
+    train_launches, train_run = timed("train", train_phase, args.seed)
+    timed("zoo", zoo_phase, args.seed)
+    timed("staleness", staleness_phase, args.seed)
+    timed("flow", flow_phase, args.seed)
+    head_dim_rows = timed("head_dim", head_dim_phase, args.seed)
+    timed("networking", networking_phase, args.seed)
+    eager_run, cifar_frame, _, _ = timed("epochs", epochs_phase, args.seed)
+    timed("streaming", streaming_phase, args.seed, eager_run, cifar_frame)
+    timed("checkpoint", checkpoint_phase, args.seed, eager_run, cifar_frame)
+    remat_graph = timed("remat_graph", remat_graph_phase, args.seed, train_run)
+    serving = timed("serving", serving_phase, args.seed)
+    packing = timed("packing", packing_phase, args.seed)
+    mesh = timed("mesh", mesh_phase, args.seed, eager_run, cifar_frame, train_launches,
+                 train_run)
+    seq = timed("seq", seq_phase, args.seed, train_run)["two_ranks_one_card"]
+    tp = timed("tp", tp_phase, args.seed, train_run)["two_ranks_one_card"]
+    serving_tp = timed("serving_tp", serving_tp_phase, args.seed)["two_ranks_one_card"]
+    moe = timed("moe", moe_phase, args.seed)
+    pipeline = timed("pipeline", pipeline_phase, args.seed)
+    pp = pipeline["two_ranks_one_card"]
+    pp3d = timed("pipeline_3d", pipeline_3d_phase, args.seed,
+                 pipeline["one_rank"])["four_ranks_one_card"]
+    emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()), card=CARD)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -4455,6 +4737,12 @@ def main(argv=None) -> int:
         "launches_moe_predictor": moe["one_rank"]["predictor"]["launches_b1"],
         "launches_pp_train_per_rank": [r[0] for r in pp["launches_b1_b2_b3_per_rank"]],
         "launches_pp_train_one_rank": pp["launches_b1_b2_b3_one_rank"][0],
+        "launches_pp3d_tp_train_per_rank": [r[0] for r in
+                                            pp3d["tp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_pp3d_tp_fsdp_train_per_rank": [r[0] for r in
+                                                 pp3d["tp_fsdp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_pp3d_sp_train_per_rank": [r[0] for r in
+                                            pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -4473,6 +4761,12 @@ def main(argv=None) -> int:
         "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][1],
         "launches_pp_train_per_rank": [r[1] for r in pp["launches_b1_b2_b3_per_rank"]],
         "launches_pp_train_one_rank": pp["launches_b1_b2_b3_one_rank"][1],
+        "launches_pp3d_tp_train_per_rank": [r[1] for r in
+                                            pp3d["tp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_pp3d_tp_fsdp_train_per_rank": [r[1] for r in
+                                                 pp3d["tp_fsdp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_pp3d_sp_train_per_rank": [r[1] for r in
+                                            pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -4499,6 +4793,12 @@ def main(argv=None) -> int:
         "launches_moe_train_ep_per_rank": moe["two_ranks_one_card"]["launches_b1_b2_b3"][2],
         "launches_pp_train_per_rank": [r[2] for r in pp["launches_b1_b2_b3_per_rank"]],
         "launches_pp_train_one_rank": pp["launches_b1_b2_b3_one_rank"][2],
+        "launches_pp3d_tp_train_per_rank": [r[2] for r in
+                                            pp3d["tp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_pp3d_tp_fsdp_train_per_rank": [r[2] for r in
+                                                 pp3d["tp_fsdp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_pp3d_sp_train_per_rank": [r[2] for r in
+                                            pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

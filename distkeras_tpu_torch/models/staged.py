@@ -20,8 +20,13 @@ initialisation, prediction, decode and the equivalence tests use.  The
 pipelined schedule is another executor of the same parameters, not another
 model.  Every LayerNorm takes ``ln_eps``.
 
-Not in this slice: ``seq_axis`` (pipeline x sequence parallelism, ROADMAP
-Queue A item 15c-ii) raises ``NotImplementedError``.
+``seq_axis`` (pipeline x sequence parallelism, ``PipelineEngine(
+seq_shards=k)``): the blocks run ring attention over that mesh axis
+(:func:`~distkeras_tpu_torch.parallel.ring.ring_attention`), on this rank's
+block of the sequence, and the engine embeds it at its offset
+(``embed(offset=)``).  Decode and serving take the ``seq_axis=None`` twin,
+``dataclasses.replace(model, seq_axis=None)``, on the same parameters (the
+trainers hand it back).
 """
 
 from __future__ import annotations
@@ -43,7 +48,6 @@ from distkeras_tpu_torch.models.transformer import (
     packed_positions,
     take_rows,
 )
-from distkeras_tpu_torch.parallel.engine import _not_ported
 
 __all__ = ["StagedLM", "StagedTransformer", "stack_block_params"]
 
@@ -85,16 +89,11 @@ class StagedTransformer(ModelAdapter):
     causal = False
 
     def __post_init__(self):
-        if self.seq_axis is not None:
-            raise _not_ported(
-                f"{type(self).__name__}(seq_axis={self.seq_axis!r}) (pipeline x sequence "
-                "parallelism)", "item 15c-ii (pipeline x tensor and pipeline x sequence "
-                "parallelism)")
         # a template the stage functions call with each block's parameters;
         # on the meta device it holds no memory of its own
         with torch.device("meta"):
-            self._block = TransformerEncoderBlock(self.dim, self.heads, causal=self.causal,
-                                                  ln_eps=self.ln_eps)
+            self._block = TransformerEncoderBlock(self.dim, self.heads, seq_axis=self.seq_axis,
+                                                  causal=self.causal, ln_eps=self.ln_eps)
 
     @property
     def num_blocks(self) -> int:

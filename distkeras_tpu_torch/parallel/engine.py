@@ -416,9 +416,11 @@ class WindowedEngine:
         self._fsdp_dims = None
         #: the axis the fsdp center is split over (the GSPMD engine: workers)
         self._fsdp_axis = SEQ_AXIS
-        #: the group of the ranks that hold the same workers (the seq ranks
-        #: of a row; the GSPMD engine's model ranks), or None
-        self._row_group = self.seq_group
+        #: the groups of the ranks that hold the same workers, one an axis
+        #: after ``workers`` (the seq ranks of a row; the GSPMD engine's
+        #: model ranks; the pipeline's stage ranks, then its model or seq
+        #: ranks); None for an axis of one rank
+        self._row_groups = (self.seq_group,)
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: torch.Generator, sample_input) -> TrainState:
@@ -431,10 +433,11 @@ class WindowedEngine:
 
     def _from_rank0(self, tree):
         """``tree`` as mesh rank 0 holds it, on every rank of the grid (one
-        broadcast per dtype and axis: over the row's ranks, seq or model,
-        then over workers); the tree itself without a group."""
+        broadcast per dtype and axis: over each of the row's axes, seq,
+        model or stages, then over workers); the tree itself without a
+        group."""
         leaves = tree_leaves(tree)
-        for group in (self._row_group, self.group):
+        for group in (*self._row_groups, self.group):
             if group is not None:
                 leaves = [t.clone() for t in broadcast(leaves, 0, group)]
         leaves = iter(leaves)

@@ -163,7 +163,9 @@ def dims_like(tree, dims):
 
 
 def leaf_views(adapter) -> dict:
-    """Per parameter name, the leaf's shape in the JAX package's flax layout
+    """Per parameter name of an adapter's module (or of a module itself: the
+    pipeline reads a staged model's block template), the leaf's shape in
+    the JAX package's flax layout
     (output channels last) and the port's dim that holds that last dim:
     what :func:`default_tp_dim` is read on.  A ``Linear`` weight ``[out,
     in]`` is flax's ``[in, out]`` (dim 0); a conv weight ``[out, in, *k]``
@@ -177,7 +179,7 @@ def leaf_views(adapter) -> dict:
     from distkeras_tpu_torch.models import zoo
     from distkeras_tpu_torch.models.transformer import _SelfAttention
 
-    module = getattr(adapter, "module", None)
+    module = adapter if isinstance(adapter, nn.Module) else getattr(adapter, "module", None)
     views: dict = {}
     if not isinstance(module, nn.Module):
         return views
@@ -219,7 +221,10 @@ def _arg(args, kwargs, i, name, default=None):
 class _TensorParallel(TorchFunctionMode):
     """The forward of one worker on one model rank: split leaves (by
     identity) run column-parallel where an op takes them on their output
-    channels, and are gathered whole at any other use (once a forward)."""
+    channels, and are gathered whole at any other use (once a forward).
+    An integer index into the leading dim of a leaf split on a later dim is
+    split as the leaf is (a staged model's stage and block of a stacked
+    leaf, ``v[0]``, ``v[i]``)."""
 
     def __init__(self, placed: dict, axis: str, mesh):
         from distkeras_tpu_torch.models.moe import expert_ffn
@@ -277,6 +282,12 @@ class _TensorParallel(TorchFunctionMode):
             if p is not None and isinstance(out, torch.Tensor) and out.shape == args[0].shape:
                 self.placed.setdefault(id(out), (out, p))
             return out
+        if func is _T.__getitem__:
+            p = self._get(args[0])
+            if p is not None and p.dim > 0 and isinstance(args[1], int):
+                out = func(*args, **kwargs)
+                self.placed[id(out)] = (out, _Placed(p.dim - 1, p.shape[1:]))
+                return out
         out = self._column_parallel(func, args, kwargs)
         if out is not None:
             return out
@@ -423,7 +434,7 @@ class GSPMDEngine(WindowedEngine):
         self.axis = WORKER_AXIS
         #: the model axis's process group (None on one rank)
         self.model_group = axis_group(self.mesh, TP_AXIS)
-        self._row_group = self.model_group
+        self._row_groups = (self.model_group,)
         self._views = leaf_views(adapter)
         #: per parameter leaf, the dim split over the model axis (-1: whole)
         self._tp_dims = None

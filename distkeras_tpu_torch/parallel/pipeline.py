@@ -32,21 +32,46 @@ worker a workers rank, and the stages of a staged model
   ticks' graphs and runs the reverse schedule itself: ``M + S - 1`` ticks
   from the last, each microbatch's cotangent handed back one stage by the
   reverse shift, so that every rank takes part in every collective in the
-  same order and no collective runs inside autograd.  The embedding's
-  gradient lands on stage 0 and the head's on the last stage, and
-  :meth:`PipelineEngine._sync_grads` sums them over ``stages``; under
+  same order and no collective over ``stages`` runs inside autograd.  The
+  embedding's gradient lands on stage 0 and the head's on the last stage,
+  and :meth:`PipelineEngine._sync_grads` sums them over ``stages``; under
   ``fsdp=True`` the sum is a reduce-scatter, each stage keeping its block.
   ``remat=True`` recomputes a tick's stage (and head) on the backward,
-  which runs no collective.
+  which runs no collective over ``stages``.
 
-Staged blocks carry no dropout, as in JAX.  Not in this slice:
-``tp_shards > 1`` and ``seq_shards > 1`` (pipeline x tensor and pipeline x
-sequence parallelism, ROADMAP Queue A item 15c-ii), and captured CUDA-graph
-windows (``unroll`` other than 1 on a card, item 20).
+* **Pipeline x tensor parallelism** (``tp_shards=k``): the grid is ``(world
+  / (S k), S, k)``, ``(workers, stages, model)`` (mesh rank ``(w, s, m)`` is
+  global rank ``(w S + s) k + m``).  Each ``blocks`` leaf is further split
+  over ``model`` by JAX's ``_tp_tail``: the GSPMD engine's
+  :func:`~distkeras_tpu_torch.parallel.gspmd.default_tp_dim` on the
+  per-stage shape in flax's layout (:func:`~distkeras_tpu_torch.parallel.
+  gspmd.leaf_views` of the staged model's block template), so that at
+  widths that split every staged leaf splits, its 1-D ones too; the
+  embedding and the head stay whole over ``model``.  Each tick's stage runs
+  inside the GSPMD engine's :class:`~distkeras_tpu_torch.parallel.gspmd.
+  _TensorParallel` mode: column-parallel products, a split leaf gathered
+  whole at any other use.  The model ranks of a stage run the same ticks,
+  so the mode's collectives, and those its backward runs inside the
+  reverse schedule's ``torch.autograd.grad``, pair up; the head and the
+  embedding run no collective.
+* **Pipeline x sequence parallelism** (``seq_shards=k``, a staged model
+  built with ``seq_axis="seq"``): the grid is ``(workers, stages, seq)``;
+  each rank takes its block of the sequence (and of per-token labels,
+  :meth:`shard_batches`), embeds it at its offset, and the blocks run ring
+  attention over ``seq`` in every tick; a classifier's pooled outputs are
+  ``pmean``'d over ``seq``, per-token outputs stay block-local, and every
+  gradient is ``pmean``'d over ``seq`` after the stage sum (the windowed
+  engine's rule).  ``tp_shards > 1`` with ``seq_shards > 1`` is refused, as
+  in JAX.
+
+Staged blocks carry no dropout, as in JAX.  Not in this slice: captured
+CUDA-graph windows (``unroll`` other than 1 on a card, ROADMAP Queue A
+item 20).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import warnings
@@ -66,10 +91,17 @@ from distkeras_tpu_torch.parallel.engine import (
     _not_ported,
     zero_shard_dim,
 )
-from distkeras_tpu_torch.parallel.gspmd import dims_like
+from distkeras_tpu_torch.parallel.gspmd import (
+    _Placed,
+    _TensorParallel,
+    default_tp_dim,
+    dims_like,
+    leaf_views,
+)
 from distkeras_tpu_torch.parallel.mesh import (
     PP_AXIS,
     SEQ_AXIS,
+    TP_AXIS,
     WORKER_AXIS,
     _reduce_scatter,
     all_gather,
@@ -78,6 +110,7 @@ from distkeras_tpu_torch.parallel.mesh import (
     bind_mesh,
     broadcast_from_last,
     make_mesh_grid,
+    pmean,
     ppermute,
     resolve_axis,
     resolve_device,
@@ -85,8 +118,6 @@ from distkeras_tpu_torch.parallel.mesh import (
 from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 __all__ = ["PP_AXIS", "PipelineEngine"]
-
-_ITEM_15C_II = "item 15c-ii (pipeline x tensor and pipeline x sequence parallelism)"
 
 
 def _named_optimizer(opt) -> bool:
@@ -111,10 +142,12 @@ class _PipelinedView(ModelAdapter):
 
     ``apply`` runs inside :func:`~distkeras_tpu_torch.parallel.mesh.bind_mesh`
     over a mesh with the ``stages`` axis, on this rank's parameters: the
-    ``blocks`` leaves its stage's ``[1, blocks_per_stage, ...]``, the
-    embedding and head whole or (``shard_dims``, set by the engine under
-    ``fsdp=True``) split over the stages and gathered here.  Its outputs are
-    the staged model's sequential ``apply``'s, on every stage rank."""
+    ``blocks`` leaves its stage's ``[1, blocks_per_stage, ...]`` (with
+    ``tp_dims``, its model block of them), the embedding and head whole or
+    (``shard_dims``, set by the engine under ``fsdp=True``) split over the
+    stages and gathered here.  Its outputs are the staged model's
+    sequential ``apply``'s, on every stage rank; with a seq axis, of this
+    rank's sequence block."""
 
     staged: Any
     microbatches: int
@@ -122,6 +155,9 @@ class _PipelinedView(ModelAdapter):
     #: {"embed": name -> dim, "head": name -> dim}: the dim each non-staged
     #: leaf is split on over the stages (-1: whole), or None
     shard_dims: Any = None
+    #: name -> dim: the dim each ``blocks`` leaf is split on over the model
+    #: axis (-1: whole), or None without tensor parallelism
+    tp_dims: Any = None
 
     @property
     def per_token_labels(self) -> bool:
@@ -150,8 +186,28 @@ class _PipelinedView(ModelAdapter):
 
     # ------------------------------------------------------------ schedule
     def _tick(self, blocks, head, x_in, last: bool):
-        y = self.staged.stage(blocks, x_in)
+        """One tick's stage (and the head on the last stage) on the stage
+        leaves ``blocks`` (``[1, blocks_per_stage, ...]``); with a model
+        axis inside :class:`_TensorParallel`, entered here so that remat's
+        recomputation places the leaves again."""
+        with self._tensor_parallel(blocks):
+            y = self.staged.stage({k: v[0] for k, v in blocks.items()}, x_in)
         return self.staged.head(head, y) if last else y
+
+    def _tensor_parallel(self, blocks):
+        """The mode that runs a stage over the model axis, the split leaves
+        keyed by the stage leaves themselves; a null context without one."""
+        if not self.tp_dims:
+            return contextlib.nullcontext()
+        size = resolve_axis(TP_AXIS).size
+        placed = {}
+        for name, v in blocks.items():
+            d = self.tp_dims[name]
+            if d >= 0:
+                whole = list(v.shape)
+                whole[d] *= size
+                placed[id(v)] = (v, _Placed(d, torch.Size(whole)))
+        return _TensorParallel(placed, TP_AXIS, None)
 
     def forward(self, params, inputs, keep: bool = False, remat: bool = False):
         """The scheduled forward on this rank's (whole) ``params``: the
@@ -165,15 +221,18 @@ class _PipelinedView(ModelAdapter):
             raise ValueError(f"batch {B} not divisible by microbatches {M}")
         mb, seq = B // M, inputs.shape[1]
         last = s == S - 1
-        blocks = {k: v[0] for k, v in params["blocks"].items()}
-        head = params["head"]
+        seq_axis = getattr(self.staged, "seq_axis", None)
+        blocks, head = params["blocks"], params["head"]
         dtype = params["embed"]["tok_embed.weight"].dtype
         device = params["embed"]["tok_embed.weight"].device
         act = (mb, seq, self.staged.dim)
         tape = _Tape()
         micro = None
         if s == 0:
-            tape.h0 = self.staged.embed(params["embed"], inputs)
+            # with a seq axis, this rank's block starts at its index times
+            # the block's length
+            offset = 0 if seq_axis is None else resolve_axis(seq_axis).index * seq
+            tape.h0 = self.staged.embed(params["embed"], inputs, offset=offset)
             micro = [m.requires_grad_(keep) for m in tape.h0.detach().split(mb)]
         tick = functools.partial(self._tick, last=last)
         buf = None
@@ -198,7 +257,13 @@ class _PipelinedView(ModelAdapter):
         else:
             local = torch.zeros((B,) + self._head_shape(head, act, dtype)[1:], dtype=dtype,
                                 device=device)
-        return broadcast_from_last(local, PP_AXIS), tape
+        outs = broadcast_from_last(local, PP_AXIS)
+        if seq_axis is not None and not self.per_token_labels:
+            # a classifier's head pooled this rank's block (its sum over the
+            # block's length): the mean over seq is the whole sequence's
+            # pool, the same on every seq rank; per-token outputs stay local
+            outs = pmean(outs, seq_axis)
+        return outs, tape
 
     def _head_shape(self, head, act, dtype) -> tuple:
         """The head's output shape for one microbatch, asked of the head on
@@ -248,16 +313,17 @@ class _PipelinedView(ModelAdapter):
 
 
 class PipelineEngine(WindowedEngine):
-    """Windowed async-SGD engine over a ``(workers, stages)`` grid of ranks.
+    """Windowed async-SGD engine over a ``(workers, stages)`` grid of ranks,
+    or a ``(workers, stages, model)`` or ``(workers, stages, seq)`` one.
 
     Same public surface and parameter-server semantics as
     :class:`~distkeras_tpu_torch.parallel.engine.WindowedEngine`; the model
     runs as a microbatch pipeline down the ``stages`` axis.  Needs a staged
     adapter (:class:`~distkeras_tpu_torch.models.staged.StagedTransformer`-like:
     an ``{"embed", "blocks", "head"}`` parameter tree and pure ``embed`` /
-    ``stage`` / ``head`` functions).  ``mesh`` (a ``(workers, stages)``
-    grid; by default one over every rank of the process group) replaces
-    JAX's ``devices``, and ``device`` is the port's."""
+    ``stage`` / ``head`` functions).  ``mesh`` (the grid; by default one
+    over every rank of the process group) replaces JAX's ``devices``, and
+    ``device`` is the port's."""
 
     def __init__(
         self,
@@ -342,19 +408,22 @@ class PipelineEngine(WindowedEngine):
         self.microbatches = S if microbatches is None else int(microbatches)
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {self.microbatches}")
-        # the port's refusals, after JAX's checks
-        if tp > 1 or sp > 1:
-            raise _not_ported(f"tp_shards={tp}, seq_shards={sp} on the pipeline engine",
-                              _ITEM_15C_II)
+        # the port's refusal, after JAX's checks
         if _graphs_requested(unroll) and resolve_device(device).type == "cuda":
             raise _not_ported("pipeline stages inside a captured window (unroll other than 1 "
                               "on a card)", "item 20 (CUDA-graph follow-ups)")
+        # the third axis: the model axis (pipeline x tensor) or the seq axis
+        # (pipeline x sequence), as in JAX's 3-D meshes
+        third = TP_AXIS if tp > 1 else SEQ_AXIS if sp > 1 else None
+        names = (WORKER_AXIS, PP_AXIS) + ((third,) if third else ())
+        dims = (worker_ranks, S) + ((tp * sp,) if third else ())
         if mesh is None:
-            mesh = make_mesh_grid(worker_ranks, S, axis_names=(WORKER_AXIS, PP_AXIS))
-        if tuple(mesh.mesh_dim_names or ()) != (WORKER_AXIS, PP_AXIS) or resolve_axis(
-                PP_AXIS, mesh).size != S:
-            raise ValueError(f"num_stages={S} needs a ({WORKER_AXIS}, {PP_AXIS}) grid with "
-                             f"{S} stage ranks, got {mesh}")
+            mesh = make_mesh_grid(*dims, axis_names=names)
+        if tuple(mesh.mesh_dim_names or ()) != names or any(
+                resolve_axis(n, mesh).size != d for n, d in zip(names[1:], dims[1:])):
+            raise ValueError(f"num_stages={S}, tp_shards={tp}, seq_shards={sp} need a "
+                             f"{names} grid of {'x'.join(map(str, dims[1:]))} ranks a worker, "
+                             f"got {mesh}")
         self.user_adapter = staged_adapter
         view = _PipelinedView(staged_adapter, self.microbatches,
                               # the staged model's own head form: a default would
@@ -366,22 +435,32 @@ class PipelineEngine(WindowedEngine):
             remat=remat, unroll=unroll, device=device,
         )
         self.fsdp = self._pp_fsdp
-        self.seq_shards = sp
         self.axis = WORKER_AXIS
         #: the stages axis's process group (None on one rank)
         self.stage_group = axis_group(self.mesh, PP_AXIS)
         self.stage_index = resolve_axis(PP_AXIS, self.mesh).index
-        self._row_group = self.stage_group
+        #: the model axis's process group (None without tensor parallelism)
+        self.model_group = axis_group(self.mesh, TP_AXIS) if tp > 1 else None
+        # the windowed engine's seq-axis rules (the sequence blocks of the
+        # data, the per-token stats' mean over seq) read these
+        self.seq_shards = sp
+        self.seq_axis = SEQ_AXIS if sp > 1 else None
+        self.seq_group = axis_group(self.mesh, SEQ_AXIS) if sp > 1 else None
+        self._row_groups = (self.stage_group, self.model_group or self.seq_group)
         #: per parameter leaf, the dim split over the stages (-1: whole)
         self._pp_dims = None
+        #: per parameter leaf, the dim split over the model axis (-1: whole)
+        self._tp_dims = None
 
     # ------------------------------------------------------------ placement
     def _record_layout(self, params) -> None:
-        """The stage-placement table from the whole parameters (at
-        ``init_state`` and ``state_from_center`` alike): every ``blocks``
-        leaf on its stage dim 0; under ``fsdp=True`` each embed/head leaf on
-        :func:`zero_shard_dim`'s dim (-1: whole).  The JAX package's shape
-        rule holds: no non-staged leaf may share a staged leaf's shape."""
+        """The placement tables from the whole parameters (at
+        ``init_state`` and ``state_from_center`` alike): over the stages,
+        every ``blocks`` leaf on its stage dim 0, and under ``fsdp=True``
+        each embed/head leaf on :func:`zero_shard_dim`'s dim (-1: whole);
+        over the model axis, each ``blocks`` leaf on :meth:`_tp_dim`'s dim,
+        embed and head whole.  The JAX package's shape rule holds: no
+        non-staged leaf may share a staged leaf's shape."""
         staged = {tuple(x.shape) for x in tree_leaves(params["blocks"])}
         for key, sub in params.items():
             if key == "blocks":
@@ -405,27 +484,58 @@ class PipelineEngine(WindowedEngine):
                 "params stay fully replicated", stacklevel=4,
             )
         self.adapter.shard_dims = shard_dims if self._pp_fsdp else None
+        if self.tp_shards > 1:
+            views = leaf_views(getattr(self.user_adapter, "_block", None))
+            self._tp_dims = {k: tree_map(lambda x: -1, sub) for k, sub in params.items()}
+            self._tp_dims["blocks"] = {n: self._tp_dim(views, n, x)
+                                       for n, x in params["blocks"].items()}
+            self.adapter.tp_dims = self._tp_dims["blocks"]
+
+    def _tp_dim(self, views, name: str, leaf) -> int:
+        """The dim of a whole ``blocks`` leaf (``[S, per_stage, *shape]``)
+        split over the model axis, or -1: JAX's ``_tp_tail``, the GSPMD
+        engine's :func:`default_tp_dim` applied to the per-stage shape in
+        flax's layout (``[1, per_stage, *flax shape]``: a 1-D per-block leaf
+        splits too), on the port's dim that holds flax's last dim."""
+        shape = tuple(leaf.shape[2:])
+        view, port_dim = views.get(name, (shape, len(shape) - 1))
+        if default_tp_dim((1, leaf.shape[1]) + tuple(view), self.tp_shards) is None:
+            return -1
+        return 2 + port_dim
+
+    def _placements(self):
+        """``(axis, dims table)`` of each axis a leaf may be split over."""
+        out = [(PP_AXIS, self._pp_dims)]
+        if self._tp_dims is not None:
+            out.append((TP_AXIS, self._tp_dims))
+        return out
 
     def _block(self, tree, lead: int = 0):
-        """This stage's block of each stage-placed leaf of a whole tree (new
-        tensors), its dims taken after ``lead`` leading dims."""
-        ax = resolve_axis(PP_AXIS, self.mesh)
+        """This rank's block of each placed leaf of a whole tree (new
+        tensors): its stage's, then its model rank's; dims taken after
+        ``lead`` leading dims."""
+        for axis, dims in self._placements():
+            ax = resolve_axis(axis, self.mesh)
 
-        def one(d, x):
-            if d < 0:
-                return x
-            size = x.shape[lead + d] // ax.size
-            return x.narrow(lead + d, ax.index * size, size).clone()
+            def one(d, x):
+                if d < 0:
+                    return x
+                size = x.shape[lead + d] // ax.size
+                return x.narrow(lead + d, ax.index * size, size).clone()
 
-        return tree_map(one, dims_like(tree, self._pp_dims), tree)
+            tree = tree_map(one, dims_like(tree, dims), tree)
+        return tree
 
     def _whole(self, tree, lead: int = 0):
-        """Each stage-placed leaf of a tree of stage blocks gathered whole
-        over the stages (a collective every stage rank takes part in)."""
+        """Each placed leaf of a tree of blocks gathered whole over the
+        model axis and the stages (collectives every rank of the row takes
+        part in)."""
         with torch.no_grad():
-            return tree_map(
-                lambda d, x: x if d < 0 else all_gather(x, PP_AXIS, lead + d, self.mesh),
-                dims_like(tree, self._pp_dims), tree)
+            for axis, dims in reversed(self._placements()):
+                tree = tree_map(
+                    lambda d, x: x if d < 0 else all_gather(x, axis, lead + d, self.mesh),
+                    dims_like(tree, dims), tree)
+        return tree
 
     def _local_block(self, params):
         return self._block(params)
@@ -514,19 +624,26 @@ class PipelineEngine(WindowedEngine):
         head gradient on the last stage (zeros elsewhere), so their sum over
         ``stages`` is exact replication.  Under ``fsdp=True`` a split leaf
         takes its stage's block of that sum (a reduce-scatter, the transpose
-        of the gather at use).  The ``blocks`` gradients stay per stage."""
+        of the gather at use).  The ``blocks`` gradients stay per stage.
+        With a seq axis every gradient is then ``pmean``'d over ``seq``:
+        each seq rank holds its partial gradient (times ``seq_shards`` under
+        a classifier's pmean), and the mean is the exact total."""
         ax = resolve_axis(PP_AXIS, self.mesh)
-        if ax.size == 1:
-            return grads
-        dims = self._pp_dims
-        keys = [k for k in grads if k != "blocks"]
-        whole = [(k, n) for k in keys for n in grads[k] if dims[k][n] < 0]
-        summed = dict(zip(whole, all_reduce_sum([grads[k][n] for k, n in whole], ax.group)))
-        out = {"blocks": grads["blocks"]}
-        for k in keys:
-            out[k] = {n: summed[k, n] if dims[k][n] < 0 else _reduce_scatter(g, ax, dims[k][n])
-                      for n, g in grads[k].items()}
-        return out
+        out = grads
+        if ax.size > 1:
+            dims = self._pp_dims
+            keys = [k for k in grads if k != "blocks"]
+            whole = [(k, n) for k in keys for n in grads[k] if dims[k][n] < 0]
+            summed = dict(zip(whole, all_reduce_sum([grads[k][n] for k, n in whole], ax.group)))
+            out = {"blocks": grads["blocks"]}
+            for k in keys:
+                out[k] = {n: summed[k, n] if dims[k][n] < 0 else _reduce_scatter(g, ax, dims[k][n])
+                          for n, g in grads[k].items()}
+        if self.seq_axis is None:
+            return out
+        leaves = iter(g / self.seq_shards
+                      for g in all_reduce_sum(tree_leaves(out), self.seq_group))
+        return tree_map(lambda _: next(leaves), out)
 
 
 def _grid_ranks(mesh) -> int:

@@ -36,9 +36,13 @@ defaults it to the device count, and the model comes back whole.  With
 with as many stages) the ranks form the pipeline engine's ``(workers,
 stages)`` grid (:mod:`~distkeras_tpu_torch.parallel.pipeline`), each step's
 batch running as ``pp_microbatches`` microbatches (default: one a stage)
-through the stages; ``num_workers`` defaults to ``world /
-pipeline_stages``, one worker a workers rank, and the model comes back
-whole.  Construct a trainer around a model and call
+through the stages; with ``tp_shards > 1`` or ``seq_shards > 1`` (a staged
+model built with ``seq_axis="seq"``) its ``(workers, stages, model)`` or
+``(workers, stages, seq)`` grid; ``num_workers`` defaults to ``world /
+(pipeline_stages x tp_shards x seq_shards)``, one worker a workers rank
+(JAX's default, the device count, fails its own pipeline engine's check
+whenever a row holds more than one device), and the model comes back
+whole, a staged model's seq-free twin.  Construct a trainer around a model and call
 ``trainer.train(dataframe)`` to get a
 :class:`~distkeras_tpu_torch.models.TrainedModel` back (a Keras model, with
 its trained weights written back, when one was passed in); the constructor
@@ -127,6 +131,10 @@ def _serving_twin(adapter: ModelAdapter) -> ModelAdapter:
     module = getattr(adapter, "module", None)
     if module is not None and getattr(module, "seq_axis", None) is not None:
         return dataclasses.replace(adapter, module=module.twin(None))
+    if dataclasses.is_dataclass(adapter) and getattr(adapter, "seq_axis", None) is not None:
+        # a staged adapter (pipeline x sequence parallelism) is the model
+        # itself: its twin is a fresh instance with the seq axis off
+        return dataclasses.replace(adapter, seq_axis=None)
     return adapter
 
 
@@ -566,6 +574,17 @@ class Trainer:
                 self.history[_metric_key(name, i)] = [float(m[i]) for m in metrics_per_epoch]
         return engine, state, adapter
 
+    def _worker_row(self) -> int:
+        """The ranks of one worker, which the default worker count divides
+        the group's ranks by: a pipeline maps workers one to one onto the
+        rows of its grid, each ``pipeline_stages x tp_shards x seq_shards``
+        ranks (JAX's ``PipelineEngine`` check); the windowed engine's row is
+        its seq ranks; the GSPMD engine counts every rank, as JAX's counts
+        every device, and its model ranks then share the workers."""
+        if self.pipeline_stages > 1:
+            return self.pipeline_stages * self.tp_shards * self.seq_shards
+        return self.seq_shards
+
     def _make_engine(self, adapter, rule, num_workers, metrics, commit_schedule=None,
                      mesh=None):
         """The engine ``_fit`` trains with, routed as the JAX package routes
@@ -693,8 +712,7 @@ class AveragingTrainer(Trainer):
 
     def __init__(self, *args, num_workers: int = None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.num_workers = num_workers or _default_workers(
-            self.device, self.seq_shards * self.pipeline_stages)
+        self.num_workers = num_workers or _default_workers(self.device, self._worker_row())
 
     def train(self, dataframe: DataFrame, shuffle: bool = False):
         worker = workers_mod.AveragingWorker(self.worker_optimizer, self.batch_size)
@@ -799,8 +817,7 @@ class DistributedTrainer(Trainer):
             dispatch_epochs, pipeline_stages, pp_microbatches, tp_spec_fn,
             prefetch, checkpoint_blocks, device,
         )
-        self.num_workers = num_workers or _default_workers(
-            self.device, self.seq_shards * self.pipeline_stages)
+        self.num_workers = num_workers or _default_workers(self.device, self._worker_row())
         self.master_port = master_port
         self.parameter_server: Optional[ParameterServer] = None
         # optional per-worker commit periods: the staleness simulation
@@ -905,8 +922,8 @@ class DistributedTrainer(Trainer):
 
 def _default_workers(device, row: int) -> int:
     """The default worker count: one per workers rank of the grid (the
-    ranks over the ``row`` ranks of a worker: its seq shards or pipeline
-    stages), else one per card."""
+    ranks over the ``row`` ranks of a worker, :meth:`Trainer._worker_row`),
+    else one per card."""
     return max(1, local_device_count(device) // row)
 
 

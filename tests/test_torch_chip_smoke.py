@@ -535,3 +535,56 @@ def test_pipeline_phase_rehearsal(on_cpu, capsys, monkeypatch):
     monkeypatch.setattr(chip_smoke, "_spawn_pp", lambda *args: broken)
     with pytest.raises(AssertionError, match="block bytes"):
         chip_smoke.pipeline_phase(0)
+
+
+def test_pipeline_3d_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # phase 24 at TINY_STAGED's widths against phase 23's one-rank run made
+    # here: four gloo ranks spawned on the CPU (grid 1 x 2 x 2), pp x tp,
+    # with fsdp, and pp x sp
+    monkeypatch.setattr(chip_smoke, "PP_MODEL", TINY_STAGED)
+    ref = chip_smoke._pp_one_rank(0, 1)
+    spawned = []
+    spawn = chip_smoke._spawn_pp3d
+
+    def keep(*args):
+        spawned.append(spawn(*args))
+        return spawned[-1]
+
+    monkeypatch.setattr(chip_smoke, "_spawn_pp3d", keep)
+    out = chip_smoke.pipeline_3d_phase(0, ref)
+    rows = _emitted(capsys, "pipeline_3d")
+    assert [r["case"] for r in rows] == ["four_ranks_one_card", "cards"]
+    assert rows[1]["pp3d_cards_run"] == 1
+    row = out["four_ranks_one_card"]
+    assert rows[0] == {"phase": "pipeline_3d", **json.loads(json.dumps(row))}
+    assert not row["failures"] and row["grid"] == [1, 2, 2] and row["local_steps"] == 8
+    assert "not supported" in row["both_axes_refused"]
+    for name, axis, share in (("tp", "model", 4), ("tp_fsdp", "model", 4), ("sp", "seq", 2)):
+        case = row[name]
+        assert case["axes"] == ["workers", "stages", axis]
+        assert case["first_window_loss_rel_err"] <= chip_smoke.PP_FIRST_LOSS_RTOL
+        assert case["vs_one_rank"]["loss_rel_err"] <= chip_smoke.PP_LOSS_RTOL
+        assert case["vs_one_rank"]["param_rel_norm_err"] <= chip_smoke.PP_PARAM_REL_NORM
+        # a rank's blocks: a quarter of one rank's over (stages, model), half over stages
+        assert [share * b for b in case["block_bytes_per_rank"]] == [row["block_bytes_one_rank"]] * 4
+        # the CPU runs the plain attention over gloo on CPU tensors: no kernel
+        # launch to count, nothing staged
+        assert case["launches_b1_b2_b3_per_rank"] == [[0, 0, 0]] * 4
+        assert case["host_staged_bytes_per_rank"] == [0] * 4
+        assert case["predict"]["finite"] and case["predict"]["seq_axis"] == "None"
+        for key in ("tokens_per_s", "peak_memory_gb_per_rank", "seconds"):
+            assert key in case
+    assert row["tp_fsdp"]["vs_tp"]["bitwise"]
+    assert [2 * b for b in row["tp_fsdp"]["embed_head_bytes_per_rank"]] == \
+        row["tp"]["embed_head_bytes_per_rank"]
+    for key in ("tokens_per_s_one_rank", "card", "seconds"):
+        assert key in row
+    # a failed gate raises: the same ranks' run with rank 1 holding its
+    # stage's blocks whole over the model axis
+    ranks = spawned[0]
+    broken = [ranks[0], dict(ranks[1], tp=dict(ranks[1]["tp"],
+                                               block_bytes=2 * ranks[1]["tp"]["block_bytes"]))]
+    broken += ranks[2:]
+    monkeypatch.setattr(chip_smoke, "_spawn_pp3d", lambda *args: broken)
+    with pytest.raises(AssertionError, match="block bytes"):
+        chip_smoke.pipeline_3d_phase(0, ref)

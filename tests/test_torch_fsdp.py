@@ -295,11 +295,13 @@ def test_fsdp_rejects_bad_combos():
     with pytest.raises(ValueError, match="GSPMD engine"):
         WindowedEngine(port_mlp((32,)), "categorical_crossentropy", "sgd",
                        algorithms.Downpour(4), fsdp=True, device="cpu")
-    # pipeline x seq is still to port (ROADMAP Queue A item 15c-ii), and says
-    # so where a staged model would take the seq axis
+    # pipeline x seq (item 15c-ii, ported) takes fsdp: the staged model
+    # builds its blocks on the seq axis, and the trainer's row is a worker's
+    # 2 stages x 2 seq ranks (tests/test_torch_pp_sp.py trains it)
     from distkeras_tpu_torch.models import StagedLM
 
-    with pytest.raises(NotImplementedError, match="item 15c-ii"):
-        tdk.DOWNPOUR(StagedLM(vocab_size=LM["vocab_size"], dim=LM["dim"], heads=LM["heads"],
+    t = tdk.DOWNPOUR(StagedLM(vocab_size=LM["vocab_size"], dim=LM["dim"], heads=LM["heads"],
                               max_len=LM["max_len"], seq_axis="seq"),
                      num_workers=4, seq_shards=2, pipeline_stages=2, fsdp=True, device="cpu")
+    assert t.fsdp and t._worker_row() == 4
+    assert t.master_model._block.attn.seq_axis == "seq"

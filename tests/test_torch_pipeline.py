@@ -272,25 +272,25 @@ def _checkpoint_case(workdir):
 
 
 def _refusal_case():
-    """What JAX's engine does and this slice does not: the pipeline with a
-    model axis, and with a seq axis (one stage here, so that the grid's
-    checks pass on two ranks)."""
+    """The pipeline with a model axis, and with a seq axis (one stage here,
+    so that the grid's checks pass on two ranks): each builds its 3-D grid;
+    both at once is refused, in JAX's words."""
     from distkeras_tpu_torch import algorithms
     from distkeras_tpu_torch.models import StagedLM
     from distkeras_tpu_torch.parallel import PipelineEngine
 
     out = {}
     one = dict(LM, num_stages=1)
-    for name, kwargs in (("tp", dict(tp_shards=2)), ("seq", dict(seq_shards=2))):
-        model = StagedLM(**one)
-        if name == "seq":
-            model.seq_axis = "seq"  # a ring-attention staged adapter's mark
+    for name, kwargs in (("tp", dict(tp_shards=2)), ("seq", dict(seq_shards=2)),
+                         ("both", dict(tp_shards=2, seq_shards=2))):
+        model = StagedLM(**one, seq_axis="seq" if "seq_shards" in kwargs else None)
         try:
-            PipelineEngine(model, "token_crossentropy", "sgd", algorithms.Downpour(2),
-                           device="cpu", **kwargs)
-            out[name] = np.asarray("")
-        except NotImplementedError as e:
-            out[name] = np.asarray(str(e))
+            engine = PipelineEngine(model, "token_crossentropy", "sgd", algorithms.Downpour(2),
+                                    device="cpu", **kwargs)
+            out[name] = np.asarray([*engine.mesh.mesh_dim_names,
+                                    *map(str, engine.mesh.shape)])
+        except (NotImplementedError, ValueError) as e:
+            out[name] = np.asarray([str(e)])
     return out
 
 
@@ -562,10 +562,14 @@ def test_pipeline_rejects_bad_configs():
 
 
 def test_pipeline_layouts_to_come_are_refused_by_name(ranks):
-    """Past JAX's checks, a model axis or a seq axis on the pipeline names
-    item 15c-ii."""
-    for name in ("tp", "seq"):
-        assert "item 15c-ii" in str(ranks[0][0]["refused"][name]), name
+    """A model axis or a seq axis on the pipeline (item 15c-ii, ported)
+    builds the 3-D grid, 1 x 1 x 2 on two ranks; both at once stays refused
+    in JAX's words."""
+    for got in ranks[0]:
+        refused = got["refused"]
+        assert list(refused["tp"]) == ["workers", "stages", "model", "1", "1", "2"]
+        assert list(refused["seq"]) == ["workers", "stages", "seq", "1", "1", "2"]
+        assert "not supported" in str(refused["both"][0])
 
 
 def test_broadcast_from_last_keeps_the_cotangent_on_the_last_stage(ranks):

@@ -174,11 +174,20 @@ def test_decode_spec_is_the_transformer_lm_layout(lm):
 
 def test_staged_lm_checks():
     """JAX's ``num_classes`` error, ``ln_eps`` reaching every LayerNorm, and
-    the seq axis refused by the item that brings it."""
+    the seq axis (item 15c-ii) reaching every block's attention, the
+    trainers' twin without it on the same parameter layout."""
     with pytest.raises(ValueError, match="num_classes does not apply"):
         StagedLM(**BASE, num_classes=3)
     model = StagedLM(**BASE, ln_eps=1e-5)
     assert model._block.ln1.eps == model._block.ln2.eps == 1e-5
     assert model.decode_spec(model.init(torch.Generator(), None)[0])["config"]["ln_eps"] == 1e-5
-    with pytest.raises(NotImplementedError, match="item 15c-ii"):
-        StagedTransformer(**BASE, seq_axis="seq")
+    from distkeras_tpu_torch.trainers import _serving_twin
+
+    ring = StagedTransformer(**BASE, seq_axis="seq")
+    assert ring._block.attn.seq_axis == "seq" and ring._block.attn.causal is False
+    twin = _serving_twin(ring)
+    assert twin.seq_axis is None and twin._block.attn.seq_axis is None
+    assert type(twin) is StagedTransformer and twin.num_blocks == ring.num_blocks
+    shapes = lambda m: {k: {n: tuple(v.shape) for n, v in sub.items()}
+                        for k, sub in m.init(torch.Generator(), None)[0].items()}
+    assert shapes(twin) == shapes(ring)
