@@ -127,8 +127,9 @@ toolkit.  Phases, each printing JSON lines:
 19. seq: sequence parallelism, (a) two gloo ranks spawned on the one card
     (``--seq-rank``), the ``(workers, seq)`` grid 1 x 2: the train phase's
     ``DOWNPOUR`` over ``TransformerLM(seq_axis="seq")`` at GPT-2-small
-    widths with ``seq_shards=2`` (each rank holds 512 tokens of each row)
-    against the train phase's one-rank run (the first window's loss within
+    widths cut to 6 blocks and one epoch, with ``seq_shards=2`` (each rank
+    holds 512 tokens of each row) against the same run on one rank (the
+    first window's loss within
     ``SEQ_FIRST_LOSS_RTOL``, the loss history and the center within
     ``SEQ_LOSS_RTOL`` and ``SEQ_PARAM_REL_NORM``), then ``fsdp=True`` bit
     for bit the replicated run, with its center in seq shards; tokens/s,
@@ -157,8 +158,17 @@ toolkit.  Phases, each printing JSON lines:
     ``fsdp=True``, then ``seq_shards=2`` with the model built
     ``seq_axis="seq"`` (the ``(workers, stages, seq)`` grid), each against
     phase 23's one-rank run (and both grids over NCCL, one rank a card, on
-    a 4-card machine; see :func:`pipeline_3d_phase`).  A ``timing`` line
-    then gives every phase's wall seconds.
+    a 4-card machine; see :func:`pipeline_3d_phase`);
+25. hf_telemetry: a GPT-2-small checkpoint's layout (``GPT2LMHeadModel``'s
+    state dict, random from ``--seed``) through ``gpt2_state_to_staged``
+    into a ``PretrainedStagedLM`` of 2 stages: its forward on the card
+    against the CPU, the train phase's one-rank ``DOWNPOUR`` over it with
+    the training telemetry off and then on (``DISTKERAS_TELEMETRY``,
+    ``DISTKERAS_DYNAMICS`` with the ``warn`` watchdog, ``profile_dir``), bit
+    for bit the same, and the fine-tuned model served over HTTP by
+    ``install_http_endpoint`` on the flight deck's exporter (see
+    :func:`hf_telemetry_phase`).  A ``timing`` line then gives every
+    phase's wall seconds.
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -178,7 +188,8 @@ phase 23 around the one-rank training (B1-B3 12 a step) and each stage
 rank's pipelined training (B1-B3 ``blocks_per_stage x microbatches`` a
 step); phase 24 around each rank's training on the 3-D grids (pp x tp as
 phase 23's stage ranks, every model rank running all heads; pp x sp 0: the
-ring's plain products).  Phases 7 to 9, 11 to 14 and 18's
+ring's plain products); phase 25 around the converted forward (B1 12) and
+each of its two trainings (B1-B3 12 a step).  Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -2705,8 +2716,13 @@ def mesh_phase(seed: int, eager_run, frame, train_launches, train_run) -> dict:
 
 
 # sequence-parallel phase: the train phase's DOWNPOUR over a GPT-2-small
-# TransformerLM(seq_axis="seq") on the (workers, seq) grid, 2 seq ranks
-SEQ_MODEL = GPT2_SMALL
+# TransformerLM(seq_axis="seq") on the (workers, seq) grid, 2 seq ranks.
+# Cut in depth to 6 of GPT-2 small's 12 blocks and to one epoch of the train
+# phase's two, widths kept, against a one-rank run of the same cut in this
+# process: the two ranks on one card move every step's gradients and ring
+# hops through the host, and the cut keeps the whole script under 950 s
+SEQ_MODEL = dict(GPT2_SMALL, num_layers=6)
+SEQ_EPOCHS = 1
 SEQ_SHARDS, SEQ_RANK_TIMEOUT_S = 2, 900
 # The first window's loss, before any commit: the same arithmetic up to the
 # order of the products (the ring's plain f32 products against B1-B3's
@@ -2733,7 +2749,7 @@ def _seq_cls_inputs(seed: int):
 def seq_train(seed: int, seq_shards: int, **kwargs):
     """The train phase's ``DOWNPOUR`` over ``SEQ_MODEL`` (seq_axis="seq"
     when ``seq_shards > 1``), 2 workers, batch 4, window 2, Adam, on the
-    train phase's task: ``(trainer, run)``."""
+    train phase's task, for ``SEQ_EPOCHS`` epochs: ``(trainer, run)``."""
     import distkeras_tpu_torch as tdk
     from distkeras_tpu_torch.models import TransformerLM
 
@@ -2743,11 +2759,11 @@ def seq_train(seed: int, seq_shards: int, **kwargs):
     trainer = _keeping_fit(tdk.DOWNPOUR)(
         model, loss="token_crossentropy", metrics=("token_accuracy",),
         worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=TRAIN_WORKERS,
-        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=TRAIN_EPOCHS,
+        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=SEQ_EPOCHS,
         seed=seed, device=ZOO_DEVICE, seq_shards=seq_shards, **kwargs)
     run = _trained(trainer, tdk.from_numpy(x, y))
     run.update(first_window_loss=trainer.window_losses[0],
-               tokens_per_s=TRAIN_EPOCHS * TRAIN_ROWS * SEQ_MODEL["max_len"] / run["seconds"])
+               tokens_per_s=SEQ_EPOCHS * TRAIN_ROWS * SEQ_MODEL["max_len"] / run["seconds"])
     return trainer, run
 
 
@@ -2855,11 +2871,11 @@ def seq_rank_main(spec_path: str) -> int:
     import torch.distributed as dist
 
     global ZOO_DEVICE, SEQ_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW
-    global TRAIN_EPOCHS, SEQ_CLS_ROWS, SEQ_PREDICT_ROWS
+    global SEQ_EPOCHS, SEQ_CLS_ROWS, SEQ_PREDICT_ROWS
     with open(spec_path, encoding="utf-8") as fh:
         spec = json.load(fh)
     ZOO_DEVICE, SEQ_MODEL = spec["device"], spec["model"]
-    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS = spec["train"]
+    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, SEQ_EPOCHS = spec["train"]
     SEQ_CLS_ROWS, SEQ_PREDICT_ROWS = spec["cls_rows"], spec["predict_rows"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2884,7 +2900,7 @@ def _spawn_seq(seed: int, world: int, backend: str, cards: bool, workdir: str) -
     name = f"seq_{backend}_{world}"
     init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=SEQ_MODEL, backend=backend,
-                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, TRAIN_EPOCHS],
+                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WORKERS, TRAIN_WINDOW, SEQ_EPOCHS],
                   cls_rows=SEQ_CLS_ROWS, predict_rows=SEQ_PREDICT_ROWS, world=world,
                   rank=rank, init=init, out=out, device_index=rank if cards else 0,
                   threads=torch.get_num_threads())
@@ -2894,8 +2910,9 @@ def _spawn_seq(seed: int, world: int, backend: str, cards: bool, workdir: str) -
 
 
 def _seq_versus(got: dict, train_run: dict, cls_want, backend: str) -> tuple:
-    """A spawned grid's runs against the one-rank train run and the one-rank
-    classifier, and the phase's gates."""
+    """A spawned grid's runs against the one-rank run ``train_run`` (the
+    same training on one rank, :func:`seq_train` with ``seq_shards=1``) and
+    the one-rank classifier, and the phase's gates."""
     sp, fsdp = got["sp"], got["fsdp"]
     versus = _versus(sp, train_run)
     first = abs(sp["first_window_loss"] - train_run["first_window_loss"]) / abs(
@@ -2903,7 +2920,7 @@ def _seq_versus(got: dict, train_run: dict, cls_want, backend: str) -> tuple:
     cls_err = float((got["classifier"]["logits"] - cls_want).abs().max())
     row = dict(grid=sp["grid"], seq_shards=SEQ_SHARDS, model="TransformerLM", **SEQ_MODEL,
                workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
-               epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, tokens_per_rank=SEQ_MODEL["max_len"]
+               epochs=SEQ_EPOCHS, rows=TRAIN_ROWS, tokens_per_rank=SEQ_MODEL["max_len"]
                // SEQ_SHARDS, loss=sp["loss"], loss_one_rank=train_run["loss"],
                first_window_loss=sp["first_window_loss"],
                first_window_loss_one_rank=train_run["first_window_loss"],
@@ -2950,11 +2967,13 @@ def _seq_versus(got: dict, train_run: dict, cls_want, backend: str) -> tuple:
 
 
 def seq_phase(seed: int, train_run) -> dict:
-    """Sequence parallelism at GPT-2-small widths: (a) two gloo ranks
-    spawned on the one card (``--seq-rank``; NCCL refuses two ranks on one
-    card), grid 1 x 2: the train phase's ``DOWNPOUR`` with ``seq_shards=2``
-    (each rank holds 512 tokens of each row) against the train phase's
-    one-rank run, then ``fsdp=True`` bit for bit the replicated run; (b)
+    """Sequence parallelism at GPT-2-small widths (``SEQ_MODEL``: 6 blocks,
+    ``SEQ_EPOCHS``): (a) two gloo ranks spawned on the one card
+    (``--seq-rank``; NCCL refuses two ranks on one card), grid 1 x 2: the
+    train phase's ``DOWNPOUR`` with ``seq_shards=2`` (each rank holds 512
+    tokens of each row) against ``train_run``, the same training on one
+    rank (``seq_train(seed, 1)``), then ``fsdp=True`` bit for bit the
+    replicated run; (b)
     ``TransformerClassifier(seq_axis="seq")``'s logits at 2 ranks against
     one rank (B1); (c) the trained twin through ``ModelPredictor`` (B1); (d)
     on a machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
@@ -3798,7 +3817,8 @@ def moe_phase(seed: int, pair: bool = True) -> dict:
     xd, yd = torch.from_numpy(x).to(engine.device), torch.from_numpy(y).to(engine.device)
     pd = {k: v.to(engine.device) for k, v in params.items()}
     sd = {k: v.to(engine.device) for k, v in buffers.items()}
-    _, _, _, engine_loss, _ = engine._local_step(pd, engine.optimizer.init(pd), sd, None, xd, yd)
+    _, _, _, engine_loss, _, _ = engine._local_step(pd, engine.optimizer.init(pd), sd, None, xd,
+                                                    yd)
     with torch.no_grad():
         out, new_state = adapter.apply(pd, sd, xd, training=True)
         aux = float(adapter.aux_loss(new_state))
@@ -4543,6 +4563,254 @@ def pipeline_3d_phase(seed: int, ref: dict, pair: bool = True) -> dict:
     return out
 
 
+# hf_telemetry phase: a GPT-2-small checkpoint's layout (GPT2LMHeadModel's
+# state-dict names and shapes, random from --seed at std 0.02; the card's
+# machine has no transformers) converted by gpt2_state_to_staged into a
+# PretrainedStagedLM of 2 stages, its forward on the card, the train phase's
+# one-rank DOWNPOUR over it with the training telemetry off and on, and the
+# fine-tuned model served over the flight deck's HTTP exporter
+HF_CONFIG = dict(vocab_size=GPT2_SMALL["vocab_size"], n_positions=GPT2_SMALL["max_len"],
+                 n_embd=GPT2_SMALL["dim"], n_head=GPT2_SMALL["heads"],
+                 n_layer=GPT2_SMALL["num_layers"], n_inner=None,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                 tie_word_embeddings=True)
+HF_STAGES = 2
+HF_STD = 0.02
+HF_FORWARD_ROWS = 2  # rows of n_positions tokens in the forward check
+HF_EPOCHS = 1  # of TRAIN_ROWS rows: TRAIN_ROWS / TRAIN_BATCH local steps
+HF_SERVE = (3, 32, 16)  # HTTP requests, prompt tokens, greedy new tokens each
+HF_FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
+def gpt2_state(config: dict, seed: int) -> dict:
+    """A ``GPT2LMHeadModel`` state dict of ``config``'s shapes: matrices and
+    embeddings normal at ``HF_STD`` from ``seed``, LayerNorms at identity,
+    biases zero, ``lm_head.weight`` the tied embedding (HF's own init)."""
+    g = torch.Generator().manual_seed(seed)
+    d, n = config["n_embd"], config["n_layer"]
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g) * HF_STD
+
+    sd = {"transformer.wte.weight": normal(config["vocab_size"], d),
+          "transformer.wpe.weight": normal(config["n_positions"], d)}
+    for i in range(n):
+        pre = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[pre + ln + ".weight"], sd[pre + ln + ".bias"] = torch.ones(d), torch.zeros(d)
+        for name, (fan_in, fan_out) in (("attn.c_attn", (d, 3 * d)), ("attn.c_proj", (d, d)),
+                                        ("mlp.c_fc", (d, 4 * d)), ("mlp.c_proj", (4 * d, d))):
+            sd[pre + name + ".weight"] = normal(fan_in, fan_out)  # Conv1D: (in, out)
+            sd[pre + name + ".bias"] = torch.zeros(fan_out)
+    sd["transformer.ln_f.weight"], sd["transformer.ln_f.bias"] = torch.ones(d), torch.zeros(d)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def _hf_train(staged, seed: int, **kwargs):
+    """The train phase's one-rank ``DOWNPOUR`` (batch 4, window 2, Adam) over
+    the converted model for ``HF_EPOCHS`` epochs: ``(trainer, run)`` with
+    B1-B3's launches in the run."""
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    x, y = lm_task(TRAIN_ROWS, HF_CONFIG["n_positions"], HF_CONFIG["vocab_size"], seed + 26)
+    trainer = tdk.DOWNPOUR(staged, loss="token_crossentropy", metrics=("token_accuracy",),
+                           worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=1,
+                           batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW,
+                           num_epoch=HF_EPOCHS, seed=seed, device=ZOO_DEVICE, **kwargs)
+    for c in counters:
+        c.launches = 0
+    run = _trained(trainer, tdk.from_numpy(x, y))
+    run.update(launches=[c.launches for c in counters], model=trainer.parameter_server.model,
+               history={k: v for k, v in trainer.get_history().items() if k != "training_time"},
+               tokens_per_s=HF_EPOCHS * TRAIN_ROWS * HF_CONFIG["n_positions"] / run["seconds"])
+    return trainer, run
+
+
+def _hf_http(model, seed: int) -> dict:
+    """The fine-tuned model behind ``install_http_endpoint`` on the flight
+    deck's exporter (127.0.0.1, an ephemeral port): ``HF_SERVE``'s greedy
+    requests posted at once, each held to ``greedy_generate``, their
+    latencies, and a ``/metrics`` scrape."""
+    import threading
+    import urllib.request
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.models import greedy_generate
+    from distkeras_tpu_torch.serving import ServingEngine, install_http_endpoint
+    from distkeras_tpu_torch.telemetry.flightdeck import server as server_mod
+
+    n, length, steps = HF_SERVE
+    rng = np.random.default_rng(seed + 27)
+    prompts = [rng.integers(0, HF_CONFIG["vocab_size"], length).tolist() for _ in range(n)]
+    server_mod.configure(0)
+    address = telemetry.flightdeck.ensure_server()
+    engine = ServingEngine(model, num_slots=n, page_size=16, registry=None, device=ZOO_DEVICE)
+    replies, seconds = [None] * n, [None] * n
+
+    def post(i):
+        body = json.dumps({"prompt": prompts[i], "max_new_tokens": steps}).encode()
+        req = urllib.request.Request(f"http://{address}/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            replies[i] = (r.status, json.loads(r.read()))
+        seconds[i] = time.perf_counter() - t0
+
+    try:
+        install_http_endpoint(engine)
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        with urllib.request.urlopen(f"http://{address}/metrics", timeout=60) as r:
+            scrape = r.read().decode()
+    finally:
+        engine.stop()
+        server_mod.stop()
+        server_mod.configure(None)
+    departures = []
+    for prompt, reply in zip(prompts, replies):
+        if reply is None or reply[0] != 200:
+            raise AssertionError(f"hf_telemetry: an HTTP request failed: {reply}")
+        ref = greedy_generate(model, np.asarray([prompt], np.int32), steps)[0, length:].tolist()
+        departures.append(_held_to_greedy(model, prompt, reply[1]["tokens"], ref))
+    rid = telemetry.flightdeck.current_run_id()
+    tokens_line = next((line for line in scrape.splitlines()
+                        if line.startswith(f'serving_tokens_total{{run_id="{rid}"}}')), None)
+    return dict(address=address, requests=n, prompt=length, new_tokens=steps,
+                tokens=[r[1]["tokens"] for r in replies], departures=departures,
+                latency_s=seconds, run_id=rid, scrape_tokens_line=tokens_line,
+                scrape_has_ttft="serving_ttft_seconds_bucket{" in scrape)
+
+
+def hf_telemetry_phase(seed: int) -> dict:
+    """HuggingFace GPT-2 and the training telemetry at GPT-2-small widths:
+
+    (a) ``gpt2_state_to_staged`` (the route ``gpt2_to_staged`` takes after
+    checking its ``GPT2LMHeadModel``) converts ``gpt2_state`` into a
+    ``PretrainedStagedLM`` of ``HF_STAGES`` stages; its logits on
+    ``HF_FORWARD_ROWS`` rows of 1024 tokens through ``TrainedModel`` on the
+    card against the same model on the CPU within ``PREDICT_ATOL`` (B1 once
+    a block);
+    (b) the train phase's one-rank ``DOWNPOUR`` over it (batch 4, window 2,
+    Adam, ``HF_EPOCHS`` epoch of 32 rows), twice: telemetry and dynamics
+    off, then ``DISTKERAS_TELEMETRY`` on, ``DISTKERAS_DYNAMICS`` on with the
+    ``warn`` watchdog and ``profile_dir`` set.  Gates: the two histories
+    equal bit for bit, and the trained centers too; B1-B3 launched
+    ``n_layer x local steps`` times in each run; the dynamics summary
+    finite, with no non-finite gradient or parameter and a nonzero center
+    update; the dynamics JSONL line written; on the card the profiler's
+    Chrome trace names the three kernels, whose share of the profiled
+    epoch's device time is printed;
+    (c) the fine-tuned model served through a ``ServingEngine`` behind
+    ``install_http_endpoint`` on the flight deck's exporter at 127.0.0.1:
+    ``HF_SERVE``'s greedy requests over HTTP, each held to
+    ``greedy_generate`` (a departure only where the reference's top-two gap
+    is below ``GREEDY_GAP``), and a ``/metrics`` scrape carrying the serving
+    counters under the run's ``run_id`` label."""
+    import os
+    import tempfile
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.models import TrainedModel, gpt2_state_to_staged
+    from distkeras_tpu_torch.ops import flash_attention
+    from distkeras_tpu_torch.telemetry.profiler import kernel_times
+
+    cuda = ZOO_DEVICE == "cuda"
+    staged = gpt2_state_to_staged(HF_CONFIG, gpt2_state(HF_CONFIG, seed), HF_STAGES)
+    params, _ = staged.init(None, None)
+    tokens = np.random.default_rng(seed + 28).integers(
+        0, HF_CONFIG["vocab_size"], (HF_FORWARD_ROWS, HF_CONFIG["n_positions"]))
+    flash_attention.launches = 0
+    got = TrainedModel(staged, params, device=ZOO_DEVICE)(tokens).float().cpu()
+    forward_launches = flash_attention.launches
+    want = TrainedModel(staged, params, device="cpu")(tokens)
+    forward_err = float((got - want).abs().max())
+    del got, want
+    failures = []
+    if not forward_err <= PREDICT_ATOL:
+        failures.append(f"the converted forward is off the CPU's by {forward_err}")
+    if forward_launches != (HF_CONFIG["n_layer"] if cuda else 0):
+        failures.append(f"the converted forward launched B1 {forward_launches} times")
+
+    steps = HF_EPOCHS * TRAIN_ROWS // TRAIN_BATCH
+    expected = [HF_CONFIG["n_layer"] * steps if cuda else 0] * 3
+    _, plain = _hf_train(staged, seed)
+    with tempfile.TemporaryDirectory() as workdir:
+        telemetry_dir = os.path.join(workdir, "telemetry")
+        os.environ["DISTKERAS_TELEMETRY_DIR"] = telemetry_dir
+        telemetry.configure(True)
+        telemetry.dynamics.configure(enabled=True, watchdog="warn")
+        try:
+            _, observed = _hf_train(staged, seed, profile_dir=os.path.join(workdir, "profile"))
+            summary = (telemetry.dynamics.last_summary() or {}).get("summary", {})
+            jsonl = [os.path.join(telemetry_dir, f) for f in os.listdir(telemetry_dir)
+                     if f.startswith("metrics_")]
+            series = [json.loads(line) for path in jsonl for line in open(path)
+                      if '"type": "dynamics"' in line]
+            traces = [os.path.join(workdir, "profile", f)
+                      for f in os.listdir(os.path.join(workdir, "profile"))]
+            times = kernel_times(traces[0]) if traces else {}
+            http = _hf_http(observed["model"], seed)
+        finally:
+            telemetry.dynamics.configure()
+            telemetry.configure(None)
+            telemetry.trace.reset()
+            telemetry.metrics.reset()
+            os.environ.pop("DISTKERAS_TELEMETRY_DIR", None)
+    flash = {k: sum(us for name, us in times.items() if k in name) for k in HF_FLASH}
+    device_us = sum(times.values())
+    row = dict(model="PretrainedStagedLM", config=HF_CONFIG, num_stages=HF_STAGES,
+               forward_rows=HF_FORWARD_ROWS, forward_max_abs_err=forward_err,
+               forward_atol=PREDICT_ATOL, forward_launches_b1=forward_launches,
+               batch_size=TRAIN_BATCH, window=TRAIN_WINDOW, epochs=HF_EPOCHS, rows=TRAIN_ROWS,
+               local_steps=steps, loss=plain["loss"],
+               histories_bitwise=observed["history"] == plain["history"],
+               vs_plain=_versus(observed, plain),
+               launches_b1_b2_b3_plain=plain["launches"],
+               launches_b1_b2_b3_observed=observed["launches"],
+               launches_b1_b2_b3_expected=expected,
+               tokens_per_s_plain=plain["tokens_per_s"],
+               tokens_per_s_observed=observed["tokens_per_s"], dynamics_summary=summary,
+               dynamics_lines=len(series), profile_traces=len(traces),
+               profile_kernel_us=flash, profile_device_us=device_us,
+               profile_flash_share=(sum(flash.values()) / device_us) if device_us else None,
+               http=http, card=CARD)
+    if not row["histories_bitwise"] or not row["vs_plain"]["bitwise"]:
+        failures.append(f"the telemetry moved the trajectory: {row['vs_plain']}")
+    for name, got_launches in (("plain", plain["launches"]), ("observed", observed["launches"])):
+        if got_launches != expected:
+            failures.append(f"the {name} run launched B1-B3 {got_launches} times, "
+                            f"expected {expected}")
+    if not summary or not all(isinstance(v, float) and np.isfinite(v) for v in summary.values()):
+        failures.append(f"the dynamics summary is not finite: {summary}")
+    elif (summary.get("nonfinite_grads_max") != 0.0 or summary.get("nonfinite_params_max") != 0.0
+          or not summary.get("update_norm", 0.0) > 0.0):
+        failures.append(f"the dynamics summary is unhealthy: {summary}")
+    if len(series) != HF_EPOCHS:
+        failures.append(f"{len(series)} dynamics JSONL lines for {HF_EPOCHS} epochs")
+    if len(traces) != 1 or (cuda and not all(flash.values())):
+        failures.append(f"profiler traces {traces}, flash kernels' device us {flash}")
+    if not (http["scrape_has_ttft"] and http["scrape_tokens_line"]
+            and float(http["scrape_tokens_line"].split()[-1]) >= HF_SERVE[0] * HF_SERVE[2]):
+        failures.append(f"the /metrics scrape lacks the serving counters: "
+                        f"{http['scrape_tokens_line']}")
+    row["failures"] = failures
+    emit(phase="hf_telemetry", **row)
+    if failures:
+        raise AssertionError(f"hf_telemetry: {failures}")
+    return row
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -4641,7 +4909,8 @@ def main(argv=None) -> int:
     packing = timed("packing", packing_phase, args.seed)
     mesh = timed("mesh", mesh_phase, args.seed, eager_run, cifar_frame, train_launches,
                  train_run)
-    seq = timed("seq", seq_phase, args.seed, train_run)["two_ranks_one_card"]
+    seq = timed("seq", lambda seed: seq_phase(seed, seq_train(seed, 1)[1]),
+                args.seed)["two_ranks_one_card"]
     tp = timed("tp", tp_phase, args.seed, train_run)["two_ranks_one_card"]
     serving_tp = timed("serving_tp", serving_tp_phase, args.seed)["two_ranks_one_card"]
     moe = timed("moe", moe_phase, args.seed)
@@ -4649,6 +4918,7 @@ def main(argv=None) -> int:
     pp = pipeline["two_ranks_one_card"]
     pp3d = timed("pipeline_3d", pipeline_3d_phase, args.seed,
                  pipeline["one_rank"])["four_ranks_one_card"]
+    hf = timed("hf_telemetry", hf_telemetry_phase, args.seed)
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()), card=CARD)
 
     main_case = cases[MAIN_PATH_CASE]
@@ -4743,6 +5013,9 @@ def main(argv=None) -> int:
                                                  pp3d["tp_fsdp"]["launches_b1_b2_b3_per_rank"]],
         "launches_pp3d_sp_train_per_rank": [r[0] for r in
                                             pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_hf_forward": hf["forward_launches_b1"],
+        "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][0],
+                                                 hf["launches_b1_b2_b3_observed"][0]],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -4767,6 +5040,8 @@ def main(argv=None) -> int:
                                                  pp3d["tp_fsdp"]["launches_b1_b2_b3_per_rank"]],
         "launches_pp3d_sp_train_per_rank": [r[1] for r in
                                             pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][1],
+                                                 hf["launches_b1_b2_b3_observed"][1]],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -4799,6 +5074,8 @@ def main(argv=None) -> int:
                                                  pp3d["tp_fsdp"]["launches_b1_b2_b3_per_rank"]],
         "launches_pp3d_sp_train_per_rank": [r[2] for r in
                                             pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
+        "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][2],
+                                                 hf["launches_b1_b2_b3_observed"][2]],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

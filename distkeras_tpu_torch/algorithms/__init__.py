@@ -1,10 +1,9 @@
 """Async-SGD update rules — the port of :mod:`distkeras_tpu.algorithms`:
-the pure-function form of the reference's worker/parameter-server pairs.
-The host-side ``AdaptiveBound`` policy comes with the dynamics telemetry
-(ROADMAP Queue A item 19)."""
+the pure-function form of the reference's worker/parameter-server pairs,
+and the host-side ``AdaptiveBound`` staleness policy."""
 
 from distkeras_tpu_torch.algorithms.adag import Adag
-from distkeras_tpu_torch.algorithms.adaptive import AdaptiveDynSGD
+from distkeras_tpu_torch.algorithms.adaptive import AdaptiveBound, AdaptiveDynSGD
 from distkeras_tpu_torch.algorithms.aeasgd import Aeasgd, Eamsgd
 from distkeras_tpu_torch.algorithms.base import (
     CommitCtx,
@@ -31,6 +30,7 @@ __all__ = [
     "Eamsgd",
     "DynSGD",
     "AdaptiveDynSGD",
+    "AdaptiveBound",
     "Sequential",
     "OneShotAverage",
 ]

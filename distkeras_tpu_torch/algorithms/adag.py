@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from distkeras_tpu_torch.algorithms.base import CommitCtx, CommitResult, UpdateRule
+from distkeras_tpu_torch.telemetry.dynamics import tree_sq_dist
 from distkeras_tpu_torch.utils.pytree import tree_add, tree_sub, tree_where
 
 __all__ = ["Adag"]
@@ -23,6 +26,17 @@ class Adag(UpdateRule):
 
     def init_local_state(self, params):
         return {"anchor": params}
+
+    def dynamics(self, ctx: CommitCtx, local_params, center_params, local_state, center_state):
+        """Expose the accumulation state: the norm of the residual gathered
+        since the anchor and the ``1/steps_in_window`` normaliser it will be
+        scaled by at commit."""
+        del center_params, center_state
+        return {
+            "rule_accum_norm": torch.sqrt(tree_sq_dist(local_params, local_state["anchor"],
+                                                       keep=1)),
+            "rule_accum_steps": ctx.steps_in_window,
+        }
 
     def commit(self, ctx: CommitCtx, local_params, center_params, local_state, center_state):
         residual = tree_sub(local_params, local_state["anchor"])

@@ -127,6 +127,20 @@ class UpdateRule:
     ) -> CommitResult:
         raise NotImplementedError
 
+    def dynamics(
+        self, ctx: CommitCtx, local_params, center_params, local_state, center_state
+    ) -> dict:
+        """Per-worker scalar diagnostics for ``telemetry.dynamics``.
+
+        Called at the commit boundary with *pre-commit* values (the same
+        arguments ``commit`` is about to see; the workers stacked, so each
+        value is ``[v]``, or a scalar the engine broadcasts).  Returned
+        values join the engine's dynamics stats as per-worker series; keys
+        should be ``rule_*``-prefixed to stay clear of the engine's own
+        leaves.  The base rules expose nothing."""
+        del ctx, local_params, center_params, local_state, center_state
+        return {}
+
     # -- shared helpers ----------------------------------------------------
     @staticmethod
     def _masked(ctx: CommitCtx, tree):

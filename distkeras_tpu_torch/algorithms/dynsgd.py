@@ -29,6 +29,14 @@ class DynSGD(UpdateRule):
     def init_local_state(self, params):
         return {"anchor": params, "clock": torch.zeros((), dtype=torch.int32)}
 
+    def dynamics(self, ctx: CommitCtx, local_params, center_params, local_state, center_state):
+        """Expose the staleness the next commit will damp by: the gap between
+        the update counter and each worker's clock, and the resulting
+        ``1/(staleness+1)`` scale."""
+        del ctx, local_params, center_params
+        staleness = (center_state["num_updates"] - local_state["clock"]).to(torch.float32)
+        return {"rule_staleness": staleness, "rule_scale": 1.0 / (staleness + 1.0)}
+
     def _commit(self, ctx: CommitCtx, commit_mask, local_params, center_params, local_state,
                 center_state):
         """The DynSGD commit with the workers of ``commit_mask`` reaching

@@ -167,7 +167,7 @@ def write_manifest(directory: str, step: int) -> str:
         for rel in _step_files(step_dir):
             digest, size = _sha256_file(os.path.join(step_dir, rel))
             files[rel] = {"sha256": digest, "bytes": size}
-        from distkeras_tpu_torch.telemetry import correlate
+        from distkeras_tpu_torch.telemetry.flightdeck import correlate
 
         path = manifest_path(directory, step)
         _atomic_write_json(path, {

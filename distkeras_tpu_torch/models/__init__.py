@@ -1,8 +1,9 @@
-"""Model layer: functional adapters over torch modules, the in-tree
-transformer models with KV-cached greedy decoding, their pipeline-staged
-forms, the mixture-of-experts
-classifier with its expert-parallel placement, and the model zoo of the
-paper's training suite."""
+"""Model layer: functional adapters over torch modules (HuggingFace
+``transformers`` models among them), the in-tree transformer models with
+KV-cached greedy decoding, their pipeline-staged forms (a GPT-2 checkpoint
+converted into one), the mixture-of-experts classifier with its
+expert-parallel placement, and the model zoo of the paper's training
+suite."""
 
 from distkeras_tpu_torch.models.adapter import (
     FunctionalModel,
@@ -13,6 +14,12 @@ from distkeras_tpu_torch.models.adapter import (
 )
 from distkeras_tpu_torch.models.convert import params_from_flax, variables_from_flax
 from distkeras_tpu_torch.models.generate import greedy_generate
+from distkeras_tpu_torch.models.hf import HuggingFaceModel
+from distkeras_tpu_torch.models.hf_staged import (
+    PretrainedStagedLM,
+    gpt2_state_to_staged,
+    gpt2_to_staged,
+)
 from distkeras_tpu_torch.models.moe import (
     MoEEncoderBlock,
     MoEFeedForward,
@@ -38,6 +45,10 @@ __all__ = [
     "params_from_flax",
     "variables_from_flax",
     "greedy_generate",
+    "HuggingFaceModel",
+    "PretrainedStagedLM",
+    "gpt2_state_to_staged",
+    "gpt2_to_staged",
     "MoEEncoderBlock",
     "MoEFeedForward",
     "MoETransformerClassifier",

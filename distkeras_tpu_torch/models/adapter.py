@@ -9,8 +9,9 @@ the module itself.  :class:`TorchModel` wraps an ``nn.Module`` through
 ``FlaxModel``; :class:`FunctionalModel` wraps a plain ``(init_fn,
 apply_fn)`` pair.  Dropout randomness is an explicit ``torch.Generator``
 (JAX's ``rng``).  :func:`as_adapter` wraps a Keras 3 model (torch backend)
-in :class:`~distkeras_tpu_torch.models.keras_adapter.KerasModel`; Hugging
-Face adapters come with a later slice.
+in :class:`~distkeras_tpu_torch.models.keras_adapter.KerasModel` and a
+``transformers`` PyTorch model in
+:class:`~distkeras_tpu_torch.models.hf.HuggingFaceModel`.
 """
 
 from __future__ import annotations
@@ -171,19 +172,26 @@ class TrainedModel:
 
 
 def as_adapter(model) -> ModelAdapter:
-    """Coerce user input (a Keras 3 model, an ``nn.Module`` or an adapter)
-    to an adapter."""
+    """Coerce user input (a Keras 3 model, a ``transformers`` model, an
+    ``nn.Module`` or an adapter) to an adapter."""
     if isinstance(model, ModelAdapter):
         return model
     # Keras model? Checked first: on the torch backend a Keras layer is an
     # nn.Module too.  (Lazy import: keras is heavy.)
-    if type(model).__module__.split(".")[0] in ("keras", "tf_keras", "tensorflow"):
+    root = type(model).__module__.split(".")[0]
+    if root in ("keras", "tf_keras", "tensorflow"):
         from distkeras_tpu_torch.models.keras_adapter import KerasModel
 
         return KerasModel(model)
+    # a transformers model, before the nn.Module branch: its forward returns
+    # a ModelOutput, not logits (a Flax one raises there, naming the path)
+    if root == "transformers":
+        from distkeras_tpu_torch.models.hf import HuggingFaceModel
+
+        return HuggingFaceModel(model)
     if isinstance(model, nn.Module):
         return TorchModel(model)
     raise TypeError(
-        f"cannot adapt {type(model)!r}: pass a Keras 3 model, a torch.nn.Module "
-        "or a distkeras_tpu_torch ModelAdapter"
+        f"cannot adapt {type(model)!r}: pass a Keras 3 model, a transformers model, "
+        "a torch.nn.Module or a distkeras_tpu_torch ModelAdapter"
     )

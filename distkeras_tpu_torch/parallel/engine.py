@@ -82,8 +82,23 @@ each evenly splitting center leaf on each seq rank
 (:func:`zero_shard_dim`) and gathers it at use, around the commit and the
 read-outs: the trajectory is the replicated center's, bit for bit.
 
+**Training dynamics** (``DISTKERAS_DYNAMICS``, read once when the engine
+is built, :mod:`~distkeras_tpu_torch.telemetry.dynamics`): each local step
+also measures its gradients' squared norm and non-finite count, and each
+window, before its commit, every worker's non-finite parameters, its
+squared distance from the center and the rule's own diagnostics
+(``UpdateRule.dynamics``), and across the commit the center's squared
+update.  The values stay on the device (in a captured window, inside the
+graph) and reach the host with the epoch's loss, at the epoch's one
+read-back: ``stats["dynamics"]`` holds per-window globals (``grad_norm``,
+``update_norm``, ``nonfinite_grads``, ``nonfinite_params``, ``[T]``) and
+per-worker series (``divergence``, ``staleness``, the rule's ``rule_*``,
+``[T, num_workers]``), as the JAX engine's.  Off, the engine does none of
+this and the stats have no ``dynamics`` key; on or off, the trajectory is
+the same bit for bit.
+
 Not in this slice: ``remat`` or ``seq_shards > 1`` inside a captured
-window; the dynamics telemetry (``DISTKERAS_DYNAMICS`` is not read).
+window.
 """
 
 from __future__ import annotations
@@ -101,6 +116,7 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 
 from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.telemetry import dynamics as dynamics_mod
 from distkeras_tpu_torch.algorithms.base import CommitCtx, UpdateRule, mesh_ctx
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric, per_token_metric_names
@@ -281,10 +297,12 @@ class _PutBlock(tuple):
 
 
 class _Captured:
-    """One captured window: the graph, its input buffers and its outputs."""
+    """One captured window: the graph, its input buffers and its outputs
+    (the dynamics values among them, with dynamics on)."""
 
-    def __init__(self, graph, x, y, loss, mets, ticks):
+    def __init__(self, graph, x, y, loss, mets, dyn, ticks):
         self.graph, self.x, self.y, self.loss, self.mets = graph, x, y, loss, mets
+        self.dyn = dyn
         #: kernel launches recorded in the graph, by wrapper
         self.ticks = ticks
         self.replays = 0
@@ -399,6 +417,9 @@ class WindowedEngine:
                 f"commit_schedule has {len(self.commit_schedule)} entries for "
                 f"{self.num_workers} workers"
             )
+        # training-dynamics stats, read once: the engine's window and step
+        # bodies branch on this bool for the engine's life
+        self._dynamics = dynamics_mod.enabled()
         # captured windows, keyed as the JAX engine keys its epoch programs;
         # every graph reads and writes the one state ``_static`` holds
         self._graphs: dict = {}
@@ -565,8 +586,9 @@ class WindowedEngine:
     def _local_step(self, params, opt_state, model_state, generator, x, y):
         """One optimizer step of one worker: forward, loss (plus the model's
         auxiliary loss), metrics, backward, optimizer update.  Returns the
-        new ``(params, opt_state, model_state)`` and this step's loss and
-        metrics as device tensors."""
+        new ``(params, opt_state, model_state)``, this step's loss and
+        metrics as device tensors, and with dynamics on its gradients'
+        squared norm and non-finite count (else None)."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         # the ring's collectives resolve the seq axis against this mesh; the
         # binding spans the backward too (remat recomputes the forward there)
@@ -598,9 +620,19 @@ class WindowedEngine:
             out = out.detach()
             mets = (torch.stack([m(out, y) for m in self.metric_fns]) if self.metric_fns
                     else torch.zeros((0,), device=out.device))
+            dstep = self._grad_stats(grads)
             updates, opt_state = self.optimizer.update(grads, opt_state, params)
             params = apply_updates(params, updates)
-        return params, opt_state, model_state, loss.detach(), mets
+        return params, opt_state, model_state, loss.detach(), mets, dstep
+
+    def _grad_stats(self, grads):
+        """With dynamics on, a step's gradient health: ``(squared norm,
+        non-finite count)`` as f32 device scalars; None when off."""
+        if not self._dynamics:
+            return None
+        w = self._dyn_weights
+        return (dynamics_mod.tree_sq_norm(grads, weights=w),
+                dynamics_mod.tree_nonfinite_count(grads, weights=w))
 
     # ---------------------------------------------------------------- window
     def _ctx(self, steps_in_window, mask=None) -> CommitCtx:
@@ -653,32 +685,44 @@ class WindowedEngine:
     def _worker_steps(self, state: TrainState, w: int, xs, ys):
         """Worker ``w`` takes one local step per leading row of ``xs``/``ys``
         (``[steps, batch, ...]``), from and into its slice of ``state``.
-        Returns its losses ``[steps]`` and metrics ``[steps, n_metrics]``."""
+        Returns its losses ``[steps]``, metrics ``[steps, n_metrics]`` and,
+        with dynamics on, its gradients' squared norms and non-finite counts
+        summed over the steps (else None)."""
         worker = lambda tree: tree_map(lambda x: x[w], tree)
         params, opt_state = worker(state.local_params), worker(state.opt_state)
         model_state = worker(state.model_state)
-        losses, mets = [], []
+        losses, mets, grad_stats = [], [], None
         for t in range(xs.shape[0]):
-            params, opt_state, model_state, loss, met = self._local_step(
+            params, opt_state, model_state, loss, met, dstep = self._local_step(
                 params, opt_state, model_state, state.rng[w], xs[t], ys[t])
             losses.append(loss)
             mets.append(met)
+            if dstep is not None:
+                grad_stats = dstep if grad_stats is None else tuple(
+                    a + b for a, b in zip(grad_stats, dstep))
         with torch.no_grad():
             for dst, src in ((state.local_params, params), (state.opt_state, opt_state),
                              (state.model_state, model_state)):
                 tree_map(lambda d, s: d[w].copy_(s), dst, src)
-        return torch.stack(losses), torch.stack(mets)
+        return torch.stack(losses), torch.stack(mets), grad_stats
 
-    def _commit(self, state: TrainState, ctx: CommitCtx) -> TrainState:
+    def _commit(self, state: TrainState, ctx: CommitCtx, dyn=None, center=None) -> TrainState:
         """The rule's commit over all workers, and the model state synced
         under the same mask, written into the state's tensors in place (a
-        captured window replays into the same memory)."""
+        captured window replays into the same memory).  ``center`` is the
+        whole center when the caller has gathered it already; ``dyn`` (the
+        window's dynamics) takes the center's squared update as
+        ``update_sq``."""
         with torch.no_grad():
             # fsdp: the rule's math runs on the whole center (gathered at
             # use), and this rank keeps its block of the result
-            res = self.rule.commit(ctx, state.local_params,
-                                   self._fsdp_gather(state.center_params),
+            if center is None:
+                center = self._fsdp_gather(state.center_params)
+            res = self.rule.commit(ctx, state.local_params, center,
                                    state.rule_local, state.center_rule)
+            if dyn is not None:  # before the copy below overwrites the center
+                dyn["update_sq"] = dynamics_mod.tree_sq_dist(res.center_params, center,
+                                                             weights=self._dyn_weights)
             model_state = self._sync_model_state(ctx, state.model_state)
             _copy_into(
                 (state.local_params, state.center_params, state.rule_local,
@@ -688,29 +732,102 @@ class WindowedEngine:
             )
         return state
 
+    # --------------------------------------------------------------- dynamics
+    @property
+    def _dyn_weights(self):
+        """Per parameter leaf, its share of a dynamics sum on this rank (None:
+        every leaf whole); the GSPMD engine counts a leaf its model ranks
+        all hold whole once across them."""
+        return None
+
+    def _model_total(self, *sums):
+        """Per-rank dynamics sums as totals over the ranks that split the
+        parameters (the GSPMD engine's model axis); as they are here."""
+        return list(sums)
+
+    def _rule_dynamics(self, ctx: CommitCtx, center, state: TrainState) -> dict:
+        """The rule's pre-commit diagnostics (``UpdateRule.dynamics``)."""
+        return self.rule.dynamics(ctx, state.local_params, center, state.rule_local,
+                                  state.center_rule)
+
+    def _pre_commit_dynamics(self, state: TrainState, ctx: CommitCtx, grad_stats, staleness):
+        """The pre-commit snapshot of this rank's workers, each value ``[v]``:
+        the summed gradient stats, non-finite parameters, drift from the
+        center, ``staleness`` and the rule's extras (measured before the
+        commit rewrites them); ``update_sq`` is set by the commit.  Returns
+        the values and the whole center, which the commit reuses."""
+        with torch.no_grad():
+            w, v = self._dyn_weights, self.virtual
+            center = self._fsdp_gather(state.center_params)
+            local = state.local_params
+            dyn = {
+                "grad_sq": grad_stats[0],
+                "nonfinite_grads": grad_stats[1],
+                "nonfinite_params": dynamics_mod.tree_nonfinite_count(local, keep=1, weights=w),
+                "divergence_sq": dynamics_mod.tree_sq_dist(local, center, keep=1, weights=w),
+                "staleness": torch.broadcast_to(staleness.to(torch.float32), (v,)),
+                "update_sq": torch.zeros((), dtype=torch.float32, device=self.device),
+            }
+            for key, value in self._rule_dynamics(ctx, center, state).items():
+                value = torch.as_tensor(value, device=self.device).to(torch.float32)
+                dyn[key] = torch.broadcast_to(value, (v,))
+        return dyn, center
+
+    def _dyn_reduce(self, wins: list) -> dict:
+        """Stack the windows' (or steps') dynamics and reduce them to the
+        epoch-stats layout, on the host: *global* series ``[T]`` (gradient
+        norm and non-finite counts over every worker, the center's update
+        norm) and *per-worker* series ``[T, num_workers]`` (divergence,
+        staleness, the rule's extras).  One all-reduce for the sums over the
+        ranks, one gather for the per-worker series."""
+        dyn = {k: torch.stack([w[k] for w in wins]) for k in wins[0]}
+        with torch.no_grad():
+            sums = [dyn.pop(k).sum(dim=1) for k in ("grad_sq", "nonfinite_grads",
+                                                    "nonfinite_params")]
+            grad_sq, nf_grads, nf_params = all_reduce_sum(sums, self.group)
+            grad_sq, nf_grads, nf_params, divergence_sq, update_sq = self._model_total(
+                grad_sq, nf_grads, nf_params, dyn.pop("divergence_sq"), dyn.pop("update_sq"))
+            out = {"grad_norm": grad_sq.sqrt(), "update_norm": update_sq.sqrt(),
+                   "nonfinite_grads": nf_grads, "nonfinite_params": nf_params}
+            worker = {"divergence": divergence_sq.sqrt(), **dyn}
+            for key, value in worker.items():
+                out[key] = all_gather(value, WORKER_AXIS, 1, self.mesh)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    # ---------------------------------------------------------------- window
     def _window_body(self, state: TrainState, xs, ys, do_commit: bool):
         """One window, in place: every worker of this rank takes
         ``xs.shape[1]`` local steps on its own rows of ``xs``/``ys`` (``[v,
         window, batch, ...]``), then (``do_commit``) the rule commits all
         workers.  Returns the window's loss and metrics, averaged over steps
-        and summed over this rank's workers, as device tensors."""
+        and summed over this rank's workers, as device tensors, and with
+        dynamics on the window's values (:meth:`_pre_commit_dynamics`; else
+        None)."""
         window = xs.shape[1]
-        loss_sum, mets_sum = 0.0, 0.0
+        loss_sum, mets_sum, grad_stats = 0.0, 0.0, []
         for w in range(self.virtual):
-            losses, mets = self._worker_steps(state, w, xs[w], ys[w])
+            losses, mets, stats = self._worker_steps(state, w, xs[w], ys[w])
             loss_sum = loss_sum + losses.mean()
             mets_sum = mets_sum + mets.mean(dim=0)
+            grad_stats.append(stats)
+        dyn = center = None
+        if self._dynamics:
+            ctx = self._ctx(float(window),
+                            torch.full((self.virtual,), do_commit, device=self.device))
+            dyn, center = self._pre_commit_dynamics(
+                state, ctx, [torch.stack(s) for s in zip(*grad_stats)],
+                torch.full((), float(window), device=self.device))
         if do_commit:
-            self._commit(state, self._ctx(float(window)))
-        return loss_sum, mets_sum
+            self._commit(state, self._ctx(float(window)), dyn, center)
+        return loss_sum, mets_sum, dyn
 
     def _run_window(self, state: TrainState, xs, ys, do_commit: bool):
         """One window, eager or replayed from its captured graph.  Returns
-        the state (the engine's captured state when graphs are on) and the
-        window's loss and metrics summed over this rank's workers."""
+        the state (the engine's captured state when graphs are on), the
+        window's loss and metrics summed over this rank's workers and its
+        dynamics values (None with dynamics off)."""
         if not self.use_graphs:
-            loss, mets = self._window_body(state, xs, ys, do_commit)
-            return state, loss, mets
+            return (state, *self._window_body(state, xs, ys, do_commit))
         key = ("win", do_commit, tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
         state = self._adopt(state)
         captured = self._graphs.get(key)
@@ -721,7 +838,8 @@ class WindowedEngine:
         captured.graph.replay()
         captured.replays += 1
         self.graph_stats["replays"] += 1
-        return state, captured.loss.clone(), captured.mets.clone()
+        dyn = None if captured.dyn is None else {k: v.clone() for k, v in captured.dyn.items()}
+        return state, captured.loss.clone(), captured.mets.clone(), dyn
 
     def _adopt(self, state: TrainState) -> TrainState:
         """The state every captured window reads and writes: ``state`` itself
@@ -778,11 +896,11 @@ class WindowedEngine:
         counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
         before = [c.launches for c in counters]
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            loss, mets = self._window_body(state, x, y, do_commit)
+            loss, mets, dyn = self._window_body(state, x, y, do_commit)
         # kernels launched inside the graph at each replay, by wrapper
         ticks = {c.__name__: c.launches - b for c, b in zip(counters, before)}
         self.graph_stats["captures"] += 1
-        return _Captured(graph, x, y, loss, mets, ticks)
+        return _Captured(graph, x, y, loss, mets, dyn, ticks)
 
     def graph_launches(self) -> dict:
         """Kernel launches of the captured windows since the cache was last
@@ -801,21 +919,28 @@ class WindowedEngine:
         """The staleness simulation over ``xs``/``ys`` shaped ``[v, n_steps,
         batch, ...]``: each step, every worker takes one local step, then
         one masked commit runs over all of them (across the ranks too).
-        Returns the state and the per-step loss ``[n_steps]``, averaged over
-        all workers."""
+        Returns the state, the per-step loss ``[n_steps]``, averaged over
+        all workers, and with dynamics on each step's values (the effective
+        staleness is each worker's steps since its last commit)."""
         v = self.virtual
         periods = torch.as_tensor(self.commit_schedule[self.workers], device=self.device)
         since = torch.zeros(v, dtype=torch.int32, device=self.device)
-        losses = []
+        losses, steps_dyn = [], []
         for t in range(xs.shape[1]):
-            step = [self._worker_steps(state, w, xs[w, t:t + 1], ys[w, t:t + 1])[0]
+            step = [self._worker_steps(state, w, xs[w, t:t + 1], ys[w, t:t + 1])
                     for w in range(v)]
             since = since + 1
             mask = (t + 1) % periods == 0
-            state = self._commit(state, self._ctx(since, mask))
+            ctx = self._ctx(since, mask)
+            dyn = center = None
+            if self._dynamics:
+                dyn, center = self._pre_commit_dynamics(
+                    state, ctx, [torch.stack(s) for s in zip(*(r[2] for r in step))], since)
+                steps_dyn.append(dyn)
+            state = self._commit(state, ctx, dyn, center)
             since = torch.where(mask, 0, since)
-            losses.append(torch.cat(step).sum())
-        return state, self._mean_over_workers(torch.stack(losses))[0]
+            losses.append(torch.cat([r[0] for r in step]).sum())
+        return state, self._mean_over_workers(torch.stack(losses))[0], steps_dyn
 
     # ----------------------------------------------------------------- epoch
     def shard_batches(self, xs: np.ndarray, ys: np.ndarray, whole: bool = False):
@@ -827,24 +952,27 @@ class WindowedEngine:
         if not whole:
             xs, ys = xs[self.workers], ys[self.workers]
         xs, ys = self._seq_block(xs, ys)
-        return (torch.from_numpy(np.ascontiguousarray(xs)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(ys)).to(self.device))
+        with telemetry.trace.span("h2d", phase="h2d", bytes=int(xs.nbytes + ys.nbytes)):
+            return (torch.from_numpy(np.ascontiguousarray(xs)).to(self.device),
+                    torch.from_numpy(np.ascontiguousarray(ys)).to(self.device))
 
     def _run_windows(self, state: TrainState, xs, ys):
         """Every window of ``xs``/``ys`` (``[v, n_windows, window, batch,
         ...]``) in turn.  Returns the state and the per-window loss
         ``[n_windows]`` and metrics ``[n_windows, n_metrics]``, averaged
-        over all workers, on the device; nothing is read back."""
+        over all workers, on the device, and each window's dynamics values
+        (None with dynamics off); nothing is read back."""
         do_commit = self.rule.communication_window > 0
-        losses, mets = [], []
+        losses, mets, dyns = [], [], []
         for i in range(xs.shape[1]):
-            state, loss, met = self._run_window(state, xs[:, i], ys[:, i], do_commit)
+            state, loss, met, dyn = self._run_window(state, xs[:, i], ys[:, i], do_commit)
             losses.append(loss)
             mets.append(met)
+            dyns.append(dyn)
         loss, mets = self._mean_over_workers(torch.stack(losses), torch.stack(mets))
-        return state, loss, mets
+        return state, loss, mets, dyns
 
-    def run_epoch(self, state: TrainState, xs, ys):
+    def run_epoch(self, state: TrainState, xs, ys, *, sync_telemetry: bool = True):
         """Run one epoch over ``xs``/``ys`` shaped ``[num_workers,
         n_windows, window, batch, ...]`` (uniform windows) or
         ``[num_workers, n_steps, batch, ...]`` (staleness simulation); over a
@@ -853,15 +981,35 @@ class WindowedEngine:
         ``[n_windows]`` and ``metrics`` ``[n_windows, n_metrics]``, each
         averaged over the window's steps and the workers; or, simulating
         staleness, ``loss`` ``[n_steps]`` averaged over the workers and no
-        metrics (``[0]``), as the JAX engine's stepwise program returns.
-        The stats are read back once, at the end."""
+        metrics (``[0]``), as the JAX engine's stepwise program returns;
+        with dynamics on, also ``dynamics`` (see the module docstring).
+        The stats are read back once, at the end.
+
+        With telemetry on and ``sync_telemetry`` (the default), the epoch
+        runs inside ``window``, ``step`` (through the stats' read-back) and
+        ``commit`` (the residual wait for the center) spans, as the JAX
+        engine's telemetry dispatch records them; ``sync_telemetry=False``
+        records none."""
         self._check_block(xs, ys)
+        if not (sync_telemetry and telemetry.enabled()):
+            return self._epoch(state, xs, ys)
+        with telemetry.trace.span("window", windows=int(xs.shape[1])):
+            with telemetry.trace.span("step", phase="step"):
+                state, stats = self._epoch(state, xs, ys)
+            with telemetry.trace.span("commit", phase="commit"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        return state, stats
+
+    def _epoch(self, state: TrainState, xs, ys):
         if self.commit_schedule is not None:
-            state, losses = self._run_stepwise(state, xs, ys)
+            state, losses, dyns = self._run_stepwise(state, xs, ys)
             stats = {"loss": losses.cpu().numpy(), "metrics": np.zeros((0,), np.float32)}
-            return state.replace(epoch=state.epoch + 1), stats
-        state, losses, mets = self._run_windows(state, xs, ys)
-        stats = {"loss": losses.cpu().numpy(), "metrics": mets.cpu().numpy()}
+        else:
+            state, losses, mets, dyns = self._run_windows(state, xs, ys)
+            stats = {"loss": losses.cpu().numpy(), "metrics": mets.cpu().numpy()}
+        if self._dynamics:
+            stats["dynamics"] = self._dyn_reduce(dyns)
         return state.replace(epoch=state.epoch + 1), stats
 
     def run_epochs(self, state: TrainState, xs, ys, num_epochs: int, *,
@@ -901,7 +1049,7 @@ class WindowedEngine:
             )
         n_total = int(np.prod(xs.shape[:4]))
         local_shape = (self.virtual,) + tuple(xs.shape[1:4])
-        losses, mets = [], []
+        losses, mets, dyns = [], [], []
         for _ in range(num_epochs):
             xs_e, ys_e = xs, ys
             if shuffle_seed is not None:
@@ -913,12 +1061,15 @@ class WindowedEngine:
                     local_shape + xs.shape[4:])
                 ys_e = ys.reshape((n_total,) + ys.shape[4:])[perm].reshape(
                     local_shape + ys.shape[4:])
-            state, loss, met = self._run_windows(state, xs_e, ys_e)
+            state, loss, met, dyn = self._run_windows(state, xs_e, ys_e)
             state = state.replace(epoch=state.epoch + 1)
             losses.append(loss)
             mets.append(met)
-        return state, {"loss": torch.cat(losses).cpu().numpy(),
-                       "metrics": torch.cat(mets).cpu().numpy()}
+            dyns += dyn
+        stats = {"loss": torch.cat(losses).cpu().numpy(), "metrics": torch.cat(mets).cpu().numpy()}
+        if self._dynamics:
+            stats["dynamics"] = self._dyn_reduce(dyns)
+        return state, stats
 
     def clear_program_cache(self, keep_multi: Optional[tuple] = None) -> None:
         """Drop the captured windows (the JAX engine's compiled epoch
@@ -1019,7 +1170,7 @@ class WindowedEngine:
                 "DISTKERAS_STREAMING_STRICT", "").lower() not in ("", "0", "false")
         it = iter(window_iter)
         buf = deque()
-        losses, mets, done_events = [], [], []
+        losses, mets, dyns, done_events = [], [], [], []
         steps_list = []  # per-window step counts (ragged tail weighting)
         n_windows = 0
         depth = max(1, prefetch)
@@ -1054,7 +1205,8 @@ class WindowedEngine:
                     torch.cuda.current_stream(self.device).wait_event(block.ready)
                 xs, ys = block
                 with telemetry.trace.span("window_dispatch", window=n_windows):
-                    state, loss, met = self._run_window(state, xs[:, 0], ys[:, 0], do_commit)
+                    state, loss, met, dyn = self._run_window(state, xs[:, 0], ys[:, 0],
+                                                             do_commit)
                 if self.device.type == "cuda":
                     for t in block:
                         t.record_stream(torch.cuda.current_stream(self.device))
@@ -1064,6 +1216,7 @@ class WindowedEngine:
                 n_windows += 1
                 losses.append(loss)
                 mets.append(met)
+                dyns.append(dyn)
                 if on_window is not None:
                     on_window(state, n_windows)
                 # backpressure: wait on the window launched ``depth`` windows ago
@@ -1093,6 +1246,8 @@ class WindowedEngine:
                  # per-window step counts, so the history can weight a ragged
                  # tail window by its steps
                  "window_steps": np.asarray(steps_list, np.int64)}
+        if self._dynamics:
+            stats["dynamics"] = self._dyn_reduce(dyns)
         return state.replace(epoch=state.epoch + 1), stats
 
     def _report_stream_link(self, src_seconds, steady_src, steady_t0, n_windows, strict_link,

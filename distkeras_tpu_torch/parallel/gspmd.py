@@ -22,7 +22,8 @@ placement is carried out by the engine itself, without model surgery:
   per leaf, on the port's shape and parameter name.
 * **Execution.**  Each forward runs inside a ``TorchFunctionMode`` that
   knows the split leaves by identity (after ``functional_call`` binds
-  them).  ``F.linear``, the convolutions, ``F.embedding`` and ``matmul``
+  them).  ``F.linear``, the convolutions, ``F.embedding``, ``matmul`` and
+  ``torch.addmm`` (HuggingFace's ``Conv1D``, its weight ``[in, out]``)
   over a leaf split on its output channels compute **column-parallel**:
   this rank's block of outputs from the replicated input
   (:func:`~distkeras_tpu_torch.parallel.mesh.copy_to_axis`: its gradient
@@ -47,8 +48,10 @@ placement is carried out by the engine itself, without model surgery:
   after the commit (the windowed engine's ZeRO helpers over the workers
   axis).  Per-worker state keeps the workers axis on its leading dim.
 
-``commit_schedule`` (the staleness simulation) and ``remat`` run as in the
-windowed engine.  Not in this slice: captured CUDA-graph windows (``unroll``
+``commit_schedule`` (the staleness simulation), ``remat`` and the training
+dynamics run as in the windowed engine; the dynamics sums take each split
+leaf's block on its model rank and a whole leaf once, over the model axis,
+and the rule's diagnostics see whole trees.  Not in this slice: captured CUDA-graph windows (``unroll``
 other than 1 on a card) with ``tp_shards > 1`` or ``fsdp`` (ROADMAP Queue A
 item 20), and ``seq_shards`` (ring attention needs the windowed engine, as
 in JAX).
@@ -74,6 +77,7 @@ from distkeras_tpu_torch.parallel.engine import (
 from distkeras_tpu_torch.parallel.mesh import (
     TP_AXIS,
     WORKER_AXIS,
+    all_reduce_sum,
     axis_group,
     copy_to_axis,
     gather_from_axis,
@@ -316,6 +320,14 @@ class _TensorParallel(TorchFunctionMode):
                     or _arg(args, kwargs, 3, "max_norm") is not None):
                 return None
             return gather_from_axis(func(*args, **kwargs), self.axis, -1, self.mesh)
+        if func is torch.addmm:
+            # HF's Conv1D: bias + x @ w, w [in, out] split on its outputs
+            b, x, w = (_arg(args, kwargs, i, n) for i, n in
+                       ((0, "input"), (1, "mat1"), (2, "mat2")))
+            if kwargs.get("beta", 1) != 1 or kwargs.get("alpha", 1) != 1:
+                return None
+            return self._columns(x, w, b, 1, -1, lambda x, w, b: torch.matmul(x, w)
+                                 if b is None else torch.addmm(b, x, w))
         if func in _MATMULS:
             x, w = args[0], _arg(args, kwargs, 1, "other")
             if not isinstance(w, torch.Tensor) or w.dim() != 2:
@@ -535,6 +547,30 @@ class GSPMDEngine(WindowedEngine):
 
     def _local_block(self, params):
         return self._block(params)
+
+    # --------------------------------------------------------------- dynamics
+    @property
+    def _dyn_weights(self):
+        """A split leaf's block counts whole on its model rank; a leaf every
+        model rank holds whole counts ``1 / tp_shards`` on each, so that the
+        sum over the model axis (:meth:`_model_total`) counts it once."""
+        if self.model_group is None:
+            return None
+        return tree_map(lambda d: 1.0 if d >= 0 else 1.0 / self.tp_shards, self._tp_dims)
+
+    def _model_total(self, *sums):
+        return all_reduce_sum(sums, self.model_group)
+
+    def _rule_dynamics(self, ctx, center, state):
+        """The rule's diagnostics on whole trees: over several model ranks
+        the workers' parameters and rule states, and the center, are
+        gathered first (a norm of a model block is not the block's share of
+        the whole norm)."""
+        if self.model_group is None:
+            return super()._rule_dynamics(ctx, center, state)
+        return self.rule.dynamics(ctx, self._whole(state.local_params, lead=1),
+                                  self._whole(center), self._whole(state.rule_local, lead=1),
+                                  state.center_rule)
 
     @property
     def _forward(self):

@@ -436,6 +436,10 @@ class PipelineEngine(WindowedEngine):
         )
         self.fsdp = self._pp_fsdp
         self.axis = WORKER_AXIS
+        # the training-dynamics stats stay off here whatever the switch says,
+        # as in the JAX pipeline engine: a stage rank holds one stage's
+        # gradients, so a norm would need a sum over the stages each step
+        self._dynamics = False
         #: the stages axis's process group (None on one rank)
         self.stage_group = axis_group(self.mesh, PP_AXIS)
         self.stage_index = resolve_axis(PP_AXIS, self.mesh).index
@@ -616,7 +620,7 @@ class PipelineEngine(WindowedEngine):
                     else torch.zeros((0,), device=out.device))
             updates, opt_state = self.optimizer.update(grads, opt_state, params)
             params = apply_updates(params, updates)
-        return params, opt_state, model_state, loss.detach(), mets
+        return params, opt_state, model_state, loss.detach(), mets, None
 
     def _sync_grads(self, grads):
         """The embed and head gradients over the stages: the masked

@@ -22,8 +22,8 @@ Quick start::
 The fault-tolerant router over replicas (``serving/tier.py``:
 ``ServingTier``, ``LocalReplica``, ``HttpReplica``, ``watch_and_swap``)
 needs fleet membership and comes with the control-plane slice (ROADMAP
-Queue A item 18); the ``/generate`` HTTP endpoint needs the flight deck
-(item 19).
+Queue A item 18).  :func:`install_http_endpoint` mounts ``/generate`` on the
+flight deck's HTTP exporter.
 """
 
 from distkeras_tpu_torch.serving.cache import PagedKVCache, append_rows, rollback_rows

@@ -100,8 +100,8 @@ A ``StagedLM`` target (raw with its staged parameters, or as a
 ``TransformerLM`` gives, and is served as one, with ``mesh=`` too.
 
 Not ported here: the chaos fault point and the per-tenant accounting ledger
-(items 18 and 19) and the lock-order watchdog around the engine's condition
-variable (item 19).
+(items 18 and 19b) and the lock-order watchdog around the engine's condition
+variable (item 19b).
 """
 
 from __future__ import annotations

@@ -11,8 +11,7 @@ from the JAX package:
 * :func:`serve_flags` and the request parser of the ``/generate`` endpoint.
 
 :func:`install_http_endpoint` mounts ``/generate`` on the flight deck's
-HTTP server, which comes with the telemetry slice (ROADMAP Queue A item
-19); until then it raises ``NotImplementedError``.
+HTTP server.
 """
 
 from __future__ import annotations
@@ -54,8 +53,7 @@ class GenerateRequest:
     produces; ``request_id`` is the idempotency key; both ride trace-span
     args, never metric labels.  ``tenant`` names the client on whose
     behalf the request runs: it rides span args, and the per-tenant
-    accounting that bills to it comes with the telemetry slice (ROADMAP
-    Queue A item 19).
+    accounting that bills to it comes with ROADMAP Queue A item 19b.
     """
 
     prompt: List[int]
@@ -233,10 +231,71 @@ def install_http_endpoint(engine, path: str = "/generate",
                           timeout: Optional[float] = None,
                           traffic_log=None) -> str:
     """Mount a ``/generate`` endpoint for ``engine`` on the flight deck's
-    HTTP server.  The flight deck comes with the telemetry slice, and the
-    traffic log with the online loop."""
-    del engine, path, timeout, traffic_log
-    raise NotImplementedError(
-        "install_http_endpoint needs the flight deck's HTTP server, which comes "
-        "with the telemetry slice (ROADMAP Queue A item 19)"
-    )
+    HTTP exporter (:mod:`distkeras_tpu_torch.telemetry.flightdeck.server`,
+    which serves only with telemetry on and ``DISTKERAS_TELEMETRY_HTTP``
+    set, or ``server.configure(port)``).  Blocking request/response: the
+    handler thread (the exporter runs one per connection) submits and waits
+    for the result.  A request carrying ``timeout_s`` (the caller's
+    remaining deadline budget) bounds its own wait to that remainder.  On
+    timeout the pending request is cancelled so the engine reclaims its
+    slot and pages — the 504 is a release, not a leak.  Returns the
+    mounted path.
+
+    The handler mints the trace context: a request that arrives without
+    ``trace_id``/``request_id`` gets fresh ids here, and the whole handler
+    runs inside a ``serving.http_request`` span bound to them;
+    ``X-DK-Parent-Span`` names the caller-side span this one nests under.
+
+    ``traffic_log`` (capture of served traffic for online training) comes
+    with ROADMAP Queue A item 18 and is refused until then."""
+    import uuid as _uuid
+
+    from distkeras_tpu_torch.telemetry.flightdeck import server as _server
+    from distkeras_tpu_torch.telemetry.trace import new_trace_id, trace as _trace
+
+    if traffic_log is not None:
+        raise NotImplementedError(
+            "traffic_log is not ported yet: it comes with ROADMAP Queue A item 18 "
+            "(the online loop)"
+        )
+
+    def handle(request):
+        try:
+            req = _parse_request(request)
+        except (ValueError, KeyError, json.JSONDecodeError) as e:
+            body = json.dumps({"error": f"{type(e).__name__}: {e}"})
+            return ("application/json", body, 400)
+        if not req.request_id:
+            req.request_id = _uuid.uuid4().hex
+        if not req.trace_id:
+            req.trace_id = new_trace_id()
+        span_attrs = {"request_id": req.request_id, "trace_id": req.trace_id}
+        if req.tenant:
+            span_attrs["tenant"] = req.tenant
+        parent = (request.get("headers") or {}).get("x-dk-parent-span")
+        if parent:
+            span_attrs["parent"] = str(parent)
+        with _trace.bind(trace_id=req.trace_id, request_id=req.request_id), \
+                _trace.span("serving.http_request", **span_attrs):
+            try:
+                pending = engine.submit(req)
+            except QueueFull as e:
+                return ("application/json", json.dumps({"error": str(e)}),
+                        503, {"Retry-After": "1"})
+            budget = timeout
+            if req.timeout_s is not None:
+                budget = req.timeout_s if budget is None else min(budget, req.timeout_s)
+            result = pending.result(timeout=budget)
+            if result is None:
+                engine.cancel(pending)
+                body = json.dumps({"error": "generation timed out"})
+                return ("application/json", body, 504)
+            if result.finish_reason == "aborted":
+                # engine stopped or crashed with the request in flight — a
+                # retryable server condition, not a successful generation
+                return ("application/json", result.to_json(), 503,
+                        {"Retry-After": "1"})
+            return ("application/json", result.to_json(), 200)
+
+    _server.add_endpoint(path, handle)
+    return path

@@ -1,7 +1,8 @@
 """Fleet-wide run correlation: one ``run_id`` across trainer, daemon, jobs.
 
 The port of :mod:`distkeras_tpu.telemetry.flightdeck.correlate` (copied):
-the checkpoint manifest's ``run_id`` comes from here.
+the correlated tracer, the ``/metrics`` scrape and the checkpoint manifest
+take their ``run_id`` from here.
 
 A fleet run involves several processes — a trainer, a ``PunchcardServer``
 daemon, N spawned jobs — each writing its own trace and metrics files.

@@ -10,9 +10,11 @@ coordinate construction:
 
 Exporters: Prometheus text exposition, JSONL snapshots, and a bridge into
 ``utils.tb.ScalarLogger``; :func:`merge_snapshots` and
-:func:`prometheus_from_snapshot` aggregate per-job snapshots.  The flight
-recorder's metric feed and the compile-count hooks come with the telemetry
-slice (ROADMAP Queue A item 19).
+:func:`prometheus_from_snapshot` aggregate per-job snapshots.  While
+telemetry is on, every counter and gauge write also lands in the flight
+recorder's ring (:mod:`~distkeras_tpu_torch.telemetry.flightdeck.recorder`).
+JAX's ``install_jax_hooks`` (compile counts from ``jax.monitoring``) has no
+counterpart: the port compiles nothing at run time but its kernels, once.
 
 Histograms are bounded by construction: a fixed bucket ladder plus one
 overflow slot, so a runaway workload can never grow memory.  All mutation is
@@ -27,6 +29,8 @@ import json
 import math
 import threading
 
+from distkeras_tpu_torch.telemetry import runtime
+from distkeras_tpu_torch.telemetry.flightdeck.recorder import recorder as _flight_recorder
 
 __all__ = [
     "Counter",
@@ -68,6 +72,9 @@ class Counter:
             raise ValueError("counters only go up; use a Gauge")
         with self._lock:
             self._value += amount
+            value = self._value
+        if runtime.enabled():
+            _flight_recorder.record_metric(self.name, value)
 
     @property
     def value(self):
@@ -89,6 +96,8 @@ class Gauge:
     def set(self, value):
         with self._lock:
             self._value = float(value)
+        if runtime.enabled():
+            _flight_recorder.record_metric(self.name, float(value))
 
     @property
     def value(self):

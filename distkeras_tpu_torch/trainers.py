@@ -51,9 +51,15 @@ kwargs and their defaults are the JAX package's, plus ``device``
 transformer models' attention runs the flash-attention kernels, forward and
 backward.
 
-A kwarg of the JAX trainers whose feature is not ported yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it when it is
-set to anything but its default; none is silently ignored.
+The training telemetry is the JAX package's: with ``DISTKERAS_TELEMETRY``
+on, a fit records spans, writes its trace and metrics files and starts the
+flight deck; ``DISTKERAS_DYNAMICS`` adds the per-epoch training-dynamics
+summary, the divergence watchdog and ``staleness_policy``; ``profile_dir``
+and ``DISTKERAS_PROFILE`` capture ``torch.profiler`` traces.
+
+A kwarg of the JAX trainers whose feature is not ported yet (``elastic``)
+raises ``NotImplementedError`` naming the ROADMAP item that brings it when
+it is set to anything but its default; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import time
+import warnings
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -107,9 +114,7 @@ __all__ = [
 
 # kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
 _UNPORTED = {
-    "staleness_policy": (None, "item 19 (the dynamics telemetry AdaptiveBound reads)"),
     "elastic": (None, "item 18 (fleet: elastic membership)"),
-    "profile_dir": (None, "item 19 (telemetry: profiler)"),
 }
 
 
@@ -133,8 +138,14 @@ def _serving_twin(adapter: ModelAdapter) -> ModelAdapter:
         return dataclasses.replace(adapter, module=module.twin(None))
     if dataclasses.is_dataclass(adapter) and getattr(adapter, "seq_axis", None) is not None:
         # a staged adapter (pipeline x sequence parallelism) is the model
-        # itself: its twin is a fresh instance with the seq axis off
-        return dataclasses.replace(adapter, seq_axis=None)
+        # itself: its twin is a fresh instance with the seq axis off, which
+        # carries over the non-field checkpoint a PretrainedStagedLM's init
+        # adopts
+        twin = dataclasses.replace(adapter, seq_axis=None)
+        pretrained = getattr(adapter, "_pretrained", None)
+        if pretrained is not None:
+            twin._pretrained = pretrained
+        return twin
     return adapter
 
 
@@ -160,6 +171,20 @@ def _epoch_mean(stats, key):
             and int(np.min(weights)) != int(np.max(weights))):
         return np.average(values, axis=0, weights=np.asarray(weights))
     return np.mean(values, axis=0) if values.ndim > 1 else np.mean(values)
+
+
+def _tree_rows(stats, chunk: int, e: int):
+    """Epoch ``e`` of a ``chunk``-epoch stats tree (nested dicts of arrays
+    whose leading dim runs over the chunk's epochs)."""
+    if isinstance(stats, dict):
+        return {k: _tree_rows(v, chunk, e) for k, v in stats.items()}
+    return stats.reshape((chunk, stats.shape[0] // chunk) + stats.shape[1:])[e]
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _metric_key(name, index: int) -> str:
@@ -236,7 +261,9 @@ class Trainer:
                 "exists with tp_shards>1 (the GSPMD engine); without it the "
                 "override would be silently ignored"
             )
-        _refuse_unported(profile_dir=profile_dir)
+        # profile the second epoch (or the only one) with torch.profiler, its
+        # Chrome trace written here
+        self.profile_dir = profile_dir
         # pipeline parallelism stages: >1 selects the pipeline engine (a
         # microbatch pipeline over the stages axis of a (workers, stages)
         # grid; needs a staged adapter with num_stages == pipeline_stages)
@@ -347,8 +374,66 @@ class Trainer:
         return engine.state_from_center(generator, raw["center_params"], raw["center_rule"],
                                         model_state, epoch)
 
-    def _fit(self, dataframe: DataFrame, rule, num_workers: int, *, shuffle: bool = True,
-             average_at_end: bool = False, commit_schedule=None, mesh=None):
+    def _watchdog_rollback(self, engine, ckpt, state, watchdog):
+        """Restore the last checkpoint after a watchdog trip (policy
+        ``rollback``): the diverged state is discarded and training
+        continues from the restored center and workers — the path a
+        crash-resume takes, bitwise."""
+        reason = watchdog.pending_rollback
+        # verified: rolling back onto a corrupt checkpoint would trade a
+        # diverged run for a crashed one
+        step = ckpt.latest_verified() if ckpt is not None else None
+        if step is None:
+            raise telemetry.dynamics.TrainingDiverged(
+                f"{reason} — rollback requested but no checkpoint has been "
+                "saved yet"
+            )
+        state = self._restore_state(ckpt, engine, state, elastic=False, step=step)
+        watchdog.rolled_back()
+        if telemetry.enabled():
+            telemetry.metrics.counter(
+                "dynamics_rollbacks_total",
+                help="watchdog-triggered checkpoint restores",
+            ).inc()
+        return state
+
+    def _apply_staleness_bound(self, policy, summary, state):
+        """Feed the finished epoch's dynamics summary to the staleness policy
+        and write the bound it returns into the rule's ``staleness_bound``
+        leaf, in place (a captured window reads the same tensor); rules
+        without the leaf (plain DynSGD) pass through untouched."""
+        from distkeras_tpu_torch.algorithms.adaptive import BOUND_KEY
+
+        if BOUND_KEY not in state.center_rule:
+            return state
+        bound = float(policy.observe(summary))
+        state.center_rule[BOUND_KEY].fill_(bound)
+        if telemetry.enabled():
+            telemetry.metrics.gauge(
+                "dynamics_staleness_bound",
+                help="adaptive DynSGD staleness bound in force",
+            ).set(bound)
+        return state
+
+    def _fit(self, *args, **kwargs):
+        """Crash-forensics boundary around :meth:`_fit_inner`, as in the JAX
+        package: with telemetry on, mint or propagate the fleet ``run_id``
+        and start the HTTP exporter when one is configured, and on any
+        unhandled exception (a watchdog halt included) dump the flight
+        recorder's blackbox into the telemetry directory before re-raising.
+        With telemetry off this is one cached-bool check a fit."""
+        if telemetry.enabled():
+            telemetry.flightdeck.activate()
+        try:
+            return self._fit_inner(*args, **kwargs)
+        except Exception as e:
+            if telemetry.enabled():
+                telemetry.flightdeck.on_crash(
+                    f"{type(self).__name__}._fit: {type(e).__name__}: {e}")
+            raise
+
+    def _fit_inner(self, dataframe: DataFrame, rule, num_workers: int, *, shuffle: bool = True,
+                   average_at_end: bool = False, commit_schedule=None, mesh=None):
         """Train, as the JAX package's ``_fit_inner``: build the engine, draw
         the initial parameters from ``seed`` (or resume from
         ``checkpoint_dir``), and run the epochs — in memory one epoch at a
@@ -361,7 +446,15 @@ class Trainer:
         sidecar; after a SIGTERM the epoch boundary is checkpointed and
         :class:`~distkeras_tpu_torch.fleet.Preempted` raised.  ``mesh``
         goes to the engine (None: every rank of the process group, if
-        any)."""
+        any).
+
+        With dynamics on (``DISTKERAS_DYNAMICS``, an engine other than the
+        pipeline's) each epoch's summary becomes gauges and a JSONL line
+        (``telemetry.dynamics.record``) and feeds the divergence watchdog
+        (``warn``, ``halt`` or ``rollback`` to the last checkpoint) and a
+        ``staleness_policy``.  ``profile_dir`` profiles the second epoch
+        (or the only one); ``DISTKERAS_PROFILE`` the epochs
+        ``DISTKERAS_PROFILE_STEPS`` names."""
         from distkeras_tpu_torch.datapipe import DataState
 
         adapter = as_adapter(self.master_model)
@@ -402,6 +495,33 @@ class Trainer:
                     "progress to adopt.  Resume with the original "
                     "num_workers instead."
                 )
+        # divergence watchdog: armed only when the engine computes dynamics;
+        # it reads each epoch's summary on the host, after the epoch's stats
+        # were read back
+        watchdog = None
+        if engine._dynamics:
+            watchdog = telemetry.dynamics.DivergenceWatchdog.from_config()
+        if watchdog is not None and watchdog.policy == "rollback":
+            if ckpt is None:
+                raise ValueError(
+                    "watchdog policy 'rollback' needs checkpoint_dir set so "
+                    "there is a checkpoint to restore"
+                )
+            if self.dispatch_epochs > 1:
+                raise ValueError(
+                    "watchdog policy 'rollback' needs the per-epoch loop; "
+                    "dispatch_epochs>1 runs whole chunks per dispatch with no "
+                    "epoch boundary to restore at"
+                )
+        # the staleness policy reads the dynamics summary
+        staleness_policy = getattr(self, "staleness_policy", None)
+        if staleness_policy is not None and not engine._dynamics:
+            warnings.warn(
+                "staleness_policy set but dynamics telemetry is off "
+                "(DISTKERAS_DYNAMICS); the bound will not adapt",
+                RuntimeWarning,
+            )
+            staleness_policy = None
         # the elastic path builds its state from the partial restore; the
         # bitwise path restores into a fresh state
         state = None
@@ -449,14 +569,37 @@ class Trainer:
 
             scalar_log = ScalarLogger(self.tensorboard_dir)
 
-        def log(stats, epoch):
+        # the env-driven step-windowed capture; profile_dir (the trainer's
+        # knob) takes precedence, as both would drive the one profiler
+        prof = None if self.profile_dir else telemetry.ProfilerHook.from_env()
+        last_summary: dict = {}
+
+        def observe(stats, epoch):
+            """One epoch's read-back stats: the dynamics summary as gauges
+            and a JSONL line, the scalar log, then the watchdog (after the
+            logs, so that a halting epoch still reaches them)."""
+            dyn = stats.get("dynamics")
+            summary = None
+            if dyn is not None:
+                summary = telemetry.dynamics.summarize(dyn, loss=stats["loss"])
+                telemetry.dynamics.record(epoch, dyn, summary)
+                last_summary["value"] = summary
             if scalar_log is not None:
                 scalar_log.log(epoch, **_epoch_scalars(stats, metrics))
+                if telemetry.enabled():
+                    telemetry.metrics.to_scalar_logger(scalar_log, epoch)
+            if summary is not None and watchdog is not None:
+                watchdog.observe(epoch, summary)  # raises under "halt"
+
+        def profiled(run):
+            """``run()`` under ``torch.profiler`` into ``profile_dir``."""
+            with telemetry.profiler.profile(self.profile_dir):
+                return run()
 
         epoch_stats: List[dict] = []
         self.record_training_start()
-        # try/finally so the scalar logger releases its writer even when an
-        # epoch raises
+        # try/finally so the scalar logger and the profiler release their
+        # writer and capture even when an epoch raises
         try:
             if self.streaming and commit_schedule is not None:
                 raise ValueError(
@@ -476,7 +619,7 @@ class Trainer:
                     )
                 state, epoch_stats = self._train_chunked(
                     engine, state, feats, labels, num_workers, window, shuffle, ckpt,
-                    start_epoch, log)
+                    start_epoch, observe, profiled)
                 start_epoch = self.num_epoch  # the per-epoch loop below runs 0 times
             stream_window = window
             if self.streaming and window is None:
@@ -486,6 +629,8 @@ class Trainer:
                 steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
                 stream_window = min(steps, 32)
             for epoch in range(start_epoch, self.num_epoch):
+                if prof is not None:
+                    prof.on_step(epoch)
                 with telemetry.trace.span("epoch", epoch=epoch):
                     if self.streaming:
                         if window is not None:
@@ -523,8 +668,8 @@ class Trainer:
                                 ckpt.save_partial(live_state, _epoch, DataState(
                                     epoch=_epoch, block_cursor=cursor, rng_state=_bits))
 
-                        state, stats = engine.run_epoch_streaming(state, blocks,
-                                                                  on_window=on_window)
+                        run = (lambda blocks=blocks, on_window=on_window:
+                               engine.run_epoch_streaming(state, blocks, on_window=on_window))
                     else:
                         if window is None:
                             # one window spanning the whole epoch (no commits)
@@ -536,14 +681,27 @@ class Trainer:
                                                   window, stepwise=commit_schedule is not None,
                                                   rng=rng if shuffle else None)
                         xs, ys = engine.shard_batches(xs, ys)
-                        state, stats = engine.run_epoch(state, xs, ys)
+                        run = lambda xs=xs, ys=ys: engine.run_epoch(state, xs, ys)
+                    # profile the second epoch (the first includes warm-up),
+                    # or the only one
+                    if self.profile_dir and epoch == min(start_epoch + 1, self.num_epoch - 1):
+                        state, stats = profiled(run)
+                    else:
+                        state, stats = run()
                     ps = getattr(self, "parameter_server", None)
                     if ps is not None:
                         ps.track(state.center_rule)
                     epoch_stats.append(stats)
-                    log(stats, epoch)
+                    observe(stats, epoch)
+                    if watchdog is not None and watchdog.pending_rollback:
+                        state = self._watchdog_rollback(engine, ckpt, state, watchdog)
+                        continue  # don't checkpoint the diverged state
                     if ckpt is not None:
                         ckpt.maybe_save(state, epoch, data_state=data_state(epoch))
+                    if staleness_policy is not None and "value" in last_summary:
+                        # the bound for the next epoch, from this one's summary
+                        state = self._apply_staleness_bound(
+                            staleness_policy, last_summary["value"], state)
                     if fleet.preemption_requested():
                         # SIGTERM: leave a boundary checkpoint for whoever
                         # resumes, then exit loudly instead of dying mid-step
@@ -557,6 +715,8 @@ class Trainer:
             if ckpt is not None:
                 ckpt.wait()  # flush in-flight saves before declaring done
         finally:
+            if prof is not None:
+                prof.close()
             if scalar_log is not None:
                 scalar_log.close()
         if average_at_end:
@@ -572,6 +732,19 @@ class Trainer:
         for i, name in enumerate(metrics):
             if metrics_per_epoch:
                 self.history[_metric_key(name, i)] = [float(m[i]) for m in metrics_per_epoch]
+        if telemetry.enabled():
+            tt = self.get_training_time()
+            telemetry.metrics.gauge(
+                "training_seconds", help="wall seconds of the last fit"
+            ).set(tt)
+            if tt > 0 and epoch_stats:
+                telemetry.metrics.gauge(
+                    "samples_per_sec_per_chip",
+                    help="trained samples per second per card (last fit)",
+                ).set(len(epoch_stats) * len(feats) / tt / _world_size())
+            # one file pair per process under DISTKERAS_TELEMETRY[_DIR]: the
+            # Chrome trace (open in Perfetto) and a metrics snapshot
+            telemetry.flush()
         return engine, state, adapter
 
     def _worker_row(self) -> int:
@@ -630,12 +803,14 @@ class Trainer:
                               fsdp=self.fsdp, **kwargs)
 
     def _train_chunked(self, engine, state, feats, labels, num_workers, window, shuffle, ckpt,
-                       start_epoch, log):
+                       start_epoch, observe, profiled):
         """The ``dispatch_epochs>1`` epoch loop: up to ``dispatch_epochs``
         epochs per :meth:`WindowedEngine.run_epochs` call, reshuffled on the
         card between epochs when ``shuffle`` is set.  Chunks never straddle
         a ``checkpoint_every`` boundary, so the checkpointed epochs are the
-        per-epoch loop's.  Returns ``(state, per-epoch stats)``."""
+        per-epoch loop's.  ``profile_dir`` profiles the second chunk when it
+        is as long as the first, else a lone first chunk, as in JAX.
+        Returns ``(state, per-epoch stats)``."""
         steps = window or plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
         shuffle_seed = self.seed if shuffle else None
         # over several ranks the reshuffle permutes every worker's rows
@@ -644,19 +819,27 @@ class Trainer:
                                       whole=shuffle_seed is not None and engine.ranks > 1)
         epoch_stats: List[dict] = []
         epoch = start_epoch
+        chunk_idx, first_chunk = 0, None
         while epoch < self.num_epoch:
             chunk = min(self.dispatch_epochs, self.num_epoch - epoch)
             if ckpt is not None:
                 chunk = min(chunk, self.checkpoint_every - epoch % self.checkpoint_every)
+            first_chunk = chunk if first_chunk is None else first_chunk
+            run = lambda chunk=chunk: engine.run_epochs(state, xs, ys, chunk,
+                                                        shuffle_seed=shuffle_seed)
             with telemetry.trace.span("epoch", epoch=epoch, epochs=chunk):
-                state, stats = engine.run_epochs(state, xs, ys, chunk, shuffle_seed=shuffle_seed)
+                if self.profile_dir and ((chunk_idx == 1 and chunk == first_chunk) or (
+                        chunk_idx == 0 and epoch + chunk >= self.num_epoch)):
+                    state, stats = profiled(run)
+                else:
+                    state, stats = run()
             # chunk stats -> per-epoch dicts (leaves keep [n_windows, ...])
             for e in range(chunk):
-                one = {k: v.reshape((chunk, v.shape[0] // chunk) + v.shape[1:])[e]
-                       for k, v in stats.items()}
+                one = _tree_rows(stats, chunk, e)
                 epoch_stats.append(one)
-                log(one, epoch + e)
+                observe(one, epoch + e)
             epoch += chunk
+            chunk_idx += 1
             ps = getattr(self, "parameter_server", None)
             if ps is not None:
                 ps.track(state.center_rule)
@@ -808,7 +991,7 @@ class DistributedTrainer(Trainer):
         staleness_policy: Optional[Any] = None,
         device="cuda",
     ):
-        _refuse_unported(elastic=elastic, staleness_policy=staleness_policy)
+        _refuse_unported(elastic=elastic)
         super().__init__(
             keras_model, loss, worker_optimizer, metrics,
             features_col, label_col, batch_size, num_epoch, seed, compute_dtype,
@@ -818,6 +1001,9 @@ class DistributedTrainer(Trainer):
             prefetch, checkpoint_blocks, device,
         )
         self.num_workers = num_workers or _default_workers(self.device, self._worker_row())
+        # AdaptiveBound-style policy retuning the rule's staleness bound
+        # between epochs from the dynamics summary (DISTKERAS_DYNAMICS)
+        self.staleness_policy = staleness_policy
         self.master_port = master_port
         self.parameter_server: Optional[ParameterServer] = None
         # optional per-worker commit periods: the staleness simulation
@@ -1044,10 +1230,12 @@ class DynSGD(AsynchronousDistributedTrainer):
 
 
 class AdaptiveDynSGD(DynSGD):
-    """DynSGD with an SSP-style staleness bound carried in the center state;
-    with the default ``inf`` bound its trajectory is DynSGD's.  Retuning
-    the bound online (``staleness_policy``) comes with the dynamics
-    telemetry (ROADMAP Queue A item 19)."""
+    """DynSGD with an SSP-style staleness bound carried in the center state.
+
+    Pass ``staleness_policy=AdaptiveBound(...)`` to retune the bound online
+    between epochs from the dynamics telemetry (needs
+    ``DISTKERAS_DYNAMICS=1``); with the default ``inf`` bound and no policy
+    the trajectory is DynSGD's, bit for bit."""
 
     def __init__(self, *args, communication_window: int = 5,
                  initial_bound: float = float("inf"), **kwargs):

@@ -1,11 +1,12 @@
-"""``chip_smoke.py``'s sequence-parallel phase alone, with the train phase it
+"""``chip_smoke.py``'s sequence-parallel phase alone, with the one-rank run it
 is held to.
 
     python scripts/chip_seq_phase.py
 
-Builds the kernels, runs the train phase (the GPT-2-small ``DOWNPOUR`` at
-one rank, through B1-B3: the reference) and then the sequence-parallel
-phase (the same run over two gloo ranks sharing the card with
+Builds the kernels, runs the phase's reference (its GPT-2-small
+``DOWNPOUR``, cut to 6 blocks and one epoch, at one rank, through B1-B3)
+and then the sequence-parallel phase (the same run over two gloo ranks
+sharing the card with
 ``seq_shards=2``, ``fsdp=True``, the classifier at two ranks, the returned
 twin through ``ModelPredictor``, and the 2 x 2 NCCL grid, one rank a card,
 where the machine has 4 cards), each printing ``chip_smoke.py``'s JSON
@@ -41,10 +42,10 @@ def main() -> int:
                     torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     _build.build_all()
-    _, train_run = chip_smoke.train_phase(0)
+    _, reference = chip_smoke.seq_train(0, 1)
     t1 = time.perf_counter()
-    chip_smoke.seq_phase(0, train_run)
-    chip_smoke.emit(phase="timing", build_and_train_s=t1 - t0,
+    chip_smoke.seq_phase(0, reference)
+    chip_smoke.emit(phase="timing", build_and_reference_s=t1 - t0,
                     seq_phase_s=time.perf_counter() - t1)
     return 0
 

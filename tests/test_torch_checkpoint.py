@@ -40,7 +40,7 @@ from distkeras_tpu_torch.algorithms import Downpour
 from distkeras_tpu_torch.models import TorchModel, TransformerLM, params_from_flax
 from distkeras_tpu_torch.parallel import WindowedEngine
 from distkeras_tpu_torch.parallel import engine as engine_mod
-from distkeras_tpu_torch.telemetry import correlate
+from distkeras_tpu_torch.telemetry.flightdeck import correlate
 
 torch.set_num_threads(1)  # the suite runs under xdist: keep each worker small
 

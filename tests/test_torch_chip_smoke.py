@@ -588,3 +588,38 @@ def test_pipeline_3d_phase_rehearsal(on_cpu, capsys, monkeypatch):
     monkeypatch.setattr(chip_smoke, "_spawn_pp3d", lambda *args: broken)
     with pytest.raises(AssertionError, match="block bytes"):
         chip_smoke.pipeline_3d_phase(0, ref)
+
+
+TINY_GPT2 = dict(vocab_size=64, n_positions=16, n_embd=32, n_head=2, n_layer=2, n_inner=None,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                 tie_word_embeddings=True)
+
+
+def test_hf_telemetry_phase_rehearsal(on_cpu, capsys, monkeypatch):
+    # phase 25 at TINY_GPT2's widths: the state-dict conversion, the forward
+    # against the CPU, the two one-rank trainings (telemetry off, then on
+    # with dynamics, the warn watchdog and profile_dir) and three greedy
+    # requests over HTTP on 127.0.0.1, every gate checked
+    monkeypatch.setattr(chip_smoke, "HF_CONFIG", TINY_GPT2)
+    monkeypatch.setattr(chip_smoke, "HF_SERVE", (3, 4, 4))
+    row = chip_smoke.hf_telemetry_phase(0)
+    assert _emitted(capsys, "hf_telemetry") == [
+        {"phase": "hf_telemetry", **json.loads(json.dumps(row))}]
+    assert not row["failures"] and row["local_steps"] == 8
+    assert row["histories_bitwise"] and row["vs_plain"]["bitwise"]
+    assert row["forward_max_abs_err"] <= chip_smoke.PREDICT_ATOL
+    # the CPU runs the plain attention: no kernel launch to count
+    assert row["launches_b1_b2_b3_plain"] == row["launches_b1_b2_b3_observed"] == [0, 0, 0]
+    assert row["forward_launches_b1"] == 0
+    summary = row["dynamics_summary"]
+    assert summary["nonfinite_grads_max"] == 0.0 and summary["update_norm"] > 0.0
+    assert row["dynamics_lines"] == 1 and row["profile_traces"] == 1
+    http = row["http"]
+    assert http["requests"] == 3 and [len(t) for t in http["tokens"]] == [4, 4, 4]
+    assert http["address"].startswith("127.0.0.1:") and http["scrape_has_ttft"]
+    assert http["scrape_tokens_line"].startswith(f'serving_tokens_total{{run_id="{http["run_id"]}"}}')
+    assert len(http["latency_s"]) == 3 and "card" in row
+    # a failed gate raises: the same phase with a forward tolerance it misses
+    monkeypatch.setattr(chip_smoke, "PREDICT_ATOL", -1.0)
+    with pytest.raises(AssertionError, match="converted forward"):
+        chip_smoke.hf_telemetry_phase(0)

@@ -7,8 +7,11 @@ window graphs ``run_epoch`` replays, so there is none of its own).  On the
 CPU there is no graph, so the CPU case fills the cache by hand; the
 ``cuda``-marked case captures, clears and captures again on a card, with
 dropout on, and holds both captures to eager within the chip smoke's
-gates (loss 1e-6 relative, center parameters 1e-5).  No JAX here: the
-``cuda`` case runs on the card's machine, which has none.
+gates (loss 1e-6 relative, center parameters 1e-5).  A second ``cuda``
+case captures windows with the training dynamics on (``DISTKERAS_DYNAMICS``:
+the stats computed inside the graph): the trajectory equals dynamics off
+bit for bit, and the stats equal the eager engine's.  No JAX here: the
+``cuda`` cases run on the card's machine, which has none.
 """
 
 import numpy as np
@@ -80,3 +83,30 @@ def test_capture_clear_and_capture_again_on_the_card():
     for name, want in eager.gather_center(e_state).items():
         got = graph.gather_center(g_state)[name]
         assert float((got - want).abs().max()) <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_captured_window_dynamics_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distkeras_tpu_torch.telemetry import dynamics
+
+    runs = {}
+    try:
+        for name, on, unroll in (("off", False, True), ("on", True, True), ("eager", True, 1)):
+            dynamics.configure(enabled=on, watchdog="off")
+            engine, state, (xs, ys) = engine_and_state("cuda", unroll)
+            for _ in range(2):
+                state, stats = engine.run_epoch(state, xs, ys)
+            assert engine.use_graphs == (unroll is True)
+            runs[name] = (stats, {k: v.cpu() for k, v in engine.gather_center(state).items()})
+    finally:
+        dynamics.configure()
+    np.testing.assert_array_equal(runs["on"][0]["loss"], runs["off"][0]["loss"])
+    for key, value in runs["off"][1].items():
+        assert torch.equal(runs["on"][1][key], value), key
+    assert "dynamics" not in runs["off"][0]
+    assert sorted(runs["on"][0]["dynamics"]) == sorted(runs["eager"][0]["dynamics"])
+    for key, value in runs["eager"][0]["dynamics"].items():
+        np.testing.assert_allclose(runs["on"][0]["dynamics"][key], value, rtol=1e-5, atol=1e-7,
+                                   err_msg=key)

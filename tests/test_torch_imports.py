@@ -1,14 +1,17 @@
 """The port stands alone: importing ``distkeras_tpu_torch`` loads none of JAX,
 flax, optax or the JAX package, and no module of the port (nor its
 ``scripts/`` or ``chip_smoke.py``) imports them.  Importing the package also loads no
-``keras`` (the Keras adapter imports it when a Keras model is adapted) and
-sets up no ``torch.distributed`` process group (``networking.initialize``
+``keras`` (the Keras adapter imports it when a Keras model is adapted), no
+``transformers`` (the HuggingFace adapter touches only the instance a user
+built) and sets up no ``torch.distributed`` process group (``networking.initialize``
 does, when called).  The serving slice's modules (``serving/``,
 ``models/generate.py``, ``telemetry/metrics.py``) are held to the same, and so
 are sequence packing (``datapipe/packing.py``, a copy of the JAX package's
 numpy) and the meshes (``parallel/mesh.py``, which imports
 ``torch.distributed.device_mesh`` when a group exists), and so are the
-pipeline's (``models/staged.py``, ``parallel/pipeline.py``)."""
+pipeline's (``models/staged.py``, ``parallel/pipeline.py``), the HuggingFace
+models (``models/hf.py``, ``models/hf_staged.py``) and the training
+telemetry (``telemetry/``, ``telemetry/flightdeck/``)."""
 
 import ast
 import os
@@ -43,6 +46,8 @@ def test_package_import_loads_no_jax():
         "import torch.distributed as dist\n"
         "keras = sorted(m for m in set(sys.modules) - before if m.split('.')[0] == 'keras')\n"
         "assert not keras, keras\n"
+        "hf = sorted(m for m in set(sys.modules) - before if m.split('.')[0] == 'transformers')\n"
+        "assert not hf, hf\n"
         "assert not (dist.is_available() and dist.is_initialized())\n"
         "import distkeras_tpu_torch.models, distkeras_tpu_torch.transformers, "
         "distkeras_tpu_torch.evaluators, distkeras_tpu_torch.networking, "
@@ -57,7 +62,13 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.ops.pooling, distkeras_tpu_torch.models.zoo, "
         "distkeras_tpu_torch.native, distkeras_tpu_torch.datapipe, "
         "distkeras_tpu_torch.checkpoint, distkeras_tpu_torch.fleet, "
-        "distkeras_tpu_torch.telemetry.correlate, distkeras_tpu_torch.telemetry.metrics, "
+        "distkeras_tpu_torch.telemetry.flightdeck.correlate, "
+        "distkeras_tpu_torch.telemetry.metrics, distkeras_tpu_torch.telemetry.dynamics, "
+        "distkeras_tpu_torch.telemetry.profiler, distkeras_tpu_torch.telemetry.trace, "
+        "distkeras_tpu_torch.telemetry.flightdeck.recorder, "
+        "distkeras_tpu_torch.telemetry.flightdeck.rollup, "
+        "distkeras_tpu_torch.telemetry.flightdeck.server, "
+        "distkeras_tpu_torch.models.hf, distkeras_tpu_torch.models.hf_staged, "
         "distkeras_tpu_torch.models.generate, distkeras_tpu_torch.serving, "
         "distkeras_tpu_torch.serving.cache, distkeras_tpu_torch.serving.sampling, "
         "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine, "
@@ -89,7 +100,11 @@ def test_sources_found():
     for module in ("transformers", "evaluators", "networking", "utils/serialization",
                    "utils/tb", "models/keras_adapter", "native/__init__", "datapipe/__init__",
                    "datapipe/source", "datapipe/ring", "datapipe/state", "checkpoint",
-                   "fleet", "telemetry/correlate", "telemetry/metrics", "models/generate",
+                   "fleet", "telemetry/flightdeck/correlate", "telemetry/metrics",
+                   "telemetry/dynamics", "telemetry/profiler", "telemetry/trace",
+                   "telemetry/flightdeck/__init__", "telemetry/flightdeck/recorder",
+                   "telemetry/flightdeck/rollup", "telemetry/flightdeck/server", "models/hf",
+                   "models/hf_staged", "models/generate",
                    "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
                    "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd",
                    "models/moe", "models/staged", "parallel/pipeline"):

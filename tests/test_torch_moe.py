@@ -294,8 +294,8 @@ def test_aux_loss_lives_in_state_and_engine_adds_it():
                             ("sgd", {"learning_rate": 0.0}), Downpour(2), num_workers=1,
                             metrics=(), device="cpu")
     y = torch.from_numpy(toy_text(n=8)[1]).long()
-    _, _, _, loss, _ = engine._local_step(dict(pparams), engine.optimizer.init(pparams),
-                                          state, None, x, y)
+    _, _, _, loss, _, _ = engine._local_step(dict(pparams), engine.optimizer.init(pparams),
+                                             state, None, x, y)
     out, _ = adapter.apply(pparams, state, x, training=True)
     ce = engine.loss_fn(out, y)
     np.testing.assert_allclose(float(loss), float(ce + aux), rtol=1e-6)

@@ -641,8 +641,16 @@ def test_unported_options_raise_naming_their_items(lm):
     finally:
         engine.stop()
     assert got == greedy_generate(trained, np.asarray([[1, 2, 3]]), 6)[0, 3:].tolist()
-    with pytest.raises(NotImplementedError, match="item 19"):
-        install_http_endpoint(object())
+    # /generate mounts on the flight deck's exporter since the telemetry slice
+    # (ROADMAP Queue A item 19a; served end to end in
+    # tests/test_torch_flightdeck.py); the traffic log is item 18's
+    from distkeras_tpu_torch.telemetry.flightdeck import server as server_mod
+
+    assert install_http_endpoint(engine, path="/generate_unported_case") == \
+        "/generate_unported_case"
+    server_mod._EXTRA.pop("/generate_unported_case")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        install_http_endpoint(engine, traffic_log=object())
     with pytest.raises(TypeError, match="decode_spec"):
         ServingEngine(torch.nn.Linear(2, 2), {}, device="cpu")
 

@@ -227,14 +227,40 @@ def test_ported_kwargs_train(kwargs, tmp_path):
         assert committed_steps(kwargs["checkpoint_dir"]) == [1, 2]
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(profile_dir="prof"), dict(elastic=object()), dict(staleness_policy=object())],
-    ids=lambda kw: next(iter(kw)),
-)
+@pytest.mark.parametrize("kwargs", [dict(elastic=object())], ids=lambda kw: next(iter(kw)))
 def test_unported_kwargs_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 18"):
         tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("name", ["profile_dir", "staleness_policy"])
+def test_telemetry_kwargs_are_accepted(name, tmp_path):
+    # accepted since the training telemetry (item 19a) is ported; these
+    # replace their cases in test_unported_kwargs_raise.  profile_dir
+    # writes the second epoch's torch.profiler trace; staleness_policy
+    # retunes AdaptiveDynSGD's bound from the dynamics summary between
+    # epochs (tests/test_torch_dynamics.py holds it to JAX's)
+    from distkeras_tpu_torch.algorithms import AdaptiveBound
+
+    x, y = lm_data(n=32)
+    kwargs = dict(loss="token_crossentropy", metrics=("token_accuracy",), num_workers=2,
+                  batch_size=4, communication_window=2, num_epoch=2, seed=1, device="cpu")
+    if name == "profile_dir":
+        t = tdk.DOWNPOUR(TransformerLM(**LM), profile_dir=str(tmp_path), **kwargs)
+        t.train(tdk.from_numpy(x, y))
+        traces = [f for f in tmp_path.iterdir() if f.name.startswith("profile_")]
+        assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
+        return
+    policy = AdaptiveBound(initial=4.0)
+    port_telemetry.dynamics.configure(enabled=True, watchdog="off")
+    try:
+        t = tdk.AdaptiveDynSGD(TransformerLM(**LM), staleness_policy=policy,
+                               initial_bound=4.0, **kwargs)
+        t.train(tdk.from_numpy(x, y))
+    finally:
+        port_telemetry.dynamics.configure()
+    assert t.staleness_policy is policy and policy.loosened == 2
+    assert policy.bound == min(policy.max_bound, 4.0 * 1.25 ** 2)
 
 
 @pytest.mark.parametrize("kwargs", [dict(pipeline_stages=2, pp_microbatches=2)],
