@@ -3020,7 +3020,11 @@ def seq_phase(seed: int, train_run) -> dict:
 
 # tensor-parallel phase: the train phase's DOWNPOUR over a GPT-2-small
 # TransformerLM on the GSPMD engine's (workers, model) grid, 2 model ranks
-TP_MODEL = GPT2_SMALL
+# GPT-2 small's widths cut to 6 of its 12 blocks, so that the whole script
+# stays within its time with phase 25's sanitized runs; the references (the
+# one-rank one-epoch run and the two-epoch run whose first window it must
+# reproduce) are made at the same depth
+TP_MODEL = dict(GPT2_SMALL, num_layers=6)
 TP_SHARDS, TP_RANK_TIMEOUT_S = 2, 900
 # One epoch where the train phase runs two: the phase moves ~4 GB through
 # the host a local step on the shared card (every column-parallel product's
@@ -3212,7 +3216,7 @@ def _tp_versus(got: dict, ref: dict, ref_launches, train_run, backend: str) -> t
     if first > TP_FIRST_LOSS_RTOL:
         failures.append(f"first window's loss off by {first}")
     if ref["first_window_loss"] != train_run["first_window_loss"]:
-        failures.append("the one-rank reference's first window is not the train phase's")
+        failures.append("the one-rank reference's first window is not the two-epoch run's")
     if versus["loss_rel_err"] > TP_LOSS_RTOL or versus["param_rel_norm_err"] > TP_PARAM_REL_NORM:
         failures.append(f"TP against one rank: {versus}")
     if row["num_updates"][0] != row["num_updates"][1]:
@@ -3251,10 +3255,12 @@ def _tp_versus(got: dict, ref: dict, ref_launches, train_run, backend: str) -> t
 
 
 def tp_phase(seed: int, train_run) -> dict:
-    """Tensor parallelism at GPT-2-small widths (``TP_EPOCHS`` epochs of the
-    train phase's ``DOWNPOUR``): (a) two gloo ranks spawned on the one card
-    (``--tp-rank``), grid 1 x 2, ``tp_shards=2`` against one rank's run of
-    as many epochs in this process (its first window the train phase's):
+    """Tensor parallelism at GPT-2-small widths (``TP_MODEL``: 6 blocks;
+    ``TP_EPOCHS`` epochs of the train phase's ``DOWNPOUR``): (a) two gloo
+    ranks spawned on the one card (``--tp-rank``), grid 1 x 2,
+    ``tp_shards=2`` against one rank's run of as many epochs in this
+    process (its first window that of ``train_run``, the same training's
+    ``TRAIN_EPOCHS`` epochs on one rank, ``tp_train(seed, TRAIN_EPOCHS)``):
     B1-B3 launched on each rank as often as at one rank, each rank's center,
     local parameters and Adam state as the layout splits them; (b) on the
     same two ranks ``fsdp=True`` alone (grid 2 x 1) bit for bit the
@@ -3958,24 +3964,25 @@ PP_DECODE = (2, 16, 8)  # greedy decode: rows, prompt length, new tokens
 PP_SERVE_REQUESTS = 3  # greedy requests to the serving engine over the trained StagedLM
 
 
-def pp_train(seed: int, num_workers: int, seq_axis=None, **kwargs):
+def pp_train(seed: int, num_workers: int, seq_axis=None, model=None, **kwargs):
     """The train phase's ``DOWNPOUR`` (batch 4, window 2, Adam) over a
-    ``StagedLM`` at ``PP_MODEL``'s widths (built with ``seq_axis``) for
-    ``PP_EPOCHS`` epochs, with ``num_workers`` and the trainer's pipeline
-    ``kwargs``: ``(trainer, run)``."""
+    ``StagedLM`` at ``model``'s widths (default ``PP_MODEL``; built with
+    ``seq_axis``) for ``PP_EPOCHS`` epochs, with ``num_workers`` and the
+    trainer's pipeline ``kwargs``: ``(trainer, run)``."""
     import distkeras_tpu_torch as tdk
     from distkeras_tpu_torch.models import StagedLM
 
-    x, y = lm_task(TRAIN_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 23)
+    model = PP_MODEL if model is None else model
+    x, y = lm_task(TRAIN_ROWS, model["max_len"], model["vocab_size"], seed + 23)
     trainer = _keeping_fit(tdk.DOWNPOUR)(
-        StagedLM(**PP_MODEL, seq_axis=seq_axis), loss="token_crossentropy",
+        StagedLM(**model, seq_axis=seq_axis), loss="token_crossentropy",
         metrics=("token_accuracy",),
         worker_optimizer=("adam", {"learning_rate": 2e-4}), num_workers=num_workers,
         batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW, num_epoch=PP_EPOCHS,
         seed=seed, device=ZOO_DEVICE, **kwargs)
     run = _trained(trainer, tdk.from_numpy(x, y))
     run.update(first_window_loss=trainer.window_losses[0],
-               tokens_per_s=PP_EPOCHS * TRAIN_ROWS * PP_MODEL["max_len"] / run["seconds"],
+               tokens_per_s=PP_EPOCHS * TRAIN_ROWS * model["max_len"] / run["seconds"],
                local_steps=PP_EPOCHS * TRAIN_ROWS // (num_workers * TRAIN_BATCH))
     return trainer, run
 
@@ -4134,10 +4141,10 @@ def _spawn_pp(seed: int, world: int, backend: str, cards: bool, workdir: str) ->
     return [torch.load(f"{out}.{rank}", weights_only=False) for rank in range(world)]
 
 
-def _pp_one_rank(seed: int, num_workers: int) -> dict:
-    """The reference: the same model and data on one rank
-    (``pipeline_stages=1``, the sequential executor) in this process, with
-    B1-B3's launches, peak memory and resident bytes."""
+def _pp_one_rank(seed: int, num_workers: int, model=None) -> dict:
+    """The reference: the same model (``model``, default ``PP_MODEL``) and
+    data on one rank (``pipeline_stages=1``, the sequential executor) in
+    this process, with B1-B3's launches, peak memory and resident bytes."""
     from distkeras_tpu_torch.ops import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -4152,7 +4159,7 @@ def _pp_one_rank(seed: int, num_workers: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    trainer, ref = pp_train(seed, num_workers)
+    trainer, ref = pp_train(seed, num_workers, model=model)
     ref.update(launches=[c.launches for c in counters], num_updates=trainer.num_updates,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
                engine=type(trainer.fit_result[0]).__name__,
@@ -4325,6 +4332,17 @@ PP3D_CASES = (("tp", dict(tp_shards=PP3D_SHARDS), None),
               ("tp_fsdp", dict(tp_shards=PP3D_SHARDS, fsdp=True), None),
               ("sp", dict(seq_shards=PP3D_SHARDS), "seq"))
 PP3D_PREDICT_ROWS = 1  # rows the returned model predicts on rank 0 (per-token, 50257 wide)
+# phase 23's widths cut to 3 blocks a stage (6 of 12), so that the whole
+# script stays within its time with phase 25's sanitized runs; its one-rank
+# reference is made at the same depth
+PP3D_BLOCKS_PER_STAGE = 3
+
+
+def _pp3d_model() -> dict:
+    """Phase 24's ``StagedLM``: ``PP_MODEL`` with at most
+    ``PP3D_BLOCKS_PER_STAGE`` blocks a stage."""
+    return dict(PP_MODEL, blocks_per_stage=min(PP_MODEL["blocks_per_stage"],
+                                               PP3D_BLOCKS_PER_STAGE))
 
 
 def _pp3d_runs(seed: int) -> dict:
@@ -4414,7 +4432,7 @@ def _spawn_pp3d(seed: int, world: int, backend: str, cards: bool, workdir: str) 
 
     name = f"pp3d_{backend}_{world}"
     init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
-    specs = [dict(seed=seed, device=ZOO_DEVICE, model=PP_MODEL, backend=backend,
+    specs = [dict(seed=seed, device=ZOO_DEVICE, model=_pp3d_model(), backend=backend,
                   train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
                   world=world, rank=rank, init=init, out=out,
                   device_index=rank if cards else 0,
@@ -4428,7 +4446,8 @@ def _spawn_pp3d(seed: int, world: int, backend: str, cards: bool, workdir: str) 
 def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
     """The spawned grid's runs against the one-rank run, and the phase's
     gates."""
-    S, P, M = PP_MODEL["num_stages"], PP_MODEL["blocks_per_stage"], PP_MICROBATCHES
+    model = _pp3d_model()
+    S, P, M = model["num_stages"], model["blocks_per_stage"], PP_MICROBATCHES
     k = PP3D_SHARDS
     cuda = ZOO_DEVICE == "cuda"
     steps = ranks[0]["tp"]["local_steps"]
@@ -4441,7 +4460,7 @@ def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
     # (every staged leaf splits at these widths) or all of them (seq)
     share = {"tp": S * k, "tp_fsdp": S * k, "sp": S}
     failures, row = [], dict(grid=ranks[0]["tp"]["grid"], microbatches=M, model="StagedLM",
-                             **PP_MODEL, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+                             **model, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
                              epochs=PP_EPOCHS, rows=TRAIN_ROWS, local_steps=steps,
                              loss_one_rank=ref["loss"], tokens_per_s_one_rank=ref["tokens_per_s"],
                              peak_memory_gb_one_rank=ref["peak_memory_gb"],
@@ -4476,8 +4495,8 @@ def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
         if not np.isfinite(got["loss"]).all():
             failures.append(f"{name}: the history is not finite: {got['loss']}")
         pred = got["predict"]
-        if not (pred["finite"] and pred["shape"] == [PP3D_PREDICT_ROWS, PP_MODEL["max_len"],
-                                                     PP_MODEL["vocab_size"]]
+        if not (pred["finite"] and pred["shape"] == [PP3D_PREDICT_ROWS, model["max_len"],
+                                                     model["vocab_size"]]
                 and pred["row_sum_err"] < 1e-4 and pred["seq_axis"] == "None"):
             failures.append(f"{name}: the returned model's predictions on one rank: {pred}")
         for r, run in enumerate(ranks):
@@ -4509,8 +4528,9 @@ def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
 
 def pipeline_3d_phase(seed: int, ref: dict, pair: bool = True) -> dict:
     """Pipeline x tensor and pipeline x sequence parallelism at GPT-2-small
-    widths (phase 23's ``StagedLM``, 12 blocks as 2 stages of 6, and its
-    ``DOWNPOUR``), against ``ref``, phase 23's one-rank run: (a) four gloo
+    widths (phase 23's ``StagedLM`` and ``DOWNPOUR``, cut to 6 blocks as 2
+    stages of 3: :func:`_pp3d_model`), against ``ref``, the same model's
+    one-rank run (``_pp_one_rank(seed, 1, _pp3d_model())``): (a) four gloo
     ranks spawned on the card (``--pp3d-rank``), grid 1 x 2 x 2:
     ``tp_shards=2``, then with ``fsdp=True`` (bit for bit the replicated
     run), then ``seq_shards=2`` with the model built ``seq_axis="seq"``:
@@ -4580,6 +4600,7 @@ HF_FORWARD_ROWS = 2  # rows of n_positions tokens in the forward check
 HF_EPOCHS = 1  # of TRAIN_ROWS rows: TRAIN_ROWS / TRAIN_BATCH local steps
 HF_SERVE = (3, 32, 16)  # HTTP requests, prompt tokens, greedy new tokens each
 HF_FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+HF_TENANTS = ("a", "a", "b")  # the tenant of each HTTP request, in turn
 
 
 def gpt2_state(config: dict, seed: int) -> dict:
@@ -4633,29 +4654,122 @@ def _hf_train(staged, seed: int, **kwargs):
     return trainer, run
 
 
+def _hf_sanitized(staged, seed: int) -> dict:
+    """``_hf_train`` under the runtime sanitizer, strict: each epoch's
+    device work inside the transfer guard (on the card, torch's sync debug
+    mode armed), the consumed input state poisoned after it.  Returns the
+    run with the violations, the donation and declared-transfer counts,
+    what a read of the first consumed state raised, and the tokens/s of the
+    same training with the sanitizer off just before and just after it (the
+    like-for-like comparison: same telemetry, all after the phase's
+    warm-up)."""
+    from distkeras_tpu_torch import sanitizer
+    from distkeras_tpu_torch.sanitizer import donation, transfer
+
+    _, unsanitized = _hf_train(staged, seed)
+
+    consumed = []
+    poison = donation.poison
+
+    def recording(state, label="consumed state"):
+        consumed.append(state)
+        return poison(state, label)
+
+    sanitizer.configure("strict")
+    donation.reset_stats()
+    transfer.reset_stats()
+    donation.poison = recording
+    try:
+        try:
+            _, run = _hf_train(staged, seed)
+            run["error"] = None
+        except sanitizer.SanitizerViolation as e:
+            run = {"error": f"{type(e).__name__}: {e}"}
+        run.update(violations=sanitizer.violations(), donation=donation.stats(),
+                   declared=transfer.stats()["declared"],
+                   tokens_per_s_unsanitized=[unsanitized["tokens_per_s"]])
+        try:
+            consumed[0].center_params  # noqa: B018 — the read is the check
+            run["stale_read"] = None
+        except sanitizer.SanitizerViolation as e:
+            run["stale_read"] = str(e)
+        except IndexError:
+            run["stale_read"] = None
+    finally:
+        donation.poison = poison
+        sanitizer.configure(None)
+    run["tokens_per_s_unsanitized"].append(_hf_train(staged, seed)[1]["tokens_per_s"])
+    return run
+
+
+def _default_serving_objectives():
+    from distkeras_tpu_torch.telemetry import slo
+
+    return slo.default_serving_objectives()
+
+
+def _planted_sync() -> dict:
+    """A sync the transfer guard's interposition does not cover
+    (``torch.nonzero`` of a tensor on the card) inside a strict
+    ``transfer.guard("planted")``, then the same call outside it: what the
+    first raised (None: nothing) and what the second returned."""
+    from distkeras_tpu_torch import sanitizer
+    from distkeras_tpu_torch.sanitizer import transfer
+
+    x = torch.arange(8, device=ZOO_DEVICE)
+    sanitizer.configure("strict")
+    try:
+        try:
+            with transfer.guard("planted"):
+                torch.nonzero(x)
+            caught = None
+        except transfer.TransferViolation as e:
+            caught = str(e)
+        outside = int(torch.nonzero(x).shape[0])
+    finally:
+        sanitizer.configure(None)
+    return dict(caught=caught, outside_rows=outside)
+
+
 def _hf_http(model, seed: int) -> dict:
     """The fine-tuned model behind ``install_http_endpoint`` on the flight
-    deck's exporter (127.0.0.1, an ephemeral port): ``HF_SERVE``'s greedy
-    requests posted at once, each held to ``greedy_generate``, their
-    latencies, and a ``/metrics`` scrape."""
+    deck's exporter (127.0.0.1, an ephemeral port), built with the runtime
+    sanitizer strict (its condition variable under the lock watchdog) and
+    the per-tenant ledger on: ``HF_SERVE``'s greedy requests posted at once
+    for the tenants of ``HF_TENANTS``, each held to ``greedy_generate``,
+    their latencies, a ``/metrics``, a ``/ledger`` and a ``/healthz``
+    scrape, and ``/slo`` serving one engine of the default serving
+    objectives, evaluated once over the rollup ring."""
     import threading
     import urllib.request
 
-    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch import sanitizer, telemetry
     from distkeras_tpu_torch.models import greedy_generate
     from distkeras_tpu_torch.serving import ServingEngine, install_http_endpoint
+    from distkeras_tpu_torch.telemetry import accounting, slo
+    from distkeras_tpu_torch.telemetry.flightdeck import rollup
     from distkeras_tpu_torch.telemetry.flightdeck import server as server_mod
 
     n, length, steps = HF_SERVE
+    tenants = [HF_TENANTS[i % len(HF_TENANTS)] for i in range(n)]
     rng = np.random.default_rng(seed + 27)
     prompts = [rng.integers(0, HF_CONFIG["vocab_size"], length).tolist() for _ in range(n)]
     server_mod.configure(0)
     address = telemetry.flightdeck.ensure_server()
+    sanitizer.configure("strict")
+    accounting.configure(True)
+    accounting.reset()
+    rollup.configure(1.0)
     engine = ServingEngine(model, num_slots=n, page_size=16, registry=None, device=ZOO_DEVICE)
     replies, seconds = [None] * n, [None] * n
 
+    def get(path):
+        with urllib.request.urlopen(f"http://{address}{path}", timeout=60) as r:
+            return r.read().decode()
+
     def post(i):
-        body = json.dumps({"prompt": prompts[i], "max_new_tokens": steps}).encode()
+        body = json.dumps({"prompt": prompts[i], "max_new_tokens": steps,
+                           "tenant": tenants[i]}).encode()
         req = urllib.request.Request(f"http://{address}/generate", data=body,
                                      headers={"Content-Type": "application/json"})
         t0 = time.perf_counter()
@@ -4670,12 +4784,24 @@ def _hf_http(model, seed: int) -> dict:
             th.start()
         for th in threads:
             th.join(timeout=600)
-        with urllib.request.urlopen(f"http://{address}/metrics", timeout=60) as r:
-            scrape = r.read().decode()
+        scrape = get("/metrics")
+        ledger = json.loads(get("/ledger"))
+        health = json.loads(get("/healthz"))
+        lockwatched = type(engine._cv).__name__
+        objectives = slo.maybe_engine(slo.default_serving_objectives(), source="serving")
+        if objectives is not None:
+            objectives.evaluate()
+        slo_view = json.loads(get("/slo"))
     finally:
         engine.stop()
         server_mod.stop()
         server_mod.configure(None)
+        sanitizer.configure(None)
+        accounting.configure(None)
+        accounting.reset()
+        rollup.stop()
+        rollup.configure(None)
+        slo.reset_engines()
     departures = []
     for prompt, reply in zip(prompts, replies):
         if reply is None or reply[0] != 200:
@@ -4685,10 +4811,24 @@ def _hf_http(model, seed: int) -> dict:
     rid = telemetry.flightdeck.current_run_id()
     tokens_line = next((line for line in scrape.splitlines()
                         if line.startswith(f'serving_tokens_total{{run_id="{rid}"}}')), None)
+    rows = {r["tenant"]: r for r in ledger.get("tenants", [])}
+    engines = slo_view.get("engines", {})
     return dict(address=address, requests=n, prompt=length, new_tokens=steps,
                 tokens=[r[1]["tokens"] for r in replies], departures=departures,
                 latency_s=seconds, run_id=rid, scrape_tokens_line=tokens_line,
-                scrape_has_ttft="serving_ttft_seconds_bucket{" in scrape)
+                scrape_has_ttft="serving_ttft_seconds_bucket{" in scrape,
+                tenants=tenants, ledger_enabled=ledger.get("enabled"),
+                ledger_tenants=sorted(rows),
+                ledger_decode_tokens=sum(r["decode_tokens"] for r in rows.values()),
+                ledger_prefill_tokens=sum(r["prefill_tokens"] for r in rows.values()),
+                ledger_by_tenant={t: {k: r[k] for k in ("prefill_tokens", "decode_tokens",
+                                                         "page_seconds", "device_seconds")}
+                                  for t, r in rows.items()},
+                prompt_tokens=sum(len(p) for p in prompts),
+                healthz_sanitizer=health.get("sanitizer"), engine_cv=lockwatched,
+                slo_engines=sorted(engines),
+                slo_objectives=[o["name"] for e in engines.values() for o in e["objectives"]],
+                slo_evaluated=[e["unix"] is not None for e in engines.values()])
 
 
 def hf_telemetry_phase(seed: int) -> dict:
@@ -4715,7 +4855,20 @@ def hf_telemetry_phase(seed: int) -> dict:
     ``HF_SERVE``'s greedy requests over HTTP, each held to
     ``greedy_generate`` (a departure only where the reference's top-two gap
     is below ``GREEDY_GAP``), and a ``/metrics`` scrape carrying the serving
-    counters under the run's ``run_id`` label."""
+    counters under the run's ``run_id`` label;
+    (d) the runtime sanitizer and the per-tenant ledger: the training with
+    telemetry on, strict (``_hf_sanitized``; its tokens/s against the same
+    training's unsanitized just before and after), with no violation, bit
+    for bit the plain
+    run, B1-B3 launched as often, one donation boundary an epoch and a read
+    of the consumed input state raising; a sync planted inside a strict
+    ``transfer.guard`` on the card (``torch.nonzero``) caught, naming the
+    guard, and the same call passing outside it; the HTTP requests of (c)
+    served strict, for ``HF_TENANTS``: the tenant-summed decode tokens equal
+    the scrape's ``serving_tokens_total`` exactly, the prefill tokens the
+    prompts' total, ``/ledger`` lists both tenants, ``/healthz`` reports
+    strict with no violation, and ``/slo`` serves one engine of the default
+    serving objectives, evaluated once."""
     import os
     import tempfile
 
@@ -4759,6 +4912,8 @@ def hf_telemetry_phase(seed: int) -> dict:
             traces = [os.path.join(workdir, "profile", f)
                       for f in os.listdir(os.path.join(workdir, "profile"))]
             times = kernel_times(traces[0]) if traces else {}
+            sanitized = _hf_sanitized(staged, seed)
+            planted = _planted_sync()
             http = _hf_http(observed["model"], seed)
         finally:
             telemetry.dynamics.configure()
@@ -4779,7 +4934,19 @@ def hf_telemetry_phase(seed: int) -> dict:
                launches_b1_b2_b3_observed=observed["launches"],
                launches_b1_b2_b3_expected=expected,
                tokens_per_s_plain=plain["tokens_per_s"],
-               tokens_per_s_observed=observed["tokens_per_s"], dynamics_summary=summary,
+               tokens_per_s_observed=observed["tokens_per_s"],
+               tokens_per_s_sanitized=sanitized.get("tokens_per_s"),
+               tokens_per_s_unsanitized_before_after=sanitized["tokens_per_s_unsanitized"],
+               sanitized_error=sanitized["error"],
+               sanitized_bitwise=("loss" in sanitized
+                                  and sanitized["history"] == plain["history"]
+                                  and _versus(sanitized, plain)["bitwise"]),
+               launches_b1_b2_b3_sanitized=sanitized.get("launches"),
+               sanitizer_violations=sanitized["violations"],
+               sanitizer_donation=sanitized["donation"],
+               sanitizer_declared=sanitized["declared"],
+               sanitizer_stale_read=sanitized["stale_read"], planted_sync=planted,
+               dynamics_summary=summary,
                dynamics_lines=len(series), profile_traces=len(traces),
                profile_kernel_us=flash, profile_device_us=device_us,
                profile_flash_share=(sum(flash.values()) / device_us) if device_us else None,
@@ -4803,6 +4970,38 @@ def hf_telemetry_phase(seed: int) -> dict:
             and float(http["scrape_tokens_line"].split()[-1]) >= HF_SERVE[0] * HF_SERVE[2]):
         failures.append(f"the /metrics scrape lacks the serving counters: "
                         f"{http['scrape_tokens_line']}")
+    # (d) the sanitizer and the ledger
+    if sanitized["error"] or sanitized["violations"]:
+        failures.append(f"the strict run: {sanitized['error']} {sanitized['violations']}")
+    elif not row["sanitized_bitwise"]:
+        failures.append(f"the sanitizer moved the trajectory: {_versus(sanitized, plain)}")
+    if sanitized.get("launches") != expected:
+        failures.append(f"the strict run launched B1-B3 {sanitized.get('launches')} times, "
+                        f"expected {expected}")
+    if sanitized["donation"]["boundaries"] != HF_EPOCHS:
+        failures.append(f"{sanitized['donation']} donation boundaries for {HF_EPOCHS} epochs")
+    if not (sanitized["stale_read"] or "").startswith("read of 'center_params' on a consumed"):
+        failures.append(f"a read of the consumed state did not raise: {sanitized['stale_read']}")
+    if cuda and "guard 'planted'" not in (planted["caught"] or ""):
+        failures.append(f"the planted card sync was not caught: {planted}")
+    if (not cuda and planted["caught"] is not None) or planted["outside_rows"] != 7:
+        failures.append(f"the planted sync: {planted}")
+    if http["ledger_decode_tokens"] != float(http["scrape_tokens_line"].split()[-1]):
+        failures.append(f"the ledger billed {http['ledger_decode_tokens']} decode tokens, the "
+                        f"scrape counts {http['scrape_tokens_line']}")
+    if http["ledger_prefill_tokens"] != http["prompt_tokens"]:
+        failures.append(f"the ledger billed {http['ledger_prefill_tokens']} prefill tokens for "
+                        f"{http['prompt_tokens']} prompt tokens")
+    if http["ledger_tenants"] != sorted(set(http["tenants"])) or not http["ledger_enabled"]:
+        failures.append(f"/ledger lists {http['ledger_tenants']}, sent {http['tenants']}")
+    if http["healthz_sanitizer"] != {"mode": "strict", "violations": {}}:
+        failures.append(f"/healthz reports the sanitizer as {http['healthz_sanitizer']}")
+    if http["engine_cv"] != "GuardedLock":
+        failures.append(f"the engine's condition variable is a {http['engine_cv']}")
+    if (http["slo_engines"] != ["serving"] or http["slo_evaluated"] != [True]
+            or http["slo_objectives"] != [o.name for o in _default_serving_objectives()]):
+        failures.append(f"/slo serves {http['slo_engines']} {http['slo_objectives']} "
+                        f"evaluated {http['slo_evaluated']}")
     row["failures"] = failures
     emit(phase="hf_telemetry", **row)
     if failures:
@@ -4911,13 +5110,14 @@ def main(argv=None) -> int:
                  train_run)
     seq = timed("seq", lambda seed: seq_phase(seed, seq_train(seed, 1)[1]),
                 args.seed)["two_ranks_one_card"]
-    tp = timed("tp", tp_phase, args.seed, train_run)["two_ranks_one_card"]
+    tp = timed("tp", lambda seed: tp_phase(seed, tp_train(seed, TRAIN_EPOCHS)[1]),
+               args.seed)["two_ranks_one_card"]
     serving_tp = timed("serving_tp", serving_tp_phase, args.seed)["two_ranks_one_card"]
     moe = timed("moe", moe_phase, args.seed)
     pipeline = timed("pipeline", pipeline_phase, args.seed)
     pp = pipeline["two_ranks_one_card"]
-    pp3d = timed("pipeline_3d", pipeline_3d_phase, args.seed,
-                 pipeline["one_rank"])["four_ranks_one_card"]
+    pp3d = timed("pipeline_3d", lambda seed: pipeline_3d_phase(
+        seed, _pp_one_rank(seed, 1, _pp3d_model())), args.seed)["four_ranks_one_card"]
     hf = timed("hf_telemetry", hf_telemetry_phase, args.seed)
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()), card=CARD)
 

@@ -18,9 +18,12 @@ What lives here:
   ``DKT1``, a ``!Q`` length, a ``!II`` header, JSON, an ``.npz`` blob), so a
   frame written by either package decodes in the other.
 
-The JAX package's fault-injection (``chaos``) and lock-exclusivity
-(``lockwatch``) hooks are not here: they come with the control plane and
-the sanitizer.
+With the runtime sanitizer on, one frame's send and one frame's receive
+each run under ``lockwatch.exclusive`` on their socket: two threads sending
+(or receiving) on one socket at once interleave length-prefixed frames and
+tear the stream, which the guard reports.  The JAX package's fault
+injection (``chaos``) comes with the control plane (ROADMAP Queue A item
+18).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Any, Optional
 import numpy as np
 
 from distkeras_tpu_torch.parallel.mesh import resolve_device
+from distkeras_tpu_torch.sanitizer import lockwatch
 
 __all__ = [
     "determine_host_address",
@@ -166,7 +170,11 @@ def send_data(sock: socket.socket, obj: Any) -> None:
     frame per call; callers keep sends on one socket to one thread at a
     time, or frames interleave."""
     payload = _encode(obj)
-    sock.sendall(_MAGIC + struct.pack("!Q", len(payload)) + payload)
+    frame = _MAGIC + struct.pack("!Q", len(payload)) + payload
+    # one frame must hit the wire atomically per socket: the sanitizer's
+    # exclusivity guard flags concurrent sends from two threads
+    with lockwatch.exclusive(sock, "send_data on one socket"):
+        sock.sendall(frame)
 
 
 def _recvall(sock: socket.socket, n: int) -> bytes:
@@ -183,10 +191,12 @@ def _recvall(sock: socket.socket, n: int) -> bytes:
 
 def recv_data(sock: socket.socket) -> Any:
     """Length-prefixed message receive (reference parity: ``recv_data``)."""
-    header = _recvall(sock, 12)
-    if header[:4] != _MAGIC:
-        raise ValueError("bad message magic")
-    (length,) = struct.unpack("!Q", header[4:])
-    if length > _MAX_MESSAGE:
-        raise ValueError(f"message too large: {length}")
-    return _decode(_recvall(sock, length))
+    with lockwatch.exclusive(sock, "recv_data on one socket"):
+        header = _recvall(sock, 12)
+        if header[:4] != _MAGIC:
+            raise ValueError("bad message magic")
+        (length,) = struct.unpack("!Q", header[4:])
+        if length > _MAX_MESSAGE:
+            raise ValueError(f"message too large: {length}")
+        payload = _recvall(sock, length)
+    return _decode(payload)

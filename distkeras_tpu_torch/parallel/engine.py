@@ -97,12 +97,23 @@ per-worker series (``divergence``, ``staleness``, the rule's ``rule_*``,
 this and the stats have no ``dynamics`` key; on or off, the trajectory is
 the same bit for bit.
 
+**The runtime sanitizer** (``DISTKERAS_SANITIZE``, read once when the engine
+is built, :mod:`~distkeras_tpu_torch.sanitizer`): the device work of each
+epoch (of ``run_epochs``' epochs together; of each streamed window) runs
+under the transfer guard, labelled ``epoch_dispatch``, so a host read of a
+tensor in the loop is reported, naming the innermost span; the stats'
+read-back follows, outside it.  Then the consumed input state is poisoned:
+a later read of its fields raises instead of silently seeing the updated
+tensors.  Off, the engine does none of this; on or off, the trajectory is
+the same bit for bit.
+
 Not in this slice: ``remat`` or ``seq_shards > 1`` inside a captured
 window.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -115,6 +126,7 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
+from distkeras_tpu_torch import sanitizer as sanitizer_mod
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.telemetry import dynamics as dynamics_mod
 from distkeras_tpu_torch.algorithms.base import CommitCtx, UpdateRule, mesh_ctx
@@ -417,9 +429,16 @@ class WindowedEngine:
                 f"commit_schedule has {len(self.commit_schedule)} entries for "
                 f"{self.num_workers} workers"
             )
+        # (schedule bytes, this rank's commit periods on the device): put
+        # before the epoch's guarded device work, once per schedule
+        self._periods = None
         # training-dynamics stats, read once: the engine's window and step
         # bodies branch on this bool for the engine's life
         self._dynamics = dynamics_mod.enabled()
+        # the runtime sanitizer (distkeras_tpu_torch.sanitizer), same
+        # convention: one cached bool read at build; off, no guard is
+        # entered and no tensor method is patched
+        self._sanitize = sanitizer_mod.enabled()
         # captured windows, keyed as the JAX engine keys its epoch programs;
         # every graph reads and writes the one state ``_static`` holds
         self._graphs: dict = {}
@@ -769,7 +788,9 @@ class WindowedEngine:
                 "update_sq": torch.zeros((), dtype=torch.float32, device=self.device),
             }
             for key, value in self._rule_dynamics(ctx, center, state).items():
-                value = torch.as_tensor(value, device=self.device).to(torch.float32)
+                # a value the rule built on the host (ADAG's steps in the
+                # window) crosses without a blocking copy, which would sync
+                value = torch.as_tensor(value).to(self.device, torch.float32, non_blocking=True)
                 dyn[key] = torch.broadcast_to(value, (v,))
         return dyn, center
 
@@ -848,8 +869,10 @@ class WindowedEngine:
         into the captured ones."""
         static = self._static
         if static is None:
-            self._static = state
-            return state
+            # a state object of its own: the caller's is consumed (and, with
+            # the sanitizer on, poisoned) when the epoch ends
+            self._static = state.replace()
+            return self._static
         if _state_key(state) != _state_key(static):
             with torch.no_grad():
                 _copy_into(_state_trees(static), _state_trees(state))
@@ -889,13 +912,20 @@ class WindowedEngine:
         if self.group is not None:
             # NCCL captures a collective only once its communicator exists
             all_reduce_sum([torch.zeros(1, device=self.device)], self.group)
-            torch.cuda.synchronize(self.device)
+            with sanitizer_mod.transfer.allow("graph capture set-up"):
+                torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         for g in state.rng:
             graph.register_generator_state(g)
         counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
         before = [c.launches for c in counters]
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        capture = torch.cuda.graph(graph, capture_error_mode="thread_local")
+        # entering a capture synchronises the device (torch.cuda.graph's own
+        # set-up): declared to the transfer guard, the captured body is not
+        with sanitizer_mod.transfer.allow("graph capture set-up"):
+            capture.__enter__()
+        with contextlib.ExitStack() as stack:
+            stack.push(capture)
             loss, mets, dyn = self._window_body(state, x, y, do_commit)
         # kernels launched inside the graph at each replay, by wrapper
         ticks = {c.__name__: c.launches - b for c, b in zip(counters, before)}
@@ -915,15 +945,25 @@ class WindowedEngine:
                 out[name] = (t + ticks, n + ticks * captured.replays)
         return out
 
-    def _run_stepwise(self, state: TrainState, xs, ys):
+    def _device_periods(self) -> torch.Tensor:
+        """This rank's commit periods on the device, copied once per schedule
+        (a caller may set ``commit_schedule`` between epochs): outside the
+        epoch's device work, where a copy would be a blocking transfer."""
+        schedule = np.asarray(self.commit_schedule, np.int32)
+        key = schedule.tobytes()
+        if self._periods is None or self._periods[0] != key:
+            self._periods = (key, torch.as_tensor(schedule[self.workers], device=self.device))
+        return self._periods[1]
+
+    def _run_stepwise(self, state: TrainState, xs, ys, periods: torch.Tensor):
         """The staleness simulation over ``xs``/``ys`` shaped ``[v, n_steps,
         batch, ...]``: each step, every worker takes one local step, then
         one masked commit runs over all of them (across the ranks too).
-        Returns the state, the per-step loss ``[n_steps]``, averaged over
-        all workers, and with dynamics on each step's values (the effective
-        staleness is each worker's steps since its last commit)."""
+        ``periods`` is :meth:`_device_periods`.  Returns the state, the
+        per-step loss ``[n_steps]``, averaged over all workers, and with
+        dynamics on each step's values (the effective staleness is each
+        worker's steps since its last commit)."""
         v = self.virtual
-        periods = torch.as_tensor(self.commit_schedule[self.workers], device=self.device)
         since = torch.zeros(v, dtype=torch.int32, device=self.device)
         losses, steps_dyn = [], []
         for t in range(xs.shape[1]):
@@ -1001,16 +1041,37 @@ class WindowedEngine:
                     torch.cuda.synchronize(self.device)
         return state, stats
 
+    @contextlib.contextmanager
+    def _dispatch(self, state: TrainState):
+        """With the sanitizer on, the device work of one run (every launch of
+        an epoch, or of ``run_epochs``' epochs) under the transfer guard, and
+        then the consumed input ``state`` poisoned, as the JAX engine's
+        ``_dispatch`` guards its jitted dispatch and poisons the donated
+        state.  The caller builds the returned state inside the block (its
+        fields are read there) and reads the stats back after it.  Off:
+        nothing at all."""
+        if not self._sanitize:
+            yield
+            return
+        with sanitizer_mod.transfer.guard("epoch_dispatch"):
+            yield
+        sanitizer_mod.donation.poison(state, label="epoch state (consumed in place)")
+
     def _epoch(self, state: TrainState, xs, ys):
-        if self.commit_schedule is not None:
-            state, losses, dyns = self._run_stepwise(state, xs, ys)
-            stats = {"loss": losses.cpu().numpy(), "metrics": np.zeros((0,), np.float32)}
-        else:
-            state, losses, mets, dyns = self._run_windows(state, xs, ys)
-            stats = {"loss": losses.cpu().numpy(), "metrics": mets.cpu().numpy()}
+        mets = None
+        periods = None if self.commit_schedule is None else self._device_periods()
+        with self._dispatch(state):
+            if periods is not None:
+                new, losses, dyns = self._run_stepwise(state, xs, ys, periods)
+            else:
+                new, losses, mets, dyns = self._run_windows(state, xs, ys)
+            new = new.replace(epoch=new.epoch + 1)
+        # the read-back follows the dispatch, outside the guard
+        stats = {"loss": losses.cpu().numpy(),
+                 "metrics": np.zeros((0,), np.float32) if mets is None else mets.cpu().numpy()}
         if self._dynamics:
             stats["dynamics"] = self._dyn_reduce(dyns)
-        return state.replace(epoch=state.epoch + 1), stats
+        return new, stats
 
     def run_epochs(self, state: TrainState, xs, ys, num_epochs: int, *,
                    shuffle_seed: Optional[int] = None):
@@ -1050,22 +1111,23 @@ class WindowedEngine:
         n_total = int(np.prod(xs.shape[:4]))
         local_shape = (self.virtual,) + tuple(xs.shape[1:4])
         losses, mets, dyns = [], [], []
-        for _ in range(num_epochs):
-            xs_e, ys_e = xs, ys
-            if shuffle_seed is not None:
-                perm = epoch_permutation(shuffle_seed, state.epoch, n_total, xs.device)
-                perm = self._from_rank0(perm.to(xs.device))
-                # this rank's rows of the permuted stream
-                perm = perm.view(self.num_workers, -1)[self.workers].reshape(-1)
-                xs_e = xs.reshape((n_total,) + xs.shape[4:])[perm].reshape(
-                    local_shape + xs.shape[4:])
-                ys_e = ys.reshape((n_total,) + ys.shape[4:])[perm].reshape(
-                    local_shape + ys.shape[4:])
-            state, loss, met, dyn = self._run_windows(state, xs_e, ys_e)
-            state = state.replace(epoch=state.epoch + 1)
-            losses.append(loss)
-            mets.append(met)
-            dyns += dyn
+        with self._dispatch(state):  # the caller's state, poisoned at the end
+            for _ in range(num_epochs):
+                xs_e, ys_e = xs, ys
+                if shuffle_seed is not None:
+                    perm = epoch_permutation(shuffle_seed, state.epoch, n_total, xs.device)
+                    perm = self._from_rank0(perm.to(xs.device))
+                    # this rank's rows of the permuted stream
+                    perm = perm.view(self.num_workers, -1)[self.workers].reshape(-1)
+                    xs_e = xs.reshape((n_total,) + xs.shape[4:])[perm].reshape(
+                        local_shape + xs.shape[4:])
+                    ys_e = ys.reshape((n_total,) + ys.shape[4:])[perm].reshape(
+                        local_shape + ys.shape[4:])
+                state, loss, met, dyn = self._run_windows(state, xs_e, ys_e)
+                state = state.replace(epoch=state.epoch + 1)
+                losses.append(loss)
+                mets.append(met)
+                dyns += dyn
         stats = {"loss": torch.cat(losses).cpu().numpy(), "metrics": torch.cat(mets).cpu().numpy()}
         if self._dynamics:
             stats["dynamics"] = self._dyn_reduce(dyns)
@@ -1169,6 +1231,7 @@ class WindowedEngine:
             strict_link = os.environ.get(
                 "DISTKERAS_STREAMING_STRICT", "").lower() not in ("", "0", "false")
         it = iter(window_iter)
+        consumed = state
         buf = deque()
         losses, mets, dyns, done_events = [], [], [], []
         steps_list = []  # per-window step counts (ragged tail weighting)
@@ -1204,7 +1267,8 @@ class WindowedEngine:
                 if block.ready is not None:
                     torch.cuda.current_stream(self.device).wait_event(block.ready)
                 xs, ys = block
-                with telemetry.trace.span("window_dispatch", window=n_windows):
+                with telemetry.trace.span("window_dispatch", window=n_windows), \
+                        self._guard_window():
                     state, loss, met, dyn = self._run_window(state, xs[:, 0], ys[:, 0],
                                                              do_commit)
                 if self.device.type == "cuda":
@@ -1240,7 +1304,11 @@ class WindowedEngine:
             raise ValueError("empty window iterator")
         self._report_stream_link(src_seconds, steady_src, steady_t0, n_windows, strict_link,
                                  time.perf_counter())
-        loss, mets = self._mean_over_workers(torch.stack(losses), torch.stack(mets))
+        with self._guard_window():
+            loss, mets = self._mean_over_workers(torch.stack(losses), torch.stack(mets))
+        out = state.replace(epoch=state.epoch + 1)
+        if self._sanitize:
+            sanitizer_mod.donation.poison(consumed, label="epoch state (consumed in place)")
         stats = {"loss": loss.cpu().numpy(),
                  "metrics": mets.cpu().numpy(),
                  # per-window step counts, so the history can weight a ragged
@@ -1248,7 +1316,16 @@ class WindowedEngine:
                  "window_steps": np.asarray(steps_list, np.int64)}
         if self._dynamics:
             stats["dynamics"] = self._dyn_reduce(dyns)
-        return state.replace(epoch=state.epoch + 1), stats
+        return out, stats
+
+    def _guard_window(self):
+        """The transfer guard around one streamed window's device work (the
+        JAX engine guards each window's dispatch); a null context with the
+        sanitizer off.  Pulls, the callback and the backpressure wait stay
+        outside, as they are outside JAX's dispatch."""
+        if not self._sanitize:
+            return contextlib.nullcontext()
+        return sanitizer_mod.transfer.guard("epoch_dispatch")
 
     def _report_stream_link(self, src_seconds, steady_src, steady_t0, n_windows, strict_link,
                             now):

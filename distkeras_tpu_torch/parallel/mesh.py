@@ -39,7 +39,10 @@ tensors staged through pinned host memory for the ring shift and the
 gather (gloo's send/recv and gather take no CUDA tensor), while psum and
 pmean are :func:`all_reduce_sum`, which gloo copies through the host
 itself.  Every byte a collective moves through the host is counted in
-:data:`transport_stats` (ROADMAP Queue C, C11).
+:data:`transport_stats` (ROADMAP Queue C, C11).  That staging synchronises
+with the card on purpose, so under the runtime sanitizer's transfer guard
+it runs as a declared transfer (``transfer.allow("gloo host staging")``),
+never as a violation.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from distkeras_tpu_torch.sanitizer import transfer as _transfer
 
 __all__ = [
     "WORKER_AXIS",
@@ -303,9 +308,11 @@ def all_reduce_sum(tensors, group):
     out = [None] * len(tensors)
     for (_, device), (idx, flat) in _flat_by_dtype(tensors).items():
         flat = flat.to(_comm_device(group, device))
-        if _route(group, flat) == "host":
+        route = _route(group, flat)
+        if route == "host":
             transport_stats["host_staged_bytes"] += 2 * flat.numel() * flat.element_size()
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        with _staging(route):
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         _unflatten_into(out, tensors, idx, flat)
     return out
 
@@ -321,7 +328,8 @@ def broadcast(tensors, src: int, group):
     out = [None] * len(tensors)
     for (_, device), (idx, flat) in _flat_by_dtype(tensors).items():
         flat = flat.to(_comm_device(group, device))
-        dist.broadcast(flat, src=src_global, group=group)
+        with _staging(_route(group, flat)):
+            dist.broadcast(flat, src=src_global, group=group)
         _unflatten_into(out, tensors, idx, flat)
     return out
 
@@ -424,6 +432,13 @@ def _route(group, t: torch.Tensor) -> str:
     return "host" if t.is_cuda else "direct"
 
 
+def _staging(route: str):
+    """The host staging of the ``"host"`` route as a declared transfer to the
+    sanitizer's transfer guard (a null context on the other routes, and with
+    the sanitizer off)."""
+    return _transfer.allow("gloo host staging") if route == "host" else contextlib.nullcontext()
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     buf.copy_(t)
@@ -449,12 +464,13 @@ def _shift(flat: torch.Tensor, ax: Axis, shift: int) -> torch.Tensor:
         for r in reqs:
             r.wait()
         return out
-    send = _to_host(flat) if route == "host" else flat
-    recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=route == "host")
-    reqs = [dist.isend(send, dst, group=ax.group), dist.irecv(recv, src, group=ax.group)]
-    for r in reqs:
-        r.wait()
-    return _from_host(recv, flat.device) if route == "host" else recv
+    with _staging(route):
+        send = _to_host(flat) if route == "host" else flat
+        recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=route == "host")
+        reqs = [dist.isend(send, dst, group=ax.group), dist.irecv(recv, src, group=ax.group)]
+        for r in reqs:
+            r.wait()
+        return _from_host(recv, flat.device) if route == "host" else recv
 
 
 def _gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
@@ -465,11 +481,12 @@ def _gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
         out = torch.empty((ax.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x, group=ax.group)
         return out
-    send = _to_host(x) if route == "host" else x
-    bufs = [torch.empty_like(send) for _ in range(ax.size)]
-    dist.all_gather(bufs, send, group=ax.group)
-    out = torch.stack(bufs)
-    return _from_host(out, x.device) if route == "host" else out
+    with _staging(route):
+        send = _to_host(x) if route == "host" else x
+        bufs = [torch.empty_like(send) for _ in range(ax.size)]
+        dist.all_gather(bufs, send, group=ax.group)
+        out = torch.stack(bufs)
+        return _from_host(out, x.device) if route == "host" else out
 
 
 def _reduce_scatter(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:

@@ -99,13 +99,25 @@ A ``StagedLM`` target (raw with its staged parameters, or as a
 ``TrainedModel``) resolves through its ``decode_spec`` to the layout a
 ``TransformerLM`` gives, and is served as one, with ``mesh=`` too.
 
-Not ported here: the chaos fault point and the per-tenant accounting ledger
-(items 18 and 19b) and the lock-order watchdog around the engine's condition
-variable (item 19b).
+**Accounting.**  With telemetry on and ``DISTKERAS_ACCOUNTING`` not falsey,
+the engine bills its registry's per-tenant ledger
+(:mod:`~distkeras_tpu_torch.telemetry.accounting`) at four points of the
+host loop: admission (prompt tokens, queue wait, prefill seconds and the
+first token), each decode step (every active slot's tokens and an even
+share of the step's wall time), each speculative verdict (accepted and
+rejected drafts) and retirement (KV page-seconds).  The ledger reads
+host-visible values only and adds no device sync; off, the engine holds no
+ledger and each point is one ``is None`` check.  With the runtime sanitizer
+on, the engine's condition variable runs under the lock-order watchdog
+(``lockwatch``), and the loop's read-backs are declared transfers to the
+transfer guard.
+
+Not ported here: the chaos fault point (ROADMAP Queue A item 18).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import sys
@@ -136,6 +148,9 @@ from distkeras_tpu_torch.serving.sampling import (
     seed_value,
     speculative_verify_tokens,
 )
+from distkeras_tpu_torch import sanitizer as _sanitizer
+from distkeras_tpu_torch.sanitizer import lockwatch
+from distkeras_tpu_torch.telemetry import accounting as _accounting
 from distkeras_tpu_torch.telemetry import runtime as _truntime
 from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
 
@@ -422,13 +437,15 @@ class _Pending:
 class _SlotState:
     """Host-side record for one occupied batch slot."""
 
-    __slots__ = ("pending", "tokens", "plen", "ttft_s")
+    __slots__ = ("pending", "tokens", "plen", "ttft_s", "pages", "admit_t")
 
     def __init__(self, pending: _Pending, plen: int):
         self.pending = pending
         self.tokens: List[int] = []
         self.plen = plen
         self.ttft_s = 0.0
+        self.pages = 0        # pages held — the page-seconds numerator
+        self.admit_t = 0.0    # prefill-done wall time — its clock start
 
 
 # The host-side slot arrays uploaded before every step: name -> dtype.
@@ -509,6 +526,10 @@ class ServingEngine:
             prefill_buckets, self._cache.page_size, self._width)
         self._queue = RequestQueue(queue_size)
         self._metrics = serving_metrics(registry)
+        # the registry's per-tenant ledger, or None (accounting off)
+        self._ledger = _accounting.maybe_ledger(registry)
+        # the runtime sanitizer, read once at build as the training engine does
+        self._sanitize = _sanitizer.enabled()
 
         # --------------------------------------------------- draft / verify
         self._draft_spec = None
@@ -562,7 +583,7 @@ class ServingEngine:
         self._topp[:] = 1.0
 
         self._slots: List[Optional[_SlotState]] = [None] * s
-        self._cv = threading.Condition()
+        self._cv = lockwatch.maybe_wrap(threading.Condition(), "serving.engine")
         self._running = False
         self._thread: Optional[threading.Thread] = None
         # drain/hot-swap/cancel state, all owned by the loop thread except
@@ -1231,7 +1252,8 @@ class ServingEngine:
                 dc = self._draft_cache
                 self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, slot, plen,
                               sample=False)
-            tok0 = int(tok.item())  # device sync: the prefill is done here
+            with self._read_back():
+                tok0 = int(tok.item())  # device sync: the prefill is done here
         now = time.perf_counter()
         self._metrics["prefill_seconds"].observe(now - t0)
         self._metrics["prefill_padded"].inc(width - plen)
@@ -1239,8 +1261,17 @@ class ServingEngine:
         state = _SlotState(pending, plen)
         state.tokens.append(tok0)
         state.ttft_s = now - pending.enqueue_t
+        state.pages = need
+        state.admit_t = now
         self._metrics["ttft"].observe(state.ttft_s)
         self._metrics["tokens"].inc()
+        if self._ledger is not None:
+            # prompt tokens, queue wait, prefill seconds and the first
+            # sampled token bill at admission — all host-visible
+            self._ledger.admit(
+                req.tenant, prompt_tokens=plen,
+                queue_wait_s=t0 - pending.enqueue_t,
+                device_s=now - t0, generated=1)
         self._slots[slot] = state
         self._pos[slot] = plen
         self._last[slot] = tok0
@@ -1253,6 +1284,15 @@ class ServingEngine:
             self._retire(slot, "eos")
         elif len(state.tokens) >= pending.max_new:
             self._retire(slot, "length")
+
+    def _read_back(self):
+        """One read-back of the loop (a sync on the card, by design),
+        declared to the sanitizer's transfer guard: torch's sync debug mode
+        is process-wide, so another thread's strict guard would otherwise
+        report it.  A null context with the sanitizer off."""
+        if not self._sanitize:
+            return contextlib.nullcontext()
+        return _sanitizer.transfer.allow("serving read-back")
 
     def _decode_once(self) -> bool:
         """One engine iteration over every active slot: a plain decode
@@ -1301,11 +1341,16 @@ class ServingEngine:
             with self._cv:
                 spec = self._spec
             tok = self._decode(spec, self._cache.k_pages, self._cache.v_pages)
-            toks = tok.cpu().numpy()  # device sync: the step is done here
+            with self._read_back():
+                toks = tok.cpu().numpy()  # device sync: the step is done here
         dt = time.perf_counter() - t0
         self._metrics["token_latency"].observe(dt)
         self._metrics["decode_steps"].inc()
         self._ctr[self._active] += 1
+        ledger = self._ledger
+        # the step's wall time split evenly over the slots it decoded for
+        # (counted before retirements change them)
+        share = dt / max(1, int(self._active.sum()))
 
         for slot in range(self.num_slots):
             state = self._slots[slot]
@@ -1314,6 +1359,8 @@ class ServingEngine:
             t = int(toks[slot])
             state.tokens.append(t)
             self._metrics["tokens"].inc()
+            if ledger is not None:
+                ledger.decode(state.pending.request.tenant, tokens=1, device_s=share)
             self._pos[slot] += 1
             self._last[slot] = t
             eos = state.pending.request.eos_id
@@ -1335,7 +1382,9 @@ class ServingEngine:
                 spec = self._spec
             out, count, accepted = self._spec_iteration(spec)
             # one copy back: the iteration is done here
-            packed = torch.cat([out, count[:, None], accepted[:, None]], dim=1).cpu().numpy()
+            packed = torch.cat([out, count[:, None], accepted[:, None]], dim=1)
+            with self._read_back():
+                packed = packed.cpu().numpy()
         out, counts, acc = packed[:, :m], packed[:, m], packed[:, m + 1]
         dt = time.perf_counter() - t0
         self._metrics["token_latency"].observe(dt)
@@ -1347,12 +1396,19 @@ class ServingEngine:
             self._metrics["spec_accepted"].inc(int(acc[spec_slots].sum()))
         self._ctr[self._active] += 1
         self._dctr[self._active] += m
+        ledger = self._ledger
+        share = dt / max(1, int(self._active.sum()))
 
         for slot in range(self.num_slots):
             state = self._slots[slot]
             if state is None or not self._active[slot]:
                 continue
             req = state.pending.request
+            if ledger is not None and spec_slots[slot]:
+                # accepted + rejected = m per speculative slot, so the tenant
+                # sums conserve against serving_spec_{proposed,accepted}_total
+                accepted = int(acc[slot])
+                ledger.speculative(req.tenant, accepted=accepted, rejected=m - accepted)
             retired = False
             emitted = 0
             for j in range(int(counts[slot])):
@@ -1368,6 +1424,8 @@ class ServingEngine:
                     self._retire(slot, "length")
                     retired = True
                     break
+            if ledger is not None:
+                ledger.decode(req.tenant, tokens=emitted, device_s=share)
             if not retired:
                 self._pos[slot] += emitted
                 self._last[slot] = int(out[slot, emitted - 1])
@@ -1392,6 +1450,11 @@ class ServingEngine:
 
     def _retire(self, slot: int, reason: str) -> None:
         state = self._slots[slot]
+        if self._ledger is not None:
+            # page-seconds sample at slot free: pages held x wall time
+            self._ledger.release(
+                state.pending.request.tenant, pages=state.pages,
+                held_s=time.perf_counter() - state.admit_t)
         self._cache.free(slot)
         self._slots[slot] = None
         self._active[slot] = False

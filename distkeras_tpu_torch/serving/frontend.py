@@ -52,8 +52,10 @@ class GenerateRequest:
     the HTTP endpoint).  ``trace_id`` correlates the spans the request
     produces; ``request_id`` is the idempotency key; both ride trace-span
     args, never metric labels.  ``tenant`` names the client on whose
-    behalf the request runs: it rides span args, and the per-tenant
-    accounting that bills to it comes with ROADMAP Queue A item 19b.
+    behalf the request runs: it rides span args and is the key the
+    engine's per-tenant ledger bills (:mod:`~distkeras_tpu_torch.telemetry.
+    accounting`; an empty tenant bills ``__untagged__``).  Over HTTP it is
+    the body's ``tenant``, else the ``x-dk-tenant`` header.
     """
 
     prompt: List[int]

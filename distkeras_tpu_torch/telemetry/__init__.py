@@ -11,20 +11,22 @@ dynamics and the flight deck: the port of :mod:`distkeras_tpu.telemetry`.
   (``DISTKERAS_DYNAMICS``) and the divergence watchdog;
 * :mod:`.flightdeck` — live HTTP scrape (``DISTKERAS_TELEMETRY_HTTP``),
   flight-recorder ring with crash blackbox dumps, and the fleet ``run_id``
-  stamped into every trace event and scrape.
+  stamped into every trace event and scrape;
+* :mod:`.accounting` — the per-tenant ledger the serving engine bills
+  (``DISTKERAS_ACCOUNTING``, served at ``/ledger``), and :mod:`.slo`, the
+  SLO engine over the rollup ring (served at ``/slo``).
 
 Everything is gated on ``DISTKERAS_TELEMETRY`` (see :mod:`.runtime`): with
 the flag unset, ``trace.span()`` returns a shared no-op and instrumented
 code paths take their original branch — no extra host syncs, no extra
-allocations.  The per-tenant accounting and the SLO engine come with ROADMAP
-Queue A item 19b.
+allocations.
 """
 
 from __future__ import annotations
 
 import os
 
-from distkeras_tpu_torch.telemetry import dynamics, flightdeck, runtime
+from distkeras_tpu_torch.telemetry import accounting, dynamics, flightdeck, runtime
 from distkeras_tpu_torch.telemetry.metrics import (
     Counter,
     Gauge,
@@ -39,7 +41,7 @@ from distkeras_tpu_torch.telemetry.runtime import configure, enabled, out_dir
 from distkeras_tpu_torch.telemetry.trace import Span, Tracer, trace
 
 __all__ = ["Counter", "Gauge", "Histogram", "ProfilerHook", "Registry", "Span", "Tracer",
-           "configure", "dynamics", "enabled", "flightdeck", "flush", "merge_snapshots",
+           "accounting", "configure", "dynamics", "enabled", "flightdeck", "flush", "merge_snapshots",
            "metrics", "out_dir", "prometheus_from_snapshot", "runtime", "trace"]
 
 

@@ -1,9 +1,7 @@
 """Live HTTP exporter: scrape a running trainer/daemon instead of waiting.
 
 The port of :mod:`distkeras_tpu.telemetry.flightdeck.server` (host code,
-copied), less ``/ledger``, which the per-tenant accounting brings (ROADMAP
-Queue A item 19b); ``/healthz`` reports the sanitizer, also item 19b, as
-``off``.
+copied).
 
 A stdlib :class:`http.server.ThreadingHTTPServer` on a daemon thread, gated
 by ``DISTKERAS_TELEMETRY_HTTP``:
@@ -33,6 +31,9 @@ Endpoints:
     The rollup ring (``DISTKERAS_ROLLUP``): fixed-interval history of every
     instrument, the raw feed for SLO burn rates and ``dkmon watch``.
     ``?since=<unix>`` / ``?name=<metric>`` (repeatable) filter the samples.
+``/ledger``
+    The per-tenant accounting ledger (``DISTKERAS_ACCOUNTING``) as JSON;
+    ``{"enabled": false, "tenants": []}`` when accounting is off.
 Handlers only *read* registry snapshots and the recorder ring (each guarded
 by its own cheap lock), so scraping never blocks the training loop.  The
 daemon adds its fleet ``/aggregate`` view through :func:`add_endpoint`.
@@ -250,6 +251,7 @@ def _render(path: str, request: Optional[dict] = None):
     """``(content_type, body, status[, headers])`` for one endpoint,
     ``None`` for 404."""
     # Lazy: metrics/trace/dynamics import this package for their ring feeds.
+    from distkeras_tpu_torch import sanitizer as _sanitizer
     from distkeras_tpu_torch.telemetry import dynamics as _dynamics
     from distkeras_tpu_torch.telemetry.metrics import metrics as _registry
     from distkeras_tpu_torch.telemetry.trace import trace as _tracer
@@ -260,6 +262,9 @@ def _render(path: str, request: Optional[dict] = None):
         text = _registry.to_prometheus(labels={"run_id": rid})
         return ("text/plain; version=0.0.4; charset=utf-8", text, 200)
     if path == "/healthz":
+        counts: Dict[str, int] = {}
+        for kind, _msg in _sanitizer.violations():
+            counts[kind] = counts.get(kind, 0) + 1
         body = {
             "status": "ok",
             "run_id": rid,
@@ -269,8 +274,7 @@ def _render(path: str, request: Optional[dict] = None):
             "last_event_unix": rec.last_event_unix(),
             "last_spans": rec.last_spans(),
             "watchdog": rec.watchdog_state(),
-            # the runtime sanitizer comes with item 19b: nothing guards yet
-            "sanitizer": {"mode": "off", "violations": {}},
+            "sanitizer": {"mode": _sanitizer.mode(), "violations": counts},
         }
         return ("application/json", json.dumps(body), 200)
     if path == "/vars":
@@ -287,6 +291,10 @@ def _render(path: str, request: Optional[dict] = None):
         from distkeras_tpu_torch.telemetry.flightdeck import rollup as _rollup
 
         return _rollup.timeseries_view(request)
+    if path == "/ledger":
+        from distkeras_tpu_torch.telemetry import accounting as _accounting
+
+        return _accounting.ledger_view(request)
     if path == "/trace":
         payload = rec.trace_export(origin=_tracer._origin)
         query = parse_qs((request or {}).get("query") or "")
@@ -338,7 +346,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if payload is None:
             known = ["/metrics", "/healthz", "/vars", "/trace",
-                     "/timeseries", *sorted(_EXTRA)]
+                     "/timeseries", "/ledger", *sorted(_EXTRA)]
             self._reply(404, "text/plain", "not found; endpoints: " + " ".join(known))
             return
         ctype, text, status = payload[:3]

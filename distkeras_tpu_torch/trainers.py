@@ -56,6 +56,9 @@ on, a fit records spans, writes its trace and metrics files and starts the
 flight deck; ``DISTKERAS_DYNAMICS`` adds the per-epoch training-dynamics
 summary, the divergence watchdog and ``staleness_policy``; ``profile_dir``
 and ``DISTKERAS_PROFILE`` capture ``torch.profiler`` traces.
+``DISTKERAS_SANITIZE`` runs each epoch under the runtime sanitizer's
+guards; in record mode a fit that recorded violations ends with one warning
+that tallies them.
 
 A kwarg of the JAX trainers whose feature is not ported yet (``elastic``)
 raises ``NotImplementedError`` naming the ROADMAP item that brings it when
@@ -73,7 +76,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from distkeras_tpu_torch import fleet, telemetry
+from distkeras_tpu_torch import fleet, sanitizer, telemetry
 from distkeras_tpu_torch import workers as workers_mod
 from distkeras_tpu_torch.data import epoch_arrays, epoch_window_iter, plan_epoch
 from distkeras_tpu_torch.frame import DataFrame
@@ -745,6 +748,21 @@ class Trainer:
             # one file pair per process under DISTKERAS_TELEMETRY[_DIR]: the
             # Chrome trace (open in Perfetto) and a metrics snapshot
             telemetry.flush()
+        if sanitizer.enabled() and not sanitizer.strict():
+            # record mode: per-violation warnings fire once per guard kind,
+            # so close the fit with the full tally — the operator's cue to
+            # re-run strict before this reaches a card
+            recorded = sanitizer.violations()
+            if recorded:
+                kinds = sorted({k for k, _ in recorded})
+                warnings.warn(
+                    f"sanitizer recorded {len(recorded)} violation(s) during "
+                    f"this fit ({', '.join(kinds)} guard"
+                    f"{'s' if len(kinds) > 1 else ''}); see the sanitizer_* "
+                    "counters, or run with DISTKERAS_SANITIZE=strict to fail "
+                    "at the offending dispatch",
+                    RuntimeWarning,
+                )
         return engine, state, adapter
 
     def _worker_row(self) -> int:

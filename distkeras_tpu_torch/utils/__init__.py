@@ -16,8 +16,14 @@ import numpy as np
 from distkeras_tpu_torch.frame import DataFrame, Row
 from distkeras_tpu_torch.utils.pytree import (
     tree_add,
+    tree_add_scaled,
+    tree_cast,
+    tree_global_norm,
     tree_leaves,
     tree_map,
+    tree_ones_like,
+    tree_scale,
+    tree_size,
     tree_sub,
     tree_where,
     tree_zeros_like,
@@ -40,11 +46,17 @@ __all__ = [
     "params_to_bytes",
     "params_from_bytes",
     "tree_add",
+    "tree_sub",
+    "tree_scale",
+    "tree_add_scaled",
+    "tree_zeros_like",
+    "tree_ones_like",
+    "tree_global_norm",
+    "tree_size",
+    "tree_cast",
+    "tree_where",
     "tree_leaves",
     "tree_map",
-    "tree_sub",
-    "tree_where",
-    "tree_zeros_like",
 ]
 
 

@@ -1,8 +1,8 @@
 """Tree arithmetic for the update rules and the engine.
 
-The port of :mod:`distkeras_tpu.utils.pytree` as far as the ported rules
-need it.  Parameters are name -> tensor dicts here; a tree is a tensor, or
-a dict, list or tuple of trees, and every helper maps over the tensors.
+The port of :mod:`distkeras_tpu.utils.pytree`.  Parameters are name ->
+tensor dicts here; a tree is a tensor, or a dict, list or tuple of trees,
+and every helper maps over the tensors.
 """
 
 from __future__ import annotations
@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "bcast", "tree_add", "tree_leaves", "tree_map", "tree_sub", "tree_where", "tree_zeros_like",
+    "bcast", "tree_add", "tree_add_scaled", "tree_cast", "tree_global_norm", "tree_leaves",
+    "tree_map", "tree_ones_like", "tree_scale", "tree_size", "tree_sub", "tree_where",
+    "tree_zeros_like",
 ]
 
 
@@ -40,8 +42,40 @@ def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
 
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_add_scaled(a, b, s):
+    """a + s * b, leaf by leaf."""
+    return tree_map(lambda x, y: x + s * y, a, b)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
+
+
+def tree_ones_like(a):
+    return tree_map(torch.ones_like, a)
+
+
+def tree_global_norm(a) -> torch.Tensor:
+    """The L2 norm over every leaf, as a scalar tensor (a zero scalar for
+    an empty tree)."""
+    leaves = tree_leaves(a)
+    if not leaves:
+        return torch.zeros(())
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
+
+
+def tree_size(a) -> int:
+    """Total number of scalar parameters."""
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def tree_cast(a, dtype):
+    """Floating leaves cast to ``dtype``; integer and bool leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)
 
 
 def bcast(value: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

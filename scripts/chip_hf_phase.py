@@ -8,9 +8,11 @@ Builds the kernels and runs phase 25: a GPT-2-small checkpoint's layout
 forward on the card against the CPU, the train phase's one-rank
 ``DOWNPOUR`` over it with the training telemetry off and then on
 (``DISTKERAS_TELEMETRY``, ``DISTKERAS_DYNAMICS`` with the ``warn``
-watchdog, ``profile_dir``), and the fine-tuned model served over HTTP by
-``install_http_endpoint`` on the flight deck's exporter at 127.0.0.1,
-printing ``chip_smoke.py``'s JSON line.  Any failed gate raises.
+watchdog, ``profile_dir``) and a third time under the runtime sanitizer,
+strict; a sync planted inside a strict transfer guard; and the fine-tuned
+model served over HTTP by ``install_http_endpoint`` on the flight deck's
+exporter at 127.0.0.1, strict and billed to two tenants (``/ledger``,
+``/healthz``, ``/slo``), printing ``chip_smoke.py``'s JSON line.  Any failed gate raises.
 ``chip_smoke.py`` runs every phase; this is the HuggingFace and telemetry
 path alone.  Needs a CUDA card.
 """

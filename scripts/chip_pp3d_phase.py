@@ -3,7 +3,7 @@
     python scripts/chip_pp3d_phase.py [--cards-only]
 
 Builds the kernels and runs phase 24: phase 23's ``StagedLM`` at GPT-2
-small's widths (12 blocks as 2 stages of 6) under ``DOWNPOUR`` on one rank
+small's widths, cut to 6 blocks as 2 stages of 3, under ``DOWNPOUR`` on one rank
 (the sequential executor, the reference), then four gloo ranks sharing the
 card on the pipeline engine's 1 x 2 x 2 grids: ``tp_shards=2``, with
 ``fsdp=True``, and ``seq_shards=2`` with the model built ``seq_axis="seq"``,
@@ -43,7 +43,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     t1 = time.perf_counter()
-    ref = chip_smoke._pp_one_rank(0, 1)
+    ref = chip_smoke._pp_one_rank(0, 1, chip_smoke._pp3d_model())
     chip_smoke.emit(phase="pipeline", case="one_rank", loss=ref["loss"],
                     tokens_per_s=ref["tokens_per_s"], peak_memory_gb=ref["peak_memory_gb"],
                     launches_b1_b2_b3=ref["launches"], block_bytes=ref["block_bytes"],

@@ -1,12 +1,13 @@
-"""``chip_smoke.py``'s tensor-parallel phase alone, with the train phase it
+"""``chip_smoke.py``'s tensor-parallel phase alone, with the two-epoch run it
 is held to.
 
     python scripts/chip_tp_phase.py [--serving]
 
-Builds the kernels, runs the train phase (the GPT-2-small ``DOWNPOUR`` at
-one rank, through B1-B3) and then the tensor-parallel phase (phase 20: the
-same run over two gloo ranks sharing the card with ``tp_shards=2`` against
-one rank's run of as many epochs, ``fsdp=True`` alone against the
+Builds the kernels, runs the two-epoch one-rank ``DOWNPOUR`` at phase 20's
+depth (GPT-2 small's widths, 6 blocks, through B1-B3) and then the
+tensor-parallel phase (phase 20: the same training over two gloo ranks
+sharing the card with ``tp_shards=2`` against one rank's run of as many
+epochs, ``fsdp=True`` alone against the
 replicated two-rank run, the returned model through ``ModelPredictor``, and
 the 2 x 2 NCCL grid, one rank a card, where the machine has 4 cards), each
 printing ``chip_smoke.py``'s JSON lines; with ``--serving``, then the
@@ -42,7 +43,7 @@ def main(argv) -> int:
                     torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     _build.build_all()
-    _, train_run = chip_smoke.train_phase(0)
+    _, train_run = chip_smoke.tp_train(0, chip_smoke.TRAIN_EPOCHS)
     t1 = time.perf_counter()
     chip_smoke.tp_phase(0, train_run)
     t2 = time.perf_counter()

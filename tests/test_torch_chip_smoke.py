@@ -542,7 +542,7 @@ def test_pipeline_3d_phase_rehearsal(on_cpu, capsys, monkeypatch):
     # here: four gloo ranks spawned on the CPU (grid 1 x 2 x 2), pp x tp,
     # with fsdp, and pp x sp
     monkeypatch.setattr(chip_smoke, "PP_MODEL", TINY_STAGED)
-    ref = chip_smoke._pp_one_rank(0, 1)
+    ref = chip_smoke._pp_one_rank(0, 1, chip_smoke._pp3d_model())
     spawned = []
     spawn = chip_smoke._spawn_pp3d
 
@@ -597,9 +597,10 @@ TINY_GPT2 = dict(vocab_size=64, n_positions=16, n_embd=32, n_head=2, n_layer=2, 
 
 def test_hf_telemetry_phase_rehearsal(on_cpu, capsys, monkeypatch):
     # phase 25 at TINY_GPT2's widths: the state-dict conversion, the forward
-    # against the CPU, the two one-rank trainings (telemetry off, then on
-    # with dynamics, the warn watchdog and profile_dir) and three greedy
-    # requests over HTTP on 127.0.0.1, every gate checked
+    # against the CPU, the three one-rank trainings (telemetry off, then on
+    # with dynamics, the warn watchdog and profile_dir, then the sanitizer
+    # strict) and three greedy requests of two tenants over HTTP on
+    # 127.0.0.1, strict and billed, every gate checked
     monkeypatch.setattr(chip_smoke, "HF_CONFIG", TINY_GPT2)
     monkeypatch.setattr(chip_smoke, "HF_SERVE", (3, 4, 4))
     row = chip_smoke.hf_telemetry_phase(0)
@@ -619,6 +620,24 @@ def test_hf_telemetry_phase_rehearsal(on_cpu, capsys, monkeypatch):
     assert http["address"].startswith("127.0.0.1:") and http["scrape_has_ttft"]
     assert http["scrape_tokens_line"].startswith(f'serving_tokens_total{{run_id="{http["run_id"]}"}}')
     assert len(http["latency_s"]) == 3 and "card" in row
+    # (d) the strict third run: clean, bitwise, one donation boundary, the
+    # consumed state poisoned; no card here, so the planted sync passes
+    assert row["sanitized_error"] is None and row["sanitizer_violations"] == []
+    assert row["sanitized_bitwise"] and row["launches_b1_b2_b3_sanitized"] == [0, 0, 0]
+    assert row["sanitizer_donation"]["boundaries"] == 1
+    assert row["sanitizer_stale_read"].startswith("read of 'center_params' on a consumed")
+    assert row["planted_sync"] == {"caught": None, "outside_rows": 7}
+    assert row["tokens_per_s_sanitized"] > 0
+    assert len(row["tokens_per_s_unsanitized_before_after"]) == 2
+    # the strict HTTP serving, billed: a a b, conserved exactly
+    assert http["tenants"] == ["a", "a", "b"] and http["ledger_tenants"] == ["a", "b"]
+    assert http["ledger_decode_tokens"] == 12 == float(http["scrape_tokens_line"].split()[-1])
+    assert http["ledger_prefill_tokens"] == http["prompt_tokens"] == 12
+    assert http["ledger_by_tenant"]["a"]["decode_tokens"] == 8
+    assert http["healthz_sanitizer"] == {"mode": "strict", "violations": {}}
+    assert http["engine_cv"] == "GuardedLock"
+    assert http["slo_engines"] == ["serving"] and http["slo_evaluated"] == [True]
+    assert len(http["slo_objectives"]) == 4
     # a failed gate raises: the same phase with a forward tolerance it misses
     monkeypatch.setattr(chip_smoke, "PREDICT_ATOL", -1.0)
     with pytest.raises(AssertionError, match="converted forward"):

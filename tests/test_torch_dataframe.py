@@ -92,7 +92,74 @@ def test_package_root_exports_match_jax():
              "StandardScaleTransformer", "from_spark", "to_spark", "frame", "utils")
     for name in names:
         assert name in tdk.__all__ and hasattr(tdk, name), name
-    assert set(jdk.__all__) - set(tdk.__all__) == {"sanitizer"}  # ported with item 19
+    assert set(jdk.__all__) - set(tdk.__all__) == set()
+
+
+def test_utils_exports_match_jax():
+    assert set(jax_utils.__all__) - set(port_utils.__all__) == set()
+    # the JAX package's order, the port's two tree walkers after it
+    assert port_utils.__all__[:len(jax_utils.__all__)] == jax_utils.__all__
+    for name in jax_utils.__all__:
+        assert hasattr(port_utils, name), name
+
+
+def _tree(rng):
+    # keys in sorted order: jax.tree flattens a dict by sorted key, the
+    # port's walkers in insertion order
+    return {"h": rng.normal(size=(2, 2)).astype(np.float16),
+            "inner": {"b": rng.normal(size=(4,)).astype(np.float32),
+                      "steps": np.arange(5, dtype=np.int32)},
+            "w": rng.normal(size=(3, 4)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("helper", ["tree_scale", "tree_add_scaled", "tree_ones_like",
+                                    "tree_global_norm", "tree_size", "tree_cast"])
+def test_tree_helpers_match_jax(helper):
+    """The six helpers the port lacked (C19) on one numpy tree, as name ->
+    tensor dicts here and as a pytree of arrays in JAX."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(19)
+    a, b = _tree(rng), _tree(rng)
+    ta, tb = (port_utils.tree_map(torch.from_numpy, t) for t in (a, b))
+    ja, jb = (jax.tree.map(jnp.asarray, t) for t in (a, b))
+    calls = {
+        "tree_scale": lambda m, x, y: m.tree_scale(x, 0.5),
+        "tree_add_scaled": lambda m, x, y: m.tree_add_scaled(x, y, -0.25),
+        "tree_ones_like": lambda m, x, y: m.tree_ones_like(x),
+        "tree_global_norm": lambda m, x, y: m.tree_global_norm(
+            {"w": x["w"], "b": x["inner"]["b"]}),
+        "tree_size": lambda m, x, y: m.tree_size(x),
+        "tree_cast": lambda m, x, y: m.tree_cast(x, torch.bfloat16 if m is port_utils
+                                                 else jnp.bfloat16),
+    }
+    got = calls[helper](port_utils, ta, tb)
+    want = calls[helper](jax_utils, ja, jb)
+    if helper == "tree_size":
+        assert got == want == 12 + 4 + 5 + 4 and type(got) is int
+        return
+    got_leaves = port_utils.tree_leaves(got)
+    want_leaves = jax.tree.leaves(want)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        w = np.asarray(w)
+        if w.dtype == jnp.bfloat16:
+            assert g.dtype == torch.bfloat16
+            g, w = g.float().numpy(), w.astype(np.float32)
+        else:
+            g = g.numpy()
+            assert g.dtype == w.dtype, (g.dtype, w.dtype)
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+
+
+def test_tree_global_norm_of_an_empty_tree_is_a_zero_scalar():
+    import jax.numpy as jnp
+
+    got = port_utils.tree_global_norm({})
+    assert got.shape == () and got.dtype == torch.float32 and float(got) == 0.0
+    assert float(jax_utils.tree_global_norm({})) == 0.0
+    assert jax_utils.tree_global_norm({}).dtype == jnp.float32
 
 
 @pytest.mark.parametrize("pred_col,label_col", [

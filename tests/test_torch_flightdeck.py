@@ -2,7 +2,8 @@
 case, which waits for the fleet's control plane): the bounded
 flight-recorder ring (wrap order, overhead pin, disabled-path silence), the
 live HTTP exporter (``/metrics`` ``/healthz`` ``/vars`` ``/trace``, answered
-mid-fit under concurrent scrapes), ``run_id`` correlation (minting, env
+mid-fit under concurrent scrapes; ``/healthz``'s sanitizer mode and
+violation counts as the JAX exporter's; ``/ledger``), ``run_id`` correlation (minting, env
 inheritance, span stamping, the labelled Prometheus golden), blackbox
 crash dumps (unit, and a real watchdog halt through a trainer), the rollup
 ring's windowed reads against the JAX package's, and ``/generate``
@@ -257,6 +258,58 @@ def test_exporter_endpoints_and_discovery_file(tmp_path):
     assert disc == {"address": addr, "pid": os.getpid(), "run_id": "testrun"}
     server_mod.stop()
     assert telemetry.flightdeck.address() is None
+
+
+@pytest.mark.parametrize("mode", ["record", "strict"])
+def test_healthz_reports_the_sanitizer_mode_and_violations(mode):
+    """``/healthz`` carries the sanitizer's real mode and its recorded
+    violations counted by kind, as the JAX package's exporter does."""
+    from distkeras_tpu import sanitizer as jax_sanitizer
+    from distkeras_tpu.telemetry.flightdeck import server as jax_server
+
+    from distkeras_tpu_torch import sanitizer
+
+    server_mod.configure(0)
+    addr = server_mod.ensure_server()
+    try:
+        for san in (sanitizer, jax_sanitizer):
+            san.configure("record")
+            with pytest.warns(RuntimeWarning):
+                san.report("transfer", "planted one")
+                san.report("transfer", "planted two")
+                san.report("lock", "planted three")
+            if mode == "strict":
+                san.configure("strict")  # a reconfigure clears the log
+        health = json.loads(_get(addr, "/healthz")[1])
+        want = {"record": {"transfer": 2, "lock": 1}, "strict": {}}[mode]
+        assert health["sanitizer"] == {"mode": mode, "violations": want}
+        assert health["sanitizer"] == json.loads(jax_server._render("/healthz")[1])["sanitizer"]
+    finally:
+        sanitizer.configure(None)
+        jax_sanitizer.configure(None)
+
+
+def test_ledger_endpoint_serves_the_ledger():
+    from distkeras_tpu_torch.telemetry import accounting
+
+    server_mod.configure(0)
+    addr = server_mod.ensure_server()
+    accounting.configure(True)
+    try:
+        accounting.ledger_for().admit("acme", prompt_tokens=4, queue_wait_s=0.0, device_s=0.1)
+        code, text = _get(addr, "/ledger")
+        payload = json.loads(text)
+        assert code == 200 and payload["enabled"] is True
+        assert [r["tenant"] for r in payload["tenants"]] == ["acme"]
+        assert payload["tenants"][0]["decode_tokens"] == 1
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(addr, "/nope")
+        assert "/ledger" in err.value.read().decode()
+        accounting.configure(False)
+        assert json.loads(_get(addr, "/ledger")[1]) == {"enabled": False, "tenants": []}
+    finally:
+        accounting.configure(None)
+        accounting.reset()
 
 
 def test_trace_endpoint_filters_one_request():

@@ -10,8 +10,10 @@ are sequence packing (``datapipe/packing.py``, a copy of the JAX package's
 numpy) and the meshes (``parallel/mesh.py``, which imports
 ``torch.distributed.device_mesh`` when a group exists), and so are the
 pipeline's (``models/staged.py``, ``parallel/pipeline.py``), the HuggingFace
-models (``models/hf.py``, ``models/hf_staged.py``) and the training
-telemetry (``telemetry/``, ``telemetry/flightdeck/``)."""
+models (``models/hf.py``, ``models/hf_staged.py``), the training
+telemetry (``telemetry/``, ``telemetry/flightdeck/``), the per-tenant
+ledger and the SLO engine (``telemetry/accounting.py``,
+``telemetry/slo.py``) and the runtime sanitizer (``sanitizer/``)."""
 
 import ast
 import os
@@ -74,7 +76,10 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.serving.frontend, distkeras_tpu_torch.serving.engine, "
         "distkeras_tpu_torch.datapipe.packing, distkeras_tpu_torch.parallel.mesh, "
         "distkeras_tpu_torch.parallel.gspmd, distkeras_tpu_torch.models.staged, "
-        "distkeras_tpu_torch.parallel.pipeline\n"
+        "distkeras_tpu_torch.parallel.pipeline, distkeras_tpu_torch.sanitizer, "
+        "distkeras_tpu_torch.sanitizer.runtime, distkeras_tpu_torch.sanitizer.transfer, "
+        "distkeras_tpu_torch.sanitizer.donation, distkeras_tpu_torch.sanitizer.lockwatch, "
+        "distkeras_tpu_torch.telemetry.accounting, distkeras_tpu_torch.telemetry.slo\n"
         # what make_mesh imports once a process group exists
         "import torch.distributed.device_mesh\n"
         "assert not (dist.is_available() and dist.is_initialized())\n"
@@ -107,7 +112,9 @@ def test_sources_found():
                    "models/hf_staged", "models/generate",
                    "serving/__init__", "serving/cache", "serving/sampling", "serving/frontend",
                    "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd",
-                   "models/moe", "models/staged", "parallel/pipeline"):
+                   "models/moe", "models/staged", "parallel/pipeline", "sanitizer/__init__",
+                   "sanitizer/runtime", "sanitizer/transfer", "sanitizer/donation",
+                   "sanitizer/lockwatch", "telemetry/accounting", "telemetry/slo"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 
