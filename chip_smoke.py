@@ -140,14 +140,16 @@ toolkit.  Phases, each printing JSON lines:
     machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
     checks (else ``seq_cards_run: 1``);
 20. tp: tensor parallelism (see :func:`tp_phase`);
-21. serving_tp: ``ServingEngine(mesh=)`` at the serving phase's widths on
+21. serving_tp: ``ServingEngine(mesh=)`` at the serving phase's widths (6
+    of its 12 blocks) on
     two gloo ranks sharing the card (and 4 NCCL ranks on a 4-card
     machine) against the one-rank engine (see :func:`serving_tp_phase`);
 22. moe: ``MoETransformerClassifier`` at switch-base-8's widths under
     ``DOWNPOUR`` on one rank, then expert-parallel on two gloo ranks (and
     the 2 x 2 NCCL grid on a 4-card machine; see :func:`moe_phase`);
-23. pipeline: a ``StagedLM`` at GPT-2 small's widths (12 blocks as 2
-    stages of 6) under ``DOWNPOUR`` on one rank, then
+23. pipeline: a ``StagedLM`` at GPT-2 small's widths (cut to 6 of the 12
+    blocks, as 2 stages of 3, and 16 rows) under ``DOWNPOUR`` on
+    one rank, then
     ``pipeline_stages=2, pp_microbatches=2`` on two gloo ranks sharing the
     card (``--pp-rank``), replicated and with ``fsdp=True``; its greedy
     decode pipelined over the ranks and a ``ServingEngine`` over it (and
@@ -167,8 +169,16 @@ toolkit.  Phases, each printing JSON lines:
     ``DISTKERAS_DYNAMICS`` with the ``warn`` watchdog, ``profile_dir``), bit
     for bit the same, and the fine-tuned model served over HTTP by
     ``install_http_endpoint`` on the flight deck's exporter (see
-    :func:`hf_telemetry_phase`).  A ``timing`` line then gives every
-    phase's wall seconds.
+    :func:`hf_telemetry_phase`);
+26. fleet: chaos, fleet membership and the Punchcard control plane over
+    ``DOWNPOUR`` on a ``TransformerLM`` at GPT-2 small's widths cut to 2
+    blocks: a seeded kill and a kill after a torn checkpoint, each
+    recovered by ``train_with_recovery`` bit for bit; a live elastic grow
+    from 2 to 4 workers over a ``PunchcardServer`` on 127.0.0.1, bit for
+    bit the elastic-resume path; a job submitted under client-side faults
+    whose script predicts on the card in a process of its own, bit for bit
+    the parent's prediction (see :func:`fleet_phase`).  A ``timing`` line
+    then gives every phase's wall seconds.
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -184,12 +194,16 @@ seq-sharded training and classifier forward (0 launches: the ring is the
 reference's plain products, as there) and the twin's predictor (B1);
 phase 21 around each rank-0 serving run (0 launches); phase 22 around the
 MoE training (B1-B3 12 a step), its step check and its predictor (B1);
-phase 23 around the one-rank training (B1-B3 12 a step) and each stage
+phase 23 around the one-rank training (B1-B3 6 a step) and each stage
 rank's pipelined training (B1-B3 ``blocks_per_stage x microbatches`` a
 step); phase 24 around each rank's training on the 3-D grids (pp x tp as
 phase 23's stage ranks, every model rank running all heads; pp x sp 0: the
 ring's plain products); phase 25 around the converted forward (B1 12) and
-each of its two trainings (B1-B3 12 a step).  Phases 7 to 9, 11 to 14 and 18's
+each of its two trainings (B1-B3 12 a step); phase 26 around each of its
+trainings (B1-B3 2 a local step; a kill recovered launches as often as the
+uninterrupted run, a torn checkpoint one replayed epoch more) and each
+job prediction (B1 2 a batch, in the job's process and the parent).
+Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
 [...]}`` summary, the nvidia-smi line and ``{"ok": true, "device":
@@ -3321,6 +3335,10 @@ def tp_phase(seed: int, train_run) -> dict:
 SERVE_TP_REQUESTS = 12
 SERVE_TP_SPEC_PROMPTS = 2  # greedy requests of the traffic through the mesh's speculative engine
 SERVE_TP_RANK_TIMEOUT_S = 900
+# the serving phase's widths cut to 6 of the 12 blocks, so that the
+# script stays within its time with phase 26: the gloo pair's decode step is
+# bound by the host, one all-reduce a block
+SERVE_TP_BLOCKS = 6
 
 
 def _serve_model(seed: int):
@@ -3559,6 +3577,19 @@ def _serving_tp_versus(got: dict, ref: dict, requests, trained, world: int) -> t
 
 
 def serving_tp_phase(seed: int, pair: bool = True) -> dict:
+    """:func:`_serving_tp_phase` on the serving phase's model cut to
+    ``SERVE_TP_BLOCKS`` blocks (widths kept), the one-rank engine and the
+    ranks alike."""
+    global SERVE_MODEL
+    full = SERVE_MODEL
+    SERVE_MODEL = dict(full, num_layers=min(full["num_layers"], SERVE_TP_BLOCKS))
+    try:
+        return _serving_tp_phase(seed, pair)
+    finally:
+        SERVE_MODEL = full
+
+
+def _serving_tp_phase(seed: int, pair: bool = True) -> dict:
     """Tensor-parallel serving (``ServingEngine(mesh=)``) at the serving
     phase's GPT-2-small widths: ``SERVE_TP_REQUESTS`` requests
     ``SERVE_STAGGER_S`` apart (half sampled) on the one-rank engine in this
@@ -3940,21 +3971,24 @@ def moe_phase(seed: int, pair: bool = True) -> dict:
     return out
 
 
-# pipeline phase: the train phase's DOWNPOUR over a GPT-2-small StagedLM (12
-# blocks as 2 stages of 6, f32) on the pipeline engine's (workers, stages)
-# grid, the two stage ranks sharing the card over gloo (grid 1 x 2), and on a
-# 4-card machine the 2 x 2 grid over NCCL
+# pipeline phase: the train phase's DOWNPOUR over a GPT-2-small StagedLM (6
+# of the 12 blocks as 2 stages of 3, f32, so that the script stays within its
+# time with phase 26) on the pipeline engine's (workers, stages) grid, the
+# two stage ranks sharing the card over gloo (grid 1 x 2), and on a 4-card
+# machine the 2 x 2 grid over NCCL
 PP_MODEL = dict(vocab_size=GPT2_SMALL["vocab_size"], dim=GPT2_SMALL["dim"],
-                heads=GPT2_SMALL["heads"], num_stages=2, blocks_per_stage=6,
+                heads=GPT2_SMALL["heads"], num_stages=2, blocks_per_stage=3,
                 max_len=GPT2_SMALL["max_len"])
 # the ranks run ~50 s on one card: a hang surfaces with their output
 # well inside a call's time
 PP_MICROBATCHES, PP_RANK_TIMEOUT_S = 2, 300
-# One epoch of the train phase's rows (8 local steps a worker): the phase
-# moves the head's [4, 1024, 50257] logits through the host a step (the
-# last stage's outputs broadcast to the other, on gloo), so one epoch keeps
-# it near the earlier phases' time
+# One epoch of PP_ROWS rows: the phase moves the head's [4, 1024, 50257]
+# logits through the host a step (the last stage's outputs broadcast to the
+# other, on gloo), so one epoch keeps it near the earlier phases' time
 PP_EPOCHS = 1
+# half the train phase's rows (4 local steps a worker): the gloo
+# ranks' time goes with the logits moved through the host a step
+PP_ROWS = 16
 # against one rank: the seq and tp phases' gates for a layout against data
 # parallelism (a microbatch's products see the same rows as the whole
 # batch's; f32 round-off alone, and Adam's steps on the key bias)
@@ -3973,7 +4007,7 @@ def pp_train(seed: int, num_workers: int, seq_axis=None, model=None, **kwargs):
     from distkeras_tpu_torch.models import StagedLM
 
     model = PP_MODEL if model is None else model
-    x, y = lm_task(TRAIN_ROWS, model["max_len"], model["vocab_size"], seed + 23)
+    x, y = lm_task(PP_ROWS, model["max_len"], model["vocab_size"], seed + 23)
     trainer = _keeping_fit(tdk.DOWNPOUR)(
         StagedLM(**model, seq_axis=seq_axis), loss="token_crossentropy",
         metrics=("token_accuracy",),
@@ -3982,8 +4016,8 @@ def pp_train(seed: int, num_workers: int, seq_axis=None, model=None, **kwargs):
         seed=seed, device=ZOO_DEVICE, **kwargs)
     run = _trained(trainer, tdk.from_numpy(x, y))
     run.update(first_window_loss=trainer.window_losses[0],
-               tokens_per_s=PP_EPOCHS * TRAIN_ROWS * model["max_len"] / run["seconds"],
-               local_steps=PP_EPOCHS * TRAIN_ROWS // (num_workers * TRAIN_BATCH))
+               tokens_per_s=PP_EPOCHS * PP_ROWS * model["max_len"] / run["seconds"],
+               local_steps=PP_EPOCHS * PP_ROWS // (num_workers * TRAIN_BATCH))
     return trainer, run
 
 
@@ -4103,12 +4137,12 @@ def pp_rank_main(spec_path: str) -> int:
     every path; every rank writes its runs (``OUT.<rank>``)."""
     import torch.distributed as dist
 
-    global ZOO_DEVICE, PP_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS
+    global ZOO_DEVICE, PP_MODEL, PP_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS
     global PP_MICROBATCHES, PP_DECODE, PP_SERVE_REQUESTS
     with open(spec_path, encoding="utf-8") as fh:
         spec = json.load(fh)
     ZOO_DEVICE, PP_MODEL = spec["device"], spec["model"]
-    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES = spec["train"]
+    PP_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES = spec["train"]
     PP_DECODE, PP_SERVE_REQUESTS = tuple(spec["decode"]), spec["serve_requests"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4132,7 +4166,7 @@ def _spawn_pp(seed: int, world: int, backend: str, cards: bool, workdir: str) ->
     name = f"pp_{backend}_{world}"
     init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=PP_MODEL, backend=backend,
-                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
+                  train=[PP_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
                   decode=list(PP_DECODE), serve_requests=PP_SERVE_REQUESTS, world=world,
                   rank=rank, init=init, out=out, device_index=rank if cards else 0,
                   threads=torch.get_num_threads())
@@ -4184,7 +4218,7 @@ def _pp_versus(ranks: list, ref: dict, backend: str) -> tuple:
     versus = _versus(pp, ref)
     first = abs(pp["first_window_loss"] - ref["first_window_loss"]) / abs(ref["first_window_loss"])
     row = dict(grid=pp["grid"], microbatches=M, model="StagedLM", **PP_MODEL, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
-               epochs=PP_EPOCHS, rows=TRAIN_ROWS, local_steps=steps, loss=pp["loss"],
+               epochs=PP_EPOCHS, rows=PP_ROWS, local_steps=steps, loss=pp["loss"],
                loss_one_rank=ref["loss"], first_window_loss_rel_err=first,
                first_window_loss_rtol=PP_FIRST_LOSS_RTOL, vs_one_rank=versus,
                loss_rtol=PP_LOSS_RTOL, param_rel_norm_rtol=PP_PARAM_REL_NORM,
@@ -4257,10 +4291,10 @@ def _pp_versus(ranks: list, ref: dict, backend: str) -> tuple:
 
 
 def pipeline_phase(seed: int, pair: bool = True) -> dict:
-    """Pipeline parallelism at GPT-2-small widths (a ``StagedLM``, 12 blocks
-    as 2 stages of 6, ``PP_EPOCHS`` epochs of the train phase's
+    """Pipeline parallelism at GPT-2-small widths (a ``StagedLM``, 6 blocks
+    as 2 stages of 3, ``PP_EPOCHS`` epochs of ``PP_ROWS`` rows of the train phase's
     ``DOWNPOUR``): (a) the same model on one rank (``pipeline_stages=1``,
-    the sequential executor, B1-B3 12 a step) in this process, and the
+    the sequential executor, B1-B3 6 a step) in this process, and the
     pipeline engine's refusal of captured windows on a card (item 20); (b)
     two gloo ranks spawned on the card (``--pp-rank``), grid 1 x 2,
     ``pipeline_stages=2, pp_microbatches=2``: the first window, history and
@@ -4333,8 +4367,8 @@ PP3D_CASES = (("tp", dict(tp_shards=PP3D_SHARDS), None),
               ("sp", dict(seq_shards=PP3D_SHARDS), "seq"))
 PP3D_PREDICT_ROWS = 1  # rows the returned model predicts on rank 0 (per-token, 50257 wide)
 # phase 23's widths cut to 3 blocks a stage (6 of 12), so that the whole
-# script stays within its time with phase 25's sanitized runs; its one-rank
-# reference is made at the same depth
+# script stays within its time with phases 25 and 26; its one-rank
+# reference is made at the same depth (phase 23's run, when they agree)
 PP3D_BLOCKS_PER_STAGE = 3
 
 
@@ -4405,12 +4439,12 @@ def pp3d_rank_main(spec_path: str) -> int:
     every path; every rank writes its runs (``OUT.<rank>``)."""
     import torch.distributed as dist
 
-    global ZOO_DEVICE, PP_MODEL, TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS
+    global ZOO_DEVICE, PP_MODEL, PP_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS
     global PP_MICROBATCHES
     with open(spec_path, encoding="utf-8") as fh:
         spec = json.load(fh)
     ZOO_DEVICE, PP_MODEL = spec["device"], spec["model"]
-    TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES = spec["train"]
+    PP_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES = spec["train"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(spec["threads"])
@@ -4433,7 +4467,7 @@ def _spawn_pp3d(seed: int, world: int, backend: str, cards: bool, workdir: str) 
     name = f"pp3d_{backend}_{world}"
     init, out = _rendezvous(workdir, name), os.path.join(workdir, name + ".pt")
     specs = [dict(seed=seed, device=ZOO_DEVICE, model=_pp3d_model(), backend=backend,
-                  train=[TRAIN_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
+                  train=[PP_ROWS, TRAIN_BATCH, TRAIN_WINDOW, PP_EPOCHS, PP_MICROBATCHES],
                   world=world, rank=rank, init=init, out=out,
                   device_index=rank if cards else 0,
                   # four ranks share the machine's cores
@@ -4461,7 +4495,7 @@ def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
     share = {"tp": S * k, "tp_fsdp": S * k, "sp": S}
     failures, row = [], dict(grid=ranks[0]["tp"]["grid"], microbatches=M, model="StagedLM",
                              **model, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
-                             epochs=PP_EPOCHS, rows=TRAIN_ROWS, local_steps=steps,
+                             epochs=PP_EPOCHS, rows=PP_ROWS, local_steps=steps,
                              loss_one_rank=ref["loss"], tokens_per_s_one_rank=ref["tokens_per_s"],
                              peak_memory_gb_one_rank=ref["peak_memory_gb"],
                              block_bytes_one_rank=ref["block_bytes"],
@@ -4529,7 +4563,7 @@ def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
 def pipeline_3d_phase(seed: int, ref: dict, pair: bool = True) -> dict:
     """Pipeline x tensor and pipeline x sequence parallelism at GPT-2-small
     widths (phase 23's ``StagedLM`` and ``DOWNPOUR``, cut to 6 blocks as 2
-    stages of 3: :func:`_pp3d_model`), against ``ref``, the same model's
+    stages of 3, :func:`_pp3d_model`, on ``PP_ROWS`` rows), against ``ref``, the same model's
     one-rank run (``_pp_one_rank(seed, 1, _pp3d_model())``): (a) four gloo
     ranks spawned on the card (``--pp3d-rank``), grid 1 x 2 x 2:
     ``tp_shards=2``, then with ``fsdp=True`` (bit for bit the replicated
@@ -5010,6 +5044,350 @@ def hf_telemetry_phase(seed: int) -> dict:
 
 
 
+# Phase 26: chaos, fleet membership with the live elastic resize, and the
+# Punchcard control plane, on GPT-2 small's widths cut to 2 blocks: each
+# boundary save holds the center and both workers' parameters (about 54 M
+# parameters a copy at 2 blocks, most of them the embeddings).
+FLEET_MODEL = dict(GPT2_SMALL, num_layers=2)
+FLEET_ROWS, FLEET_EPOCHS, FLEET_WORKERS, FLEET_GROW = 16, 3, 2, 4
+FLEET_SGD = ("sgd", {"learning_rate": 0.01})
+FLEET_JOB = (4, 2)  # the job's ModelPredictor: rows of max_len tokens, batch size
+FLEET_JOB_TIMEOUT_S = 600
+#: the Punchcard job: the same model built on the card in a process of its
+#: own, started by the daemon with cwd = its workdir, so it puts the
+#: checkout on its path itself
+FLEET_JOB_SCRIPT = """import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+seed, device, cfg, rows, batch = sys.argv[1:6]
+print(json.dumps(chip_smoke.fleet_predict(int(seed), device, json.loads(cfg), int(rows),
+                                          int(batch))))
+"""
+
+
+def _flash_counters():
+    from distkeras_tpu_torch.ops import flash_attention, flash_attention_bwd_dkv, \
+        flash_attention_bwd_dq
+
+    return flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv
+
+
+def fleet_predict(seed: int, device: str, cfg: dict, rows: int, batch: int) -> dict:
+    """``ModelPredictor`` over a ``TransformerLM(**cfg)`` drawn from ``seed``
+    on ``rows`` rows of ``max_len`` tokens in batches of ``batch``, on
+    ``device``: the device's name, B1's launches and the predictions'
+    sha256.  The job's script calls it on the card in its own process."""
+    import hashlib
+
+    from distkeras_tpu_torch import ModelPredictor, from_numpy
+    from distkeras_tpu_torch.models import TorchModel, TrainedModel, TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = TransformerLM(**cfg, generator=torch.Generator().manual_seed(seed + 29))
+    params = {name: p.detach() for name, p in model.named_parameters()}
+    tokens = np.random.default_rng(seed + 29).integers(0, cfg["vocab_size"],
+                                                       (rows, cfg["max_len"]), dtype=np.int32)
+    predictor = ModelPredictor(TrainedModel(TorchModel(model), params, device=device),
+                               batch_size=batch, device=device)
+    b1 = _flash_counters()[0]
+    b1.launches = 0
+    probs = np.ascontiguousarray(predictor.predict(from_numpy(tokens))["prediction"])
+    launches = b1.launches
+    return dict(kind=torch.cuda.get_device_name(0) if device == "cuda" else device,
+                launches_b1=launches, shape=list(probs.shape), finite=bool(np.isfinite(probs).all()),
+                sha256=hashlib.sha256(probs.tobytes()).hexdigest())
+
+
+def _fleet_trainer(seed: int, num_workers: int = FLEET_WORKERS, num_epoch: int = FLEET_EPOCHS,
+                   **kwargs):
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**FLEET_MODEL, generator=torch.Generator().manual_seed(seed + 27))
+    return _keeping_fit(tdk.DOWNPOUR)(model, loss="token_crossentropy", metrics=("token_accuracy",),
+                        worker_optimizer=FLEET_SGD, num_workers=num_workers,
+                        batch_size=TRAIN_BATCH, communication_window=TRAIN_WINDOW,
+                        num_epoch=num_epoch, seed=seed, device=ZOO_DEVICE, **kwargs)
+
+
+def _fleet_run(trainer, frame, recover: bool = False) -> dict:
+    """``trainer.train(frame)`` (``train_with_recovery`` when ``recover``)
+    with B1-B3's launches counted around it: the history, the center, the
+    launches and the wall seconds."""
+    counters = _flash_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    model = trainer.train_with_recovery(frame, backoff_base=0) if recover \
+        else trainer.train(frame)
+    if ZOO_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return dict(loss=trainer.get_history()["loss"], seconds=time.perf_counter() - t0,
+                launches=[c.launches for c in counters],
+                params={k: v.detach().cpu().clone() for k, v in model.params.items()})
+
+
+def _fleet_steps(workers: int) -> int:
+    """Local steps of one epoch over every worker at ``workers`` workers
+    (the window grid ``plan_epoch`` lays out, wrap-padded)."""
+    from distkeras_tpu_torch.data import plan_epoch
+
+    n_windows, _ = plan_epoch(FLEET_ROWS, workers, TRAIN_BATCH, TRAIN_WINDOW)
+    return workers * n_windows * TRAIN_WINDOW
+
+
+def _same(run: dict, ref: dict) -> bool:
+    """``run``'s history and center bit for bit ``ref``'s (``run``'s
+    history may hold only its last epochs, after a resume)."""
+    return (len(run["loss"]) > 0 and run["loss"] == ref["loss"][-len(run["loss"]):]
+            and all(torch.equal(run["params"][k], v) for k, v in ref["params"].items()))
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def fleet_phase(seed: int) -> dict:
+    """Chaos, fleet membership and the Punchcard control plane, over
+    ``DOWNPOUR`` on a ``TransformerLM`` at GPT-2 small's widths cut to 2
+    blocks (``FLEET_MODEL``; 2 workers, batch 4, window 2, SGD, dropout 0,
+    ``FLEET_EPOCHS`` epochs of ``FLEET_ROWS`` rows):
+
+    (a) seeded kill, recovered: the uninterrupted run; then
+    ``train_with_recovery`` with ``DISTKERAS_CHAOS``'s ``kill_epoch=1`` and a
+    checkpoint a boundary; then ``kill_epoch=2,torn_ckpt=1``, which tears
+    the epoch-1 boundary's step (``step_2``) after its manifest landed, so
+    the resume quarantines it (``step_2.corrupt``) and falls back to the
+    epoch-0 boundary's (``step_1``).  Gates: both recovered histories and
+    centers bit for bit the uninterrupted run's; the kill run launches
+    B1-B3 exactly as often (the kill fires entering the epoch, before any
+    device work), the torn run one replayed epoch's launches more; the
+    ``epoch`` sites counted; one ``step_2.corrupt`` left;
+    (b) live elastic grow 2 -> 4 over a ``PunchcardServer`` on 127.0.0.1:
+    one ``FleetWorker(workers=2)`` registered, the training polls an
+    ``ElasticMembership(min_workers=2, max_workers=4)`` whose second poll
+    first registers a second ``FleetWorker(workers=2)``, so the fleet grows
+    between the epoch-0 and epoch-1 boundaries.  Gates: one resize, to 4
+    workers (telemetry's ``elastic_resizes_total`` and ``elastic_workers``);
+    the center bit for bit the elastic-resume path's (a trainer at 4
+    workers resuming from (a)'s killed run's epoch-1 boundary step, 2
+    epochs at 2 workers); B1-B3
+    launched ``blocks x`` the local steps ``plan_epoch`` lays out; tokens/s
+    of the epochs before and after the resize (their ``epoch`` spans);
+    (c) a job through that daemon's control plane, submitted with the
+    client's ``refuse_connect=1,drop_reply=1,tear_send=1`` armed: its
+    script builds the same 2-block LM on the card in a process of its own
+    and runs ``ModelPredictor`` over ``FLEET_JOB`` rows.  Gates: the
+    daemon's table holds one job, finished with rc 0, on the parent's
+    device, B1 launched ``blocks x batches`` times, its predictions' sha256
+    the parent's in-process prediction's."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import distkeras_tpu_torch as tdk
+    from distkeras_tpu_torch import chaos, telemetry
+    from distkeras_tpu_torch.fleet import ElasticMembership, FleetWorker
+    from distkeras_tpu_torch.job_deployment import Job, PunchcardServer
+
+    cuda = ZOO_DEVICE == "cuda"
+    blocks = FLEET_MODEL["num_layers"]
+    x, y = lm_task(FLEET_ROWS, FLEET_MODEL["max_len"], FLEET_MODEL["vocab_size"], seed + 27)
+    frame = tdk.from_numpy(x, y)
+    per_epoch = _fleet_steps(FLEET_WORKERS)
+    expect = lambda steps: [blocks * steps if cuda else 0] * 3
+    row = dict(model="TransformerLM", **FLEET_MODEL, rows=FLEET_ROWS, epochs=FLEET_EPOCHS,
+               workers=FLEET_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
+               local_steps_per_epoch=per_epoch, card=CARD)
+    failures = []
+
+    # (a) seeded kill and torn checkpoint, recovered
+    trainer = _fleet_trainer(seed)
+    base = _fleet_run(trainer, frame)
+    _, state, _ = trainer.fit_result
+    # what a save writes: every TrainState field but the generators and the
+    # epoch (the center, and each worker's parameters and rule state)
+    reckoned = sum(_state_bytes(getattr(state, f)) for f in (
+        "center_params", "center_rule", "local_params", "opt_state", "model_state",
+        "rule_local"))
+    del trainer, state
+    runs = {}
+    workdir = tempfile.TemporaryDirectory()
+    for name, spec in (("killed", "kill_epoch=1"), ("torn", "kill_epoch=2,torn_ckpt=1")):
+        ckpt = os.path.join(workdir.name, name)
+        chaos.configure(f"{seed}:{spec}")
+        try:
+            run = _fleet_run(_fleet_trainer(seed, checkpoint_dir=ckpt), frame, recover=True)
+            run["epoch_sites"] = chaos.counts().get("epoch", 0)
+        finally:
+            chaos.configure("")
+        run["corrupt"] = sorted(f for f in os.listdir(ckpt) if f.endswith(".corrupt"))
+        run["save_bytes"] = _dir_bytes(os.path.join(ckpt, f"step_{FLEET_EPOCHS}"))
+        runs[name] = run
+    shutil.rmtree(os.path.join(workdir.name, "torn"))
+    params = sum(v.numel() for v in base["params"].values())
+    row.update(params=params, save_bytes_on_disk=runs["killed"]["save_bytes"],
+               save_bytes_reckoned=reckoned,
+               launches_b1_b2_b3_uninterrupted=base["launches"],
+               launches_b1_b2_b3_killed=runs["killed"]["launches"],
+               launches_b1_b2_b3_torn=runs["torn"]["launches"],
+               killed_bitwise=_same(runs["killed"], base), torn_bitwise=_same(runs["torn"], base),
+               killed_epochs_after_resume=len(runs["killed"]["loss"]),
+               torn_epochs_after_resume=len(runs["torn"]["loss"]),
+               epoch_sites=[runs["killed"]["epoch_sites"], runs["torn"]["epoch_sites"]],
+               torn_quarantined=runs["torn"]["corrupt"],
+               seconds_uninterrupted_killed_torn=[base["seconds"], runs["killed"]["seconds"],
+                                                  runs["torn"]["seconds"]])
+    if base["launches"] != expect(FLEET_EPOCHS * per_epoch):
+        failures.append(f"the uninterrupted run launched B1-B3 {base['launches']} times")
+    if runs["killed"]["launches"] != base["launches"]:
+        failures.append(f"the killed run launched B1-B3 {runs['killed']['launches']} times, "
+                        f"the uninterrupted one {base['launches']}")
+    if runs["torn"]["launches"] != expect((FLEET_EPOCHS + 1) * per_epoch):
+        failures.append(f"the torn run launched B1-B3 {runs['torn']['launches']} times, not one "
+                        "replayed epoch more than the uninterrupted run")
+    if not (row["killed_bitwise"] and row["torn_bitwise"]):
+        failures.append("a recovered run is not the uninterrupted run bit for bit")
+    if row["epoch_sites"] != [4, 5]:
+        failures.append(f"the epoch sites fired {row['epoch_sites']} times, expected [4, 5]")
+    if row["torn_quarantined"] != ["step_2.corrupt"]:
+        failures.append(f"the torn run quarantined {row['torn_quarantined']}")
+    if row["killed_epochs_after_resume"] != FLEET_EPOCHS - 1 \
+            or row["torn_epochs_after_resume"] != FLEET_EPOCHS - 1:
+        failures.append("a recovery did not resume from the step it should have")
+
+    with workdir:
+        workdir = workdir.name
+        saved_dir = os.environ.get("DISTKERAS_TELEMETRY_DIR")
+        os.environ["DISTKERAS_TELEMETRY_DIR"] = os.path.join(workdir, "telemetry")
+        telemetry.configure(True)
+        os.makedirs(os.path.join(workdir, "punchcard"))
+        server = PunchcardServer(port=0, workdir=os.path.join(workdir, "punchcard"))
+        server.start()
+        first = FleetWorker("127.0.0.1", server.port, workers=FLEET_WORKERS)
+        second = FleetWorker("127.0.0.1", server.port, workers=FLEET_GROW - FLEET_WORKERS)
+        try:
+            # (b) the live grow over the daemon
+            first.start()
+
+            class Growing(ElasticMembership):
+                """Registers the second member just before its second poll."""
+                polls = 0
+
+                def poll(self):
+                    self.polls += 1
+                    if self.polls == 2:
+                        second.start()
+                    return super().poll()
+
+            ctl = Growing("127.0.0.1", server.port, min_workers=FLEET_WORKERS,
+                          max_workers=FLEET_GROW)
+            telemetry.metrics.reset()
+            telemetry.trace.reset()
+            live = _fleet_run(_fleet_trainer(seed, elastic=ctl), frame)
+            spans = sorted((e["args"]["epoch"], e["dur"] / 1e6) for e in telemetry.trace.events()
+                           if e["name"] == "epoch")
+            resizes = telemetry.metrics.counter("elastic_resizes_total").value
+            grown = telemetry.metrics.gauge("elastic_workers").value
+            # the elastic-resume path: the killed run's epoch-1 boundary step
+            # (2 epochs at 2 workers, bitwise the uninterrupted run, (a)) made
+            # its newest, resumed at 4 workers, saving nothing more
+            # (checkpoint_every changes which boundaries save, not the run)
+            ckpt = os.path.join(workdir, "killed")
+            for f in os.listdir(ckpt):
+                if f.startswith(f"step_{FLEET_EPOCHS}"):
+                    path = os.path.join(ckpt, f)
+                    shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+            resumed = _fleet_run(_fleet_trainer(seed, num_workers=FLEET_GROW,
+                                                checkpoint_dir=ckpt, resume=True,
+                                                checkpoint_every=FLEET_EPOCHS + 1), frame)
+            workers = [FLEET_WORKERS, FLEET_WORKERS, FLEET_GROW]
+            tokens = [_fleet_steps(w) * TRAIN_BATCH * FLEET_MODEL["max_len"] for w in workers]
+            row["elastic"] = dict(
+                polls=ctl.polls, resizes=resizes, workers_after=grown,
+                workers_per_epoch=workers, launches_b1_b2_b3=live["launches"],
+                expected_launches=expect(sum(_fleet_steps(w) for w in workers))[0],
+                bitwise_resume_path=_same(resumed, live),
+                resume_path_loss=resumed["loss"], loss=live["loss"],
+                epoch_seconds=[d for _, d in spans],
+                tokens_per_s_per_epoch=[t / d for t, (_, d) in zip(tokens, spans)])
+            if (resizes, grown, ctl.polls) != (1, FLEET_GROW, FLEET_EPOCHS - 1):
+                failures.append(f"elastic: {resizes} resizes to {grown} workers in {ctl.polls} "
+                                "polls")
+            if live["launches"] != expect(sum(_fleet_steps(w) for w in workers)):
+                failures.append(f"the live resize launched B1-B3 {live['launches']} times")
+            if not row["elastic"]["bitwise_resume_path"]:
+                failures.append("the live resize is not the elastic-resume path bit for bit")
+            if len(spans) != FLEET_EPOCHS:
+                failures.append(f"{len(spans)} epoch spans for {FLEET_EPOCHS} epochs")
+
+            # (c) a job on the card through the daemon, under client-side faults
+            rows_, batch = FLEET_JOB
+            script = FLEET_JOB_SCRIPT.format(root=str(Path(__file__).resolve().parent))
+            job = Job("127.0.0.1", server.port, script=script, rpc_backoff=0.01,
+                      args=[seed, ZOO_DEVICE, json.dumps(FLEET_MODEL), rows_, batch])
+            chaos.configure(f"{seed}:refuse_connect=1,drop_reply=1,tear_send=1")
+            try:
+                job.submit()
+                fired = chaos.counts()
+            finally:
+                chaos.configure("")
+            t0 = time.perf_counter()
+            status = job.wait(timeout=FLEET_JOB_TIMEOUT_S)
+            job_seconds = time.perf_counter() - t0
+            with server._cv:
+                n_jobs = len(server.jobs)
+            lines = [line for line in status["output"].splitlines() if line.startswith("{")]
+            got = json.loads(lines[-1]) if lines else {}
+            want = fleet_predict(seed, ZOO_DEVICE, FLEET_MODEL, rows_, batch)
+            row["job"] = dict(jobs=n_jobs, status=status["status"],
+                              returncode=status["returncode"], seconds=job_seconds,
+                              chaos_sites={k: fired.get(k, 0) for k in
+                                           ("connect", "send", "rpc_reply")},
+                              child=got, parent=want,
+                              expected_launches_b1=blocks * -(-rows_ // batch) if cuda else 0)
+            if (n_jobs, status["status"], status["returncode"]) != (1, "finished", 0):
+                failures.append(f"the daemon holds {n_jobs} jobs, the job {status['status']} "
+                                f"rc {status['returncode']}: {status['output'][-2000:]}")
+            elif got.get("kind") != want["kind"] or got.get("sha256") != want["sha256"] \
+                    or not got.get("finite"):
+                failures.append(f"the job's predictions ({got}) are not the parent's ({want})")
+            for who in (got, want):
+                if who.get("launches_b1") != row["job"]["expected_launches_b1"]:
+                    failures.append(f"B1 launched {who.get('launches_b1')} times in a job "
+                                    "prediction")
+        finally:
+            for w in (first, second):
+                w.stop()
+            server.stop()
+            telemetry.metrics.reset()
+            telemetry.trace.reset()
+            telemetry.configure(None)
+            if saved_dir is None:
+                os.environ.pop("DISTKERAS_TELEMETRY_DIR", None)
+            else:
+                os.environ["DISTKERAS_TELEMETRY_DIR"] = saved_dir
+    row["failures"] = failures
+    emit(phase="fleet", **row)
+    if failures:
+        raise AssertionError(f"fleet: {failures}")
+    return row
+
+
+def fleet_launches(row: dict, kernel: int) -> dict:
+    """Phase 26's launches of B1, B2 or B3 (``kernel`` 0, 1, 2) for the
+    kernels line."""
+    return {"launches_fleet_uninterrupted_killed_torn": [
+                row[f"launches_b1_b2_b3_{run}"][kernel]
+                for run in ("uninterrupted", "killed", "torn")],
+            "launches_fleet_elastic": row["elastic"]["launches_b1_b2_b3"][kernel]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -5116,9 +5494,12 @@ def main(argv=None) -> int:
     moe = timed("moe", moe_phase, args.seed)
     pipeline = timed("pipeline", pipeline_phase, args.seed)
     pp = pipeline["two_ranks_one_card"]
+    # phase 24's reference is phase 23's one-rank run when their models agree
     pp3d = timed("pipeline_3d", lambda seed: pipeline_3d_phase(
-        seed, _pp_one_rank(seed, 1, _pp3d_model())), args.seed)["four_ranks_one_card"]
+        seed, pipeline["one_rank"] if _pp3d_model() == PP_MODEL
+        else _pp_one_rank(seed, 1, _pp3d_model())), args.seed)["four_ranks_one_card"]
     hf = timed("hf_telemetry", hf_telemetry_phase, args.seed)
+    fleet = timed("fleet", fleet_phase, args.seed)
     emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()), card=CARD)
 
     main_case = cases[MAIN_PATH_CASE]
@@ -5216,6 +5597,9 @@ def main(argv=None) -> int:
         "launches_hf_forward": hf["forward_launches_b1"],
         "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][0],
                                                  hf["launches_b1_b2_b3_observed"][0]],
+        **fleet_launches(fleet, 0),
+        "launches_fleet_job_child_and_parent": [fleet["job"]["child"]["launches_b1"],
+                                                fleet["job"]["parent"]["launches_b1"]],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -5242,6 +5626,7 @@ def main(argv=None) -> int:
                                             pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
         "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][1],
                                                  hf["launches_b1_b2_b3_observed"][1]],
+        **fleet_launches(fleet, 1),
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -5276,6 +5661,7 @@ def main(argv=None) -> int:
                                             pp3d["sp"]["launches_b1_b2_b3_per_rank"]],
         "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][2],
                                                  hf["launches_b1_b2_b3_observed"][2]],
+        **fleet_launches(fleet, 2),
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -12,7 +12,7 @@ This package imports torch and numpy, never jax or the JAX package.
 
 __version__ = "0.1.0"
 
-from distkeras_tpu_torch import frame, sanitizer, utils
+from distkeras_tpu_torch import chaos, fleet, frame, sanitizer, utils
 from distkeras_tpu_torch.evaluators import AccuracyEvaluator, LossEvaluator, PerplexityEvaluator
 from distkeras_tpu_torch.frame import (
     DataFrame,

@@ -31,8 +31,12 @@ every restore verifies first, renames a failing step aside
 (``step_<n>.corrupt``), and falls back to the newest step that verifies.
 Directories without a manifest are *unverified*: never restored, never
 GC'd, never quarantined.  The JAX package's ``verify_checkpoint`` accepts a
-step this module published.  The JAX package's fault-injection hooks
-(``chaos``) come with ROADMAP Queue A item 18.
+step this module published.  With fault injection armed
+(:mod:`~distkeras_tpu_torch.chaos`) the ``ckpt_commit`` site fires between
+the rename and the manifest (``kill_commit`` leaves the step unpublished,
+as a crash there would), and ``torn_ckpt`` / ``flip_ckpt`` damage one
+seeded file of a step after its manifest is durable, which the next full
+verify catches.
 
 **Over a mesh** (one process per card, each rank holding its block of the
 workers) a :class:`CheckpointManager` built with the engine's ``mesh``
@@ -66,7 +70,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch import chaos, telemetry
 from distkeras_tpu_torch.parallel.mesh import barrier, broadcast, mesh_group, mesh_rank, mesh_size
 from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map
 from distkeras_tpu_torch.utils.serialization import _flatten, _unflatten
@@ -250,7 +254,8 @@ def _write_payload(step_dir: str, snapshot: dict) -> None:
 def _save_job(directory: str, step: int, snapshot: dict) -> None:
     """The writer thread's half of a save: the files into a temporary
     directory, renamed into place as ``step_<n>`` (the commit), then the
-    manifest (the publication)."""
+    manifest (the publication), with the JAX package's ``_publish`` chaos
+    sites around it."""
     final = os.path.join(directory, f"step_{step}")
     tmp = tempfile.mkdtemp(prefix=f"step_{step}.", suffix=".tmp", dir=directory)
     try:
@@ -262,7 +267,12 @@ def _save_job(directory: str, step: int, snapshot: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _fsync_dir(directory)
+    if chaos.enabled():
+        chaos.fault("ckpt_commit")  # kill/delay in the committed-but-unpublished window
     write_manifest(directory, step)
+    if chaos.enabled():
+        # post-publish damage (torn or flipped bytes) the manifest must catch
+        chaos.corrupt_ckpt(os.path.join(final, rel) for rel in _step_files(final))
 
 
 def save_checkpoint(directory: str, state: Any, step: int, force: bool = False) -> str:

@@ -21,9 +21,11 @@ What lives here:
 With the runtime sanitizer on, one frame's send and one frame's receive
 each run under ``lockwatch.exclusive`` on their socket: two threads sending
 (or receiving) on one socket at once interleave length-prefixed frames and
-tear the stream, which the guard reports.  The JAX package's fault
-injection (``chaos``) comes with the control plane (ROADMAP Queue A item
-18).
+tear the stream, which the guard reports.  With fault injection armed
+(``DISTKERAS_CHAOS``, :mod:`~distkeras_tpu_torch.chaos`) the ``connect``,
+``send`` and ``recv`` sites fire where the JAX package's do: before the
+dial, before a frame goes out (a torn frame puts a seeded prefix on the
+wire and raises ``ConnectionError``) and before a frame is read.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from distkeras_tpu_torch import chaos
 from distkeras_tpu_torch.parallel.mesh import resolve_device
 from distkeras_tpu_torch.sanitizer import lockwatch
 
@@ -114,6 +117,8 @@ def connect(host: str, port: int, timeout: float = 30.0) -> socket.socket:
     """TCP connect with NODELAY (reference parity: ``networking.py :: connect``).
     The timeout stays applied on the returned socket — callers inherit a
     deadline on every subsequent send/recv unless they override it."""
+    if chaos.enabled():
+        chaos.fault("connect")  # seeded ConnectionRefusedError injection
     sock = socket.create_connection((host, port), timeout=timeout)
     sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
     return sock
@@ -174,6 +179,14 @@ def send_data(sock: socket.socket, obj: Any) -> None:
     # one frame must hit the wire atomically per socket: the sanitizer's
     # exclusivity guard flags concurrent sends from two threads
     with lockwatch.exclusive(sock, "send_data on one socket"):
+        if chaos.enabled():
+            # tear check first (it consumes the site counter only when it
+            # fires); the delay fault below is skipped for a torn frame
+            torn = chaos.tear_bytes("send", len(frame))
+            if torn is not None:
+                sock.sendall(frame[:torn])
+                raise ConnectionError(f"chaos: frame torn after {torn}/{len(frame)} bytes")
+            chaos.fault("send")
         sock.sendall(frame)
 
 
@@ -191,6 +204,8 @@ def _recvall(sock: socket.socket, n: int) -> bytes:
 
 def recv_data(sock: socket.socket) -> Any:
     """Length-prefixed message receive (reference parity: ``recv_data``)."""
+    if chaos.enabled():
+        chaos.fault("recv")  # seeded ConnectionError before the read
     with lockwatch.exclusive(sock, "recv_data on one socket"):
         header = _recvall(sock, 12)
         if header[:4] != _MAGIC:

@@ -1,8 +1,8 @@
 """Lock-order watchdog — DK105's runtime twin: the port of
 :mod:`distkeras_tpu.sanitizer.lockwatch` (host code, copied).
 
-Instruments the threaded locking of the serving engine and ``networking``
-(and the daemon's, which comes with ROADMAP Queue A item 18):
+Instruments the threaded locking of the serving engine, ``networking`` and
+the Punchcard daemon (``job_deployment``):
 
 * :func:`maybe_wrap` proxies a ``threading.Lock``/``Condition`` so every
   acquisition records into a per-thread held-set and a process-global

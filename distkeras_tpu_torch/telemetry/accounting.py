@@ -24,9 +24,9 @@ the top-K tenants by rolling usage (exponentially-decayed token mass) plus
 one ``__other__`` overflow bucket; admitting tenant K+1 folds the
 smallest-usage entry into ``__other__`` — totals conserve across eviction,
 and the series count never exceeds K+1.  Per-tenant breakdowns are served
-as JSON (the flightdeck ``/ledger`` endpoint; the daemon's
-``ledger_status`` verb and ``dkmon top`` come with ROADMAP Queue A item 18
-and ``tools/``); only *aggregate* ``accounting_*``
+as JSON (the flightdeck ``/ledger`` endpoint and the Punchcard daemon's
+``ledger_status`` verb, which merges its live jobs' tables with its own;
+``dkmon top`` is the JAX package's ``tools/``); only *aggregate* ``accounting_*``
 instruments enter the metrics registry, so rollups, SLOs, and the fleet
 merge see fixed names.
 

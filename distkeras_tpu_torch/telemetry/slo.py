@@ -30,9 +30,9 @@ Evaluation is wired into loops that already exist (the serving tier's probe
 loop and the window scheduler's poll loop, which come with ROADMAP Queue A
 item 18; any caller's loop meanwhile) via :func:`maybe_engine`, which
 returns ``None`` unless telemetry *and* ``DISTKERAS_ROLLUP`` are on — the
-flag-off path stays untouched.  ``tools.dkmon`` and the daemon's
-``slo_status`` verb (item 18) consume the ``/slo`` endpoint this module
-installs.
+flag-off path stays untouched.  ``tools.dkmon`` and the Punchcard daemon's
+``slo_status`` verb consume the ``/slo`` endpoint this module installs (the
+daemon adds its own process's engines).
 """
 
 from __future__ import annotations

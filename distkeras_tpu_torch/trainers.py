@@ -9,7 +9,18 @@ several epochs a dispatch with the on-device reshuffle
 with the prefetch ring (``streaming``, ``prefetch``), checkpoints and
 resume (``checkpoint_dir``, ``checkpoint_every``, ``resume``,
 ``checkpoint_blocks``, elastic resume at another worker count), the SIGTERM
-boundary checkpoint and ``DistributedTrainer.train_with_recovery``.
+boundary checkpoint, ``DistributedTrainer.train_with_recovery`` and the
+live elastic resize (``elastic=``, a
+:class:`~distkeras_tpu_torch.fleet.ElasticMembership` polled at each epoch
+boundary: a changed fleet rebuilds the engine at the new worker count
+mid-run, around the center, as an elastic resume does).  Over several ranks
+global rank 0 polls and broadcasts the answer, so every rank resizes at the
+same boundary; a count that is not a multiple of the workers ranks is
+rounded down to one (at least one worker a rank) with a ``RuntimeWarning``
+(ROADMAP Queue C, C21).  With fault injection armed
+(:mod:`~distkeras_tpu_torch.chaos`) the ``epoch`` site fires entering each
+epoch, before any device work, and streamed blocks cross the ``block``
+site.
 
 Inside a ``torch.distributed`` process group (``torchrun --nproc-per-node
 N``, or :func:`~distkeras_tpu_torch.networking.initialize` in each process)
@@ -59,10 +70,6 @@ and ``DISTKERAS_PROFILE`` capture ``torch.profiler`` traces.
 ``DISTKERAS_SANITIZE`` runs each epoch under the runtime sanitizer's
 guards; in record mode a fit that recorded violations ends with one warning
 that tallies them.
-
-A kwarg of the JAX trainers whose feature is not ported yet (``elastic``)
-raises ``NotImplementedError`` naming the ROADMAP item that brings it when
-it is set to anything but its default; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from distkeras_tpu_torch import fleet, sanitizer, telemetry
+from distkeras_tpu_torch import chaos, fleet, sanitizer, telemetry
 from distkeras_tpu_torch import workers as workers_mod
 from distkeras_tpu_torch.data import epoch_arrays, epoch_window_iter, plan_epoch
 from distkeras_tpu_torch.frame import DataFrame
@@ -89,6 +96,7 @@ from distkeras_tpu_torch.parallel.mesh import (
     TP_AXIS,
     WORKER_AXIS,
     LocalMesh,
+    all_reduce_sum,
     broadcast,
     local_device_count,
     resolve_device,
@@ -99,6 +107,7 @@ from distkeras_tpu_torch.parameter_servers import (
     DynSGDParameterServer,
     ParameterServer,
 )
+from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 __all__ = [
     "Trainer",
@@ -114,21 +123,6 @@ __all__ = [
     "DynSGD",
     "AdaptiveDynSGD",
 ]
-
-# kwarg -> (its default, the ROADMAP Queue A item that ports its feature)
-_UNPORTED = {
-    "elastic": (None, "item 18 (fleet: elastic membership)"),
-}
-
-
-def _refuse_unported(**kwargs) -> None:
-    for name, value in kwargs.items():
-        default, item = _UNPORTED[name]
-        if not (value is default or (type(value) is type(default) and value == default)):
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: it comes with ROADMAP Queue A {item}"
-            )
-
 
 def _serving_twin(adapter: ModelAdapter) -> ModelAdapter:
     """The seq-free twin of a sequence-parallel adapter, on the same
@@ -418,6 +412,75 @@ class Trainer:
             ).set(bound)
         return state
 
+    def _elastic_resize(self, make_engine, engine, state, ckpt, epoch, rng, shuffle,
+                        new_workers):
+        """Mid-run worker-count change at an epoch boundary, as the JAX
+        package's: drain to a boundary checkpoint, gather the center off the
+        old engine, drop its captured windows, and rebuild the state at
+        ``new_workers`` through ``state_from_center``, the path an elastic
+        resume takes, with the same generator seed, so the run goes on bit
+        for bit as a resume from that checkpoint at ``new_workers`` would.
+        Progress (center, rule counters, epoch) carries over; the local
+        replicas pull the center afresh."""
+        from distkeras_tpu_torch.checkpoint import worker_mean
+        from distkeras_tpu_torch.datapipe import DataState
+
+        if ckpt is not None:
+            # a boundary checkpoint first: if the rebuild dies,
+            # train_with_recovery resumes from here
+            ckpt.save_partial(state, epoch, DataState(
+                epoch=epoch + 1, block_cursor=0,
+                rng_state=rng.bit_generator.state if shuffle else None))
+            ckpt.wait()
+        center = engine.gather_center(state)
+        # per-worker model state reduces to its worker mean on the host, as
+        # an elastic resume reads it (checkpoint.worker_mean); over several
+        # workers ranks the float64 sums meet in one all-reduce
+        if engine.group is None:
+            model_state = tree_map(lambda x: worker_mean(x.cpu()), state.model_state)
+        else:
+            sums = iter(all_reduce_sum([x.to(torch.float64).sum(dim=0)
+                                        for x in tree_leaves(state.model_state)], engine.group))
+            model_state = tree_map(lambda x: _rounded_mean(next(sums), engine.num_workers,
+                                                           x.dtype), state.model_state)
+        engine.clear_program_cache()
+        new_engine = make_engine(new_workers)
+        generator = torch.Generator().manual_seed(_mix64(self.seed, epoch + 1))
+        new_state = new_engine.state_from_center(generator, center, state.center_rule,
+                                                 model_state, epoch + 1)
+        if telemetry.enabled():
+            telemetry.metrics.counter(
+                "elastic_resizes_total", help="mid-run worker-count rebuilds",
+            ).inc()
+            telemetry.metrics.gauge(
+                "elastic_workers", help="current logical worker count"
+            ).set(new_workers)
+            telemetry.metrics.gauge(
+                "elastic_devices", help="devices the worker axis occupies"
+            ).set(new_engine.ranks)
+        return new_engine, new_state
+
+    def _elastic_poll(self, ctl, engine) -> Optional[int]:
+        """The worker count ``ctl`` asks for at this boundary, or None.
+        Global rank 0 polls and broadcasts the answer, so every rank
+        resizes at the same boundary; a count that does not split evenly
+        over the engine's workers ranks is rounded down to one that does,
+        at least one worker a rank (ROADMAP Queue C, C21)."""
+        import torch.distributed as dist
+
+        grouped = dist.is_available() and dist.is_initialized()
+        desired = ctl.poll() if not grouped or dist.get_rank() == 0 else None
+        desired = _rank0_value(desired)
+        if desired and desired % engine.ranks:
+            fitted = max(engine.ranks, desired // engine.ranks * engine.ranks)
+            warnings.warn(
+                f"elastic membership asked for {desired} workers, which do not split "
+                f"evenly over {engine.ranks} workers ranks; resizing to {fitted}",
+                RuntimeWarning,
+            )
+            desired = fitted
+        return desired
+
     def _fit(self, *args, **kwargs):
         """Crash-forensics boundary around :meth:`_fit_inner`, as in the JAX
         package: with telemetry on, mint or propagate the fleet ``run_id``
@@ -468,7 +531,10 @@ class Trainer:
             metrics = per_token_metric_names(metrics)
         with telemetry.trace.span("load_columns", phase="data"):
             feats, labels = self._load_columns(dataframe)
-        engine = self._make_engine(adapter, rule, num_workers, metrics, commit_schedule, mesh)
+        def make_engine(n_workers):
+            return self._make_engine(adapter, rule, n_workers, metrics, commit_schedule, mesh)
+
+        engine = make_engine(num_workers)
         window = rule.communication_window if rule.communication_window > 0 else None
         rng = np.random.default_rng(self.seed)
 
@@ -516,6 +582,23 @@ class Trainer:
                     "dispatch_epochs>1 runs whole chunks per dispatch with no "
                     "epoch boundary to restore at"
                 )
+        # elastic membership: poll the fleet at epoch boundaries and resize
+        # the worker set mid-run; progress must live in the center to carry
+        # over a rebuild, so only committing rules on the per-epoch loop
+        elastic_ctl = getattr(self, "elastic", None)
+        if elastic_ctl is not None and (
+            rule.communication_window <= 0
+            or commit_schedule is not None
+            or self.pipeline_stages > 1
+            or self.dispatch_epochs > 1
+        ):
+            warnings.warn(
+                "elastic membership polling disabled: it requires a "
+                "committing rule on the per-epoch loop (no commit_schedule, "
+                "pipeline_stages=1, dispatch_epochs=1)",
+                RuntimeWarning,
+            )
+            elastic_ctl = None
         # the staleness policy reads the dynamics summary
         staleness_policy = getattr(self, "staleness_policy", None)
         if staleness_policy is not None and not engine._dynamics:
@@ -632,6 +715,8 @@ class Trainer:
                 steps = plan_epoch(len(feats), num_workers, self.batch_size, 1)[0]
                 stream_window = min(steps, 32)
             for epoch in range(start_epoch, self.num_epoch):
+                if chaos.enabled():
+                    chaos.fault("epoch")  # seeded kill entering this epoch, before device work
                 if prof is not None:
                     prof.on_step(epoch)
                 with telemetry.trace.span("epoch", epoch=epoch):
@@ -659,6 +744,10 @@ class Trainer:
 
                             blocks = PrefetchRing(blocks, depth=self.prefetch,
                                                   put_fn=engine.stream_put)
+                        if chaos.enabled():
+                            # seeded kill or stall at a block index, downstream
+                            # of the prefetch ring so it reaches the consumer
+                            blocks = chaos.wrap_blocks(blocks)
                         on_window = None
                         if ckpt is not None and self.checkpoint_blocks:
                             def on_window(live_state, done, _epoch=epoch, _base=start_block,
@@ -715,6 +804,14 @@ class Trainer:
                         raise fleet.Preempted(
                             f"preempted (SIGTERM); drained to the epoch {epoch + 1} boundary"
                             + (" checkpoint" if ckpt is not None else ""))
+                    if elastic_ctl is not None and epoch + 1 < self.num_epoch:
+                        desired = self._elastic_poll(elastic_ctl, engine)
+                        if desired and desired != num_workers:
+                            engine, state = self._elastic_resize(
+                                make_engine, engine, state, ckpt, epoch, rng, shuffle,
+                                desired)
+                            num_workers = desired
+                            resume_data = None
             if ckpt is not None:
                 ckpt.wait()  # flush in-flight saves before declaring done
         finally:
@@ -1009,7 +1106,6 @@ class DistributedTrainer(Trainer):
         staleness_policy: Optional[Any] = None,
         device="cuda",
     ):
-        _refuse_unported(elastic=elastic)
         super().__init__(
             keras_model, loss, worker_optimizer, metrics,
             features_col, label_col, batch_size, num_epoch, seed, compute_dtype,
@@ -1019,6 +1115,9 @@ class DistributedTrainer(Trainer):
             prefetch, checkpoint_blocks, device,
         )
         self.num_workers = num_workers or _default_workers(self.device, self._worker_row())
+        # a fleet.ElasticMembership (anything with poll() -> Optional[int])
+        # polled at epoch boundaries to resize the worker set mid-run
+        self.elastic = elastic
         # AdaptiveBound-style policy retuning the rule's staleness bound
         # between epochs from the dynamics summary (DISTKERAS_DYNAMICS)
         self.staleness_policy = staleness_policy
@@ -1090,7 +1189,7 @@ class DistributedTrainer(Trainer):
                 except Exception:  # noqa: BLE001 — a failed save must not mask e
                     on_disk = committed_steps(self.checkpoint_dir)
                     step = on_disk[-1] if on_disk else None
-                step = _rank0_step(step)
+                step = _rank0_value(step)
                 if step != last_step:
                     # progress checkpointed since the previous failure: a
                     # repeating failure is a recurring transient
@@ -1131,15 +1230,23 @@ def _default_workers(device, row: int) -> int:
     return max(1, local_device_count(device) // row)
 
 
-def _rank0_step(step: Optional[int]) -> Optional[int]:
-    """Global rank 0's ``step`` on every rank of the process group (the
-    value itself outside one)."""
+def _rank0_value(value: Optional[int]) -> Optional[int]:
+    """Global rank 0's ``value`` (None or an int >= 0: a checkpoint step, a
+    worker count) on every rank of the process group (the value itself
+    outside one)."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
-        return step
-    got = broadcast([torch.tensor([-1 if step is None else int(step)])], 0, dist.group.WORLD)
+        return value
+    got = broadcast([torch.tensor([-1 if value is None else int(value)])], 0, dist.group.WORLD)
     return None if int(got[0]) < 0 else int(got[0])
+
+
+def _rounded_mean(total: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``checkpoint.worker_mean`` from a float64 sum over ``n`` workers,
+    on the host."""
+    m = total.cpu() / n
+    return (m if dtype.is_floating_point else torch.round(m)).to(dtype)
 
 
 class AsynchronousDistributedTrainer(DistributedTrainer):

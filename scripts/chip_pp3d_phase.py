@@ -3,7 +3,7 @@
     python scripts/chip_pp3d_phase.py [--cards-only]
 
 Builds the kernels and runs phase 24: phase 23's ``StagedLM`` at GPT-2
-small's widths, cut to 6 blocks as 2 stages of 3, under ``DOWNPOUR`` on one rank
+small's widths, cut to 6 blocks as 2 stages of 3 and 16 rows, under ``DOWNPOUR`` on one rank
 (the sequential executor, the reference), then four gloo ranks sharing the
 card on the pipeline engine's 1 x 2 x 2 grids: ``tp_shards=2``, with
 ``fsdp=True``, and ``seq_shards=2`` with the model built ``seq_axis="seq"``,

@@ -3,7 +3,7 @@
     python scripts/chip_pp_phase.py [--cards-only]
 
 Builds the kernels and runs phase 23: a ``StagedLM`` at GPT-2 small's
-widths (12 blocks as 2 stages of 6) under ``DOWNPOUR`` on one rank (the
+widths (6 of the 12 blocks as 2 stages of 3, 16 rows) under ``DOWNPOUR`` on one rank (the
 sequential executor), then ``pipeline_stages=2, pp_microbatches=2`` on two
 gloo ranks sharing the card against it, replicated and with ``fsdp=True``,
 the trained model's greedy decode sequential and pipelined over the two

@@ -9,8 +9,9 @@ tenants (tokens held to the JAX greedy decode), speculative splits conserve
 against the spec counters, ``DISTKERAS_ACCOUNTING=0`` leaves no ledger and
 the same tokens, and the billing costs a fixed count of ledger calls a step
 on host values only (no tensor reaches the ledger, none is read inside a
-billing call).  The router's failover billing waits for the serving tier
-(ROADMAP Queue A item 18)."""
+billing call).  The Punchcard daemon's ``ledger_status`` verb serves the
+daemon's own ledger.  The router's failover billing waits for the serving
+tier (ROADMAP Queue A item 18b)."""
 
 import json
 import os
@@ -389,3 +390,22 @@ def test_ledger_view_disabled_shape():
         assert jax_accounting.ledger_view() == (ctype, body, status)
     finally:
         jax_accounting.configure(None)
+
+
+def test_daemon_ledger_status_verb_serves_its_own_ledger():
+    from distkeras_tpu_torch.job_deployment import Job, PunchcardServer
+
+    ledger = accounting.ledger_for()  # the process-global registry's
+    ledger.admit("acme", prompt_tokens=9, queue_wait_s=0.01, device_s=0.1)
+    ledger.admit("zen", prompt_tokens=2, queue_wait_s=0.02, device_s=0.05)
+    daemon = PunchcardServer(port=0, secret="s3cret")
+    daemon.start()
+    try:
+        reply = Job("127.0.0.1", daemon.port, secret="s3cret").ledger_status()
+    finally:
+        daemon.stop()
+    assert reply["status"] == "ok" and reply["enabled"] is True
+    assert reply["jobs"] == 0  # no live jobs: the daemon's own process
+    rows = _rows(reply)
+    assert rows["acme"]["prefill_tokens"] == 9 and rows["zen"]["prefill_tokens"] == 2
+    assert [r["tenant"] for r in reply["tenants"]][:2] == ["acme", "zen"]  # hottest first

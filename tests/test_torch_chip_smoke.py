@@ -511,7 +511,8 @@ def test_pipeline_phase_rehearsal(on_cpu, capsys, monkeypatch):
     assert one["engine"] == "WindowedEngine" and np.isfinite(one["loss"]).all()
     row = out["two_ranks_one_card"]
     assert rows[1] == {"phase": "pipeline", **json.loads(json.dumps(row))}
-    assert not row["failures"] and row["grid"] == [1, 2] and row["local_steps"] == 8
+    # PP_ROWS (16) of batch 4 on one worker
+    assert not row["failures"] and row["grid"] == [1, 2] and row["local_steps"] == 4
     assert row["first_window_loss_rel_err"] <= chip_smoke.PP_FIRST_LOSS_RTOL
     assert row["vs_one_rank"]["param_rel_norm_err"] <= chip_smoke.PP_PARAM_REL_NORM
     # each stage rank holds half the blocks; fsdp halves the embed and head
@@ -557,7 +558,7 @@ def test_pipeline_3d_phase_rehearsal(on_cpu, capsys, monkeypatch):
     assert rows[1]["pp3d_cards_run"] == 1
     row = out["four_ranks_one_card"]
     assert rows[0] == {"phase": "pipeline_3d", **json.loads(json.dumps(row))}
-    assert not row["failures"] and row["grid"] == [1, 2, 2] and row["local_steps"] == 8
+    assert not row["failures"] and row["grid"] == [1, 2, 2] and row["local_steps"] == 4
     assert "not supported" in row["both_axes_refused"]
     for name, axis, share in (("tp", "model", 4), ("tp_fsdp", "model", 4), ("sp", "seq", 2)):
         case = row[name]

@@ -1,7 +1,10 @@
 """fsdp x sp in the port: the seq-axis ZeRO center (``fsdp=True`` with
 ``seq_shards > 1``) over the ``(workers, seq)`` grid of four gloo ranks on
 the CPU, against the replicated-center sequence-parallel run, and the
-checkpoints of a seq-sharded run.
+checkpoints of a seq-sharded run, and the live elastic resize over the
+grid (ROADMAP Queue C, C21): global rank 0 alone polls and broadcasts, a
+count that does not split over the workers ranks is rounded down with a
+warning, and the resized run is the elastic-resume path's bit for bit.
 
 Four ranks are spawned **once** for the module (``ranks`` fixture, the
 pattern of ``test_torch_ring.py``); rank 0 writes the results.  The
@@ -46,14 +49,16 @@ def _module(seq_axis="seq"):
                                  generator=torch.Generator().manual_seed(5))
 
 
-def _train(rule="DOWNPOUR", seq_shards=SEQ_SHARDS, fsdp=False, num_epoch=2, **kwargs):
+def _train(rule="DOWNPOUR", seq_shards=SEQ_SHARDS, fsdp=False, num_epoch=2, num_workers=2,
+           **kwargs):
     import distkeras_tpu_torch as tdk
 
     x, y = _data()
     extra = dict(rho=1.0, learning_rate=0.05) if rule == "AEASGD" else {}
     t = getattr(tdk, rule)(_module("seq" if seq_shards > 1 else None),
                            loss="categorical_crossentropy",
-                           worker_optimizer=("sgd", {"learning_rate": 0.05}), num_workers=2,
+                           worker_optimizer=("sgd", {"learning_rate": 0.05}),
+                           num_workers=num_workers,
                            batch_size=8, num_epoch=num_epoch, communication_window=2,
                            seq_shards=seq_shards, fsdp=fsdp, seed=5, device="cpu",
                            **extra, **kwargs)
@@ -121,6 +126,41 @@ def _checkpoint_cases(workdir, rank):
     return out
 
 
+class _Scripted:
+    """Stands in for ElasticMembership: poll() pops a scripted answer."""
+
+    def __init__(self, answers):
+        self.answers, self.polls = list(answers), 0
+
+    def poll(self):
+        self.polls += 1
+        return self.answers.pop(0) if self.answers else None
+
+
+def _live_elastic_case(workdir, rank):
+    """The live resize after epoch 0: rank 0's poller asks for 5 workers
+    (the others' would ask for none, and are never asked), rounded down to
+    4 over the 2 workers ranks; then the elastic-resume path from ckpt_1
+    (epoch 0 at 2 workers) at 4 workers."""
+    import warnings
+
+    import torch.distributed as dist
+
+    ctl = _Scripted([5] if rank == 0 else [3])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = {"live": _train(fsdp=True, elastic=ctl)}
+    resized = [str(w.message) for w in caught if "resizing to 4" in str(w.message)]
+    out["live"].update(polls=np.asarray(ctl.polls), warned=np.asarray(len(resized)))
+    resume = os.path.join(workdir, "ckpt_3")
+    if rank == 0:
+        shutil.copytree(os.path.join(workdir, "ckpt_1"), resume)
+    dist.barrier()
+    out["elastic_resumed"] = _train(fsdp=True, num_workers=4, checkpoint_dir=resume,
+                                    resume=True)
+    return out
+
+
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
@@ -133,6 +173,7 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
             "layout": _layout_case(), "elastic": _elastic_case(),
             **_checkpoint_cases(workdir, rank),
         }
+        results.update(_live_elastic_case(workdir, rank))
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(workdir, f"rank_{rank}.npz"),
@@ -235,3 +276,13 @@ def test_checkpoint_written_at_two_seq_ranks_restores_at_one_rank(ranks):
     for name, value in state.center_params.items():
         np.testing.assert_array_equal(value.numpy(), results[0]["first"][f"center/{name}"],
                                       err_msg=name)
+
+
+def test_live_elastic_resize_over_the_grid_is_the_resume_path(ranks):
+    results, _ = ranks
+    for rank, got in enumerate(results):
+        live, resumed = dict(got["live"]), dict(got["elastic_resumed"])
+        assert int(live.pop("polls")) == (1 if rank == 0 else 0)  # rank 0 alone polls
+        assert int(live.pop("warned")) == 1  # 5 workers over 2 ranks: rounded to 4
+        np.testing.assert_array_equal(live.pop("loss")[1:], resumed.pop("loss"))
+        _assert_equal(live, resumed)

@@ -4,7 +4,8 @@ tests/test_sanitizer.py: mode resolution and the cached-bool convention
 violation per guard — a host read of a tensor inside the guard trips the
 transfer guard's interposition layer, a read of a consumed ``TrainState``
 trips the donation poison, off-lock mutation and inversion trip the lock
-watchdog — and the engine and trainer integration: a clean epoch passes
+watchdog, the Punchcard daemon's job table included — and the engine and
+trainer integration: a clean epoch passes
 strict with the trajectory bit for bit the sanitizer-off one, a planted
 ``.item()`` in the model's apply raises naming the span, record mode counts
 and warns, and off means untouched (a subprocess: no ``torch.Tensor``
@@ -404,11 +405,29 @@ def test_networking_frames_are_exclusive_per_socket():
 
 
 def test_disabled_path_returns_stock_objects():
+    from distkeras_tpu_torch.job_deployment import PunchcardServer
+
     sanitizer.configure("off")
     cv = threading.Condition()
     assert lockwatch.maybe_wrap(cv, "x") is cv
     m = lockwatch.guard_map({"a": 1}, cv, "x")
     assert type(m) is dict and m == {"a": 1}
+    srv = PunchcardServer(port=0)
+    assert isinstance(srv._cv, threading.Condition)
+    assert type(srv.jobs) is dict
+
+
+def test_punchcard_jobs_mutation_off_lock_is_flagged():
+    from distkeras_tpu_torch.job_deployment import PunchcardServer
+
+    sanitizer.configure("record")
+    srv = PunchcardServer(port=0)
+    assert isinstance(srv._cv, lockwatch.GuardedLock)
+    with pytest.warns(RuntimeWarning, match="off-lock write"):
+        srv.jobs["job-1"] = {"status": "QUEUED"}
+    with srv._cv:
+        srv.jobs["job-2"] = {"status": "QUEUED"}  # the blessed path
+    assert len(runtime.violations("lock")) == 1
 
 
 @pytest.mark.parametrize("mode", ["off", "record"])

@@ -1,10 +1,11 @@
 """The port's SLO engine and rollup ring, against tests/test_slo.py: every
 case of the JAX file but the ``dkmon`` CLI's (``tools/``) and the window
-scheduler's and daemon's (ROADMAP Queue A item 18), run on the port's
+scheduler's (ROADMAP Queue A item 18c), run on the port's
 modules: rollup-ring windowing, the quantile and breach estimators, burn-rate
 fire/resolve with the incident JSONL, the ``slo_*``/``alert_*`` schema
 against the JAX package's golden text, the flag-off pin and the ``/slo``
-view, served live through the port's flight deck.  ``breach_fraction_from_
+view, served live through the port's flight deck and by the Punchcard
+daemon's ``slo_status`` verb.  ``breach_fraction_from_
 cumulative`` and an engine's burn rates equal the JAX package's on one
 input.  No device."""
 
@@ -588,3 +589,25 @@ def test_slo_endpoint_serves_through_the_flight_deck(tmp_path):
         rollup.stop()
         slo.reset_engines()
         rollup.configure(False)
+
+
+def test_daemon_slo_status_verb_carries_local_engines(tmp_path):
+    from distkeras_tpu_torch.job_deployment import Job, PunchcardServer
+
+    engine = slo.SLOEngine([_lag_objective()], source="tier", ring=_breach_trace(),
+                           registry=Registry(), clock=lambda: 27.0,
+                           incident_file=str(tmp_path / "inc.jsonl"))
+    slo._ENGINES["tier"] = engine
+    engine.evaluate()
+    server = PunchcardServer(port=0, secret="s3cret")
+    server.start()
+    try:
+        reply = Job("127.0.0.1", server.port, secret="s3cret").slo_status()
+        assert reply["status"] == "ok" and reply["firing_count"] == 1
+        row, = reply["engines"]["daemon:tier"]["objectives"]
+        assert row["name"] == "lag" and row["firing"]
+        assert reply["firing"][0]["owner"] == "daemon"
+        assert reply["timeseries"]["samples"] == []
+    finally:
+        server.stop()
+        slo.reset_engines()

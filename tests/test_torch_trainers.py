@@ -227,10 +227,31 @@ def test_ported_kwargs_train(kwargs, tmp_path):
         assert committed_steps(kwargs["checkpoint_dir"]) == [1, 2]
 
 
-@pytest.mark.parametrize("kwargs", [dict(elastic=object())], ids=lambda kw: next(iter(kw)))
-def test_unported_kwargs_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 18"):
-        tdk.DOWNPOUR(TransformerLM(**LM), device="cpu", **kwargs)
+def test_elastic_kwarg_is_accepted_and_polled():
+    # accepted since item 18a is ported; replaces the last case of
+    # test_unported_kwargs_raise.  A poller that reports no change is asked
+    # at every epoch boundary but the last and changes no value
+    # (tests/test_torch_fleet.py holds a resize to JAX's)
+    class Unchanged:
+        polls = 0
+
+        def poll(self):
+            self.polls += 1
+            return None
+
+    x, y = lm_data(n=32)
+
+    def train(**kw):
+        t = tdk.DOWNPOUR(TransformerLM(**LM), loss="token_crossentropy", num_workers=2,
+                         batch_size=4, communication_window=2, num_epoch=3, seed=1,
+                         device="cpu", **kw)
+        t.train(tdk.from_numpy(x, y), shuffle=True)
+        return t
+
+    ctl = Unchanged()
+    t = train(elastic=ctl)
+    assert t.elastic is ctl and ctl.polls == 2
+    assert t.get_history()["loss"] == train().get_history()["loss"]
 
 
 @pytest.mark.parametrize("name", ["profile_dir", "staleness_policy"])
