@@ -94,7 +94,7 @@ toolkit.  Phases, each printing JSON lines:
     once the generators are put back;
 16. serving: KV-cache decode and the serving engine at GPT-2-small widths
     through ``greedy_generate`` (each token against the argmax of a
-    full-context forward, which runs B1), ``ServingEngine`` (24 staggered
+    full-context forward, which runs B1), ``ServingEngine`` (12 staggered
     requests, half greedy held to ``greedy_generate``, half sampled held to
     themselves rerun alone; EOS, a full queue, pages returned),
     speculative decoding (a 2-layer draft, and the target as its own) and
@@ -177,8 +177,25 @@ toolkit.  Phases, each printing JSON lines:
     from 2 to 4 workers over a ``PunchcardServer`` on 127.0.0.1, bit for
     bit the elastic-resume path; a job submitted under client-side faults
     whose script predicts on the card in a process of its own, bit for bit
-    the parent's prediction (see :func:`fleet_phase`).  A ``timing`` line
-    then gives every phase's wall seconds.
+    the parent's prediction (see :func:`fleet_phase`);
+27. online: the serving tier and the online serve-to-train loop at GPT-2
+    small's widths and depth: two ``ServingEngine`` replicas behind a
+    ``ServingTier``, failover under a seeded ``kill_replica`` held to each
+    request served alone and billed once; then served traffic captured by
+    a ``TrafficLog`` behind ``install_tier_endpoint``, each window retrained
+    by ``WindowScheduler`` through ``DOWNPOUR`` (a killed first attempt
+    retried), a rotted step rejected at swap time and the next rolled into
+    both replicas bit for bit while requests are in flight (see
+    :func:`online_phase`).  A ``timing`` line then gives every phase's wall
+    seconds and the run's wall from the build on.
+
+Phases 19 to 24, which train and serve over gloo ranks sharing the card,
+run in a process of their own (``--gloo-lane``), started once phases 4 and
+5 have timed the kernels, side by side with phases 6 to 18 and 25 to 27 in
+this one; each process counts its own launches, so every phase's counts
+are its own, but the rates and device shares printed while both run are
+taken on a shared card and host.  Each process empties the allocator's
+cache after every phase, so that the two fit on the card together.
 
 Phases 4 to 6, 10 and 15 set the kernels' launch counts to 0 just before
 and read them just after, check that every kernel of the path ran as often
@@ -202,7 +219,9 @@ ring's plain products); phase 25 around the converted forward (B1 12) and
 each of its two trainings (B1-B3 12 a step); phase 26 around each of its
 trainings (B1-B3 2 a local step; a kill recovered launches as often as the
 uninterrupted run, a torn checkpoint one replayed epoch more) and each
-job prediction (B1 2 a batch, in the job's process and the parent).
+job prediction (B1 2 a batch, in the job's process and the parent); phase
+27 around the failover's serving (0 launches) and the two window retrains
+(B1-B3 12 a local step; the killed attempt none).
 Phases 7 to 9, 11 to 14 and 18's
 CIFAR runs launch no kernel of the port's own: convolutions, dense
 products and embedding gathers are PyTorch's.  The last lines are a ``{"kernels":
@@ -871,11 +890,16 @@ def fwd_bwd_profile(run, iters: int = 5):
     (pooling, BatchNorm, ReLU, casts, the loss), per call, and the card's
     busy share of the wall time.  A profiler that records no device time
     gives ``None`` for the device numbers."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, supported_activities
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone: the host's operator events would add
+    # several times as many events to parse, and their recording to the
+    # wall (a build without CUDA records the host's, which hold no device time)
+    activities = ([ProfilerActivity.CUDA] if ProfilerActivity.CUDA in supported_activities()
+                  else [ProfilerActivity.CPU])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             run()
@@ -1892,15 +1916,15 @@ SERVE_MODEL = GPT2_SMALL
 SERVE_DRAFT = dict(vocab_size=50257, dim=256, heads=4, num_layers=2, max_len=1024)
 SERVE_GREEDY = (4, 128, 64)  # greedy_generate: batch, prompt length, steps
 SERVE_SLOTS, SERVE_PAGE = 8, 16
-SERVE_REQUESTS = 24
+SERVE_REQUESTS = 12  # cut from 24 for the script's time
 SERVE_PROMPT_LEN = (16, 768)  # drawn from --seed, inclusive
 SERVE_NEW_TOKENS = (32, 128)
 SERVE_STAGGER_S = 0.02  # between submissions
 SERVE_SAMPLING = dict(temperature=0.9, top_k=50, top_p=0.95)
 SERVE_SPEC_TOKENS = 4
-SERVE_SPEC_PROMPTS = 4  # greedy requests of the traffic run through the speculative engines
-SERVE_PREDICT = (16, 64, 16)  # ModelPredictor(engine=): rows, prompt length, new tokens
-SERVE_PROFILE = (64, 64)  # profiled decode: prompt length, new tokens, one request a slot
+SERVE_SPEC_PROMPTS = 2  # greedy requests of the traffic run through the speculative engines
+SERVE_PREDICT = (8, 64, 16)  # ModelPredictor(engine=): rows, prompt length, new tokens
+SERVE_PROFILE = (64, 32)  # profiled decode: prompt length, new tokens, one request a slot
 # A greedy token may differ from its reference only where the reference's
 # two best logits are closer than this (f32, the orders of summation differ).
 GREEDY_GAP = 1e-4
@@ -2012,7 +2036,7 @@ def serving_phase(seed: int):
        full-context forward over the prompt and the tokens so far (which
        runs B1: its launches are counted); a token may differ only where
        that forward's top-two gap is below ``GREEDY_GAP``;
-    2. ``ServingEngine`` (8 slots, pages of 16, buckets 16 to 1024): 24
+    2. ``ServingEngine`` (8 slots, pages of 16, buckets 16 to 1024): 12
        staggered requests, prompts of 16-768 tokens and 32-128 new ones
        drawn from ``--seed``; the greedy half held to ``greedy_generate``
        under the same gap rule, the sampled half (each its own seed) to
@@ -2024,7 +2048,7 @@ def serving_phase(seed: int):
        own draft accepting every proposal, in fewer decode steps than the
        tokens they emitted (a draft that is never right takes one step a
        token);
-    4. ``ModelPredictor(engine=)`` over 16 prompts, held row by row to
+    4. ``ModelPredictor(engine=)`` over 8 prompts, held row by row to
        ``engine.generate``, exactly.
 
     Prints TTFT and decode-step latency quantiles from the engine's
@@ -2440,6 +2464,163 @@ def packing_phase(seed: int):
     return row
 
 
+def _timer(seconds: dict, t0: float, who: str = "chip_smoke"):
+    """A ``timed(name, fn, *args)`` that calls ``fn(*args)``, keeps its wall
+    seconds in ``seconds[name]`` and prints them, on standard error too
+    (with the seconds since ``t0``), so that a run cut short still shows
+    how far it got; then frees what the phase left in the allocator's
+    cache."""
+    import gc
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t
+            emit(phase="timing", of=name, seconds=seconds[name])
+            print(f"{who}: {name} {seconds[name]:.1f} s, "
+                  f"{time.perf_counter() - t0:.1f} s since the build began",
+                  file=sys.stderr, flush=True)
+            gc.collect()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+
+    return timed
+
+
+# phases 19 to 24, in this order, in the gloo lane's process
+LANE_PHASES = ("seq", "tp", "serving_tp", "moe", "pipeline", "pipeline_3d")
+LANE_TIMEOUT_S = 1100  # the lane's whole run, set-up included
+
+
+def gloo_lane(seed: int, timed) -> dict:
+    """Phases 19 to 24 in turn through ``timed``: each phase's row that the
+    kernels line reads, by phase."""
+    pipeline = {}
+
+    def pipeline_3d(seed):
+        # phase 24's reference is phase 23's one-rank run when their models agree
+        ref = (pipeline["one_rank"] if _pp3d_model() == PP_MODEL
+               else _pp_one_rank(seed, 1, _pp3d_model()))
+        return pipeline_3d_phase(seed, ref)
+
+    def pipeline_run(seed):
+        pipeline.update(pipeline_phase(seed))
+        return pipeline
+
+    phases = {
+        "seq": (lambda s: seq_phase(s, seq_train(s, 1)[1]), "two_ranks_one_card"),
+        "tp": (lambda s: tp_phase(s, tp_train(s, TRAIN_EPOCHS)[1]), "two_ranks_one_card"),
+        "serving_tp": (serving_tp_phase, "two_ranks_one_card"),
+        "moe": (moe_phase, None),
+        "pipeline": (pipeline_run, "two_ranks_one_card"),
+        "pipeline_3d": (pipeline_3d, "four_ranks_one_card"),
+    }
+    out = {}
+    for name in LANE_PHASES:
+        fn, key = phases[name]
+        got = timed(name, fn, seed)
+        out[name] = got if key is None else got[key]
+    return out
+
+
+def _die_with(parent: int):
+    """End this process's group (itself and every rank it spawned) once
+    ``parent`` is gone, however it ended: the lane runs in a session of its
+    own, which a signal to the parent's group does not reach."""
+    import os
+    import signal
+    import threading
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=watch, name="chip_smoke-lane-watch", daemon=True).start()
+
+
+def gloo_lane_main(spec_path: str) -> int:
+    """The gloo lane's process: the parent's seed, card line and thread
+    count from ``spec_path``; :func:`gloo_lane`; its rows and phase seconds
+    written as JSON to the spec's ``out`` (tensors left out)."""
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    _die_with(spec["parent"])
+    global CARD
+    CARD = spec["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(spec["threads"])
+    seconds = {}
+    rows = gloo_lane(spec["seed"], _timer(seconds, spec["t0"], "chip_smoke gloo lane"))
+    with open(spec["out"], "w", encoding="utf-8") as fh:
+        json.dump(dict(rows=rows, seconds=seconds), fh,
+                  default=lambda o: None if isinstance(o, torch.Tensor) else repr(o))
+    return 0
+
+
+class GlooLane:
+    """Phases 19 to 24 in a process of this script (``--gloo-lane``) in a
+    session of its own, so that :meth:`stop` ends it and every rank it
+    spawned; its standard output goes to a file that :meth:`result` copies
+    to this process's, its standard error straight through."""
+
+    def __init__(self, seed: int, t0: float):
+        import os
+        import tempfile
+
+        self._dir = tempfile.TemporaryDirectory(prefix="chip_smoke_lane_")
+        spec = dict(seed=seed, card=CARD, out=os.path.join(self._dir.name, "rows.json"),
+                    parent=os.getpid(),
+                    # the lane shares the host's cores with this process
+                    threads=max(1, torch.get_num_threads() // 2),
+                    # the parent's clock: perf_counter is one clock across the machine
+                    t0=t0)
+        path = os.path.join(self._dir.name, "spec.json")
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump(spec, fh)
+        self._out = spec["out"]
+        self._log = open(os.path.join(self._dir.name, "stdout.txt"), "w+", encoding="utf-8")
+        self._proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-lane", path],
+            stdout=self._log, cwd=os.path.dirname(os.path.abspath(__file__)),
+            start_new_session=True)
+
+    def result(self, timeout: float) -> tuple:
+        """Wait for the lane (``timeout`` seconds at most), copy its rows to
+        standard output and return ``(rows by phase, seconds by phase)``;
+        raises if it failed or ran late."""
+        try:
+            rc = self._proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the gloo lane ran past {timeout} s") from None
+        self._log.seek(0)
+        sys.stdout.write(self._log.read())
+        sys.stdout.flush()
+        if rc != 0:
+            raise AssertionError(f"the gloo lane (phases 19 to 24) exited {rc}: see its "
+                                 "rows above and its standard error")
+        with open(self._out, encoding="utf-8") as fh:
+            got = json.load(fh)
+        return got["rows"], got["seconds"]
+
+    def stop(self):
+        """End the lane and every rank it spawned, if still running."""
+        import os
+        import signal
+
+        if self._proc.poll() is None:
+            try:
+                os.killpg(self._proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self._proc.wait()
+        self._log.close()
+        self._dir.cleanup()
+
+
 def _free_port() -> int:
     import socket
 
@@ -2528,8 +2709,12 @@ def _run_ranks(flag: str, specs, workdir: str, timeout: int, phase: str):
     at once, and wait for all of them, ``timeout`` seconds at most.  A rank
     that fails, or is still running then, fails the phase with the end of
     every rank's output, and no rank outlives it."""
+    import gc
     import os
 
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()  # the ranks share this card
     procs, logs, late = [], [], False
     try:
         for spec in specs:
@@ -3331,8 +3516,9 @@ def tp_phase(seed: int, train_run) -> dict:
 # engine geometry (8 slots, pages of 16, f32 pools) with mesh= over the
 # model axis: two gloo ranks sharing the card (6 heads a rank) against the
 # one-rank engine in this process; on a 4-card machine also 4 NCCL ranks,
-# one a card (3 heads a rank)
-SERVE_TP_REQUESTS = 12
+# one a card (3 heads a rank); 6 requests (cut from 12 to make room for
+# phase 27, the one-rank engine serving the same 6)
+SERVE_TP_REQUESTS = 6
 SERVE_TP_SPEC_PROMPTS = 2  # greedy requests of the traffic through the mesh's speculative engine
 SERVE_TP_RANK_TIMEOUT_S = 900
 # the serving phase's widths cut to 6 of the 12 blocks, so that the
@@ -3645,10 +3831,11 @@ def _serving_tp_phase(seed: int, pair: bool = True) -> dict:
 # 512, 2 classes, f32, random weights from --seed.  Every block is MoE here
 # (the repo's class), where the published model alternates dense and
 # sparse blocks.  DOWNPOUR, 2 workers, batch 4, window 2, Adam, one epoch of
-# 2 windows
+# one window (16 rows), and the predictor over 2 rows (cut from two windows
+# and 4 rows to make room for phase 27, the one-rank reference cut alike)
 MOE_MODEL = dict(vocab_size=32128, num_classes=2, dim=768, heads=12, num_layers=12,
                  num_experts=8, mlp_ratio=4, top_k=1, capacity_factor=1.25, max_len=512)
-MOE_WINDOWS, MOE_EPOCHS, MOE_PREDICT_ROWS = 2, 1, 4
+MOE_WINDOWS, MOE_EPOCHS, MOE_PREDICT_ROWS = 1, 1, 2
 MOE_TP_SHARDS, MOE_RANK_TIMEOUT_S = 2, 900
 # the expert-parallel run against one rank: phase 20's gates
 MOE_FIRST_LOSS_RTOL, MOE_LOSS_RTOL, MOE_PARAM_REL_NORM = (
@@ -5388,6 +5575,517 @@ def fleet_launches(row: dict, kernel: int) -> dict:
             "launches_fleet_elastic": row["elastic"]["launches_b1_b2_b3"][kernel]}
 
 
+# Phase 27: the serving tier and the online serve-to-train loop, at GPT-2
+# small's widths and depth (12 blocks, f32, random from --seed): two
+# ServingEngine replicas behind a ServingTier of LocalReplicas, greedy and
+# seeded-sampled requests for tenants a and b.  (a) failover under a seeded
+# kill_replica; (b) the loop closed on the card: served traffic captured by a
+# TrafficLog, each window retrained by DOWNPOUR (B1-B3), published as a
+# verified step and rolled into the replicas while they serve.
+ONLINE_MODEL = GPT2_SMALL
+ONLINE_SLOTS, ONLINE_PAGE = 8, 16
+ONLINE_REQUESTS, ONLINE_CLIENTS = 16, 4
+ONLINE_PROMPT_LEN = (16, 64)  # drawn from --seed, inclusive
+ONLINE_NEW_TOKENS = 16
+ONLINE_KILL = 3  # kill_replica: the busy engine iteration the seeded kill lands on
+ONLINE_WINDOW, ONLINE_ROW = 8, 128  # the TrafficLog's window_samples and max_len
+ONLINE_SGD = ("sgd", {"learning_rate": 0.01})
+#: requests put in flight just before the roll starts (fewer than a window,
+#: so they publish none), and their new tokens
+ONLINE_ROLL_REQUESTS, ONLINE_ROLL_NEW_TOKENS = 4, 32
+ONLINE_PROBES = 4  # greedy prompts held to a fresh engine on the step after the roll
+ONLINE_REJECT_S, ONLINE_ROLL_S = 30.0, 60.0  # bounds on the watcher's verdicts
+
+
+def _online_requests(seed: int, n: int, new_tokens: int = None) -> list:
+    """``n`` requests of ``ONLINE_PROMPT_LEN`` prompts from ``seed``, for
+    tenants ``a`` and ``b`` in turn; every second one sampled with its own
+    seed (``SERVE_SAMPLING``)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(ONLINE_PROMPT_LEN[0], ONLINE_PROMPT_LEN[1] + 1, n)
+    out = []
+    for i, length in enumerate(lengths):
+        req = dict(prompt=rng.integers(0, ONLINE_MODEL["vocab_size"], int(length)).tolist(),
+                   max_new_tokens=new_tokens or ONLINE_NEW_TOKENS, tenant="ab"[i % 2])
+        if i % 2:
+            req.update(seed=seed * 1000 + i, **SERVE_SAMPLING)
+        out.append(req)
+    return out
+
+
+def _online_engines(trained, n: int) -> list:
+    from distkeras_tpu_torch.serving import ServingEngine
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    return [ServingEngine(trained, num_slots=ONLINE_SLOTS, page_size=ONLINE_PAGE,
+                          registry=Registry(), device=ZOO_DEVICE) for _ in range(n)]
+
+
+def _online_alone(trained, requests) -> list:
+    """Each request served alone on a fresh engine: its tokens."""
+    engine = _online_engines(trained, 1)[0]
+    try:
+        return [engine.generate(timeout=600, **r).tokens for r in requests]
+    finally:
+        engine.stop()
+
+
+def _online_versus(trained, requests, tokens, alone) -> tuple:
+    """Greedy requests held to ``alone`` by the ``GREEDY_GAP`` rule (their
+    departures), sampled ones exactly (the indices that differ)."""
+    departures, mismatched = {}, []
+    for i, (req, got, want) in enumerate(zip(requests, tokens, alone)):
+        if "seed" in req:
+            if got != want:
+                mismatched.append(i)
+        else:
+            hit = _held_to_greedy(trained, req["prompt"], got, want)
+            if hit is not None:
+                departures[i] = hit
+    return departures, mismatched
+
+
+def _latency_row(seconds: list, tokens: int, wall: float) -> dict:
+    ms = np.sort(np.asarray(seconds)) * 1e3
+    return dict(latency_p50_ms=float(np.percentile(ms, 50)),
+                latency_p99_ms=float(np.percentile(ms, 99)),
+                generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall)
+
+
+def _online_failover(trained, seed: int) -> dict:
+    """(a): ``ONLINE_REQUESTS`` requests through ``tier.generate`` from
+    ``ONLINE_CLIENTS`` client threads with ``kill_replica=ONLINE_KILL``
+    armed, against each request served alone."""
+    import threading
+
+    from distkeras_tpu_torch import chaos
+    from distkeras_tpu_torch.serving import LocalReplica, ServingTier
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    b1 = _flash_counters()[0]
+    requests = _online_requests(seed + 31, ONLINE_REQUESTS)
+    registry = Registry()
+    engines = _online_engines(trained, 2)
+    tier = ServingTier([LocalReplica(e, name=f"replica-{i}") for i, e in enumerate(engines)],
+                       probe_interval=0.05, default_deadline_s=600.0, registry=registry)
+    results, seconds = [None] * len(requests), [None] * len(requests)
+    try:
+        for e in engines:  # warm-up, chaos off: cuBLAS handles, the allocator
+            e.generate(requests[0]["prompt"], max_new_tokens=2, timeout=600)
+        tier.start()
+
+        def client(c):
+            for i in range(c, len(requests), ONLINE_CLIENTS):
+                t0 = time.perf_counter()
+                results[i] = tier.generate(deadline_s=600.0, **requests[i])
+                seconds[i] = time.perf_counter() - t0
+
+        b1.launches = 0
+        chaos.configure(f"{seed}:kill_replica={ONLINE_KILL}")
+        t0 = time.perf_counter()
+        try:
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(ONLINE_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            fired = chaos.counts().get("replica", 0)
+        finally:
+            chaos.configure("")
+        wall = time.perf_counter() - t0
+        launches = b1.launches
+        states = tier.states()
+        snap = registry.snapshot()
+        bills = tier._acct.snapshot()["tenants"] if tier._acct is not None else []
+    finally:
+        tier.stop(close_replicas=True)
+    if any(r is None or r.finish_reason == "aborted" for r in results):
+        raise AssertionError(f"online: a request did not complete under the kill: {results}")
+    tokens = [r.tokens for r in results]
+    departures, mismatched = _online_versus(trained, requests, tokens,
+                                            _online_alone(trained, requests))
+    value = lambda name: (snap.get(name) or {}).get("value", 0)
+    return dict(requests=len(requests), clients=ONLINE_CLIENTS,
+                sampled=sum("seed" in r for r in requests), kill_replica=ONLINE_KILL,
+                replica_sites=fired, states=states,
+                dead=list(states.values()).count("dead"),
+                failovers=value("serving_tier_failovers_total"),
+                routed=value("serving_tier_routed_total"),
+                billed_requests=sum(r["requests"] for r in bills),
+                billed_failover_attempts=sum(r["failover_attempts"] for r in bills),
+                billed_tenants=sorted(r["tenant"] for r in bills),
+                greedy_departures=departures, sampled_mismatched=mismatched,
+                launches_b1=launches,
+                **_latency_row(seconds, sum(len(t) for t in tokens), wall))
+
+
+def _online_train_fn(model, seed: int, record: dict):
+    """The scheduler's retrain: ``DOWNPOUR`` over the served ``model`` on
+    the window's rows (2 workers, batch 4, window 2, SGD, one epoch), the
+    next-token loss masked past each row's length; returns the fit's
+    ``TrainState`` and records its seconds, tokens and center."""
+    import distkeras_tpu_torch as tdk
+
+    def train_fn(window, source):
+        feats, lengths = source.local_arrays()
+        x = np.ascontiguousarray(feats, dtype=np.int32)
+        y = np.full_like(x, -1)
+        for i, n in enumerate(np.asarray(lengths)):
+            y[i, :n - 1] = x[i, 1:n]
+        trainer = _keeping_fit(tdk.DOWNPOUR)(
+            model, loss="masked_token_crossentropy", metrics=(),
+            worker_optimizer=ONLINE_SGD, num_workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH,
+            communication_window=TRAIN_WINDOW, num_epoch=1, seed=seed, device=ZOO_DEVICE)
+        t0 = time.perf_counter()
+        trainer.train(tdk.from_numpy(x, y))
+        if ZOO_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        state = trainer.fit_result[1]
+        record[window] = dict(seconds=seconds, rows=len(x),
+                              tokens_per_s=_online_steps() * TRAIN_BATCH * x.shape[1] / seconds,
+                              loss=trainer.get_history()["loss"],
+                              center={k: v.detach().clone() for k, v in
+                                      state.center_params.items()})
+        return state
+
+    return train_fn
+
+
+def _online_steps() -> int:
+    """Local steps of one window's epoch over every worker (``plan_epoch``)."""
+    from distkeras_tpu_torch.data import plan_epoch
+
+    n_windows, _ = plan_epoch(ONLINE_WINDOW, TRAIN_WORKERS, TRAIN_BATCH, TRAIN_WINDOW)
+    return TRAIN_WORKERS * n_windows * TRAIN_WINDOW
+
+
+def _spec_is(engine, model, params) -> bool:
+    """Whether ``engine`` serves exactly ``params``: every tensor its decode
+    reads, bit for bit."""
+    from distkeras_tpu_torch.serving.engine import _resolve_spec
+
+    want, got = _resolve_spec(model, params, engine.device), engine._spec
+    pairs = [(got.tok, want.tok), (got.pos, want.pos)]
+    for g, w in zip(got.blocks + [got.final_ln, got.head], want.blocks + [want.final_ln, want.head]):
+        pairs += [(g[k], w[k]) for k in w]
+    return all(torch.equal(g, w) for g, w in pairs)
+
+
+def _online_loop(model, trained, seed: int, workdir: str) -> dict:
+    """(b): a tier of two fresh replicas behind ``install_tier_endpoint``
+    with a ``TrafficLog``, ``watch_checkpoints`` restoring each step's
+    center on the card, ``kill_epoch=0,flip_ckpt=0`` armed;
+    ``ONLINE_REQUESTS`` requests POSTed give two windows, closed one at a
+    time by ``WindowScheduler.step_once``."""
+    import os
+    import threading
+    import urllib.request
+
+    from distkeras_tpu_torch import chaos, telemetry
+    from distkeras_tpu_torch import checkpoint as ckpt
+    from distkeras_tpu_torch.models import TorchModel, TrainedModel
+    from distkeras_tpu_torch.online import TrafficLog, WindowScheduler, load_window_manifest, \
+        published_windows
+    from distkeras_tpu_torch.serving import LocalReplica, ServingTier, install_tier_endpoint
+    from distkeras_tpu_torch.telemetry.flightdeck import server as server_mod
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    counters = _flash_counters()
+    capture_dir, ckpt_dir = os.path.join(workdir, "capture"), os.path.join(workdir, "ckpt")
+    registry = Registry()
+    engines = _online_engines(trained, 2)
+    tier = ServingTier([LocalReplica(e, name=f"replica-{i}") for i, e in enumerate(engines)],
+                       probe_interval=0.05, default_deadline_s=600.0, registry=registry)
+    log = TrafficLog(capture_dir, window_samples=ONLINE_WINDOW, max_len=ONLINE_ROW,
+                     registry=registry)
+    retrains, loaded, verifies, roll = {}, {}, [], {}
+    scheduler = WindowScheduler(capture_dir, _online_train_fn(model, seed, retrains), ckpt_dir,
+                                registry=registry)
+    requests = _online_requests(seed + 32, ONLINE_REQUESTS)
+    in_roll = _online_requests(seed + 33, ONLINE_ROLL_REQUESTS, ONLINE_ROLL_NEW_TOKENS)
+    roll_results = [None] * len(in_roll)
+    server_mod.configure(0)
+    address = telemetry.flightdeck.ensure_server()
+
+    def post(req):
+        body = json.dumps(req).encode()
+        http = urllib.request.Request(f"http://{address}/generate", data=body,
+                                      headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(http, timeout=600) as r:
+            return r.status, json.loads(r.read())
+
+    def roll_client(i):
+        roll_results[i] = post(in_roll[i])
+
+    def loader(step):
+        # the step's center restored on the card once, for every replica;
+        # then, before the roll starts, requests put in flight across it
+        t0 = time.perf_counter()
+        center = ckpt.restore_center(ckpt_dir, step)["center_params"]
+        center = {k: v.to(ZOO_DEVICE) for k, v in center.items()}
+        if ZOO_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        loaded[step] = dict(seconds=time.perf_counter() - t0, center=center)
+        roll["threads"] = [threading.Thread(target=roll_client, args=(i,))
+                           for i in range(len(in_roll))]
+        for th in roll["threads"]:
+            th.start()
+        deadline = time.monotonic() + 60
+        while (sum(r["inflight"] for r in tier.snapshot()["replicas"]) < len(in_roll)
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        roll["started"] = time.perf_counter()
+        return model, center
+
+    def timed_verify(directory, step, mode="fast"):
+        t0 = time.perf_counter()
+        verdict = plain_verify(directory, step, mode)
+        if mode == "full":
+            verifies.append(dict(step=step, seconds=time.perf_counter() - t0,
+                                 ok=verdict is None,
+                                 bytes=_dir_bytes(os.path.join(directory, f"step_{step}"))))
+        return verdict
+
+    def wait(pred, bound):
+        deadline = time.monotonic() + bound
+        while not pred() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return pred()
+
+    live = lambda name: (registry.snapshot().get(name) or {}).get("value", 0)
+    plain_verify = ckpt.verify_failure
+    # the watcher polls only between publications, so that a step's damage
+    # after its manifest (flip_ckpt, on the writer thread) lands before the
+    # watcher first sees the step, however the threads are scheduled
+    publishing, plain_poll = threading.Lock(), ckpt.CheckpointWatcher.poll
+
+    def gated_poll(watcher):
+        with publishing:
+            return plain_poll(watcher)
+
+    ckpt.CheckpointWatcher.poll = gated_poll
+    steps_info = {}
+    try:
+        for e in engines:
+            e.generate(requests[0]["prompt"], max_new_tokens=2, timeout=600)
+        install_tier_endpoint(tier, traffic_log=log)
+        tier.start()
+        ckpt.verify_failure = timed_verify  # bound by watch_checkpoints at the call
+        try:
+            tier.watch_checkpoints(ckpt_dir, loader, poll_interval=0.05)
+        finally:
+            ckpt.verify_failure = plain_verify
+        chaos.configure(f"{seed}:kill_epoch=0,flip_ckpt=0")
+        t0 = time.perf_counter()
+        replies = [None] * len(requests)
+
+        def client(c):
+            for i in range(c, len(requests), ONLINE_CLIENTS):
+                replies[i] = post(requests[i])
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(ONLINE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        serve_wall = time.perf_counter() - t0
+        for c in counters:
+            c.launches = 0
+        for window in (0, 1):
+            t0 = time.perf_counter()
+            with publishing:
+                closed = scheduler.step_once()
+            published = time.perf_counter()
+            step = closed + scheduler.step_offset
+            steps_info[window] = dict(
+                window=closed, step=step, step_once_s=published - t0,
+                save_s=published - t0 - retrains[window]["seconds"],
+                save_bytes=_dir_bytes(os.path.join(ckpt_dir, f"step_{step}")),
+                published_at=published)
+            if window == 0:
+                rejected = wait(lambda: live("serving_checkpoint_rejected_total") >= 1,
+                                ONLINE_REJECT_S)
+                steps_info[0]["rejected_after_s"] = time.perf_counter() - published
+                steps_info[0]["rejected"] = rejected
+        launches = [c.launches for c in counters]
+        rolled = wait(lambda: live("serving_tier_hot_swaps_total") >= 2, ONLINE_ROLL_S)
+        rolled_at = time.perf_counter()
+        chaos.configure("")
+        for th in roll.get("threads", []):
+            th.join(timeout=600)
+        # before the probes, which the router captures too
+        windows_published = published_windows(capture_dir)
+        step = steps_info[1]["step"]
+        center = retrains[1]["center"]
+        swapped = [_spec_is(e, model, center) for e in engines]
+        data_state = ckpt.restore_data_state(ckpt_dir, step)
+        manifest = load_window_manifest(capture_dir, 1)
+        probes = _online_requests(seed + 34, 2 * ONLINE_PROBES)[::2]  # the greedy ones
+        probe_tokens = [tier.generate(deadline_s=600.0, **r).tokens for r in probes]
+        fresh = TrainedModel(TorchModel(model), center, device=ZOO_DEVICE)
+        probe_alone = _online_alone(fresh, probes)
+        probe_departures, _ = _online_versus(fresh, probes, probe_tokens, probe_alone)
+        snap = registry.snapshot()
+        capture_errors = (telemetry.metrics.snapshot().get("online_capture_errors_total")
+                          or {}).get("value", 0)
+    finally:
+        chaos.configure("")
+        tier.stop(close_replicas=True)
+        ckpt.CheckpointWatcher.poll = plain_poll
+        log.close()
+        server_mod.stop()
+        server_mod.configure(None)
+    value = lambda name: (snap.get(name) or {}).get("value", 0)
+    statuses = [r[0] if r else None for r in replies]
+    return dict(
+        requests=len(requests), http_statuses=sorted(set(statuses)), serve_wall_s=serve_wall,
+        windows_published=windows_published,
+        windows_trained=value("online_windows_trained_total"),
+        retrain_failures=value("online_retrain_failures_total"),
+        ckpt_rejected=value("serving_checkpoint_rejected_total"),
+        hot_swaps=value("serving_tier_hot_swaps_total"),
+        roll_failures=value("serving_tier_roll_failures_total"),
+        capture_errors=capture_errors, rolled=rolled,
+        window0_rejected=steps_info[0]["rejected"],
+        window0_rejected_after_s=steps_info[0]["rejected_after_s"],
+        loaded_steps=sorted(loaded), replicas_bitwise_the_step=swapped,
+        roll_requests=len(in_roll),
+        roll_finish_reasons=[r[1].get("finish_reason") if r else None for r in roll_results],
+        roll_statuses=[r[0] if r else None for r in roll_results],
+        data_state=dict(epoch=data_state.epoch, block_cursor=data_state.block_cursor),
+        window1_last_seq=int(manifest["last_seq"]),
+        probe_departures=probe_departures,
+        launches_b1_b2_b3=launches,
+        local_steps_per_window=_online_steps(),
+        retrains={w: {k: v for k, v in r.items() if k != "center"}
+                  for w, r in retrains.items()},
+        saves=[{k: v for k, v in s.items() if k != "published_at"}
+               for s in steps_info.values()],
+        verifies=verifies,
+        load_s={s: v["seconds"] for s, v in loaded.items()},
+        publish_to_roll_s=rolled_at - steps_info[1]["published_at"],
+        roll_s=rolled_at - roll["started"] if "started" in roll else None)
+
+
+def online_phase(seed: int) -> dict:
+    """The serving tier and the online serve-to-train loop at GPT-2 small's
+    widths and depth (``ONLINE_MODEL``, f32, random from ``seed``): two
+    ``ServingEngine`` replicas (``ONLINE_SLOTS`` slots, pages of
+    ``ONLINE_PAGE``) behind one ``ServingTier`` of two ``LocalReplica``s,
+    telemetry and the per-tenant ledger on.
+
+    (a) failover: ``kill_replica=ONLINE_KILL`` armed, ``ONLINE_REQUESTS``
+    requests (prompts of ``ONLINE_PROMPT_LEN``, ``ONLINE_NEW_TOKENS`` new
+    tokens, half seeded-sampled, tenants ``a`` and ``b``) through
+    ``tier.generate`` from ``ONLINE_CLIENTS`` threads.  Gates: every
+    request completes; one replica dead, ``serving_tier_failovers_total``
+    >= 1; greedy tokens equal to each request served alone except where the
+    reference's top-two gap is under ``GREEDY_GAP``, sampled ones exactly;
+    the router's ledger bills 16 requests, once each; B1 launches 0 (the
+    decode step's attention is the plain masked product);
+    (b) the loop: a fresh tier behind ``install_tier_endpoint`` on the
+    flight deck with a ``TrafficLog(window_samples=ONLINE_WINDOW,
+    max_len=ONLINE_ROW)``, ``watch_checkpoints`` restoring each step's
+    center on the card with ``restore_center``, ``kill_epoch=0,flip_ckpt=0``
+    armed; ``ONLINE_REQUESTS`` requests POSTed give two windows, closed one
+    at a time by ``WindowScheduler.step_once`` (``DOWNPOUR`` over the served
+    model, ``_online_train_fn``).  ``torn_ckpt`` would truncate window 0's
+    step, which the watcher's fast size check never surfaces; ``flip_ckpt``
+    rots one bit with the sizes kept, so the step reaches the swap and its
+    full re-verify rejects it there.  Gates: 2 windows published and 2
+    trained; ``online_retrain_failures_total`` 1 (the killed first
+    attempt, before any device work); window 0's step rejected at swap time
+    (``serving_checkpoint_rejected_total`` 1) with the fleet's parameters
+    kept; window 1's step rolled into both replicas (2 hot swaps), each
+    serving the step's center bit for bit, and the requests put in flight
+    as the roll starts finishing with a reason other than ``aborted``; the
+    step's ``DataState`` at ``epoch=1``, ``block_cursor`` = the window's
+    ``last_seq + 1``; ``ONLINE_PROBES`` greedy prompts through the tier
+    held to a fresh engine on the step's center by the ``GREEDY_GAP`` rule;
+    B1-B3 each launched blocks x 2 windows x the local steps of a window's
+    epoch (``plan_epoch``); capture errors and roll failures 0.  Prints each
+    save's and full verify's bytes and seconds, the retrain's tokens/s and
+    the time from window 1's publish to the roll."""
+    import os
+    import tempfile
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.models import TorchModel, TrainedModel, TransformerLM
+    from distkeras_tpu_torch.telemetry import accounting
+
+    cuda = ZOO_DEVICE == "cuda"
+    blocks = ONLINE_MODEL["num_layers"]
+    model = TransformerLM(**ONLINE_MODEL, generator=torch.Generator().manual_seed(seed + 30))
+    params = {name: p.detach().clone() for name, p in model.named_parameters()}
+    trained = TrainedModel(TorchModel(model), params, device=ZOO_DEVICE)
+    row = dict(model="TransformerLM", **ONLINE_MODEL, slots=ONLINE_SLOTS, page=ONLINE_PAGE,
+               params=sum(p.numel() for p in params.values()), card=CARD)
+    failures = []
+    saved_dir = os.environ.get("DISTKERAS_TELEMETRY_DIR")
+    with tempfile.TemporaryDirectory() as workdir:
+        os.environ["DISTKERAS_TELEMETRY_DIR"] = os.path.join(workdir, "telemetry")
+        telemetry.configure(True)
+        accounting.configure(True)
+        accounting.reset()
+        try:
+            t0 = time.perf_counter()
+            fo = row["failover"] = _online_failover(trained, seed)
+            fo["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loop = row["loop"] = _online_loop(model, trained, seed, workdir)
+            loop["seconds"] = time.perf_counter() - t0
+        finally:
+            telemetry.metrics.reset()
+            telemetry.trace.reset()
+            accounting.configure(None)
+            accounting.reset()
+            telemetry.configure(None)
+            if saved_dir is None:
+                os.environ.pop("DISTKERAS_TELEMETRY_DIR", None)
+            else:
+                os.environ["DISTKERAS_TELEMETRY_DIR"] = saved_dir
+    n = ONLINE_REQUESTS
+    if fo["dead"] != 1 or fo["failovers"] < 1:
+        failures.append(f"failover: {fo['dead']} dead replicas, {fo['failovers']} failovers")
+    if fo["sampled_mismatched"]:
+        failures.append(f"failover: sampled requests {fo['sampled_mismatched']} gave other "
+                        "tokens alone")
+    if (fo["routed"], fo["billed_requests"]) != (n, n) or fo["billed_tenants"] != ["a", "b"]:
+        failures.append(f"failover: routed {fo['routed']}, billed {fo['billed_requests']} "
+                        f"requests to {fo['billed_tenants']}")
+    if fo["launches_b1"] != 0:
+        failures.append(f"failover: B1 launched {fo['launches_b1']} times while serving")
+    expected = [blocks * 2 * loop["local_steps_per_window"] if cuda else 0] * 3
+    loop["expected_launches"] = expected[0]
+    checks = {
+        "2 windows published": loop["windows_published"] == [0, 1],
+        "2 windows trained": loop["windows_trained"] == 2,
+        "one retrain failure (the killed attempt)": loop["retrain_failures"] == 1,
+        "window 0's step rejected at swap time": (loop["window0_rejected"]
+                                                  and loop["ckpt_rejected"] == 1),
+        "window 1's step rolled into both replicas": (loop["rolled"] and loop["hot_swaps"] == 2
+                                                      and loop["loaded_steps"] == [2]),
+        "each replica serves the step bit for bit": loop["replicas_bitwise_the_step"] == [True,
+                                                                                         True],
+        "nothing aborted across the roll": (loop["roll_statuses"] == [200] * len(
+            loop["roll_statuses"]) and "aborted" not in loop["roll_finish_reasons"]),
+        "every POST answered 200": loop["http_statuses"] == [200],
+        "the step's DataState": loop["data_state"] == dict(
+            epoch=1, block_cursor=loop["window1_last_seq"] + 1),
+        "B1-B3 launches": loop["launches_b1_b2_b3"] == expected,
+        "no capture error, no roll failure": (loop["capture_errors"], loop["roll_failures"])
+        == (0, 0),
+    }
+    failures += [f"loop: {name}: {loop}" if name == "B1-B3 launches" else f"loop: {name}"
+                 for name, ok in checks.items() if not ok]
+    row["failures"] = failures
+    emit(phase="online", **row)
+    if failures:
+        raise AssertionError(f"online: {failures}")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed for weights and inputs")
@@ -5406,7 +6104,11 @@ def main(argv=None) -> int:
                         help="run one spawned rank of the pipeline phase (internal)")
     parser.add_argument("--pp3d-rank", metavar="SPEC", default=None,
                         help="run one spawned rank of the pipeline_3d phase (internal)")
+    parser.add_argument("--gloo-lane", metavar="SPEC", default=None,
+                        help="run phases 19 to 24 beside the parent's (internal)")
     args = parser.parse_args(argv)
+    if args.gloo_lane is not None:
+        return gloo_lane_main(args.gloo_lane)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
     if args.seq_rank is not None:
@@ -5458,49 +6160,47 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels without tensor-core instructions: {no_tensor_cores}")
 
     seconds = {}
-
-    def timed(name, fn, *args):
-        """``fn(*args)``, its wall seconds kept under ``name`` and printed."""
-        t = time.perf_counter()
-        try:
-            return fn(*args)
-        finally:
-            seconds[name] = time.perf_counter() - t
-            emit(phase="timing", of=name, seconds=seconds[name])
-
+    timed = _timer(seconds, t0)
+    t_phases = time.perf_counter()
     cases = timed("kernel", kernel_phase, args.seed)
     bwd_cases = timed("bwd_kernel", bwd_kernel_phase, args.seed)
-    predictor_launches = timed("predictor", predictor_phase, args.seed)
-    lm_launches = timed("lm", lm_phase, args.seed)
-    train_launches, train_run = timed("train", train_phase, args.seed)
-    timed("zoo", zoo_phase, args.seed)
-    timed("staleness", staleness_phase, args.seed)
-    timed("flow", flow_phase, args.seed)
-    head_dim_rows = timed("head_dim", head_dim_phase, args.seed)
-    timed("networking", networking_phase, args.seed)
-    eager_run, cifar_frame, _, _ = timed("epochs", epochs_phase, args.seed)
-    timed("streaming", streaming_phase, args.seed, eager_run, cifar_frame)
-    timed("checkpoint", checkpoint_phase, args.seed, eager_run, cifar_frame)
-    remat_graph = timed("remat_graph", remat_graph_phase, args.seed, train_run)
-    serving = timed("serving", serving_phase, args.seed)
-    packing = timed("packing", packing_phase, args.seed)
-    mesh = timed("mesh", mesh_phase, args.seed, eager_run, cifar_frame, train_launches,
-                 train_run)
-    seq = timed("seq", lambda seed: seq_phase(seed, seq_train(seed, 1)[1]),
-                args.seed)["two_ranks_one_card"]
-    tp = timed("tp", lambda seed: tp_phase(seed, tp_train(seed, TRAIN_EPOCHS)[1]),
-               args.seed)["two_ranks_one_card"]
-    serving_tp = timed("serving_tp", serving_tp_phase, args.seed)["two_ranks_one_card"]
-    moe = timed("moe", moe_phase, args.seed)
-    pipeline = timed("pipeline", pipeline_phase, args.seed)
-    pp = pipeline["two_ranks_one_card"]
-    # phase 24's reference is phase 23's one-rank run when their models agree
-    pp3d = timed("pipeline_3d", lambda seed: pipeline_3d_phase(
-        seed, pipeline["one_rank"] if _pp3d_model() == PP_MODEL
-        else _pp_one_rank(seed, 1, _pp3d_model())), args.seed)["four_ranks_one_card"]
-    hf = timed("hf_telemetry", hf_telemetry_phase, args.seed)
-    fleet = timed("fleet", fleet_phase, args.seed)
-    emit(phase="timing", seconds=seconds, total_s=sum(seconds.values()), card=CARD)
+    # the kernels are timed: phases 19 to 24 start beside the rest
+    lane = GlooLane(args.seed, t0)
+    try:
+        predictor_launches = timed("predictor", predictor_phase, args.seed)
+        lm_launches = timed("lm", lm_phase, args.seed)
+        train_launches, train_run = timed("train", train_phase, args.seed)
+        timed("zoo", zoo_phase, args.seed)
+        timed("staleness", staleness_phase, args.seed)
+        timed("flow", flow_phase, args.seed)
+        head_dim_rows = timed("head_dim", head_dim_phase, args.seed)
+        timed("networking", networking_phase, args.seed)
+        eager_run, cifar_frame, _, _ = timed("epochs", epochs_phase, args.seed)
+        timed("streaming", streaming_phase, args.seed, eager_run, cifar_frame)
+        timed("checkpoint", checkpoint_phase, args.seed, eager_run, cifar_frame)
+        remat_graph = timed("remat_graph", remat_graph_phase, args.seed, train_run)
+        serving = timed("serving", serving_phase, args.seed)
+        packing = timed("packing", packing_phase, args.seed)
+        mesh = timed("mesh", mesh_phase, args.seed, eager_run, cifar_frame, train_launches,
+                     train_run)
+        hf = timed("hf_telemetry", hf_telemetry_phase, args.seed)
+        fleet = timed("fleet", fleet_phase, args.seed)
+        online = timed("online", online_phase, args.seed)
+        t_lane = time.perf_counter()
+        lane_rows, lane_seconds = lane.result(LANE_TIMEOUT_S)
+        lane_wait = time.perf_counter() - t_lane
+    finally:
+        lane.stop()
+    seq, tp, serving_tp = lane_rows["seq"], lane_rows["tp"], lane_rows["serving_tp"]
+    moe, pp, pp3d = lane_rows["moe"], lane_rows["pipeline"], lane_rows["pipeline_3d"]
+    # total_s is the phases' wall, from the first to the end of the last
+    # (the lane's overlap the others); wall_s adds the build before them;
+    # phases_summed_s counts the overlap twice
+    end = time.perf_counter()
+    emit(phase="timing", seconds=dict(seconds, **lane_seconds),
+         gloo_lane=list(lane_seconds), total_s=end - t_phases, wall_s=end - t0,
+         phases_summed_s=sum(seconds.values()) + sum(lane_seconds.values()),
+         lane_s=sum(lane_seconds.values()), waiting_for_the_lane_s=lane_wait, card=CARD)
 
     main_case = cases[MAIN_PATH_CASE]
     lm_case = cases["lm"]
@@ -5598,8 +6298,10 @@ def main(argv=None) -> int:
         "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][0],
                                                  hf["launches_b1_b2_b3_observed"][0]],
         **fleet_launches(fleet, 0),
+        "launches_online_retrain": online["loop"]["launches_b1_b2_b3"][0],
         "launches_fleet_job_child_and_parent": [fleet["job"]["child"]["launches_b1"],
                                                 fleet["job"]["parent"]["launches_b1"]],
+        "launches_online_serving": online["failover"]["launches_b1"],
         "head_dims_and_f16": coverage("fwd"),
     }, {
         "name": "flash_attention_bwd_dq",
@@ -5627,6 +6329,7 @@ def main(argv=None) -> int:
         "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][1],
                                                  hf["launches_b1_b2_b3_observed"][1]],
         **fleet_launches(fleet, 1),
+        "launches_online_retrain": online["loop"]["launches_b1_b2_b3"][1],
         "max_abs_err": bwd["max_abs_err_dq"],
         "ms": bwd["dq_ms"],
         "bound_ms": bwd["dq_bound_ms"],
@@ -5662,6 +6365,7 @@ def main(argv=None) -> int:
         "launches_hf_train_plain_and_observed": [hf["launches_b1_b2_b3_plain"][2],
                                                  hf["launches_b1_b2_b3_observed"][2]],
         **fleet_launches(fleet, 2),
+        "launches_online_retrain": online["loop"]["launches_b1_b2_b3"][2],
         "max_abs_err": max(bwd["max_abs_err_dk"], bwd["max_abs_err_dv"]),
         "ms": bwd["dkv_ms"],
         "bound_ms": bwd["dkv_bound_ms"],

@@ -2,17 +2,20 @@
 
 The port of :mod:`distkeras_tpu.job_deployment` (host code, copied; its
 wire format is the JAX package's byte for byte, so a client of either
-package talks to a daemon of either).  Two points differ:
+package talks to a daemon of either).  One point differs:
+**idempotency keys are reserved before any work** (ROADMAP Queue C, C3):
+``serve``, ``serve_tier`` and ``online_loop`` claim the client's key under
+the daemon's condition variable before they spawn, so a retry that arrives
+while the first request is still spawning waits (bounded by
+``handler_timeout``) for the stored reply and replays it, and never spawns
+a second tier or trainer; a spawn that fails releases the key.
 
-* **Idempotency keys are reserved before any work** (ROADMAP Queue C, C3):
-  ``serve`` and ``serve_tier`` claim the client's key under the daemon's
-  condition variable before they spawn, so a retry that arrives while the
-  first request is still spawning waits (bounded by ``handler_timeout``)
-  for the stored reply and replays it, and never spawns a second tier.
-* The ``online_loop``, ``online_status`` and ``stop_online`` verbs need
-  the online serve-to-train loop, which is not ported yet: the daemon
-  refuses them by name (ROADMAP Queue A item 18c), and
-  :meth:`Job.online_loop` raises before any RPC.
+The ``online_loop``, ``online_status`` and ``stop_online`` verbs deploy,
+report on and tear down the online serve-to-train loop
+(:mod:`distkeras_tpu_torch.online`): a supervised serving tier plus one
+co-scheduled trainer job over a shared capture directory and checkpoint
+directory, placed by :func:`~distkeras_tpu_torch.online.scheduler.
+plan_placement` over the fleet's live leases.
 
 Reference parity: ``distkeras/job_deployment.py :: Job`` packages a training
 script plus data pointer plus a shared secret and ships it to a remote
@@ -56,9 +59,6 @@ DEFAULT_PORT = 8000
 _IDEMPOTENCY_CACHE = 256
 # the reply slot of an idempotency key whose first request is still working
 _PENDING = object()
-# what the online verbs answer until the online loop is ported
-_ONLINE_UNPORTED = ("the online serve-to-train loop is not ported yet: it comes with "
-                    "ROADMAP Queue A item 18c")
 
 
 def _collect_job_snapshot(tel_dir: str) -> Optional[dict]:
@@ -131,6 +131,12 @@ class PunchcardServer:
         # job_ids, respawns, max_respawns}.  Mutated under the cv; the
         # runner loop's idle wakeups double as the respawn supervisor.
         self._tiers: Dict[str, dict] = {}
+        # online serve->train deployments: online_id -> {tier_id,
+        # trainer_job_id, capture_dir, checkpoint_dir, placement}.  The
+        # serving replicas live in self._tiers (so the respawn supervisor
+        # covers them); this record ties them to their trainer job and the
+        # capture/checkpoint directories the loop pivots on.
+        self._online: Dict[str, dict] = {}
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -362,9 +368,85 @@ class PunchcardServer:
                     send_data(conn, {"status": "stopped",
                                      "tier_id": msg.get("tier_id"),
                                      "stopped": stopped})
-            elif action in ("online_loop", "online_status", "stop_online"):
-                send_data(conn, {"status": "unported",
-                                 "error": f"{action}: {_ONLINE_UNPORTED}"})
+            elif action == "online_loop":
+                # Co-schedule the whole serve->train loop on this fleet:
+                # ``replicas`` serving jobs as one supervised tier (their
+                # script installs a TrafficLog-backed /generate) plus one
+                # detached trainer job (its script runs a WindowScheduler
+                # over the shared capture directory and publishes verified
+                # checkpoint steps the replicas' watcher hot-swaps in).
+                # Placement is decided from the live leases up front and
+                # recorded on the deployment so online_status can show
+                # where the work was put.  The key is reserved before the
+                # first spawn (C3), and the spawns run off the lock.
+                send_data(conn, self._once(idem, lambda: self._online_loop(msg)))
+            elif action == "online_status":
+                with self._cv:
+                    ent = self._online.get(msg.get("online_id", ""))
+                    ent = dict(ent) if ent else None
+                    tier = self._tiers.get(ent["tier_id"]) if ent else None
+                    job_ids = list(tier["job_ids"]) if tier else []
+                if ent is None:
+                    send_data(conn, {"status": "unknown"})
+                else:
+                    reps = []
+                    for jid in job_ids:
+                        job = self.jobs.get(jid)
+                        if job is None:
+                            continue
+                        self._refresh_serving(jid, job)
+                        reps.append({"job_id": jid,
+                                     "status": job["status"],
+                                     "http": self._job_http_address(job)})
+                    tjid = ent["trainer_job_id"]
+                    tjob = self.jobs.get(tjid)
+                    if tjob is not None:
+                        self._refresh_serving(tjid, tjob)
+                    # window/step progress straight off the filesystem —
+                    # counting manifests keeps the daemon free of the
+                    # device-heavy checkpoint module
+                    from distkeras_tpu_torch.online.capture import published_windows
+                    windows = len(published_windows(ent["capture_dir"]))
+                    steps = 0
+                    if os.path.isdir(ent["checkpoint_dir"]):
+                        names = set(os.listdir(ent["checkpoint_dir"]))
+                        steps = sum(
+                            1 for d in names
+                            if d.startswith("step_")
+                            and d.endswith(".manifest.json")
+                            and d[len("step_"):-len(".manifest.json")].isdigit()
+                            and d[:-len(".manifest.json")] in names)
+                    send_data(conn, {
+                        "status": "ok",
+                        "online_id": msg.get("online_id"),
+                        "tier_id": ent["tier_id"],
+                        "replicas": reps,
+                        "serving": sum(1 for r in reps
+                                       if r["status"] == "serving"),
+                        "trainer": {"job_id": tjid,
+                                    "status": (tjob["status"]
+                                               if tjob else "unknown")},
+                        "windows_published": windows,
+                        "steps_published": steps,
+                        "capture_dir": ent["capture_dir"],
+                        "checkpoint_dir": ent["checkpoint_dir"],
+                        "placement": ent["placement"]})
+            elif action == "stop_online":
+                with self._cv:
+                    ent = self._online.pop(msg.get("online_id", ""), None)
+                    tier = (self._tiers.pop(ent["tier_id"], None)
+                            if ent else None)
+                    job_ids = list(tier["job_ids"]) if tier else []
+                if ent is None:
+                    send_data(conn, {"status": "unknown"})
+                else:
+                    stopped = sum(1 for jid in job_ids
+                                  if self._stop_serving_job(jid))
+                    if self._stop_serving_job(ent["trainer_job_id"]):
+                        stopped += 1
+                    send_data(conn, {"status": "stopped",
+                                     "online_id": msg.get("online_id"),
+                                     "stopped": stopped})
             elif action == "stop_serving":
                 job_id = msg.get("job_id", "")
                 if self._stop_serving_job(job_id):
@@ -558,6 +640,64 @@ class PunchcardServer:
                 help="serve-verb engines currently hosted",
             ).set(n_serving)
         return job_id
+
+    def _online_loop(self, msg: dict) -> dict:
+        """The ``online_loop`` verb's work, run once per idempotency key:
+        the directories, the placement, the replicas and the trainer spawned
+        (off the lock), then the deployment recorded under the cv."""
+        from distkeras_tpu_torch.online.scheduler import plan_placement
+
+        replicas = max(1, int(msg.get("replicas") or 1))
+        flags = msg.get("flags")
+        flags = dict(flags) if isinstance(flags, dict) else {}
+        online_id = uuid.uuid4().hex
+        capture_dir = (msg.get("capture_dir")
+                       or os.path.join(self.workdir, "online", online_id, "capture"))
+        ckpt_dir = (msg.get("checkpoint_dir")
+                    or os.path.join(self.workdir, "online", online_id, "ckpt"))
+        os.makedirs(capture_dir, exist_ok=True)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with self._cv:
+            self.fleet.sweep()
+            members = self.fleet.snapshot()["members"]
+        placement = plan_placement(members, replicas)
+        loop_env = {"DISTKERAS_ONLINE_ID": online_id,
+                    "DISTKERAS_CAPTURE_DIR": capture_dir,
+                    "DISTKERAS_CKPT_DIR": ckpt_dir}
+        tier_id = uuid.uuid4().hex
+        job_ids = [
+            self._spawn_serve_job(
+                msg["script"], list(msg.get("args", [])), flags,
+                extra_env={**loop_env,
+                           "DISTKERAS_TIER_ID": tier_id,
+                           "DISTKERAS_REPLICA_INDEX": str(i)})
+            for i in range(replicas)
+        ]
+        trainer_job = self._spawn_serve_job(
+            msg["trainer_script"], list(msg.get("trainer_args", [])), flags,
+            extra_env={**loop_env, "DISTKERAS_ONLINE_ROLE": "trainer"})
+        with self._cv:
+            self._tiers[tier_id] = {
+                "script": msg["script"],
+                "args": list(msg.get("args", [])),
+                "flags": flags,
+                "job_ids": job_ids,
+                "respawns": 0,
+                "max_respawns": int(msg.get("max_respawns", 3)),
+            }
+            self._online[online_id] = {
+                "tier_id": tier_id,
+                "trainer_job_id": trainer_job,
+                "capture_dir": capture_dir,
+                "checkpoint_dir": ckpt_dir,
+                "placement": placement,
+            }
+        return {"status": "online", "online_id": online_id,
+                "tier_id": tier_id, "job_ids": list(job_ids),
+                "trainer_job_id": trainer_job,
+                "capture_dir": capture_dir,
+                "checkpoint_dir": ckpt_dir,
+                "placement": placement}
 
     def _find_dead_replica(self) -> Optional[tuple]:
         """One crashed tier replica due a respawn, as ``(tier_id, job_id)``
@@ -1036,8 +1176,9 @@ class Job:
         ordinary serve job; the daemon respawns crashed replicas (up to
         ``max_respawns`` across the tier) from its runner loop's idle
         wakeups.  Returns the tier id (also stored on ``self.tier_id``);
-        front the replicas with ``ServingTier`` (ROADMAP Queue A item 18b)
-        over ``HttpReplica`` handles built from
+        front the replicas with
+        :class:`~distkeras_tpu_torch.serving.ServingTier` over
+        :class:`~distkeras_tpu_torch.serving.HttpReplica` handles built from
         :meth:`tier_addresses`."""
         msg = {"action": "serve_tier", "script": self.script,
                "args": self.args, "replicas": int(replicas),
@@ -1075,13 +1216,41 @@ class Job:
                     checkpoint_dir: Optional[str] = None,
                     max_respawns: int = 3) -> str:
         """Deploy the whole serve->train loop on the daemon's fleet
-        (``online_loop`` verb).  Not ported yet: raises
-        ``NotImplementedError`` before any RPC."""
-        raise NotImplementedError(f"online_loop: {_ONLINE_UNPORTED}")
+        (``online_loop`` verb): this client's script as ``replicas``
+        supervised serving jobs plus ``trainer_script`` as the co-scheduled
+        retraining job, wired together through a shared capture directory
+        and checkpoint directory (daemon-chosen under its workdir unless
+        given).  Every spawned process sees ``DISTKERAS_ONLINE_ID`` /
+        ``DISTKERAS_CAPTURE_DIR`` / ``DISTKERAS_CKPT_DIR`` in its
+        environment; the serve script should install its ``/generate``
+        endpoint with a :class:`~distkeras_tpu_torch.online.TrafficLog` on
+        the capture dir and watch the checkpoint dir for hot-swaps, the
+        trainer script should run a
+        :class:`~distkeras_tpu_torch.online.WindowScheduler` over the same
+        pair.  One idempotency key rides every retry of the call, so a lost
+        reply never deploys twice.  Returns the online id (also stored on
+        ``self.online_id``; the tier id lands on ``self.tier_id``)."""
+        msg: dict = {"action": "online_loop", "script": self.script,
+                     "args": self.args, "replicas": int(replicas),
+                     "trainer_script": trainer_script,
+                     "trainer_args": list(trainer_args or []),
+                     "max_respawns": int(max_respawns),
+                     "idempotency": uuid.uuid4().hex}
+        if flags is not None:
+            msg["flags"] = dict(flags)
+        if capture_dir is not None:
+            msg["capture_dir"] = capture_dir
+        if checkpoint_dir is not None:
+            msg["checkpoint_dir"] = checkpoint_dir
+        reply = self._rpc(msg)
+        if reply.get("status") != "online":
+            raise RuntimeError(f"online_loop rejected: {reply}")
+        self.online_id = reply["online_id"]
+        self.tier_id = reply["tier_id"]
+        return self.online_id
 
     def online_status(self, online_id: Optional[str] = None) -> dict:
-        """Progress view of an online deployment (``online_status`` verb; a
-        daemon of this package refuses it until item 18c is ported):
+        """Progress view of an online deployment (``online_status`` verb):
         serving replica statuses, trainer job status, and the loop's window
         and checkpoint-step counts read straight off the shared
         directories — ``{"status": "ok", "replicas": [...], "serving": N,
@@ -1094,8 +1263,7 @@ class Job:
 
     def stop_online(self, online_id: Optional[str] = None) -> dict:
         """Tear down an online deployment — every serving replica plus the
-        trainer job (``stop_online`` verb; a daemon of this package refuses
-        it until item 18c is ported); defaults to this client's."""
+        trainer job (``stop_online`` verb); defaults to this client's."""
         oid = online_id or self.online_id
         if oid is None:
             raise RuntimeError("no online deployment to stop")

@@ -10,7 +10,11 @@ The port of :mod:`distkeras_tpu.serving` on one device:
 * :mod:`~distkeras_tpu_torch.serving.sampling` — temperature / top-k /
   top-p with per-request seeds, all data on the device;
 * :mod:`~distkeras_tpu_torch.serving.frontend` — request/response
-  dataclasses and the bounded queue with backpressure.
+  dataclasses and the bounded queue with backpressure;
+* :mod:`~distkeras_tpu_torch.serving.tier` — the fault-tolerant router
+  over replicas (:class:`ServingTier` over :class:`LocalReplica` /
+  :class:`HttpReplica`: health probes, least-loaded dispatch, failover,
+  deadlines, shedding, rolling checkpoint hot-swap, ``watch_and_swap``).
 
 Quick start::
 
@@ -19,11 +23,10 @@ Quick start::
     print(engine.generate([1, 2, 3], max_new_tokens=8).tokens)
     engine.stop()
 
-The fault-tolerant router over replicas (``serving/tier.py``:
-``ServingTier``, ``LocalReplica``, ``HttpReplica``, ``watch_and_swap``)
-needs fleet membership and comes with the control-plane slice (ROADMAP
-Queue A item 18).  :func:`install_http_endpoint` mounts ``/generate`` on the
-flight deck's HTTP exporter.
+:func:`install_http_endpoint` mounts ``/generate`` on the flight deck's
+HTTP exporter for one engine, :func:`install_tier_endpoint` for a tier;
+either takes a ``traffic_log`` (:class:`distkeras_tpu_torch.online.
+TrafficLog`) that captures the served generations for online retraining.
 """
 
 from distkeras_tpu_torch.serving.cache import PagedKVCache, append_rows, rollback_rows
@@ -42,17 +45,39 @@ from distkeras_tpu_torch.serving.sampling import (
     sample_tokens,
     speculative_verify,
 )
+from distkeras_tpu_torch.serving.tier import (
+    HttpReplica,
+    LocalReplica,
+    ReplicaDead,
+    ServingTier,
+    TierDeadline,
+    TierError,
+    TierExhausted,
+    TierSaturated,
+    install_tier_endpoint,
+    tier_metrics,
+    watch_and_swap,
+)
 
 __all__ = [
     "EngineCrashed",
     "GenerateRequest",
     "GenerateResult",
+    "HttpReplica",
+    "LocalReplica",
     "PagedKVCache",
     "QueueFull",
+    "ReplicaDead",
     "RequestQueue",
     "ServingEngine",
+    "ServingTier",
+    "TierDeadline",
+    "TierError",
+    "TierExhausted",
+    "TierSaturated",
     "append_rows",
     "install_http_endpoint",
+    "install_tier_endpoint",
     "modified_probs",
     "rollback_rows",
     "sample_one",
@@ -60,4 +85,6 @@ __all__ = [
     "serve_flags",
     "serving_metrics",
     "speculative_verify",
+    "tier_metrics",
+    "watch_and_swap",
 ]

@@ -112,7 +112,14 @@ on, the engine's condition variable runs under the lock-order watchdog
 (``lockwatch``), and the loop's read-backs are declared transfers to the
 transfer guard.
 
-Not ported here: the chaos fault point (ROADMAP Queue A item 18).
+**Chaos.**  With fault injection armed (:mod:`~distkeras_tpu_torch.chaos`,
+``DISTKERAS_CHAOS``), the loop crosses the ``replica`` site between
+admission and the decode step of every iteration with a request in flight:
+a seeded ``kill_replica`` raises :class:`~distkeras_tpu_torch.chaos.
+ChaosKilled` there, on the loop thread, and the engine crashes as on any
+other failure (every request aborted, ``submit`` and ``hot_swap`` raise
+:class:`EngineCrashed`), which is what the serving tier's failover is
+tested against.  Unarmed, the site is one cached bool check an iteration.
 """
 
 from __future__ import annotations
@@ -148,6 +155,7 @@ from distkeras_tpu_torch.serving.sampling import (
     seed_value,
     speculative_verify_tokens,
 )
+from distkeras_tpu_torch import chaos as _chaos
 from distkeras_tpu_torch import sanitizer as _sanitizer
 from distkeras_tpu_torch.sanitizer import lockwatch
 from distkeras_tpu_torch.telemetry import accounting as _accounting
@@ -1094,7 +1102,8 @@ class ServingEngine:
                         self._running = False
                         self._thread = None
         except Exception as exc:  # noqa: BLE001 — re-raised to every caller
-            traceback.print_exc(file=sys.stderr)
+            if not isinstance(exc, _chaos.ChaosKilled):  # an injected kill is no bug
+                traceback.print_exc(file=sys.stderr)
             self._crash(exc)
             if self.leads and self._plan_group is not None:
                 try:  # the followers waiting on a plan end with this one
@@ -1118,6 +1127,10 @@ class ServingEngine:
                 with self._cv:
                     paused = self._draining
             progressed = False if paused else self._admit()
+            if _chaos.enabled() and self._active.any():
+                # the kill_replica site: only busy iterations count, so a
+                # seeded kill lands mid-decode with requests in flight
+                _chaos.fault("replica")
             progressed = self._decode_once() or progressed
             if not self._sent:
                 self._lockstep(_OP_IDLE)  # no follower waits past its timeout

@@ -11,7 +11,8 @@ from the JAX package:
 * :func:`serve_flags` and the request parser of the ``/generate`` endpoint.
 
 :func:`install_http_endpoint` mounts ``/generate`` on the flight deck's
-HTTP server.
+HTTP server, and offers each successful generation to a ``traffic_log``
+(:class:`distkeras_tpu_torch.online.TrafficLog`) when given one.
 """
 
 from __future__ import annotations
@@ -248,18 +249,18 @@ def install_http_endpoint(engine, path: str = "/generate",
     runs inside a ``serving.http_request`` span bound to them;
     ``X-DK-Parent-Span`` names the caller-side span this one nests under.
 
-    ``traffic_log`` (capture of served traffic for online training) comes
-    with ROADMAP Queue A item 18 and is refused until then."""
+    ``traffic_log`` (a :class:`distkeras_tpu_torch.online.TrafficLog`)
+    closes the serve→train loop: every *successful* generation is offered
+    back to the capture ring after its 200 is decided (sampling and quota
+    admission happen inside the log); aborted and timed-out requests are
+    not.  Capture is strictly best-effort here — a capture fault is counted
+    (``online_capture_errors_total``, with telemetry on) and swallowed,
+    never surfaced to the client; serving must not fail because capture
+    did."""
     import uuid as _uuid
 
     from distkeras_tpu_torch.telemetry.flightdeck import server as _server
     from distkeras_tpu_torch.telemetry.trace import new_trace_id, trace as _trace
-
-    if traffic_log is not None:
-        raise NotImplementedError(
-            "traffic_log is not ported yet: it comes with ROADMAP Queue A item 18 "
-            "(the online loop)"
-        )
 
     def handle(request):
         try:
@@ -297,6 +298,16 @@ def install_http_endpoint(engine, path: str = "/generate",
                 # retryable server condition, not a successful generation
                 return ("application/json", result.to_json(), 503,
                         {"Retry-After": "1"})
+            if traffic_log is not None:
+                try:
+                    traffic_log.record(req, result)
+                except Exception:  # noqa: BLE001 — capture is best-effort
+                    from distkeras_tpu_torch import telemetry
+
+                    if telemetry.enabled():
+                        from distkeras_tpu_torch.online.capture import online_metrics
+
+                        online_metrics()["capture_errors"].inc()
             return ("application/json", result.to_json(), 200)
 
     _server.add_endpoint(path, handle)

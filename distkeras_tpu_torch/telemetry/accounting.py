@@ -378,8 +378,9 @@ class TenantLedger:
     def rolling_rate(self, tenant: str, unit: str = "tokens") -> float:
         """The tenant's decayed usage rate in ``unit``/sec (``"tokens"`` or
         ``"requests"``); 0.0 for an unknown tenant.  This is the signal the
-        online capture's ``SamplingPolicy`` rate (ROADMAP Queue A item 18)
-        policy keys off, and the ranking evictions use."""
+        online capture's ``SamplingPolicy`` rate policy
+        (:mod:`distkeras_tpu_torch.online.capture`) keys off, and the
+        ranking evictions use."""
         if unit not in ("tokens", "requests"):
             raise ValueError(f"unit must be 'tokens' or 'requests', got {unit!r}")
         name = str(tenant or "") or UNTAGGED_TENANT

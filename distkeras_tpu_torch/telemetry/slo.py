@@ -27,8 +27,9 @@ worst-offending ``trace_id``s still in the flight-recorder ring — the
 operator jumps straight from the page to ``dktrace critical-path``.
 
 Evaluation is wired into loops that already exist (the serving tier's probe
-loop and the window scheduler's poll loop, which come with ROADMAP Queue A
-item 18; any caller's loop meanwhile) via :func:`maybe_engine`, which
+loop, :mod:`distkeras_tpu_torch.serving.tier`, and the window scheduler's
+poll loop, :mod:`distkeras_tpu_torch.online.scheduler`; any caller's loop
+too) via :func:`maybe_engine`, which
 returns ``None`` unless telemetry *and* ``DISTKERAS_ROLLUP`` are on — the
 flag-off path stays untouched.  ``tools.dkmon`` and the Punchcard daemon's
 ``slo_status`` verb consume the ``/slo`` endpoint this module installs (the

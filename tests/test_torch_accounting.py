@@ -10,8 +10,8 @@ against the spec counters, ``DISTKERAS_ACCOUNTING=0`` leaves no ledger and
 the same tokens, and the billing costs a fixed count of ledger calls a step
 on host values only (no tensor reaches the ledger, none is read inside a
 billing call).  The Punchcard daemon's ``ledger_status`` verb serves the
-daemon's own ledger.  The router's failover billing waits for the serving
-tier (ROADMAP Queue A item 18b)."""
+daemon's own ledger.  The router's failover billing is held in
+tests/test_torch_serving_tier.py."""
 
 import json
 import os

@@ -295,6 +295,9 @@ def test_ledger_endpoint_serves_the_ledger():
     server_mod.configure(0)
     addr = server_mod.ensure_server()
     accounting.configure(True)
+    # the process-global ledger starts empty whatever ran before in this
+    # process (a test file that served untagged requests leaves its bills)
+    accounting.reset()
     try:
         accounting.ledger_for().admit("acme", prompt_tokens=4, queue_wait_s=0.0, device_s=0.1)
         code, text = _get(addr, "/ledger")
@@ -473,10 +476,13 @@ def test_rollup_ring_windowed_reads_match_jax():
 
 # ----------------------------------------------------- /generate over HTTP
 
-def test_install_http_endpoint_serves_greedy_tokens():
+def test_install_http_endpoint_serves_greedy_tokens(tmp_path):
     """``/generate`` on the exporter: concurrent POSTs and a GET answer with
-    ``greedy_generate``'s tokens, a malformed request is a 400, and the
-    scrape carries the serving counters under the run_id label."""
+    ``greedy_generate``'s tokens, a malformed request is a 400, the scrape
+    carries the serving counters under the run_id label, and an endpoint
+    with a ``TrafficLog`` captures what it served."""
+    from distkeras_tpu_torch.online import TrafficLog, load_window_manifest, window_source
+
     model = TransformerLM(vocab_size=23, dim=16, heads=2, num_layers=2, max_len=32)
     params, _ = tdk.models.TorchModel(model).init(torch.Generator().manual_seed(0), None)
     trained = TrainedModel(tdk.models.TorchModel(model), params, device="cpu")
@@ -485,8 +491,17 @@ def test_install_http_endpoint_serves_greedy_tokens():
     engine = ServingEngine(trained, num_slots=3, page_size=8, registry=None, device="cpu")
     try:
         assert install_http_endpoint(engine) == "/generate"
-        with pytest.raises(NotImplementedError, match="item 18"):
-            install_http_endpoint(engine, path="/logged", traffic_log=object())
+        log = TrafficLog(str(tmp_path / "capture"), window_samples=2, max_len=16)
+        install_http_endpoint(engine, path="/logged", traffic_log=log)
+        logged = [_post(addr, "/logged", {"prompt": p, "max_new_tokens": 3, "tenant": "t"})
+                  for p in ([1, 2, 3], [4, 5])]
+        assert all(status == 200 for status, _ in logged)
+        assert load_window_manifest(log.directory, 0)["tenants"] == {"t": 2}
+        rows, lengths = window_source(log.directory, 0).local_arrays()
+        for (_, text), row, n in zip(logged, rows, lengths):
+            body = json.loads(text)
+            assert row[:n].tolist() == body["prompt"] + body["tokens"]
+        log.close()
         rng = np.random.default_rng(5)
         prompts = [rng.integers(0, 23, size=n).tolist() for n in (3, 5, 4)]
         replies = [None] * len(prompts)
@@ -516,5 +531,6 @@ def test_install_http_endpoint_serves_greedy_tokens():
     assert 'serving_tokens_total{run_id="testrun"}' in text
     spans = [e for e in telemetry.trace.export()["traceEvents"]
              if e["name"] == "serving.http_request"]
-    # 3 POSTs and the GET; the 400 is answered before the span opens
-    assert len(spans) == 4 and all(len(e["args"]["trace_id"]) == 32 for e in spans)
+    # the 2 logged POSTs, 3 POSTs and the GET; the 400 is answered before
+    # the span opens
+    assert len(spans) == 6 and all(len(e["args"]["trace_id"]) == 32 for e in spans)

@@ -13,7 +13,8 @@ pipeline's (``models/staged.py``, ``parallel/pipeline.py``), the HuggingFace
 models (``models/hf.py``, ``models/hf_staged.py``), the training
 telemetry (``telemetry/``, ``telemetry/flightdeck/``), the per-tenant
 ledger and the SLO engine (``telemetry/accounting.py``,
-``telemetry/slo.py``) and the runtime sanitizer (``sanitizer/``)."""
+``telemetry/slo.py``), the runtime sanitizer (``sanitizer/``), the serving
+tier (``serving/tier.py``) and the online loop (``online/``)."""
 
 import ast
 import os
@@ -79,7 +80,10 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.parallel.pipeline, distkeras_tpu_torch.sanitizer, "
         "distkeras_tpu_torch.sanitizer.runtime, distkeras_tpu_torch.sanitizer.transfer, "
         "distkeras_tpu_torch.sanitizer.donation, distkeras_tpu_torch.sanitizer.lockwatch, "
-        "distkeras_tpu_torch.telemetry.accounting, distkeras_tpu_torch.telemetry.slo\n"
+        "distkeras_tpu_torch.telemetry.accounting, distkeras_tpu_torch.telemetry.slo, "
+        "distkeras_tpu_torch.serving.tier, distkeras_tpu_torch.online, "
+        "distkeras_tpu_torch.online.capture, distkeras_tpu_torch.online.scheduler, "
+        "distkeras_tpu_torch.job_deployment\n"
         # what make_mesh imports once a process group exists
         "import torch.distributed.device_mesh\n"
         "assert not (dist.is_available() and dist.is_initialized())\n"
@@ -114,7 +118,8 @@ def test_sources_found():
                    "serving/engine", "datapipe/packing", "parallel/mesh", "parallel/gspmd",
                    "models/moe", "models/staged", "parallel/pipeline", "sanitizer/__init__",
                    "sanitizer/runtime", "sanitizer/transfer", "sanitizer/donation",
-                   "sanitizer/lockwatch", "telemetry/accounting", "telemetry/slo"):
+                   "sanitizer/lockwatch", "telemetry/accounting", "telemetry/slo",
+                   "serving/tier", "online/__init__", "online/capture", "online/scheduler"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

@@ -11,7 +11,8 @@ daemon tier verbs, with the port's fix of ROADMAP Queue C's C3.
   before they spawn, so a retry that arrives while the first request is
   still spawning (the spawn is slowed here) waits for its reply and
   replays it: exactly one spawn.
-* The online verbs refuse by name until ROADMAP Queue A item 18c.
+* The online verbs deploy, report on and stop the online loop (their
+  cases, and C3 for ``online_loop``, in tests/test_torch_online.py).
 * The wire is the JAX package's byte for byte: a JAX ``Job`` submits to
   the port's daemon, and the port's ``FleetWorker`` registers with a JAX
   daemon.
@@ -211,13 +212,17 @@ def test_retry_after_a_failed_spawn_spawns_again(punchcard, monkeypatch):
 
 
 def test_online_verbs_refuse_naming_item_18c(punchcard):
+    # item 18c is ported: the verbs that refused until then now deploy,
+    # report on and stop an online loop (one replica and one trainer)
     job = _job(punchcard, SLEEPER)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 18c"):
-        job.online_loop(replicas=1, trainer_script="print(1)")
-    for reply in (job.online_status("x"), job.stop_online("x"),
-                  job._rpc({"action": "online_loop", "script": SLEEPER})):
-        assert reply["status"] == "unported" and "ROADMAP Queue A item 18c" in reply["error"]
-    assert not punchcard.jobs  # nothing spawned
+    online_id = job.online_loop(replicas=1, trainer_script=SLEEPER)
+    st = job.online_status()
+    assert st["status"] == "ok" and st["online_id"] == online_id
+    assert st["serving"] == 1 and st["trainer"]["status"] == "serving"
+    assert len(punchcard.jobs) == 2  # the replica and the trainer
+    assert job.stop_online() == {"status": "stopped", "online_id": online_id, "stopped": 2}
+    for reply in (job.online_status("x"), job.stop_online("x"), job.online_status()):
+        assert reply["status"] == "unknown"
 
 
 # ------------------------------------------------- across the two packages

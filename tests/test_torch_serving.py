@@ -623,7 +623,7 @@ class _ModelAxis:
         return self._size
 
 
-def test_unported_options_raise_naming_their_items(lm):
+def test_unported_options_raise_naming_their_items(lm, tmp_path):
     _, _, model, params = lm
     with pytest.raises(ValueError, match="heads 2 not divisible by mesh size 3"):
         ServingEngine(model, params, mesh=_ModelAxis(3), device="cpu")
@@ -643,14 +643,20 @@ def test_unported_options_raise_naming_their_items(lm):
     assert got == greedy_generate(trained, np.asarray([[1, 2, 3]]), 6)[0, 3:].tolist()
     # /generate mounts on the flight deck's exporter since the telemetry slice
     # (ROADMAP Queue A item 19a; served end to end in
-    # tests/test_torch_flightdeck.py); the traffic log is item 18's
+    # tests/test_torch_flightdeck.py), and takes a traffic log since the
+    # online loop's slice (item 18c)
     from distkeras_tpu_torch.telemetry.flightdeck import server as server_mod
 
     assert install_http_endpoint(engine, path="/generate_unported_case") == \
         "/generate_unported_case"
     server_mod._EXTRA.pop("/generate_unported_case")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        install_http_endpoint(engine, traffic_log=object())
+    from distkeras_tpu_torch.online import TrafficLog
+
+    log = TrafficLog(str(tmp_path / "capture"))
+    assert install_http_endpoint(engine, path="/generate_logged", traffic_log=log) == \
+        "/generate_logged"
+    server_mod._EXTRA.pop("/generate_logged")
+    log.close()
     with pytest.raises(TypeError, match="decode_spec"):
         ServingEngine(torch.nn.Linear(2, 2), {}, device="cpu")
 

@@ -1,7 +1,7 @@
 """The port's SLO engine and rollup ring, against tests/test_slo.py: every
-case of the JAX file but the ``dkmon`` CLI's (``tools/``) and the window
-scheduler's (ROADMAP Queue A item 18c), run on the port's
-modules: rollup-ring windowing, the quantile and breach estimators, burn-rate
+case of the JAX file but the ``dkmon`` CLI's (``tools/``), run on the
+port's modules (the window scheduler's flag-off case on
+:mod:`distkeras_tpu_torch.online.scheduler`): rollup-ring windowing, the quantile and breach estimators, burn-rate
 fire/resolve with the incident JSONL, the ``slo_*``/``alert_*`` schema
 against the JAX package's golden text, the flag-off pin and the ``/slo``
 view, served live through the port's flight deck and by the Punchcard
@@ -470,6 +470,18 @@ def test_telemetry_off_wins_over_rollup_env(monkeypatch):
     rollup.configure(1.0)
     assert rollup.ensure_rollup() is None
     assert slo.maybe_engine([_lag_objective()], source="t") is None
+
+
+def test_scheduler_flag_off_path_never_builds_an_engine(tmp_path):
+    from distkeras_tpu_torch.online import WindowScheduler
+
+    sched = WindowScheduler(str(tmp_path / "cap"), lambda w, s: None,
+                            str(tmp_path / "ckpt"), poll_interval=0.05)
+    sched.start()
+    try:
+        assert sched._slo is None
+    finally:
+        sched.stop()
 
 
 def test_rollup_env_parsing(monkeypatch):
