@@ -233,6 +233,7 @@ the ``ok`` line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1112,22 +1113,37 @@ def zoo_phase(seed: int):
 
 def staleness_phase(seed: int):
     """DynSGD over TextCNN with per-worker commit periods: the realised
-    update count and clocks must equal the host-side count of the race."""
+    update count and clocks must equal the host-side count of the race.
+    The same schedule from the same seeds again with ``unroll=True``, one
+    captured step replayed once a step on a card, held to the eager run:
+    updates and clocks equal, loss 1e-6 relative, center parameters 1e-5."""
     import distkeras_tpu_torch as tdk
     from distkeras_tpu_torch.models import zoo
 
     workers, batch = len(STALENESS_SCHEDULE), STALENESS_BATCH
     rows = workers * STALENESS_STEPS * batch
     x, y = zoo_data((256,), True, 2, rows, seed + 3)
-    model = zoo.TextCNN(vocab_size=20000, num_classes=2,
-                        generator=torch.Generator().manual_seed(seed + 3))
-    trainer = _keeping_fit(tdk.DynSGD)(
-        model, loss="categorical_crossentropy", worker_optimizer=("adam", {"learning_rate": 1e-3}),
-        metrics=(), num_workers=workers, batch_size=batch, num_epoch=STALENESS_EPOCHS,
-        communication_window=ZOO_WINDOW, commit_schedule=list(STALENESS_SCHEDULE),
-        compute_dtype="bfloat16", seed=seed, device=ZOO_DEVICE)
-    trainer.train(tdk.from_numpy(x, y))
-    torch.cuda.synchronize()
+    frame = tdk.from_numpy(x, y)
+
+    def train(**kwargs):
+        model = zoo.TextCNN(vocab_size=20000, num_classes=2,
+                            generator=torch.Generator().manual_seed(seed + 3))
+        trainer = _keeping_fit(tdk.DynSGD)(
+            model, loss="categorical_crossentropy",
+            worker_optimizer=("adam", {"learning_rate": 1e-3}), metrics=(),
+            num_workers=workers, batch_size=batch, num_epoch=STALENESS_EPOCHS,
+            communication_window=ZOO_WINDOW, commit_schedule=list(STALENESS_SCHEDULE),
+            compute_dtype="bfloat16", seed=seed, device=ZOO_DEVICE, **kwargs)
+        return trainer, _trained(trainer, frame)
+
+    trainer, eager = train()
+    captured, graph = train(unroll=True)
+    engine, graph_state, _ = captured.fit_result
+    graph_row = dict(graphs=engine.use_graphs, graph_stats=dict(engine.graph_stats),
+                     clocks=graph_state.rule_local["clock"].tolist(),
+                     num_updates=captured.num_updates, seconds=graph["seconds"],
+                     versus_eager=_versus(graph, eager))
+    del captured, engine, graph_state
     _, state, _ = trainer.fit_result
     clocks = state.rule_local["clock"].tolist()
     want_clocks, want_updates, staleness = simulate_clocks(STALENESS_SCHEDULE, STALENESS_STEPS,
@@ -1140,13 +1156,22 @@ def staleness_phase(seed: int):
                num_updates=trainer.num_updates, expected_num_updates=want_updates,
                clocks=clocks, expected_clocks=want_clocks,
                max_staleness=max(staleness), stale_commits=sum(s > 0 for s in staleness),
-               loss=history["loss"], seconds=seconds, seconds_per_step=seconds / local_steps)
+               loss=history["loss"], seconds=seconds, seconds_per_step=seconds / local_steps,
+               unroll=graph_row)
     emit(phase="staleness", **row)
     if trainer.num_updates != want_updates or clocks != want_clocks:
         raise AssertionError(f"staleness run: updates {trainer.num_updates} (want "
                              f"{want_updates}), clocks {clocks} (want {want_clocks})")
     if not max(staleness) > 0 or not np.isfinite(history["loss"]).all():
         raise AssertionError(f"staleness run: no stale commit or a non-finite loss: {row}")
+    versus = graph_row["versus_eager"]
+    if (graph_row["num_updates"] != want_updates or graph_row["clocks"] != want_clocks
+            or versus["loss_rel_err"] > GRAPH_LOSS_RTOL
+            or versus["max_param_err"] > GRAPH_PARAM_ATOL):
+        raise AssertionError(f"staleness run with unroll=True differs from eager: {graph_row}")
+    if ZOO_DEVICE == "cuda" and (not graph_row["graphs"] or graph_row["graph_stats"] != {
+            "captures": 1, "replays": STALENESS_EPOCHS * STALENESS_STEPS}):
+        raise AssertionError(f"staleness run with unroll=True: {graph_row}")
     return row
 
 
@@ -1774,7 +1799,10 @@ def replay_masks(engine) -> dict:
     values and inputs: the second replay must differ from the first (each
     replay advances the workers' registered generators), and the third,
     with the generators put back as well, must give the first again bit
-    for bit.  The state and the generators are left as they were found."""
+    for bit.  Under ``remat`` the twins the recomputations draw from are put
+    back with the workers' generators (the engine sets them so before each
+    replay; a replay advances a worker's generator and its twin alike).  The
+    state and the generators are left as they were found."""
     from distkeras_tpu_torch.parallel.engine import _state_trees
     from distkeras_tpu_torch.utils.pytree import tree_leaves
 
@@ -1789,8 +1817,10 @@ def replay_masks(engine) -> dict:
             for t, v in zip(leaves, values):
                 t.copy_(v)
         if generators:
-            for g, s in zip(static.rng, rng):
+            for g, twin, s in zip(static.rng, engine._twins or [None] * len(rng), rng):
                 g.set_state(s)
+                if twin is not None:
+                    twin.set_state(s)
 
     def replay(generators: bool):
         put_back(generators)
@@ -1808,15 +1838,16 @@ def replay_masks(engine) -> dict:
 def remat_graph_phase(seed: int, train_run):
     """The attention path under ``remat`` and in captured windows, through
     the trainer: the train phase's ``DOWNPOUR`` over a GPT-2-small-wide LM
-    with dropout ``REMAT_DROPOUT``, trained eagerly, with ``remat=True`` and
-    with ``unroll=True`` from the same seeds.  Remat and the graph are each
-    held to the eager run within the epochs phase's gates (loss 1e-6
-    relative, center parameters 1e-5): remat's recomputation and the
-    graph's replays must draw the eager run's masks.  Remat launches the
-    forward kernel (B1) twice as often as eager and B2/B3 as often; the
-    graph run launches B1-B3 inside its windows; peak memory is printed for
-    all three.  Two replays of a window from the same state must draw
-    different masks (:func:`replay_masks`), and the eager run must differ
+    with dropout ``REMAT_DROPOUT``, trained eagerly, with ``remat=True``,
+    with ``unroll=True`` and with both, from the same seeds.  Remat, the
+    graph and remat in the graph are each held to the eager run within the
+    epochs phase's gates (loss 1e-6 relative, center parameters 1e-5):
+    remat's recomputation and the graph's replays must draw the eager run's
+    masks.  Remat launches the forward kernel (B1) twice as often as eager
+    and B2/B3 as often; the graph runs launch B1-B3 inside their windows,
+    B1 twice a forward under remat; peak memory is printed for all four.
+    Two replays of a window from the same state must draw different masks
+    (:func:`replay_masks`), under remat too, and the eager run must differ
     from the train phase's run without dropout (``train_run``)."""
     import distkeras_tpu_torch as tdk
     from distkeras_tpu_torch.models import TransformerLM
@@ -1853,16 +1884,22 @@ def remat_graph_phase(seed: int, train_run):
     del trainer
     trainer, remat = train(remat=True)
     del trainer
-    trainer, graph = train(unroll=True)
-    engine = trainer.fit_result[0]
-    ticks_and_launches = engine.graph_launches()
-    # a wrapper's counter ticks at the warm-up window (real launches) and at
-    # capture (none); the graph's launches are its capture ticks x replays
-    graph_launches = [c.launches - ticks_and_launches.get(c.__name__, (0, 0))[0]
-                      + ticks_and_launches.get(c.__name__, (0, 0))[1] for c in counters]
-    replays = replay_masks(engine) if engine.use_graphs else {}
-    graph_stats, use_graphs = dict(engine.graph_stats), engine.use_graphs
-    del trainer, engine
+
+    def captured(**kwargs):
+        trainer, run = train(unroll=True, **kwargs)
+        engine = trainer.fit_result[0]
+        ticks_and_launches = engine.graph_launches()
+        # a wrapper's counter ticks at the warm-up window (real launches) and
+        # at capture (none); the graph's launches are its capture ticks x replays
+        launches = [c.launches - ticks_and_launches.get(c.__name__, (0, 0))[0]
+                    + ticks_and_launches.get(c.__name__, (0, 0))[1] for c in counters]
+        replays = replay_masks(engine) if engine.use_graphs else {}
+        return run, dict(engine.graph_stats), engine.use_graphs, ticks_and_launches, launches, \
+            replays
+
+    graph, graph_stats, use_graphs, ticks_and_launches, graph_launches, replays = captured()
+    (remat_graph, remat_graph_stats, _, remat_ticks_and_launches, remat_graph_launches,
+     remat_replays) = captured(remat=True)
 
     local_steps = TRAIN_EPOCHS * (TRAIN_ROWS // (TRAIN_WORKERS * TRAIN_BATCH)) * TRAIN_WORKERS
     expected = REMAT_MODEL["num_layers"] * local_steps
@@ -1871,25 +1908,31 @@ def remat_graph_phase(seed: int, train_run):
                workers=TRAIN_WORKERS, batch_size=TRAIN_BATCH, window=TRAIN_WINDOW,
                epochs=TRAIN_EPOCHS, rows=TRAIN_ROWS, local_steps=local_steps,
                loss=eager["loss"], remat_loss=remat["loss"], graph_loss=graph["loss"],
+               remat_graph_loss=remat_graph["loss"],
                seconds=eager["seconds"], remat_seconds=remat["seconds"],
-               graph_seconds=graph["seconds"],
+               graph_seconds=graph["seconds"], remat_graph_seconds=remat_graph["seconds"],
                dropout_changed_loss=eager["loss"] != train_run["loss"],
                remat_vs_eager=_versus(remat, eager), graph_vs_eager=_versus(graph, eager),
+               remat_graph_vs_eager=_versus(remat_graph, eager),
                launches_eager=eager["launches"], launches_remat=remat["launches"],
                expected_launches_eager=expected,
                peak_memory_gb_eager=eager["peak_memory_gb"],
                peak_memory_gb_remat=remat["peak_memory_gb"],
                peak_memory_gb_graph=graph["peak_memory_gb"],
+               peak_memory_gb_remat_graph=remat_graph["peak_memory_gb"],
                remat_lowered_peak_memory=remat["peak_memory_gb"] < eager["peak_memory_gb"],
                graph_stats=graph_stats, graphs=use_graphs,
                graph_ticks_and_launches=ticks_and_launches, launches_graph=graph_launches,
                expected_launches_graph=expected + window_launches,  # + the warm-up window
+               remat_graph_stats=remat_graph_stats,
+               remat_graph_ticks_and_launches=remat_ticks_and_launches,
+               launches_remat_graph=remat_graph_launches,
                launches_counted_as="wrapper counter - capture ticks + capture ticks x replays",
-               **replays)
+               **replays, remat_graph_replays=remat_replays)
     failures = []
     if not row["dropout_changed_loss"]:
         failures.append("the loss with dropout equals the train phase's without: no mask drawn")
-    for mode in ("remat", "graph"):
+    for mode in ("remat", "graph", "remat_graph"):
         versus = row[f"{mode}_vs_eager"]
         if versus["loss_rel_err"] > GRAPH_LOSS_RTOL or versus["max_param_err"] > GRAPH_PARAM_ATOL:
             failures.append(f"{mode} differs from eager with dropout: {versus}")
@@ -1902,8 +1945,13 @@ def remat_graph_phase(seed: int, train_run):
         if not use_graphs or graph_launches != [expected + window_launches] * 3:
             failures.append(f"graph launches {graph_launches}, expected "
                             f"{expected + window_launches} each")
-        if not (replays["fresh_masks_each_replay"] and replays["replay_repeatable"]):
-            failures.append(f"replays of a captured window: {replays}")
+        graphed = expected + window_launches
+        if remat_graph_launches != [2 * graphed, graphed, graphed]:
+            failures.append(f"remat graph launches {remat_graph_launches}, expected "
+                            f"{[2 * graphed, graphed, graphed]} (B1 twice)")
+        for name, got in (("graph", replays), ("remat graph", remat_replays)):
+            if not (got["fresh_masks_each_replay"] and got["replay_repeatable"]):
+                failures.append(f"replays of a captured {name} window: {got}")
     row["failures"] = failures
     emit(phase="remat_graph", **row)
     if failures:
@@ -1925,6 +1973,7 @@ SERVE_SPEC_TOKENS = 4
 SERVE_SPEC_PROMPTS = 2  # greedy requests of the traffic run through the speculative engines
 SERVE_PREDICT = (8, 64, 16)  # ModelPredictor(engine=): rows, prompt length, new tokens
 SERVE_PROFILE = (64, 32)  # profiled decode: prompt length, new tokens, one request a slot
+SERVE_SWAP_REQUESTS, SERVE_SWAP_NEW = 4, 32  # after the hot swap: requests, new tokens each
 # A greedy token may differ from its reference only where the reference's
 # two best logits are closer than this (f32, the orders of summation differ).
 GREEDY_GAP = 1e-4
@@ -2027,6 +2076,90 @@ def _serving_engine(trained, registry, **kwargs):
     return engine
 
 
+def _profiled_decode(engine, prompts, cuda: bool) -> dict:
+    """The decode step under ``torch.profiler``: one request a slot (each
+    of ``prompts``, ``SERVE_PROFILE[1]`` new tokens), admitted together
+    (queued while drained).  The run's wall and device time over its decode
+    steps (its prefills in them), the card's busy share, every device
+    operation of the run and a step's share; the CPU has no device time to
+    split, so a rehearsal runs it unprofiled."""
+    from distkeras_tpu_torch.serving import GenerateRequest
+
+    run_steps = []
+
+    def run():
+        steps_before = engine._metrics["decode_steps"].value
+        engine.drain(timeout=60)
+        batch = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=SERVE_PROFILE[1]))
+                 for p in prompts]
+        engine.resume()
+        for p in batch:
+            p.result(timeout=600)
+        run_steps.append(engine._metrics["decode_steps"].value - steps_before)
+
+    profile = fwd_bwd_profile(run, iters=1) if cuda else run() or {}
+    steps = max(run_steps[-1], 1)
+    ops = profile.get("kernels_per_call")
+    return dict(slots=len(prompts), steps=run_steps[-1], captured=engine._use_graphs,
+                wall_ms_per_step=profile.get("wall_ms_per_call", 0.0) / steps,
+                device_ms_per_step=(profile["device_ms_per_call"] / steps
+                                    if profile.get("device_ms_per_call") else None),
+                device_busy_share=profile.get("device_busy_share"),
+                device_ops=ops, device_ops_per_step=ops / steps if ops else None,
+                top_kernels=profile.get("top_kernels"))
+
+
+def _program_counts(engine) -> dict:
+    """A serving engine's captured programs: ``graph_stats``, each
+    program's replays by key, and the decode steps and finished requests
+    its registry counted (every finished request was prefilled once)."""
+    return dict(graph_stats=dict(engine.graph_stats),
+                replays={"/".join(map(str, k)): p.replays for k, p in engine._programs.items()},
+                decode_steps=int(engine._metrics["decode_steps"].value),
+                requests=int(engine._metrics["requests"].value))
+
+
+def _check_programs(graphs: dict, steps: list, roles: tuple, buckets) -> None:
+    """The gates on a serving engine's captured programs, from its
+    :func:`_program_counts` before and after a hot swap and its eager
+    twin's: before the swap one capture a program (the decode or
+    speculative graph, a prefill graph a role and bucket used), the step
+    program replayed once a decode step, a prefill once a request and
+    role; after it every program used captured anew and counted the same
+    way; the eager twin captured nothing."""
+    before, after, eager = graphs["before_swap"], graphs["after_swap"], graphs["eager"]
+    allowed = {"/".join(map(str, k)) for k in steps} | {
+        f"prefill/{role}/{w}" for role in roles for w in buckets}
+    step = "/".join(map(str, steps[0]))
+    failures = []
+    for name, got, base in (("before the swap", before, None), ("after it", after, before)):
+        captures, replays = got["graph_stats"]["captures"], got["graph_stats"]["replays"]
+        steps_run = got["decode_steps"] - (base["decode_steps"] if base else 0)
+        requests = got["requests"] - (base["requests"] if base else 0)
+        prior = base["graph_stats"] if base else {"captures": 0, "replays": 0}
+        if (not set(got["replays"]) <= allowed or step not in got["replays"]
+                or captures - prior["captures"] != len(got["replays"])
+                or got["replays"][step] != steps_run
+                or replays - prior["replays"] != steps_run + requests * len(roles)):
+            failures.append(f"{name}: {got}")
+    if eager["graph_stats"] != {"captures": 0, "replays": 0} or eager["replays"]:
+        failures.append(f"the eager engine captured: {eager}")
+    if failures:
+        raise AssertionError(f"captured programs: {failures}")
+
+
+def _serve_all(engine, requests, new_tokens=None) -> list:
+    """Each of ``requests`` (copies, ``new_tokens`` new tokens where given)
+    submitted at once; their tokens, in order."""
+    copies = [dataclasses.replace(r, max_new_tokens=new_tokens or r.max_new_tokens)
+              for r in requests]
+    pendings = [engine.submit(r) for r in copies]
+    results = [p.result(timeout=600) for p in pendings]
+    if any(r is None or r.finish_reason == "aborted" for r in results) or not engine.alive:
+        raise AssertionError(f"the engine failed: {engine.error!r}")
+    return [r.tokens for r in results]
+
+
 def serving_phase(seed: int):
     """KV-cache decode and the serving engine through their entry points at
     GPT-2-small widths (random weights from ``--seed``, f32):
@@ -2051,13 +2184,24 @@ def serving_phase(seed: int):
     4. ``ModelPredictor(engine=)`` over 8 prompts, held row by row to
        ``engine.generate``, exactly.
 
+    On a card the engine runs its step programs as captured CUDA graphs.
+    The traffic of 2 runs again through an eager engine (capture off), and
+    the tokens must be equal bit for bit; both engines then swap to a second
+    set of weights drawn from ``--seed`` and serve 4 requests (greedy and
+    sampled), bit for bit again; the speculative engine (the shallow draft)
+    is held to its eager twin the same way, across a swap too.  Captures
+    must not grow with the requests: one decode (or speculative) graph and
+    one prefill graph for each role and bucket used, again after a swap; a
+    replay for every decode step and every prefill.
+
     Prints TTFT and decode-step latency quantiles from the engine's
     histograms, the traffic run's generated tokens over its wall (prefills
     and the stagger included) and its decode tokens over the summed
     decode-step wall, decode-step ms, device operations and the card's busy
-    share under ``torch.profiler``, prefill ms per bucket width, peak pages
-    and memory, and B1's launches (0 on the serving path, which runs the
-    reference's plain masked attention)."""
+    share under ``torch.profiler``, captured and eager, prefill ms per
+    bucket width, peak pages and memory, the engines' ``graph_stats``, and
+    B1's launches (0 on the serving path, which runs the reference's plain
+    masked attention)."""
     import distkeras_tpu_torch as tdk
     from distkeras_tpu_torch.models import TorchModel, TrainedModel, TransformerLM, greedy_generate
     from distkeras_tpu_torch.ops import (
@@ -2072,6 +2216,10 @@ def serving_phase(seed: int):
     vocab = SERVE_MODEL["vocab_size"]
     model = TransformerLM(**SERVE_MODEL, generator=torch.Generator().manual_seed(seed + 7))
     trained = TrainedModel(TorchModel(model), {k: v.detach() for k, v in model.named_parameters()},
+                           device=ZOO_DEVICE)
+    second = TransformerLM(**SERVE_MODEL, generator=torch.Generator().manual_seed(seed + 9))
+    swapped = TrainedModel(TorchModel(second),
+                           {k: v.detach() for k, v in second.named_parameters()},
                            device=ZOO_DEVICE)
     rng = np.random.default_rng(seed + 7)
     out = {}
@@ -2113,6 +2261,7 @@ def serving_phase(seed: int):
     new = rng.integers(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, SERVE_REQUESTS)
     prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lengths]
     greedy = [i for i in range(SERVE_REQUESTS) if i % 2 == 0]
+    sampled = [i for i in range(SERVE_REQUESTS) if i % 2 == 1]
     refs = {i: greedy_generate(trained, np.asarray([prompts[i]], np.int32),
                                int(new[i]))[0, lengths[i]:].tolist() for i in greedy}
     eos_request = greedy[0]
@@ -2128,6 +2277,8 @@ def serving_phase(seed: int):
         torch.cuda.reset_peak_memory_stats()
     registry = Registry()
     engine = _serving_engine(trained, registry, queue_size=SERVE_REQUESTS + 8)
+    eager = _serving_engine(trained, Registry(), queue_size=SERVE_REQUESTS + 8)
+    eager._use_graphs = False  # the engine's eager path, on the card too
     try:
         engine.generate(prompts[1][:16], max_new_tokens=4, timeout=600)  # warm-up
         before = registry.snapshot()
@@ -2167,6 +2318,12 @@ def serving_phase(seed: int):
         if other_seed == results[k].tokens:
             raise AssertionError("another seed gave the same sampled tokens")
 
+        # 2b. the same traffic through the eager path: the same tokens, bit for bit
+        eager_tokens = _serve_all(eager, requests)
+        differ = [i for i, r in enumerate(results) if r.tokens != eager_tokens[i]]
+        if differ:
+            raise AssertionError(f"captured and eager tokens differ for requests {differ}")
+
         # a drained engine queues but does not admit: one past the queue is refused
         engine.drain(timeout=60)
         held = [engine.submit(GenerateRequest(prompt=prompts[0][:16], max_new_tokens=1))
@@ -2181,25 +2338,24 @@ def serving_phase(seed: int):
             raise AssertionError("queued requests did not finish after resume")
         rejected = registry.snapshot()["serving_requests_rejected_total"]["value"]
 
-        # the decode step under torch.profiler: one request a slot, admitted
-        # together (queued while drained), short prompts
+        # the decode step under torch.profiler, captured and eager
         profile_prompts = [rng.integers(0, vocab, SERVE_PROFILE[0]).tolist()
                            for _ in range(SERVE_SLOTS)]
-        run_steps = []
+        profiled = _profiled_decode(engine, profile_prompts, cuda)
+        profiled_eager = _profiled_decode(eager, profile_prompts, cuda)
 
-        def run():
-            steps_before = engine._metrics["decode_steps"].value
-            engine.drain(timeout=60)
-            batch = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=SERVE_PROFILE[1]))
-                     for p in profile_prompts]
-            engine.resume()
-            for p in batch:
-                p.result(timeout=600)
-            run_steps.append(engine._metrics["decode_steps"].value - steps_before)
-
-        # the CPU has no device time to split: a rehearsal runs it unprofiled
-        profile = fwd_bwd_profile(run, iters=1) if cuda else run() or {}
-        profiled_steps = run_steps[-1]
+        # 2c. both engines swap to the second weights (each drops its
+        # graphs, and the captured one captures anew): bit for bit again
+        before_swap = _program_counts(engine)
+        swap_ids = greedy[:SERVE_SWAP_REQUESTS // 2] + sampled[:SERVE_SWAP_REQUESTS // 2]
+        swap_traffic = [requests[i] for i in swap_ids]
+        for e in (engine, eager):
+            e.hot_swap(swapped, timeout=600)
+        swap_tokens = _serve_all(engine, swap_traffic, SERVE_SWAP_NEW)
+        if swap_tokens != _serve_all(eager, swap_traffic, SERVE_SWAP_NEW):
+            raise AssertionError("captured and eager tokens differ after the hot swap")
+        if all(t == results[i].tokens[:SERVE_SWAP_NEW] for t, i in zip(swap_tokens, swap_ids)):
+            raise AssertionError("the hot swap changed no token")
 
         # 4. ModelPredictor(engine=) row by row against engine.generate
         rows, prow, pnew = SERVE_PREDICT
@@ -2214,9 +2370,14 @@ def serving_phase(seed: int):
         pages_after = engine.stats()["pages_in_use"]
         if pages_after != 0:
             raise AssertionError(f"{pages_after} pages still in use after the traffic")
+        after_swap, eager_counts = _program_counts(engine), _program_counts(eager)
     finally:
         engine.stop()
+        eager.stop()
     peak_memory = torch.cuda.max_memory_allocated() if cuda else None
+    graphs = dict(before_swap=before_swap, after_swap=after_swap, eager=eager_counts)
+    if cuda:
+        _check_programs(graphs, [("decode",)], ("target",), engine.prefill_buckets)
 
     ttft = _hist_delta(after["serving_ttft_seconds"], before.get("serving_ttft_seconds", {}))
     itl = _hist_delta(after["serving_token_latency_seconds"],
@@ -2245,21 +2406,9 @@ def serving_phase(seed: int):
         eos_finish=results[eos_request].finish_reason, sampled_rerun_equal=True,
         other_seed_differs=True, queue_full_rejected=rejected,
         predictor_rows=rows, predictor_equal=True,
-        profiled_decode=dict(slots=SERVE_SLOTS, steps=profiled_steps,
-                             # the run's wall over its decode steps (8 prefills in it)
-                             wall_ms_per_step=(profile.get("wall_ms_per_call", 0.0)
-                                               / max(profiled_steps, 1)),
-                             device_ms_per_step=(profile["device_ms_per_call"]
-                                                 / max(profiled_steps, 1)
-                                                 if profile.get("device_ms_per_call") else None),
-                             device_busy_share=profile.get("device_busy_share"),
-                             # every device operation of the run (kernels and
-                             # copies, the 8 prefills' included) and a step's share
-                             device_ops=profile.get("kernels_per_call"),
-                             device_ops_per_step=(profile["kernels_per_call"]
-                                                  / max(profiled_steps, 1)
-                                                  if profile.get("kernels_per_call") else None),
-                             top_kernels=profile.get("top_kernels")))
+        profiled_decode=profiled, profiled_decode_eager=profiled_eager,
+        eager_equal=True, swap_requests=len(swap_ids), swap_new_tokens=SERVE_SWAP_NEW,
+        swap_eager_equal=True, graphs=graphs)
     if serve_launches != [0, 0, 0]:
         raise AssertionError(f"B1-B3 launched {serve_launches} times on the serving path")
 
@@ -2300,7 +2449,33 @@ def serving_phase(seed: int):
     if (faithful["accepted"] != faithful["proposed"]
             or not faithful["steps_per_decode_token"] < 1):
         raise AssertionError(f"the target as its own draft: {faithful}")
-    out["speculative"] = dict(spec_tokens=SERVE_SPEC_TOKENS, draft_model=SERVE_DRAFT, **spec_rows)
+
+    # 3b. the speculative engine captured against its eager twin: a greedy
+    # and a sampled request, then both again after a hot swap of the target
+    spec_traffic = [requests[greedy[1]], requests[sampled[0]]]
+    spec_runs = {}
+    for captured in (True, False):
+        engine = _serving_engine(trained, Registry(), spec_tokens=SERVE_SPEC_TOKENS,
+                                 draft_model=draft, draft_params=draft_params)
+        engine._use_graphs = engine._use_graphs and captured
+        try:
+            tokens = _serve_all(engine, spec_traffic, SERVE_SWAP_NEW)
+            before_swap = _program_counts(engine)
+            engine.hot_swap(swapped, timeout=600)
+            tokens += _serve_all(engine, spec_traffic, SERVE_SWAP_NEW)
+            spec_runs[captured] = dict(tokens=tokens, before_swap=before_swap,
+                                       after_swap=_program_counts(engine))
+        finally:
+            engine.stop()
+    if spec_runs[True]["tokens"] != spec_runs[False]["tokens"]:
+        raise AssertionError("the speculative engine's captured and eager tokens differ")
+    spec_graphs = dict(spec_runs[True], eager=spec_runs[False]["after_swap"])
+    del spec_graphs["tokens"]
+    if cuda:
+        _check_programs(spec_graphs, [("spec",)], ("target", "draft"), engine.prefill_buckets)
+    out["speculative"] = dict(spec_tokens=SERVE_SPEC_TOKENS, draft_model=SERVE_DRAFT, **spec_rows,
+                              graphs=dict(spec_graphs, requests=len(spec_traffic),
+                                          new_tokens=SERVE_SWAP_NEW, eager_equal=True))
 
     # 5. bf16 page pools under the f32 parameters (ServingEngine(dtype=)),
     # one greedy request at a time; prefill attends its own f32 K/V, decode
@@ -6268,6 +6443,7 @@ def main(argv=None) -> int:
         "launches_train_eager_and_remat": [remat_graph["launches_eager"][0],
                                            remat_graph["launches_remat"][0]],
         "launches_graph": remat_graph["launches_graph"][0],
+        "launches_remat_graph": remat_graph["launches_remat_graph"][0],
         "launches_serving": serving["engine"]["launches_b1"],
         "launches_greedy_generate": serving["greedy"]["launches_b1"],
         "launches_greedy_check": serving["greedy"]["launches_b1_check"],
@@ -6310,6 +6486,7 @@ def main(argv=None) -> int:
         "launches_train_eager_and_remat": [remat_graph["launches_eager"][1],
                                            remat_graph["launches_remat"][1]],
         "launches_graph": remat_graph["launches_graph"][1],
+        "launches_remat_graph": remat_graph["launches_remat_graph"][1],
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][1],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][1],
         "launches_seq_train": seq["launches_b1_b2_b3"][1],
@@ -6346,6 +6523,7 @@ def main(argv=None) -> int:
         "launches_train_eager_and_remat": [remat_graph["launches_eager"][2],
                                            remat_graph["launches_remat"][2]],
         "launches_graph": remat_graph["launches_graph"][2],
+        "launches_remat_graph": remat_graph["launches_remat_graph"][2],
         "launches_packing_train": packing["train"]["launches_b1_b2_b3"][2],
         "launches_mesh_train": mesh["one_rank"]["lm"]["launches"][2],
         "launches_seq_train": seq["launches_b1_b2_b3"][2],

@@ -47,10 +47,12 @@ Deliberate differences from the JAX engine:
   donated dispatch does.  The counterpart of the jitted window is a
   **captured CUDA graph**: with ``unroll`` other than 1 (an int > 1, or
   ``True``) on a card, one uniform window (every worker's local steps and
-  the commit) is captured once and replayed once a window.  On the CPU,
-  where there are no graphs, ``unroll`` stays the scan hint it is in JAX
-  and changes nothing.  The staleness simulation stays eager under any
-  ``unroll``.
+  the commit) is captured once and replayed once a window, ``remat`` or
+  not.  The staleness simulation's epoch is captured the same way, one
+  step at a time: every worker's local step and the masked commit, with
+  the step index and each worker's steps since its last commit held on
+  the device, replayed once a step.  On the CPU, where there are no
+  graphs, ``unroll`` stays the scan hint it is in JAX and changes nothing.
 * Dropout randomness is one ``torch.Generator`` per worker on the card,
   seeded from the init generator (JAX splits a key per worker).
 * The on-device reshuffle of ``run_epochs`` draws ``torch.randperm``, not
@@ -58,7 +60,10 @@ Deliberate differences from the JAX engine:
   permutations keyed by ``(shuffle_seed, epoch)``, not the same ones.
 * ``remat`` wraps the model's apply in ``torch.utils.checkpoint``, whose
   recomputation draws dropout from a copy of each worker's generator taken
-  before the forward, so the recomputed masks are the forward's.
+  before the forward, so the recomputed masks are the forward's.  Inside a
+  captured window the copy is a second generator registered with the
+  graph and set to the worker's state before each replay
+  (:func:`_remat_apply`).
 * A mesh is one process per card (ROADMAP Queue C, C10), and every rank of
   it owns the same number of workers: ``num_workers`` must be a multiple of
   the rank count (JAX tiles fewer workers onto fewer of its devices).
@@ -107,8 +112,8 @@ a later read of its fields raises instead of silently seeing the updated
 tensors.  Off, the engine does none of this; on or off, the trajectory is
 the same bit for bit.
 
-Not in this slice: ``remat`` or ``seq_shards > 1`` inside a captured
-window.
+Not in this slice: ``seq_shards > 1`` inside a captured window (its
+collectives must be NCCL's inside the graph, ROADMAP Queue A item 20).
 """
 
 from __future__ import annotations
@@ -151,6 +156,7 @@ from distkeras_tpu_torch.parallel.mesh import (
     resolve_device,
     worker_sharding,
 )
+from distkeras_tpu_torch.utils import graphs
 from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_where
 
 if TYPE_CHECKING:  # models.adapter imports this package (resolve_device)
@@ -248,21 +254,32 @@ def _graphs_requested(unroll) -> bool:
     return unroll > 1
 
 
-def _remat_apply(adapter, params, model_state, x, generator):
+def _remat_apply(adapter, params, model_state, x, generator, twin=None):
     """``adapter.apply`` in training under ``torch.utils.checkpoint``: the
     forward keeps no activations and the backward recomputes them.
     ``torch.utils.checkpoint`` restores only the device's default
     generator, and the port's dropout draws from ``generator``, so the
     recomputation draws from a fresh generator set to ``generator``'s state
-    from before the forward: the same masks, hence the same gradients."""
-    saved = None if generator is None else generator.get_state()
+    from before the forward: the same masks, hence the same gradients.
+
+    A captured window can read no generator state.  There the
+    recomputation draws from ``twin``: a generator registered with the
+    graph, which the engine sets to ``generator``'s state before each
+    replay and which only the recomputations draw from.  The forwards and
+    the recomputations of a window make the same draws in the same order,
+    one from ``generator``, the other from ``twin``, so each replay's
+    recomputation draws that replay's forward masks."""
+    saved = None if generator is None or twin is not None else generator.get_state()
     calls = [0]
 
     def run(x):
         g = generator
         if calls[0] and generator is not None:
-            g = torch.Generator(device=generator.device)
-            g.set_state(saved)
+            if twin is not None:
+                g = twin
+            else:
+                g = torch.Generator(device=generator.device)
+                g.set_state(saved)
         calls[0] += 1
         return adapter.apply(params, model_state, x, training=True, generator=g)
 
@@ -369,9 +386,6 @@ class WindowedEngine:
         # unroll other than 1 on a card: each uniform window is a captured
         # CUDA graph; on the CPU the option is the JAX scan hint and inert
         self.use_graphs = _graphs_requested(unroll) and self.device.type == "cuda"
-        if self.use_graphs and self.remat:
-            raise _not_ported("remat=True inside a captured window (unroll other than 1 on a "
-                              "card)", "item 20 (CUDA-graph follow-ups)")
         if self.use_graphs and self.seq_shards > 1:
             raise _not_ported("seq_shards>1 inside a captured window (unroll other than 1 on "
                               "a card)", "item 20 (CUDA-graph follow-ups)")
@@ -443,7 +457,16 @@ class WindowedEngine:
         # every graph reads and writes the one state ``_static`` holds
         self._graphs: dict = {}
         self._static: Optional[TrainState] = None
-        #: captures made and windows replayed since the cache was last cleared
+        # with remat, one generator per worker of the captured state, registered
+        # with every graph: the recomputations draw from it (_remat_apply);
+        # ``_twin_of`` maps a worker's generator to it while a capture runs
+        self._twins: Optional[list] = None
+        self._twin_of: dict = {}
+        # the staleness simulation's step index, each worker's steps since its
+        # last commit and its commit periods, on the device (_stale_step)
+        self._clock: Optional[dict] = None
+        #: captures made and windows (or steps) replayed since the cache was
+        #: last cleared
         self.graph_stats = {"captures": 0, "replays": 0}
         #: filled by :meth:`run_epoch_streaming`: source timing and the
         #: link-bound verdict of the last streamed epoch
@@ -620,7 +643,8 @@ class WindowedEngine:
                 p = tree_map(lambda t: t.to(cast) if t.is_floating_point() else t, leaves)
                 x_c = x.to(cast) if x.is_floating_point() else x
             if self.remat:
-                out, model_state = _remat_apply(self._forward, p, model_state, x_c, generator)
+                out, model_state = _remat_apply(self._forward, p, model_state, x_c, generator,
+                                                self._twin_of.get(id(generator)))
             else:
                 out, model_state = self._forward.apply(p, model_state, x_c, training=True,
                                                        generator=generator)
@@ -850,17 +874,30 @@ class WindowedEngine:
         if not self.use_graphs:
             return (state, *self._window_body(state, xs, ys, do_commit))
         key = ("win", do_commit, tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
+        return self._replay(key, state, xs, ys,
+                            lambda s, x, y: self._window_body(s, x, y, do_commit))
+
+    def _replay(self, key, state: TrainState, xs, ys, body):
+        """Replay the captured program ``key`` (capturing ``body(state, x,
+        y)`` at its first use) over the engine's captured state, with
+        ``xs``/``ys`` copied into its input buffers.  Returns that state and
+        copies of the program's loss, metrics and dynamics values (each None
+        where the body returns None)."""
         state = self._adopt(state)
         captured = self._graphs.get(key)
         if captured is None:
-            captured = self._graphs[key] = self._capture(state, xs, ys, do_commit)
+            captured = self._graphs[key] = self._capture(state, xs, ys, body)
         captured.x.copy_(xs)
         captured.y.copy_(ys)
+        for g, twin in zip(state.rng, self._twins or ()):
+            # the recomputations draw what this replay's forwards draw
+            twin.set_state(g.get_state())
         captured.graph.replay()
         captured.replays += 1
         self.graph_stats["replays"] += 1
         dyn = None if captured.dyn is None else {k: v.clone() for k, v in captured.dyn.items()}
-        return state, captured.loss.clone(), captured.mets.clone(), dyn
+        mets = None if captured.mets is None else captured.mets.clone()
+        return state, captured.loss.clone(), mets, dyn
 
     def _adopt(self, state: TrainState) -> TrainState:
         """The state every captured window reads and writes: ``state`` itself
@@ -880,14 +917,17 @@ class WindowedEngine:
                 mine.set_state(theirs.get_state())
         return static.replace(epoch=state.epoch)
 
-    def _capture(self, state: TrainState, xs, ys, do_commit: bool) -> _Captured:
-        """Capture one window as a CUDA graph over ``state``'s tensors and
-        static input buffers.  A warm-up window runs first on a side stream
-        (lazy initialisation must not happen inside a capture) and is undone:
-        the state's values and generators are restored.  Each worker's
-        dropout generator is registered with the graph, so every replay
-        draws fresh masks.  A failed capture raises: nothing falls back to
-        eager."""
+    def _capture(self, state: TrainState, xs, ys, body) -> _Captured:
+        """Capture ``body(state, x, y)``, one window or one step of the
+        staleness simulation, as a CUDA graph over ``state``'s tensors (and
+        the simulation's clock) and static input buffers ``x``/``y``.  A
+        warm-up runs first on a side stream (lazy initialisation must not
+        happen inside a capture) and is undone: the state's values, the
+        clock and the generators are restored.  Each worker's dropout
+        generator is registered with the graph, so every replay draws fresh
+        masks; with ``remat``, so is its twin (:func:`_remat_apply`).  The
+        process-wide capture lock is held throughout.  A failed capture
+        raises: nothing falls back to eager."""
         from distkeras_tpu_torch.ops import (
             flash_attention,
             flash_attention_bwd_dkv,
@@ -895,38 +935,35 @@ class WindowedEngine:
         )
 
         x, y = xs.clone(), ys.clone()
-        leaves = tree_leaves(_state_trees(state))
-        saved = [t.clone() for t in leaves]
-        saved_rng = [g.get_state() for g in state.rng]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._window_body(state, x, y, do_commit)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        with torch.no_grad():
-            for t, v in zip(leaves, saved):
-                t.copy_(v)
-        for g, v in zip(state.rng, saved_rng):
-            g.set_state(v)
-        del saved
-        if self.group is not None:
-            # NCCL captures a collective only once its communicator exists
-            all_reduce_sum([torch.zeros(1, device=self.device)], self.group)
-            with sanitizer_mod.transfer.allow("graph capture set-up"):
-                torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        for g in state.rng:
-            graph.register_generator_state(g)
-        counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
-        before = [c.launches for c in counters]
-        capture = torch.cuda.graph(graph, capture_error_mode="thread_local")
-        # entering a capture synchronises the device (torch.cuda.graph's own
-        # set-up): declared to the transfer guard, the captured body is not
-        with sanitizer_mod.transfer.allow("graph capture set-up"):
-            capture.__enter__()
-        with contextlib.ExitStack() as stack:
-            stack.push(capture)
-            loss, mets, dyn = self._window_body(state, x, y, do_commit)
+        leaves = tree_leaves(_state_trees(state)) + list((self._clock or {}).values())
+        with graphs.CAPTURE_LOCK:
+            saved = [t.clone() for t in leaves]
+            saved_rng = [g.get_state() for g in state.rng]
+            graphs.warm_up(lambda: body(state, x, y), self.device)
+            with torch.no_grad():
+                for t, v in zip(leaves, saved):
+                    t.copy_(v)
+            for g, v in zip(state.rng, saved_rng):
+                g.set_state(v)
+            del saved
+            if self.group is not None:
+                # NCCL captures a collective only once its communicator exists
+                all_reduce_sum([torch.zeros(1, device=self.device)], self.group)
+                with sanitizer_mod.transfer.allow("graph capture set-up"):
+                    torch.cuda.synchronize(self.device)
+            if self.remat and self._twins is None:
+                self._twins = [g.clone_state() for g in state.rng]
+            graph = torch.cuda.CUDAGraph()
+            for g in (*state.rng, *(self._twins or ())):
+                graph.register_generator_state(g)
+            counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+            before = [c.launches for c in counters]
+            self._twin_of = {id(g): t for g, t in zip(state.rng, self._twins or ())}
+            try:
+                with graphs.capturing(graph):
+                    loss, mets, dyn = body(state, x, y)
+            finally:
+                self._twin_of = {}
         # kernels launched inside the graph at each replay, by wrapper
         ticks = {c.__name__: c.launches - b for c, b in zip(counters, before)}
         self.graph_stats["captures"] += 1
@@ -955,31 +992,67 @@ class WindowedEngine:
             self._periods = (key, torch.as_tensor(schedule[self.workers], device=self.device))
         return self._periods[1]
 
+    def _stale_clock(self, periods: torch.Tensor) -> dict:
+        """The staleness simulation's clock at the start of an epoch: step
+        0, no step since any worker's last commit, this rank's commit
+        ``periods``.  Kept in the same device tensors from epoch to epoch,
+        which a captured step reads and advances."""
+        clock = self._clock
+        if clock is None:
+            clock = self._clock = {
+                "t": torch.zeros((), dtype=torch.int64, device=self.device),
+                "since": torch.zeros(self.virtual, dtype=torch.int32, device=self.device),
+                "periods": torch.zeros_like(periods),
+            }
+        clock["t"].zero_()
+        clock["since"].zero_()
+        clock["periods"].copy_(periods)
+        return clock
+
+    def _stale_step(self, state: TrainState, xs, ys):
+        """One step of the staleness simulation, in place: every worker of
+        this rank takes one local step on its rows of ``xs``/``ys`` (``[v,
+        1, batch, ...]``), then one commit runs over all of them (across
+        the ranks too) with the mask ``(t + 1) % period == 0`` and each
+        worker's steps since its last commit, read from the clock
+        (:meth:`_stale_clock`), which then advances.  Returns the step's
+        loss summed over this rank's workers, no metrics (None) and with
+        dynamics on the step's values (the effective staleness is each
+        worker's steps since its last commit; else None)."""
+        clock = self._clock
+        step = [self._worker_steps(state, w, xs[w], ys[w]) for w in range(self.virtual)]
+        since = clock["since"] + 1
+        mask = (clock["t"] + 1) % clock["periods"] == 0
+        ctx = self._ctx(since, mask)
+        dyn = center = None
+        if self._dynamics:
+            dyn, center = self._pre_commit_dynamics(
+                state, ctx, [torch.stack(s) for s in zip(*(r[2] for r in step))], since)
+        self._commit(state, ctx, dyn, center)
+        with torch.no_grad():
+            clock["since"].copy_(torch.where(mask, 0, since))
+            clock["t"].add_(1)
+        return torch.cat([r[0] for r in step]).sum(), None, dyn
+
     def _run_stepwise(self, state: TrainState, xs, ys, periods: torch.Tensor):
         """The staleness simulation over ``xs``/``ys`` shaped ``[v, n_steps,
-        batch, ...]``: each step, every worker takes one local step, then
-        one masked commit runs over all of them (across the ranks too).
-        ``periods`` is :meth:`_device_periods`.  Returns the state, the
-        per-step loss ``[n_steps]``, averaged over all workers, and with
-        dynamics on each step's values (the effective staleness is each
-        worker's steps since its last commit)."""
-        v = self.virtual
-        since = torch.zeros(v, dtype=torch.int32, device=self.device)
+        batch, ...]``, one step (:meth:`_stale_step`) after another, eager
+        or, with graphs on, replayed from one captured step.  ``periods`` is
+        :meth:`_device_periods`.  Returns the state (the engine's captured
+        state when graphs are on), the per-step loss ``[n_steps]``, averaged
+        over all workers, and with dynamics on each step's values."""
+        self._stale_clock(periods)
         losses, steps_dyn = [], []
         for t in range(xs.shape[1]):
-            step = [self._worker_steps(state, w, xs[w, t:t + 1], ys[w, t:t + 1])
-                    for w in range(v)]
-            since = since + 1
-            mask = (t + 1) % periods == 0
-            ctx = self._ctx(since, mask)
-            dyn = center = None
-            if self._dynamics:
-                dyn, center = self._pre_commit_dynamics(
-                    state, ctx, [torch.stack(s) for s in zip(*(r[2] for r in step))], since)
+            x, y = xs[:, t:t + 1], ys[:, t:t + 1]
+            if self.use_graphs:
+                key = ("step", tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+                state, loss, _, dyn = self._replay(key, state, x, y, self._stale_step)
+            else:
+                loss, _, dyn = self._stale_step(state, x, y)
+            losses.append(loss)
+            if dyn is not None:
                 steps_dyn.append(dyn)
-            state = self._commit(state, ctx, dyn, center)
-            since = torch.where(mask, 0, since)
-            losses.append(torch.cat([r[0] for r in step]).sum())
         return state, self._mean_over_workers(torch.stack(losses))[0], steps_dyn
 
     # ----------------------------------------------------------------- epoch
@@ -1145,6 +1218,7 @@ class WindowedEngine:
         keep, and every graph is dropped whatever ``keep_multi`` says."""
         self._graphs.clear()
         self._static = None
+        self._twins = None
         self.graph_stats = {"captures": 0, "replays": 0}
 
     # ------------------------------------------------------------- streaming

@@ -63,6 +63,26 @@ copy, the step's only wait for the device.  A failure in the loop is not
 swallowed: every pending request resolves ``"aborted"``, the error is
 printed, and ``submit`` raises :class:`EngineCrashed` from then on.
 
+**Step programs.**  The JAX engine compiles its decode step, its draft and
+verify steps and one prefill per role and bucket width, and keeps them.  On
+a card the port's counterpart is a **captured CUDA graph** for each: one
+decode step an engine, one speculative iteration (the ``m`` draft steps and
+the verify step with its rollback), one prefill for each ``(role, bucket
+width)`` used.  Each reads only fixed storage: the uploaded slot arrays
+(the admitted slot and its prompt's length among them, so one prefill
+serves every slot and prompt length of its bucket), the page pools and the
+parameters.  A program is captured at its first use, after a warm-up on a
+side stream that writes the K/V rows the replay then writes again, under
+the process-wide capture lock (:mod:`~distkeras_tpu_torch.utils.graphs`);
+the engine's graphs share one memory pool and register no generator (the
+samplers are counter-based).  A hot swap replaces the parameters' storage,
+so it drops every graph, and each captures anew at its next use.
+``graph_stats`` counts captures and replays.  A failed capture or replay
+crashes the engine as any loop failure does; nothing falls back to eager.
+On the CPU the programs run eagerly, and an engine built with ``mesh=``
+keeps them eager on a card too (its collectives inside the graph are ROADMAP
+Queue A item 20's next part).
+
 Random numbers are counter-based streams keyed by each request's seed
 (ROADMAP C9, :mod:`~distkeras_tpu_torch.serving.sampling`): a request's
 counter advances once per engine iteration *of that request*, so its
@@ -161,6 +181,7 @@ from distkeras_tpu_torch.sanitizer import lockwatch
 from distkeras_tpu_torch.telemetry import accounting as _accounting
 from distkeras_tpu_torch.telemetry import runtime as _truntime
 from distkeras_tpu_torch.telemetry.trace import NOOP_SPAN, trace as _trace
+from distkeras_tpu_torch.utils import graphs
 
 __all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
 
@@ -442,6 +463,16 @@ class _Pending:
         self._event.set()
 
 
+class _Program:
+    """One captured step program: its graph, its static output (None for a
+    draft prefill) and how often it was replayed."""
+
+    __slots__ = ("graph", "out", "replays")
+
+    def __init__(self, graph, out):
+        self.graph, self.out, self.replays = graph, out, 0
+
+
 class _SlotState:
     """Host-side record for one occupied batch slot."""
 
@@ -576,6 +607,8 @@ class ServingEngine:
         host["tables"] = torch.zeros(self._cache.tables.shape, dtype=torch.int64,
                                      pin_memory=pin)
         host["prompt"] = torch.zeros(self._width, dtype=torch.int64, pin_memory=pin)
+        # the slot being admitted and its prompt's length, read by the prefill
+        host["at"] = torch.zeros(2, dtype=torch.int64, pin_memory=pin)
         self._host = host
         self._dev = {name: torch.zeros_like(t, device=self.device) for name, t in host.items()}
         self._pos = host["pos"].numpy()        # position of the fed token
@@ -605,6 +638,14 @@ class ServingEngine:
         # the request between the queue and its slot (its prefill running)
         self._admitting: Optional[_Pending] = None
         self._sent = False  # whether this loop turn sent a plan
+        # the step programs: captured graphs on a card without a mesh (the
+        # attribute turns capture off), keyed as the JAX engine keys its
+        # programs, sharing one memory pool
+        self._use_graphs = self.device.type == "cuda" and mesh is None
+        self._programs: Dict[tuple, _Program] = {}
+        self._pool = None
+        #: programs captured and replayed (cumulative: a hot swap recaptures)
+        self.graph_stats = {"captures": 0, "replays": 0}
 
         if self._plan_group is not None:
             # the plan: a header, the slot arrays, the page tables, the prompt
@@ -684,15 +725,16 @@ class ServingEngine:
             if op == _OP_SWAP:
                 self._follow_swap()
                 continue
+            if op == _OP_PREFILL:
+                self._host["at"].numpy()[:] = (slot, plen)
             self._upload()
             with self._cv:
                 spec = self._spec
             if op == _OP_PREFILL:
-                self._prefill(spec, k, v, width, slot, plen, sample=False, psum=self._psum)
+                self._prefill(spec, k, v, width, sample=False, psum=self._psum)
                 if spec_on:
                     dc = self._draft_cache
-                    self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, slot, plen,
-                                  sample=False)
+                    self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False)
             elif op == _OP_DECODE:
                 self._decode(spec, k, v)
             else:
@@ -720,16 +762,62 @@ class ServingEngine:
         for name, dst in self._dev.items():
             dst.copy_(self._host[name], non_blocking=True)
 
-    def _prefill(self, spec: _Spec, kpool, vpool, width: int, slot: int, plen: int,
-                 sample: bool, psum=None):
-        """Run the slot's right-padded prompt (``prompt[:width]`` of the
-        uploaded arrays) through ``spec``, writing every row's K/V into the
-        slot's first ``width // page_size`` pages; with ``sample``, return
-        the first token (the request's draw 0)."""
+    def _program(self, key: tuple, fn):
+        """Run one step program, ``fn()``, which reads only the engine's
+        fixed storage: eagerly, or on a card as its captured graph, captured
+        at the key's first use.  Returns ``fn``'s output: on a card the
+        graph's static output, in the pool the engine's graphs share, where
+        a replay of a graph captured before it may write, so the loop reads
+        it back before the next step.  (The target prefill's token is read
+        after the draft's prefill, which is captured after it, while the
+        token's memory is held, and so never writes there.)"""
+        if not self._use_graphs:
+            return fn()
+        program = self._programs.get(key)
+        if program is None:
+            program = self._programs[key] = self._capture(fn)
+        program.graph.replay()
+        program.replays += 1
+        self.graph_stats["replays"] += 1
+        return program.out
+
+    def _capture(self, fn) -> _Program:
+        """Capture ``fn()`` as a CUDA graph in the engine's memory pool,
+        under the process-wide capture lock, after a warm-up run on a side
+        stream.  The warm-up runs over the step's own inputs, so it writes
+        the K/V rows the replay that follows writes again before it reads
+        them (a verify's rollback zeroes rows of the window the replay
+        writes whole): it needs no undo.  No generator is registered: the
+        samplers are counter-based (ROADMAP C9)."""
+        with graphs.CAPTURE_LOCK:
+            graphs.warm_up(fn, self.device)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with graphs.capturing(graph, self._pool):
+                out = fn()
+        self.graph_stats["captures"] += 1
+        return _Program(graph, out)
+
+    def _drop_programs(self) -> None:
+        """Forget every captured program and their memory pool: they read
+        the parameters' storage, which a hot swap replaces (a graph holds
+        addresses, not the tensors).  Each captures anew at its next use."""
+        self._programs.clear()
+        self._pool = None
+
+    def _prefill(self, spec: _Spec, kpool, vpool, width: int, sample: bool, psum=None):
+        """Run the admitted slot's right-padded prompt (``prompt[:width]``
+        of the uploaded arrays) through ``spec``, writing every row's K/V
+        into the slot's first ``width // page_size`` pages; with ``sample``,
+        return the first token (the request's draw 0).  The slot and the
+        prompt's length are device data (``at`` of the uploaded arrays), as
+        they are arguments of the JAX engine's prefill program."""
         st = self._dev
         ps = self._cache.page_size
         npages = width // ps
-        table = st["tables"][slot, :npages]
+        slot, plen = st["at"][:1], st["at"][1:]
+        table = st["tables"].index_select(0, slot)[0, :npages]
         tokens = st["prompt"][:width][None]
         positions = torch.clamp(torch.arange(width, device=self.device), 0, spec.max_len - 1)
         x = spec.tok[tokens] + spec.pos[positions][None]
@@ -750,10 +838,11 @@ class ServingEngine:
             x = _block_apply(bp, x, attend(li), spec.ln_eps, spec.heads, spec.head_dim, psum)
         if not sample:
             return None
-        logits = _head_apply(spec.final_ln, spec.head, x[:, plen - 1], spec.ln_eps)
-        return sample_tokens(logits, st["seed"][slot:slot + 1], st["ctr"][slot:slot + 1],
-                             st["temp"][slot:slot + 1], st["topk"][slot:slot + 1],
-                             st["topp"][slot:slot + 1])
+        logits = _head_apply(spec.final_ln, spec.head, x.index_select(1, plen - 1)[:, 0],
+                             spec.ln_eps)
+        knob = lambda name: st[name].index_select(0, slot)
+        return sample_tokens(logits, knob("seed"), knob("ctr"), knob("temp"), knob("topk"),
+                             knob("topp"))
 
     def _run_blocks(self, spec: _Spec, kpool, vpool, fed, positions, psum=None):
         """Feed ``fed [slots, m]`` tokens at ``positions [slots, m]`` through
@@ -1073,6 +1162,7 @@ class ServingEngine:
             if not self._running:
                 # no loop => no in-flight work: swap synchronously
                 self._spec = new
+                self._drop_programs()
                 self._metrics["hot_swaps"].inc()
                 return
             done = threading.Event()
@@ -1169,6 +1259,7 @@ class ServingEngine:
             # a swap the followers were just told to apply
             self._lockstep(_OP_SWAP)
             self._spec = spec
+            self._drop_programs()
             self._swap = None
         self._metrics["hot_swaps"].inc()
         done.set()
@@ -1255,16 +1346,18 @@ class ServingEngine:
             self._temp[slot] = req.temperature
             self._topk[slot] = req.top_k
             self._topp[slot] = req.top_p
+            self._host["at"].numpy()[:] = (slot, plen)
             self._lockstep(_OP_PREFILL, slot, width, plen, spec_on)
             self._upload()
             with self._cv:
                 spec = self._spec
-            tok = self._prefill(spec, self._cache.k_pages, self._cache.v_pages, width, slot,
-                                plen, sample=True, psum=self._psum)
+            k, v = self._cache.k_pages, self._cache.v_pages
+            tok = self._program(("prefill", "target", width), lambda: self._prefill(
+                spec, k, v, width, sample=True, psum=self._psum))
             if spec_on:
                 dc = self._draft_cache
-                self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, slot, plen,
-                              sample=False)
+                self._program(("prefill", "draft", width), lambda: self._prefill(
+                    self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False))
             with self._read_back():
                 tok0 = int(tok.item())  # device sync: the prefill is done here
         now = time.perf_counter()
@@ -1353,7 +1446,8 @@ class ServingEngine:
             self._upload()
             with self._cv:
                 spec = self._spec
-            tok = self._decode(spec, self._cache.k_pages, self._cache.v_pages)
+            k, v = self._cache.k_pages, self._cache.v_pages
+            tok = self._program(("decode",), lambda: self._decode(spec, k, v))
             with self._read_back():
                 toks = tok.cpu().numpy()  # device sync: the step is done here
         dt = time.perf_counter() - t0
@@ -1393,9 +1487,13 @@ class ServingEngine:
             self._upload()
             with self._cv:
                 spec = self._spec
-            out, count, accepted = self._spec_iteration(spec)
+
+            def iteration():
+                out, count, accepted = self._spec_iteration(spec)
+                return torch.cat([out, count[:, None], accepted[:, None]], dim=1)
+
+            packed = self._program(("spec",), iteration)
             # one copy back: the iteration is done here
-            packed = torch.cat([out, count[:, None], accepted[:, None]], dim=1)
             with self._read_back():
                 packed = packed.cpu().numpy()
         out, counts, acc = packed[:, :m], packed[:, m], packed[:, m + 1]

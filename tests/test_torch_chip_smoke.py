@@ -88,6 +88,10 @@ def test_staleness_phase_rehearsal(on_cpu, capsys):
     # periods 2 and 4 over 8 steps, 2 epochs: 4 + 2 commits an epoch
     assert row["num_updates"] == row["expected_num_updates"] == 12
     assert row["clocks"] == row["expected_clocks"] and row["stale_commits"] > 0
+    # unroll is a hint on the CPU: the same eager steps, bit for bit
+    unroll = row["unroll"]
+    assert unroll["graphs"] is False and unroll["versus_eager"]["bitwise"]
+    assert unroll["clocks"] == row["clocks"] and unroll["num_updates"] == 12
 
 
 def test_without_a_card_the_script_fails_with_no_result(tmp_path):
@@ -202,6 +206,7 @@ def test_remat_graph_phase_rehearsal(on_cpu, capsys, monkeypatch):
     assert not row["failures"] and row["dropout"] > 0 and row["dropout_changed_loss"]
     # remat's recomputation draws the forward's masks: bitwise on the CPU
     assert row["remat_vs_eager"]["bitwise"] and row["graph_vs_eager"]["bitwise"]
+    assert row["remat_graph_vs_eager"]["bitwise"]
     # the CPU runs the plain attention: no kernel launch to count
     assert row["launches_eager"] == row["launches_remat"] == [0, 0, 0]
     assert row["graphs"] is False and row["expected_launches_graph"] == 2 * 16 + 2 * 2 * 2
@@ -222,6 +227,12 @@ def test_remat_graph_phase_on_the_card(monkeypatch, capsys):
     assert row["launches_eager"] == [expected] * 3 == [2 * 16] * 3
     assert row["launches_remat"] == [2 * expected, expected, expected]
     assert row["fresh_masks_each_replay"] and row["replay_repeatable"]
+    # remat inside the captured windows: B1 twice a forward, in the graph
+    assert row["remat_graph_stats"] == {"captures": 1, "replays": 4}
+    graphed = row["expected_launches_graph"]
+    assert row["launches_remat_graph"] == [2 * graphed, graphed, graphed]
+    assert row["remat_graph_replays"] == {"fresh_masks_each_replay": True,
+                                          "replay_repeatable": True}
 
 
 @pytest.fixture
@@ -272,6 +283,12 @@ def test_serving_phase_rehearsal(on_cpu, tiny_serving, capsys):
     # steps than decode tokens
     assert spec["draft"]["steps_per_decode_token"] <= 1
     assert spec["draft"]["departures"] == [] and spec["draft"]["proposed"] > 0
+    # captured against eager: the CPU runs both eagerly, and nothing captures
+    assert engine["eager_equal"] and engine["swap_eager_equal"]
+    assert spec["graphs"]["eager_equal"] and engine["swap_requests"] == 4
+    for graphs in (engine["graphs"], spec["graphs"]):
+        assert graphs["after_swap"]["graph_stats"] == {"captures": 0, "replays": 0}
+    assert engine["profiled_decode_eager"]["captured"] is False
 
 
 @pytest.mark.cuda

@@ -10,15 +10,19 @@ dropout on, and holds both captures to eager within the chip smoke's
 gates (loss 1e-6 relative, center parameters 1e-5).  A second ``cuda``
 case captures windows with the training dynamics on (``DISTKERAS_DYNAMICS``:
 the stats computed inside the graph): the trajectory equals dynamics off
-bit for bit, and the stats equal the eager engine's.  No JAX here: the
-``cuda`` cases run on the card's machine, which has none.
+bit for bit, and the stats equal the eager engine's.  Two more ``cuda``
+cases hold captures to eager within the same gates: ``remat=True`` inside
+captured windows (the recomputation in the graph, the forward kernel
+launched twice a forward), and the staleness simulation's epoch
+(``commit_schedule``), one captured step replayed once a step.  No JAX
+here: the ``cuda`` cases run on the card's machine, which has none.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from distkeras_tpu_torch.algorithms import Downpour
+from distkeras_tpu_torch.algorithms import Downpour, DynSGD
 from distkeras_tpu_torch.models import TorchModel, TransformerLM
 from distkeras_tpu_torch.parallel import WindowedEngine
 
@@ -39,14 +43,28 @@ def lm_epoch(seed=0):
             ((x + 1) % LM["vocab_size"]).reshape(shape).astype(np.int64))
 
 
-def engine_and_state(device, unroll, dropout=0.0):
+def engine_and_state(device, unroll, dropout=0.0, **kwargs):
     model = TransformerLM(**LM, dropout=dropout, generator=torch.Generator().manual_seed(1))
+    rule = DynSGD(WINDOW) if "commit_schedule" in kwargs else Downpour(WINDOW)
     engine = WindowedEngine(TorchModel(model), "token_crossentropy",
-                            ("adam", {"learning_rate": 1e-3}), Downpour(WINDOW),
-                            num_workers=WORKERS, metrics=(), unroll=unroll, device=device)
+                            ("adam", {"learning_rate": 1e-3}), rule,
+                            num_workers=WORKERS, metrics=(), unroll=unroll, device=device,
+                            **kwargs)
     xs, ys = lm_epoch()
     state = engine.init_state(torch.Generator().manual_seed(0), torch.from_numpy(xs[0, 0, 0]))
+    if "commit_schedule" in kwargs:  # the stepwise layout [workers, steps, batch, seq]
+        xs, ys = (a.reshape(WORKERS, WINDOWS * WINDOW, BATCH, -1) for a in (xs, ys))
     return engine, state, engine.shard_batches(xs, ys)
+
+
+def held_to_eager(runs, eager, graph, e_state, g_state):
+    """The captured run's losses within 1e-6 relative of the eager run's,
+    its center parameters within 1e-5."""
+    np.testing.assert_allclose(np.concatenate(runs["graph"]), np.concatenate(runs["eager"]),
+                               rtol=1e-6)
+    for name, want in eager.gather_center(e_state).items():
+        got = graph.gather_center(g_state)[name]
+        assert float((got - want).abs().max()) <= 1e-5, name
 
 
 @pytest.mark.parametrize("keep_multi", [None, (2, None)])
@@ -110,3 +128,46 @@ def test_captured_window_dynamics_on_the_card():
     for key, value in runs["eager"][0]["dynamics"].items():
         np.testing.assert_allclose(runs["on"][0]["dynamics"][key], value, rtol=1e-5, atol=1e-7,
                                    err_msg=key)
+
+
+@pytest.mark.cuda
+def test_remat_inside_captured_windows_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distkeras_tpu_torch.ops import flash_attention
+
+    eager, e_state, (xs, ys) = engine_and_state("cuda", unroll=1, dropout=0.1)
+    graph, g_state, _ = engine_and_state("cuda", unroll=True, dropout=0.1, remat=True)
+    runs = {"eager": [], "graph": []}
+    for _ in range(2):
+        e_state, stats = eager.run_epoch(e_state, xs, ys)
+        runs["eager"].append(stats["loss"])
+        g_state, stats = graph.run_epoch(g_state, xs, ys)
+        runs["graph"].append(stats["loss"])
+    held_to_eager(runs, eager, graph, e_state, g_state)
+    assert graph.graph_stats == {"captures": 1, "replays": 2 * WINDOWS}
+    # the forward kernel twice a forward (the recomputation), in the graph
+    forwards = LM["num_layers"] * WORKERS * WINDOW
+    assert graph.graph_launches()[flash_attention.__name__] == (2 * forwards,
+                                                                4 * WINDOWS * forwards)
+
+
+@pytest.mark.cuda
+def test_staleness_epoch_captured_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    schedule = dict(commit_schedule=[1, 2])
+    eager, e_state, (xs, ys) = engine_and_state("cuda", unroll=1, dropout=0.1, **schedule)
+    graph, g_state, _ = engine_and_state("cuda", unroll=True, dropout=0.1, **schedule)
+    runs = {"eager": [], "graph": []}
+    for _ in range(2):
+        e_state, stats = eager.run_epoch(e_state, xs, ys)
+        runs["eager"].append(stats["loss"])
+        g_state, stats = graph.run_epoch(g_state, xs, ys)
+        runs["graph"].append(stats["loss"])
+    held_to_eager(runs, eager, graph, e_state, g_state)
+    steps = xs.shape[1]
+    assert graph.graph_stats == {"captures": 1, "replays": 2 * steps}
+    assert torch.equal(g_state.rule_local["clock"], e_state.rule_local["clock"])
+    assert int(g_state.center_rule["num_updates"]) == int(e_state.center_rule["num_updates"]) \
+        == 2 * (steps + steps // 2)

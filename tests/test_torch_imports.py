@@ -83,7 +83,7 @@ def test_package_import_loads_no_jax():
         "distkeras_tpu_torch.telemetry.accounting, distkeras_tpu_torch.telemetry.slo, "
         "distkeras_tpu_torch.serving.tier, distkeras_tpu_torch.online, "
         "distkeras_tpu_torch.online.capture, distkeras_tpu_torch.online.scheduler, "
-        "distkeras_tpu_torch.job_deployment\n"
+        "distkeras_tpu_torch.job_deployment, distkeras_tpu_torch.utils.graphs\n"
         # what make_mesh imports once a process group exists
         "import torch.distributed.device_mesh\n"
         "assert not (dist.is_available() and dist.is_initialized())\n"
@@ -119,7 +119,8 @@ def test_sources_found():
                    "models/moe", "models/staged", "parallel/pipeline", "sanitizer/__init__",
                    "sanitizer/runtime", "sanitizer/transfer", "sanitizer/donation",
                    "sanitizer/lockwatch", "telemetry/accounting", "telemetry/slo",
-                   "serving/tier", "online/__init__", "online/capture", "online/scheduler"):
+                   "serving/tier", "online/__init__", "online/capture", "online/scheduler",
+                   "utils/graphs"):
         assert f"distkeras_tpu_torch/{module}.py" in SOURCES
 
 

@@ -1,7 +1,10 @@
 """The serving slice's entry points on the card: ``greedy_generate``,
 ``ServingEngine`` (plain and speculative) and ``ModelPredictor(engine=)``.
 
-Every test is ``cuda``-marked and skips without a card.  The file imports
+On a card the engine runs its step programs (decode, the speculative
+iteration, each used prefill) as captured CUDA graphs; a case holds them to
+the engine's eager path, ``_use_graphs = False``, bit for bit, across a hot
+swap too.  Every test is ``cuda``-marked and skips without a card.  The file imports
 no JAX, so it runs where only PyTorch is installed: the models are drawn
 from seeded ``torch.Generator``s and held to the same entry points on the
 CPU, whose parity with the JAX package the CPU tests pin.  Run on the card with
@@ -154,3 +157,53 @@ def test_decode_steps_do_not_wait_for_the_card():
             torch.cuda.set_sync_debug_mode(0)
         assert out.is_cuda and out.shape[0] == 3
         engine.stop()
+
+
+def test_captured_programs_match_eager_bit_for_bit():
+    """Plain and speculative engines serve the same greedy and sampled
+    traffic captured and eager, before and after a hot swap to other
+    weights: the tokens are equal bit for bit.  Captured: one decode (or
+    speculative) graph and one prefill graph for each role and bucket used,
+    recaptured after the swap; a replay for every decode step and every
+    prefill; eager: no graph."""
+    _card()
+    model, params = _lm(7)
+    other, other_params = _lm(8)
+    draft, dparams = _lm(9, dim=32, heads=2, num_layers=1)
+    prompts = _prompts(5, 7)
+    knobs = [{} if i % 2 == 0 else dict(temperature=0.9, top_k=20, top_p=0.95, seed=i)
+             for i in range(len(prompts))]
+    buckets = {min(w for w in (8, 16, 32, 64) if w >= len(p)) for p in prompts}
+
+    def serve(engine):
+        pendings = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=12, **k))
+                    for p, k in zip(prompts, knobs)]
+        return [p.result(timeout=120).tokens for p in pendings]
+
+    for kwargs in ({}, dict(draft_model=draft, draft_params=dparams, spec_tokens=3)):
+        runs = {}
+        for captured in (True, False):
+            registry = Registry()
+            engine = ServingEngine(model, params, num_slots=3, page_size=8, registry=registry,
+                                   **kwargs)
+            engine._use_graphs = captured
+            try:
+                before = serve(engine)
+                programs = sorted(engine._programs)
+                captures = engine.graph_stats["captures"]
+                engine.hot_swap(other, other_params, timeout=120)
+                after = serve(engine)
+            finally:
+                engine.stop()
+            steps = registry.snapshot()["serving_decode_steps_total"]["value"]
+            runs[captured] = (before, after, programs, captures, dict(engine.graph_stats),
+                              sorted(engine._programs), steps)
+        assert runs[True][:2] == runs[False][:2]
+        assert runs[False][2:6] == ([], 0, {"captures": 0, "replays": 0}, [])
+        _, _, programs, captures, stats, programs_after, steps = runs[True]
+        roles = ("target", "draft") if kwargs else ("target",)
+        want = sorted([("spec",) if kwargs else ("decode",)]
+                      + [("prefill", role, w) for role in roles for w in buckets])
+        assert programs == programs_after == want
+        assert captures == len(want) and stats["captures"] == 2 * len(want)
+        assert stats["replays"] == steps + 2 * len(prompts) * len(roles)
