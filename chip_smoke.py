@@ -114,7 +114,12 @@ toolkit.  Phases, each printing JSON lines:
     ``make_mesh()``: ``cifar_cnn_downpour`` eager and in captured windows
     (the commit's all-reduce inside the graph) bitwise the epochs phase's
     no-mesh run, and the train phase's GPT-2-small ``DOWNPOUR`` over the
-    mesh launching B1-B3 as often as there; (b) two gloo ranks spawned on
+    mesh launching B1-B3 as often as there; each NCCL transport of
+    ``parallel/mesh.py`` recorded into a graph over that group and replayed
+    on two input sets, bitwise eager (the ring hop a send to itself); and
+    ``cifar_cnn_downpour`` with ``fsdp=True`` (the GSPMD engine) in
+    captured windows bitwise its eager run on the group, the commit's
+    all-reduces in the graphs; (b) two gloo ranks spawned on
     the one card (``--mesh-rank``; NCCL refuses two ranks on one card),
     ``cifar_cnn_downpour`` with 4 workers, 2 a rank, against one rank
     with 4: commit counts exact, the first window's center in f32 within
@@ -124,7 +129,8 @@ toolkit.  Phases, each printing JSON lines:
     ``mesh_cards_run: 1``); (d) ``ModelPredictor`` over every card and
     over two replicas on one card within ``MESH_PREDICT_ATOL`` of
     ``num_devices=1``;
-19. seq: sequence parallelism, (a) two gloo ranks spawned on the one card
+19. seq: sequence parallelism (on several cards also in captured windows,
+    as in phases 20-22), (a) two gloo ranks spawned on the one card
     (``--seq-rank``), the ``(workers, seq)`` grid 1 x 2: the train phase's
     ``DOWNPOUR`` over ``TransformerLM(seq_axis="seq")`` at GPT-2-small
     widths cut to 6 blocks and one epoch, with ``seq_shards=2`` (each rank
@@ -137,16 +143,19 @@ toolkit.  Phases, each printing JSON lines:
     layer and the bytes staged through the host; (b) the classifier's
     logits at 2 ranks against one rank (B1) within ``SEQ_CLS_ATOL``; (c)
     the twin the trainer returned through ``ModelPredictor``; (d) on a
-    machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
-    checks (else ``seq_cards_run: 1``);
+    machine with several cards, NCCL, one rank a card (2 x 2 with 4 cards,
+    1 x 2 with 2 or 3), the same checks, eager and in captured windows
+    (else ``seq_cards_run: 1``);
 20. tp: tensor parallelism (see :func:`tp_phase`);
 21. serving_tp: ``ServingEngine(mesh=)`` at the serving phase's widths (6
     of its 12 blocks) on
-    two gloo ranks sharing the card (and 4 NCCL ranks on a 4-card
-    machine) against the one-rank engine (see :func:`serving_tp_phase`);
+    two gloo ranks sharing the card (and NCCL ranks on a machine with
+    several cards, eager and with captured step programs) against the
+    one-rank engine (see :func:`serving_tp_phase`);
 22. moe: ``MoETransformerClassifier`` at switch-base-8's widths under
     ``DOWNPOUR`` on one rank, then expert-parallel on two gloo ranks (and
-    the 2 x 2 NCCL grid on a 4-card machine; see :func:`moe_phase`);
+    the NCCL grid on a machine with several cards, eager and in captured
+    windows; see :func:`moe_phase`);
 23. pipeline: a ``StagedLM`` at GPT-2 small's widths (cut to 6 of the 12
     blocks, as 2 stages of 3, and 16 rows) under ``DOWNPOUR`` on
     one rank, then
@@ -2804,6 +2813,89 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _nccl_cards() -> int:
+    """The NCCL ranks, one a card, of the several-card rows of phases 19 to
+    22: 4 on a machine with 4 cards or more (their 2 x 2 grids), 2 on one
+    with 2 or 3 (the 1 x 2 grids), 0 on one card (NCCL refuses two ranks on
+    one card)."""
+    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    return 4 if count >= 4 else 2 if count >= 2 else 0
+
+
+NCCL_CARDS_REASON = ("the several-card NCCL grid needs torch.cuda.device_count() >= 2 "
+                     "(NCCL refuses two ranks on one card)")
+
+
+def _captures_here() -> bool:
+    """Whether this spawned rank's group runs NCCL, whose collectives a
+    captured window or serving step holds: the rows of phases 19 to 22 then
+    run their captured twins too."""
+    import torch.distributed as dist
+
+    return dist.get_backend() == "nccl"
+
+
+def _graph_record(engine) -> dict:
+    """A trained engine's captured windows: captures and replays, and each
+    kernel's (B1-B3) and collective's capture ticks and ticks x replays."""
+    return dict(graph_stats=dict(engine.graph_stats),
+                graph_launches={k: list(v) for k, v in engine.graph_launches().items()})
+
+
+def _steady_epoch(trainer, x, y, tokens: int) -> dict:
+    """One more epoch on the trained engine and state (captured windows
+    replayed, none captured), timed to its stats' read-back: s, tokens/s."""
+    from distkeras_tpu_torch.data import epoch_arrays
+
+    engine, state, _ = trainer.fit_result
+    xs, ys = engine.shard_batches(*epoch_arrays(x, y, TRAIN_WORKERS, TRAIN_BATCH, TRAIN_WINDOW))
+    t0 = time.perf_counter()
+    engine.run_epoch(state, xs, ys)  # ends on the stats' copy to the host
+    seconds = time.perf_counter() - t0
+    return dict(steady_seconds=seconds, steady_tokens_per_s=tokens / seconds)
+
+
+def _captured_row(graph: dict, eager: dict, steps: int, epochs: int) -> tuple:
+    """A run in captured windows (``unroll=True``) against the same run
+    eager in this call, on the same ranks: bitwise?, captures and replays,
+    B1-B3's capture ticks and ticks x replays (each replay launches what was
+    recorded once: the eager run's count), the collectives in the graphs,
+    tokens/s and ms a local step (``steps`` of them an epoch, ``epochs``
+    epochs) both ways, whole and in one steady epoch.  Returns ``(row, failures)``; the caller holds a
+    run that is not bitwise to the phase's gates against one rank."""
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel.mesh import TRANSPORTS
+
+    names = [c.__name__ for c in (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)]
+    launches = graph["graph_launches"]
+    got = lambda n: launches.get(n, [0, 0])
+    row = dict(vs_eager=_versus(graph, eager), graph_stats=graph["graph_stats"],
+               launches_b1_b2_b3_ticks=[got(n)[0] for n in names],
+               launches_b1_b2_b3_ticks_x_replays=[got(n)[1] for n in names],
+               launches_b1_b2_b3_eager=list(eager["launches"]),
+               collectives_ticks_and_ticks_x_replays={n: got(n) for n in TRANSPORTS},
+               tokens_per_s=graph["tokens_per_s"], tokens_per_s_eager=eager["tokens_per_s"],
+               step_ms=graph["seconds"] * 1e3 / (steps * epochs),
+               step_ms_eager=eager["seconds"] * 1e3 / (steps * epochs),
+               steady_tokens_per_s=graph["steady_tokens_per_s"],
+               steady_tokens_per_s_eager=eager["steady_tokens_per_s"],
+               steady_step_ms=graph["steady_seconds"] * 1e3 / steps,
+               steady_step_ms_eager=eager["steady_seconds"] * 1e3 / steps,
+               timed_as="host clock to the stats' read-back; the whole run includes the "
+                        "warm-up window and the capture, the steady epoch neither")
+    failures = []
+    if not (graph["graph_stats"]["captures"] >= 1 and graph["graph_stats"]["replays"] >= 1):
+        failures.append(f"no window was captured: {graph['graph_stats']}")
+    if row["launches_b1_b2_b3_ticks_x_replays"] != row["launches_b1_b2_b3_eager"]:
+        failures.append(f"B1-B3 ran {row['launches_b1_b2_b3_ticks_x_replays']} times in the "
+                        f"graphs, eagerly {row['launches_b1_b2_b3_eager']}")
+    return row, failures
+
+
 def _rendezvous(workdir: str, name: str) -> str:
     """The ``init_method`` of one group of spawned ranks: a file store in the
     phase's own work directory.  A TCP port picked free by the parent and
@@ -2873,19 +2965,31 @@ def mesh_rank_main(spec_path: str) -> int:
     try:
         runs = _mesh_runs(spec["seed"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     if spec["rank"] == 0:
         torch.save(runs, spec["out"])
     return 0
+
+
+def _leave_group() -> None:
+    """A spawned rank leaves its group through ``networking.shutdown``,
+    which first frees the CUDA graphs that recorded NCCL collectives: NCCL
+    does not destroy a communicator a live graph uses, and the rank would
+    hang in ``destroy_process_group``."""
+    from distkeras_tpu_torch import networking
+
+    networking.shutdown()
 
 
 def _run_ranks(flag: str, specs, workdir: str, timeout: int, phase: str):
     """Spawn one process of this script per spec (``flag SPEC.json``), all
     at once, and wait for all of them, ``timeout`` seconds at most.  A rank
     that fails, or is still running then, fails the phase with the end of
-    every rank's output, and no rank outlives it."""
+    every rank's output (a late rank's with every thread's stack, dumped on
+    ``SIGUSR1`` before the kill), and no rank outlives it."""
     import gc
     import os
+    import signal
 
     gc.collect()
     if torch.cuda.is_initialized():
@@ -2909,11 +3013,16 @@ def _run_ranks(flag: str, specs, workdir: str, timeout: int, phase: str):
                 late = True
                 break
     finally:
+        if late:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGUSR1)
+            time.sleep(5)
         for p in procs:
             if p.poll() is None:
                 p.kill()
         logs += [p.communicate()[0] for p in procs[len(logs):]]
-    tails = "".join(f"\n--- rank {spec['rank']} (exit {p.returncode}):\n{log[-3000:]}"
+    tails = "".join(f"\n--- rank {spec['rank']} (exit {p.returncode}):\n{log[-6000:]}"
                     for spec, p, log in zip(specs, procs, logs))
     if late:
         raise AssertionError(f"{phase}: a rank ran past {timeout} s; every rank's output:{tails}")
@@ -2941,6 +3050,115 @@ def _spawn_mesh(seed: int, world: int, backend: str, cards: bool, workdir: str) 
              for rank in range(world)]
     _run_ranks("--mesh-rank", specs, workdir, MESH_RANK_TIMEOUT_S, "mesh")
     return torch.load(out)
+
+
+# phase 18 (a)'s transports captured over the one-rank NCCL group: a
+# [1024, 768] f32 block (a GPT-2-small row's activations) and an int64
+# vector, each transport recorded into one graph, replayed on two input sets
+MESH_TRANSPORT_SHAPE = (1024, 768)
+MESH_TRANSPORT_TICKS = {"all_reduce": 2, "broadcast": 1, "all_gather": 1, "reduce_scatter": 1,
+                        "shift": 2}
+
+
+def _captured_transports(group) -> dict:
+    """Each transport of ``parallel/mesh.py`` over ``group``: eager, then
+    recorded into one CUDA graph (its communicator made first) and replayed
+    on two sets of inputs copied into the graph's input buffers; whether each
+    transport's replayed outputs equal its eager ones bit for bit, whether
+    the two input sets give different outputs, the transports' counts at
+    the capture and the ms of one eager pass and one replay (CUDA events).
+    On one rank the ring hop is ``_shift``'s send to itself
+    (``ppermute`` short-circuits an axis of one rank)."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.parallel.mesh import (
+        TRANSPORTS,
+        Axis,
+        _gather,
+        _reduce_scatter,
+        _shift,
+        all_reduce_sum,
+        broadcast,
+        transport_stats,
+    )
+    from distkeras_tpu_torch.utils import graphs
+
+    size, index = dist.get_world_size(group), dist.get_rank(group)
+    ax = Axis("ring", group, index, size)
+    gen = torch.Generator().manual_seed(31 + index)
+    sets = [(torch.randn(MESH_TRANSPORT_SHAPE, generator=gen),
+             torch.randint(0, 1 << 40, (4096,), generator=gen)) for _ in range(2)]
+    x = torch.zeros(MESH_TRANSPORT_SHAPE, device="cuda")
+    n = torch.zeros(4096, dtype=torch.int64, device="cuda")
+
+    def body():
+        flat = x.reshape(-1)
+        return {"all_reduce": all_reduce_sum([x, n], group),
+                "broadcast": broadcast([2 * x], 0, group),
+                "all_gather": [_gather(x, ax)],
+                "reduce_scatter": [_reduce_scatter(x, ax, 0)],
+                "shift": [_shift(flat, ax, 1), _shift(flat, ax, -1)]}
+
+    def run(step):
+        outs = []
+        for a, b in sets:
+            x.copy_(a)
+            n.copy_(b)
+            outs.append({k: [t.clone() for t in v] for k, v in step().items()})
+        return outs
+
+    eager = run(body)
+    with graphs.CAPTURE_LOCK:
+        graphs.warm_up_groups([group], "cuda")
+        graphs.warm_up(body, "cuda")
+        graph = torch.cuda.CUDAGraph()
+        before = {k: transport_stats[k] for k in TRANSPORTS}
+        with graphs.capturing(graph):
+            static = body()
+        ticks = {k: transport_stats[k] - before[k] for k in TRANSPORTS}
+
+    def replay():
+        graph.replay()
+        return static
+
+    captured = run(replay)
+    same = {k: all(torch.equal(c, e) for got, want in zip(captured, eager)
+                   for c, e in zip(got[k], want[k])) for k in static}
+    moved = all(not torch.equal(eager[0][k][0], eager[1][k][0]) for k in static)
+    return dict(group_size=size, shape=list(MESH_TRANSPORT_SHAPE), bitwise=same,
+                inputs_change_outputs=moved, ticks=ticks,
+                eager_ms=cuda_ms(body, 10), replay_ms=cuda_ms(graph.replay, 10))
+
+
+def _gspmd_fsdp_captured(seed: int, frame) -> dict:
+    """``cifar_cnn_downpour`` with ``fsdp=True`` (the GSPMD engine) over the
+    one-rank NCCL mesh, eager and in captured windows, cuDNN deterministic
+    (as the spawned mesh runs): the captured run against the eager one, the
+    engine, its captures and replays and the collectives its graphs hold,
+    ticks and ticks x replays.  One workers rank splits no center leaf: the
+    fsdp gather short-circuits, and the graphs hold the commit's
+    all-reduces."""
+    from distkeras_tpu_torch.parallel.mesh import TRANSPORTS
+    from distkeras_tpu_torch.utils.pytree import tree_leaves
+
+    runs, engines = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for name, kwargs in (("eager", {}), ("graph", dict(unroll=True))):
+            trainer = _cifar_trainer(seed, fsdp=True, **kwargs)
+            runs[name] = _trained(trainer, frame)
+            engines[name] = trainer.fit_result[0]
+            del trainer
+    graph = engines["graph"]
+    launches = graph.graph_launches()
+    return dict(engine=type(graph).__name__, fsdp=graph.fsdp, use_graphs=graph.use_graphs,
+                eager_use_graphs=engines["eager"].use_graphs, workers_ranks=graph.n_dev,
+                center_leaves_split=sum(d >= 0 for d in tree_leaves(graph._fsdp_dims)),
+                graph_stats=dict(graph.graph_stats),
+                collectives_ticks_and_ticks_x_replays={n: list(launches[n]) for n in TRANSPORTS},
+                vs_eager=_versus(runs["graph"], runs["eager"]),
+                samples_per_s=ZOO_EPOCHS * len(frame) / runs["graph"]["seconds"],
+                samples_per_s_eager=ZOO_EPOCHS * len(frame) / runs["eager"]["seconds"])
 
 
 def _mesh_versus(got: dict, want: dict) -> dict:
@@ -3021,6 +3239,8 @@ def mesh_phase(seed: int, eager_run, frame, train_launches, train_run) -> dict:
                                engine_group=trainer.fit_result[0].group is not None,
                                vs_train_phase=_versus(lm, train_run)))
             del trainer
+            row["transports_captured"] = _captured_transports(dist.group.WORLD)
+            row["gspmd_fsdp_captured"] = _gspmd_fsdp_captured(seed, frame)
     finally:
         networking.shutdown()
     row["card"] = CARD
@@ -3036,6 +3256,18 @@ def mesh_phase(seed: int, eager_run, frame, train_launches, train_run) -> dict:
     if "lm" in row and (row["lm"]["launches"] != row["lm"]["launches_train_phase"]
                         or not row["lm"]["engine_group"]):
         raise AssertionError(f"mesh: the GPT-2 DOWNPOUR over the mesh: {row['lm']}")
+    if "transports_captured" in row:
+        got = row["transports_captured"]
+        if not (all(got["bitwise"].values()) and got["inputs_change_outputs"]
+                and got["ticks"] == MESH_TRANSPORT_TICKS):
+            raise AssertionError(f"mesh: the transports captured over one NCCL rank: {got}")
+        got = row["gspmd_fsdp_captured"]
+        reduces = got["collectives_ticks_and_ticks_x_replays"]["all_reduce"]
+        if not (got["engine"] == "GSPMDEngine" and got["fsdp"] and got["use_graphs"]
+                and not got["eager_use_graphs"] and got["graph_stats"]["captures"] >= 1
+                and reduces[0] >= 1 and reduces[1] == reduces[0] * got["graph_stats"]["replays"]
+                and got["vs_eager"]["bitwise"]):
+            raise AssertionError(f"mesh: GSPMD fsdp captured over one NCCL rank: {got}")
 
     # (b) two ranks on the one card, and (c) one rank a card
     one_rank = _mesh_runs(seed)
@@ -3164,9 +3396,12 @@ def _ring_ms_per_layer(batch: int, mesh) -> float:
 
 def _seq_runs(seed: int) -> dict:
     """One rank's share of the phase, in the grid of the group it is in:
-    the SP ``DOWNPOUR`` (center replicated, then ``fsdp=True``), the ring's
-    ms a layer, the classifier's forward on this rank's block, and (rank 0,
-    after the group is left) the returned twin through ``ModelPredictor``."""
+    the SP ``DOWNPOUR`` (center replicated, then ``fsdp=True``), over NCCL
+    both again in captured windows (``unroll=True``: the ring's hops, the
+    pmean over seq and fsdp's gathers inside the graphs) with one steady
+    epoch each way, the ring's ms a layer, the classifier's forward on this
+    rank's block, and (rank 0, after the group is left) the returned twin
+    through ``ModelPredictor``."""
     import torch.distributed as dist
 
     import distkeras_tpu_torch as tdk
@@ -3181,7 +3416,12 @@ def _seq_runs(seed: int) -> dict:
     counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     out = {}
     on_card = ZOO_DEVICE == "cuda"
-    for name, kwargs in (("sp", {}), ("fsdp", dict(fsdp=True))):
+    nccl = _captures_here()
+    cases = [("sp", {}), ("fsdp", dict(fsdp=True))]
+    if nccl:
+        cases += [(f"{name}_graph", dict(kwargs, unroll=True)) for name, kwargs in cases]
+    x, y = lm_task(TRAIN_ROWS, SEQ_MODEL["max_len"], SEQ_MODEL["vocab_size"], seed + 2)
+    for name, kwargs in cases:
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -3196,7 +3436,10 @@ def _seq_runs(seed: int) -> dict:
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
                    center_bytes=sum(t.numel() * t.element_size()
                                     for t in state.center_params.values()),
-                   grid=list(engine.mesh.shape), num_updates=trainer.num_updates)
+                   grid=list(engine.mesh.shape), num_updates=trainer.num_updates,
+                   **_graph_record(engine))
+        if nccl:
+            run.update(_steady_epoch(trainer, x, y, TRAIN_ROWS * SEQ_MODEL["max_len"]))
         out[name] = run
         if name == "sp":  # the grid, and the model the trainer returned
             mesh, twin = engine.mesh, trainer.parameter_server.model
@@ -3261,7 +3504,7 @@ def seq_rank_main(spec_path: str) -> int:
     try:
         runs = _seq_runs(spec["seed"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     if spec["rank"] == 0:
         runs["twin"] = _twin_predictor(runs["twin"], spec["seed"])
         torch.save(runs, spec["out"])
@@ -3337,10 +3580,28 @@ def _seq_versus(got: dict, train_run: dict, cls_want, backend: str) -> tuple:
         failures.append(f"the twin's predictor: {twin}")
     if ZOO_DEVICE == "cuda" and backend == "gloo" and not sp["host_staged_bytes"] > 0:
         failures.append("gloo on the card staged no byte through the host")
+    if "sp_graph" in got:  # over NCCL: the same runs in captured windows
+        steps = TRAIN_ROWS // (TRAIN_WORKERS * TRAIN_BATCH)
+        row["captured"] = {}
+        for name in ("sp", "fsdp"):
+            graph = got[f"{name}_graph"]
+            crow, cfail = _captured_row(graph, got[name], steps, SEQ_EPOCHS)
+            if not crow["vs_eager"]["bitwise"]:  # the one-rank gates still hold
+                v = _versus(graph, train_run)
+                cfirst = abs(graph["first_window_loss"] - train_run["first_window_loss"]) / abs(
+                    train_run["first_window_loss"])
+                crow.update(vs_one_rank=v, first_window_loss_rel_err=cfirst)
+                if (cfirst > SEQ_FIRST_LOSS_RTOL or v["loss_rel_err"] > SEQ_LOSS_RTOL
+                        or v["param_rel_norm_err"] > SEQ_PARAM_REL_NORM):
+                    cfail.append(f"not bitwise eager, and off one rank: {v}, first {cfirst}")
+            row["captured"][name] = crow
+            failures += [f"captured {name}: {f}" for f in cfail]
+        if not _versus(got["fsdp_graph"], got["sp_graph"])["bitwise"]:
+            failures.append("captured fsdp is not the captured replicated run bit for bit")
     return row, failures
 
 
-def seq_phase(seed: int, train_run) -> dict:
+def seq_phase(seed: int, train_run, pair: bool = True) -> dict:
     """Sequence parallelism at GPT-2-small widths (``SEQ_MODEL``: 6 blocks,
     ``SEQ_EPOCHS``): (a) two gloo ranks spawned on the one card
     (``--seq-rank``; NCCL refuses two ranks on one card), grid 1 x 2: the
@@ -3350,9 +3611,14 @@ def seq_phase(seed: int, train_run) -> dict:
     replicated run; (b)
     ``TransformerClassifier(seq_axis="seq")``'s logits at 2 ranks against
     one rank (B1); (c) the trained twin through ``ModelPredictor`` (B1); (d)
-    on a machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
-    checks (else ``seq_cards_run: 1``).  B1-B3 launch 0 times on the
-    seq-sharded path: the ring is plain products, as in JAX."""
+    on a machine with several cards, NCCL, one rank a card (grid 2 x 2 with 4
+    cards or more, 1 x 2 with 2 or 3), the same checks, and both runs again
+    in captured windows, held to the eager runs bit for bit (else to the
+    one-rank gates), with captures, replays, the collectives in the graphs
+    and tokens/s both ways (one card: ``seq_cards_run: 1``).  B1-B3 launch
+    0 times on the seq-sharded path: the ring is plain products, as in
+    JAX.  ``pair=False`` skips (a), for a call that runs the NCCL grid
+    alone."""
     import tempfile
 
     from distkeras_tpu_torch.models import TorchModel, TransformerClassifier
@@ -3369,11 +3635,11 @@ def seq_phase(seed: int, train_run) -> dict:
     if ZOO_DEVICE == "cuda":
         torch.cuda.empty_cache()
     out = {}
-    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    cards = _nccl_cards()
     with tempfile.TemporaryDirectory() as workdir:
-        runs = [("two_ranks_one_card", 2, "gloo", False)]
-        if count >= 4:
-            runs.append(("cards", 4, "nccl", True))
+        runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
+        if cards:
+            runs.append(("cards", cards, "nccl", True))
         for case, world, backend, cards in runs:
             got = _spawn_seq(seed, world, backend, cards, workdir)
             row, failures = _seq_versus(got, train_run, cls_want, backend)
@@ -3385,10 +3651,8 @@ def seq_phase(seed: int, train_run) -> dict:
             out[case] = row
             if failures:
                 raise AssertionError(f"seq: {case}: {failures}")
-    if count < 4:
-        emit(phase="seq", case="cards", seq_cards_run=1,
-             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4",
-             card=CARD)
+    if not _nccl_cards():
+        emit(phase="seq", case="cards", seq_cards_run=1, reason=NCCL_CARDS_REASON, card=CARD)
     return out
 
 
@@ -3473,7 +3737,10 @@ def _tp_runs(seed: int) -> dict:
     2-rank run and ``fsdp=True`` alone (grid 2 x 1); over 4 (one a card)
     ``tp_shards=2, fsdp=True`` (grid 2 x 2).  Each with B1-B3's launches,
     the bytes staged through the host, peak memory and resident bytes; rank
-    0 keeps the first run's returned model for the predictor."""
+    0 keeps the first run's returned model for the predictor.  Over NCCL
+    the ``tp`` run (and on 2 ranks the fsdp run) again in captured windows
+    (``unroll=True``: the column-parallel gathers and psums, the commit and
+    fsdp's gathers inside the graphs), with one steady epoch each way."""
     import torch.distributed as dist
 
     from distkeras_tpu_torch.ops import (
@@ -3485,11 +3752,16 @@ def _tp_runs(seed: int) -> dict:
 
     counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     on_card = ZOO_DEVICE == "cuda"
+    nccl = _captures_here()
     if dist.get_world_size() == 2:
-        cases = (("tp", dict(tp_shards=TP_SHARDS)), ("replicated", {}),
-                 ("fsdp", dict(fsdp=True)))
+        cases = [("tp", dict(tp_shards=TP_SHARDS)), ("replicated", {}),
+                 ("fsdp", dict(fsdp=True))]
     else:
-        cases = (("tp", dict(tp_shards=TP_SHARDS, fsdp=True)),)
+        cases = [("tp", dict(tp_shards=TP_SHARDS, fsdp=True))]
+    if nccl:
+        cases += [(f"{name}_graph", dict(kwargs, unroll=True)) for name, kwargs in cases
+                  if name != "replicated"]
+    x, y = lm_task(TRAIN_ROWS, TP_MODEL["max_len"], TP_MODEL["vocab_size"], seed + 2)
     out = {}
     for name, kwargs in cases:
         if on_card:
@@ -3505,7 +3777,10 @@ def _tp_runs(seed: int) -> dict:
                    host_staged_bytes=transport_stats["host_staged_bytes"],
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
                    grid=list(engine.mesh.shape), engine=type(engine).__name__,
-                   num_updates=trainer.num_updates, **_resident(engine, state))
+                   num_updates=trainer.num_updates, **_resident(engine, state),
+                   **_graph_record(engine))
+        if nccl:
+            run.update(_steady_epoch(trainer, x, y, TRAIN_ROWS * TP_MODEL["max_len"]))
         out[name] = run
         if name == "tp":
             out["model"] = trainer.parameter_server.model
@@ -3537,7 +3812,7 @@ def tp_rank_main(spec_path: str) -> int:
     try:
         runs = _tp_runs(spec["seed"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     if spec["rank"] == 0:
         runs["predictor"] = _twin_predictor(runs.pop("model"), spec["seed"])
         torch.save(runs, spec["out"])
@@ -3625,10 +3900,28 @@ def _tp_versus(got: dict, ref: dict, ref_launches, train_run, backend: str) -> t
             failures.append("the fsdp center is not stored in worker shards")
         if fsdp["engine"] != "GSPMDEngine" or rep["engine"] != "WindowedEngine":
             failures.append(f"engines: fsdp {fsdp['engine']}, replicated {rep['engine']}")
+    if "tp_graph" in got:  # over NCCL: the same runs in captured windows
+        steps = TRAIN_ROWS // (TRAIN_WORKERS * TRAIN_BATCH)
+        row["captured"] = {}
+        for name in ("tp", "fsdp"):
+            if f"{name}_graph" not in got:
+                continue
+            graph = got[f"{name}_graph"]
+            crow, cfail = _captured_row(graph, got[name], steps, TP_EPOCHS)
+            if not crow["vs_eager"]["bitwise"]:  # the one-rank gates still hold
+                v = _versus(graph, ref)
+                cfirst = abs(graph["first_window_loss"] - ref["first_window_loss"]) / abs(
+                    ref["first_window_loss"])
+                crow.update(vs_one_rank=v, first_window_loss_rel_err=cfirst)
+                if (cfirst > TP_FIRST_LOSS_RTOL or v["loss_rel_err"] > TP_LOSS_RTOL
+                        or v["param_rel_norm_err"] > TP_PARAM_REL_NORM):
+                    cfail.append(f"not bitwise eager, and off one rank: {v}, first {cfirst}")
+            row["captured"][name] = crow
+            failures += [f"captured {name}: {f}" for f in cfail]
     return row, failures
 
 
-def tp_phase(seed: int, train_run) -> dict:
+def tp_phase(seed: int, train_run, pair: bool = True) -> dict:
     """Tensor parallelism at GPT-2-small widths (``TP_MODEL``: 6 blocks;
     ``TP_EPOCHS`` epochs of the train phase's ``DOWNPOUR``): (a) two gloo
     ranks spawned on the one card (``--tp-rank``), grid 1 x 2,
@@ -3640,8 +3933,13 @@ def tp_phase(seed: int, train_run) -> dict:
     same two ranks ``fsdp=True`` alone (grid 2 x 1) bit for bit the
     replicated two-rank run, its center in worker shards; (c) the returned
     model through ``ModelPredictor`` on one rank (B1); (d) on a machine with
-    4 cards, NCCL, one rank a card, grid 2 x 2 with ``tp_shards=2,
-    fsdp=True``, the same checks (else ``tp_cards_run: 1``)."""
+    several cards, NCCL, one rank a card: grid 2 x 2 with ``tp_shards=2,
+    fsdp=True`` on 4 cards or more, (a) and (b)'s grids on 2 or 3, the same
+    checks, and the TP (and fsdp) runs again in captured windows, held to
+    the eager runs bit for bit (else to the one-rank gates), B1-B3 launched
+    in the graphs as eagerly (ticks x replays), with captures, replays and
+    tokens/s both ways (one card: ``tp_cards_run: 1``).  ``pair=False``
+    skips (a) and (b), for a call that runs the NCCL grid alone."""
     import tempfile
 
     from distkeras_tpu_torch.ops import (
@@ -3666,11 +3964,11 @@ def tp_phase(seed: int, train_run) -> dict:
     if ZOO_DEVICE == "cuda":
         torch.cuda.empty_cache()
     out = {}
-    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    cards = _nccl_cards()
     with tempfile.TemporaryDirectory() as workdir:
-        runs = [("two_ranks_one_card", 2, "gloo", False)]
-        if count >= 4:
-            runs.append(("cards", 4, "nccl", True))
+        runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
+        if cards:
+            runs.append(("cards", cards, "nccl", True))
         for case, world, backend, cards in runs:
             got = _spawn_tp(seed, world, backend, cards, workdir)
             row, failures = _tp_versus(got, ref, ref_launches, train_run, backend)
@@ -3681,9 +3979,8 @@ def tp_phase(seed: int, train_run) -> dict:
             out[case] = row
             if failures:
                 raise AssertionError(f"tp: {case}: {failures}")
-    if count < 4:
-        emit(phase="tp", case="cards", tp_cards_run=1,
-             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4", card=CARD)
+    if not _nccl_cards():
+        emit(phase="tp", case="cards", tp_cards_run=1, reason=NCCL_CARDS_REASON, card=CARD)
     return out
 
 
@@ -3755,24 +4052,47 @@ def _serve_traffic(engine, registry, requests) -> dict:
 
 
 def _serving_tp_runs(seed: int, world: int) -> dict:
-    """One rank's share of the phase, in the group it is in: the traffic
-    on ``ServingEngine(mesh=)`` over every rank (rank 0 drives, the others
-    follow its plans), the sampled requests rerun alone, the profiled
-    decode step, then the speculative engine on the same mesh.  Rank 0
-    returns what it measured."""
+    """One rank's share of the phase, in the group it is in:
+    :func:`_serving_tp_served` with the step programs eager (gloo: its
+    collectives cannot be captured) and, over NCCL, again with them
+    captured (each rank's prefills, decode step and speculative iteration
+    as CUDA graphs, the all-reduce a block inside), under ``captured``.
+    Rank 0 returns what it measured."""
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    from distkeras_tpu_torch.serving import engine as engine_module
+
+    _, trained = _serve_model(seed)
+    requests = _serve_tp_requests(seed)
+    mesh = make_mesh(world, axis_name="model")
+    out = {}
+    try:
+        for captured in (False, True) if _captures_here() else (False,):
+            engine_module.CAPTURE_PROGRAMS = captured  # read when each engine is built
+            got = _serving_tp_served(trained, requests, mesh, seed)
+            if captured:
+                out["captured"] = got
+            else:
+                out.update(got)
+    finally:
+        engine_module.CAPTURE_PROGRAMS = True
+    return out
+
+
+def _serving_tp_served(trained, requests, mesh, seed: int) -> dict:
+    """The traffic on ``ServingEngine(mesh=)`` over every rank (rank 0
+    drives, the others follow its plans), the sampled requests rerun alone,
+    the profiled decode step, then the speculative engine on the same mesh;
+    rank 0's measurements with each engine's captures and replays."""
     from distkeras_tpu_torch.models import TransformerLM
     from distkeras_tpu_torch.ops import (
         flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
     )
-    from distkeras_tpu_torch.parallel.mesh import make_mesh, transport_stats
+    from distkeras_tpu_torch.parallel.mesh import transport_stats
     from distkeras_tpu_torch.serving import GenerateRequest
     from distkeras_tpu_torch.telemetry.metrics import Registry
 
-    _, trained = _serve_model(seed)
-    requests = _serve_tp_requests(seed)
-    mesh = make_mesh(world, axis_name="model")
     counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     out = {}
     registry = Registry()
@@ -3821,6 +4141,7 @@ def _serving_tp_runs(seed: int, world: int) -> dict:
                 device_busy_share=profile.get("device_busy_share"))
             out["pool_bytes"] = engine._cache.k_pages.nbytes + engine._cache.v_pages.nbytes
             out["heads_a_rank"] = engine._spec.heads
+            out["graph_stats"] = dict(engine.graph_stats, captured=engine._use_graphs)
         finally:
             engine.stop()
     draft = TransformerLM(**SERVE_DRAFT, generator=torch.Generator().manual_seed(seed + 8))
@@ -3835,7 +4156,8 @@ def _serving_tp_runs(seed: int, world: int) -> dict:
         t0 = time.perf_counter()
         out["speculative"] = dict(requests=greedy, tokens=[
             spec.submit(GenerateRequest(**requests[i])).result(timeout=600).tokens
-            for i in greedy], seconds=time.perf_counter() - t0)
+            for i in greedy], seconds=time.perf_counter() - t0,
+            graph_stats=dict(spec.graph_stats, captured=spec._use_graphs))
     finally:
         spec.stop()
     return out
@@ -3865,7 +4187,7 @@ def serving_tp_rank_main(spec_path: str) -> int:
     try:
         runs = _serving_tp_runs(spec["seed"], spec["world"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     if spec["rank"] == 0:
         torch.save(runs, spec["out"])
     return 0
@@ -3932,8 +4254,45 @@ def _serving_tp_versus(got: dict, ref: dict, requests, trained, world: int) -> t
                                 departures_from_mesh_plain=spec_departures),
                pool_bytes_rank=got["pool_bytes"], pool_bytes_one_rank=ref["pool_bytes"],
                host_staged_bytes_rank0=got["host_staged_bytes"],
-               profiled_decode=got["profiled_decode"],
+               profiled_decode=got["profiled_decode"], graph_stats=got["graph_stats"],
                launches_b1_b2_b3=got["launches_b1_b2_b3"], greedy_gap=GREEDY_GAP, card=CARD)
+    if "captured" in got:  # over NCCL: the same traffic through captured programs
+        cap = got["captured"]
+        same = (cap["traffic"]["tokens"] == got["traffic"]["tokens"]
+                and cap["speculative"]["tokens"] == spec["tokens"])
+        row["captured"] = dict(
+            tokens_equal_eager=same, graph_stats=cap["graph_stats"],
+            speculative_graph_stats=cap["speculative"]["graph_stats"],
+            generated_tokens_per_s=cap["traffic"]["generated_tokens_per_s"],
+            generated_tokens_per_s_eager=traffic["generated_tokens_per_s"],
+            step_ms_mean=cap["traffic"]["step_ms_mean"], step_ms_mean_eager=traffic["step_ms_mean"],
+            step_ms_p50=cap["traffic"]["step_ms_p50"], step_ms_p50_eager=traffic["step_ms_p50"],
+            ttft_ms_p50=cap["traffic"]["ttft_ms_p50"], ttft_ms_p50_eager=traffic["ttft_ms_p50"],
+            speculative_seconds=cap["speculative"]["seconds"],
+            speculative_seconds_eager=spec["seconds"],
+            profiled_decode=cap["profiled_decode"],
+            profiled_decode_eager=got["profiled_decode"],
+            launches_b1_b2_b3=cap["launches_b1_b2_b3"],
+            sampled_rerun_equal=not cap["sampled_mismatched"])
+        if not (cap["graph_stats"]["captured"] and cap["graph_stats"]["captures"] >= 1
+                and cap["speculative"]["graph_stats"]["captures"] >= 1):
+            failures.append(f"captured: no program was captured: {row['captured']}")
+        if not same:
+            # not bitwise the eager programs: held to the one-rank engine instead
+            for i, req in enumerate(requests):
+                if "seed" not in req:
+                    try:
+                        _held_to_greedy(trained, req["prompt"], cap["traffic"]["tokens"][i],
+                                        ref["tokens"][i])
+                    except AssertionError as e:
+                        failures.append(f"captured request {i}: {e}")
+        if cap["sampled_mismatched"]:
+            failures.append(f"captured: sampled requests {cap['sampled_mismatched']} differ alone")
+        if cap["profiled_decode"]["all_reduces_per_decode_step"] != SERVE_MODEL["num_layers"]:
+            failures.append(f"captured: {cap['profiled_decode']['all_reduces_per_decode_step']} "
+                            "all-reduces a replayed decode step, one a block expected")
+        if cap["launches_b1_b2_b3"] != [0, 0, 0]:
+            failures.append(f"captured: B1-B3 launched {cap['launches_b1_b2_b3']} times")
     return row, failures
 
 
@@ -3955,9 +4314,13 @@ def _serving_tp_phase(seed: int, pair: bool = True) -> dict:
     phase's GPT-2-small widths: ``SERVE_TP_REQUESTS`` requests
     ``SERVE_STAGGER_S`` apart (half sampled) on the one-rank engine in this
     process, then on (a) two gloo ranks spawned on the one card
-    (``--serving-tp-rank``, 6 heads a rank) and (b) on a machine with 4
-    cards, 4 NCCL ranks, one a card (3 heads a rank; else
-    ``serving_tp_cards_run: 1``).  Gates: greedy tokens equal to the
+    (``--serving-tp-rank``, 6 heads a rank; their step programs eager, as
+    gloo cannot be captured) and (b) on a machine with several cards, 4
+    NCCL ranks, one a card, with 4 cards or more (3 heads a rank), 2 with 2
+    or 3 (else ``serving_tp_cards_run: 1``), the traffic served eagerly and
+    again through captured step programs, whose tokens must equal the eager
+    ones (else be held to the one-rank engine as the eager ones are), one
+    all-reduce a block a replayed decode step.  Gates: greedy tokens equal to the
     one-rank engine's but where the reference's top-two gap is below
     ``GREEDY_GAP``; sampled requests equal to themselves rerun alone on the
     mesh; speculative greedy (the serving phase's draft) the mesh's plain
@@ -3979,11 +4342,11 @@ def _serving_tp_phase(seed: int, pair: bool = True) -> dict:
     finally:
         engine.stop()
     out = {}
-    count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
+    cards = _nccl_cards()
     with tempfile.TemporaryDirectory() as workdir:
         runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
-        if count >= 4:
-            runs.append(("cards", 4, "nccl", True))
+        if cards:
+            runs.append(("cards", cards, "nccl", True))
         for case, world, backend, cards in runs:
             got = _spawn_serving_tp(seed, world, backend, cards, workdir)
             row, failures = _serving_tp_versus(got, ref, requests, trained, world)
@@ -3994,9 +4357,9 @@ def _serving_tp_phase(seed: int, pair: bool = True) -> dict:
             out[case] = row
             if failures:
                 raise AssertionError(f"serving_tp: {case}: {failures}")
-    if count < 4:
-        emit(phase="serving_tp", case="cards", serving_tp_cards_run=1,
-             reason="4 NCCL ranks need torch.cuda.device_count() >= 4", card=CARD)
+    if not _nccl_cards():
+        emit(phase="serving_tp", case="cards", serving_tp_cards_run=1, reason=NCCL_CARDS_REASON,
+             card=CARD)
     return out
 
 
@@ -4062,9 +4425,12 @@ def moe_train(seed: int, **kwargs):
 
 def _moe_runs(seed: int) -> dict:
     """One rank's share of the phase, in the group it is in: over 2 ranks
-    (one card) ``tp_shards=2`` with ``expert_partition(8)`` (grid 1 x 2),
-    over 4 (one a card) the same on the 2 x 2 grid; B1-B3's launches, bytes
-    through the host, peak memory, the resident expert bytes."""
+    ``tp_shards=2`` with ``expert_partition(8)`` (grid 1 x 2), over 4 (one a
+    card) the same on the 2 x 2 grid; B1-B3's launches, bytes through the
+    host, peak memory, the resident expert bytes.  Over NCCL the same run
+    again in captured windows (``unroll=True``: EP's input psum and output
+    gather and the attention's gathers and psums inside the graphs), under
+    ``captured``, with one steady epoch each way."""
     from distkeras_tpu_torch.models import expert_partition
     from distkeras_tpu_torch.ops import (
         flash_attention,
@@ -4075,21 +4441,31 @@ def _moe_runs(seed: int) -> dict:
 
     counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     on_card = ZOO_DEVICE == "cuda"
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    transport_stats["host_staged_bytes"] = 0
-    trainer, run = moe_train(seed, tp_shards=MOE_TP_SHARDS,
-                             tp_spec_fn=expert_partition(MOE_MODEL["num_experts"]))
-    engine, state, _ = trainer.fit_result
-    run.update(launches=[c.launches for c in counters],
-               host_staged_bytes=transport_stats["host_staged_bytes"],
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
-               grid=list(engine.mesh.shape), num_updates=trainer.num_updates,
-               **_expert_bytes(state.center_params))
-    return run
+    nccl = _captures_here()
+    rows = TRAIN_WORKERS * MOE_WINDOWS * TRAIN_WINDOW * TRAIN_BATCH
+    x, y = moe_task(rows, seed + 22)
+    runs = {}
+    for name, kwargs in (("eager", {}), ("captured", dict(unroll=True)))[:2 if nccl else 1]:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        transport_stats["host_staged_bytes"] = 0
+        trainer, run = moe_train(seed, tp_shards=MOE_TP_SHARDS,
+                                 tp_spec_fn=expert_partition(MOE_MODEL["num_experts"]), **kwargs)
+        engine, state, _ = trainer.fit_result
+        run.update(launches=[c.launches for c in counters],
+                   host_staged_bytes=transport_stats["host_staged_bytes"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                   grid=list(engine.mesh.shape), num_updates=trainer.num_updates,
+                   **_expert_bytes(state.center_params),
+                   **_graph_record(engine))
+        if nccl:
+            run.update(_steady_epoch(trainer, x, y, rows * MOE_MODEL["max_len"]))
+        runs[name] = run
+        del trainer, engine, state
+    return dict(runs["eager"], **({"captured": runs["captured"]} if nccl else {}))
 
 
 def _expert_bytes(center) -> dict:
@@ -4124,7 +4500,7 @@ def moe_rank_main(spec_path: str) -> int:
     try:
         run = _moe_runs(spec["seed"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     if spec["rank"] == 0:
         torch.save(run, spec["out"])
     return 0
@@ -4172,9 +4548,13 @@ def moe_phase(seed: int, pair: bool = True) -> dict:
     (grid 1 x 2): first window, history and center against (a) within phase
     20's gates, each rank's expert stacks half of one rank's, each expert
     product on a rank over 4 experts, B1-B3 as at one rank; (c) on a
-    machine with 4 cards, NCCL, one rank a card, grid 2 x 2, the same
-    checks (else ``moe_cards_run: 1``).  ``pair=False`` skips (b), for a
-    4-card call that runs the NCCL grid alone."""
+    machine with several cards, NCCL, one rank a card (grid 2 x 2 with 4
+    cards or more, 1 x 2 with 2 or 3), the same checks, and the run again
+    in captured windows, held to the eager run bit for bit (else to the
+    one-rank gates), B1-B3 launched in the graphs as eagerly (ticks x
+    replays), with captures, replays and tokens/s both ways (else
+    ``moe_cards_run: 1``).  ``pair=False`` skips (b), for a call that runs
+    the NCCL grid alone."""
     import tempfile
 
     import distkeras_tpu_torch as tdk
@@ -4278,12 +4658,12 @@ def moe_phase(seed: int, pair: bool = True) -> dict:
         torch.cuda.empty_cache()
 
     out = {"one_rank": one_rank}
-    count = torch.cuda.device_count() if cuda else 1
+    cards = _nccl_cards()
     E = MOE_MODEL["num_experts"]
     with tempfile.TemporaryDirectory() as workdir:
         runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
-        if count >= 4:
-            runs.append(("cards", 4, "nccl", True))
+        if cards:
+            runs.append(("cards", cards, "nccl", True))
         for case, world, backend, cards in runs:
             got = _spawn_moe(seed, world, backend, cards, workdir)
             rows = got["grid"][0]
@@ -4322,14 +4702,29 @@ def moe_phase(seed: int, pair: bool = True) -> dict:
                                 f"{launches} over {rows} workers rows")
             if cuda and backend == "gloo" and not got["host_staged_bytes"] > 0:
                 failures.append("gloo on the card staged no byte through the host")
+            if "captured" in got:  # over NCCL: the same run in captured windows
+                graph = got["captured"]
+                crow, cfail = _captured_row(graph, got, MOE_WINDOWS * TRAIN_WINDOW, MOE_EPOCHS)
+                if not crow["vs_eager"]["bitwise"]:  # the one-rank gates still hold
+                    v = _versus(graph, ref)
+                    cfirst = (abs(graph["first_window_loss"] - ref["first_window_loss"])
+                              / abs(ref["first_window_loss"]))
+                    crow.update(vs_one_rank=v, first_window_loss_rel_err=cfirst)
+                    if (cfirst > MOE_FIRST_LOSS_RTOL or v["loss_rel_err"] > MOE_LOSS_RTOL
+                            or v["param_rel_norm_err"] > MOE_PARAM_REL_NORM):
+                        cfail.append(f"not bitwise eager, and off one rank: {v}, "
+                                     f"first {cfirst}")
+                if graph["experts_seen"] != [E // MOE_TP_SHARDS]:
+                    cfail.append(f"expert products saw {graph['experts_seen']} experts")
+                row["captured"] = crow
+                failures += [f"captured: {f}" for f in cfail]
             row["failures"] = failures
             emit(phase="moe", **row)
             out[case] = row
             if failures:
                 raise AssertionError(f"moe: {case}: {failures}")
-    if count < 4:
-        emit(phase="moe", case="cards", moe_cards_run=1,
-             reason="the 2 x 2 grid over NCCL needs torch.cuda.device_count() >= 4", card=CARD)
+    if not cards:
+        emit(phase="moe", case="cards", moe_cards_run=1, reason=NCCL_CARDS_REASON, card=CARD)
     return out
 
 
@@ -4516,7 +4911,7 @@ def pp_rank_main(spec_path: str) -> int:
     try:
         runs = _pp_runs(spec["seed"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     torch.save(runs, f"{spec['out']}.{spec['rank']}")
     return 0
 
@@ -4817,7 +5212,7 @@ def pp3d_rank_main(spec_path: str) -> int:
     try:
         runs = _pp3d_runs(spec["seed"])
     finally:
-        dist.destroy_process_group()
+        _leave_group()
     torch.save(runs, f"{spec['out']}.{spec['rank']}")
     return 0
 
@@ -6284,6 +6679,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.gloo_lane is not None:
         return gloo_lane_main(args.gloo_lane)
+    if any(v is not None for k, v in vars(args).items() if k.endswith("_rank")):
+        # a spawned rank: SIGUSR1 prints every thread's stack to its output
+        # (_run_ranks sends it to a rank past its timeout before the kill)
+        import faulthandler
+        import signal
+
+        faulthandler.register(signal.SIGUSR1, file=sys.stdout, all_threads=True)
     if args.mesh_rank is not None:
         return mesh_rank_main(args.mesh_rank)
     if args.seq_rank is not None:

@@ -104,10 +104,23 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Leave the process group :func:`initialize` joined (a no-op if none)."""
+    """Leave the process group :func:`initialize` joined (a no-op if none).
+
+    NCCL does not destroy a communicator while a CUDA graph that recorded
+    its collectives lives (a captured window's, a serving mesh's program):
+    the card is synchronised and the unreachable objects collected first,
+    since engines hold their graphs and often sit in reference cycles.  An
+    engine still referenced keeps its graphs: drop it, or clear its
+    captured programs (``clear_program_cache``), before the call."""
+    import gc
+
+    import torch
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        gc.collect()
         dist.destroy_process_group()
 
 

@@ -48,7 +48,13 @@ Deliberate differences from the JAX engine:
   **captured CUDA graph**: with ``unroll`` other than 1 (an int > 1, or
   ``True``) on a card, one uniform window (every worker's local steps and
   the commit) is captured once and replayed once a window, ``remat`` or
-  not.  The staleness simulation's epoch is captured the same way, one
+  not.  Over a mesh the window's collectives are inside the graph (the
+  commit's all-reduce over workers; with sequence parallelism the ring's
+  hops forward and backward, the gradients' pmean over seq and fsdp's
+  gather of the center): every axis group must run NCCL, whose
+  communicators are made before the capture, and every rank captures and
+  replays the same windows in lockstep (:mod:`~distkeras_tpu_torch.utils.
+  graphs`).  The staleness simulation's epoch is captured the same way, one
   step at a time: every worker's local step and the masked commit, with
   the step index and each worker's steps since its last commit held on
   the device, replayed once a step.  On the CPU, where there are no
@@ -111,9 +117,6 @@ read-back follows, outside it.  Then the consumed input state is poisoned:
 a later read of its fields raises instead of silently seeing the updated
 tensors.  Off, the engine does none of this; on or off, the trajectory is
 the same bit for bit.
-
-Not in this slice: ``seq_shards > 1`` inside a captured window (its
-collectives must be NCCL's inside the graph, ROADMAP Queue A item 20).
 """
 
 from __future__ import annotations
@@ -140,6 +143,7 @@ from distkeras_tpu_torch.ops.metrics import get_metric, per_token_metric_names
 from distkeras_tpu_torch.ops.optimizers import apply_updates, get_optimizer
 from distkeras_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
+    TRANSPORTS,
     WORKER_AXIS,
     all_gather,
     all_reduce_sum,
@@ -154,6 +158,7 @@ from distkeras_tpu_torch.parallel.mesh import (
     mesh_size,
     resolve_axis,
     resolve_device,
+    transport_stats,
     worker_sharding,
 )
 from distkeras_tpu_torch.utils import graphs
@@ -386,9 +391,6 @@ class WindowedEngine:
         # unroll other than 1 on a card: each uniform window is a captured
         # CUDA graph; on the CPU the option is the JAX scan hint and inert
         self.use_graphs = _graphs_requested(unroll) and self.device.type == "cuda"
-        if self.use_graphs and self.seq_shards > 1:
-            raise _not_ported("seq_shards>1 inside a captured window (unroll other than 1 on "
-                              "a card)", "item 20 (CUDA-graph follow-ups)")
         if self.seq_shards > 1:
             self.mesh = _seq_grid(self.seq_shards) if mesh is None else mesh
             names = tuple(self.mesh.mesh_dim_names or ())
@@ -419,13 +421,11 @@ class WindowedEngine:
             )
         #: this rank's block of the workers
         self.workers = worker_sharding(self.mesh).local_slice(self.num_workers)
-        if self.use_graphs and self.group is not None and dist.get_backend(self.group) != "nccl":
-            raise ValueError(
-                "captured windows (unroll other than 1 on a card) hold the commit's "
-                "all-reduce inside the CUDA graph, and only NCCL collectives can be "
-                f"captured; this mesh's group runs {dist.get_backend(self.group)}: "
-                "train with unroll=1, or over NCCL (one rank per card)"
-            )
+        if self.use_graphs:
+            graphs.require_nccl(
+                [axis_group(self.mesh, n) for n in self.mesh.mesh_dim_names or ()],
+                "captured windows (unroll other than 1 on a card)",
+                "train with unroll=1, or over NCCL (one rank per card)")
         self.optimizer = get_optimizer(worker_optimizer)
         self.loss_fn = get_loss(loss, from_logits=self.adapter.outputs_logits)
         if getattr(self.adapter, "per_token_labels", False):
@@ -812,9 +812,14 @@ class WindowedEngine:
                 "update_sq": torch.zeros((), dtype=torch.float32, device=self.device),
             }
             for key, value in self._rule_dynamics(ctx, center, state).items():
-                # a value the rule built on the host (ADAG's steps in the
-                # window) crosses without a blocking copy, which would sync
-                value = torch.as_tensor(value).to(self.device, torch.float32, non_blocking=True)
+                # a value the rule holds on the host (ADAG's steps in the
+                # window, fixed for the window's shape) is filled in on the
+                # device: no copy to sync on, and none for a captured window
+                # to record from host memory
+                if isinstance(value, torch.Tensor):
+                    value = value.to(self.device, torch.float32, non_blocking=True)
+                else:
+                    value = torch.full((), float(value), dtype=torch.float32, device=self.device)
                 dyn[key] = torch.broadcast_to(value, (v,))
         return dyn, center
 
@@ -925,9 +930,12 @@ class WindowedEngine:
         happen inside a capture) and is undone: the state's values, the
         clock and the generators are restored.  Each worker's dropout
         generator is registered with the graph, so every replay draws fresh
-        masks; with ``remat``, so is its twin (:func:`_remat_apply`).  The
-        process-wide capture lock is held throughout.  A failed capture
-        raises: nothing falls back to eager."""
+        masks; with ``remat``, so is its twin (:func:`_remat_apply`).  Over
+        a mesh, the communicator of every axis group the window uses is
+        made first (:func:`~distkeras_tpu_torch.utils.graphs.warm_up_groups`),
+        and the collectives are recorded into the graph.  The process-wide
+        capture lock is held throughout.  A failed capture raises: nothing
+        falls back to eager."""
         from distkeras_tpu_torch.ops import (
             flash_attention,
             flash_attention_bwd_dkv,
@@ -937,6 +945,8 @@ class WindowedEngine:
         x, y = xs.clone(), ys.clone()
         leaves = tree_leaves(_state_trees(state)) + list((self._clock or {}).values())
         with graphs.CAPTURE_LOCK:
+            # NCCL records a collective only over a communicator that exists
+            graphs.warm_up_groups((self.group, *self._row_groups), self.device)
             saved = [t.clone() for t in leaves]
             saved_rng = [g.get_state() for g in state.rng]
             graphs.warm_up(lambda: body(state, x, y), self.device)
@@ -946,11 +956,6 @@ class WindowedEngine:
             for g, v in zip(state.rng, saved_rng):
                 g.set_state(v)
             del saved
-            if self.group is not None:
-                # NCCL captures a collective only once its communicator exists
-                all_reduce_sum([torch.zeros(1, device=self.device)], self.group)
-                with sanitizer_mod.transfer.allow("graph capture set-up"):
-                    torch.cuda.synchronize(self.device)
             if self.remat and self._twins is None:
                 self._twins = [g.clone_state() for g in state.rng]
             graph = torch.cuda.CUDAGraph()
@@ -958,23 +963,28 @@ class WindowedEngine:
                 graph.register_generator_state(g)
             counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
             before = [c.launches for c in counters]
+            sent = [transport_stats[n] for n in TRANSPORTS]
             self._twin_of = {id(g): t for g, t in zip(state.rng, self._twins or ())}
             try:
                 with graphs.capturing(graph):
                     loss, mets, dyn = body(state, x, y)
             finally:
                 self._twin_of = {}
-        # kernels launched inside the graph at each replay, by wrapper
+        # kernels launched and collectives run inside the graph at each
+        # replay, by wrapper and by transport
         ticks = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+        ticks.update((n, transport_stats[n] - b) for n, b in zip(TRANSPORTS, sent))
         self.graph_stats["captures"] += 1
         return _Captured(graph, x, y, loss, mets, dyn, ticks)
 
     def graph_launches(self) -> dict:
-        """Kernel launches of the captured windows since the cache was last
-        cleared, by wrapper, as ``(capture ticks, launches)``: a wrapper's
-        counter ticks once per launch site at capture, which launches
-        nothing, and each replay launches every recorded kernel once, so
-        the launches are the ticks times the replays."""
+        """Kernel launches and collectives of the captured windows since the
+        cache was last cleared, by wrapper (B1-B3) and by transport (the
+        ``TRANSPORTS`` of :data:`~distkeras_tpu_torch.parallel.mesh.
+        transport_stats`), as ``(capture ticks, runs)``: a counter ticks once
+        per site at capture, which launches nothing, and each replay runs
+        every recorded kernel and collective once, so the runs are the ticks
+        times the replays."""
         out: dict = {}
         for captured in self._graphs.values():
             for name, ticks in captured.ticks.items():

@@ -51,10 +51,15 @@ placement is carried out by the engine itself, without model surgery:
 ``commit_schedule`` (the staleness simulation), ``remat`` and the training
 dynamics run as in the windowed engine; the dynamics sums take each split
 leaf's block on its model rank and a whole leaf once, over the model axis,
-and the rule's diagnostics see whole trees.  Not in this slice: captured CUDA-graph windows (``unroll``
-other than 1 on a card) with ``tp_shards > 1`` or ``fsdp`` (ROADMAP Queue A
-item 20), and ``seq_shards`` (ring attention needs the windowed engine, as
-in JAX).
+and the rule's diagnostics see whole trees.  ``unroll`` other than 1 on a
+card captures each window as one CUDA graph, as the windowed engine does,
+with its collectives inside: the column-parallel products' gathers and
+input-gradient psums over ``model``, EP's input psum and output gather, with
+dynamics on the rule's diagnostics' gathers over ``model``, the commit's
+all-reduce over ``workers`` and, under fsdp, the center's gather at the
+pull (its slice after the commit is a view).  Both axis groups must run
+NCCL.  ``seq_shards`` is not taken here: ring attention needs the windowed
+engine, as in JAX.
 """
 
 from __future__ import annotations
@@ -68,12 +73,7 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from distkeras_tpu_torch.algorithms.base import UpdateRule
-from distkeras_tpu_torch.parallel.engine import (
-    TrainState,
-    WindowedEngine,
-    _graphs_requested,
-    _not_ported,
-)
+from distkeras_tpu_torch.parallel.engine import TrainState, WindowedEngine
 from distkeras_tpu_torch.parallel.mesh import (
     TP_AXIS,
     WORKER_AXIS,
@@ -83,7 +83,6 @@ from distkeras_tpu_torch.parallel.mesh import (
     gather_from_axis,
     make_mesh_grid,
     resolve_axis,
-    resolve_device,
 )
 from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -421,10 +420,6 @@ class GSPMDEngine(WindowedEngine):
         self.tp_shards = int(tp_shards)
         if self.tp_shards < 1:
             raise ValueError(f"tp_shards must be >= 1, got {tp_shards}")
-        if (_graphs_requested(unroll) and resolve_device(device).type == "cuda"
-                and (self.tp_shards > 1 or fsdp)):
-            raise _not_ported("tp_shards>1 or GSPMD fsdp inside a captured window (unroll "
-                              "other than 1 on a card)", "item 20 (CUDA-graph follow-ups)")
         if mesh is None:
             mesh = _tp_grid(self.tp_shards)
         names = tuple(mesh.mesh_dim_names or ())
@@ -450,7 +445,6 @@ class GSPMDEngine(WindowedEngine):
         self._views = leaf_views(adapter)
         #: per parameter leaf, the dim split over the model axis (-1: whole)
         self._tp_dims = None
-        self._placed_forward = _PlacedForward(self)
 
     # ------------------------------------------------------------- placement
     def _tp_spec(self, shape, name=None) -> tuple:
@@ -574,7 +568,10 @@ class GSPMDEngine(WindowedEngine):
 
     @property
     def _forward(self):
-        return self._placed_forward
+        # made at each use, so that the engine is in no reference cycle: its
+        # captured graphs go with it (NCCL keeps a communicator their
+        # collectives recorded until they do)
+        return _PlacedForward(self)
 
     def shard_center(self, tree):
         """A whole center (a checkpoint's) as this rank stores it: its model

@@ -34,7 +34,9 @@ rank's block of the cotangent, and :func:`copy_to_axis`, the identity
 whose backward is a psum.  The pipeline's :func:`broadcast_from_last` is a
 psum whose backward keeps the cotangent on the axis's last rank.  The route is picked by the
 group's backend: NCCL's own collectives (ring shifts as one
-``batch_isend_irecv``); gloo with CPU tensors directly; gloo with CUDA
+``batch_isend_irecv``), which a CUDA graph can record, so that a captured
+window or serving step holds them (:mod:`~distkeras_tpu_torch.utils.graphs`);
+gloo with CPU tensors directly; gloo with CUDA
 tensors staged through pinned host memory for the ring shift and the
 gather (gloo's send/recv and gather take no CUDA tensor), while psum and
 pmean are :func:`all_reduce_sum`, which gloo copies through the host
@@ -61,6 +63,7 @@ __all__ = [
     "SEQ_AXIS",
     "TP_AXIS",
     "PP_AXIS",
+    "TRANSPORTS",
     "Axis",
     "LocalMesh",
     "Sharding",
@@ -313,6 +316,7 @@ def all_reduce_sum(tensors, group):
             transport_stats["host_staged_bytes"] += 2 * flat.numel() * flat.element_size()
         with _staging(route):
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        transport_stats["all_reduce"] += 1
         _unflatten_into(out, tensors, idx, flat)
     return out
 
@@ -330,6 +334,7 @@ def broadcast(tensors, src: int, group):
         flat = flat.to(_comm_device(group, device))
         with _staging(_route(group, flat)):
             dist.broadcast(flat, src=src_global, group=group)
+        transport_stats["broadcast"] += 1
         _unflatten_into(out, tensors, idx, flat)
     return out
 
@@ -350,9 +355,19 @@ def barrier(group) -> None:
 #: and a rematerialised forward there must see the same binding
 _BOUND: list = []
 
-#: bytes the collectives copied between the card and the host (gloo with
-#: CUDA tensors; both directions counted); reset it to 0 freely
-transport_stats = {"host_staged_bytes": 0}
+#: ``host_staged_bytes``: bytes the collectives copied between the card and
+#: the host (gloo with CUDA tensors; both directions counted); and the
+#: ``torch.distributed`` calls each transport issued (``all_reduce``,
+#: ``broadcast``, ``all_gather``, ``reduce_scatter``; ``shift``, one a ring
+#: hop).  Python counts, so a collective recorded into a CUDA graph counts
+#: once, at capture, and runs at every replay: a captured window reports
+#: its ticks times its replays (``WindowedEngine.graph_launches``).  Reset
+#: them to 0 freely
+transport_stats = {"host_staged_bytes": 0, "all_reduce": 0, "broadcast": 0, "all_gather": 0,
+                   "reduce_scatter": 0, "shift": 0}
+
+#: the transports' call counts of :data:`transport_stats`
+TRANSPORTS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter", "shift")
 
 
 @contextlib.contextmanager
@@ -457,6 +472,7 @@ def _shift(flat: torch.Tensor, ax: Axis, shift: int) -> torch.Tensor:
     dst = dist.get_global_rank(ax.group, (ax.index + shift) % ax.size)
     src = dist.get_global_rank(ax.group, (ax.index - shift) % ax.size)
     route = _route(ax.group, flat)
+    transport_stats["shift"] += 1
     if route == "nccl":
         out = torch.empty_like(flat)
         reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, flat, dst, ax.group),
@@ -477,6 +493,7 @@ def _gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """Every rank's ``x`` stacked in axis order: ``[size, *x.shape]``."""
     x = x.contiguous()
     route = _route(ax.group, x)
+    transport_stats["all_gather"] += 1
     if route == "nccl":
         out = torch.empty((ax.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x, group=ax.group)
@@ -498,6 +515,7 @@ def _reduce_scatter(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
         chunks = torch.stack(x.split(block, dim=dim)).contiguous()
         out = torch.empty(chunks.shape[1:], dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, chunks, op=dist.ReduceOp.SUM, group=ax.group)
+        transport_stats["reduce_scatter"] += 1
         return out
     whole = all_reduce_sum([x], ax.group)[0]
     return whole.narrow(dim, ax.index * block, block).clone()

@@ -76,9 +76,12 @@ def attention(q, k, v, causal: bool = False, use_flash: Optional[bool] = None,
     return local_attention(q, k, v, causal=causal)
 
 
-def _scale(q: torch.Tensor) -> float:
-    """``1 / sqrt(head_dim)`` in ``q``'s dtype, as the JAX ring computes it."""
-    return float(1.0 / torch.tensor(float(q.shape[-1]), dtype=q.dtype).sqrt())
+def _scale(q: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(head_dim)`` in ``q``'s dtype, as the JAX ring computes it:
+    a 0-d CPU tensor, which a product with ``q``'s scores takes as a scalar
+    argument, so that nothing is read on the host (a captured window keeps
+    it as a constant of its graph)."""
+    return 1.0 / torch.tensor(float(q.shape[-1]), dtype=q.dtype).sqrt()
 
 
 def _block_attention(q, k, v, carry, block_mask):

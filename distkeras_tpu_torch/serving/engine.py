@@ -79,9 +79,9 @@ samplers are counter-based).  A hot swap replaces the parameters' storage,
 so it drops every graph, and each captures anew at its next use.
 ``graph_stats`` counts captures and replays.  A failed capture or replay
 crashes the engine as any loop failure does; nothing falls back to eager.
-On the CPU the programs run eagerly, and an engine built with ``mesh=``
-keeps them eager on a card too (its collectives inside the graph are ROADMAP
-Queue A item 20's next part).
+On the CPU the programs run eagerly.  :data:`CAPTURE_PROGRAMS`, read when
+an engine is built, turns capture off on a card (the ``_use_graphs``
+attribute does too, on an engine without a mesh before its first step).
 
 Random numbers are counter-based streams keyed by each request's seed
 (ROADMAP C9, :mod:`~distkeras_tpu_torch.serving.sampling`): a request's
@@ -113,7 +113,17 @@ drafts a verify step feeds and the counts it rolls back, broadcast in the
 step, so no rank's state can depart from rank 0's by a rounding.  A timed-out
 collective crashes the engine on the rank that waits
 (:class:`EngineCrashed`).  ``hot_swap`` is called on every rank with the
-same model, as the constructor is; the plan says when it applies.
+same model, as the constructor is; the plan says when it applies.  On a
+card every rank captures the same step programs (the same roles and
+buckets, in the order rank 0's plans give) and replays them in lockstep:
+the all-reduce a block, and the drafts and counts a verify step broadcasts
+from rank 0, are inside the graphs, over a step group that must run NCCL
+(a gloo mesh on a card is refused unless :data:`CAPTURE_PROGRAMS` is off);
+the plans stay outside them, host data decided before the step, which a
+follower uploads into the slot buffers its replay reads.  A hot swap drops
+every rank's graphs at the same plan.  ``all_reduces`` counts the
+all-reduces the steps ran: a captured program's, recorded once, count at
+each replay; the warm-up and the recording before a capture count none.
 
 A ``StagedLM`` target (raw with its staged parameters, or as a
 ``TrainedModel``) resolves through its ``decode_spec`` to the layout a
@@ -160,9 +170,12 @@ import torch.nn.functional as F
 
 from distkeras_tpu_torch.models.transformer import masked_attention
 from distkeras_tpu_torch.parallel.mesh import (
+    _route,
     all_reduce_sum,
+    broadcast,
     mesh_group,
     mesh_rank,
+    mesh_size,
     resolve_device,
     transport_stats,
 )
@@ -465,12 +478,13 @@ class _Pending:
 
 class _Program:
     """One captured step program: its graph, its static output (None for a
-    draft prefill) and how often it was replayed."""
+    draft prefill, and on a follower), the all-reduces recorded in it and
+    how often it was replayed."""
 
-    __slots__ = ("graph", "out", "replays")
+    __slots__ = ("graph", "out", "reduces", "replays")
 
-    def __init__(self, graph, out):
-        self.graph, self.out, self.replays = graph, out, 0
+    def __init__(self, graph, out, reduces):
+        self.graph, self.out, self.reduces, self.replays = graph, out, reduces, 0
 
 
 class _SlotState:
@@ -501,6 +515,10 @@ _PLAN_HEADER = 5  # op, slot, width, plen, spec_on
 #: seconds a rank of a serving mesh waits on a plan or a step's collective
 #: before its engine crashes (rank 0 sends an idle plan every loop turn)
 PLAN_TIMEOUT_S = 60.0
+#: whether an engine built on a card captures its step programs as CUDA
+#: graphs (read when an engine is built, on every rank of a mesh alike); a
+#: mesh over gloo on a card runs them eagerly only with this off
+CAPTURE_PROGRAMS = True
 _FOLLOWER = ("this rank follows mesh rank 0, which owns the serving front end (submit, "
              "generate, cancel, drain, resume, stop): send requests there")
 
@@ -539,6 +557,16 @@ class ServingEngine:
                  draft_model=None, draft_params=None, spec_tokens: int = 4,
                  mesh=None, device="cuda"):
         self.device = resolve_device(device)
+        # the step programs: captured graphs on a card (the attribute turns
+        # capture off on an engine without a mesh), keyed as the JAX engine
+        # keys its programs, sharing one memory pool; a mesh's collectives
+        # are recorded in them, which only NCCL's can be
+        self._use_graphs = self.device.type == "cuda" and CAPTURE_PROGRAMS
+        if self._use_graphs and mesh_size(mesh) > 1:
+            graphs.require_nccl(
+                [mesh_group(mesh)], "a serving mesh's captured step programs",
+                "serve over NCCL (one rank per card), or build every rank's engine with "
+                "serving.engine.CAPTURE_PROGRAMS = False (eager steps)")
         spec = _resolve_spec(model, params, self.device)
         self._plan_timeout = float(PLAN_TIMEOUT_S)
         self._tp, self._tp_index, self._step_group, self._plan_group = _mesh_groups(
@@ -638,10 +666,6 @@ class ServingEngine:
         # the request between the queue and its slot (its prefill running)
         self._admitting: Optional[_Pending] = None
         self._sent = False  # whether this loop turn sent a plan
-        # the step programs: captured graphs on a card without a mesh (the
-        # attribute turns capture off), keyed as the JAX engine keys its
-        # programs, sharing one memory pool
-        self._use_graphs = self.device.type == "cuda" and mesh is None
         self._programs: Dict[tuple, _Program] = {}
         self._pool = None
         #: programs captured and replayed (cumulative: a hot swap recaptures)
@@ -702,16 +726,17 @@ class ServingEngine:
         return op, slot, width, plen, bool(spec_on)
 
     def _from_leader(self, t, shape, dtype):
-        """Rank 0's ``t`` on every rank (through the host, over the plan
-        group); ``t`` itself without a mesh.  A follower passes None."""
-        if self._plan_group is None:
+        """Rank 0's ``t`` on every rank: a broadcast over the step group, of
+        device data, so that a captured speculative iteration holds it
+        (gloo stages a CUDA tensor through the host, counted in
+        ``transport_stats``); ``t`` itself without a mesh.  A follower
+        passes None."""
+        if self._step_group is None:
             return t
-        src = dist.get_global_rank(self._plan_group, 0)
-        host = t.to("cpu", dtype) if self.leads else torch.empty(shape, dtype=dtype)
-        dist.broadcast(host, src=src, group=self._plan_group)
-        if self.device.type == "cuda":
-            transport_stats["host_staged_bytes"] += host.numel() * host.element_size()
-        return t if self.leads else host.to(self.device)
+        t = t.to(dtype) if self.leads else torch.empty(shape, dtype=dtype, device=self.device)
+        if _route(self._step_group, t) == "host":
+            transport_stats["host_staged_bytes"] += 2 * t.numel() * t.element_size()
+        return broadcast([t], 0, self._step_group)[0]
 
     def _follow(self) -> None:
         """A follower's loop: execute rank 0's plans until a stop plan."""
@@ -730,15 +755,18 @@ class ServingEngine:
             self._upload()
             with self._cv:
                 spec = self._spec
+            # rank 0's programs, under its keys: captured and replayed in its order
             if op == _OP_PREFILL:
-                self._prefill(spec, k, v, width, sample=False, psum=self._psum)
+                self._program(("prefill", "target", width), lambda: self._prefill(
+                    spec, k, v, width, sample=False, psum=self._psum))
                 if spec_on:
                     dc = self._draft_cache
-                    self._prefill(self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False)
+                    self._program(("prefill", "draft", width), lambda: self._prefill(
+                        self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False))
             elif op == _OP_DECODE:
-                self._decode(spec, k, v)
+                self._program(("decode",), lambda: self._decode(spec, k, v))
             else:
-                self._spec_iteration(spec)
+                self._program(("spec",), lambda: self._spec_iteration(spec))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # the host buffers are rewritten next
 
@@ -779,6 +807,7 @@ class ServingEngine:
         program.graph.replay()
         program.replays += 1
         self.graph_stats["replays"] += 1
+        self.all_reduces += program.reduces
         return program.out
 
     def _capture(self, fn) -> _Program:
@@ -788,16 +817,24 @@ class ServingEngine:
         the K/V rows the replay that follows writes again before it reads
         them (a verify's rollback zeroes rows of the window the replay
         writes whole): it needs no undo.  No generator is registered: the
-        samplers are counter-based (ROADMAP C9)."""
+        samplers are counter-based (ROADMAP C9).  Over a mesh the step
+        group's communicator is made first, every rank capturing the same
+        program at the same plan; the warm-up's and the recording's
+        all-reduces are not counted in ``all_reduces``, each replay's are."""
+        reduces = self.all_reduces
         with graphs.CAPTURE_LOCK:
+            graphs.warm_up_groups([self._step_group], self.device)
             graphs.warm_up(fn, self.device)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
+            recorded = self.all_reduces
             with graphs.capturing(graph, self._pool):
                 out = fn()
+        program = _Program(graph, out, self.all_reduces - recorded)
+        self.all_reduces = reduces
         self.graph_stats["captures"] += 1
-        return _Program(graph, out)
+        return program
 
     def _drop_programs(self) -> None:
         """Forget every captured program and their memory pool: they read

@@ -7,9 +7,10 @@ switch-base-8's widths under ``DOWNPOUR`` on one rank (B1-B3 in every
 block's attention, a step held to the CPU, the trained model through
 ``ModelPredictor``), then expert-parallel (``tp_shards=2`` with
 ``expert_partition(8)``) on two gloo ranks sharing the card against it (and
-the 2 x 2 NCCL grid, one rank a card, where the machine has 4 cards), each
-printing ``chip_smoke.py``'s JSON lines; ``--cards-only`` leaves out the
-gloo pair (a 4-card call for the NCCL grid and its one-rank reference
+the NCCL grid, one rank a card, where the machine has several cards: 2 x 2
+with 4, 1 x 2 with 2 or 3, eager and in captured windows), each printing
+``chip_smoke.py``'s JSON lines; ``--cards-only`` leaves out the gloo pair
+(a call on several cards for the NCCL grid and its one-rank reference
 alone).  Any failed gate raises.
 ``chip_smoke.py`` runs every phase; this is the MoE path and its reference
 alone.  Needs a CUDA card.

@@ -1,18 +1,20 @@
 """``chip_smoke.py``'s sequence-parallel phase alone, with the one-rank run it
 is held to.
 
-    python scripts/chip_seq_phase.py
+    python scripts/chip_seq_phase.py [--cards-only]
 
 Builds the kernels, runs the phase's reference (its GPT-2-small
 ``DOWNPOUR``, cut to 6 blocks and one epoch, at one rank, through B1-B3)
 and then the sequence-parallel phase (the same run over two gloo ranks
 sharing the card with
 ``seq_shards=2``, ``fsdp=True``, the classifier at two ranks, the returned
-twin through ``ModelPredictor``, and the 2 x 2 NCCL grid, one rank a card,
-where the machine has 4 cards), each printing ``chip_smoke.py``'s JSON
-lines; any failed gate raises.  ``chip_smoke.py`` runs every phase; this is
-the sequence-parallel path and its reference alone, for a machine with 4
-cards.  Needs a CUDA card.
+twin through ``ModelPredictor``, and the NCCL grid, one rank a card, where
+the machine has several cards: 2 x 2 with 4, 1 x 2 with 2 or 3, eager and
+in captured windows), each printing ``chip_smoke.py``'s JSON lines; any
+failed gate raises.  ``--cards-only`` leaves out the gloo pair (a call on
+several cards for the NCCL grid and its reference alone).
+``chip_smoke.py`` runs every phase; this is the sequence-parallel path and
+its reference alone, for a machine with several cards.  Needs a CUDA card.
 """
 
 import subprocess
@@ -27,7 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_seq_phase: no CUDA device", file=sys.stderr)
         return 2
@@ -44,11 +46,11 @@ def main() -> int:
     _build.build_all()
     _, reference = chip_smoke.seq_train(0, 1)
     t1 = time.perf_counter()
-    chip_smoke.seq_phase(0, reference)
+    chip_smoke.seq_phase(0, reference, pair="--cards-only" not in argv)
     chip_smoke.emit(phase="timing", build_and_reference_s=t1 - t0,
                     seq_phase_s=time.perf_counter() - t1)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

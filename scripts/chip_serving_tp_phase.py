@@ -5,10 +5,11 @@
 Builds the kernels (the phase's checks run full-context forwards through
 B1) and runs phase 21: the serving phase's GPT-2-small LM on a one-rank
 ``ServingEngine`` in this process, then ``ServingEngine(mesh=)`` on two
-gloo ranks sharing the card (and 4 NCCL ranks, one a card, where the
-machine has 4 cards), each printing ``chip_smoke.py``'s JSON lines;
-``--cards-only`` leaves out the gloo pair (a 4-card call for the NCCL ranks
-and their one-rank reference alone).  Any failed gate raises.  ``chip_smoke.py`` runs every phase; this is the
+gloo ranks sharing the card (and NCCL ranks, one a card, where the machine
+has several cards: 4 with 4 cards or more, 2 with 2 or 3, serving eagerly
+and through captured step programs), each printing ``chip_smoke.py``'s
+JSON lines; ``--cards-only`` leaves out the gloo pair (a call on several
+cards for the NCCL ranks and their one-rank reference alone).  Any failed gate raises.  ``chip_smoke.py`` runs every phase; this is the
 tensor-parallel serving path and its reference alone.  Needs a CUDA card.
 """
 

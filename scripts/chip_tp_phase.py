@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s tensor-parallel phase alone, with the two-epoch run it
 is held to.
 
-    python scripts/chip_tp_phase.py [--serving]
+    python scripts/chip_tp_phase.py [--serving] [--cards-only]
 
 Builds the kernels, runs the two-epoch one-rank ``DOWNPOUR`` at phase 20's
 depth (GPT-2 small's widths, 6 blocks, through B1-B3) and then the
@@ -9,9 +9,11 @@ tensor-parallel phase (phase 20: the same training over two gloo ranks
 sharing the card with ``tp_shards=2`` against one rank's run of as many
 epochs, ``fsdp=True`` alone against the
 replicated two-rank run, the returned model through ``ModelPredictor``, and
-the 2 x 2 NCCL grid, one rank a card, where the machine has 4 cards), each
-printing ``chip_smoke.py``'s JSON lines; with ``--serving``, then the
-serving phase (its bf16-pool case included).  Any failed gate raises.
+the NCCL grid, one rank a card, where the machine has several cards: 2 x 2
+with 4, the gloo pair's grids with 2 or 3, eager and in captured windows),
+each printing ``chip_smoke.py``'s JSON lines; with ``--serving``, then the
+serving phase (its bf16-pool case included); ``--cards-only`` leaves out
+the gloo pair.  Any failed gate raises.
 ``chip_smoke.py`` runs every phase; this is the tensor-parallel path and
 its reference alone.  Needs a CUDA card.
 """
@@ -45,7 +47,7 @@ def main(argv) -> int:
     _build.build_all()
     _, train_run = chip_smoke.tp_train(0, chip_smoke.TRAIN_EPOCHS)
     t1 = time.perf_counter()
-    chip_smoke.tp_phase(0, train_run)
+    chip_smoke.tp_phase(0, train_run, pair="--cards-only" not in argv)
     t2 = time.perf_counter()
     if "--serving" in argv:
         chip_smoke.serving_phase(0)

@@ -15,8 +15,14 @@ Tolerances: JAX's test's own for EP against DP, the losses within ``rtol=2e-4,
 atol=2e-5`` and the center within ``rtol=2e-3, atol=2e-4``, for the
 port's EP run against JAX's EP run and against the port's one-rank DP run;
 layouts and expert counts exactly.
+
+The ranks also make the checks of a window a card captures (``unroll``
+other than 1): the EP engine built on a faked card captures over NCCL and
+refuses gloo, and one EP window reads nothing on the host while both ranks
+issue the same collectives in the same order (``capture_<rank>.json``).
 """
 
+import json
 import os
 import sys
 from pathlib import Path
@@ -107,6 +113,36 @@ def _ep_case(workdir):
     return out
 
 
+def _capture_case(workdir):
+    """An EP window as a card captures it: the engine built on a faked card
+    over NCCL and over gloo, and one window on this rank's CPU block under
+    the transfer guard, its collectives recorded (EP's input psum and
+    output gather, the attention's column-parallel products, the commit)."""
+    from distkeras_tpu_torch import algorithms
+    from distkeras_tpu_torch.models import MoETransformerClassifier, expert_partition
+    from distkeras_tpu_torch.parallel import GSPMDEngine
+    from distkeras_tpu_torch.parallel.mesh import TP_AXIS, WORKER_AXIS, make_mesh_grid
+    from test_torch_ring import capture_refusals, host_reads, recording_collectives
+
+    grid = make_mesh_grid(1, TP, axis_names=(WORKER_AXIS, TP_AXIS))
+
+    def build(device):
+        return GSPMDEngine(fixed(MoETransformerClassifier(**MOE), load(workdir, "init")),
+                           "categorical_crossentropy", SGD, algorithms.Downpour(2),
+                           num_workers=2, tp_shards=TP, spec_fn=expert_partition(E),
+                           metrics=(), mesh=grid, unroll=True, device=device)
+
+    out = {"card": capture_refusals(lambda: build("cuda"))}
+    engine = build("cpu")
+    data = load(workdir, "data")
+    state = engine.init_state(torch.Generator().manual_seed(0), None)
+    sx, sy = engine.shard_batches(data["xs"].numpy(), data["ys"].numpy())
+    with recording_collectives() as log, host_reads() as reads:
+        engine._window_body(state, sx[:, 0], sy[:, 0], True)
+    out["collectives"], out["host_reads"] = log, reads
+    return out
+
+
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
@@ -114,9 +150,12 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
                             world_size=world, rank=rank)
     try:
         results = _ep_case(workdir)
+        capture = _capture_case(workdir)
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(workdir, f"rank_{rank}.npz"), **results)
+    with open(os.path.join(workdir, f"capture_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(capture, fh)
 
 
 if __name__ == "__main__":
@@ -190,6 +229,8 @@ def ranks(tmp_path_factory):
     for r in range(WORLD):
         with np.load(os.path.join(workdir, f"rank_{r}.npz")) as got:
             results.append({k: got[k] for k in got.files})
+        with open(os.path.join(workdir, f"capture_{r}.json"), encoding="utf-8") as fh:
+            results[-1]["capture"] = json.load(fh)
     return results, jax_run, dp_run
 
 
@@ -252,3 +293,21 @@ def test_gathered_center_is_the_ranks_blocks_whole(ranks):
         if key.startswith("block/"):
             whole = np.concatenate([r[key] for r in results], axis=0)
             np.testing.assert_array_equal(results[0][f"center/{key[len('block/'):]}"], whole)
+
+
+def test_ep_in_a_captured_window_takes_nccl_and_refuses_gloo(ranks):
+    """``tp_shards=2`` with ``expert_partition`` and ``unroll=True`` on a
+    card: the window is captured over NCCL; gloo is refused by name."""
+    for got in ranks[0]:
+        card = got["capture"]["card"]
+        assert card["nccl"] == "captures", card
+        assert card["gloo"].startswith("ValueError") and "NCCL" in card["gloo"], card
+
+
+def test_an_ep_window_reads_nothing_on_the_host_and_both_ranks_pair(ranks):
+    """The EP window a card captures: no host read on either rank, and the
+    same collectives in the same order on both."""
+    logs = [got["capture"]["collectives"] for got in ranks[0]]
+    assert logs[0] and logs[0] == logs[1]
+    assert {"all_gather", "all_reduce"} <= {c[0] for c in logs[0]}
+    assert all(got["capture"]["host_reads"] == [] for got in ranks[0])

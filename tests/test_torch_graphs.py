@@ -14,7 +14,11 @@ bit for bit, and the stats equal the eager engine's.  Two more ``cuda``
 cases hold captures to eager within the same gates: ``remat=True`` inside
 captured windows (the recomputation in the graph, the forward kernel
 launched twice a forward), and the staleness simulation's epoch
-(``commit_schedule``), one captured step replayed once a step.  No JAX
+(``commit_schedule``), one captured step replayed once a step.  A ``cuda``
+case captures ADAG's windows with the dynamics on: the rule's steps in the
+window, a host value, is filled in on the card and equals eager's.  The
+pipeline engine, whose windows a card does not capture yet (ROADMAP Queue A
+item 20's last part), refuses ``unroll`` on a (faked) card by name.  No JAX
 here: the ``cuda`` cases run on the card's machine, which has none.
 """
 
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from distkeras_tpu_torch.algorithms import Downpour, DynSGD
+from distkeras_tpu_torch.algorithms import Adag, Downpour, DynSGD
 from distkeras_tpu_torch.models import TorchModel, TransformerLM
 from distkeras_tpu_torch.parallel import WindowedEngine
 
@@ -43,9 +47,10 @@ def lm_epoch(seed=0):
             ((x + 1) % LM["vocab_size"]).reshape(shape).astype(np.int64))
 
 
-def engine_and_state(device, unroll, dropout=0.0, **kwargs):
+def engine_and_state(device, unroll, dropout=0.0, rule=None, **kwargs):
     model = TransformerLM(**LM, dropout=dropout, generator=torch.Generator().manual_seed(1))
-    rule = DynSGD(WINDOW) if "commit_schedule" in kwargs else Downpour(WINDOW)
+    if rule is None:
+        rule = DynSGD(WINDOW) if "commit_schedule" in kwargs else Downpour(WINDOW)
     engine = WindowedEngine(TorchModel(model), "token_crossentropy",
                             ("adam", {"learning_rate": 1e-3}), rule,
                             num_workers=WORKERS, metrics=(), unroll=unroll, device=device,
@@ -77,6 +82,21 @@ def test_clear_program_cache_drops_every_graph(keep_multi):
     engine.clear_program_cache(keep_multi=keep_multi)
     assert engine._graphs == {} and engine._static is None
     assert engine.graph_stats == {"captures": 0, "replays": 0}
+
+
+def test_pipeline_inside_a_captured_window_names_item_20():
+    # the pipeline's ticks are fixed at capture: its windows are ROADMAP
+    # Queue A item 20's last part, refused on a card (faked here: the
+    # constructor touches none) by name
+    from distkeras_tpu_torch.models import StagedLM
+    from distkeras_tpu_torch.parallel import PipelineEngine
+    from test_torch_ring import faked_card
+
+    model = StagedLM(vocab_size=23, dim=32, heads=2, num_stages=1, blocks_per_stage=1,
+                     max_len=16)
+    with faked_card(), pytest.raises(NotImplementedError, match="item 20"):
+        PipelineEngine(model, "token_crossentropy", "sgd", Downpour(WINDOW), unroll=True,
+                       device="cuda")
 
 
 @pytest.mark.cuda
@@ -171,3 +191,29 @@ def test_staleness_epoch_captured_on_the_card():
     assert torch.equal(g_state.rule_local["clock"], e_state.rule_local["clock"])
     assert int(g_state.center_rule["num_updates"]) == int(e_state.center_rule["num_updates"]) \
         == 2 * (steps + steps // 2)
+
+
+@pytest.mark.cuda
+def test_adag_dynamics_in_captured_windows_on_the_card():
+    # ADAG's ``rule_accum_steps`` is a host number (the window's steps): the
+    # engine fills it in on the card, so the captured window records no
+    # copy from host memory, and it reads as eager's
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distkeras_tpu_torch.telemetry import dynamics
+
+    runs = {}
+    try:
+        dynamics.configure(enabled=True, watchdog="off")
+        for name, unroll in (("eager", 1), ("graph", True)):
+            engine, state, (xs, ys) = engine_and_state("cuda", unroll, rule=Adag(WINDOW))
+            for _ in range(2):
+                state, stats = engine.run_epoch(state, xs, ys)
+            runs[name] = stats["dynamics"]
+    finally:
+        dynamics.configure()
+    np.testing.assert_array_equal(runs["graph"]["rule_accum_steps"],
+                                  np.full((WINDOWS, WORKERS), float(WINDOW), np.float32))
+    for key, value in runs["eager"].items():
+        np.testing.assert_allclose(runs["graph"][key], value, rtol=1e-5, atol=1e-7,
+                                   err_msg=key)

@@ -144,18 +144,18 @@ def _frame(model="mlp"):
     return tdk.from_numpy(x, y)
 
 
-def _downpour(workdir, **kwargs):
+def _downpour(workdir, device="cpu", **kwargs):
     import distkeras_tpu_torch as tdk
 
     return tdk.DOWNPOUR(_adapter("mlp", _load_init(workdir, "mlp")),
                         loss="categorical_crossentropy", worker_optimizer=_optimizer("downpour"),
                         num_workers=WORKERS, batch_size=BATCH, communication_window=WINDOW,
-                        device="cpu", **kwargs)
+                        device=device, **kwargs)
 
 
 def _trained(trainer, frame, shuffle=True, **out):
     model = trainer.train(frame, shuffle=shuffle)
-    out.update({f"center/{k}": v.numpy() for k, v in model.params.items()})
+    out.update({f"center/{k}": v.cpu().numpy() for k, v in model.params.items()})
     out["loss"] = np.asarray(trainer.get_history()["loss"])
     out["num_updates"] = np.asarray(getattr(trainer, "num_updates", -1))
     return out
@@ -282,6 +282,23 @@ def _world_one_case(workdir, init):
     return {"alone": alone, "grouped": grouped}
 
 
+def _cards_main(rank: int, world: int, init: str, workdir: str) -> None:
+    """One NCCL rank a card: ``chip_smoke.py``'s captured transports over
+    the world group, the result in ``DIR/cards_<rank>.json``."""
+    import torch.distributed as dist
+
+    from chip_smoke import _captured_transports
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=init, world_size=world, rank=rank)
+    try:
+        got = _captured_transports(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"cards_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(got, fh)
+
+
 def _flat(results, prefix=""):
     out = {}
     for k, v in results.items():
@@ -324,7 +341,10 @@ def _rank_main(rank: int, world: int, init: str, workdir: str, device: str) -> N
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    if sys.argv[1] == "--cards":
+        _cards_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    else:
+        _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     sys.exit(0)
 
 
@@ -713,3 +733,100 @@ def test_gloo_group_on_the_card_refuses_a_captured_window(tmp_path):
             _engine_case(workdir, "mlp", "downpour", device="cuda", unroll=True)
     finally:
         dist.destroy_process_group()
+
+
+# the transports captured (``cuda``), as ``chip_smoke.py``'s phase 18 records
+# them: one NCCL rank here, two on two cards
+
+
+def _assert_transports(got):
+    from chip_smoke import MESH_TRANSPORT_TICKS
+
+    assert got["inputs_change_outputs"]
+    assert got["bitwise"] == {k: True for k in MESH_TRANSPORT_TICKS}, got["bitwise"]
+    assert got["ticks"] == MESH_TRANSPORT_TICKS
+
+
+@pytest.mark.cuda
+def test_each_nccl_transport_captured_over_one_rank_is_eager():
+    # all_reduce_sum, broadcast, the gather, the reduce-scatter and the ring
+    # hop (a send to itself on one rank: ppermute short-circuits an axis of
+    # one, _shift does not) recorded into one graph, replayed on new inputs
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import _captured_transports
+
+    _one_rank_group("nccl")
+    try:
+        got = _captured_transports(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    _assert_transports(got)
+
+
+@pytest.mark.cuda
+def test_each_nccl_transport_captured_over_two_cards_is_eager(tmp_path):
+    # the same over two NCCL ranks, one a card: the ring hop crosses cards
+    from test_torch_ring import rendezvous
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one card, so a "
+                    "several-rank capture runs only on a machine with several cards")
+    workdir = str(tmp_path)
+    init = rendezvous(workdir)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen([sys.executable, __file__, "--cards", str(r), "2", init, workdir],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [proc.communicate(timeout=SPAWN_TIMEOUT_S)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, log in zip(procs, logs):
+        assert proc.returncode == 0, log[-4000:]
+    for rank in range(2):
+        with open(os.path.join(workdir, f"cards_{rank}.json"), encoding="utf-8") as fh:
+            _assert_transports(json.load(fh))
+
+
+@pytest.mark.cuda
+def test_gspmd_fsdp_window_captured_over_one_nccl_rank_is_eager(tmp_path):
+    # DOWNPOUR(fsdp=True) routes to the GSPMD engine; over one NCCL rank the
+    # workers axis is one rank (the center stays whole, its gather
+    # short-circuits), and the captured window holds the commit's
+    # all-reduce: bit for bit the eager windows on the same group
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    workdir = str(tmp_path)
+    _port_init(workdir)
+    runs, engines = {}, {}
+    _one_rank_group("nccl")
+    try:
+        for name, unroll in (("eager", 1), ("graph", True)):
+            trainer = _downpour(workdir, device="cuda", num_epoch=2, fsdp=True, unroll=unroll)
+            fit, kept = trainer._fit, []
+            trainer._fit = lambda *a, **kw: kept.append(fit(*a, **kw)) or kept[-1]
+            runs[name] = _trained(trainer, _frame(), shuffle=False)
+            engines[name] = kept[-1][0]
+    finally:
+        dist.destroy_process_group()
+    graph = engines["graph"]
+    assert type(graph).__name__ == "GSPMDEngine" and graph.fsdp and graph.use_graphs
+    assert graph.group is not None and not engines["eager"].use_graphs
+    assert graph.graph_stats["captures"] == 1
+    assert graph.graph_stats["replays"] == 2 * WINDOWS
+    # the collectives this graph holds: the commit's all-reduces, run at
+    # every replay; the fsdp gather short-circuits over one workers rank
+    launches = graph.graph_launches()
+    ticks, runs_ = launches["all_reduce"]
+    assert ticks >= 1 and runs_ == ticks * 2 * WINDOWS
+    assert launches["all_gather"] == (0, 0) and launches["shift"] == (0, 0)
+    for key, want in runs["eager"].items():
+        np.testing.assert_array_equal(runs["graph"][key], want, err_msg=key)

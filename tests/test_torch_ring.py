@@ -14,9 +14,12 @@ the port's ring against the port's own unsharded attention within the same;
 the collectives, which move and add a few small integers, exactly.
 
 :func:`spawn_ranks` is shared with ``test_torch_sequence_parallel.py`` and
-``test_torch_fsdp_sp.py``.
+``test_torch_fsdp_sp.py``, and the capture helpers (:func:`recording_collectives`,
+:func:`host_reads`, :func:`faked_card`, :func:`capture_refusals`) with the
+several-rank files whose paths a card captures (ROADMAP Queue A item 20).
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -92,6 +95,111 @@ def spawn_ranks(script, world: int, workdir: str, extra=(), timeout: int = SPAWN
     """Run ``python script RANK WORLD INIT WORKDIR *extra`` for every rank to
     its end (:func:`start_ranks`, :func:`wait_ranks`)."""
     wait_ranks(start_ranks(script, world, workdir, extra), workdir, timeout)
+
+
+# ------------------------------------------- capture on a card, shown on the CPU
+
+#: the ``torch.distributed`` calls of ``parallel/mesh.py``'s transports and
+#: of the serving engine's plans
+_DIST_CALLS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "batch_isend_irecv", "isend", "irecv")
+
+
+@contextlib.contextmanager
+def recording_collectives():
+    """Record every collective this process issues in the block, on any
+    thread, in issue order, as ``[call, group size, shapes, dtype]``: a
+    program captured on a card replays its collectives, so every rank of a
+    group must issue the same ones in the same order."""
+    import torch.distributed as dist
+
+    log, saved = [], {name: getattr(dist, name) for name in _DIST_CALLS}
+
+    def recorded(name, call):
+        def wrapper(*args, **kwargs):
+            tensors = []
+            for a in (*args, *kwargs.values()):
+                for t in (a if isinstance(a, (list, tuple)) else (a,)):
+                    if isinstance(t, torch.Tensor):
+                        tensors.append(t)
+                    elif isinstance(t, dist.P2POp):
+                        tensors.append(t.tensor)
+            group = kwargs.get("group")
+            log.append([name, dist.get_world_size(group) if group is not None else 0,
+                        [list(t.shape) for t in tensors],
+                        str(tensors[0].dtype) if tensors else ""])
+            return call(*args, **kwargs)
+
+        return wrapper
+
+    for name, call in saved.items():
+        setattr(dist, name, recorded(name, call))
+    try:
+        yield log
+    finally:
+        for name, call in saved.items():
+            setattr(dist, name, call)
+
+
+@contextlib.contextmanager
+def host_reads():
+    """The runtime sanitizer's transfer guard in record mode around the
+    block on this thread: the block's host reads of a tensor (``item``,
+    ``tolist``, ``numpy``, ...) land in the returned list, which holds
+    their messages once the block ends.  On the CPU this is the proxy for
+    "capturable": a captured program reads nothing on the host.  (Strict
+    mode would raise on the first read, on one rank, and leave the other
+    ranks waiting in a collective.)"""
+    from distkeras_tpu_torch import sanitizer
+    from distkeras_tpu_torch.sanitizer import runtime, transfer
+
+    found = []
+    sanitizer.configure("record")
+    try:
+        with transfer.guard("captured program"):
+            yield found
+        found.extend(message for _, message in runtime.violations("transfer"))
+    finally:
+        sanitizer.configure(None)
+
+
+@contextlib.contextmanager
+def faked_card(backend=None):
+    """The engines' constructors told the device is a card (they allocate
+    nothing on it), and with ``backend`` every process group said to run
+    it: the constructors' checks alone, on the CPU."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.parallel import engine, pipeline
+    from distkeras_tpu_torch.serving import engine as serving
+
+    card = lambda device="cuda": torch.device("cuda", 0)
+    saved = [(m, "resolve_device", m.resolve_device) for m in (engine, pipeline, serving)]
+    if backend is not None:
+        saved.append((dist, "get_backend", dist.get_backend))
+    try:
+        for m, name, _ in saved[:3]:
+            setattr(m, name, card)
+        if backend is not None:
+            dist.get_backend = lambda group=None: backend
+        yield
+    finally:
+        for m, name, value in saved:
+            setattr(m, name, value)
+
+
+def capture_refusals(build) -> dict:
+    """``build()`` (an engine's constructor call) on a faked card whose
+    groups run NCCL, then gloo: ``{backend: "captures" or the error}``."""
+    out = {}
+    for backend in ("nccl", "gloo"):
+        try:
+            with faked_card(backend):
+                engine = build()
+            out[backend] = "captures" if engine.use_graphs else "eager"
+        except (ValueError, NotImplementedError) as e:
+            out[backend] = f"{type(e).__name__}: {e}"
+    return out
 
 
 # ------------------------------------------------------------------ the ranks

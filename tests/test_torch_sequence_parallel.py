@@ -22,8 +22,15 @@ Tolerances:
 * the returned twin's predictions against a seq-free model on the same
   parameters: bit for bit.
 Dropout is 0 throughout (ROADMAP C6 and C11: the port's draws are its own).
+
+The ranks also make the checks of a window a card captures (``unroll``
+other than 1): the engine's constructor on a faked card captures over NCCL
+and refuses gloo, and one window of the SP and the SP + fsdp engines reads
+nothing on the host (the transfer guard) while every rank issues the same
+collectives in the same order (each rank's ``capture_<rank>.json``).
 """
 
+import json
 import os
 import sys
 from pathlib import Path
@@ -125,6 +132,38 @@ CASES = {
 }
 
 
+def _capture_cases(workdir):
+    """A window of the (workers, seq) grid as a card captures it: the
+    engine built on a faked card over NCCL and over gloo (replicated center
+    and ``fsdp=True``), and one window of each engine on this rank's CPU
+    block under the transfer guard, its collectives recorded."""
+    from distkeras_tpu_torch import algorithms
+    from distkeras_tpu_torch.parallel import WindowedEngine, make_mesh_grid
+    from test_torch_ring import capture_refusals, host_reads, recording_collectives
+
+    grid = make_mesh_grid(WORLD // SEQ_SHARDS, SEQ_SHARDS)
+    x, y, loss = _data("lm")
+    n = WORKERS * 2 * TRAIN["batch_size"]
+    xs, ys = (a[:n].reshape(WORKERS, 1, 2, TRAIN["batch_size"], SEQ) for a in (x, y))
+
+    def engine(fsdp, device):
+        return WindowedEngine(_adapter("lm", "seq", _load_init(workdir, "lm")), loss,
+                              TRAIN["worker_optimizer"], algorithms.Downpour(2), WORKERS,
+                              metrics=(), seq_shards=SEQ_SHARDS, fsdp=fsdp, mesh=grid,
+                              unroll=True, device=device)
+
+    out = {}
+    for name, fsdp in (("sp", False), ("fsdp", True)):
+        out[f"{name}/card"] = capture_refusals(lambda: engine(fsdp, "cuda"))
+        cpu = engine(fsdp, "cpu")
+        state = cpu.init_state(torch.Generator().manual_seed(SEED), x[:8])
+        sx, sy = cpu.shard_batches(xs, ys)
+        with recording_collectives() as log, host_reads() as reads:
+            cpu._window_body(state, sx[:, 0], sy[:, 0], True)
+        out[f"{name}/collectives"], out[f"{name}/host_reads"] = log, reads
+    return out
+
+
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
@@ -132,8 +171,11 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
                             world_size=world, rank=rank)
     try:
         results = {name: port_run(workdir, model, **kw) for name, (model, kw) in CASES.items()}
+        capture = _capture_cases(workdir)
     finally:
         dist.destroy_process_group()
+    with open(os.path.join(workdir, f"capture_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(capture, fh)
     if rank == 0:
         np.savez(os.path.join(workdir, "results.npz"),
                  **{f"{c}|{k}": v for c, r in results.items() for k, v in r.items()})
@@ -270,3 +312,36 @@ def test_returned_twin_predicts_without_a_mesh(ranks, case):
         np.testing.assert_array_equal(got[f"{i}/predict"], plain.predict(x))
     if members == 2:  # two workers trained apart: two models
         assert not np.array_equal(got["0/predict"], got["1/predict"])
+
+
+def _capture_ranks(workdir):
+    out = []
+    for rank in range(WORLD):
+        with open(os.path.join(workdir, f"capture_{rank}.json"), encoding="utf-8") as fh:
+            out.append(json.load(fh))
+    return out
+
+
+@pytest.mark.parametrize("run", ["sp", "fsdp"])
+def test_seq_shards_in_a_captured_window_take_nccl_and_refuse_gloo(ranks, run):
+    """``seq_shards=2`` (and ``fsdp=True``) with ``unroll=True`` on a card:
+    the window is captured over NCCL; gloo, which stages CUDA tensors
+    through the host, is refused by name."""
+    for got in _capture_ranks(ranks[1]):
+        card = got[f"{run}/card"]
+        assert card["nccl"] == "captures", card
+        assert card["gloo"].startswith("ValueError") and "NCCL" in card["gloo"], card
+
+
+@pytest.mark.parametrize("run", ["sp", "fsdp"])
+def test_a_seq_window_reads_nothing_on_the_host_and_every_rank_pairs(ranks, run):
+    """The window a card captures: no host read on any rank, and the same
+    collectives in the same order on all four (the ring's hops, the
+    gradients' pmean over seq, the commit over workers; fsdp's gathers)."""
+    got = _capture_ranks(ranks[1])
+    logs = [g[f"{run}/collectives"] for g in got]
+    assert logs[0] and all(log == logs[0] for log in logs)
+    calls = {c[0] for c in logs[0]}
+    assert {"isend", "irecv", "all_reduce"} <= calls, calls
+    assert ("all_gather" in calls) == (run == "fsdp"), calls
+    assert all(g[f"{run}/host_reads"] == [] for g in got)

@@ -9,7 +9,11 @@ the lockstep the port needs (one process a rank): sampled requests equal
 to themselves rerun alone, a rank's page pools half of one rank's, a
 follower's ``submit`` refused, rank 0's ``stop`` ending every rank's loop,
 ``hot_swap`` on every rank serving the new weights, and a follower that
-crashes mid-step crashing rank 0's engine instead of hanging it.
+crashes mid-step crashing rank 0's engine instead of hanging it.  What a
+card captures (each rank's step programs as CUDA graphs, the step group's
+collectives inside them): every program of both ranks reads nothing on the
+host (the transfer guard), both ranks issue the same collectives in the
+same order, and a gloo mesh on a card is refused by name.
 
 The two ranks are spawned **once** for the module (``ranks`` fixture, the
 pattern of ``test_torch_ring.py``): each runs this file as a script, joins
@@ -99,6 +103,7 @@ def _leader(workdir, mesh, out):
                           for p in prompts()]
     out["draft_pool_bytes"] = _pool_bytes(spec._draft_cache)
     spec.stop(timeout=30)
+    _programs_case(workdir, mesh, out)
 
     from distkeras_tpu_torch.serving import engine as engine_module
 
@@ -137,6 +142,7 @@ def _follower(workdir, mesh, out):
     spec = _engine(workdir, mesh, draft_model=TransformerLM(**DRAFT),
                    draft_params=_load(workdir, "draft"), spec_tokens=2)
     spec.stop(timeout=120)
+    _programs_case(workdir, mesh, out)
 
     from distkeras_tpu_torch.serving import engine as engine_module
 
@@ -153,6 +159,41 @@ def _follower(workdir, mesh, out):
     # stay up past rank 0's timeout: its all-reduce must time out, not see
     # this process go
     time.sleep(2 * CRASH_TIMEOUT_S)
+
+
+def _programs_case(workdir, mesh, out):
+    """The step programs as a card captures them, on both ranks: a plain
+    and a speculative engine serve (rank 0 drives, the follower follows)
+    with every program run under the transfer guard and every collective
+    recorded, from the engines' build to their stop."""
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.serving import ServingEngine
+    from test_torch_ring import host_reads, recording_collectives
+
+    program, reads = ServingEngine._program, []
+
+    def guarded(self, key, fn):
+        with host_reads() as found:
+            result = program(self, key, fn)
+        reads.extend(found)
+        return result
+
+    ServingEngine._program = guarded
+    try:
+        with recording_collectives() as log:
+            for kwargs in ({}, dict(draft_model=TransformerLM(**DRAFT),
+                                    draft_params=_load(workdir, "draft"), spec_tokens=2)):
+                engine = _engine(workdir, mesh, **kwargs)
+                if engine.leads:
+                    out.setdefault("programs_tokens", []).append(
+                        engine.generate(prompts()[1], max_new_tokens=NEW_TOKENS,
+                                        timeout=120).tokens)
+                    engine.stop(timeout=30)
+                else:
+                    engine.stop(timeout=120)
+    finally:
+        ServingEngine._program = program
+    out["programs_collectives"], out["programs_host_reads"] = log, reads
 
 
 def _block_case(workdir, mesh, out):
@@ -197,6 +238,23 @@ def _bad_meshes(out):
             out[name] = str(e)
 
 
+def _card_refusal(mesh, out):
+    """On a (faked) card a mesh's step programs are captured, which a gloo
+    group cannot be: the engine refuses it before it allocates anything."""
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.serving import ServingEngine
+    from test_torch_ring import faked_card
+
+    model = TransformerLM(**LM)
+    try:
+        with faked_card():
+            ServingEngine(model, {k: v.detach() for k, v in model.named_parameters()},
+                          mesh=mesh, device="cuda")
+        out["card_gloo"] = "built"
+    except ValueError as e:
+        out["card_gloo"] = str(e)
+
+
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
@@ -208,6 +266,7 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     try:
         mesh = make_mesh(world, axis_name="model")
         _bad_meshes(out)
+        _card_refusal(mesh, out)
         _block_case(workdir, mesh, out)
         (_leader if rank == 0 else _follower)(workdir, mesh, out)
     finally:
@@ -355,3 +414,26 @@ def test_a_follower_crash_mid_step_crashes_rank_0(ranks):
 def test_sharded_engine_validates_mesh(ranks, case, match):
     for got in ranks[:2]:
         assert match in got[case], got[case]
+
+
+def test_a_gloo_mesh_on_a_card_is_refused_naming_nccl(ranks):
+    """A serving mesh's programs are captured on a card, their all-reduces
+    inside the graphs: gloo, which stages CUDA tensors through the host,
+    is refused by name (``CAPTURE_PROGRAMS = False`` serves it eagerly)."""
+    for got in ranks[:2]:
+        assert "only NCCL collectives can be captured" in got["card_gloo"], got["card_gloo"]
+        assert "CAPTURE_PROGRAMS" in got["card_gloo"]
+
+
+def test_every_program_reads_nothing_on_the_host_and_both_ranks_pair(ranks):
+    """Each prefill, decode step and speculative iteration, rank 0's and
+    the follower's, under the transfer guard: no host read.  Both ranks
+    issue the same collectives in the same order (the plans, the all-reduce
+    a block, the drafts and counts a verify step takes from rank 0), so
+    that captured programs pair at every replay."""
+    leader, follower, _ = ranks
+    assert leader["programs_tokens"] == [leader["greedy"][1]] * 2
+    log = leader["programs_collectives"]
+    assert log and log == follower["programs_collectives"]
+    assert {"all_reduce", "broadcast"} == {c[0] for c in log}
+    assert leader["programs_host_reads"] == follower["programs_host_reads"] == []

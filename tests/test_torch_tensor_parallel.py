@@ -25,8 +25,16 @@ initial value) instead; a checkpointed run against the straight one within
 ``rtol=1e-5, atol=1e-6`` (JAX's bound); the placement functions and the
 per-rank element counts exactly.  The two autograd Functions of
 ``parallel/mesh.py`` against the unsharded product within 1e-6.
+
+The ranks also make the checks of a window a card captures (``unroll``
+other than 1): the engine's constructor on a faked card captures over NCCL
+and refuses gloo (``tp_shards=2``; fsdp alone), and one window of the TP
+engine (a ``TransformerLM``, grid 2 x 2) and of the fsdp engine (the MLP,
+grid 4 x 1) reads nothing on the host while every rank issues the same
+collectives in the same order (each rank's ``capture_<rank>.json``).
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -336,6 +344,49 @@ def function_inputs():
                  for s in ((3, 5), (6, 5), (3, 6)))
 
 
+def _capture_cases():
+    """Windows of the GSPMD engine as a card captures them: the engine built
+    on a faked card over NCCL and over gloo, and one window on this rank's
+    CPU block under the transfer guard, its collectives recorded; for
+    ``tp_shards=2`` (a ``TransformerLM``, grid 2 x 2, 2 workers) and for
+    ``fsdp=True`` alone (the MLP, grid 4 x 1, 4 workers)."""
+    from distkeras_tpu_torch import algorithms
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.parallel.mesh import TP_AXIS, WORKER_AXIS, make_mesh_grid
+    from test_torch_ring import capture_refusals, host_reads, recording_collectives
+
+    rng = np.random.default_rng(5)
+    x = ((rng.integers(0, 23, size=(32, 1)) + np.arange(16)) % 23).astype(np.int32)
+    lm = TransformerLM(**LM, generator=torch.Generator().manual_seed(1))
+    mlp = port_mlp((32,))
+    runs = {
+        "tp": (TP, dict(tp_shards=TP), "token_crossentropy", 2,
+               fixed(lm, {k: v.detach() for k, v in lm.named_parameters()}),
+               x.reshape(2, 1, 2, 8, 16), ((x + 1) % 23).reshape(2, 1, 2, 8, 16)),
+        "fsdp": (1, dict(fsdp=True), "categorical_crossentropy", 4,
+                 fixed(mlp, {k: v.detach() for k, v in mlp.named_parameters()}),
+                 *epoch_arrays(*data()[::2], 4, 1, 2, 8)),
+    }
+    out = {}
+    for name, (tp, kwargs, loss, workers, adapter, xs, ys) in runs.items():
+        grid = make_mesh_grid(WORLD // tp, tp, axis_names=(WORKER_AXIS, TP_AXIS))
+
+        def build(device):
+            from distkeras_tpu_torch.parallel import GSPMDEngine
+
+            return GSPMDEngine(adapter, loss, SGD, algorithms.Downpour(2), num_workers=workers,
+                               metrics=(), mesh=grid, unroll=True, device=device, **kwargs)
+
+        out[f"{name}/card"] = capture_refusals(lambda: build("cuda"))
+        engine = build("cpu")
+        state = engine.init_state(torch.Generator().manual_seed(0), None)
+        sx, sy = engine.shard_batches(xs, ys)
+        with recording_collectives() as log, host_reads() as reads:
+            engine._window_body(state, sx[:, 0], sy[:, 0], True)
+        out[f"{name}/collectives"], out[f"{name}/host_reads"] = log, reads
+    return out
+
+
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
@@ -348,10 +399,13 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
                    "variants": _trainer_variants_case(),
                    "ckpt": _checkpoint_case(workdir, rank), "bad": _bad_case(),
                    "fn": _function_cases(rank)}
+        capture = _capture_cases()
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(workdir, f"rank_{rank}.npz"),
              **{f"{c}|{k}": v for c, r in results.items() for k, v in r.items()})
+    with open(os.path.join(workdir, f"capture_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(capture, fh)
 
 
 if __name__ == "__main__":
@@ -676,19 +730,79 @@ def test_copy_to_axis_psums_the_partial_input_gradient(ranks):
         np.testing.assert_allclose(got["fn"]["copy/dx"], dx.numpy(), **FN_TOL)
 
 
+def _capture_ranks(workdir):
+    out = []
+    for rank in range(WORLD):
+        with open(os.path.join(workdir, f"capture_{rank}.json"), encoding="utf-8") as fh:
+            out.append(json.load(fh))
+    return out
+
+
+@pytest.mark.parametrize("run", ["tp", "fsdp"])
+def test_gspmd_in_a_captured_window_takes_nccl_and_refuses_gloo(ranks, run):
+    """``tp_shards=2``, and ``fsdp=True`` alone, with ``unroll=True`` on a
+    card: the window is captured over NCCL; gloo is refused by name."""
+    for got in _capture_ranks(ranks[1]):
+        card = got[f"{run}/card"]
+        assert card["nccl"] == "captures", card
+        assert card["gloo"].startswith("ValueError") and "NCCL" in card["gloo"], card
+
+
+@pytest.mark.parametrize("run", ["tp", "fsdp"])
+def test_a_gspmd_window_reads_nothing_on_the_host_and_every_rank_pairs(ranks, run):
+    """The window a card captures: no host read on any rank, and the same
+    collectives in the same order on all four (TP: the column-parallel
+    gathers and input-gradient psums over ``model`` and the commit over
+    ``workers``; fsdp: the center's gathers and the commit)."""
+    got = _capture_ranks(ranks[1])
+    logs = [g[f"{run}/collectives"] for g in got]
+    assert logs[0] and all(log == logs[0] for log in logs)
+    calls = {c[0] for c in logs[0]}
+    assert {"all_gather", "all_reduce"} <= calls, calls
+    assert all(g[f"{run}/host_reads"] == [] for g in got)
+
+
 @pytest.mark.cuda
 def test_tp_or_fsdp_inside_a_captured_window_names_item_20():
-    # captured windows (unroll other than 1 on a card) with the GSPMD
-    # engine's split leaves are ROADMAP Queue A item 20's
+    # Named for the refusal it replaced (ROADMAP Queue A item 20): the GSPMD
+    # engine's fsdp center now takes unroll=True on a card.  Over a one-rank
+    # NCCL group each window is captured, the commit's all-reduce inside
+    # the graph, bit for bit the eager windows on the same group.
+    import torch.distributed as dist
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: on the CPU unroll is the inert scan hint")
     from distkeras_tpu_torch import algorithms
     from distkeras_tpu_torch.parallel import GSPMDEngine
+    from test_torch_mesh import _one_rank_group
 
-    with pytest.raises(NotImplementedError, match="item 20"):
-        GSPMDEngine(fixed(port_mlp((32,)), {}), "categorical_crossentropy", SGD,
-                    algorithms.Downpour(4), num_workers=1, fsdp=True, unroll=True,
-                    device="cuda")
+    x, _, onehot = data(n=512)
+    xs, ys = epoch_arrays(x, onehot, 2, 2, 4, 8)
+    mlp = port_mlp((32,))
+    init = {k: v.detach() for k, v in mlp.named_parameters()}
+    out, engines = {}, {}
+    _one_rank_group("nccl")
+    try:
+        for name, unroll in (("eager", 1), ("graph", True)):
+            engine = GSPMDEngine(fixed(mlp, init), "categorical_crossentropy", SGD,
+                                 algorithms.Downpour(4), num_workers=2, fsdp=True, metrics=(),
+                                 unroll=unroll, device="cuda")
+            state = engine.init_state(torch.Generator().manual_seed(0), None)
+            sx, sy = engine.shard_batches(xs, ys)
+            for _ in range(2):
+                state, stats = engine.run_epoch(state, sx, sy)
+            out[name] = {k: v.cpu() for k, v in engine.gather_center(state).items()}
+            out[name]["loss"] = torch.from_numpy(np.asarray(stats["loss"]))
+            engines[name] = engine
+    finally:
+        dist.destroy_process_group()
+    graph = engines["graph"]
+    assert graph.use_graphs and not engines["eager"].use_graphs
+    assert graph.graph_stats == {"captures": 1, "replays": 4}
+    ticks, runs = graph.graph_launches()["all_reduce"]
+    assert ticks >= 1 and runs == 4 * ticks
+    for key, want in out["eager"].items():
+        assert torch.equal(out["graph"][key], want), key
 
 
 # ------------------------------------------------------------------- Keras
