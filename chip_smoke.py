@@ -2842,13 +2842,15 @@ def _graph_record(engine) -> dict:
                 graph_launches={k: list(v) for k, v in engine.graph_launches().items()})
 
 
-def _steady_epoch(trainer, x, y, tokens: int) -> dict:
+def _steady_epoch(trainer, x, y, tokens: int, workers: int = None) -> dict:
     """One more epoch on the trained engine and state (captured windows
-    replayed, none captured), timed to its stats' read-back: s, tokens/s."""
+    replayed, none captured), timed to its stats' read-back: s, tokens/s
+    (``workers``: the trainer's, by default the train phase's)."""
     from distkeras_tpu_torch.data import epoch_arrays
 
     engine, state, _ = trainer.fit_result
-    xs, ys = engine.shard_batches(*epoch_arrays(x, y, TRAIN_WORKERS, TRAIN_BATCH, TRAIN_WINDOW))
+    workers = TRAIN_WORKERS if workers is None else workers
+    xs, ys = engine.shard_batches(*epoch_arrays(x, y, workers, TRAIN_BATCH, TRAIN_WINDOW))
     t0 = time.perf_counter()
     engine.run_epoch(state, xs, ys)  # ends on the stats' copy to the host
     seconds = time.perf_counter() - t0
@@ -4843,9 +4845,12 @@ def _pp_runs(seed: int) -> dict:
     """One rank's share of the phase, in the group it is in (grid ``world /
     2 x 2``): the pipeline (``pipeline_stages=2``, ``pp_microbatches=2``)
     and ``fsdp=True`` on it, each with B1-B3's launches, the bytes staged
-    through the host, peak memory and resident bytes; then greedy decode
-    with the pipeline's model, sequential and pipelined, and on rank 0 the
-    serving engine over it."""
+    through the host, peak memory and resident bytes; over NCCL both again
+    in captured windows (``unroll=True``: the shifts, the broadcast from the
+    last stage, the gradient sums, fsdp's gather and reduce-scatter and the
+    commit inside the graphs), with one steady epoch each way; then greedy
+    decode with the pipeline's model, sequential and pipelined, and on rank
+    0 the serving engine over it."""
     import torch.distributed as dist
 
     from distkeras_tpu_torch.ops import (
@@ -4857,9 +4862,14 @@ def _pp_runs(seed: int) -> dict:
 
     counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     on_card = ZOO_DEVICE == "cuda"
+    nccl = _captures_here()
     workers = dist.get_world_size() // PP_MODEL["num_stages"]
+    cases = [("pipeline", {}), ("fsdp", dict(fsdp=True))]
+    if nccl:
+        cases += [(f"{name}_graph", dict(kwargs, unroll=True)) for name, kwargs in cases]
+    x, y = lm_task(PP_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 23)
     out = {}
-    for name, kwargs in (("pipeline", {}), ("fsdp", dict(fsdp=True))):
+    for name, kwargs in cases:
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -4875,7 +4885,9 @@ def _pp_runs(seed: int) -> dict:
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
                    grid=list(engine.mesh.shape), engine=type(engine).__name__,
                    stage=engine.stage_index, num_updates=trainer.num_updates,
-                   **_pp_resident(engine, state))
+                   **_pp_resident(engine, state), **_graph_record(engine))
+        if nccl:
+            run.update(_steady_epoch(trainer, x, y, PP_ROWS * PP_MODEL["max_len"], workers))
         out[name] = run
         if name == "pipeline":
             model = trainer.parameter_server.model
@@ -4961,6 +4973,29 @@ def _pp_one_rank(seed: int, num_workers: int, model=None) -> dict:
     return ref
 
 
+def _pp_captured(ranks: list, name: str, steps: int) -> tuple:
+    """Every rank's ``name`` run in captured windows against its eager twin
+    (``_captured_row`` on rank 0, and on every rank the bitwise check, B1-B3
+    ticks x replays against the eager launches and the peak GB both ways).
+    The captured twin must be bitwise its eager twin: the same kernels and
+    NCCL calls on the same inputs.  Returns ``(row, failures)``."""
+    row, failures = _captured_row(ranks[0][f"{name}_graph"], ranks[0][name], steps, PP_EPOCHS)
+    row.update(bitwise_per_rank=[], launches_b1_b2_b3_ticks_x_replays_per_rank=[],
+               peak_memory_gb_per_rank=[], peak_memory_gb_per_rank_eager=[])
+    for r, run in enumerate(ranks):
+        graph, eager = run[f"{name}_graph"], run[name]
+        crow, cfail = _captured_row(graph, eager, steps, PP_EPOCHS)
+        row["bitwise_per_rank"].append(crow["vs_eager"]["bitwise"])
+        row["launches_b1_b2_b3_ticks_x_replays_per_rank"].append(
+            crow["launches_b1_b2_b3_ticks_x_replays"])
+        row["peak_memory_gb_per_rank"].append(graph["peak_memory_gb"])
+        row["peak_memory_gb_per_rank_eager"].append(eager["peak_memory_gb"])
+        failures += [f"rank {r}: {f}" for f in cfail if r]
+        if not crow["vs_eager"]["bitwise"]:
+            failures.append(f"rank {r}: not bitwise its eager twin: {crow['vs_eager']}")
+    return row, failures
+
+
 def _pp_versus(ranks: list, ref: dict, backend: str) -> tuple:
     """The spawned grid's runs against the one-rank run, and the phase's
     gates."""
@@ -5039,6 +5074,12 @@ def _pp_versus(ranks: list, ref: dict, backend: str) -> tuple:
     if not all(np.array_equal(d["sequential"], decode[0]["sequential"]) for d in decode):
         failures.append("the ranks' trained models decode different tokens")
     row["serving"] = ranks[0]["serving"]
+    if "pipeline_graph" in ranks[0]:  # over NCCL: the same runs in captured windows
+        row["captured"] = {}
+        for name in ("pipeline", "fsdp"):
+            crow, cfail = _pp_captured(ranks, name, steps)
+            row["captured"][name] = crow
+            failures += [f"captured {name}: {f}" for f in cfail]
     if cuda and backend == "gloo" and not all(
             r["pipeline"]["host_staged_bytes"] > 0 for r in ranks):
         failures.append("gloo on the card staged no byte through the host")
@@ -5047,12 +5088,111 @@ def _pp_versus(ranks: list, ref: dict, backend: str) -> tuple:
     return row, failures
 
 
+def _pp_one_stage_run(seed: int, unroll) -> dict:
+    """A one-stage ``PipelineEngine`` over the phase's ``StagedLM`` (every
+    block of ``PP_MODEL`` on the one stage, ``PP_MICROBATCHES`` microbatches),
+    the train phase's Adam, batch and window, one worker: ``PP_EPOCHS``
+    epochs of ``PP_ROWS`` rows and one steady epoch more, with ``unroll``.
+    The losses of every epoch, the center, B1-B3's launches, the captured
+    windows' record, seconds and tokens/s (whole and steady) and peak
+    memory, as ``_captured_row`` reads them."""
+    from distkeras_tpu_torch import algorithms
+    from distkeras_tpu_torch.data import epoch_arrays
+    from distkeras_tpu_torch.models import StagedLM
+    from distkeras_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from distkeras_tpu_torch.parallel import PipelineEngine
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    cuda = ZOO_DEVICE == "cuda"
+    depth = PP_MODEL["num_stages"] * PP_MODEL["blocks_per_stage"]
+    model = StagedLM(**dict(PP_MODEL, num_stages=1, blocks_per_stage=depth))
+    x, y = lm_task(PP_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 23)
+    engine = PipelineEngine(model, "token_crossentropy", ("adam", {"learning_rate": 2e-4}),
+                            algorithms.Downpour(TRAIN_WINDOW), 1, microbatches=PP_MICROBATCHES,
+                            metrics=(), unroll=unroll, device=ZOO_DEVICE)
+    state = engine.init_state(torch.Generator().manual_seed(seed), None)
+    xs, ys = engine.shard_batches(*epoch_arrays(x, y, 1, TRAIN_BATCH, TRAIN_WINDOW))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    tokens, losses, seconds = PP_ROWS * PP_MODEL["max_len"], [], []
+    for _ in range(PP_EPOCHS + 1):
+        t0 = time.perf_counter()
+        state, stats = engine.run_epoch(state, xs, ys)  # ends on the stats' copy to the host
+        seconds.append(time.perf_counter() - t0)
+        losses.extend(np.asarray(stats["loss"]).tolist())
+    whole = sum(seconds[:-1])
+    run = dict(loss=losses, params={k: v.detach().float().cpu().clone() for k, v in
+                                    _flat_params(engine.gather_center(state)).items()},
+               launches=[c.launches for c in counters], seconds=whole,
+               tokens_per_s=PP_EPOCHS * tokens / whole, steady_seconds=seconds[-1],
+               steady_tokens_per_s=tokens / seconds[-1], use_graphs=engine.use_graphs,
+               group=engine.group is not None,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               **_graph_record(engine))
+    del engine, state
+    if cuda:
+        torch.cuda.empty_cache()
+    return run
+
+
+def _pp_one_stage_captured(seed: int) -> tuple:
+    """Phase 23 (a)'s captured check: :func:`_pp_one_stage_run` eager and with
+    ``unroll=True``, on a card over a one-rank NCCL group (as phase 18's
+    mesh; none on a CPU rehearsal, where ``unroll`` is inert): the captured
+    run bitwise the eager one, at least one capture with replays, B1-B3
+    ticks x replays the eager launches (``blocks x microbatches x local
+    steps``), and tokens/s and peak GB both ways.  Returns ``(row,
+    failures)``."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch import networking
+
+    cuda = ZOO_DEVICE == "cuda"
+    group = cuda and not (dist.is_available() and dist.is_initialized())
+    if group:
+        networking.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=ZOO_DEVICE)
+    try:
+        runs = {name: _pp_one_stage_run(seed, unroll)
+                for name, unroll in (("eager", 1), ("graph", True))}
+    finally:
+        if group:
+            networking.shutdown()
+    eager, graph = runs["eager"], runs["graph"]
+    steps = PP_ROWS // TRAIN_BATCH
+    depth = PP_MODEL["num_stages"] * PP_MODEL["blocks_per_stage"]
+    row, failures = _captured_row(graph, eager, steps, PP_EPOCHS)
+    row.update(model="StagedLM", **dict(PP_MODEL, num_stages=1, blocks_per_stage=depth),
+               microbatches=PP_MICROBATCHES, epochs=PP_EPOCHS, steady_epochs=1,
+               one_rank_nccl_group=group and graph["group"],
+               peak_memory_gb=graph["peak_memory_gb"],
+               peak_memory_gb_eager=eager["peak_memory_gb"],
+               launches_formula="blocks x microbatches x local steps (the steady epoch's too)")
+    expected = [depth * PP_MICROBATCHES * steps * (PP_EPOCHS + 1) if cuda else 0] * 3
+    if eager["launches"] != expected:
+        failures.append(f"B1-B3 ran {eager['launches']} times eagerly, expected {expected}")
+    if not cuda:  # no capture on the CPU: the eager run twice
+        failures = [f for f in failures if not f.startswith("no window was captured")]
+    elif not (graph["use_graphs"] and row["vs_eager"]["bitwise"]):
+        failures.append(f"not bitwise its eager run: {row['vs_eager']}")
+    return row, failures
+
+
 def pipeline_phase(seed: int, pair: bool = True) -> dict:
     """Pipeline parallelism at GPT-2-small widths (a ``StagedLM``, 6 blocks
     as 2 stages of 3, ``PP_EPOCHS`` epochs of ``PP_ROWS`` rows of the train phase's
     ``DOWNPOUR``): (a) the same model on one rank (``pipeline_stages=1``,
-    the sequential executor, B1-B3 6 a step) in this process, and the
-    pipeline engine's refusal of captured windows on a card (item 20); (b)
+    the sequential executor, B1-B3 6 a step) in this process, and a
+    one-stage ``PipelineEngine`` over the same blocks in captured windows
+    against its eager run (:func:`_pp_one_stage_captured`: bitwise, B1-B3
+    ticks x replays the eager launches); (b)
     two gloo ranks spawned on the card (``--pp-rank``), grid 1 x 2,
     ``pipeline_stages=2, pp_microbatches=2``: the first window, history and
     center against (a) within the seq phase's gates, B1-B3 launched on each
@@ -5062,32 +5202,24 @@ def pipeline_phase(seed: int, pair: bool = True) -> dict:
     trained model's greedy decode pipelined over the ranks token for token
     its sequential decode; a ``ServingEngine`` over it held to
     ``greedy_generate``; (c) on a machine with 4 cards, NCCL, one rank a
-    card, grid 2 x 2 against a 2-worker one-rank run, the same checks (else
-    ``pp_cards_run: 1``).  ``pair=False`` skips (b)."""
+    card, grid 2 x 2 against a 2-worker one-rank run, the same checks, and
+    the pipeline and fsdp runs again in captured windows, each bitwise its
+    eager twin with B1-B3 ticks x replays its eager launches on every rank
+    (else ``pp_cards_run: 1``).  ``pair=False`` skips (b)."""
     import tempfile
 
-    from distkeras_tpu_torch import algorithms
-    from distkeras_tpu_torch.models import StagedLM
-    from distkeras_tpu_torch.parallel import PipelineEngine
-
-    refused = None
-    if ZOO_DEVICE == "cuda":
-        try:
-            PipelineEngine(StagedLM(**dict(PP_MODEL, num_stages=1, blocks_per_stage=1)),
-                           "token_crossentropy", "adam", algorithms.Downpour(TRAIN_WINDOW),
-                           unroll=2)
-        except NotImplementedError as e:
-            refused = str(e)
-        if refused is None or "item 20" not in refused:
-            raise AssertionError(f"pipeline: unroll=2 on a card was not refused: {refused}")
+    captured, failures = _pp_one_stage_captured(seed)
+    if failures:
+        raise AssertionError(f"pipeline: the one-stage pipeline in captured windows: {failures}: "
+                             f"{captured}")
     ref = _pp_one_rank(seed, 1)
     emit(phase="pipeline", case="one_rank", model="StagedLM", **PP_MODEL, workers=1,
          batch_size=TRAIN_BATCH, window=TRAIN_WINDOW, epochs=PP_EPOCHS, loss=ref["loss"],
          first_window_loss=ref["first_window_loss"], tokens_per_s=ref["tokens_per_s"],
          seconds=ref["seconds"], peak_memory_gb=ref["peak_memory_gb"],
          launches_b1_b2_b3=ref["launches"], engine=ref["engine"], block_bytes=ref["block_bytes"],
-         embed_head_bytes=ref["embed_head_bytes"], unroll_refused=refused, card=CARD)
-    out = {"one_rank": ref}
+         embed_head_bytes=ref["embed_head_bytes"], captured_one_stage=captured, card=CARD)
+    out = {"one_rank": ref, "captured_one_stage": captured}
     count = torch.cuda.device_count() if ZOO_DEVICE == "cuda" else 1
     with tempfile.TemporaryDirectory() as workdir:
         runs = [("two_ranks_one_card", 2, "gloo", False)] if pair else []
@@ -5141,7 +5273,11 @@ def _pp3d_runs(seed: int) -> dict:
     4 x 2 x 2``): each of :data:`PP3D_CASES` through ``DOWNPOUR(...,
     pipeline_stages=2, pp_microbatches=2, ...)`` with B1-B3's launches, the
     bytes staged through the host, peak memory and the center's block
-    bytes; on rank 0 the returned model's predictions on one rank."""
+    bytes; on rank 0 the returned model's predictions on one rank.  Over
+    NCCL every case again in captured windows (``unroll=True``: the stage
+    shifts, the model axis's gathers and psums or the ring's hops, the
+    gradient sums and the commit inside the graphs), with one steady epoch
+    each way."""
     import torch.distributed as dist
 
     from distkeras_tpu_torch.ops import (
@@ -5153,11 +5289,17 @@ def _pp3d_runs(seed: int) -> dict:
 
     counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     on_card = ZOO_DEVICE == "cuda"
+    nccl = _captures_here()
     S = PP_MODEL["num_stages"]
     workers = dist.get_world_size() // (S * PP3D_SHARDS)
     x, _ = lm_task(PP3D_PREDICT_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 26)
+    tx, ty = lm_task(PP_ROWS, PP_MODEL["max_len"], PP_MODEL["vocab_size"], seed + 23)
+    cases = list(PP3D_CASES)
+    if nccl:
+        cases += [(f"{name}_graph", dict(kwargs, unroll=True), seq_axis)
+                  for name, kwargs, seq_axis in PP3D_CASES]
     out = {}
-    for name, kwargs, seq_axis in PP3D_CASES:
+    for name, kwargs, seq_axis in cases:
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -5176,9 +5318,12 @@ def _pp3d_runs(seed: int) -> dict:
                    num_updates=trainer.num_updates,
                    block_bytes=_state_bytes(state.center_params["blocks"]),
                    embed_head_bytes=_state_bytes([state.center_params["embed"],
-                                                  state.center_params["head"]]))
+                                                  state.center_params["head"]]),
+                   **_graph_record(engine))
+        if nccl:
+            run.update(_steady_epoch(trainer, tx, ty, PP_ROWS * PP_MODEL["max_len"], workers))
         del engine, state
-        if dist.get_rank() == 0:
+        if dist.get_rank() == 0 and not name.endswith("_graph"):
             model = trainer.parameter_server.model
             probs = np.asarray(model.predict(x))
             run["predict"] = dict(shape=list(probs.shape), finite=bool(np.isfinite(probs).all()),
@@ -5305,6 +5450,12 @@ def _pp3d_versus(ranks: list, ref: dict, backend: str) -> tuple:
                                 f"axes {mine['axes']}")
             if cuda and backend == "gloo" and mine["host_staged_bytes"] <= 0:
                 failures.append(f"{name}: rank {r} on gloo staged no byte through the host")
+    if "tp_graph" in ranks[0]:  # over NCCL: every case in captured windows
+        row["captured"] = {}
+        for name, _, _ in PP3D_CASES:
+            crow, cfail = _pp_captured(ranks, name, steps)
+            row["captured"][name] = crow
+            failures += [f"captured {name}: {f}" for f in cfail]
     row["tp_fsdp"]["vs_tp"] = _versus(ranks[0]["tp_fsdp"], ranks[0]["tp"])
     if not row["tp_fsdp"]["vs_tp"]["bitwise"]:
         failures.append(f"tp_fsdp is not pp x tp bit for bit: {row['tp_fsdp']['vs_tp']}")

@@ -64,9 +64,22 @@ worker a workers rank, and the stages of a staged model
   engine's rule).  ``tp_shards > 1`` with ``seq_shards > 1`` is refused, as
   in JAX.
 
-Staged blocks carry no dropout, as in JAX.  Not in this slice: captured
-CUDA-graph windows (``unroll`` other than 1 on a card, ROADMAP Queue A
-item 20).
+* **Captured windows** (``unroll`` other than 1 on a card): each window is
+  one CUDA graph, as the windowed engine captures it
+  (:meth:`~distkeras_tpu_torch.parallel.engine.WindowedEngine._capture`),
+  with every collective of the schedule inside: the fsdp gather of the
+  embedding and the head, each tick's activation shift (zeros on a bubble
+  tick) and each reverse tick's cotangent shift, ``broadcast_from_last``
+  and a classifier's ``pmean`` over seq, the stage-axis sum (or fsdp's
+  reduce-scatter) and the seq-axis mean of the gradients, the model axis's
+  gathers and psums inside each tick and each ``torch.autograd.grad``, and
+  the commit over ``workers``.  A rank's ticks are fixed on the host by its
+  stage index, so the capture fixes them too.  Every axis group must run
+  NCCL (the windowed engine refuses gloo by name); every rank warms each
+  group, captures the same windows in the same order and replays them in
+  lockstep.
+
+Staged blocks carry no dropout, as in JAX.
 """
 
 from __future__ import annotations
@@ -87,8 +100,6 @@ from distkeras_tpu_torch.ops.optimizers import apply_updates
 from distkeras_tpu_torch.parallel.engine import (
     TrainState,
     WindowedEngine,
-    _graphs_requested,
-    _not_ported,
     zero_shard_dim,
 )
 from distkeras_tpu_torch.parallel.gspmd import (
@@ -113,7 +124,6 @@ from distkeras_tpu_torch.parallel.mesh import (
     pmean,
     ppermute,
     resolve_axis,
-    resolve_device,
 )
 from distkeras_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -408,10 +418,6 @@ class PipelineEngine(WindowedEngine):
         self.microbatches = S if microbatches is None else int(microbatches)
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {self.microbatches}")
-        # the port's refusal, after JAX's checks
-        if _graphs_requested(unroll) and resolve_device(device).type == "cuda":
-            raise _not_ported("pipeline stages inside a captured window (unroll other than 1 "
-                              "on a card)", "item 20 (CUDA-graph follow-ups)")
         # the third axis: the model axis (pipeline x tensor) or the seq axis
         # (pipeline x sequence), as in JAX's 3-D meshes
         third = TP_AXIS if tp > 1 else SEQ_AXIS if sp > 1 else None

@@ -120,8 +120,12 @@ the all-reduce a block, and the drafts and counts a verify step broadcasts
 from rank 0, are inside the graphs, over a step group that must run NCCL
 (a gloo mesh on a card is refused unless :data:`CAPTURE_PROGRAMS` is off);
 the plans stay outside them, host data decided before the step, which a
-follower uploads into the slot buffers its replay reads.  A hot swap drops
-every rank's graphs at the same plan.  ``all_reduces`` counts the
+follower uploads into the slot buffers its replay reads.  A replayed
+collective has no watchdog, so every rank waits for its replays with the
+plan timeout as the deadline (``utils.graphs.wait_bounded``) instead of
+blocking in a read-back: a peer that died before its replay crashes the
+waiting rank's engine once the step group's communicator is aborted.  A
+hot swap drops every rank's graphs at the same plan.  ``all_reduces`` counts the
 all-reduces the steps ran: a captured program's, recorded once, count at
 each replay; the warm-up and the recording before a capture count none.
 
@@ -767,8 +771,7 @@ class ServingEngine:
                 self._program(("decode",), lambda: self._decode(spec, k, v))
             else:
                 self._program(("spec",), lambda: self._spec_iteration(spec))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the host buffers are rewritten next
+            self._await_step()  # the host buffers are rewritten next
 
     def _follow_swap(self) -> None:
         """A follower applies the swap its own ``hot_swap`` call registered
@@ -789,6 +792,25 @@ class ServingEngine:
         np.copyto(self._host["tables"].numpy(), self._cache.tables)
         for name, dst in self._dev.items():
             dst.copy_(self._host[name], non_blocking=True)
+
+    def _await_step(self) -> None:
+        """Wait for the step this rank launched, before its read-back (rank
+        0) or the next plan (a follower).  Over a mesh whose programs are
+        captured the wait has the plan timeout as its deadline: a replayed
+        collective has no watchdog, so a peer that died before its replay
+        would block a read-back for ever.  Past the deadline the step
+        group's communicator is aborted (waited for a bounded time), which
+        frees the waiting replay, and ``TimeoutError``, saying how the abort
+        went, crashes the engine (ROADMAP C23).  Elsewhere a
+        follower on a card synchronises, and rank 0's read-back waits."""
+        if self._use_graphs and self._step_group is not None:
+            event = torch.cuda.Event()
+            event.record()
+            graphs.wait_bounded(event, self._plan_timeout,
+                                lambda: graphs.abort_group(self._step_group),
+                                "a serving mesh's replayed step")
+        elif not self.leads and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _program(self, key: tuple, fn):
         """Run one step program, ``fn()``, which reads only the engine's
@@ -1395,6 +1417,7 @@ class ServingEngine:
                 dc = self._draft_cache
                 self._program(("prefill", "draft", width), lambda: self._prefill(
                     self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False))
+            self._await_step()
             with self._read_back():
                 tok0 = int(tok.item())  # device sync: the prefill is done here
         now = time.perf_counter()
@@ -1485,6 +1508,7 @@ class ServingEngine:
                 spec = self._spec
             k, v = self._cache.k_pages, self._cache.v_pages
             tok = self._program(("decode",), lambda: self._decode(spec, k, v))
+            self._await_step()
             with self._read_back():
                 toks = tok.cpu().numpy()  # device sync: the step is done here
         dt = time.perf_counter() - t0
@@ -1530,6 +1554,7 @@ class ServingEngine:
                 return torch.cat([out, count[:, None], accepted[:, None]], dim=1)
 
             packed = self._program(("spec",), iteration)
+            self._await_step()
             # one copy back: the iteration is done here
             with self._read_back():
                 packed = packed.cpu().numpy()

@@ -28,6 +28,13 @@ and replays it.  The engines share what every capture needs:
   replay them in lockstep, as the engines' SPMD loops do.  NCCL does not
   destroy a communicator while a graph that recorded its collectives
   lives: ``networking.shutdown`` frees the unreachable ones first.
+* :func:`wait_bounded`: a replayed collective escapes NCCL's watchdog, so
+  a peer that died before its replay leaves the replay waiting for ever,
+  and a host that reads its result back blocks with it.  A caller that
+  must not hang records an event after its replays and waits on it with
+  a deadline; past the deadline it aborts the group's communicator
+  (:func:`abort_group`, on a thread of its own, waited for a bounded
+  time), which makes the waiting kernel return, and raises.
 
 A capture that fails raises: nothing falls back to eager.
 """
@@ -36,16 +43,22 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 import torch.distributed as dist
 
 from distkeras_tpu_torch.sanitizer import transfer
 
-__all__ = ["CAPTURE_LOCK", "capturing", "require_nccl", "warm_up", "warm_up_groups"]
+__all__ = ["CAPTURE_LOCK", "abort_group", "capturing", "require_nccl", "wait_bounded",
+           "warm_up", "warm_up_groups"]
 
 #: held around every capture in the process (see the module docstring)
 CAPTURE_LOCK = threading.Lock()
+#: the longest pause between two polls of :func:`wait_bounded` (seconds)
+POLL_MAX_S = 2e-4
+#: how long :func:`abort_group` waits for the abort before it returns
+ABORT_WAIT_S = 10.0
 
 
 def warm_up(fn, device):
@@ -110,3 +123,53 @@ def capturing(graph, pool=None):
     with contextlib.ExitStack() as stack:
         stack.push(capture)
         yield
+
+
+def wait_bounded(event, timeout_s: float, on_timeout, what: str) -> None:
+    """Wait until ``event`` (a recorded ``torch.cuda.Event``, or anything
+    with ``query()``) has completed, polling it with pauses that double
+    from 10 us up to :data:`POLL_MAX_S`.  If ``timeout_s`` seconds pass
+    first, call ``on_timeout()`` (:func:`abort_group` of the group whose
+    collective waits) and raise ``TimeoutError`` naming ``what``.  The
+    host thread is never blocked inside the device, as a read-back of a
+    replay's output would be; the pause bounds what the poll adds to a
+    wait that ends."""
+    deadline = time.monotonic() + float(timeout_s)
+    pause = 1e-5
+    while not event.query():
+        if time.monotonic() >= deadline:
+            note = on_timeout()
+            raise TimeoutError(
+                f"{what} did not complete within {timeout_s} s: a peer of its collectives "
+                "is gone (a replayed collective has no watchdog)"
+                + (f"; {note}" if note else ""))
+        time.sleep(pause)
+        pause = min(2 * pause, POLL_MAX_S)
+
+
+def abort_group(group) -> str:
+    """Abort ``group``'s NCCL communicators (None: nothing), so that a
+    kernel waiting in one of its collectives, a replayed one included,
+    returns; the group is unusable after.  The abort runs on a daemon
+    thread and is waited for :data:`ABORT_WAIT_S` at most, so that the caller
+    goes on to fail even if it does not return.  Returns what happened, for
+    the caller's error."""
+    if group is None:
+        return "no group to abort"
+    done, raised = threading.Event(), []
+
+    def abort():
+        try:
+            dist.distributed_c10d._abort_process_group(group)
+        except Exception as e:  # noqa: BLE001 — reported to the caller
+            raised.append(e)
+        finally:
+            done.set()
+
+    t0 = time.monotonic()
+    threading.Thread(target=abort, name="nccl-abort", daemon=True).start()
+    if not done.wait(ABORT_WAIT_S):
+        return f"its group's abort had not returned after {ABORT_WAIT_S} s"
+    if raised:
+        return f"its group's abort raised {raised[0]!r}"
+    return f"its group was aborted in {time.monotonic() - t0:.3f} s"

@@ -7,10 +7,14 @@ small's widths, cut to 6 blocks as 2 stages of 3 and 16 rows, under ``DOWNPOUR``
 (the sequential executor, the reference), then four gloo ranks sharing the
 card on the pipeline engine's 1 x 2 x 2 grids: ``tp_shards=2``, with
 ``fsdp=True``, and ``seq_shards=2`` with the model built ``seq_axis="seq"``,
-each against the one-rank run (and both grids over NCCL, one rank a card,
-where the machine has 4 cards), each printing ``chip_smoke.py``'s JSON
-lines; ``--cards-only`` leaves out the gloo ranks (a 4-card call for the
-NCCL grids alone).  Any failed gate raises.  ``chip_smoke.py`` runs every
+each against the one-rank run; where the machine has 4 cards, both grids
+over NCCL, one rank a card, eager and again in captured windows
+(``unroll=True``: the stage shifts, the model axis's gathers and psums or
+the ring's hops, the gradient sums and the commit inside the graphs), each
+captured run held bit for bit to its eager twin, with steady tokens/s and
+peak GB a rank both ways.  Each prints ``chip_smoke.py``'s JSON lines;
+``--cards-only`` leaves out the gloo ranks (a 4-card call for the NCCL
+grids alone).  Any failed gate raises.  ``chip_smoke.py`` runs every
 phase; this is the 3-D pipeline paths and their reference alone.  Needs a
 CUDA card.
 """

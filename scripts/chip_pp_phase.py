@@ -4,13 +4,18 @@
 
 Builds the kernels and runs phase 23: a ``StagedLM`` at GPT-2 small's
 widths (6 of the 12 blocks as 2 stages of 3, 16 rows) under ``DOWNPOUR`` on one rank (the
-sequential executor), then ``pipeline_stages=2, pp_microbatches=2`` on two
-gloo ranks sharing the card against it, replicated and with ``fsdp=True``,
-the trained model's greedy decode sequential and pipelined over the two
-ranks, and a ``ServingEngine`` over it (and the 2 x 2 NCCL grid, one rank a
-card, where the machine has 4 cards), each printing ``chip_smoke.py``'s
-JSON lines; ``--cards-only`` leaves out the gloo pair (a 4-card call for
-the NCCL grid and its one-rank references alone).  Any failed gate raises.
+sequential executor), and a one-stage ``PipelineEngine`` over the same 6
+blocks in captured windows (``unroll=True``, over a one-rank NCCL group)
+held bit for bit to its eager run; then ``pipeline_stages=2,
+pp_microbatches=2`` on two gloo ranks sharing the card against the
+one-rank run, replicated and with ``fsdp=True``, the trained model's greedy
+decode sequential and pipelined over the two ranks, and a ``ServingEngine``
+over it; where the machine has 4 cards, the 2 x 2 NCCL grid, one rank a
+card, eager and again in captured windows (the schedule's collectives
+inside the graphs), each captured run held bit for bit to its eager twin,
+with steady tokens/s and peak GB a rank both ways.  Each prints
+``chip_smoke.py``'s JSON lines; ``--cards-only`` leaves out the gloo pair
+(a 4-card call for the NCCL grid and its references alone).  Any failed gate raises.
 ``chip_smoke.py`` runs every phase; this is the pipeline path and its
 reference alone.  Needs a CUDA card.
 """

@@ -526,6 +526,12 @@ def test_pipeline_phase_rehearsal(on_cpu, capsys, monkeypatch):
     assert rows[2]["pp_cards_run"] == 1
     one = out["one_rank"]
     assert one["engine"] == "WindowedEngine" and np.isfinite(one["loss"]).all()
+    # the one-stage pipeline eager and with unroll=True, which the CPU runs
+    # eagerly: the same run twice, no capture, no kernel launch
+    captured = out["captured_one_stage"]
+    assert rows[0]["captured_one_stage"] == json.loads(json.dumps(captured))
+    assert captured["vs_eager"]["bitwise"] and captured["graph_stats"]["captures"] == 0
+    assert captured["launches_b1_b2_b3_eager"] == [0, 0, 0]
     row = out["two_ranks_one_card"]
     assert rows[1] == {"phase": "pipeline", **json.loads(json.dumps(row))}
     # PP_ROWS (16) of batch 4 on one worker

@@ -7,6 +7,11 @@ port's own sequential executor and one-rank trainer.
 Two ranks are spawned **once** for the module (``ranks`` fixture, the
 pattern of ``test_torch_tensor_parallel.py``): each runs this file as a
 script, joins the gloo group and runs every case, and writes its results.
+What a card captures (``unroll=True``: each window one CUDA graph, the
+schedule's collectives inside) is shown here on the CPU: the constructor
+on a faked card takes NCCL and refuses gloo by name, and one window reads
+nothing on the host and issues the same collectives on both ranks
+(``capture_<rank>.json``).
 Both packages start from the same parameters (the JAX engine's initial
 center, carried over with ``params_from_flax``), and the data come from one
 numpy seed.  The JAX engines run in the pytest process while the ranks run.
@@ -99,13 +104,13 @@ def _load(workdir, kind):
         return unflat({k: got[k] for k in got.files})
 
 
-def _engine(workdir, kind="cls", microbatches=2, opt=SGD, **kwargs):
+def _engine(workdir, kind="cls", microbatches=2, opt=SGD, device="cpu", **kwargs):
     from distkeras_tpu_torch import algorithms
     from distkeras_tpu_torch.parallel import PipelineEngine
 
     loss = "token_crossentropy" if kind == "lm" else "categorical_crossentropy"
     return PipelineEngine(staged(kind, _load(workdir, kind)), loss, opt, algorithms.Downpour(2),
-                          1, microbatches=microbatches, metrics=(), device="cpu", **kwargs)
+                          1, microbatches=microbatches, metrics=(), device=device, **kwargs)
 
 
 def _data(kind):
@@ -313,7 +318,86 @@ def _broadcast_case(rank):
     return {"y": y.detach().numpy(), "g": g.numpy()}
 
 
+def capture_case(build, kind) -> dict:
+    """A pipeline window as a card captures it: ``build(device)`` (the
+    engine, ``unroll=True``) on a faked card whose groups run NCCL, then
+    gloo; then one ``_window_body`` of the engine built on the CPU, on this
+    rank's block of the first window, under the transfer guard with every
+    collective recorded.  Shared with ``test_torch_pp_tp.py`` and
+    ``test_torch_pp_sp.py``."""
+    from test_torch_ring import capture_refusals, host_reads, recording_collectives
+
+    out = {"card": capture_refusals(lambda: build("cuda"))}
+    engine = build("cpu")
+    state = engine.init_state(torch.Generator().manual_seed(0), None)
+    sx, sy = engine.shard_batches(*_data(kind))
+    with recording_collectives(ranks=True) as log, host_reads() as reads:
+        engine._window_body(state, sx[:, 0], sy[:, 0], True)
+    out["collectives"], out["host_reads"] = log, reads
+    out["stage"] = engine.stage_index
+    return out
+
+
+def _capture_cases(workdir) -> dict:
+    """:func:`capture_case` for the staged LM on the 1 x 2 grid, replicated
+    and under fsdp."""
+    from distkeras_tpu_torch.parallel.mesh import PP_AXIS, WORKER_AXIS, make_mesh_grid
+
+    grid = make_mesh_grid(1, WORLD, axis_names=(WORKER_AXIS, PP_AXIS))
+    return {name: capture_case(lambda device: _engine(workdir, "lm", opt=ADAM, mesh=grid,
+                                                      unroll=True, device=device, **kwargs),
+                               "lm")
+            for name, kwargs in (("replicated", {}), ("fsdp", dict(fsdp=True)))}
+
+
+def read_captures(workdir, world) -> list:
+    """Every rank's ``capture_<rank>.json``, in rank order."""
+    import json
+
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"capture_{rank}.json"), encoding="utf-8") as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def assert_captured(got: list, layout: str) -> None:
+    """The window of ``layout`` as a card captures it, on every rank (``got``
+    in rank order): the constructor on a faked card captures over NCCL and
+    refuses gloo by name; no host read; every rank of each group issues the
+    group's collectives in the same order as the group's other ranks (the
+    stage axis's shifts, broadcast from the last stage and gradient sums;
+    the third axis's gathers, psums or ring hops; the commit), so that the
+    captured windows pair at every replay.  The ranks of one stage run the
+    same ticks: their whole logs agree, so that the collectives of
+    different groups are ordered alike on every rank of a third-axis group."""
+    groups, stage_of, logs = [], [], []
+    for rank, g in enumerate(got):
+        card = g[layout]["card"]
+        assert card["nccl"] == "captures", card
+        assert card["gloo"].startswith("ValueError") and "NCCL" in card["gloo"], card
+        assert g[layout]["host_reads"] == []
+        mine = {}
+        for *entry, members in g[layout]["collectives"]:
+            mine.setdefault(tuple(members), []).append(entry)
+        groups.append(mine)
+        logs.append([entry for *entry, _ in g[layout]["collectives"]])
+        stage_of.append(g[layout]["stage"])
+        # a shift is one batch_isend_irecv over NCCL, a send and a receive here
+        calls = {c[0] for c in logs[-1]}
+        assert "all_reduce" in calls and calls & {"isend", "batch_isend_irecv"}, calls
+    for rank, mine in enumerate(groups):
+        for members, entries in mine.items():
+            for other in members:
+                assert groups[other][members] == entries, (rank, other, members)
+        for other, stage in enumerate(stage_of):
+            if stage == stage_of[rank]:
+                assert logs[other] == logs[rank], (rank, other)
+
+
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
+    import json
+
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
@@ -323,10 +407,13 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
                    "head_form": _head_form_case(workdir), "trainer": _trainer_case(),
                    "refused": _refusal_case(), "bfl": _broadcast_case(rank),
                    "ckpt": _checkpoint_case(workdir)}
+        capture = _capture_cases(workdir)
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(workdir, f"rank_{rank}.npz"),
              **{f"{c}|{k}": v for c, r in results.items() for k, v in r.items()})
+    with open(os.path.join(workdir, f"capture_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(capture, fh)
 
 
 if __name__ == "__main__":
@@ -390,8 +477,9 @@ def read_ranks(workdir):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """``(results of every rank, JAX's runs)``: the JAX initial parameters
-    are written for the ranks, which start; the JAX engines run meanwhile."""
+    """``(results of every rank, JAX's runs, every rank's capture cases)``:
+    the JAX initial parameters are written for the ranks, which start; the
+    JAX engines run meanwhile."""
     from test_torch_ring import start_ranks, wait_ranks
 
     workdir = str(tmp_path_factory.mktemp("pp"))
@@ -407,7 +495,7 @@ def ranks(tmp_path_factory):
             jax_runs[f"M{m}"] = jax_run("cls", microbatches=m)[1]
     finally:
         wait_ranks(procs, workdir)
-    return read_ranks(workdir), jax_runs
+    return read_ranks(workdir), jax_runs, read_captures(workdir, WORLD)
 
 
 def classifier(**changes):
@@ -577,6 +665,16 @@ def test_broadcast_from_last_keeps_the_cotangent_on_the_last_stage(ranks):
         np.testing.assert_array_equal(got["bfl"]["y"], np.full(3, float(WORLD)))
         want = np.arange(3.0) if r == WORLD - 1 else np.zeros(3)
         np.testing.assert_array_equal(got["bfl"]["g"], want)
+
+
+@pytest.mark.parametrize("layout", ["replicated", "fsdp"])
+def test_a_pipeline_window_captures_over_nccl_and_reads_nothing_on_the_host(ranks, layout):
+    """``unroll=True`` on a card: the 1 x 2 pipeline's window (and under
+    fsdp, with the embed/head gather and reduce-scatter) is captured over
+    NCCL, gloo refused by name; one window on each stage rank reads
+    nothing on the host, and both ranks issue the same collectives in the
+    same order, the bubble ticks' zero shifts included."""
+    assert_captured(ranks[2], layout)
 
 
 # ---------------------------------------------------------------- fsdp

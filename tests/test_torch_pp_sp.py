@@ -17,7 +17,9 @@ Tolerances: JAX's own (tests/test_pp_sp.py, tests/test_pp_tp.py): losses
 forward against the sequential one within 1e-5; fsdp against the port's
 replicated run bit for bit; the elements a rank stores equal to JAX's shard
 sizes.  Under Adam the key third of the fused ``qkv`` bias is held to its
-round-off bound (``test_torch_pipeline.hold_key_third``).
+round-off bound (``test_torch_pipeline.hold_key_third``).  What a card
+captures is shown on the CPU as in ``test_torch_pipeline.py``
+(``capture_case``): pp x sp, with and without fsdp.
 """
 
 import os
@@ -36,6 +38,7 @@ from test_torch_pp_tp import (  # noqa: E402
     FWD_TOL,
     TOL,
     assert_trainer,
+    capture_cases,
     engine,
     forward_case,
     jax_init,
@@ -44,6 +47,7 @@ from test_torch_pp_tp import (  # noqa: E402
     one_rank_trainer,
     read_ranks,
     run,
+    save_captures,
     save_rank,
     spawn_grid_ranks,
     trainer_case,
@@ -78,12 +82,18 @@ def _cases(workdir):
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
+    from distkeras_tpu_torch.parallel.mesh import SEQ_AXIS
+
     dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     try:
         results = _cases(workdir)
+        capture = capture_cases(workdir, SEQ_AXIS, (
+            ("sp", dict(seq=True, seq_shards=SHARDS)),
+            ("sp_fsdp", dict(seq=True, seq_shards=SHARDS, fsdp=True))))
     finally:
         dist.destroy_process_group()
     save_rank(workdir, rank, results)
+    save_captures(workdir, rank, capture)
 
 
 if __name__ == "__main__":
@@ -96,7 +106,9 @@ if __name__ == "__main__":
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """``(results of every rank, JAX's runs, the one-rank trainer's run)``."""
+    """``(results of every rank, JAX's runs, the one-rank trainer's run,
+    every rank's capture cases)``."""
+    from test_torch_pipeline import read_captures
     from test_torch_ring import wait_ranks
 
     workdir = str(tmp_path_factory.mktemp("pp_sp"))
@@ -112,7 +124,7 @@ def ranks(tmp_path_factory):
         trainer = one_rank_trainer()
     finally:
         wait_ranks(procs, workdir)
-    return read_ranks(workdir), jax_runs, trainer
+    return read_ranks(workdir), jax_runs, trainer, read_captures(workdir, 4)
 
 
 def test_pp_sp_pipelined_forward_matches_sequential(ranks):
@@ -188,3 +200,17 @@ def test_pp_sp_rejections():
         make(classifier(seq_axis="seq"))
     with pytest.raises(ValueError, match="not supported"):
         make(classifier(seq_axis="seq"), tp_shards=2, seq_shards=2)
+
+
+@pytest.mark.parametrize("layout", ["sp", "sp_fsdp"])
+def test_a_pp_sp_window_captures_over_nccl_and_reads_nothing_on_the_host(ranks, layout):
+    """``unroll=True`` on a card, grid 1 x 2 x 2 with the seq axis: the
+    window (the stage shifts, the ring's hops in every tick forward and
+    backward, a classifier's pmean, the stage sums and the seq-axis mean of
+    the gradients; under fsdp the embed/head gather and reduce-scatter) is
+    captured over NCCL, gloo refused by name; one window on each of the
+    four ranks reads nothing on the host, and all four issue the same
+    collectives in the same order."""
+    from test_torch_pipeline import assert_captured
+
+    assert_captured(ranks[3], layout)

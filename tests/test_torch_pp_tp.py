@@ -4,7 +4,9 @@ rank x 2 stages x 2 model ranks), case by case against tests/test_pp_tp.py
 and tests/test_pp_fsdp.py :: test_pp_tp_fsdp_trajectory_matches_pp_fsdp: the
 JAX package's ``PipelineEngine(tp_shards=2)`` on four of its CPU devices,
 and the port's own sequential executor and one-rank trainer.  The 3-D grid's
-axis groups and collectives are checked first, on three grids.
+axis groups and collectives are checked first, on three grids.  What a
+card captures is shown on the CPU as in ``test_torch_pipeline.py``
+(``capture_case``): pp x tp, with and without fsdp.
 
 Four ranks are spawned **once** for the module (``ranks`` fixture, the
 pattern of ``test_torch_pipeline.py``): each runs this file as a script,
@@ -23,8 +25,8 @@ collectives, which move and add small integers, exactly.  Under Adam the key
 third of the fused ``qkv`` bias is held to its round-off bound
 (``test_torch_pipeline.hold_key_third``).
 
-:func:`spawn_grid_ranks` and :func:`jax_run` are shared with
-``test_torch_pp_sp.py``.
+:func:`spawn_grid_ranks`, :func:`jax_run` and :func:`capture_cases` are
+shared with ``test_torch_pp_sp.py``.
 """
 
 import os
@@ -62,7 +64,7 @@ GRIDS = ((1, 2, 2), (2, 1, 2), (2, 2, 1))
 
 # ------------------------------------------------------- shared with the ranks
 
-def engine(workdir, kind="cls", opt=SGD, seq=False, num_workers=1, **kwargs):
+def engine(workdir, kind="cls", opt=SGD, seq=False, num_workers=1, device="cpu", **kwargs):
     """The port's pipeline engine on the JAX initial parameters: 1 worker,
     2 microbatches, Downpour(2)."""
     from distkeras_tpu_torch import algorithms
@@ -71,7 +73,28 @@ def engine(workdir, kind="cls", opt=SGD, seq=False, num_workers=1, **kwargs):
     loss = "token_crossentropy" if kind == "lm" else "categorical_crossentropy"
     model = staged(kind, _load(workdir, kind), **({"seq_axis": "seq"} if seq else {}))
     return PipelineEngine(model, loss, opt, algorithms.Downpour(2), num_workers,
-                          microbatches=2, metrics=(), device="cpu", **kwargs)
+                          microbatches=2, metrics=(), device=device, **kwargs)
+
+
+def capture_cases(workdir, third: str, cases) -> dict:
+    """``test_torch_pipeline.capture_case`` for the staged LM on the 1 x 2 x
+    2 grid whose third axis is ``third``, each of ``cases`` (name, the
+    engine's keyword arguments)."""
+    from distkeras_tpu_torch.parallel.mesh import PP_AXIS, WORKER_AXIS, make_mesh_grid
+    from test_torch_pipeline import capture_case
+
+    grid = make_mesh_grid(1, STAGES, SHARDS, axis_names=(WORKER_AXIS, PP_AXIS, third))
+    return {name: capture_case(lambda device: engine(workdir, "lm", ADAM, mesh=grid,
+                                                     unroll=True, device=device, **kwargs),
+                               "lm")
+            for name, kwargs in cases}
+
+
+def save_captures(workdir, rank, capture) -> None:
+    import json
+
+    with open(os.path.join(workdir, f"capture_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(capture, fh)
 
 
 def run(eng, kind, epochs=2):
@@ -263,12 +286,18 @@ def _cases(workdir):
 def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     import torch.distributed as dist
 
+    from distkeras_tpu_torch.parallel.mesh import TP_AXIS
+
     dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     try:
         results = {**{f"grid_{k}": v for k, v in _grid_case(rank).items()}, **_cases(workdir)}
+        capture = capture_cases(workdir, TP_AXIS, (("tp", dict(tp_shards=SHARDS)),
+                                                   ("tp_fsdp", dict(tp_shards=SHARDS,
+                                                                    fsdp=True))))
     finally:
         dist.destroy_process_group()
     save_rank(workdir, rank, results)
+    save_captures(workdir, rank, capture)
 
 
 if __name__ == "__main__":
@@ -344,9 +373,11 @@ def jax_run(kind, params, fsdp=False, epochs=2, **kwargs):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """``(results of every rank, JAX's runs, the one-rank trainer's run)``:
-    the JAX initial parameters are written for the ranks, which start; the
-    JAX engines and the one-rank trainer run meanwhile."""
+    """``(results of every rank, JAX's runs, the one-rank trainer's run,
+    every rank's capture cases)``: the JAX initial parameters are written
+    for the ranks, which start; the JAX engines and the one-rank trainer
+    run meanwhile."""
+    from test_torch_pipeline import read_captures
     from test_torch_ring import wait_ranks
 
     workdir = str(tmp_path_factory.mktemp("pp_tp"))
@@ -363,7 +394,7 @@ def ranks(tmp_path_factory):
         trainer = one_rank_trainer()
     finally:
         wait_ranks(procs, workdir)
-    return read_ranks(workdir), jax_runs, trainer
+    return read_ranks(workdir), jax_runs, trainer, read_captures(workdir, WORLD)
 
 
 def _coords(rank, dims):
@@ -507,3 +538,16 @@ def test_default_worker_count_divides_by_the_pipeline_row():
     assert row(pipeline_stages=2) == 2
     assert row(tp_shards=2) == 1
     assert row(seq_shards=2) == 2
+
+
+@pytest.mark.parametrize("layout", ["tp", "tp_fsdp"])
+def test_a_pp_tp_window_captures_over_nccl_and_reads_nothing_on_the_host(ranks, layout):
+    """``unroll=True`` on a card, grid 1 x 2 x 2: the window (the stage
+    shifts, the model axis's gathers and psums inside each tick and each
+    ``autograd.grad``, the stage sums, under fsdp the embed/head gather
+    and reduce-scatter) is captured over NCCL, gloo refused by name; one
+    window on each of the four ranks reads nothing on the host, and all
+    four issue the same collectives in the same order."""
+    from test_torch_pipeline import assert_captured
+
+    assert_captured(ranks[3], layout)

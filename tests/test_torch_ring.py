@@ -106,28 +106,32 @@ _DIST_CALLS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor"
 
 
 @contextlib.contextmanager
-def recording_collectives():
+def recording_collectives(ranks: bool = False):
     """Record every collective this process issues in the block, on any
-    thread, in issue order, as ``[call, group size, shapes, dtype]``: a
-    program captured on a card replays its collectives, so every rank of a
-    group must issue the same ones in the same order."""
+    thread, in issue order, as ``[call, group size, shapes, dtype]`` (with
+    ``ranks``, a fifth field: the group's global ranks, the world's for the
+    default group): a program captured on a card replays its collectives,
+    so every rank of a group must issue the same ones in the same order."""
     import torch.distributed as dist
 
     log, saved = [], {name: getattr(dist, name) for name in _DIST_CALLS}
 
     def recorded(name, call):
         def wrapper(*args, **kwargs):
-            tensors = []
+            tensors, group = [], kwargs.get("group")
             for a in (*args, *kwargs.values()):
                 for t in (a if isinstance(a, (list, tuple)) else (a,)):
                     if isinstance(t, torch.Tensor):
                         tensors.append(t)
                     elif isinstance(t, dist.P2POp):
                         tensors.append(t.tensor)
-            group = kwargs.get("group")
-            log.append([name, dist.get_world_size(group) if group is not None else 0,
-                        [list(t.shape) for t in tensors],
-                        str(tensors[0].dtype) if tensors else ""])
+                        group = t.group
+            entry = [name, dist.get_world_size(group) if group is not None else 0,
+                     [list(t.shape) for t in tensors], str(tensors[0].dtype) if tensors else ""]
+            if ranks:
+                entry.append(dist.get_process_group_ranks(group) if group is not None
+                             else list(range(dist.get_world_size())))
+            log.append(entry)
             return call(*args, **kwargs)
 
         return wrapper
@@ -170,15 +174,15 @@ def faked_card(backend=None):
     it: the constructors' checks alone, on the CPU."""
     import torch.distributed as dist
 
-    from distkeras_tpu_torch.parallel import engine, pipeline
+    from distkeras_tpu_torch.parallel import engine
     from distkeras_tpu_torch.serving import engine as serving
 
     card = lambda device="cuda": torch.device("cuda", 0)
-    saved = [(m, "resolve_device", m.resolve_device) for m in (engine, pipeline, serving)]
+    saved = [(m, "resolve_device", m.resolve_device) for m in (engine, serving)]
     if backend is not None:
         saved.append((dist, "get_backend", dist.get_backend))
     try:
-        for m, name, _ in saved[:3]:
+        for m, name, _ in saved[:2]:
             setattr(m, name, card)
         if backend is not None:
             dist.get_backend = lambda group=None: backend

@@ -13,7 +13,12 @@ crashes mid-step crashing rank 0's engine instead of hanging it.  What a
 card captures (each rank's step programs as CUDA graphs, the step group's
 collectives inside them): every program of both ranks reads nothing on the
 host (the transfer guard), both ranks issue the same collectives in the
-same order, and a gloo mesh on a card is refused by name.
+same order, and a gloo mesh on a card is refused by name.  On two cards
+(``cuda``, skipped below two): a follower that raises at a replay of a
+program it captured, instead of replaying, crashes rank 0's engine within a
+small multiple of the plan timeout, as the eager crash case does (ROADMAP
+C23: a replayed collective has no watchdog, so rank 0 waits for its
+replays with a deadline).
 
 The two ranks are spawned **once** for the module (``ranks`` fixture, the
 pattern of ``test_torch_ring.py``): each runs this file as a script, joins
@@ -44,6 +49,10 @@ NEW_TOKENS = 6
 SAMPLED = dict(temperature=0.9, top_k=10, top_p=0.95)
 STOP_WITHIN_S = 10.0
 CRASH_TIMEOUT_S = 5.0  # the crash case's plan timeout
+# the two-card case's plan timeout, also its NCCL step group's: NCCL's
+# watchdog ends a rank whose eager collective (the capture's warm-up) waits
+# past it, so it allows for the communicators' set-up
+CARDS_TIMEOUT_S = 15.0
 
 
 def prompts():
@@ -276,8 +285,76 @@ def _rank_main(rank: int, world: int, init: str, workdir: str) -> None:
     os._exit(0)
 
 
+def _cards_main(where: str, rank: int, world: int, init: str, workdir: str) -> None:
+    """One NCCL rank a card, serving ``mesh=`` with captured programs: a
+    first request captures the prefill and the decode step (one decode
+    step, replayed once); then the follower raises at its next ``where``
+    program (``decode`` or ``prefill``, a key it has captured) instead of
+    replaying it, and stays up; rank 0 serves a second request.  Each rank
+    writes ``cards_<rank>.json``; a rank still running after 100 s prints
+    every thread's stack."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.models import TransformerLM
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    from distkeras_tpu_torch.serving import EngineCrashed, GenerateRequest, ServingEngine
+    from distkeras_tpu_torch.serving import engine as engine_module
+    from distkeras_tpu_torch.telemetry.metrics import Registry
+
+    faulthandler.dump_traceback_later(100)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=init, world_size=world, rank=rank)
+    engine_module.PLAN_TIMEOUT_S = CARDS_TIMEOUT_S
+    if rank != 0:
+        program = ServingEngine._program
+
+        def failing(self, key, fn):
+            if key[0] == where and key in self._programs:
+                raise RuntimeError(f"a follower fault at its {where} replay")
+            return program(self, key, fn)
+
+        ServingEngine._program = failing
+    model = TransformerLM(**LM, generator=torch.Generator().manual_seed(4))
+    engine = ServingEngine(model, {k: v.detach() for k, v in model.named_parameters()},
+                           num_slots=2, page_size=8, mesh=make_mesh(world, axis_name="model"),
+                           registry=Registry(), device="cuda")
+    out = {}
+    if rank == 0:
+        first = engine.generate(prompts()[0], max_new_tokens=2, timeout=120)
+        out["first"] = {"finish_reason": first.finish_reason, "tokens": len(first.tokens),
+                        **engine.graph_stats}
+        t0 = time.perf_counter()
+        result = engine.generate(prompts()[0], max_new_tokens=NEW_TOKENS, timeout=120)
+        out["crash"] = {"finish_reason": result.finish_reason,
+                        "seconds": time.perf_counter() - t0, "alive": engine.alive,
+                        "error": repr(engine.error),
+                        # the replay that waited has returned once the stream drains
+                        "stream_drained": torch.cuda.current_stream().query()}
+        try:
+            engine.submit(GenerateRequest(prompt=prompts()[0]))
+            out["crash"]["submit"] = "accepted"
+        except EngineCrashed as e:
+            out["crash"]["submit"] = f"EngineCrashed: {e}"
+    else:
+        deadline = time.monotonic() + 120
+        while engine.alive and time.monotonic() < deadline:
+            time.sleep(0.05)
+        out["crashed"] = not engine.alive and "follower fault" in repr(engine.error)
+        out["captures"] = engine.graph_stats["captures"]
+        # stay up past rank 0's deadline: its wait must time out, not see
+        # this process go
+        time.sleep(2 * CARDS_TIMEOUT_S)
+    with open(os.path.join(workdir, f"cards_{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(out, fh)
+    os._exit(0)  # the step group is aborted on rank 0: end without a collective
+
+
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1] == "--cards":
+        _cards_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
     _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
 
 
@@ -437,3 +514,65 @@ def test_every_program_reads_nothing_on_the_host_and_both_ranks_pair(ranks):
     assert log and log == follower["programs_collectives"]
     assert {"all_reduce", "broadcast"} == {c[0] for c in log}
     assert leader["programs_host_reads"] == follower["programs_host_reads"] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["decode", "prefill"])
+def test_a_follower_gone_before_a_captured_replay_crashes_rank_0(tmp_path, where):
+    """ROADMAP C23 on two cards: the follower raises at a replay of its
+    captured ``where`` program and stays up; rank 0 replays its own, whose
+    all-reduce waits for the follower for ever, and a replayed collective
+    has no watchdog.  Rank 0 waits with the plan timeout as its deadline,
+    aborts the step group, and its engine crashes: the request aborts and
+    ``submit`` raises EngineCrashed; neither rank hangs.  Each rank's
+    output is kept in ``tmp_path``."""
+    import subprocess
+
+    from test_torch_ring import rendezvous
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one card, so a "
+                    "captured serving mesh runs only on a machine with several cards")
+    import signal
+
+    workdir = str(tmp_path)
+    init = rendezvous(workdir)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    logs = [open(os.path.join(workdir, f"log_{r}.txt"), "w+", encoding="utf-8")
+            for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, __file__, "--cards", where, str(r), "2", init,
+                               workdir], cwd=ROOT, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT, start_new_session=True)
+             for r in range(2)]
+    deadline = time.monotonic() + 120
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:  # a rank left waiting must not outlive the test
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    tails = []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        tails.append(f"--- rank {r} (exit {procs[r].returncode}):\n{log.read()[-3000:]}")
+        log.close()
+    for proc in procs:
+        assert proc.returncode == 0, "\n".join(tails)
+    got = []
+    for rank in range(2):
+        with open(os.path.join(workdir, f"cards_{rank}.json"), encoding="utf-8") as fh:
+            got.append(json.load(fh))
+    leader, follower = got
+    first = leader["first"]
+    assert first["finish_reason"] == "length" and first["tokens"] == 2, first
+    assert first["captures"] == 2 and first["replays"] == 2, first  # prefill, decode
+    crash = leader["crash"]
+    assert crash["finish_reason"] == "aborted" and not crash["alive"], crash
+    assert "TimeoutError" in crash["error"], crash
+    assert crash["submit"].startswith("EngineCrashed"), crash
+    assert CARDS_TIMEOUT_S * 0.5 < crash["seconds"] < 4 * CARDS_TIMEOUT_S, crash
+    assert follower["crashed"] and follower["captures"] == 2, follower
