@@ -133,15 +133,41 @@ A ``StagedLM`` target (raw with its staged parameters, or as a
 ``TrainedModel``) resolves through its ``decode_spec`` to the layout a
 ``TransformerLM`` gives, and is served as one, with ``mesh=`` too.
 
+**Timing.**  Each prefill program (the target's and the draft's) and each
+step program (the plain decode step, the speculative iteration) is timed
+by a pair of ``enable_timing`` CUDA events recorded on the loop's stream
+around its launch, outside the capture lock; the pairs are made once, with
+the engine, and read with ``elapsed_time`` after the loop's read-back,
+which has already waited for them, so timing adds no sync.  On the CPU,
+where a program call is synchronous, the call's wall time stands in.  Over
+a mesh rank 0 times its own launches.  A step's device seconds feed
+``serving_step_device_seconds`` (beside its wall time in
+``serving_token_latency_seconds``: the difference is the host's share),
+and each request's :class:`GenerateResult` carries its queue wait, its
+prefill's wall time and its device seconds: its prefills' plus an even
+share of every step it was decoded in.
+
 **Accounting.**  With telemetry on and ``DISTKERAS_ACCOUNTING`` not falsey,
 the engine bills its registry's per-tenant ledger
 (:mod:`~distkeras_tpu_torch.telemetry.accounting`) at four points of the
-host loop: admission (prompt tokens, queue wait, prefill seconds and the
-first token), each decode step (every active slot's tokens and an even
-share of the step's wall time), each speculative verdict (accepted and
-rejected drafts) and retirement (KV page-seconds).  The ledger reads
-host-visible values only and adds no device sync; off, the engine holds no
-ledger and each point is one ``is None`` check.  With the runtime sanitizer
+host loop: admission (prompt tokens, queue wait, the prefill programs'
+device seconds and the first token), each decode step (every active slot's
+tokens and an even share of the step's device seconds), each speculative
+verdict (accepted and rejected drafts) and retirement (KV page-seconds).
+The ledger reads only values the loop already holds (the device seconds
+those of the timing events, read after the read-back) and adds no device
+sync; off, the engine holds no ledger and each point is one ``is None``
+check.
+
+**Spans.**  ``serving.admit`` (on the submitting thread),
+``serving.prefill``, ``serving.decode_step``, ``serving.emit`` (the
+per-slot loop after a step's read-back, retirements included) and
+``serving.idle`` (the loop's wait for work) are
+:mod:`~distkeras_tpu_torch.telemetry.trace` spans: recorded with telemetry
+on, and ``record_function`` annotations while a torch profiler records, so
+that a profiler recording all threads places each phase of the loop on the
+device trace's clock.  With both off each site is one bool check
+(``trace.active()``) and allocates nothing.  With the runtime sanitizer
 on, the engine's condition variable runs under the lock-order watchdog
 (``lockwatch``), and the loop's read-backs are declared transfers to the
 transfer guard.
@@ -202,6 +228,14 @@ from distkeras_tpu_torch.utils import graphs
 
 __all__ = ["EngineCrashed", "ServingEngine", "serving_metrics"]
 
+
+def _span(name: str):
+    """The trace span ``name`` without attrs, or the shared no-op when
+    neither telemetry nor a torch profiler records (one check, nothing
+    allocated)."""
+    return _trace.span(name) if _trace.active() else NOOP_SPAN
+
+
 class EngineCrashed(RuntimeError):
     """The engine's host loop died: every request aborted, the replica is
     dead.  Raised by ``submit``/``hot_swap`` so a caller can tell "dead"
@@ -226,6 +260,16 @@ def serving_metrics(registry=None) -> dict:
         "prefill_seconds": registry.histogram(
             "serving_prefill_seconds",
             help="wall time of one prefill dispatch (bucketed width)",
+        ),
+        "queue_wait": registry.histogram(
+            "serving_queue_wait_seconds",
+            help="time from admission-queue entry to the start of the "
+                 "request's prefill",
+        ),
+        "step_device": registry.histogram(
+            "serving_step_device_seconds",
+            help="device seconds of one decode step (CUDA events on a card; "
+                 "the step program's wall time on the CPU)",
         ),
         "queue_depth": registry.gauge(
             "serving_queue_depth", help="requests waiting for a batch slot"
@@ -491,10 +535,47 @@ class _Program:
         self.graph, self.out, self.reduces, self.replays = graph, out, reduces, 0
 
 
-class _SlotState:
-    """Host-side record for one occupied batch slot."""
+class _ProgramTimer:
+    """The device seconds of one program launch: a pair of CUDA timing
+    events recorded on the current stream around it (made once, with the
+    engine), read after the loop's read-back has waited for the launch; on
+    the CPU, where a program call is synchronous, the call's wall time."""
 
-    __slots__ = ("pending", "tokens", "plen", "ttft_s", "pages", "admit_t")
+    __slots__ = ("_begin", "_end", "_t0", "_t1")
+
+    def __init__(self, device):
+        cuda = device.type == "cuda"
+        self._begin = torch.cuda.Event(enable_timing=True) if cuda else None
+        self._end = torch.cuda.Event(enable_timing=True) if cuda else None
+        self._t0 = self._t1 = 0.0
+
+    def __enter__(self):
+        if self._begin is None:
+            self._t0 = time.perf_counter()
+        else:
+            self._begin.record()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._end is None:
+            self._t1 = time.perf_counter()
+        else:
+            self._end.record()
+        return False
+
+    def seconds(self) -> float:
+        """The last timed launch's seconds (on a card, once it is done)."""
+        if self._begin is None:
+            return self._t1 - self._t0
+        return self._begin.elapsed_time(self._end) * 1e-3
+
+
+class _SlotState:
+    """Host-side record for one occupied batch slot, with the timings its
+    result carries."""
+
+    __slots__ = ("pending", "tokens", "plen", "ttft_s", "pages", "admit_t",
+                 "queue_wait_s", "prefill_s", "device_s", "decode_device_s")
 
     def __init__(self, pending: _Pending, plen: int):
         self.pending = pending
@@ -503,6 +584,10 @@ class _SlotState:
         self.ttft_s = 0.0
         self.pages = 0        # pages held — the page-seconds numerator
         self.admit_t = 0.0    # prefill-done wall time — its clock start
+        self.queue_wait_s = 0.0
+        self.prefill_s = 0.0
+        self.device_s = 0.0         # its prefills' plus its steps' shares
+        self.decode_device_s = 0.0  # its steps' shares alone
 
 
 # The host-side slot arrays uploaded before every step: name -> dtype.
@@ -601,6 +686,9 @@ class ServingEngine:
         self._ledger = _accounting.maybe_ledger(registry)
         # the runtime sanitizer, read once at build as the training engine does
         self._sanitize = _sanitizer.enabled()
+        # the timing events of the target's and the draft's prefill and of
+        # the step program, made once
+        self._timers = {name: _ProgramTimer(self.device) for name in ("prefill", "draft", "step")}
 
         # --------------------------------------------------- draft / verify
         self._draft_spec = None
@@ -1019,7 +1107,7 @@ class ServingEngine:
             pending = self._queue.pop()
             if pending is None:
                 break
-            self._finish(pending, [], "aborted", 0.0)
+            self._finish(pending, "aborted")
         self._metrics["queue_depth"].set(0)
 
     def submit(self, request: GenerateRequest) -> _Pending:
@@ -1028,7 +1116,7 @@ class ServingEngine:
         backpressure and ``ValueError`` for an unservable request.  The
         admission is a ``serving.admit`` span on the caller's thread."""
         span = NOOP_SPAN
-        if _truntime.enabled():
+        if _trace.active():
             span = _trace.span(
                 "serving.admit", request_id=request.request_id,
                 trace_id=request.trace_id)
@@ -1126,7 +1214,7 @@ class ServingEngine:
         if pending.done():
             return False
         if self._queue.remove(pending):
-            self._finish(pending, [], "aborted", 0.0)
+            self._finish(pending, "aborted")
             self._metrics["queue_depth"].set(len(self._queue))
             return True
         with self._cv:
@@ -1136,7 +1224,7 @@ class ServingEngine:
                 self._cv.notify_all()
         if not running and not pending.done():
             # no loop to process it — resolve it directly
-            self._finish(pending, [], "aborted", 0.0)
+            self._finish(pending, "aborted")
         return True
 
     def drain(self, timeout: float = 30.0) -> bool:
@@ -1145,10 +1233,7 @@ class ServingEngine:
         :meth:`resume`).  Returns ``True`` once drained; ``False`` on
         timeout (admission stays paused either way)."""
         self._front_end()
-        span = NOOP_SPAN
-        if _truntime.enabled():
-            span = _trace.span("serving.drain")
-        with span:
+        with _span("serving.drain"):
             with self._cv:
                 self._draining = True
                 started = self._thread is not None
@@ -1187,10 +1272,7 @@ class ServingEngine:
         ``timeout``.  Under a mesh every rank makes the call with the same
         model (each keeps its part), and rank 0's plan applies it
         everywhere at once."""
-        span = NOOP_SPAN
-        if _truntime.enabled():
-            span = _trace.span("serving.hot_swap")
-        with span:
+        with _span("serving.hot_swap"):
             self._hot_swap(model, params, timeout)
 
     def _hot_swap(self, model, params, timeout: float) -> None:
@@ -1288,7 +1370,8 @@ class ServingEngine:
                     if (self._running and self._swap is None
                             and not self._cancelled
                             and (paused or len(self._queue) == 0)):
-                        self._cv.wait(timeout=0.05)
+                        with _span("serving.idle"):
+                            self._cv.wait(timeout=0.05)
 
     def _cancel_requested(self) -> None:
         """Retire every slot whose request was cancelled (loop thread only)."""
@@ -1300,7 +1383,7 @@ class ServingEngine:
             if pending.done():
                 continue
             if self._queue.remove(pending):
-                self._finish(pending, [], "aborted", 0.0)
+                self._finish(pending, "aborted")
                 continue
             for slot, state in enumerate(self._slots):
                 if state is not None and state.pending is pending:
@@ -1338,12 +1421,12 @@ class ServingEngine:
                 self._retire(slot, "aborted")
         if self._admitting is not None and not self._admitting.done():
             # the loop failed inside this request's prefill
-            self._finish(self._admitting, [], "aborted", 0.0)
+            self._finish(self._admitting, "aborted")
         while True:
             pending = self._queue.pop()
             if pending is None:
                 break
-            self._finish(pending, [], "aborted", 0.0)
+            self._finish(pending, "aborted")
         self._metrics["queue_depth"].set(0)
 
     def _admit(self) -> bool:
@@ -1381,7 +1464,7 @@ class ServingEngine:
         width = next(w for w in self._buckets if w >= plen)
         t0 = time.perf_counter()
         span = NOOP_SPAN
-        if _truntime.enabled():
+        if _trace.active():
             # the loop thread serves every request, so the ids ride span
             # args; queue wait spans the enqueue-to-prefill gap
             _trace.record(
@@ -1411,33 +1494,42 @@ class ServingEngine:
             with self._cv:
                 spec = self._spec
             k, v = self._cache.k_pages, self._cache.v_pages
-            tok = self._program(("prefill", "target", width), lambda: self._prefill(
-                spec, k, v, width, sample=True, psum=self._psum))
+            with self._timers["prefill"]:
+                tok = self._program(("prefill", "target", width), lambda: self._prefill(
+                    spec, k, v, width, sample=True, psum=self._psum))
             if spec_on:
                 dc = self._draft_cache
-                self._program(("prefill", "draft", width), lambda: self._prefill(
-                    self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False))
+                with self._timers["draft"]:
+                    self._program(("prefill", "draft", width), lambda: self._prefill(
+                        self._draft_spec, dc.k_pages, dc.v_pages, width, sample=False))
             self._await_step()
             with self._read_back():
                 tok0 = int(tok.item())  # device sync: the prefill is done here
         now = time.perf_counter()
+        device_s = self._timers["prefill"].seconds()
+        if spec_on:
+            device_s += self._timers["draft"].seconds()
         self._metrics["prefill_seconds"].observe(now - t0)
         self._metrics["prefill_padded"].inc(width - plen)
+        self._metrics["queue_wait"].observe(t0 - pending.enqueue_t)
 
         state = _SlotState(pending, plen)
         state.tokens.append(tok0)
         state.ttft_s = now - pending.enqueue_t
+        state.queue_wait_s = t0 - pending.enqueue_t
+        state.prefill_s = now - t0
+        state.device_s = device_s
         state.pages = need
         state.admit_t = now
         self._metrics["ttft"].observe(state.ttft_s)
         self._metrics["tokens"].inc()
         if self._ledger is not None:
-            # prompt tokens, queue wait, prefill seconds and the first
-            # sampled token bill at admission — all host-visible
+            # prompt tokens, queue wait, the prefill programs' device
+            # seconds and the first sampled token bill at admission
             self._ledger.admit(
                 req.tenant, prompt_tokens=plen,
-                queue_wait_s=t0 - pending.enqueue_t,
-                device_s=now - t0, generated=1)
+                queue_wait_s=state.queue_wait_s,
+                device_s=device_s, generated=1)
         self._slots[slot] = state
         self._pos[slot] = plen
         self._last[slot] = tok0
@@ -1473,10 +1565,12 @@ class ServingEngine:
 
     def _step_span(self):
         """A ``serving.decode_step`` span for one engine iteration, listing
-        the request ids it served (``args.requests``); NOOP when telemetry
-        is off."""
-        if not _truntime.enabled():
+        the request ids it served (``args.requests``) with telemetry on;
+        NOOP with telemetry off and no profiler recording."""
+        if not _trace.active():
             return NOOP_SPAN
+        if not _truntime.enabled():
+            return _trace.span("serving.decode_step")  # an annotation alone
         reqs = [self._slots[i].pending.request
                 for i in range(self.num_slots)
                 if self._active[i] and self._slots[i] is not None]
@@ -1507,35 +1601,45 @@ class ServingEngine:
             with self._cv:
                 spec = self._spec
             k, v = self._cache.k_pages, self._cache.v_pages
-            tok = self._program(("decode",), lambda: self._decode(spec, k, v))
+            with self._timers["step"]:
+                tok = self._program(("decode",), lambda: self._decode(spec, k, v))
             self._await_step()
             with self._read_back():
                 toks = tok.cpu().numpy()  # device sync: the step is done here
-        dt = time.perf_counter() - t0
-        self._metrics["token_latency"].observe(dt)
+        share = self._time_step(time.perf_counter() - t0)
+        ledger = self._ledger
+
+        with _span("serving.emit"):
+            for slot in range(self.num_slots):
+                state = self._slots[slot]
+                if state is None or not self._active[slot]:
+                    continue
+                t = int(toks[slot])
+                state.tokens.append(t)
+                state.device_s += share
+                state.decode_device_s += share
+                self._metrics["tokens"].inc()
+                if ledger is not None:
+                    ledger.decode(state.pending.request.tenant, tokens=1, device_s=share)
+                self._pos[slot] += 1
+                self._last[slot] = t
+                eos = state.pending.request.eos_id
+                if eos is not None and t == eos:
+                    self._retire(slot, "eos")
+                elif len(state.tokens) >= state.pending.max_new:
+                    self._retire(slot, "length")
+
+    def _time_step(self, wall_s: float) -> float:
+        """Count the step just read back, of ``wall_s`` host seconds, and
+        advance the active slots' target counters; returns the step's
+        device seconds split evenly over its active slots (counted before
+        retirements change them)."""
+        device_s = self._timers["step"].seconds()
+        self._metrics["token_latency"].observe(wall_s)
+        self._metrics["step_device"].observe(device_s)
         self._metrics["decode_steps"].inc()
         self._ctr[self._active] += 1
-        ledger = self._ledger
-        # the step's wall time split evenly over the slots it decoded for
-        # (counted before retirements change them)
-        share = dt / max(1, int(self._active.sum()))
-
-        for slot in range(self.num_slots):
-            state = self._slots[slot]
-            if state is None or not self._active[slot]:
-                continue
-            t = int(toks[slot])
-            state.tokens.append(t)
-            self._metrics["tokens"].inc()
-            if ledger is not None:
-                ledger.decode(state.pending.request.tenant, tokens=1, device_s=share)
-            self._pos[slot] += 1
-            self._last[slot] = t
-            eos = state.pending.request.eos_id
-            if eos is not None and t == eos:
-                self._retire(slot, "eos")
-            elif len(state.tokens) >= state.pending.max_new:
-                self._retire(slot, "length")
+        return device_s / max(1, int(self._active.sum()))
 
     def _spec_once(self) -> None:
         """One speculative iteration: chain m draft steps (the proposals
@@ -1553,55 +1657,55 @@ class ServingEngine:
                 out, count, accepted = self._spec_iteration(spec)
                 return torch.cat([out, count[:, None], accepted[:, None]], dim=1)
 
-            packed = self._program(("spec",), iteration)
+            with self._timers["step"]:
+                packed = self._program(("spec",), iteration)
             self._await_step()
             # one copy back: the iteration is done here
             with self._read_back():
                 packed = packed.cpu().numpy()
         out, counts, acc = packed[:, :m], packed[:, m], packed[:, m + 1]
-        dt = time.perf_counter() - t0
-        self._metrics["token_latency"].observe(dt)
-        self._metrics["decode_steps"].inc()
+        share = self._time_step(time.perf_counter() - t0)
         spec_slots = self._active & self._spec_on
         n_spec = int(spec_slots.sum())
         if n_spec:
             self._metrics["spec_proposed"].inc(m * n_spec)
             self._metrics["spec_accepted"].inc(int(acc[spec_slots].sum()))
-        self._ctr[self._active] += 1
         self._dctr[self._active] += m
         ledger = self._ledger
-        share = dt / max(1, int(self._active.sum()))
 
-        for slot in range(self.num_slots):
-            state = self._slots[slot]
-            if state is None or not self._active[slot]:
-                continue
-            req = state.pending.request
-            if ledger is not None and spec_slots[slot]:
-                # accepted + rejected = m per speculative slot, so the tenant
-                # sums conserve against serving_spec_{proposed,accepted}_total
-                accepted = int(acc[slot])
-                ledger.speculative(req.tenant, accepted=accepted, rejected=m - accepted)
-            retired = False
-            emitted = 0
-            for j in range(int(counts[slot])):
-                t = int(out[slot, j])
-                state.tokens.append(t)
-                emitted += 1
-                self._metrics["tokens"].inc()
-                if req.eos_id is not None and t == req.eos_id:
-                    self._retire(slot, "eos")
-                    retired = True
-                    break
-                if len(state.tokens) >= state.pending.max_new:
-                    self._retire(slot, "length")
-                    retired = True
-                    break
-            if ledger is not None:
-                ledger.decode(req.tenant, tokens=emitted, device_s=share)
-            if not retired:
-                self._pos[slot] += emitted
-                self._last[slot] = int(out[slot, emitted - 1])
+        with _span("serving.emit"):
+            for slot in range(self.num_slots):
+                state = self._slots[slot]
+                if state is None or not self._active[slot]:
+                    continue
+                req = state.pending.request
+                state.device_s += share
+                state.decode_device_s += share
+                if ledger is not None and spec_slots[slot]:
+                    # accepted + rejected = m per speculative slot, so the tenant
+                    # sums conserve against serving_spec_{proposed,accepted}_total
+                    accepted = int(acc[slot])
+                    ledger.speculative(req.tenant, accepted=accepted, rejected=m - accepted)
+                retired = False
+                emitted = 0
+                for j in range(int(counts[slot])):
+                    t = int(out[slot, j])
+                    state.tokens.append(t)
+                    emitted += 1
+                    self._metrics["tokens"].inc()
+                    if req.eos_id is not None and t == req.eos_id:
+                        self._retire(slot, "eos")
+                        retired = True
+                        break
+                    if len(state.tokens) >= state.pending.max_new:
+                        self._retire(slot, "length")
+                        retired = True
+                        break
+                if ledger is not None:
+                    ledger.decode(req.tenant, tokens=emitted, device_s=share)
+                if not retired:
+                    self._pos[slot] += emitted
+                    self._last[slot] = int(out[slot, emitted - 1])
 
     def _spec_iteration(self, spec: _Spec):
         """The device work of one speculative iteration: m draft steps (the
@@ -1637,20 +1741,26 @@ class ServingEngine:
         self._temp[slot] = 0.0
         self._topk[slot] = 0
         self._topp[slot] = 1.0
-        self._finish(state.pending, state.tokens, reason, state.ttft_s)
+        self._finish(state.pending, reason, state)
         self._refresh_gauges()
 
-    def _finish(self, pending: _Pending, tokens: List[int], reason: str,
-                ttft_s: float) -> None:
+    def _finish(self, pending: _Pending, reason: str,
+                state: Optional[_SlotState] = None) -> None:
+        """Resolve ``pending`` with what its slot ``state`` holds (nothing
+        for a request that never reached a slot)."""
         self._metrics["requests"].inc()
+        timings = {}
+        if state is not None:
+            timings = {name: getattr(state, name) for name in (
+                "ttft_s", "queue_wait_s", "prefill_s", "device_s", "decode_device_s")}
         pending._resolve(GenerateResult(
             request_id=pending.request.request_id,
             prompt=list(pending.request.prompt),
-            tokens=list(tokens),
+            tokens=list(state.tokens) if state is not None else [],
             finish_reason=reason,
-            ttft_s=ttft_s,
             latency_s=time.perf_counter() - pending.enqueue_t,
             trace_id=pending.request.trace_id,
+            **timings,
         ))
 
     def _refresh_gauges(self) -> None:

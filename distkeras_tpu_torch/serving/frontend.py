@@ -91,7 +91,17 @@ class GenerateRequest:
 class GenerateResult:
     """Engine output for one request.  ``tokens`` excludes the prompt;
     ``finish_reason`` is ``"eos"``, ``"length"``, or ``"aborted"`` (engine
-    stopped with the request in flight)."""
+    stopped with the request in flight).
+
+    The engine's timings of the request, in seconds: ``queue_wait_s`` from
+    its entry into the admission queue to the start of its prefill,
+    ``prefill_s`` from there to its first token read back (so
+    ``queue_wait_s + prefill_s == ttft_s``); ``device_s`` the device
+    seconds of its own prefill programs plus an even share of each decode
+    step it was decoded in (CUDA-event timed on a card, the program call's
+    wall time on the CPU), of which ``decode_device_s`` are the steps'
+    shares.  Each defaults to 0.0, so a result from a replica that does not
+    send them still reads."""
 
     request_id: str
     prompt: List[int]
@@ -100,6 +110,10 @@ class GenerateResult:
     ttft_s: float = 0.0
     latency_s: float = 0.0
     trace_id: str = ""
+    queue_wait_s: float = 0.0
+    prefill_s: float = 0.0
+    device_s: float = 0.0
+    decode_device_s: float = 0.0
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))

@@ -17,9 +17,12 @@ dynamics and the flight deck: the port of :mod:`distkeras_tpu.telemetry`.
   SLO engine over the rollup ring (served at ``/slo``).
 
 Everything is gated on ``DISTKERAS_TELEMETRY`` (see :mod:`.runtime`): with
-the flag unset, ``trace.span()`` returns a shared no-op and instrumented
-code paths take their original branch — no extra host syncs, no extra
-allocations.
+the flag unset and no ``torch.profiler`` recording, ``trace.span()`` returns
+a shared no-op and instrumented code paths take their original branch — no
+extra host syncs, no extra allocations.  While a profiler records, a span
+opens a ``record_function`` annotation of its name whatever the flag says
+(``trace.active()`` is the check a site makes), so that a capture of all
+threads (:func:`.profiler.profile`) holds every thread's spans.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ port of :mod:`distkeras_tpu.telemetry.accounting` (host code, copied).
 The serving stack mints trace ids and evaluates SLO burn rates, but until
 this module nothing attributed *resources* to the clients consuming them:
 ``GenerateRequest.tenant`` is the accounting key, and this is the ledger it
-keys.  Every request is metered from already-host-visible bookkeeping (zero
-new device syncs) and rolled up per tenant:
+keys.  Every request is metered from bookkeeping the serving loop already holds
+(zero new device syncs) and rolled up per tenant:
 
 * **prefill tokens** — prompt tokens consumed at admission;
 * **decode tokens** — generated tokens (first sampled token included), so
@@ -16,8 +16,11 @@ new device syncs) and rolled up per tenant:
 * **queue-wait seconds** — enqueue to prefill dispatch, on a fixed bucket
   ladder per tenant so fleet merges and p99s are exact;
 * **KV page-seconds** — pages held × wall seconds, sampled at slot free;
-* **estimated device-seconds** split by phase — prefill wall time, plus an
-  even share of each decode step's wall time across the active slots.
+* **device-seconds** split by phase — the request's prefill programs'
+  device seconds, plus an even share of each decode step's across the
+  active slots: the serving engine times each program launch with a pair
+  of CUDA events (read after its read-back, which has already waited), or
+  on the CPU, where a program call is synchronous, with the host clock.
 
 Cardinality is **bounded by construction** (DK117-safe): the ledger tracks
 the top-K tenants by rolling usage (exponentially-decayed token mass) plus
@@ -33,8 +36,8 @@ merge see fixed names.
 Flag discipline matches telemetry/rollup: ``DISTKERAS_ACCOUNTING=0``
 disables the ledger entirely — :func:`maybe_ledger` returns ``None``, the
 serving hot paths keep a single ``is None`` check, and the ledger never
-touches a tensor: it reads host-visible values only, adds no device sync,
-and the device work is the same bit for bit.
+touches a tensor: it reads values the engine already holds, adds no device
+sync, and the device work is the same bit for bit.
 """
 
 from __future__ import annotations
@@ -160,13 +163,13 @@ def accounting_metrics(registry=None) -> dict:
         ),
         "prefill_device_seconds": registry.counter(
             "accounting_prefill_device_seconds_total",
-            help="estimated device-seconds spent in prefill, billed to "
-                 "the admitted tenant",
+            help="device-seconds of the prefill programs (CUDA events on a "
+                 "card), billed to the admitted tenant",
         ),
         "decode_device_seconds": registry.counter(
             "accounting_decode_device_seconds_total",
-            help="estimated device-seconds spent in decode (each step's "
-                 "wall time split evenly across its active slots)",
+            help="device-seconds of the decode steps (CUDA events on a card), "
+                 "each step's split evenly across its active slots",
         ),
         "tenants_tracked": registry.gauge(
             "accounting_tenants_tracked",

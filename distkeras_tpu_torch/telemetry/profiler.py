@@ -7,6 +7,17 @@ kernels, the port's own flash-attention kernels among them, with their
 device times), and writes the capture as one Chrome trace
 ``profile_<pid>_<n>.json`` into ``logdir`` (open it in Perfetto).
 
+A capture records **every thread** of the process (``profile_all_threads``
+in torch's experimental config; a torch without that key records the
+thread that started it alone).  A profiler records no op and no
+annotation of a thread that was already running when it started unless
+asked to, and the serving engine's host loop is such a thread: with all
+threads, its :mod:`~distkeras_tpu_torch.telemetry.trace` spans
+(``serving.prefill``, ``serving.decode_step``, ``serving.emit``,
+``serving.idle``), which open ``record_function`` annotations while a
+profiler records, lie beside the card's kernels on one clock, so each idle
+gap of the card falls in a phase of the loop.
+
 Opt-in via ``DISTKERAS_PROFILE=<dir>`` (plus optional
 ``DISTKERAS_PROFILE_STEPS=<start>:<stop>``, default ``1:2`` — skip epoch 0
 so warm-up stays out of the capture).  The trainer calls ``on_step(epoch)``
@@ -40,17 +51,29 @@ def _activities():
     return acts
 
 
+def _all_threads():
+    """``torch.profiler.profile``'s keyword arguments that make it record
+    every thread, or none where this torch lacks the key."""
+    import torch
+
+    try:
+        config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return {}
+    return {"experimental_config": config}
+
+
 @contextlib.contextmanager
 def profile(logdir):
-    """Profile the ``with`` body and write its Chrome trace into ``logdir``;
-    the path is left on the yielded dict's ``"path"`` once the body ends.
-    The card is synchronised before the capture stops, so the body's
-    kernels are in it."""
+    """Profile the ``with`` body, in every thread, and write its Chrome
+    trace into ``logdir``; the path is left on the yielded dict's
+    ``"path"`` once the body ends.  The card is synchronised before the
+    capture stops, so the body's kernels are in it."""
     import torch
 
     os.makedirs(logdir, exist_ok=True)
     out = {"path": None}
-    prof = torch.profiler.profile(activities=_activities())
+    prof = torch.profiler.profile(activities=_activities(), **_all_threads())
     prof.start()
     try:
         yield out

@@ -12,9 +12,17 @@ nest per-thread, and are recorded as complete ("ph": "X") events whose
 ts/dur containment gives Perfetto the nesting; each event also carries an
 explicit ``args.parent`` so tests and scripts need no interval math.
 
-When telemetry is disabled, ``span()`` returns a shared no-op context
-manager — the cost is one cached-bool check and one dict-free branch, which
-the test suite pins against plain dict-lookup cost.
+**Under a torch profiler.**  While a ``torch.profiler`` is recording,
+every span also opens a ``torch.autograd.profiler.record_function`` of its
+name, with telemetry on or off, so that a profiler recording all threads
+(:func:`distkeras_tpu_torch.telemetry.profiler.profile`) places the span on
+the device trace's own clock beside the card's kernels; the span's attrs
+stay in this tracer.  :meth:`Tracer.active` is the one check an
+instrumented site makes before it builds a span's attrs.
+
+When telemetry is disabled and no profiler records, ``span()`` returns a
+shared no-op context manager — the cost is two cached-bool checks and one
+dict-free branch, which the test suite pins against plain dict-lookup cost.
 
 A span opened with ``phase="step"`` (or data/h2d/commit/...) additionally
 feeds the ``phase_<name>_seconds`` histogram in the global metrics registry
@@ -41,12 +49,20 @@ import threading
 import time
 import uuid
 
+from torch.autograd import profiler as _torch_profiler
+
 from distkeras_tpu_torch.telemetry import runtime
 from distkeras_tpu_torch.telemetry.flightdeck import correlate as _correlate
 from distkeras_tpu_torch.telemetry.flightdeck.recorder import recorder as _flight_recorder
 from distkeras_tpu_torch.telemetry.metrics import metrics as _registry
 
 __all__ = ["NOOP_SPAN", "Span", "Tracer", "new_trace_id", "trace"]
+
+
+def _profiling() -> bool:
+    """True while a ``torch.profiler`` records (in every thread: torch sets
+    this module-global flag when any profiler starts)."""
+    return _torch_profiler._is_profiler_enabled
 
 
 def new_trace_id() -> str:
@@ -94,23 +110,31 @@ class _ContextBinding:
 
 
 class Span:
-    """Context manager recording one complete trace event on exit."""
+    """Context manager recording one complete trace event on exit (and,
+    while a torch profiler records, a ``record_function`` of its name)."""
 
-    __slots__ = ("_tracer", "name", "phase", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "phase", "attrs", "_t0", "_annotation")
 
     def __init__(self, tracer, name, phase, attrs):
         self._tracer = tracer
         self.name = name
         self.phase = phase
         self.attrs = attrs
+        self._annotation = None
 
     def __enter__(self):
+        if _profiling():
+            self._annotation = _torch_profiler.record_function(self.name)
+            self._annotation.__enter__()
         self._tracer._push(self.name)
         self._t0 = self._tracer._clock()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = self._tracer._clock()
+        if self._annotation is not None:
+            self._annotation.__exit__(exc_type, exc, tb)
+            self._annotation = None
         parent = self._tracer._pop()
         self._tracer._record(self.name, self._t0, t1, parent, self.attrs)
         if self.phase is not None:
@@ -146,9 +170,21 @@ class Tracer:
     # ------------------------------------------------------------- recording
 
     def span(self, name, phase=None, **attrs):
-        if not runtime.enabled():
-            return NOOP_SPAN
-        return Span(self, name, phase, attrs)
+        """A span of ``name``: recorded here with telemetry on, a bare
+        ``record_function`` annotation with telemetry off while a torch
+        profiler records, else :data:`NOOP_SPAN`."""
+        if runtime.enabled():
+            return Span(self, name, phase, attrs)
+        if _profiling():
+            return _torch_profiler.record_function(name)
+        return NOOP_SPAN
+
+    @staticmethod
+    def active() -> bool:
+        """Whether :meth:`span` would record anything: telemetry on, or a
+        torch profiler recording.  A hot site checks this before it builds
+        a span's attrs, so that with both off it allocates nothing."""
+        return runtime.enabled() or _profiling()
 
     def _stack(self):
         stack = getattr(self._tls, "stack", None)

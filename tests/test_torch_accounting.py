@@ -126,11 +126,27 @@ def _golden_bill(registry, ledger_cls=TenantLedger):
     return ledger
 
 
+#: the port's help of the device-second counters, which the serving engine
+#: times with CUDA events where the JAX package's estimates them
+DEVICE_HELP = {
+    "accounting_prefill_device_seconds_total":
+        "device-seconds of the prefill programs (CUDA events on a card), billed to the "
+        "admitted tenant",
+    "accounting_decode_device_seconds_total":
+        "device-seconds of the decode steps (CUDA events on a card), each step's split "
+        "evenly across its active slots",
+}
+
+
 def test_accounting_metrics_schema_golden():
     registry = Registry()
     _golden_bill(registry)
     golden = open(os.path.join(GOLDEN, "accounting_metrics.txt")).read()
-    assert registry.to_prometheus(labels={"run_id": "fleet1234"}) == golden
+    lines = golden.splitlines(keepends=True)
+    for name, help_text in DEVICE_HELP.items():
+        (i,) = [i for i, line in enumerate(lines) if line.startswith(f"# HELP {name} ")]
+        lines[i] = f"# HELP {name} {help_text}\n"
+    assert registry.to_prometheus(labels={"run_id": "fleet1234"}) == "".join(lines)
 
 
 def test_golden_bill_snapshot_shape():
@@ -258,6 +274,17 @@ def test_conservation_under_concurrent_mixed_tenants(lm, make_engine):
     assert all(r["page_seconds"] > 0.0 for r in payload["tenants"])
     assert rows["acme"]["device_seconds"]["prefill"] > 0.0
     assert rows["acme"]["device_seconds"]["decode"] > 0.0
+    _device_seconds_conserve(snap, results)
+
+
+def _device_seconds_conserve(snap, results):
+    """The results' device seconds sum to the ledger's prefill and decode
+    device seconds, their decode shares to its decode seconds."""
+    prefill = snap["accounting_prefill_device_seconds_total"]["value"]
+    decode = snap["accounting_decode_device_seconds_total"]["value"]
+    assert sum(r.device_s for r in results) == pytest.approx(prefill + decode, rel=1e-9)
+    assert sum(r.decode_device_s for r in results) == pytest.approx(decode, rel=1e-9)
+    assert decode > 0.0 and prefill > 0.0
 
 
 def test_spec_conservation(lm, make_engine):
@@ -268,10 +295,12 @@ def test_spec_conservation(lm, make_engine):
     rng = np.random.default_rng(11)
     prompts = {"acme": rng.integers(0, VOCAB, size=4).tolist(),
                "zen": rng.integers(0, VOCAB, size=5).tolist()}
+    results = []
     for tenant, prompt in prompts.items():
-        result = engine.generate(prompt, 6, tenant=tenant, timeout=120.0)
-        assert result.tokens == _ref(lm, prompt, 6)
+        results.append(engine.generate(prompt, 6, tenant=tenant, timeout=120.0))
+        assert results[-1].tokens == _ref(lm, prompt, 6)
     snap = registry.snapshot()
+    _device_seconds_conserve(snap, results)
     payload = engine._ledger.snapshot()
     accepted = sum(r["spec_accepted"] for r in payload["tenants"])
     rejected = sum(r["spec_rejected"] for r in payload["tenants"])

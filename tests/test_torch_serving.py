@@ -14,7 +14,13 @@ whose flax parameters are carried over with ``params_from_flax``.
   never leaks;
 * the decode step keeps its input shapes and the pools their storage
   across staggered traffic (the reference's one-compiled-step pin);
-* the SLO metrics render byte for byte as ``tests/golden/serving_metrics.txt``;
+* the SLO metrics render byte for byte as ``tests/golden/serving_metrics.txt``,
+  beside the port's own two histograms (queue wait, a step's device
+  seconds);
+* each result carries its queue wait, prefill and device seconds, which
+  sum to its time to first token and to the ledger's device seconds; a
+  profiler recording all threads holds the loop's spans, and with
+  telemetry and the profiler off no span site opens anything;
 * seeded sampling is deterministic and independent of co-batched traffic
   (ROADMAP C9), a crashed loop aborts its requests, and the unported
   options raise naming their ROADMAP items.
@@ -23,7 +29,9 @@ The engines are shared per module (their threads run until the module's
 teardown) to keep the suite light.
 """
 
+import json
 import os
+import threading
 import time
 
 import jax
@@ -527,10 +535,41 @@ def test_serving_metrics_schema_golden():
     m["spec_proposed"].inc(24)
     m["spec_accepted"].inc(19)
     m["hot_swaps"].inc(2)
+    m["queue_wait"].observe(0.003)
+    m["step_device"].observe(0.0007)
     with open(os.path.join(GOLDEN, "serving_metrics.txt")) as fh:
         golden = fh.read()
-    assert registry.to_prometheus(labels={"run_id": "fleet1234"}) == golden
+    blocks = _metric_blocks(registry.to_prometheus(labels={"run_id": "fleet1234"}))
+    # the JAX package's instruments byte for byte; the port's own beside them
+    assert "".join(b for name, b in blocks if name not in PORT_HISTOGRAMS) == golden
+    own = {name: b for name, b in blocks if name in PORT_HISTOGRAMS}
+    assert set(own) == set(PORT_HISTOGRAMS)
+    for name, (help_text, total) in PORT_HISTOGRAMS.items():
+        assert own[name].startswith(f"# HELP {name} {help_text}\n# TYPE {name} histogram\n")
+        assert f'{name}_sum{{run_id="fleet1234"}} {total}\n' in own[name]
+        assert f'{name}_count{{run_id="fleet1234"}} 1\n' in own[name]
     assert serving_metrics(registry)["tokens"] is m["tokens"]
+
+
+#: the port's serving histograms the JAX package lacks: help and the sum above
+PORT_HISTOGRAMS = {
+    "serving_queue_wait_seconds": (
+        "time from admission-queue entry to the start of the request's prefill", "0.003"),
+    "serving_step_device_seconds": (
+        "device seconds of one decode step (CUDA events on a card; the step program's "
+        "wall time on the CPU)", "0.0007"),
+}
+
+
+def _metric_blocks(text):
+    """Prometheus text as ``(name, lines)`` blocks, one an instrument."""
+    blocks = []
+    for line in text.splitlines(keepends=True):
+        if line.startswith("# HELP "):
+            blocks.append([line.split()[2], line])
+        else:
+            blocks[-1][1] += line
+    return [tuple(b) for b in blocks]
 
 
 def test_spans_and_global_registry(make_engine):
@@ -546,6 +585,123 @@ def test_spans_and_global_registry(make_engine):
     assert {"serving.admit", "serving.queue_wait", "serving.prefill",
             "serving.decode_step"} <= names
     assert telemetry.metrics.counter("serving_requests_total").value == before + 1
+
+
+@pytest.mark.parametrize("kind", ["plain", "spec"])
+def test_result_timings_split_the_time_to_first_token(engines, kind):
+    """Every request of a staggered batch: its queue wait and its prefill
+    add up to its time to first token (within 1 us), its device seconds
+    are its prefill's plus its decode steps' shares, and a request that
+    decoded past its first token holds a decode share."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, size=n).tolist() for n in (3, 9, 5, 12, 4)]
+    steps = [6, 2, 7, 1, 5]
+    results = _staggered(engines[kind], prompts, steps)
+    for result, n in zip(results, steps):
+        assert result.finish_reason == "length" and len(result.tokens) == n
+        assert result.queue_wait_s >= 0.0 and result.prefill_s > 0.0
+        assert abs(result.queue_wait_s + result.prefill_s - result.ttft_s) < 1e-6
+        assert 0.0 <= result.decode_device_s < result.device_s
+        assert (result.decode_device_s > 0.0) == (n > 1)
+
+
+def test_result_json_round_trips_with_and_without_the_timings():
+    from distkeras_tpu_torch.serving.frontend import GenerateResult
+
+    full = GenerateResult(request_id="r", prompt=[1], tokens=[2, 3], finish_reason="length",
+                          ttft_s=0.5, latency_s=1.0, trace_id="t", queue_wait_s=0.2,
+                          prefill_s=0.3, device_s=0.04, decode_device_s=0.01)
+    payload = json.loads(full.to_json())
+    assert GenerateResult(**payload) == full
+    # a replica that sends no timings (an older one) still reads, at 0.0
+    for key in ("queue_wait_s", "prefill_s", "device_s", "decode_device_s"):
+        del payload[key]
+    old = GenerateResult(**payload)
+    assert (old.queue_wait_s, old.prefill_s, old.device_s, old.decode_device_s) == (0.0,) * 4
+    assert (old.ttft_s, old.tokens) == (0.5, [2, 3])
+
+
+def test_a_profiler_of_all_threads_holds_the_loop_spans(make_engine, tmp_path):
+    """A capture by the port's own profiler, started after the engine's
+    loop thread, with telemetry off: the loop's ``serving.*`` spans are
+    annotations of that thread, on the trace's clock."""
+    from distkeras_tpu_torch.telemetry.profiler import profile
+
+    engine = make_engine(num_slots=2)
+    telemetry.configure(False)
+    try:
+        engine.generate([1, 2, 3], max_new_tokens=2, timeout=120)  # the loop runs
+        loop = engine._thread.native_id
+        with profile(str(tmp_path)) as out:
+            engine.generate([4, 5, 6, 7], max_new_tokens=4, timeout=120)
+            time.sleep(0.1)  # an idle wait of the loop
+    finally:
+        telemetry.configure(None)
+    events = json.load(open(out["path"]))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("serving.")]
+    tids = {}
+    for e in spans:
+        tids.setdefault(e["name"], set()).add(e["tid"])
+    # (the module's other engines idle on threads of their own)
+    for name in ("serving.prefill", "serving.decode_step", "serving.emit"):
+        assert tids[name] == {loop}
+    assert loop in tids["serving.idle"]
+    assert tids["serving.admit"] == {threading.get_native_id()}
+    steps = [e for e in spans if e["name"] == "serving.decode_step"]
+    assert len(steps) == 3  # the first token is the prefill's
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e.get("tid") == loop]
+    step = steps[0]
+    # the step's own ops lie inside its span on the one clock
+    assert any(step["ts"] <= e["ts"] and e["ts"] + e["dur"] <= step["ts"] + step["dur"]
+               for e in ops)
+
+
+def test_span_sites_open_nothing_with_telemetry_and_profiler_off(make_engine, monkeypatch):
+    """With telemetry off and no profiler recording, serving traffic
+    builds no span and opens no ``record_function``; the same traffic
+    under a profiler opens one for each loop span."""
+    import importlib
+
+    from distkeras_tpu_torch.serving import engine as engine_mod
+
+    trace_mod = importlib.import_module("distkeras_tpu_torch.telemetry.trace")
+    opened, built = [], []
+    real_rf, real_span = torch.autograd.profiler.record_function, trace_mod.Span
+
+    class CountedAnnotation(real_rf):
+        def __init__(self, name, *args, **kwargs):
+            opened.append(name)
+            super().__init__(name, *args, **kwargs)
+
+    class CountedSpan(real_span):
+        __slots__ = ()
+
+        def __init__(self, *args):
+            built.append(args[1])
+            super().__init__(*args)
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", CountedAnnotation)
+    monkeypatch.setattr(trace_mod, "Span", CountedSpan)
+    engine = make_engine(num_slots=2)
+    telemetry.configure(False)
+    try:
+        assert not telemetry.trace.active()
+        assert engine._step_span() is engine_mod._span("serving.emit") is engine_mod.NOOP_SPAN
+        engine.generate([1, 2, 3], max_new_tokens=3, timeout=120)
+        time.sleep(0.1)  # idle waits of the loop
+        assert opened == [] and built == []
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+        prof.start()
+        try:
+            engine.generate([1, 2, 3], max_new_tokens=3, timeout=120)
+        finally:
+            prof.stop()
+    finally:
+        telemetry.configure(None)
+    assert {"serving.admit", "serving.prefill", "serving.decode_step",
+            "serving.emit"} <= set(opened)
+    assert built == []  # annotations alone: the tracer records nothing
 
 
 # ------------------------------------------------------- lifecycle and faults
@@ -694,8 +850,12 @@ def test_frontend_matches_jax(monkeypatch):
             frontend._parse_request(bad)
     result = dict(request_id="r", prompt=[1], tokens=[2, 3], finish_reason="eos",
                   ttft_s=0.5, latency_s=1.0, trace_id="t")
-    assert (frontend.GenerateResult(**result).to_json()
-            == jax_frontend.GenerateResult(**result).to_json())
+    # the JAX package's keys and values, then the port's timings (0.0 unset)
+    port = json.loads(frontend.GenerateResult(**result).to_json())
+    timings = {k: port.pop(k) for k in ("queue_wait_s", "prefill_s", "device_s",
+                                        "decode_device_s")}
+    assert json.dumps(port) == jax_frontend.GenerateResult(**result).to_json()
+    assert timings == dict.fromkeys(timings, 0.0)
     for flags in ('{"spec_tokens": 4, "num_slots": 8}', "not json", "[1]", None):
         if flags is None:
             monkeypatch.delenv("DISTKERAS_SERVE_FLAGS", raising=False)

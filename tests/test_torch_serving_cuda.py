@@ -207,3 +207,35 @@ def test_captured_programs_match_eager_bit_for_bit():
         assert programs == programs_after == want
         assert captures == len(want) and stats["captures"] == 2 * len(want)
         assert stats["replays"] == steps + 2 * len(prompts) * len(roles)
+
+
+def test_step_programs_are_event_timed_within_their_wall_time():
+    """Plain and speculative engines on the card: every decode step's
+    CUDA-event seconds are positive and no more than the step's host wall
+    time, and each request's prefill device seconds no more than its
+    prefill's wall time, captured programs and their first captures alike."""
+    import types
+
+    _card()
+    model, params = _lm(10)
+    draft, dparams = _lm(11, dim=32, heads=2, num_layers=1)
+    prompts = _prompts(6, 10)
+    for kwargs in ({}, dict(draft_model=draft, draft_params=dparams, spec_tokens=3)):
+        engine = ServingEngine(model, params, num_slots=3, page_size=8, registry=Registry(),
+                               **kwargs)
+        seen = {"step_device": [], "token_latency": []}
+        for key, log in seen.items():
+            engine._metrics[key] = types.SimpleNamespace(observe=log.append)
+        try:
+            pendings = [engine.submit(GenerateRequest(prompt=p, max_new_tokens=9))
+                        for p in prompts]
+            results = [p.result(timeout=120) for p in pendings]
+        finally:
+            engine.stop()
+        steps = list(zip(seen["step_device"], seen["token_latency"]))
+        assert steps and all(0.0 < device <= wall for device, wall in steps), steps
+        for r in results:
+            assert r.finish_reason == "length" and len(r.tokens) == 9
+            assert 0.0 < r.device_s - r.decode_device_s <= r.prefill_s
+            assert 0.0 < r.decode_device_s
+            assert abs(r.queue_wait_s + r.prefill_s - r.ttft_s) < 1e-6

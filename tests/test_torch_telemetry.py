@@ -259,6 +259,61 @@ def test_profile_writes_a_chrome_trace(tmp_path):
     assert kernel_times(out["path"]) == {}  # no card, no device kernels
 
 
+def _annotations(path, name):
+    events = json.load(open(path))["traceEvents"]
+    return [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == name]
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_spans_annotate_a_recording_profiler(tmp_path, on):
+    """While a torch profiler records, a span opens a ``record_function`` of
+    its name, telemetry on (the tracer records it too) or off (it alone);
+    outside one a span opens none."""
+    telemetry.configure(on)
+    assert telemetry.trace.active() is on
+    with profile(str(tmp_path)) as out:
+        assert telemetry.trace.active()
+        with telemetry.trace.span("outer.span", attr=1):
+            with telemetry.trace.span("inner.span", phase="step"):
+                torch.ones(4) + 1
+    with telemetry.trace.span("after.span"):
+        pass
+    outer, inner = _annotations(out["path"], "outer.span"), _annotations(out["path"], "inner.span")
+    assert len(outer) == len(inner) == 1
+    assert outer[0]["ts"] <= inner[0]["ts"] <= inner[0]["ts"] + inner[0]["dur"] <= (
+        outer[0]["ts"] + outer[0]["dur"])
+    telemetry.configure(True)
+    recorded = [e["name"] for e in telemetry.trace.events()]
+    assert recorded == (["inner.span", "outer.span", "after.span"] if on else [])
+
+
+def test_profile_records_a_thread_started_before_it(tmp_path):
+    """The port's profiler records every thread: spans of a thread already
+    running when the capture starts are in it, on that thread's id."""
+    telemetry.configure(False)
+    stop, ident = threading.Event(), {}
+
+    def loop():
+        ident["tid"] = threading.get_native_id()
+        while not stop.is_set():
+            with telemetry.trace.span("loop.span"):
+                torch.ones(8) + 1
+            time.sleep(0.002)
+
+    worker = threading.Thread(target=loop, daemon=True)
+    worker.start()
+    try:
+        time.sleep(0.02)
+        with profile(str(tmp_path)) as out:
+            time.sleep(0.1)
+    finally:
+        stop.set()
+        worker.join(timeout=10)
+    assert not worker.is_alive()
+    spans = _annotations(out["path"], "loop.span")
+    assert spans and {e["tid"] for e in spans} == {ident["tid"]}
+
+
 def test_env_profiler_captures_the_named_epochs(tmp_path, monkeypatch):
     monkeypatch.setenv("DISTKERAS_PROFILE", str(tmp_path / "prof"))
     monkeypatch.setenv("DISTKERAS_PROFILE_STEPS", "1:2")
